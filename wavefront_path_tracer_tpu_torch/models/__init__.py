@@ -1,0 +1,29 @@
+"""Integrator engines.
+
+Each engine module exposes::
+
+    render_samples(scene_arrays, cam, view, inv_proj, config, frame,
+                   sample_base, n_samples) -> ((num_pixels, 3) radiance sum,
+                                               rays traced)
+
+The port carries the fused engine only so far.
+"""
+
+
+def get_engine(name: str):
+    if name == "fused":
+        from wavefront_path_tracer_tpu_torch.models import fused
+
+        return fused
+    if name == "megakernel":
+        raise NotImplementedError(
+            "engine 'megakernel' is not ported yet: it is the port's next "
+            "slice (ROADMAP.md, queue 1 item 4: the megakernel oracle with "
+            "ops/raygen, intersect, hit and bsdf); use engine='fused'")
+    if name == "wavefront":
+        raise NotImplementedError(
+            "engine 'wavefront' is not ported yet (ROADMAP.md, queue 1 "
+            "item 8: models/wavefront.py with compaction and BVH "
+            "traversal); use engine='fused'")
+    raise KeyError(f"unknown engine {name!r}; have ['fused', 'megakernel', "
+                   "'wavefront']")
