@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain version on the card.
+"""The CUDA kernels against their plain versions on the card.
 
 Marked ``cuda``: these need an NVIDIA GPU with nvcc and skip without
 one.  This file imports no JAX, so on a machine without JAX it runs
@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from wavefront_path_tracer_tpu_torch.models import fused as tfused
+from wavefront_path_tracer_tpu_torch.ops import bake
+from wavefront_path_tracer_tpu_torch.ops import baked_kernels as tbk
 from wavefront_path_tracer_tpu_torch.ops import fused_kernels as tfk
 from wavefront_path_tracer_tpu_torch.renderer import render
 from wavefront_path_tracer_tpu_torch.scene import CameraController, get_scene
@@ -81,3 +83,36 @@ def test_wrapper_rejects_cpu_cuda_mix(device):
     cam = torch.zeros(24, device=device)
     with pytest.raises(ValueError, match="one device"):
         tfk.fused_render_persistent(table, 5, (0, 0, 4, 1), cam, *planes)
+
+
+@pytest.mark.parametrize("clusters", [16, 2, 0],
+                         ids=["culled16", "culled2", "unculled"])
+def test_baked_kernel_matches_plain(device, clusters):
+    """Radiance words, rays and both cull counters bit-identical."""
+    scene = get_scene("book_one_final")
+    arrays = {k: getattr(scene, k) for k in ("centers", "radii", "albedo",
+                                             "fuzz", "refract_idx",
+                                             "mat_type")}
+    cc = CameraController.book_one_final()
+    eye = tfused._concrete_eye(cc.view_matrix())
+    baked = (bake.bake_culled(arrays, clusters, camera_hint=eye,
+                              device=device) if clusters
+             else bake.bake_unculled(arrays, device=device))
+    cfg = RenderConfig(width=64, height=36, engine="fused")
+    cam = torch.from_numpy(tfused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(64, 36),
+        cfg)).to(device)
+    _, planes = _planes(64, 36, device)
+    salts = (0, 0, 50, 2)
+    key = "culled" if clusters else "unculled"
+    before = tbk.LAUNCHES[key]
+    k = tbk.fused_render_baked(baked, salts, cam, *planes)
+    torch.cuda.synchronize()
+    assert tbk.LAUNCHES[key] == before + 1
+    p = tbk.fused_render_baked_reference(baked, salts, cam, *planes)
+    for a, b in zip(k[:3], p[:3]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert k[3].tolist() == p[3].tolist()
+    if clusters:
+        assert int(k[3][3]) > 0
+    assert clusters != 2 or int(k[3][2]) > 0

@@ -107,8 +107,8 @@ def test_block_perm_bit_exact(size, block):
 
 
 @pytest.mark.parametrize("change", [
-    {"intersector": "baked"},
-    {"intersector": "auto"},
+    {"intersector": "baked", "recluster": 1},
+    {"intersector": "baked", "winner_hint": True, "baked_clusters": 16},
     {"intersector": "bvh"},
     {"baked_clusters": 16},
     {"baked_clusters": -1},

@@ -1,15 +1,16 @@
 """Command-line renderer for the PyTorch port.
 
 A subset of ``python -m wavefront_path_tracer_tpu.cli``: the fused engine
-with the brute-force intersector, on a torch device.  Flags of the
-reference CLI that this port does not carry yet are refused with the
-ROADMAP.md item that will bring them.
+with the brute-force and the baked intersects (``--clusters N|auto`` culls
+the baked sweep), on a torch device.  Flags of the reference CLI that
+this port does not carry yet are refused with the ROADMAP.md item that
+will bring them.
 
-Example::
+Example (the headline configuration)::
 
     python -m wavefront_path_tracer_tpu_torch.cli --device cuda \\
         --scene book_one_final --width 1920 --height 1080 --spp 32 \\
-        --spf 32 --out render.png
+        --spf 32 --intersector baked --clusters 16 --out render.png
 """
 
 from __future__ import annotations
@@ -22,9 +23,9 @@ import numpy as np
 
 # Reference-CLI flags this slice refuses: flag -> (dest, ROADMAP item).
 _REFUSED = {
-    "--clusters": ("clusters", "queue 2 item 3 (dynamic culled intersect)"),
     "--recluster": ("recluster", "queue 2 item 6 (recluster segments)"),
-    "--winner-hint": ("winner_hint", "queue 2 item 2 (baked culled "
+    "--winner-hint": ("winner_hint", "queue 2 item 2 (the winner-hint "
+                                     "shortlist of the baked culled "
                                      "intersect)"),
     "--obj": ("obj", "queue 2 item 3 (triangle meshes)"),
     "--scene-file": ("scene_file", "queue 1 item 9 (cli and app layer)"),
@@ -34,8 +35,6 @@ _REFUSED = {
     "--aov": ("aov", "queue 1 item 9 (aov.py)"),
 }
 _REFUSED_INTERSECTORS = {
-    "baked": "queue 2 items 2 and 4 (baked intersects)",
-    "auto": "queue 2 items 2 and 3 (the intersects auto picks from)",
     "bvh": "queue 1 item 8 (BVH traversal on the XLA-style engines)",
 }
 _REFUSED_SCENES = {
@@ -66,7 +65,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frame", type=int, default=0, help="RNG frame salt")
     p.add_argument("--intersector", default="bruteforce",
                    choices=["bruteforce", "bvh", "baked", "auto"],
-                   help="only bruteforce is ported")
+                   help="bruteforce sweeps the sphere table; baked sweeps "
+                        "the scene baked into visit-ordered tables; auto "
+                        "picks baked below 2000 spheres (bvh is not "
+                        "ported)")
+    p.add_argument("--clusters", default=0, metavar="N|auto",
+                   type=lambda v: -1 if v == "auto" else int(v),
+                   help="baked: leaf cluster size for culling (0 = none; "
+                        "auto = 16 below 2000 spheres, 32 above)")
     p.add_argument("--sampler", default="random",
                    choices=("random", "stratified"))
     p.add_argument("--rr", type=int, default=0, metavar="BOUNCE",
@@ -85,7 +91,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="render.png")
     p.add_argument("--quiet", action="store_true")
     # Refused: parsed so the refusal can name what will bring them.
-    p.add_argument("--clusters", default=None, help=argparse.SUPPRESS)
     p.add_argument("--recluster", default=None, help=argparse.SUPPRESS)
     p.add_argument("--winner-hint", action="store_true", default=None,
                    help=argparse.SUPPRESS)
@@ -102,19 +107,33 @@ def build_parser() -> argparse.ArgumentParser:
 def check_args(args) -> None:
     """Raise NotImplementedError for what this slice does not carry."""
     for flag, (dest, item) in _REFUSED.items():
-        value = getattr(args, dest)
-        if value is not None and not (flag == "--clusters"
-                                      and str(value) == "0"):
+        if getattr(args, dest) is not None:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md {item})")
     if args.intersector in _REFUSED_INTERSECTORS:
         raise NotImplementedError(
             f"--intersector {args.intersector} is not ported yet (ROADMAP.md "
-            f"{_REFUSED_INTERSECTORS[args.intersector]}); use bruteforce")
+            f"{_REFUSED_INTERSECTORS[args.intersector]}); use bruteforce "
+            "or baked")
     if args.scene in _REFUSED_SCENES:
         raise NotImplementedError(
             f"--scene {args.scene} is not ported yet (ROADMAP.md "
             f"{_REFUSED_SCENES[args.scene]})")
+
+
+def resolve_intersector(intersector: str, clusters: int, scene):
+    """Resolve ``auto`` for a sphere scene as the reference CLI does
+    (its ``resolve_intersector``, cli.py:183-217): baked below 2000
+    spheres, with clusters sized by count when none were asked for; the
+    brute-force path above.  Returns (intersector, clusters, notes)."""
+    notes = []
+    if intersector == "auto":
+        intersector = "baked" if len(scene.radii) < 2000 else "bruteforce"
+        if clusters == 0:
+            clusters = -1
+        notes.append(f"note: --intersector auto -> {intersector}"
+                     + (" (clusters auto)" if clusters == -1 else ""))
+    return intersector, clusters, notes
 
 
 def build_camera(args):
@@ -179,16 +198,21 @@ def run(argv=None):
         write_png,
     )
 
+    scene = build_scene(args)
+    intersector, clusters, notes = resolve_intersector(
+        args.intersector, args.clusters, scene)
+    if not args.quiet:
+        for note in notes:
+            print(note, file=sys.stderr)
     cfg = RenderConfig(
         width=args.width, height=args.height,
         samples_per_pixel=args.spp, samples_per_frame=args.spf,
         max_bounces=args.max_bounces, frame=args.frame,
-        engine="fused", intersector=args.intersector,
+        engine="fused", intersector=intersector, baked_clusters=clusters,
         block_tiles=args.block_tiles, sampler=args.sampler,
         rr_start_bounce=args.rr, rr_floor=args.rr_floor, clamp=args.clamp,
     )
-    renderer = Renderer(build_scene(args), build_camera(args), cfg,
-                        device=args.device)
+    renderer = Renderer(scene, build_camera(args), cfg, device=args.device)
     t_start = time.perf_counter()
     rays = 0.0
     busy = 0.0

@@ -1,31 +1,49 @@
 """The fused engine: the whole render is one persistent-lane kernel.
 
 Port of ``wavefront_path_tracer_tpu/models/fused.py`` for
-``intersector="bruteforce"`` and ``baked_clusters=0``.  Pixels go to
-lanes in 32x32 image-block order (``block_tiles``), each lane traces all
-of its pixel's samples in one call of
-:func:`~wavefront_path_tracer_tpu_torch.ops.fused_kernels.fused_render_persistent`,
-and radiance is scattered back to natural pixel order.  The planes are
-built on the scene's device, so nothing per pixel crosses to the host.
+``intersector="bruteforce"`` with ``baked_clusters=0`` (the (S, 16) table
+swept in full, ``ops/fused_kernels.py``) and ``intersector="baked"``
+with ``baked_clusters`` 0, N or -1 (auto): the scene baked once into
+visit-ordered tables (``ops/bake.py``) and swept unculled or through
+Morton clusters (``ops/baked_kernels.py``).  Pixels go to lanes in
+32x32 image-block order (``block_tiles``), each lane traces all of its
+pixel's samples in one kernel call, and radiance is scattered back to
+natural pixel order.  The planes are built on the scene's device, so
+nothing per pixel crosses to the host.
 
 ``tile_rows``, ``lane_rotate`` and ``lane_rotate_cols`` steer TPU
 scheduling; they are accepted and do not change the image beyond the
-parity rule (``tile_rows`` only pads the planes).  ``lane_split`` splits each pixel's samples over several
-lanes, as in the reference.
+parity rule (``tile_rows`` only pads the planes).  ``lane_split`` splits
+each pixel's samples over several lanes, as in the reference.
 """
 
 from __future__ import annotations
 
 import functools
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
+from wavefront_path_tracer_tpu_torch.ops.bake import (
+    BakedScene,
+    bake_culled,
+    bake_unculled,
+)
+from wavefront_path_tracer_tpu_torch.ops.baked_kernels import (
+    fused_render_baked,
+)
 from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     LANES,
     fused_render_persistent,
 )
 from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+
+# Bakes keyed like the reference's _BAKED_CACHE (scene fingerprint,
+# cluster size, quantized camera hint) plus the device; bounded LRU, so
+# long sessions that change scenes do not grow it without end.
+_BAKED_CACHE_MAX = 8
+_BAKED_CACHE: OrderedDict = OrderedDict()
 
 
 @functools.lru_cache(maxsize=32)
@@ -54,42 +72,97 @@ def _effective_split(requested: int, n_samples: int) -> int:
 
 
 def check_supported(config: RenderConfig, scene_arrays) -> None:
-    """Refuse what this slice of the port does not carry, naming the
-    ROADMAP.md item that will."""
-    if config.intersector in ("baked", "auto"):
-        raise NotImplementedError(
-            f"intersector={config.intersector!r} is not ported yet: the "
-            "baked culled intersect is ROADMAP.md queue 2 item 2 (unculled "
-            "baked: item 4); use intersector='bruteforce'")
-    if config.intersector != "bruteforce":
+    """Refuse what this port does not carry yet, naming the ROADMAP.md
+    item that will."""
+    if config.intersector == "auto":
+        raise ValueError(
+            "the fused engine has no 'auto' intersector: the command line "
+            "resolves it (cli.resolve_intersector); use 'baked' or "
+            "'bruteforce'")
+    if config.intersector not in ("bruteforce", "baked"):
         raise NotImplementedError(
             f"intersector={config.intersector!r} does not exist on the "
             "fused engine; the BVH runs on the wavefront/megakernel "
             "engines, not ported yet (ROADMAP.md queue 1 items 4 and 8)")
-    if config.baked_clusters != 0:
+    if config.intersector == "bruteforce" and config.baked_clusters != 0:
         raise NotImplementedError(
-            "baked_clusters != 0 (consensus culling) is not ported yet: "
-            "the dynamic culled intersect is ROADMAP.md queue 2 item 3")
+            "intersector='bruteforce' with baked_clusters != 0 (the dynamic "
+            "culled intersect) is not ported yet: ROADMAP.md queue 2 item 3; "
+            "use intersector='baked' for culling")
     if config.recluster > 0:
         raise NotImplementedError(
             "recluster > 0 is not ported yet (ROADMAP.md queue 2 item 6: "
             "the recluster segment kernels)")
     if config.winner_hint:
         raise NotImplementedError(
-            "winner_hint is not ported yet: it belongs to the baked culled "
-            "intersect (ROADMAP.md queue 2 item 2)")
+            "winner_hint is not ported yet: the winner-hint shortlist is "
+            "what remains of ROADMAP.md queue 2 item 2")
     if config.num_devices != 1:
         raise NotImplementedError(
             "multi-device rendering is not ported yet (ROADMAP.md queue 1 "
             "item 10)")
     if "tex_kind" in scene_arrays:
         raise NotImplementedError(
-            "textured scenes are not ported yet (ROADMAP.md queue 2 item 5 "
-            "and queue 1 item 3)")
+            "textured scenes are not ported yet: checker and image textures "
+            "are ROADMAP.md queue 2 items 2, 4 and 5 (and queue 1 item 3)")
     if "tri_v0" in scene_arrays:
         raise NotImplementedError(
-            "triangle meshes are not ported yet: they run on the dynamic "
-            "culled intersect (ROADMAP.md queue 2 item 3)")
+            "triangle meshes are not ported yet: the dynamic culled "
+            "intersect and the baked intersects' triangle tests (ROADMAP.md "
+            "queue 2 items 2, 3 and 4)")
+
+
+def _concrete_eye(view) -> np.ndarray:
+    """World-space eye position: the view matrix's translation."""
+    return np.asarray(view, np.float64)[:3, 3]
+
+
+def _resolve_clusters(config: RenderConfig, scene_arrays) -> int:
+    """Effective leaf cluster size: -1 (auto) picks 16 below 2000
+    primitives and 32 above, the reference's measured optimum."""
+    if config.baked_clusters >= 0:
+        return config.baked_clusters
+    n = scene_arrays["centers"].shape[0]
+    if "tri_v0" in scene_arrays:
+        n += scene_arrays["tri_v0"].shape[0]
+    return 16 if n < 2000 else 32
+
+
+def _baked_scene(scene_arrays, clusters: int = 0,
+                 camera_pos=None) -> BakedScene:
+    """The bake for a scene, cluster size and camera hint, from a bounded
+    LRU.  The hint (front-to-back order, a speed matter only) is
+    quantized to 1/8 of the scene's diagonal, so small camera moves reuse
+    the bake, as in the reference's ``_baked_fn``.  The host copy of the
+    sphere tables and its fingerprint are ``scene_arrays["host_spheres"]``,
+    made once with the scene (``convert.scene_arrays_to_torch``)."""
+    host = scene_arrays["host_spheres"]
+    centers = host["centers"]
+    hint_key = None
+    if camera_pos is not None and clusters > 0:
+        camera_pos = np.asarray(camera_pos, np.float64).reshape(3)
+        diag = (float(np.linalg.norm(centers.max(axis=0)
+                                     - centers.min(axis=0)))
+                if len(centers) else 1.0)
+        quant = max(diag, 1e-6) / 8.0
+        hint_key = tuple(
+            np.round(camera_pos / quant).astype(np.int64).tolist())
+        camera_pos = np.asarray(hint_key, np.float64) * quant
+    device = scene_arrays["centers"].device
+    key = (centers.shape[0], host["key"], clusters, hint_key, str(device))
+    baked = _BAKED_CACHE.get(key)
+    if baked is None:
+        if clusters > 0:
+            baked = bake_culled(host, cluster_size=clusters,
+                                camera_hint=camera_pos, device=device)
+        else:
+            baked = bake_unculled(host, device=device)
+        _BAKED_CACHE[key] = baked
+        while len(_BAKED_CACHE) > _BAKED_CACHE_MAX:
+            _BAKED_CACHE.popitem(last=False)
+    else:
+        _BAKED_CACHE.move_to_end(key)
+    return baked
 
 
 def camera_params(cam, view, inv_proj, config: RenderConfig) -> np.ndarray:
@@ -143,14 +216,15 @@ def lane_planes(pixel_idx: torch.Tensor, width: int, tile_rows: int,
 
 def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
                   config: RenderConfig, frame, sample_base, n_samples: int,
-                  with_stats: bool = False, lane_split: int = 1):
-    """Trace a subset of pixel ids (int64 tensor on the scene's device).
+                  with_stats: bool = False, lane_split: int = 1,
+                  baked: BakedScene | None = None):
+    """Trace a subset of pixel ids (int64 tensor on the scene's device),
+    over ``baked`` when given, else over the (S, 16) table.
 
     Returns ((N, 3) radiance sum, rays traced) and, with ``with_stats``,
     a dict {iterations, supers_entered, clusters_entered} of 0-d tensors.
     """
-    scene_packed = scene_arrays["scene_packed"]
-    device = scene_packed.device
+    device = scene_arrays["centers"].device
     num_pixels = pixel_idx.shape[0]
     split = lane_split
     n_per_lane = n_samples // split
@@ -159,10 +233,16 @@ def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
     cam_params = torch.from_numpy(
         camera_params(cam, view, inv_proj, config)).to(device)
     salts = (int(frame), int(sample_base), config.max_bounces, n_per_lane)
-    rad_r, rad_g, rad_b, stats = fused_render_persistent(
-        scene_packed, scene_arrays["centers"].shape[0], salts, cam_params,
-        *planes, rr_start=config.rr_start_bounce, rr_floor=config.rr_floor,
-        clamp=config.clamp, sampler=config.sampler)
+    opts = {"rr_start": config.rr_start_bounce,
+            "rr_floor": config.rr_floor, "clamp": config.clamp,
+            "sampler": config.sampler}
+    if baked is not None:
+        rad_r, rad_g, rad_b, stats = fused_render_baked(
+            baked, salts, cam_params, *planes, **opts)
+    else:
+        rad_r, rad_g, rad_b, stats = fused_render_persistent(
+            scene_arrays["scene_packed"], scene_arrays["centers"].shape[0],
+            salts, cam_params, *planes, **opts)
     lanes_total = num_pixels * split
     radiance = torch.stack([rad_r.reshape(-1), rad_g.reshape(-1),
                             rad_b.reshape(-1)], dim=-1)[:lanes_total]
@@ -181,13 +261,19 @@ def _render_samples_impl(scene_arrays, cam, view, inv_proj,
     check_supported(config, scene_arrays)
     device = scene_arrays["centers"].device
     split = _effective_split(config.lane_split, n_samples)
+    baked = None
+    if config.intersector == "baked":
+        baked = _baked_scene(scene_arrays,
+                             _resolve_clusters(config, scene_arrays),
+                             camera_pos=_concrete_eye(view))
     if config.block_tiles:
         perm, _inv = _block_perm(config.width, config.height,
                                  config.block_tiles)
         perm_t = torch.from_numpy(perm.astype(np.int64)).to(device)
         out = render_pixels(perm_t, scene_arrays, cam, view, inv_proj,
                             config, frame, sample_base, n_samples,
-                            with_stats=with_stats, lane_split=split)
+                            with_stats=with_stats, lane_split=split,
+                            baked=baked)
         radiance = torch.empty_like(out[0])
         radiance[perm_t] = out[0]
         return (radiance,) + out[1:]
@@ -195,7 +281,8 @@ def _render_samples_impl(scene_arrays, cam, view, inv_proj,
                              device=device)
     return render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
                          config, frame, sample_base, n_samples,
-                         with_stats=with_stats, lane_split=split)
+                         with_stats=with_stats, lane_split=split,
+                         baked=baked)
 
 
 def render_samples(scene_arrays, cam, view, inv_proj, config: RenderConfig,

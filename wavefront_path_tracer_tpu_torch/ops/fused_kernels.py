@@ -257,21 +257,24 @@ def _salts(salts) -> tuple[int, int, int, int]:
     return tuple(vals)
 
 
-def fused_render_persistent_reference(
-        scene_packed, n_spheres, salts, cam_params, pix, xs, ys, valid, soff,
-        *, rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
+def persistent_reference(
+        intersect, salts, cam_params, pix, xs, ys, valid, soff, *,
+        rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
         sampler: str = "random"):
-    """Plain PyTorch version of the persistent-lane kernel.
+    """The plain persistent-lane loop, over any nearest-hit function.
 
-    Same arguments and results as :func:`fused_render_persistent`.  It
-    runs as a lockstep loop, samples outside and bounces inside, over
-    the flat lanes of a chunk, keeping only the live paths at each
-    bounce.  Every (pixel, sample, bounce) stream, formula and rounding
-    is the kernel's, and each lane sums its samples in the same order,
-    so on the card the two agree bit for bit.
+    ``intersect(ox, oy, oz, dx, dy, dz)`` returns the
+    :func:`intersect_tile` tuple followed by the per-ray supers and
+    clusters entered (int64 tensors, or None without culling).  The loop
+    runs in lockstep, samples outside and bounces inside, over the flat
+    lanes of a chunk, keeping only the live paths at each bounce.  Every
+    (pixel, sample, bounce) stream, formula and rounding is the CUDA
+    kernels' (``csrc/common.cuh``), and each lane sums its samples in the
+    same order, so on the card the two agree bit for bit.  Returns
+    (rad_r, rad_g, rad_b, stats) with stats = [rays, rays, supers,
+    clusters] as int64.
     """
     frame, sample_base, max_bounces, n_samples = _salts(salts)
-    n_spheres = int(n_spheres)
     shape = pix.shape
     device = pix.device
     pix_f = pix.reshape(-1).to(torch.int64) & MASK32
@@ -280,7 +283,7 @@ def fused_render_persistent_reference(
     valid_f = valid.reshape(-1) > 0
     n_lanes = pix_f.shape[0]
     acc = torch.zeros((n_lanes, 3), dtype=torch.float32, device=device)
-    rays = torch.zeros((), dtype=torch.int64, device=device)
+    counts = torch.zeros(3, dtype=torch.int64, device=device)
 
     for lo in range(0, n_lanes, _LANE_CHUNK):
         lanes = torch.nonzero(valid_f[lo:lo + _LANE_CHUNK])[:, 0] + lo
@@ -295,10 +298,13 @@ def fused_render_persistent_reference(
                              device=device)
             bounce = 0
             while live.numel():
-                rays += live.numel()
+                counts[0] += live.numel()
                 (best_t, b_cx, b_cy, b_cz, b_inv_r, b_ar, b_ag, b_ab,
-                 b_fuzz, b_ior, b_mt) = intersect_tile(
-                    scene_packed, n_spheres, ox, oy, oz, dx, dy, dz)
+                 b_fuzz, b_ior, b_mt, supers, clusters) = intersect(
+                    ox, oy, oz, dx, dy, dz)
+                if supers is not None:
+                    counts[1] += supers.sum()
+                    counts[2] += clusters.sum()
                 hit = best_t < T_FAR
                 miss = ~hit
                 sky_a = 0.5 * (dy[miss] + 1.0)
@@ -346,12 +352,32 @@ def fused_render_persistent_reference(
                     break
 
     rad = acc.reshape(*shape, 3)
-    stats = torch.stack([rays, rays, torch.zeros_like(rays),
-                         torch.zeros_like(rays)])
+    stats = torch.stack([counts[0], counts[0], counts[1], counts[2]])
     return rad[..., 0], rad[..., 1], rad[..., 2], stats
 
 
-def _check_inputs(scene_packed, cam_params, planes):
+def fused_render_persistent_reference(
+        scene_packed, n_spheres, salts, cam_params, pix, xs, ys, valid, soff,
+        *, rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
+        sampler: str = "random"):
+    """Plain PyTorch version of the persistent-lane kernel: the
+    :func:`persistent_reference` loop over :func:`intersect_tile`.  Same
+    arguments and results as :func:`fused_render_persistent`."""
+    n_spheres = int(n_spheres)
+
+    def intersect(ox, oy, oz, dx, dy, dz):
+        return intersect_tile(scene_packed, n_spheres, ox, oy, oz, dx, dy,
+                              dz) + (None, None)
+
+    return persistent_reference(
+        intersect, salts, cam_params, pix, xs, ys, valid, soff,
+        rr_start=rr_start, rr_floor=rr_floor, clamp=clamp, sampler=sampler)
+
+
+def check_inputs(cam_params, planes, tables):
+    """Validate the lane planes, the camera and ``tables`` ({name:
+    (tensor, columns, dtype)}: contiguous 2-D tables); returns the one
+    device they all lie on."""
     pix, xs, ys, valid, soff = planes
     shape = pix.shape
     if len(shape) != 2 or shape[1] != LANES:
@@ -364,19 +390,29 @@ def _check_inputs(scene_packed, cam_params, planes):
             raise ValueError(f"{name} must be a contiguous {dtype} plane of "
                              f"shape {tuple(shape)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    if (scene_packed.dim() != 2 or scene_packed.shape[1] != 16
-            or scene_packed.dtype != torch.float32
-            or not scene_packed.is_contiguous()):
-        raise ValueError("scene_packed must be a contiguous (S, 16) float32 "
-                         "table")
+    for name, (t, cols, dtype) in tables.items():
+        if (t.dim() != 2 or t.shape[1] != cols or t.dtype != dtype
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (N, {cols}) "
+                             f"{dtype} table, got {t.dtype} "
+                             f"{tuple(t.shape)}")
     if (cam_params.shape != (24,) or cam_params.dtype != torch.float32
             or not cam_params.is_contiguous()):
         raise ValueError("cam_params must be a contiguous (24,) float32 "
                          "tensor")
-    devices = {t.device for t in (scene_packed, cam_params, *planes)}
+    devices = {t.device for t in (cam_params, *planes)}
+    devices |= {t.device for t, _cols, _dtype in tables.values()}
     if len(devices) != 1:
         raise ValueError(f"all tensors must be on one device, got {devices}")
     return devices.pop()
+
+
+def check_aligned(**tensors) -> None:
+    """Raise unless every non-empty tensor starts on a 16-byte boundary
+    (the kernels read tables as float4 / int2)."""
+    for name, t in tensors.items():
+        if t.numel() and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def fused_render_persistent(
@@ -400,7 +436,8 @@ def fused_render_persistent(
     """
     global LAUNCHES
     planes = (pix, xs, ys, valid, soff)
-    device = _check_inputs(scene_packed, cam_params, planes)
+    device = check_inputs(cam_params, planes,
+                          {"scene_packed": (scene_packed, 16, torch.float32)})
     if sampler not in ("random", "stratified"):
         raise ValueError(f"unknown sampler {sampler!r}")
     if device.type == "cpu":
@@ -414,8 +451,7 @@ def fused_render_persistent(
     from wavefront_path_tracer_tpu_torch.ops._build import load_library
 
     frame, sample_base, max_bounces, n_samples = _salts(salts)
-    if scene_packed.data_ptr() % 16:
-        raise ValueError("scene_packed must be 16-byte aligned")
+    check_aligned(scene_packed=scene_packed)
     n_rows = min(scene_packed.shape[0], (int(n_spheres) + 7) // 8 * 8)
     lib = load_library()
     rad_r = torch.empty_like(xs)

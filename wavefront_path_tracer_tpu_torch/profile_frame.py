@@ -2,9 +2,10 @@
 
     python -m wavefront_path_tracer_tpu_torch.profile_frame [CLI flags]
 
-Runs the CLI once to warm up (scene, size and samples as given; the
-defaults are book_one_final at 1920x1080, 32 spp in one frame, 50
-bounces), then one more frame of the same configuration under
+Runs the CLI once to warm up (scene, size, samples and intersector as
+given, e.g. ``--intersector baked --clusters 16`` for the headline path;
+the defaults are book_one_final at 1920x1080, 32 spp in one frame, 50
+bounces, brute force), then one more frame of the same configuration under
 ``torch.profiler``, and prints one JSON line: the frame's wall time, the
 device time of each kernel and copy, the share of the frame in which the
 device was busy (the union of device activity intervals over the

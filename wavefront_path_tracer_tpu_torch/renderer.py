@@ -34,9 +34,10 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def prepare_scene(scene: Scene, config: RenderConfig, device) -> dict:
-    """Host scene -> sphere tables on ``device``, plus the packed (S, 16)
-    table the fused kernel sweeps (``scene_packed``)."""
+def prepare_scene(scene: Scene, config: RenderConfig,
+                  device="cuda") -> dict:
+    """Host scene -> sphere tables on ``device``, plus what the fused
+    engine derives once per scene (``convert.scene_arrays_to_torch``)."""
     if scene.tex_kind is not None:
         raise NotImplementedError(
             "textured scenes are not ported yet (ROADMAP.md queue 2 item 5 "
@@ -81,10 +82,12 @@ class RenderResult:
 
 
 class Renderer:
-    """Progressive renderer with accumulation-restart semantics."""
+    """Progressive renderer with accumulation-restart semantics, on the
+    CUDA card unless ``device`` names another (``device="cpu"`` runs the
+    plain PyTorch versions)."""
 
     def __init__(self, scene: Scene, camera: CameraController,
-                 config: RenderConfig, *, device):
+                 config: RenderConfig, *, device="cuda"):
         self.device = resolve_device(device)
         self.config = config
         self.camera = camera
@@ -182,6 +185,7 @@ class Renderer:
 
 
 def render(scene: Scene, camera: CameraController, config: RenderConfig,
-           *, device) -> RenderResult:
-    """One-shot convenience wrapper."""
+           *, device="cuda") -> RenderResult:
+    """One-shot convenience wrapper; renders on the card unless
+    ``device`` names another."""
     return Renderer(scene, camera, config, device=device).render()

@@ -1,14 +1,15 @@
-"""Scenes and cameras, re-exported from the reference package.
+"""Scenes and cameras: the port's own numpy-only host modules.
 
-Scene construction and the camera model are numpy-only host code, so the
-port shares them instead of copying them: both packages build the same
-tables and camera matrices from the same arguments.
+``scene.py`` and ``camera.py`` are copies of the reference package's
+modules of the same names (only the imports may differ);
+``tests/test_torch_host.py`` holds them to byte-identical tables and
+equal camera matrices.
 """
 
-from wavefront_path_tracer_tpu.scene.camera import (  # noqa: F401
+from wavefront_path_tracer_tpu_torch.scene.camera import (  # noqa: F401
     CameraController,
 )
-from wavefront_path_tracer_tpu.scene.scene import (  # noqa: F401
+from wavefront_path_tracer_tpu_torch.scene.scene import (  # noqa: F401
     SCENE_CAMERAS,
     Scene,
     book_cover,
