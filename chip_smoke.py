@@ -1,37 +1,61 @@
 """Drive the PyTorch/CUDA port once on one GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases NAME,...]
 
-Phases, each of which raises on failure (nonzero exit):
+Phases (all by default, in this order), each of which raises on failure
+(nonzero exit):
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the CUDA kernels from ``csrc/`` with nvcc, one process
-   per source, all started together;
-3. kernels vs plain: each kernel against its plain PyTorch version on
-   the same CUDA tensors (book_one_final, 160x90, block lane order with
-   padding lanes, 4 spp, 50 bounces, the CLI's default view): the
-   persistent-lane kernel (default, and roulette/clamp/stratified AA/
-   lane_split=2), the baked kernel culled in clusters of 16 (the same
-   two option sets), culled in clusters of 2 (243 clusters, so the
-   two-level sweep) and unculled.  Radiance words and the counters
-   [rays, iterations, supers, clusters] must be bit-identical (the
-   kernels are built without FMA contraction);
+   per source, all started together, and prints ptxas's lines for every
+   kernel (persistent, baked culled and unculled, dynamic culled);
+3. kernels vs plain (``kernels``): each kernel against its plain PyTorch
+   version on the same CUDA tensors, in block lane order with padding
+   lanes, 50 bounces.  On book_one_final at 160x90@4spp, the CLI's
+   default view: the persistent-lane kernel (default, and roulette/clamp/
+   stratified AA/lane_split=2), the baked kernel culled in clusters of 16
+   (the same two option sets), culled in clusters of 2 (243 clusters, so
+   the two-level sweep) and unculled.  Then the mesh cases: the dynamic
+   culled kernel on mesh_terrain (seed 7, 5,000 triangles, the book
+   camera) at 160x90@4spp in the two option sets, on the 50k-triangle
+   knot at 160x90@2spp (rolled triangle supers), on procedural 10,000
+   spheres (seed 42) in clusters of 32 (rolled sphere supers) and on
+   book_bubble (a negative radius); the baked kernel culled in clusters
+   of 16 and unculled on mesh_terrain at 160x90@4spp.  Radiance words and
+   the counters [rays, iterations, supers, clusters] must be
+   bit-identical (the kernels are built without FMA contraction);
 4. golden gate: ``render()`` of book_one_final at 400x225, 1000 spp,
    against ``golden/oracle_book_400x225_1000spp.npz``, display RMSE
    < 1e-3, with the brute-force intersector and with baked/cull16;
-5. main paths: the CLI at 1920x1080, 32 spp in one frame, 50 bounces,
-   for the brute-force path, the headline path (``--intersector baked
-   --clusters 16``) and the unculled baked path, each warmed up and then
-   timed, with the launch counts set to 0 just before the timed run and
-   read just after;
-6. full size: the checks of phase 3 at the main paths' planes (1920x1080,
-   block order): the persistent kernel at 1 and 4 samples per lane, the
-   two baked kernels at 1; the plain versions' times there; and each
-   kernel's time at 32 samples per lane beside its bound.
+5. main paths (``main``): the CLI at 1920x1080, 32 spp in one frame, 50
+   bounces, for the brute-force path, the headline path (``--intersector
+   baked --clusters 16``) and the unculled baked path, each warmed up and
+   then timed, with the launch counts set to 0 just before the timed run
+   and read just after;
+6. full size (``full``): the checks of phase 3 at the main paths' planes
+   (1920x1080, block order): the persistent kernel at 1 and 4 samples
+   per lane, the two baked kernels at 1; the plain versions' times there;
+   and each kernel's time at 32 samples per lane beside its bound;
+7. mesh rows (``mesh``): the reference's three mesh rows (``bench.py``
+   MESH_ROWS, built as its ``bench_once`` builds them) through
+   ``Renderer.render_frame`` at 800x448, 50 bounces: terrain_baked
+   (baked/cull16, 32 spp), terrain_dynamic (dynamic culled/16, 32 spp)
+   and knot50k_dynamic (dynamic culled/16, 8 spp), each warmed up and
+   then timed with the launch counts read alone; the CLI once with
+   ``--scene mesh_terrain --intersector auto`` (5,003 primitives:
+   dynamic culled in clusters of 32); and terrain through the dynamic,
+   baked culled and baked unculled kernels, pairwise equal by the
+   statistical rule;
+8. mesh full size (``meshfull``): the mesh kernels checked bit for bit at
+   the mesh rows' planes (800x448, 1 spp): dynamic culled on terrain and
+   on the knot, baked culled/16 and unculled on terrain, with kernel and
+   plain times and the bound; and each mesh kernel's time at its row's
+   samples per lane beside its bound.
 
 The last two lines of standard output are a JSON object describing the
-kernels and ``{"ok": true, "device": {...}}``.  Larger outputs (the
-1080p PNGs, a JSON of all measurements) go to ``OUT_DIR``.
+kernels and ``{"ok": true, "device": {...}}``; they are printed only when
+every phase ran.  Larger outputs (the PNGs, a JSON of all measurements)
+go to ``OUT_DIR``.
 """
 
 from __future__ import annotations
@@ -68,7 +92,13 @@ KERNELS = {
                  "source": SOURCE + "baked.cu",
                  "replaces": REPLACES + "3157",
                  "argv": ["--intersector", "baked", "--clusters", "0"]},
+    # Its main path is the dynamic mesh rows (phase 7), not a book path.
+    "dynculled": {"name": "fused_render_dynculled/"
+                          "make_dynamic_culled_intersect",
+                  "source": SOURCE + "dynculled.cu",
+                  "replaces": REPLACES + "3211"},
 }
+MESH_SIZE = (800, 448)
 
 # The bound's inputs: H100 SXM peak rates at 700 W.
 PEAK_FP32 = 67e12          # FLOP/s, FP32 outside the tensor cores
@@ -79,10 +109,17 @@ FLOPS_PAIR = {
     "persistent": 24,      # persistent.cu TableIntersect: the full quadratic
     "unculled": 21,        # baked.cu UnculledIntersect, far root not taken
     "culled": 17,          # baked.cu CulledIntersect::test, far root not taken
+    "dynculled": 18,       # dynculled.cu DynIntersect::test, both roots
 }
+FLOPS_TRI = 46             # common.cuh tri_test: 9 p, 5 det, 1 div, 3 t,
+                           # 6 u, 9 q, 6 v, 6 t, u + v
 FLOPS_BOX = 24             # box_range (22) and the cond's max and min
+FLOPS_SLAB = 22            # slab_exit: box_range
 FLOPS_RAY = 120            # shade, throughput and miss (common.cuh), per ray
-FLOPS_RAY_CULLED = 38      # shifted origin, dd_o, oo2, 1/d, the slab test
+FLOPS_RAY_SHIFT = {        # per ray before the sweep
+    "culled": 16,          # shifted origin 3, dd_o 5, oo2 5, 1/d 3
+    "dynculled": 19,       # the same and d / 2
+}
 
 
 def log(msg: str) -> None:
@@ -131,23 +168,17 @@ def _time_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
-def _scene_arrays(scene, device):
-    from wavefront_path_tracer_tpu_torch.convert import scene_arrays_to_torch
-
-    return scene_arrays_to_torch(
-        {k: getattr(scene, k) for k in ("centers", "radii", "albedo", "fuzz",
-                                        "refract_idx", "mat_type")}, device)
-
-
 class Case:
     """One kernel's inputs at one shape, built as models/fused.py builds
     them, with the kernel, its plain version and its launch counter."""
 
     def __init__(self, kind, clusters, scene, cc, width, height, spp, split,
-                 kw, device):
+                 kw, device, triangles=None):
         from wavefront_path_tracer_tpu_torch.models import fused
         from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+        from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
         from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
+        from wavefront_path_tracer_tpu_torch.renderer import prepare_scene
         from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
 
         self.kind, self.spp, self.split = kind, spp, split
@@ -155,7 +186,7 @@ class Case:
         cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
                            samples_per_frame=spp, max_bounces=50,
                            engine="fused")
-        arrays = _scene_arrays(scene, device)
+        arrays = prepare_scene(scene, cfg, device, triangles)
         perm, _ = fused._block_perm(width, height, 32)
         self.perm_t = torch.from_numpy(perm.astype(np.int64)).to(device)
         self.planes = fused.lane_planes(self.perm_t, width, cfg.tile_rows,
@@ -164,26 +195,37 @@ class Case:
             cc.gpu_camera(), cc.view_matrix(),
             cc.inverse_projection(width, height), cfg)).to(device)
         salts = (0, 0, 50, spp // split)
+        eye = fused._concrete_eye(cc.view_matrix())
         if kind == "persistent":
             table = arrays["scene_packed"]
             n = len(scene.radii)
-            self.table_bytes = table.numel() * 4
+            self.tables = (table,)
             self.n_rows = min(table.shape[0], (n + 7) // 8 * 8)
             self.kernel = lambda: fk.fused_render_persistent(
                 table, n, salts, cam, *self.planes, **kw)
             self.plain = lambda: fk.fused_render_persistent_reference(
                 table, n, salts, cam, *self.planes, **kw)
             self.launches = lambda: fk.LAUNCHES
+        elif kind == "dynculled":
+            tab = fused._dyn_tables(arrays, clusters, camera_pos=eye)
+            self.tab = tab
+            self.tables = (tab.spheres, tab.boxes, tab.super_boxes, tab.slab,
+                           tab.triangles, tab.tri_boxes, tab.tri_super_boxes,
+                           tab.tri_slab)
+            self.kernel = lambda: dk.fused_render_dynculled(
+                tab, salts, cam, *self.planes, **kw)
+            self.plain = lambda: dk.fused_render_dynculled_reference(
+                tab, salts, cam, *self.planes, **kw)
+            self.launches = lambda: dk.LAUNCHES
         else:
-            baked = fused._baked_scene(arrays, clusters,
-                                       camera_pos=fused._concrete_eye(
-                                           cc.view_matrix()))
+            baked = fused._baked_scene(arrays, clusters, camera_pos=eye)
             self.baked = baked
-            self.table_bytes = sum(
-                t.numel() * t.element_size()
-                for t in (baked.items, baked.cluster_boxes,
-                          baked.cluster_ranges, baked.super_boxes,
-                          baked.super_ranges, baked.consts))
+            self.tables = (baked.items, baked.cluster_boxes,
+                           baked.cluster_ranges, baked.super_boxes,
+                           baked.super_ranges, baked.tri_items,
+                           baked.tri_cluster_boxes, baked.tri_cluster_ranges,
+                           baked.tri_super_boxes, baked.tri_super_ranges,
+                           baked.consts)
             self.kernel = lambda: bk.fused_render_baked(
                 baked, salts, cam, *self.planes, **kw)
             self.plain = lambda: bk.fused_render_baked_reference(
@@ -199,32 +241,72 @@ class Case:
         img[self.perm_t] = lanes
         return (img / self.spp).cpu().numpy()
 
+    def has_clusters(self) -> bool:
+        return bool(self._hierarchies())
+
+    def _hierarchies(self):
+        """(n_clusters, n_supers, items per cluster, FLOPS per pair,
+        children per entered super) of each hierarchy that has clusters;
+        n_supers is 0 for a flat sweep."""
+        if self.kind == "dynculled":
+            t = self.tab
+            out = [(t.n_clusters, t.n_supers, t.cluster_size,
+                    FLOPS_PAIR["dynculled"], 16),
+                   (t.n_tri_clusters, t.n_tri_supers, t.cluster_size,
+                    FLOPS_TRI, 16)]
+        else:
+            b = self.baked
+            out = []
+            for boxes, ranges, sranges, ops in (
+                    (b.cluster_boxes, b.cluster_ranges, b.super_ranges,
+                     FLOPS_PAIR["culled"]),
+                    (b.tri_cluster_boxes, b.tri_cluster_ranges,
+                     b.tri_super_ranges, FLOPS_TRI)):
+                n, n_sup = boxes.shape[0], sranges.shape[0]
+                items = float(ranges[:, 1].sum()) / max(n, 1)
+                out.append((n, n_sup, items, ops, n / max(n_sup, 1)))
+        return [h for h in out if h[0] > 0]
+
     def bound(self, stats) -> dict:
         """The least time the card could take for this launch's work: the
         larger of its bytes over the memory rate and its FP32 operations
         over the FP32 rate (each input read once, each output written
-        once; the pairs and boxes that this run's rays needed)."""
+        once; the pairs and boxes that this run's rays needed).  Cluster
+        entries are attributed to the one hierarchy that has clusters
+        (every scene of this script has at most one)."""
         rays, _iters, supers, clusters = (float(v) for v in stats)
         n_lanes = self.planes[0].numel()
         counters = 1 if self.kind == "persistent" else 3
         n_bytes = (n_lanes * 4 * (5 + 3 + counters) + 24 * 4
-                   + self.table_bytes)
+                   + sum(t.numel() * t.element_size() for t in self.tables))
         if self.kind == "persistent":
             pairs = rays * self.n_rows
             ops = pairs * FLOPS_PAIR["persistent"] + rays * FLOPS_RAY
         elif self.kind == "unculled":
-            pairs = rays * self.baked.n_items
-            ops = pairs * FLOPS_PAIR["unculled"] + rays * FLOPS_RAY
-        else:
             b = self.baked
-            pairs = rays * b.n_globals + clusters * b.mean_cluster_size
-            if b.super_ranges.shape[0]:
-                boxes = (rays * b.super_ranges.shape[0]
-                         + supers * b.n_clusters / b.super_ranges.shape[0])
+            pairs = rays * (b.n_items + b.n_triangles)
+            ops = rays * (b.n_items * FLOPS_PAIR["unculled"]
+                          + b.n_triangles * FLOPS_TRI + FLOPS_RAY)
+        else:
+            if self.kind == "dynculled":
+                sph = self.tab.spheres[:self.tab.n_globals, 0]
+                n_globals = int((~torch.isnan(sph)).sum())
             else:
-                boxes = rays * b.n_clusters
-            ops = (pairs * FLOPS_PAIR["culled"] + boxes * FLOPS_BOX
-                   + rays * (FLOPS_RAY + FLOPS_RAY_CULLED))
+                n_globals = self.baked.n_globals
+            hiers = self._hierarchies()
+            if len(hiers) > 1:
+                raise AssertionError("cluster entries of two hierarchies "
+                                     "cannot be told apart")
+            pairs = rays * n_globals
+            ops = pairs * FLOPS_PAIR[self.kind] + rays * (
+                FLOPS_RAY + FLOPS_RAY_SHIFT[self.kind]
+                + FLOPS_SLAB * len(hiers))
+            for n, n_sup, items, pair_ops, children in hiers:
+                pairs += clusters * items
+                ops += clusters * items * pair_ops
+                boxes = (rays * n_sup + supers * children if n_sup
+                         else rays * n)
+                ops += boxes * FLOPS_BOX
         t_bytes, t_ops = n_bytes / PEAK_BYTES, ops / PEAK_FP32
         return {"pairs": pairs, "ops": ops, "bytes": n_bytes,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -258,7 +340,8 @@ def _check(label, case, reps: int = 0) -> dict:
     log(f"[kernel-vs-plain] {label}: {json.dumps(rep)}")
     if not bit_exact:
         raise AssertionError(f"{label}: kernel and plain version differ")
-    if case.kind == "culled" and not stats_k[3] > 0:
+    if (case.kind in ("culled", "dynculled") and case.has_clusters()
+            and not stats_k[3] > 0):
         raise AssertionError(f"{label}: no cluster was entered")
     return rep
 
@@ -292,6 +375,68 @@ def phase_kernel_vs_plain(device) -> list[dict]:
     two_level = out[4]["stats_kernel"]
     if not two_level[2] > 0:
         raise AssertionError("the two-level case entered no super")
+    return out + phase_mesh_vs_plain(device)
+
+
+def _cli_camera(scene: str):
+    from wavefront_path_tracer_tpu_torch.cli import build_camera, build_parser
+
+    return build_camera(build_parser().parse_args(["--scene", scene]))
+
+
+def _terrain():
+    from wavefront_path_tracer_tpu_torch.scene import (
+        CameraController,
+        mesh_terrain_scene,
+    )
+
+    scene, tris = mesh_terrain_scene()         # seed 7, 5,000 triangles
+    return scene, tris, CameraController.book_one_final()
+
+
+def _knot():
+    from wavefront_path_tracer_tpu_torch.scene import knot_camera, knot_scene
+
+    scene, tris = knot_scene(50000)
+    return scene, tris, knot_camera()
+
+
+def phase_mesh_vs_plain(device) -> list[dict]:
+    """Phase 3's mesh cases: the dynamic culled kernel on terrain (two
+    option sets), the knot (rolled triangle supers), procedural 10,000
+    spheres in clusters of 32 (rolled sphere supers) and book_bubble (a
+    negative radius, all globals); the baked kernels on terrain."""
+    from wavefront_path_tracer_tpu_torch.scene import get_scene
+
+    opts = {"rr_start": 3, "clamp": 0.5, "sampler": "stratified"}
+    terrain, tris, cc = _terrain()
+    knot, knot_tris, knot_cc = _knot()
+    cases = [
+        ("dynculled16 terrain 160x90@4spp default", "dynculled", 16,
+         (terrain, tris, cc), 4, {}, 1),
+        ("dynculled16 terrain 160x90@4spp rr3/clamp0.5/stratified/split2",
+         "dynculled", 16, (terrain, tris, cc), 4, opts, 2),
+        ("dynculled16 knot50k 160x90@2spp (rolled triangle supers)",
+         "dynculled", 16, (knot, knot_tris, knot_cc), 2, {}, 1),
+        ("dynculled32 procedural10000 160x90@4spp (rolled sphere supers)",
+         "dynculled", 32, (get_scene("procedural", n=10000, seed=42), None,
+                           _cli_camera("procedural")), 4, {}, 1),
+        ("dynculled16 book_bubble 160x90@4spp (negative radius)",
+         "dynculled", 16, (get_scene("book_bubble"), None,
+                           _cli_camera("book_bubble")), 4, {}, 1),
+        ("culled16 terrain 160x90@4spp default", "culled", 16,
+         (terrain, tris, cc), 4, {}, 1),
+        ("unculled terrain 160x90@4spp default", "unculled", 0,
+         (terrain, tris, cc), 4, {}, 1),
+    ]
+    out = []
+    for label, kind, clusters, (scene, t, cam), spp, kw, split in cases:
+        case = Case(kind, clusters, scene, cam, 160, 90, spp, split, kw,
+                    device, triangles=t)
+        rep = _check(label, case)
+        if "rolled" in label and not rep["stats_kernel"][2] > 0:
+            raise AssertionError(f"{label}: no super was entered")
+        out.append(rep)
     return out
 
 
@@ -335,17 +480,21 @@ def phase_golden(device) -> dict:
 
 def _reset_launches():
     from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
     from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
 
     fk.LAUNCHES = 0
+    dk.LAUNCHES = 0
     bk.LAUNCHES.update(culled=0, unculled=0)
 
 
 def _read_launches() -> dict:
     from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
     from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
 
-    return {"persistent": fk.LAUNCHES, **bk.LAUNCHES}
+    return {"persistent": fk.LAUNCHES, **bk.LAUNCHES,
+            "dynculled": dk.LAUNCHES}
 
 
 def phase_main_paths(device, smi: str) -> dict:
@@ -355,6 +504,8 @@ def phase_main_paths(device, smi: str) -> dict:
 
     out = {}
     for kind, spec in KERNELS.items():
+        if "argv" not in spec:
+            continue
         out_png = os.path.join(OUT_DIR, f"smoke_1080p_{kind}.png")
         argv = ["--device", device.type, "--scene", "book_one_final",
                 "--width", str(MAIN_WIDTH), "--height", str(MAIN_HEIGHT),
@@ -394,7 +545,7 @@ def phase_full_size(device, smi: str) -> dict:
     versions' times there, and each kernel's time at MAIN_SPP samples per
     lane beside its bound."""
     scene, cc = _smoke_scene()
-    checks = {kind: [] for kind in KERNELS}
+    checks = {kind: [] for kind in ("persistent", "culled", "unculled")}
     for kind, clusters, spp in (("persistent", 0, 1), ("persistent", 0, 4),
                                 ("culled", 16, 1), ("unculled", 0, 1)):
         case = Case(kind, clusters, scene, cc, MAIN_WIDTH, MAIN_HEIGHT, spp,
@@ -425,18 +576,193 @@ def phase_full_size(device, smi: str) -> dict:
     return {"checks": checks, "timed": timed}
 
 
-def main() -> int:
+def _frame(renderer, kind: str, label: str, smi: str) -> dict:
+    """Warm-up frame, then a timed one whose launch counts are read
+    alone: ``kind``'s kernel must have run, and the image is finite with
+    a mean above 0.01."""
+    renderer.render_frame()                            # warm-up
+    renderer.reset_accumulation()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    result = renderer.render_frame()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    img = result.accumulated / result.samples
+    if launches[kind] < 1:
+        raise AssertionError(f"{label} launched no {kind} kernel")
+    if not np.isfinite(img).all() or not img.mean() > 0.01:
+        raise AssertionError(f"bad image ({label}): mean {img.mean()}")
+    mrays = result.rays_traced / result.wall_time_s / 1e6
+    cfg = renderer.config
+    log(f"[mesh-row] {label}: {cfg.width}x{cfg.height}@"
+        f"{cfg.samples_per_pixel}spp, 50 bounces, {cfg.intersector}/"
+        f"clusters {cfg.baked_clusters}: render {result.wall_time_s:.4f} s "
+        f"({seconds:.4f} s with sync), {result.rays_traced:.0f} rays, "
+        f"{mrays:.2f} Mrays/s, launches {launches}, image mean "
+        f"{img.mean():.4f} [{smi}]")
+    return {"render_seconds": result.wall_time_s, "seconds": seconds,
+            "rays": result.rays_traced, "mrays_per_s": mrays,
+            "launches": launches[kind], "all_launches": launches,
+            "image_mean": float(img.mean()), "image": img}
+
+
+def phase_mesh_rows(device, smi: str) -> dict:
+    """The three mesh rows through ``Renderer`` (phase 7), the CLI once
+    on terrain with ``--intersector auto``, and the terrain agreement of
+    the dynamic, baked culled and baked unculled kernels."""
+    from wavefront_path_tracer_tpu_torch import cli
+    from wavefront_path_tracer_tpu_torch.profile_frame import (
+        MESH_ROWS,
+        row_renderer,
+    )
+    from wavefront_path_tracer_tpu_torch.utils.image import (
+        display_transform,
+        write_png,
+    )
+    from wavefront_path_tracer_tpu_torch.utils.parity import check_parity
+
+    out = {}
+    for name, (_scene, _w, _h, _spp, intersector) in MESH_ROWS.items():
+        kind = "culled" if intersector == "baked" else "dynculled"
+        rep = _frame(row_renderer(name, device=device), kind, name, smi)
+        write_png(os.path.join(OUT_DIR, f"mesh_{name}.png"),
+                  display_transform(rep["image"], 1))
+        out[name] = rep
+    rep = _frame(row_renderer("terrain_baked", device=device,
+                              baked_clusters=0),
+                 "unculled", "terrain_baked_unculled", smi)
+    out["terrain_baked_unculled"] = rep
+
+    argv = ["--device", device.type, "--scene", "mesh_terrain",
+            "--intersector", "auto", "--width", str(MESH_SIZE[0]),
+            "--height", str(MESH_SIZE[1]), "--spp", "32", "--spf", "32",
+            "--max-bounces", "50", "--quiet",
+            "--out", os.path.join(OUT_DIR, "mesh_terrain_cli_auto.png")]
+    _reset_launches()
+    t0 = time.perf_counter()
+    renderer, result = cli.run(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    cfg = renderer.config
+    img = result.accumulated / result.samples
+    log(f"[mesh-cli] --scene mesh_terrain --intersector auto -> "
+        f"{cfg.intersector}/clusters {cfg.baked_clusters}: "
+        f"{cfg.width}x{cfg.height}@32spp {seconds:.3f} s end to end "
+        f"(first run: bake and build included), render "
+        f"{result.wall_time_s:.4f} s, "
+        f"{result.rays_traced / result.wall_time_s / 1e6:.2f} Mrays/s, "
+        f"launches {launches} [{smi}]")
+    if launches["dynculled"] < 1 or cfg.intersector != "bruteforce":
+        raise AssertionError("--intersector auto on mesh_terrain did not "
+                             "run the dynamic culled kernel")
+    if not np.isfinite(img).all() or not img.mean() > 0.01:
+        raise AssertionError(f"bad image (cli auto): mean {img.mean()}")
+    out["cli_auto"] = {"seconds_end_to_end": seconds,
+                       "render_seconds": result.wall_time_s,
+                       "rays": result.rays_traced, "launches": launches}
+
+    agreement = {}
+    trio = {"dynculled": out["terrain_dynamic"],
+            "culled": out["terrain_baked"],
+            "unculled": out["terrain_baked_unculled"]}
+    for a, b in (("dynculled", "culled"), ("dynculled", "unculled"),
+                 ("culled", "unculled")):
+        rep = check_parity(trio[a]["image"], trio[b]["image"],
+                           trio[a]["rays"], trio[b]["rays"])
+        log(f"[mesh-agree] terrain 800x448@32spp {a} vs {b}: "
+            f"{json.dumps(rep)}")
+        agreement[f"{a}/{b}"] = rep
+    for rep in out.values():
+        rep.pop("image", None)
+    out["agreement"] = agreement
+    return out
+
+
+def phase_mesh_full_size(device, smi: str) -> dict:
+    """The mesh kernels bit for bit against their plain versions at the
+    mesh rows' planes (1 spp), with times and bounds; then each at its
+    row's samples per lane beside its bound."""
+    terrain, tris, cc = _terrain()
+    knot, knot_tris, knot_cc = _knot()
+    w, h = MESH_SIZE
+    specs = [("dynculled", 16, "terrain", (terrain, tris, cc), 32),
+             ("dynculled", 16, "knot50k", (knot, knot_tris, knot_cc), 8),
+             ("culled", 16, "terrain", (terrain, tris, cc), 32),
+             ("unculled", 0, "terrain", (terrain, tris, cc), 32)]
+    checks, timed = [], []
+    for kind, clusters, scene_name, (scene, t, cam), row_spp in specs:
+        case = Case(kind, clusters, scene, cam, w, h, 1, 1, {}, device,
+                    triangles=t)
+        rep = _check(f"{kind} {scene_name} {w}x{h}@1spp default", case,
+                     reps=3)
+        rep["scene"] = scene_name
+        log(f"[timing] {kind} {w}x{h}@1spp {scene_name}, 50 bounces: kernel "
+            f"{rep['kernel_ms']!r} ms, plain {rep['plain_ms']!r} ms, bound "
+            f"{rep['bound_ms']!r} ms ({rep['bound_by']}) [{smi}]")
+        checks.append(rep)
+        case = Case(kind, clusters, scene, cam, w, h, row_spp, 1, {}, device,
+                    triangles=t)
+        ms, res = _time_ms(case.kernel, 1)
+        stats = res[3].tolist()
+        trep = {"kind": kind, "scene": scene_name, "spp": row_spp,
+                "kernel_ms": ms, "stats": stats, **case.bound(stats),
+                "clusters_per_ray": stats[3] / stats[0],
+                "supers_per_ray": stats[2] / stats[0]}
+        log(f"[timing] {kind} {w}x{h}@{row_spp}spp {scene_name}, 50 "
+            f"bounces: kernel {ms!r} ms, bound {trep['bound_ms']!r} ms "
+            f"({trep['bound_by']}), rays {stats[0]}, supers {stats[2]}, "
+            f"clusters {stats[3]} ({trep['clusters_per_ray']:.4f} per ray), "
+            f"{stats[0] / ms / 1e3:.2f} Mrays/s [{smi}]")
+        timed.append(trep)
+    return {"checks": checks, "timed": timed}
+
+
+PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ", ".join(PHASES)
+                    + " (device and build always run; the closing JSON "
+                    "lines need them all)")
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(",")) - {""}
+    if phases - set(PHASES):
+        raise SystemExit(f"unknown phases {sorted(phases - set(PHASES))}")
     name, smi = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
-    build_s = phase_build()
-    parity = phase_kernel_vs_plain(device)
-    golden = phase_golden(device)
-    main_paths = phase_main_paths(device, smi)
-    full = phase_full_size(device, smi)
+    record = {"card": smi, "device": name, "build_seconds": phase_build()}
+    steps = (("kernels", "parity", lambda: phase_kernel_vs_plain(device)),
+             ("golden", "golden", lambda: phase_golden(device)),
+             ("main", "main_paths", lambda: phase_main_paths(device, smi)),
+             ("full", "full_size", lambda: phase_full_size(device, smi)),
+             ("mesh", "mesh_rows", lambda: phase_mesh_rows(device, smi)),
+             ("meshfull", "mesh_full_size",
+              lambda: phase_mesh_full_size(device, smi)))
+    for phase, key, run in steps:
+        if phase in phases:
+            t0 = time.perf_counter()
+            record[key] = run()
+            log(f"[phase] {phase} done in {time.perf_counter() - t0:.1f} s")
+    record["seconds_total"] = time.perf_counter() - t_start
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    log(f"[total] {record['seconds_total']:.1f} s after the device check")
+    if phases != set(PHASES):
+        log(f"[partial] ran {sorted(phases)}; no closing lines")
+        return 0
 
+    parity, main_paths = record["parity"], record["main_paths"]
+    full, mesh = record["full_size"], record["mesh_rows"]
     head, brute = main_paths["culled"], full["timed"]
     log(f"[headline] baked/cull16 cli {MAIN_WIDTH}x{MAIN_HEIGHT}@{MAIN_SPP}"
         f"spp: render {head['render_seconds']:.3f} s, "
@@ -446,22 +772,22 @@ def main() -> int:
         f"kernel {brute['persistent']['kernel_ms']!r} ms at that shape; "
         f"1080p@1spp kernel {full['checks']['culled'][0]['kernel_ms']!r} ms "
         f"vs plain {full['checks']['culled'][0]['plain_ms']!r} ms [{smi}]")
-
-    record = {"card": smi, "device": name, "build_seconds": build_s,
-              "parity": parity, "golden": golden, "main_paths": main_paths,
-              "full_size": full,
-              "seconds_total": time.perf_counter() - t_start}
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(record, f, indent=1)
+    mesh_checks = record["mesh_full_size"]["checks"]
     kernels = []
     for kind, spec in KERNELS.items():
         reps = [r for r in parity if r["kernel"] == kind]
-        reps += full["checks"][kind]
-        main_check = full["checks"][kind][0]       # 1080p@1spp
+        reps += [r for r in mesh_checks if r["kernel"] == kind]
+        if kind == "dynculled":
+            main_check = mesh_checks[0]            # terrain 800x448@1spp
+            launches = mesh["terrain_dynamic"]["launches"]
+        else:
+            reps += full["checks"][kind]
+            main_check = full["checks"][kind][0]   # 1080p@1spp
+            launches = main_paths[kind]["launches"]
         kernels.append({
             "name": spec["name"], "route": "cuda",
             "source": spec["source"], "replaces": spec["replaces"],
-            "launches": main_paths[kind]["launches"],
+            "launches": launches,
             "max_abs_err": max(r["max_abs_err"] for r in reps),
             "ms": main_check["kernel_ms"],
             "plain_ms": main_check["plain_ms"],

@@ -204,7 +204,7 @@ def test_one_tile_matches_jax_closure(culled):
     {"winner_hint": True, "baked_clusters": 4},
     {"recluster": 1, "baked_clusters": 4},
     {"num_devices": 2},
-    {"intersector": "bruteforce", "baked_clusters": 16},
+    {"intersector": "bruteforce", "baked_clusters": 16, "winner_hint": True},
 ], ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))
 def test_baked_refusals(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -213,12 +213,16 @@ def test_baked_refusals(change):
 
 
 def test_baked_refuses_textures_and_triangles():
+    """Textures are refused on every path; triangles only on the plain
+    brute-force kernel (no clusters), as the reference refuses them."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(get_scene("book_checker"), _cover_camera(), BASE,
                  device="cpu")
     arrays = {"centers": torch.zeros((1, 3)), "tri_v0": torch.zeros(1)}
+    tfused.check_supported(BASE.replace(baked_clusters=16), arrays)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item"):
-        tfused.check_supported(BASE.replace(baked_clusters=16), arrays)
+        tfused.check_supported(BASE.replace(intersector="bruteforce"),
+                               arrays)
 
 
 def test_auto_is_resolved_by_the_cli():

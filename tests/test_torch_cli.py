@@ -6,7 +6,12 @@ import torch
 from wavefront_path_tracer_tpu import cli as jcli
 from wavefront_path_tracer_tpu.utils.image import read_png
 from wavefront_path_tracer_tpu_torch import cli
-from wavefront_path_tracer_tpu_torch.scene import get_scene
+from wavefront_path_tracer_tpu_torch.scene import (
+    get_scene,
+    mesh_demo_scene,
+    mesh_terrain_scene,
+    torus_knot,
+)
 
 torch.set_num_threads(2)
 
@@ -40,14 +45,23 @@ def test_cli_baked_culled_writes_png(tmp_path):
     ("procedural", 0),
     ("book_cover", 8),
     ("book_cover", -1),
+    ("mesh_demo", 0),
+    ("mesh_terrain", 0),
+    ("mesh_terrain", 16),
 ])
 def test_auto_resolves_as_reference(scene, clusters):
-    kwargs = {"n": 2500, "seed": 1} if scene == "procedural" else {}
-    s = get_scene(scene, **kwargs)
+    tris = None
+    if scene == "mesh_demo":
+        s, tris = mesh_demo_scene()
+    elif scene == "mesh_terrain":
+        s, tris = mesh_terrain_scene()       # 5,003 primitives
+    else:
+        kwargs = {"n": 2500, "seed": 1} if scene == "procedural" else {}
+        s = get_scene(scene, **kwargs)
     for intersector in ("auto", "baked", "bruteforce"):
-        port = cli.resolve_intersector(intersector, clusters, s)
+        port = cli.resolve_intersector(intersector, clusters, s, tris)
         ref = jcli.resolve_intersector("fused", intersector, clusters, s,
-                                       None)
+                                       tris)
         assert port[:2] == ref[:2]
         assert port[2] == ref[2]
     args = cli.build_parser().parse_args(["--clusters", "auto"])
@@ -56,18 +70,44 @@ def test_auto_resolves_as_reference(scene, clusters):
 
 @pytest.mark.parametrize("argv", [
     ["--intersector", "baked", "--scene", "mesh_demo"],
+    ["--clusters", "16"],
+    ["--obj", "x.obj"],
+    ["--scene", "mesh_demo"],
+], ids=lambda a: "_".join(a).strip("-"))
+def test_cli_mesh_and_culled_paths_write_png(argv, tmp_path):
+    """What the port once refused: the dynamic culled path (brute force
+    with clusters), the mesh scenes and an OBJ file (a knot the test
+    writes with the port's torus_knot)."""
+    if argv[0] == "--obj":
+        obj = tmp_path / "x.obj"
+        verts, faces = torus_knot(200)
+        obj.write_text("".join(f"v {x} {y} {z}\n" for x, y, z in verts)
+                       + "".join(f"f {a + 1} {b + 1} {c + 1}\n"
+                                 for a, b, c in faces))
+        argv = ["--obj", str(obj), "--look-from", "0", "1.5", "4",
+                "--look-at", "0", "0", "0", "--vfov", "40"]
+    out = tmp_path / "r.png"
+    renderer, _ = cli.run(["--device", "cpu", "--width", "16", "--height",
+                           "9", "--spp", "1", "--max-bounces", "8",
+                           "--out", str(out), "--quiet", *argv])
+    img = read_png(str(out))
+    assert img.shape == (9, 16, 3) and img.mean() > 10
+    if "--clusters" in argv:
+        assert renderer.config.intersector == "bruteforce"
+    else:
+        assert "tri_v0" in renderer.scene_arrays
+
+
+@pytest.mark.parametrize("argv", [
     ["--intersector", "auto", "--winner-hint"],
     ["--intersector", "bvh"],
-    ["--clusters", "16"],
     ["--recluster", "2"],
     ["--winner-hint"],
-    ["--obj", "x.obj"],
     ["--scene-file", "s.json"],
     ["--tex-lut", "512"],
     ["--serve", "0"],
     ["--interactive"],
     ["--aov", "out"],
-    ["--scene", "mesh_demo"],
     ["--scene", "book_checker"],
 ], ids=lambda a: "_".join(a).strip("-"))
 def test_cli_refusals(argv, tmp_path):

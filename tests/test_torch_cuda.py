@@ -14,9 +14,16 @@ import torch
 from wavefront_path_tracer_tpu_torch.models import fused as tfused
 from wavefront_path_tracer_tpu_torch.ops import bake
 from wavefront_path_tracer_tpu_torch.ops import baked_kernels as tbk
+from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as tdk
 from wavefront_path_tracer_tpu_torch.ops import fused_kernels as tfk
-from wavefront_path_tracer_tpu_torch.renderer import render
-from wavefront_path_tracer_tpu_torch.scene import CameraController, get_scene
+from wavefront_path_tracer_tpu_torch.renderer import prepare_scene, render
+from wavefront_path_tracer_tpu_torch.scene import (
+    CameraController,
+    get_scene,
+    knot_camera,
+    knot_scene,
+    mesh_terrain_scene,
+)
 from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
 
 pytestmark = pytest.mark.cuda
@@ -116,3 +123,64 @@ def test_baked_kernel_matches_plain(device, clusters):
     if clusters:
         assert int(k[3][3]) > 0
     assert clusters != 2 or int(k[3][2]) > 0
+
+
+@pytest.mark.parametrize("case", ["terrain/dyn16", "knot1120/dyn16",
+                                  "procedural1200/dyn16", "terrain/culled8",
+                                  "terrain/unculled"])
+def test_mesh_kernels_match_plain(device, case):
+    """The dynamic culled kernel (flat and rolled sweeps, triangles and
+    spheres) and the baked kernels on triangles: radiance words and all
+    four counters bit-identical."""
+    scene_name, path = case.split("/")
+    cc = CameraController.book_one_final()
+    tris = None
+    if scene_name == "terrain":
+        scene, tris = mesh_terrain_scene(n_quads=20)
+    elif scene_name == "knot1120":
+        (scene, tris), cc = knot_scene(1120), knot_camera()
+    else:
+        scene = get_scene("procedural", n=1200, seed=3)
+    cfg = RenderConfig(width=64, height=36, engine="fused")
+    arrays = prepare_scene(scene, cfg, device, tris)
+    eye = tfused._concrete_eye(cc.view_matrix())
+    cam = torch.from_numpy(tfused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(64, 36),
+        cfg)).to(device)
+    _, planes = _planes(64, 36, device)
+    salts = (0, 0, 50, 2)
+    if path == "dyn16":
+        tab = tfused._dyn_tables(arrays, 16, camera_pos=eye)
+        before = tdk.LAUNCHES
+        k = tdk.fused_render_dynculled(tab, salts, cam, *planes)
+        torch.cuda.synchronize()
+        assert tdk.LAUNCHES == before + 1
+        p = tdk.fused_render_dynculled_reference(tab, salts, cam, *planes)
+    else:
+        clusters = 8 if path == "culled8" else 0
+        baked = tfused._baked_scene(arrays, clusters, camera_pos=eye)
+        key = "culled" if clusters else "unculled"
+        before = tbk.LAUNCHES[key]
+        k = tbk.fused_render_baked(baked, salts, cam, *planes)
+        torch.cuda.synchronize()
+        assert tbk.LAUNCHES[key] == before + 1
+        p = tbk.fused_render_baked_reference(baked, salts, cam, *planes)
+    for a, b in zip(k[:3], p[:3]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert k[3].tolist() == p[3].tolist()
+    if path != "unculled":
+        assert int(k[3][3]) > 0
+    if scene_name != "terrain":
+        assert int(k[3][2]) > 0              # rolled supers entered
+
+
+def test_mesh_render_on_cuda(device):
+    scene, tris = mesh_terrain_scene(n_quads=10)
+    before = tdk.LAUNCHES
+    cfg = RenderConfig(width=48, height=27, samples_per_pixel=2,
+                       samples_per_frame=2, max_bounces=12, engine="fused",
+                       baked_clusters=16)
+    res = render(scene, CameraController.book_one_final(), cfg, tris,
+                 device=device)
+    assert tdk.LAUNCHES == before + 1
+    assert np.isfinite(res.accumulated).all() and res.image.mean() > 0.05

@@ -110,8 +110,6 @@ def test_block_perm_bit_exact(size, block):
     {"intersector": "baked", "recluster": 1},
     {"intersector": "baked", "winner_hint": True, "baked_clusters": 16},
     {"intersector": "bvh"},
-    {"baked_clusters": 16},
-    {"baked_clusters": -1},
     {"recluster": 1, "intersector": "bruteforce"},
     {"winner_hint": True, "baked_clusters": 4},
     {"num_devices": 2},
@@ -121,6 +119,17 @@ def test_block_perm_bit_exact(size, block):
 def test_refusals(cover, change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Renderer(cover, _cover_camera(), BASE.replace(**change), device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"baked_clusters": 16},
+    {"baked_clusters": -1},
+], ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))
+def test_bruteforce_with_clusters_matches_jax(cover, change):
+    """Brute force with clusters (explicit or auto) is the dynamic culled
+    path, once refused: on book_cover every sphere is a global."""
+    t, _ = _both(cover, _cover_camera(), BASE.replace(**change))
+    assert t.image.mean() > 0.05
 
 
 def test_refuses_textured_scene():

@@ -1,5 +1,5 @@
-"""The port imports neither JAX nor the JAX package, hides no device,
-and builds for sm_90a."""
+"""The port imports neither JAX nor the JAX package (nor the repository's
+``examples/``), hides no device, and builds for sm_90a."""
 
 import re
 import subprocess
@@ -12,6 +12,7 @@ import torch
 
 from wavefront_path_tracer_tpu_torch.ops import _build
 from wavefront_path_tracer_tpu_torch.ops import baked_kernels as tbk
+from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as tdk
 from wavefront_path_tracer_tpu_torch.ops import fused_kernels as tfk
 from wavefront_path_tracer_tpu_torch.renderer import Renderer, render
 from wavefront_path_tracer_tpu_torch.scene import CameraController, book_cover
@@ -30,6 +31,7 @@ def test_port_never_imports_jax():
         # Any import of jax or of the JAX package now fails.
         sys.modules["jax"] = None
         sys.modules["wavefront_path_tracer_tpu"] = None
+        sys.modules["examples"] = None
         import torch
         torch.set_num_threads(1)
         import wavefront_path_tracer_tpu_torch.cli
@@ -37,13 +39,15 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.ops._build
         import wavefront_path_tracer_tpu_torch.ops.bake
         import wavefront_path_tracer_tpu_torch.ops.baked_kernels
+        import wavefront_path_tracer_tpu_torch.ops.dyn_tables
+        import wavefront_path_tracer_tpu_torch.ops.dynculled_kernels
         import wavefront_path_tracer_tpu_torch.ops.fused_kernels
         import wavefront_path_tracer_tpu_torch.profile_frame
         import wavefront_path_tracer_tpu_torch.utils.image
         import wavefront_path_tracer_tpu_torch.utils.parity
         from wavefront_path_tracer_tpu_torch.renderer import render
         from wavefront_path_tracer_tpu_torch.scene import (
-            CameraController, book_cover)
+            CameraController, book_cover, mesh_terrain_scene)
         from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
         cfg = RenderConfig(width=8, height=8, samples_per_pixel=1,
                            max_bounces=4, engine="fused")
@@ -51,7 +55,12 @@ def test_port_never_imports_jax():
         for extra in ({}, {"intersector": "baked", "baked_clusters": 2}):
             res = render(book_cover(), cc, cfg.replace(**extra), device="cpu")
             assert res.image.shape == (8, 8, 3)
-        for name in ("jax", "wavefront_path_tracer_tpu"):
+        scene, tris = mesh_terrain_scene(n_quads=3)
+        for extra in ({"baked_clusters": 8},
+                      {"intersector": "baked", "baked_clusters": 2}):
+            res = render(scene, cc, cfg.replace(**extra), tris, device="cpu")
+            assert res.image.shape == (8, 8, 3)
+        for name in ("jax", "wavefront_path_tracer_tpu", "examples"):
             assert sys.modules[name] is None
             assert not [m for m in sys.modules if m.startswith(name + ".")]
         print("ok")
@@ -77,7 +86,7 @@ def test_no_file_imports_the_jax_package():
                  for f in files
                  for n, line in enumerate(f.read_text().splitlines(), 1)
                  if _JAX_PACKAGE_IMPORT.search(line)
-                 or re.search(r"^\s*(import|from) jax\b", line)]
+                 or re.search(r"^\s*(import|from) (jax|examples)\b", line)]
     assert not offenders, offenders
 
 
@@ -93,8 +102,11 @@ def test_no_launches_on_cpu():
     render(book_cover(), CameraController.book_one_final(), CFG, device="cpu")
     render(book_cover(), CameraController.book_one_final(),
            CFG.replace(intersector="baked", baked_clusters=2), device="cpu")
+    render(book_cover(), CameraController.book_one_final(),
+           CFG.replace(baked_clusters=8), device="cpu")
     assert tfk.LAUNCHES == before == 0
     assert tbk.LAUNCHES == {"culled": 0, "unculled": 0}
+    assert tdk.LAUNCHES == 0
 
 
 def test_build_flags(monkeypatch):
@@ -102,10 +114,12 @@ def test_build_flags(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert not any("fast_math" in flag or "fast-math" in flag for flag in cmd)
     assert "-fmad=false" in cmd      # bit-identical to the plain version
-    assert [p.name for p in _build.sources()] == ["baked.cu", "persistent.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "baked.cu", "dynculled.cu", "persistent.cu"]
     assert [p.name for p in _build.headers()] == ["common.cuh"]
     for name, fn in (("persistent.cu", "wpt_persistent_launch"),
-                     ("baked.cu", "wpt_baked_launch")):
+                     ("baked.cu", "wpt_baked_launch"),
+                     ("dynculled.cu", "wpt_dynculled_launch")):
         src = (_build.CSRC / name).read_text()
         assert f'extern "C" int {fn}' in src
         assert "cudaGetLastError" in src

@@ -1,10 +1,12 @@
 """Command-line renderer for the PyTorch port.
 
 A subset of ``python -m wavefront_path_tracer_tpu.cli``: the fused engine
-with the brute-force and the baked intersects (``--clusters N|auto`` culls
-the baked sweep), on a torch device.  Flags of the reference CLI that
-this port does not carry yet are refused with the ROADMAP.md item that
-will bring them.
+with the brute-force and the baked intersects (``--clusters N|auto``
+culls either: the baked sweep, or the dynamic culled sweep over runtime
+tables for brute force), on sphere scenes and triangle meshes
+(``--scene mesh_demo|mesh_terrain``, ``--obj``), on a torch device.
+Flags of the reference CLI that this port does not carry yet are refused
+with the ROADMAP.md item that will bring them.
 
 Example (the headline configuration)::
 
@@ -27,7 +29,6 @@ _REFUSED = {
     "--winner-hint": ("winner_hint", "queue 2 item 2 (the winner-hint "
                                      "shortlist of the baked culled "
                                      "intersect)"),
-    "--obj": ("obj", "queue 2 item 3 (triangle meshes)"),
     "--scene-file": ("scene_file", "queue 1 item 9 (cli and app layer)"),
     "--tex-lut": ("tex_lut", "queue 2 item 5 (textures)"),
     "--serve": ("serve", "queue 1 item 9 (preview server)"),
@@ -38,8 +39,6 @@ _REFUSED_INTERSECTORS = {
     "bvh": "queue 1 item 8 (BVH traversal on the XLA-style engines)",
 }
 _REFUSED_SCENES = {
-    "mesh_demo": "queue 2 item 3 (triangle meshes)",
-    "mesh_terrain": "queue 2 item 3 (triangle meshes)",
     "book_checker": "queue 2 item 5 (textures)",
 }
 
@@ -53,8 +52,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "is no fallback to the CPU)")
     p.add_argument("--scene", default="book_one_final",
                    help="book_cover | book_one_final | book_bubble | "
-                        "procedural | cornell_spheres")
+                        "procedural | cornell_spheres | mesh_demo | "
+                        "mesh_terrain")
     p.add_argument("--scene-seed", type=int, default=42)
+    p.add_argument("--obj", default=None,
+                   help="render an OBJ file (triangle mesh over a ground "
+                        "sphere; traced with intersector 'baked' or the "
+                        "dynamic culled path)")
+    p.add_argument("--obj-scale", type=float, default=1.0)
     p.add_argument("--spheres", type=int, default=10000,
                    help="sphere count for --scene procedural")
     p.add_argument("--width", type=int, default=400)
@@ -65,14 +70,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frame", type=int, default=0, help="RNG frame salt")
     p.add_argument("--intersector", default="bruteforce",
                    choices=["bruteforce", "bvh", "baked", "auto"],
-                   help="bruteforce sweeps the sphere table; baked sweeps "
-                        "the scene baked into visit-ordered tables; auto "
-                        "picks baked below 2000 spheres (bvh is not "
-                        "ported)")
+                   help="bruteforce sweeps the sphere table (with "
+                        "--clusters, the dynamic culled tables); baked "
+                        "sweeps the scene baked into visit-ordered tables; "
+                        "auto picks baked below 2000 primitives (bvh is "
+                        "not ported)")
     p.add_argument("--clusters", default=0, metavar="N|auto",
                    type=lambda v: -1 if v == "auto" else int(v),
-                   help="baked: leaf cluster size for culling (0 = none; "
-                        "auto = 16 below 2000 spheres, 32 above)")
+                   help="leaf cluster size for culling (0 = none; auto = "
+                        "16 below 2000 primitives, 32 above; a multiple of "
+                        "8 for bruteforce)")
     p.add_argument("--sampler", default="random",
                    choices=("random", "stratified"))
     p.add_argument("--rr", type=int, default=0, metavar="BOUNCE",
@@ -94,7 +101,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--recluster", default=None, help=argparse.SUPPRESS)
     p.add_argument("--winner-hint", action="store_true", default=None,
                    help=argparse.SUPPRESS)
-    p.add_argument("--obj", default=None, help=argparse.SUPPRESS)
     p.add_argument("--scene-file", default=None, help=argparse.SUPPRESS)
     p.add_argument("--tex-lut", default=None, help=argparse.SUPPRESS)
     p.add_argument("--serve", default=None, help=argparse.SUPPRESS)
@@ -121,18 +127,28 @@ def check_args(args) -> None:
             f"{_REFUSED_SCENES[args.scene]})")
 
 
-def resolve_intersector(intersector: str, clusters: int, scene):
-    """Resolve ``auto`` for a sphere scene as the reference CLI does
-    (its ``resolve_intersector``, cli.py:183-217): baked below 2000
-    spheres, with clusters sized by count when none were asked for; the
-    brute-force path above.  Returns (intersector, clusters, notes)."""
+def resolve_intersector(intersector: str, clusters: int, scene,
+                        triangles=None):
+    """Resolve ``auto`` and the triangle upgrade as the reference CLI
+    does for the fused engine (its ``resolve_intersector``,
+    cli.py:183-217): baked below 2000 primitives (spheres and
+    triangles), with clusters sized by count when none were asked for;
+    the brute-force path above.  A mesh with no clusters goes to baked,
+    since the plain brute-force kernel is spheres-only.  Returns
+    (intersector, clusters, notes)."""
     notes = []
     if intersector == "auto":
-        intersector = "baked" if len(scene.radii) < 2000 else "bruteforce"
+        n_prims = len(scene.radii) + (
+            len(triangles.v0) if triangles is not None else 0)
+        intersector = "baked" if n_prims < 2000 else "bruteforce"
         if clusters == 0:
             clusters = -1
         notes.append(f"note: --intersector auto -> {intersector}"
                      + (" (clusters auto)" if clusters == -1 else ""))
+    if triangles is not None and intersector != "baked" and clusters == 0:
+        intersector = "baked"
+        notes.append("note: triangle scene with --engine fused and no "
+                     "--clusters -> using intersector=baked")
     return intersector, clusters, notes
 
 
@@ -175,14 +191,32 @@ def build_camera(args):
 
 
 def build_scene(args):
-    from wavefront_path_tracer_tpu_torch.scene import get_scene
+    """(scene, triangles | None) from parsed arguments, as the reference
+    CLI's ``build_scene`` (cli.py:220-251)."""
+    from wavefront_path_tracer_tpu_torch.scene import (
+        MeshSceneBuilder,
+        get_scene,
+        load_obj,
+        mesh_demo_scene,
+        mesh_terrain_scene,
+    )
 
+    if args.obj:
+        b = MeshSceneBuilder()
+        ground = b.lambertian([0.5, 0.5, 0.5])
+        b.sphere([0.0, -1000.0, 0.0], 1000.0, ground)
+        load_obj(args.obj, builder=b, scale=args.obj_scale)
+        return b.build_mesh_scene()
+    if args.scene == "mesh_demo":
+        return mesh_demo_scene()
+    if args.scene == "mesh_terrain":
+        return mesh_terrain_scene(seed=args.scene_seed)
     kwargs = {}
     if args.scene == "book_one_final":
         kwargs["seed"] = args.scene_seed
     elif args.scene == "procedural":
         kwargs = {"n": args.spheres, "seed": args.scene_seed}
-    return get_scene(args.scene, **kwargs)
+    return get_scene(args.scene, **kwargs), None
 
 
 def run(argv=None):
@@ -198,9 +232,9 @@ def run(argv=None):
         write_png,
     )
 
-    scene = build_scene(args)
+    scene, triangles = build_scene(args)
     intersector, clusters, notes = resolve_intersector(
-        args.intersector, args.clusters, scene)
+        args.intersector, args.clusters, scene, triangles)
     if not args.quiet:
         for note in notes:
             print(note, file=sys.stderr)
@@ -212,7 +246,8 @@ def run(argv=None):
         block_tiles=args.block_tiles, sampler=args.sampler,
         rr_start_bounce=args.rr, rr_floor=args.rr_floor, clamp=args.clamp,
     )
-    renderer = Renderer(scene, build_camera(args), cfg, device=args.device)
+    renderer = Renderer(scene, build_camera(args), cfg, triangles,
+                        device=args.device)
     t_start = time.perf_counter()
     rays = 0.0
     busy = 0.0

@@ -2,7 +2,8 @@
 //
 // Replaces wavefront_path_tracer_tpu/ops/pallas_kernels.py:
 // fused_render_baked (3157) with either of its intersects,
-// baked_culled_intersect (831) or baked_intersect (612), spheres only.
+// baked_culled_intersect (831) or baked_intersect (612), over spheres and
+// triangles (checker textures and the winner hint are not ported yet).
 // The persistent body (samples, bounces, raygen, shade, sky, clamp,
 // roulette) is common.cuh's, the same as persistent.cu's.
 //
@@ -26,7 +27,16 @@
 // The pair loop reads q0 and q1; q2-q4 are read once, for the winner.
 // Boxes are (n, 8) f32 rows (lo xyz, 0, hi xyz, 0); ranges are (n, 2)
 // int32 rows (first, count) into the item table (clusters) or the cluster
-// table (supers).  consts: shift xyz, slab lo xyz, slab hi xyz.
+// table (supers).  consts: shift xyz, slab lo xyz, slab hi xyz, triangle
+// slab lo xyz, hi xyz.
+//
+// Triangles (common.cuh's kTri rows) are a second item type: the
+// unculled sweep tests them after the spheres, the culled one sweeps
+// their own hierarchy (clusters, supers, slab) after the sphere
+// hierarchy, as the reference does (pallas_kernels.py:1310).  The winner
+// is one index, with kTriBit set for a triangle.  Both intersects are
+// templates on kTris: a sphere-only bake launches the kTris = false
+// instantiation, whose code is that of the sphere-only kernel.
 //
 // Culling is per thread.  A thread enters a cluster (or super) only when
 // its own ray's box cond holds against its own current best_t:
@@ -56,22 +66,17 @@
 
 namespace {
 
+using wpt::BoxRay;
 using wpt::Counts;
 using wpt::Hit;
 using wpt::kTFar;
-using wpt::kTMin;
 using wpt::kThreads;
+using wpt::kTMin;
+using wpt::kTri;
+using wpt::kTriBit;
+using wpt::nan_min;
 
 constexpr int kItem = 5;  // float4 per item row
-
-// jnp.minimum / jnp.maximum: NaN in, NaN out (fminf/fmaxf drop a NaN).
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
 
 __device__ __forceinline__ void fill_hit(const float4* __restrict__ items,
                                          int best, float best_t, Hit& h) {
@@ -89,13 +94,49 @@ __device__ __forceinline__ void fill_hit(const float4* __restrict__ items,
   h.fuzz = q3.w;
   h.ior = q2.w;
   h.mt = q4.y;
+  h.nx = 0.0f;
+  h.ny = 0.0f;
+  h.nz = 0.0f;
+  h.is_tri = false;
 }
 
-// baked_intersect.intersect (pallas_kernels.py:672-745): the generic
-// quadratic with inv_a and the disc >= 0 select, in scene order.
+// The triangles of rows first..first+count-1 against the running best.
+__device__ __forceinline__ void test_triangles(
+    const float4* __restrict__ tris, int first, int count, float ox,
+    float oy, float oz, float dx, float dy, float dz, float& best_t,
+    int& best) {
+  for (int j = first; j < first + count; ++j) {
+    const float t = wpt::tri_test(tris + kTri * j, ox, oy, oz, dx, dy, dz);
+    if (t < best_t) {
+      best_t = t;
+      best = kTriBit | j;
+    }
+  }
+}
+
+template <bool kTris>
+__device__ __forceinline__ bool finish(const float4* items,
+                                       const float4* tris, int best,
+                                       float best_t, Hit& h) {
+  if (best < 0) return false;
+  if (kTris && (best & kTriBit)) {
+    wpt::fill_tri_hit(tris, best & ~kTriBit, best_t, h);
+  } else {
+    fill_hit(items, best, best_t, h);
+  }
+  return true;
+}
+
+// baked_intersect.intersect (pallas_kernels.py:672-797): the generic
+// quadratic with inv_a and the disc >= 0 select, in scene order; then the
+// triangles in scene order.
+template <bool kTris>
 struct UnculledIntersect {
+  static constexpr bool kTriangles = kTris;
   const float4* items;
   int n_items;
+  const float4* tris;
+  int n_tris;
 
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
@@ -130,29 +171,80 @@ struct UnculledIntersect {
         best = i;
       }
     }
-    if (best < 0) return false;
-    fill_hit(items, best, best_t, h);
-    return true;
+    if (kTris)
+      test_triangles(tris, 0, n_tris, ox, oy, oz, dx, dy, dz, best_t, best);
+    return finish<kTris>(items, tris, best, best_t, h);
+  }
+};
+
+// One hierarchy of a culled bake: cluster boxes and item ranges, super
+// boxes and cluster ranges (n_supers == 0: one-level sweep), and the
+// slab that holds it.
+struct Hierarchy {
+  const float4* boxes;
+  const int2* ranges;
+  int n_clusters;
+  const float4* sboxes;
+  const int2* sranges;
+  int n_supers;
+  float lo[3], hi[3];
+
+  __device__ __forceinline__ bool enters(const BoxRay& r, const float4* b,
+                                         int k, float cap) const {
+    const float4 lo4 = __ldg(b + 2 * k);
+    const float4 hi4 = __ldg(b + 2 * k + 1);
+    return wpt::box_enters(r, lo4.x, lo4.y, lo4.z, hi4.x, hi4.y, hi4.z,
+                           cap);
+  }
+
+  // The sweep (pallas_kernels.py:1362-1455) with per-thread conds:
+  // supers front to back and the clusters of an entered super in their
+  // bake order, or the flat sorted clusters.  `fold(first, count)` tests
+  // a cluster's items against the running best_t.
+  template <class Fold>
+  __device__ __forceinline__ void sweep(const BoxRay& r, const float& best_t,
+                                        Counts& counts, Fold fold) const {
+    const float t_exit = wpt::slab_exit(r, lo[0], lo[1], lo[2], hi[0],
+                                        hi[1], hi[2]);
+    if (n_supers > 0) {
+      for (int s = 0; s < n_supers; ++s) {
+        if (!enters(r, sboxes, s, nan_min(best_t, t_exit))) continue;
+        ++counts.supers;
+        const int2 range = __ldg(sranges + s);
+        for (int c = range.x; c < range.x + range.y; ++c) {
+          if (enters(r, boxes, c, nan_min(best_t, t_exit))) {
+            ++counts.clusters;
+            const int2 items = __ldg(ranges + c);
+            fold(items.x, items.y);
+          }
+        }
+      }
+    } else {
+      for (int c = 0; c < n_clusters; ++c) {
+        if (enters(r, boxes, c, nan_min(best_t, t_exit))) {
+          ++counts.clusters;
+          const int2 items = __ldg(ranges + c);
+          fold(items.x, items.y);
+        }
+      }
+    }
   }
 };
 
 // baked_culled_intersect.intersect (pallas_kernels.py:1063-1466).
+template <bool kTris>
 struct CulledIntersect {
+  static constexpr bool kTriangles = kTris;
   const float4* items;
   int n_globals;
-  const float4* cboxes;
-  const int2* cranges;
-  int n_clusters;
-  const float4* sboxes;
-  const int2* sranges;
-  int n_supers;             // 0: one-level sweep
+  Hierarchy spheres;
+  const float4* tris;
+  Hierarchy triangles;
   float shx, shy, shz;
-  float3 slab_lo, slab_hi;
 
   struct Ray {
-    float ox, oy, oz, dx, dy, dz;
     float oxp, oyp, ozp, dd_o, oo2;
-    float idx, idy, idz;
+    float dx, dy, dz;
   };
 
   // The slimmed quadratic of sphere_tests (1090-1130), in its order of
@@ -183,48 +275,10 @@ struct CulledIntersect {
     }
   }
 
-  // box_range (1245-1259): (entry, exit) by the slab method.
-  __device__ __forceinline__ void box_range(const Ray& r, float4 lo,
-                                            float4 hi, float& tmin,
-                                            float& tmax) const {
-    const float tx0 = (lo.x - r.ox) * r.idx;
-    const float tx1 = (hi.x - r.ox) * r.idx;
-    tmin = nan_min(tx0, tx1);
-    tmax = nan_max(tx0, tx1);
-    const float ty0 = (lo.y - r.oy) * r.idy;
-    const float ty1 = (hi.y - r.oy) * r.idy;
-    tmin = nan_max(tmin, nan_min(ty0, ty1));
-    tmax = nan_min(tmax, nan_max(ty0, ty1));
-    const float tz0 = (lo.z - r.oz) * r.idz;
-    const float tz1 = (hi.z - r.oz) * r.idz;
-    tmin = nan_max(tmin, nan_min(tz0, tz1));
-    tmax = nan_min(tmax, nan_max(tz0, tz1));
-  }
-
-  // cluster_cond (1269-1272) against this ray's own cap.
-  __device__ __forceinline__ bool enters(const Ray& r, const float4* boxes,
-                                         int k, float cap) const {
-    float c_min, c_max;
-    box_range(r, __ldg(boxes + 2 * k), __ldg(boxes + 2 * k + 1), c_min,
-              c_max);
-    return (c_min <= c_max) & (c_max > kTMin)
-        & (nan_max(c_min, 0.0f) < cap);
-  }
-
-  __device__ __forceinline__ void sweep_cluster(const Ray& r, int c,
-                                                float& best_t, int& best,
-                                                Counts& counts) const {
-    ++counts.clusters;
-    const int2 range = __ldg(cranges + c);
-    for (int i = range.x; i < range.x + range.y; ++i)
-      test(r, i, best_t, best);
-  }
-
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
       Counts& counts) const {
     Ray r;
-    r.ox = ox; r.oy = oy; r.oz = oz;
     r.dx = dx; r.dy = dy; r.dz = dz;
     r.oxp = ox - shx;
     r.oyp = oy - shy;
@@ -234,78 +288,96 @@ struct CulledIntersect {
     int best = -1;
     float best_t = kTFar;
     for (int i = 0; i < n_globals; ++i) test(r, i, best_t, best);
-    if (n_clusters > 0) {
-      r.idx = 1.0f / dx;
-      r.idy = 1.0f / dy;
-      r.idz = 1.0f / dz;
-      // slab_exit (1261-1267): the exit bounds every clustered hit; a ray
-      // that misses the slab gets -1, so no cluster passes its cond.
-      float s_min, s_max;
-      box_range(r, make_float4(slab_lo.x, slab_lo.y, slab_lo.z, 0.0f),
-                make_float4(slab_hi.x, slab_hi.y, slab_hi.z, 0.0f),
-                s_min, s_max);
-      const float t_exit = ((s_min <= s_max) & (s_max > kTMin)) ? s_max
-                                                                : -1.0f;
-      if (n_supers > 0) {
-        // Two-level sweep (1442-1453): supers front to back, and the
-        // clusters of an entered super in their bake order.
-        for (int s = 0; s < n_supers; ++s) {
-          if (!enters(r, sboxes, s, nan_min(best_t, t_exit))) continue;
-          ++counts.supers;
-          const int2 range = __ldg(sranges + s);
-          for (int c = range.x; c < range.x + range.y; ++c) {
-            if (enters(r, cboxes, c, nan_min(best_t, t_exit)))
-              sweep_cluster(r, c, best_t, best, counts);
-          }
-        }
-      } else {
-        for (int c = 0; c < n_clusters; ++c) {
-          if (enters(r, cboxes, c, nan_min(best_t, t_exit)))
-            sweep_cluster(r, c, best_t, best, counts);
-        }
+    if (spheres.n_clusters > 0 || (kTris && triangles.n_clusters > 0)) {
+      const BoxRay br{ox, oy, oz, 1.0f / dx, 1.0f / dy, 1.0f / dz};
+      if (spheres.n_clusters > 0) {
+        spheres.sweep(br, best_t, counts, [&](int first, int count) {
+          for (int i = first; i < first + count; ++i)
+            test(r, i, best_t, best);
+        });
+      }
+      if (kTris && triangles.n_clusters > 0) {
+        triangles.sweep(br, best_t, counts, [&](int first, int count) {
+          test_triangles(tris, first, count, ox, oy, oz, dx, dy, dz, best_t,
+                         best);
+        });
       }
     }
-    if (best < 0) return false;
-    fill_hit(items, best, best_t, h);
-    return true;
+    return finish<kTris>(items, tris, best, best_t, h);
   }
 };
 
 // Eight blocks per SM cap both kernels at 64 registers a thread (72 by
 // default): the occupancy gained outweighs the extra spills, by 1.5% on
 // the headline frame and 5% on the unculled one (PERF.md).
+template <bool kTris>
 __global__ void __launch_bounds__(kThreads, 8)
-baked_unculled_kernel(const wpt::LaneParams p, const UnculledIntersect isect) {
+baked_unculled_kernel(const wpt::LaneParams p,
+                      const UnculledIntersect<kTris> isect) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.n_lanes) return;
   wpt::trace_lane(p, lane, isect);
 }
 
+template <bool kTris>
 __global__ void __launch_bounds__(kThreads, 8)
-baked_culled_kernel(const wpt::LaneParams p, CulledIntersect isect,
+baked_culled_kernel(const wpt::LaneParams p, CulledIntersect<kTris> isect,
                     const float* __restrict__ consts) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.n_lanes) return;
   isect.shx = __ldg(consts + 0);
   isect.shy = __ldg(consts + 1);
   isect.shz = __ldg(consts + 2);
-  isect.slab_lo = make_float3(__ldg(consts + 3), __ldg(consts + 4),
-                              __ldg(consts + 5));
-  isect.slab_hi = make_float3(__ldg(consts + 6), __ldg(consts + 7),
-                              __ldg(consts + 8));
+  for (int k = 0; k < 3; ++k) {
+    isect.spheres.lo[k] = __ldg(consts + 3 + k);
+    isect.spheres.hi[k] = __ldg(consts + 6 + k);
+    if (kTris) {
+      isect.triangles.lo[k] = __ldg(consts + 9 + k);
+      isect.triangles.hi[k] = __ldg(consts + 12 + k);
+    }
+  }
   wpt::trace_lane(p, lane, isect);
+}
+
+Hierarchy hierarchy(const float* boxes, const int* ranges, int n_clusters,
+                    const float* sboxes, const int* sranges, int n_supers) {
+  return Hierarchy{reinterpret_cast<const float4*>(boxes),
+                   reinterpret_cast<const int2*>(ranges), n_clusters,
+                   reinterpret_cast<const float4*>(sboxes),
+                   reinterpret_cast<const int2*>(sranges), n_supers,
+                   {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+}
+
+template <bool kTris>
+void launch(const wpt::LaneParams& p, int culled, const float4* items,
+            int n_globals, const Hierarchy& spheres, const float4* tris,
+            int n_tris, const Hierarchy& triangles, const float* consts,
+            cudaStream_t s) {
+  const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
+  if (culled) {
+    const CulledIntersect<kTris> isect{items, n_globals, spheres, tris,
+                                       triangles, 0.0f, 0.0f, 0.0f};
+    baked_culled_kernel<kTris><<<blocks, kThreads, 0, s>>>(p, isect, consts);
+  } else {
+    const UnculledIntersect<kTris> isect{items, n_globals, tris, n_tris};
+    baked_unculled_kernel<kTris><<<blocks, kThreads, 0, s>>>(p, isect);
+  }
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  With
-// culled == 0 the item table is swept in full (n_globals = its row count)
-// with the generic quadratic, and the box tables are not read.  The
+// culled == 0 the item and triangle tables are swept in full (n_globals =
+// the item table's row count) with the generic quadratic, and the box
+// tables are not read.  n_tris == 0 launches the sphere-only kernels.  The
 // wrapper (ops/baked_kernels.py) checks shapes, types and alignment.
 extern "C" int wpt_baked_launch(
     const float* items, int n_globals,
     const float* cboxes, const int* cranges, int n_clusters,
     const float* sboxes, const int* sranges, int n_supers,
+    const float* tris, int n_tris,
+    const float* tcboxes, const int* tcranges, int n_tri_clusters,
+    const float* tsboxes, const int* tsranges, int n_tri_supers,
     const float* consts, int culled,
     const float* cam, const uint32_t* pix, const float* xs, const float* ys,
     const float* valid, const uint32_t* soff,
@@ -320,21 +392,17 @@ extern "C" int wpt_baked_launch(
                           n_lanes, frame, sample_base, max_bounces,
                           n_samples, rr_start, rr_floor, clamp, stratified};
   const float4* item4 = reinterpret_cast<const float4*>(items);
-  const int blocks = (n_lanes + kThreads - 1) / kThreads;
+  const float4* tri4 = reinterpret_cast<const float4*>(tris);
+  const Hierarchy sph = hierarchy(cboxes, cranges, n_clusters, sboxes,
+                                  sranges, n_supers);
+  const Hierarchy tri = hierarchy(tcboxes, tcranges, n_tri_clusters,
+                                  tsboxes, tsranges, n_tri_supers);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (culled) {
-    const CulledIntersect isect{
-        item4, n_globals,
-        reinterpret_cast<const float4*>(cboxes),
-        reinterpret_cast<const int2*>(cranges), n_clusters,
-        reinterpret_cast<const float4*>(sboxes),
-        reinterpret_cast<const int2*>(sranges), n_supers,
-        0.0f, 0.0f, 0.0f, make_float3(0.0f, 0.0f, 0.0f),
-        make_float3(0.0f, 0.0f, 0.0f)};
-    baked_culled_kernel<<<blocks, kThreads, 0, s>>>(p, isect, consts);
+  if (n_tris > 0) {
+    launch<true>(p, culled, item4, n_globals, sph, tri4, n_tris, tri,
+                 consts, s);
   } else {
-    const UnculledIntersect isect{item4, n_globals};
-    baked_unculled_kernel<<<blocks, kThreads, 0, s>>>(p, isect);
+    launch<false>(p, culled, item4, n_globals, sph, tri4, 0, tri, consts, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

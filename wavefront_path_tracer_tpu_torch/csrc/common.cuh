@@ -1,15 +1,17 @@
 // Device code shared by the persistent-lane kernels (persistent.cu,
-// baked.cu): the PCG streams, primary-ray generation, shading, and the
-// per-lane sample and bounce loop with the sky/miss accumulation, the
-// clamp and Russian roulette.  Each kernel supplies only its nearest-hit
-// function (see trace_lane).
+// baked.cu, dynculled.cu): the PCG streams, primary-ray generation,
+// shading, the per-lane sample and bounce loop with the sky/miss
+// accumulation, the clamp and Russian roulette, and the box and triangle
+// tests of the culled intersects.  Each kernel supplies only its
+// nearest-hit function (see trace_lane).
 //
 // Port of wavefront_path_tracer_tpu/ops/pallas_kernels.py: _jenkins /
-// _pcg_next / _next_f32 (81-103), _raygen_tile (461), _shade_tile (167)
-// and the loop body of _persistent_impl (2451).  Every float operation is
-// written in the reference's order; with -fmad=false (ops/_build.py) the
-// results are bit-identical to the plain PyTorch versions in
-// ops/fused_kernels.py.
+// _pcg_next / _next_f32 (81-103), _raygen_tile (461), _shade_tile (167),
+// the loop body of _persistent_impl (2451), box_range (1245) and the
+// two-sided Moller-Trumbore test of tri_tests (1191).  Every float
+// operation is written in the reference's order; with -fmad=false
+// (ops/_build.py) the results are bit-identical to the plain PyTorch
+// versions in ops/fused_kernels.py.
 
 #pragma once
 
@@ -119,12 +121,16 @@ __device__ __forceinline__ void raygen(
 }
 
 // The winner of a nearest-hit search: what shade and the throughput
-// update read.
+// update read.  The triangle fields are read only by kernels whose
+// nearest-hit function has kTriangles set; sphere-only kernels never
+// write them, so they cost those kernels nothing.
 struct Hit {
   float t;
   float cx, cy, cz, inv_r;   // world-space centre; 1/r or its sign
   float ar, ag, ab;          // albedo
   float fuzz, ior, mt;       // mt: 0 Lambertian, 1 metal, 2 dielectric
+  float nx, ny, nz;          // a triangle winner's unit normal
+  bool is_tri;               // the winner is a triangle
 };
 
 // Per-lane counters; a nearest-hit function adds its cull entries.
@@ -135,6 +141,9 @@ struct Counts {
 };
 
 // _shade_tile (pallas_kernels.py:167): hit point and scattered direction.
+// With kTris, a triangle winner takes its geometric normal, flipped
+// toward the ray unless it is a dielectric (209-218).
+template <bool kTris>
 __device__ __forceinline__ void shade(
     uint32_t base, uint32_t sample, uint32_t bounce,
     float ox, float oy, float oz, float dx, float dy, float dz,
@@ -165,6 +174,13 @@ __device__ __forceinline__ void shade(
   nx *= n_norm;
   ny *= n_norm;
   nz *= n_norm;
+  if (kTris && h.is_tri) {
+    const float d_dot_tn = dx * h.nx + dy * h.ny + dz * h.nz;
+    const bool flip = (d_dot_tn > 0.0f) && (h.mt != 2.0f);
+    nx = flip ? -h.nx : h.nx;
+    ny = flip ? -h.ny : h.ny;
+    nz = flip ? -h.nz : h.nz;
+  }
 
   float lx = nx + sx, ly = ny + sy, lz = nz + sz;
   if (lx * lx + ly * ly + lz * lz < 1e-6f) {
@@ -243,7 +259,8 @@ struct LaneParams {
 
 // The persistent body (_persistent_impl) for one lane: every sample and
 // every bounce of the lane, one thread.  `isect(ox, oy, oz, dx, dy, dz,
-// hit, counts)` returns whether the ray hits and fills `hit`.  Each lane
+// hit, counts)` returns whether the ray hits and fills `hit`;
+// Isect::kTriangles says whether the winner may be a triangle.  Each lane
 // writes its own radiance words and counters once: no atomics, and the
 // result is deterministic.
 template <class Isect>
@@ -286,8 +303,8 @@ __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
           break;
         }
         float px, py, pz, ndx, ndy, ndz;
-        shade(base, sample, bounce, ox, oy, oz, dx, dy, dz, h,
-              px, py, pz, ndx, ndy, ndz);
+        shade<Isect::kTriangles>(base, sample, bounce, ox, oy, oz, dx, dy,
+                                 dz, h, px, py, pz, ndx, ndy, ndz);
         ox = px; oy = py; oz = pz;
         dx = ndx; dy = ndy; dz = ndz;
         tr *= h.ar;
@@ -316,6 +333,126 @@ __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
   p.rays[lane] = counts.rays;
   if (p.supers != nullptr) p.supers[lane] = counts.supers;
   if (p.clusters != nullptr) p.clusters[lane] = counts.clusters;
+}
+
+// jnp.minimum / jnp.maximum (and torch's): NaN in, NaN out; fminf and
+// fmaxf would drop a NaN.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// A ray with its precomputed inverse direction, for box tests.
+struct BoxRay {
+  float ox, oy, oz, idx, idy, idz;
+};
+
+// box_range (pallas_kernels.py:1245-1259): (entry, exit) by the slab
+// method.  An axis-parallel ray can give (lo - o) * inf = NaN, which the
+// NaN-keeping min/max carry into a false cond, as in the reference.
+__device__ __forceinline__ void box_range(const BoxRay& r, float lox,
+                                          float loy, float loz, float hix,
+                                          float hiy, float hiz, float& tmin,
+                                          float& tmax) {
+  const float tx0 = (lox - r.ox) * r.idx;
+  const float tx1 = (hix - r.ox) * r.idx;
+  tmin = nan_min(tx0, tx1);
+  tmax = nan_max(tx0, tx1);
+  const float ty0 = (loy - r.oy) * r.idy;
+  const float ty1 = (hiy - r.oy) * r.idy;
+  tmin = nan_max(tmin, nan_min(ty0, ty1));
+  tmax = nan_min(tmax, nan_max(ty0, ty1));
+  const float tz0 = (loz - r.oz) * r.idz;
+  const float tz1 = (hiz - r.oz) * r.idz;
+  tmin = nan_max(tmin, nan_min(tz0, tz1));
+  tmax = nan_min(tmax, nan_max(tz0, tz1));
+}
+
+// cluster_cond (1269-1272): the ray may hit something inside the box
+// nearer than `cap`.
+__device__ __forceinline__ bool box_enters(const BoxRay& r, float lox,
+                                           float loy, float loz, float hix,
+                                           float hiy, float hiz, float cap) {
+  float c_min, c_max;
+  box_range(r, lox, loy, loz, hix, hiy, hiz, c_min, c_max);
+  return (c_min <= c_max) & (c_max > kTMin) & (nan_max(c_min, 0.0f) < cap);
+}
+
+// slab_exit (1261-1267): the exit from the box that holds a hierarchy
+// bounds every hit inside it; a ray that misses the box gets -1, so no
+// cluster of it passes its cond.
+__device__ __forceinline__ float slab_exit(const BoxRay& r, float lox,
+                                           float loy, float loz, float hix,
+                                           float hiy, float hiz) {
+  float s_min, s_max;
+  box_range(r, lox, loy, loz, hix, hiy, hiz, s_min, s_max);
+  return ((s_min <= s_max) & (s_max > kTMin)) ? s_max : -1.0f;
+}
+
+// Triangle rows (ops/bake.py TRI_COLS, five float4): v0 xyz, e1.x |
+// e1.y e1.z e2.x e2.y | e2.z, unit normal | albedo rgb, fuzz | ior,
+// mat_type, 0, 0.  The pair test reads the first three.
+constexpr int kTri = 5;
+// A winner index with this bit set is a triangle row.
+constexpr int kTriBit = 1 << 30;
+
+// Two-sided Moller-Trumbore (tri_tests, pallas_kernels.py:1191-1210, and
+// tri_block, 1926-1943), in their order of operations: t, or kTFar where
+// |det| <= 1e-9, the barycentrics leave the triangle or t <= T_MIN, and
+// for a NaN padding row.
+__device__ __forceinline__ float tri_test(const float4* __restrict__ row,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz) {
+  const float4 q0 = __ldg(row);
+  const float4 q1 = __ldg(row + 1);
+  const float4 q2 = __ldg(row + 2);
+  const float e1x = q0.w, e1y = q1.x, e1z = q1.y;
+  const float e2x = q1.z, e2y = q1.w, e2z = q2.x;
+  const float pvx = dy * e2z - dz * e2y;
+  const float pvy = dz * e2x - dx * e2z;
+  const float pvz = dx * e2y - dy * e2x;
+  const float det = e1x * pvx + e1y * pvy + e1z * pvz;
+  const bool ok = fabsf(det) > 1e-9f;
+  const float inv_det = ok ? 1.0f / det : 0.0f;
+  const float tvx = ox - q0.x;
+  const float tvy = oy - q0.y;
+  const float tvz = oz - q0.z;
+  const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
+  const float qvx = tvy * e1z - tvz * e1y;
+  const float qvy = tvz * e1x - tvx * e1z;
+  const float qvz = tvx * e1y - tvy * e1x;
+  const float v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
+  const float tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
+  const bool valid = ok && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f)
+      && (tt > kTMin);
+  return valid ? tt : kTFar;
+}
+
+// A triangle winner: its normal and attributes; the sphere fields get
+// the miss values (shade reads the normal instead).
+__device__ __forceinline__ void fill_tri_hit(const float4* __restrict__ tris,
+                                             int i, float t, Hit& h) {
+  const float4 q2 = __ldg(tris + kTri * i + 2);
+  const float4 q3 = __ldg(tris + kTri * i + 3);
+  const float4 q4 = __ldg(tris + kTri * i + 4);
+  h.t = t;
+  h.cx = 0.0f;
+  h.cy = 0.0f;
+  h.cz = 0.0f;
+  h.inv_r = 1.0f;
+  h.ar = q3.x;
+  h.ag = q3.y;
+  h.ab = q3.z;
+  h.fuzz = q3.w;
+  h.ior = q4.x;
+  h.mt = q4.y;
+  h.nx = q2.y;
+  h.ny = q2.z;
+  h.nz = q2.w;
+  h.is_tri = true;
 }
 
 }  // namespace wpt

@@ -58,6 +58,7 @@ using wpt::kThreads;
 // padding row (every compare false) never wins.  The winner is carried as
 // a row index and its attributes are fetched once after the loop.
 struct TableIntersect {
+  static constexpr bool kTriangles = false;
   const float4* rows;
   int n_rows;
 

@@ -2,14 +2,17 @@
 
 Port of ``wavefront_path_tracer_tpu/models/fused.py`` for
 ``intersector="bruteforce"`` with ``baked_clusters=0`` (the (S, 16) table
-swept in full, ``ops/fused_kernels.py``) and ``intersector="baked"``
-with ``baked_clusters`` 0, N or -1 (auto): the scene baked once into
-visit-ordered tables (``ops/bake.py``) and swept unculled or through
-Morton clusters (``ops/baked_kernels.py``).  Pixels go to lanes in
-32x32 image-block order (``block_tiles``), each lane traces all of its
-pixel's samples in one kernel call, and radiance is scattered back to
-natural pixel order.  The planes are built on the scene's device, so
-nothing per pixel crosses to the host.
+swept in full, ``ops/fused_kernels.py``) or ``baked_clusters`` N or -1
+(auto: the dynamic culled intersect over runtime tables,
+``ops/dyn_tables.py`` and ``ops/dynculled_kernels.py``), and
+``intersector="baked"`` with ``baked_clusters`` 0, N or -1: the scene
+baked once into visit-ordered tables (``ops/bake.py``) and swept unculled
+or through Morton clusters (``ops/baked_kernels.py``).  Triangle meshes
+run on the baked and dynamic culled paths, as in the reference.  Pixels
+go to lanes in 32x32 image-block order (``block_tiles``), each lane
+traces all of its pixel's samples in one kernel call, and radiance is
+scattered back to natural pixel order.  The planes are built on the
+scene's device, so nothing per pixel crosses to the host.
 
 ``tile_rows``, ``lane_rotate`` and ``lane_rotate_cols`` steer TPU
 scheduling; they are accepted and do not change the image beyond the
@@ -33,6 +36,14 @@ from wavefront_path_tracer_tpu_torch.ops.bake import (
 from wavefront_path_tracer_tpu_torch.ops.baked_kernels import (
     fused_render_baked,
 )
+from wavefront_path_tracer_tpu_torch.ops.dyn_tables import (
+    DynTables,
+    device_tables,
+    pack_culled_scene,
+)
+from wavefront_path_tracer_tpu_torch.ops.dynculled_kernels import (
+    fused_render_dynculled,
+)
 from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     LANES,
     fused_render_persistent,
@@ -40,10 +51,12 @@ from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
 from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
 
 # Bakes keyed like the reference's _BAKED_CACHE (scene fingerprint,
-# cluster size, quantized camera hint) plus the device; bounded LRU, so
-# long sessions that change scenes do not grow it without end.
+# cluster size, quantized camera hint) plus the device, and the dynamic
+# culled tables keyed like its _DYN_CACHE; bounded LRUs, so long sessions
+# that change scenes do not grow them without end.
 _BAKED_CACHE_MAX = 8
 _BAKED_CACHE: OrderedDict = OrderedDict()
+_DYN_CACHE: OrderedDict = OrderedDict()
 
 
 @functools.lru_cache(maxsize=32)
@@ -73,7 +86,7 @@ def _effective_split(requested: int, n_samples: int) -> int:
 
 def check_supported(config: RenderConfig, scene_arrays) -> None:
     """Refuse what this port does not carry yet, naming the ROADMAP.md
-    item that will."""
+    item that will, and what the reference itself refuses."""
     if config.intersector == "auto":
         raise ValueError(
             "the fused engine has no 'auto' intersector: the command line "
@@ -84,11 +97,6 @@ def check_supported(config: RenderConfig, scene_arrays) -> None:
             f"intersector={config.intersector!r} does not exist on the "
             "fused engine; the BVH runs on the wavefront/megakernel "
             "engines, not ported yet (ROADMAP.md queue 1 items 4 and 8)")
-    if config.intersector == "bruteforce" and config.baked_clusters != 0:
-        raise NotImplementedError(
-            "intersector='bruteforce' with baked_clusters != 0 (the dynamic "
-            "culled intersect) is not ported yet: ROADMAP.md queue 2 item 3; "
-            "use intersector='baked' for culling")
     if config.recluster > 0:
         raise NotImplementedError(
             "recluster > 0 is not ported yet (ROADMAP.md queue 2 item 6: "
@@ -96,7 +104,8 @@ def check_supported(config: RenderConfig, scene_arrays) -> None:
     if config.winner_hint:
         raise NotImplementedError(
             "winner_hint is not ported yet: the winner-hint shortlist is "
-            "what remains of ROADMAP.md queue 2 item 2")
+            "what remains of ROADMAP.md queue 2 item 2 (the reference "
+            "carries it on intersector='baked' only)")
     if config.num_devices != 1:
         raise NotImplementedError(
             "multi-device rendering is not ported yet (ROADMAP.md queue 1 "
@@ -105,11 +114,20 @@ def check_supported(config: RenderConfig, scene_arrays) -> None:
         raise NotImplementedError(
             "textured scenes are not ported yet: checker and image textures "
             "are ROADMAP.md queue 2 items 2, 4 and 5 (and queue 1 item 3)")
-    if "tri_v0" in scene_arrays:
+    if (config.intersector == "bruteforce" and "tri_v0" in scene_arrays
+            and _resolve_clusters(config, scene_arrays) <= 0):
+        # The reference's own refusal (models/fused.py:344-349).
         raise NotImplementedError(
-            "triangle meshes are not ported yet: the dynamic culled "
-            "intersect and the baked intersects' triangle tests (ROADMAP.md "
-            "queue 2 items 2, 3 and 4)")
+            "the fused engine traces triangles with intersector='baked' "
+            "or with the dynamic culled path (baked_clusters > 0); the "
+            "plain brute-force kernel is spheres-only, as in the reference "
+            "(ROADMAP.md queue 2 item 3)")
+    if (config.intersector == "bruteforce"
+            and _resolve_clusters(config, scene_arrays) % 8):
+        raise ValueError(
+            "the dynamic culled path takes clusters of a multiple of 8 "
+            "(its tables are 8-row blocks, as in the reference), got "
+            f"{config.baked_clusters}")
 
 
 def _concrete_eye(view) -> np.ndarray:
@@ -128,41 +146,68 @@ def _resolve_clusters(config: RenderConfig, scene_arrays) -> int:
     return 16 if n < 2000 else 32
 
 
+def _quantized_hint(centers, camera_pos):
+    """(cache key, hint) of a camera position: the hint (front-to-back
+    order, a speed matter only) is quantized to 1/8 of the diagonal of
+    the sphere centres, so small camera moves reuse a bake or a table,
+    as in the reference's ``_baked_fn`` and ``_dyn_tables``."""
+    if camera_pos is None:
+        return None, None
+    camera_pos = np.asarray(camera_pos, np.float64).reshape(3)
+    diag = (float(np.linalg.norm(centers.max(axis=0) - centers.min(axis=0)))
+            if len(centers) else 1.0)
+    quant = max(diag, 1e-6) / 8.0
+    hint_key = tuple(np.round(camera_pos / quant).astype(np.int64).tolist())
+    return hint_key, np.asarray(hint_key, np.float64) * quant
+
+
+def _cached(cache, key, make):
+    """``cache[key]``, made by ``make()`` on a miss; the least recently
+    used entries beyond ``_BAKED_CACHE_MAX`` are dropped."""
+    value = cache.get(key)
+    if value is None:
+        value = cache[key] = make()
+        while len(cache) > _BAKED_CACHE_MAX:
+            cache.popitem(last=False)
+    else:
+        cache.move_to_end(key)
+    return value
+
+
 def _baked_scene(scene_arrays, clusters: int = 0,
                  camera_pos=None) -> BakedScene:
     """The bake for a scene, cluster size and camera hint, from a bounded
-    LRU.  The hint (front-to-back order, a speed matter only) is
-    quantized to 1/8 of the scene's diagonal, so small camera moves reuse
-    the bake, as in the reference's ``_baked_fn``.  The host copy of the
-    sphere tables and its fingerprint are ``scene_arrays["host_spheres"]``,
-    made once with the scene (``convert.scene_arrays_to_torch``)."""
-    host = scene_arrays["host_spheres"]
-    centers = host["centers"]
-    hint_key = None
-    if camera_pos is not None and clusters > 0:
-        camera_pos = np.asarray(camera_pos, np.float64).reshape(3)
-        diag = (float(np.linalg.norm(centers.max(axis=0)
-                                     - centers.min(axis=0)))
-                if len(centers) else 1.0)
-        quant = max(diag, 1e-6) / 8.0
-        hint_key = tuple(
-            np.round(camera_pos / quant).astype(np.int64).tolist())
-        camera_pos = np.asarray(hint_key, np.float64) * quant
+    LRU.  The host copy of the sphere and triangle tables and its
+    fingerprint are ``scene_arrays["host_scene"]``, made once with the
+    scene (``convert.scene_arrays_to_torch``)."""
+    host = scene_arrays["host_scene"]
+    hint_key, camera_pos = (_quantized_hint(host["centers"], camera_pos)
+                            if clusters > 0 else (None, None))
     device = scene_arrays["centers"].device
-    key = (centers.shape[0], host["key"], clusters, hint_key, str(device))
-    baked = _BAKED_CACHE.get(key)
-    if baked is None:
-        if clusters > 0:
-            baked = bake_culled(host, cluster_size=clusters,
-                                camera_hint=camera_pos, device=device)
-        else:
-            baked = bake_unculled(host, device=device)
-        _BAKED_CACHE[key] = baked
-        while len(_BAKED_CACHE) > _BAKED_CACHE_MAX:
-            _BAKED_CACHE.popitem(last=False)
-    else:
-        _BAKED_CACHE.move_to_end(key)
-    return baked
+    key = (host["centers"].shape[0], host["key"], clusters, hint_key,
+           str(device))
+    if clusters > 0:
+        return _cached(_BAKED_CACHE, key, lambda: bake_culled(
+            host, cluster_size=clusters, camera_hint=camera_pos,
+            device=device))
+    return _cached(_BAKED_CACHE, key,
+                   lambda: bake_unculled(host, device=device))
+
+
+def _dyn_tables(scene_arrays, cluster_size: int,
+                camera_pos=None) -> DynTables:
+    """The dynamic culled tables for a scene, cluster size and camera
+    hint (the reference's ``_dyn_tables``), from a bounded LRU.  The
+    visit order lives in the tables, so the hint is quantized only to
+    keep the cache from thrashing on small moves."""
+    host = scene_arrays["host_scene"]
+    hint_key, camera_pos = _quantized_hint(host["centers"], camera_pos)
+    device = scene_arrays["centers"].device
+    key = (host["key"], cluster_size, hint_key, str(device))
+    return _cached(_DYN_CACHE, key, lambda: device_tables(
+        pack_culled_scene(host, cluster_size=cluster_size,
+                          camera_hint=camera_pos),
+        cluster_size, device=device))
 
 
 def camera_params(cam, view, inv_proj, config: RenderConfig) -> np.ndarray:
@@ -217,9 +262,10 @@ def lane_planes(pixel_idx: torch.Tensor, width: int, tile_rows: int,
 def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
                   config: RenderConfig, frame, sample_base, n_samples: int,
                   with_stats: bool = False, lane_split: int = 1,
-                  baked: BakedScene | None = None):
+                  baked: BakedScene | None = None,
+                  dyn: DynTables | None = None):
     """Trace a subset of pixel ids (int64 tensor on the scene's device),
-    over ``baked`` when given, else over the (S, 16) table.
+    over ``baked`` or ``dyn`` when given, else over the (S, 16) table.
 
     Returns ((N, 3) radiance sum, rays traced) and, with ``with_stats``,
     a dict {iterations, supers_entered, clusters_entered} of 0-d tensors.
@@ -239,6 +285,9 @@ def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
     if baked is not None:
         rad_r, rad_g, rad_b, stats = fused_render_baked(
             baked, salts, cam_params, *planes, **opts)
+    elif dyn is not None:
+        rad_r, rad_g, rad_b, stats = fused_render_dynculled(
+            dyn, salts, cam_params, *planes, **opts)
     else:
         rad_r, rad_g, rad_b, stats = fused_render_persistent(
             scene_arrays["scene_packed"], scene_arrays["centers"].shape[0],
@@ -261,11 +310,14 @@ def _render_samples_impl(scene_arrays, cam, view, inv_proj,
     check_supported(config, scene_arrays)
     device = scene_arrays["centers"].device
     split = _effective_split(config.lane_split, n_samples)
-    baked = None
+    clusters = _resolve_clusters(config, scene_arrays)
+    tables = {}
     if config.intersector == "baked":
-        baked = _baked_scene(scene_arrays,
-                             _resolve_clusters(config, scene_arrays),
-                             camera_pos=_concrete_eye(view))
+        tables["baked"] = _baked_scene(scene_arrays, clusters,
+                                       camera_pos=_concrete_eye(view))
+    elif clusters > 0:
+        tables["dyn"] = _dyn_tables(scene_arrays, clusters,
+                                    camera_pos=_concrete_eye(view))
     if config.block_tiles:
         perm, _inv = _block_perm(config.width, config.height,
                                  config.block_tiles)
@@ -273,7 +325,7 @@ def _render_samples_impl(scene_arrays, cam, view, inv_proj,
         out = render_pixels(perm_t, scene_arrays, cam, view, inv_proj,
                             config, frame, sample_base, n_samples,
                             with_stats=with_stats, lane_split=split,
-                            baked=baked)
+                            **tables)
         radiance = torch.empty_like(out[0])
         radiance[perm_t] = out[0]
         return (radiance,) + out[1:]
@@ -282,7 +334,7 @@ def _render_samples_impl(scene_arrays, cam, view, inv_proj,
     return render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
                          config, frame, sample_base, n_samples,
                          with_stats=with_stats, lane_split=split,
-                         baked=baked)
+                         **tables)
 
 
 def render_samples(scene_arrays, cam, view, inv_proj, config: RenderConfig,

@@ -133,16 +133,30 @@ def load_library() -> ctypes.CDLL:
         *salt_args,
     ]
     fn.restype = ctypes.c_int
+    out_args = [
+        ptr, ptr, ptr, ptr, ptr, ptr,  # rad_r, rad_g, rad_b, rays, supers,
+        i32,                           # clusters, n_lanes
+    ]
     fn = lib.wpt_baked_launch
     fn.argtypes = [
         ptr, i32,                      # items, n_globals
         ptr, ptr, i32,                 # cluster boxes, ranges, n_clusters
         ptr, ptr, i32,                 # super boxes, ranges, n_supers
+        ptr, i32,                      # triangles, n_tris
+        ptr, ptr, i32,                 # triangle cluster boxes, ranges, n
+        ptr, ptr, i32,                 # triangle super boxes, ranges, n
         ptr, i32,                      # consts, culled
-        *lane_args,
-        ptr, ptr, ptr, ptr, ptr, ptr,  # rad_r, rad_g, rad_b, rays, supers,
-        i32,                           # clusters, n_lanes
-        *salt_args,
+        *lane_args, *out_args, *salt_args,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.wpt_dynculled_launch
+    fn.argtypes = [
+        ptr, ptr, ptr, ptr,            # spheres, boxes, super boxes, slab
+        ptr, ptr, ptr, ptr,            # the same for the triangles
+        i32, i32, i32, i32, i32, i32,  # n_globals, n_clusters, n_supers,
+                                       # n_tri_clusters, n_tri_supers,
+                                       # cluster_size
+        *lane_args, *out_args, *salt_args,
     ]
     fn.restype = ctypes.c_int
     return lib

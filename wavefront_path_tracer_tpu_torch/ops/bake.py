@@ -1,8 +1,8 @@
-"""Host bake of a sphere scene for the baked intersects.
+"""Host bake of a scene (spheres and triangles) for the baked intersects.
 
 Port of the bake halves of ``wavefront_path_tracer_tpu/ops/pallas_kernels.py``:
 the attribute pack rule (``_pack_albedo_mat`` and friends, 374-458),
-``_t2_elidable`` (532, spheres), ``_morton_order`` (811), and what
+``_t2_elidable`` (532), ``_morton_order`` (811), and what
 ``baked_intersect`` (612) and ``baked_culled_intersect`` (831) compute at
 bake time.  The TPU kernel closed over these values as vector immediates;
 here they become device tables (:class:`BakedScene`) that the CUDA kernel
@@ -24,6 +24,16 @@ The pair loop reads columns 0-7 only; the rest is read for the winner.
 Every constant is rounded to float32 as the JAX closure's Python floats
 are when they meet float32 arrays (doubling is exact, so 2c' is the
 rounding of the reference's ``2.0 * cxp``).
+
+The triangle table (``TRI_COLS`` columns, the same layout for the
+dynamic tables of ``ops/dyn_tables.py``) holds, per triangle::
+
+    0-2 v0, 3-5 e1 = v1 - v0, 6-8 e2 = v2 - v0, 9-11 unit normal,
+    12-14 albedo rgb (decoded), 15 fuzz, 16 ior, 17 mat_type, 18-19 0
+
+so its first three float4 are what the pair test reads.  The culled bake
+sweeps triangles in a hierarchy of their own (Morton order of centroids,
+its own slab), after the spheres; triangles are never globals.
 """
 
 from __future__ import annotations
@@ -33,15 +43,20 @@ import dataclasses
 import numpy as np
 import torch
 
+from wavefront_path_tracer_tpu_torch.scene.mesh import TriangleSoA
+
 T_MIN = 0.001
 SUPER_FACTOR = 8
 SUPER_GATE = 48
 GLOBAL_RADIUS_FACTOR = 10.0
 
 ITEM_COLS = 20
+TRI_COLS = 20
 
 SPHERE_KEYS = ("centers", "radii", "albedo", "fuzz", "refract_idx",
                "mat_type")
+TRI_KEYS = ("tri_v0", "tri_e1", "tri_e2", "tri_albedo", "tri_fuzz",
+            "tri_refract", "tri_mat_type")
 
 
 def _signed32(word):
@@ -69,17 +84,22 @@ def _unpack_albedo_mat(pk1, pk2):
             (pk2 & 3).astype(f32))
 
 
-def _pack_albedo_ok(albedo):
-    """Packing precondition: every albedo in [0, 1], the quantization
-    grid's domain; other scenes keep exact floats."""
+def _pack_albedo_ok(albedo, triangles=None):
+    """Packing precondition: every albedo (spheres and triangles) in
+    [0, 1], the quantization grid's domain; other scenes keep exact
+    floats."""
     a = np.asarray(albedo, np.float64)
-    return bool((a >= 0.0).all() and (a <= 1.0).all())
+    ok = bool((a >= 0.0).all() and (a <= 1.0).all())
+    if ok and triangles is not None and triangles.num_triangles:
+        ta = np.asarray(triangles.albedo, np.float64)
+        ok = bool((ta >= 0.0).all() and (ta <= 1.0).all())
+    return ok
 
 
-def _resolve_pack(albedo):
+def _resolve_pack(albedo, triangles=None):
     """The pack width the reference's bake uses by default: "16", or
     None (exact floats) when some albedo leaves [0, 1]."""
-    return "16" if _pack_albedo_ok(albedo) else None
+    return "16" if _pack_albedo_ok(albedo, triangles) else None
 
 
 def decoded_attributes(albedo, mat_type, packed: bool):
@@ -95,11 +115,12 @@ def decoded_attributes(albedo, mat_type, packed: bool):
                                        words[:, 1].astype(np.int32)), axis=1)
 
 
-def _t2_elidable(centers, radii, mat_type, fuzz):
+def _t2_elidable(centers, radii, mat_type, fuzz, triangles=None):
     """Per-sphere flag: the far-root (t2) select can be elided, because no
     reachable ray starts inside the sphere (the reference's
-    ``_t2_elidable`` for sphere scenes; see its docstring for the rule
-    and its known near-graze divergence)."""
+    ``_t2_elidable``; see its docstring for the rule and its known
+    near-graze divergence).  A triangle whose box comes within reach of a
+    sphere's interior keeps that sphere's far root."""
     c = np.asarray(centers, np.float64)
     r = np.abs(np.asarray(radii, np.float64))
     mt = np.asarray(mat_type, np.float64)
@@ -117,6 +138,20 @@ def _t2_elidable(centers, radii, mat_type, fuzz):
                                                            1e-30)),
                          eps8 * (d + r[None, :] + r[s:e, None]))
         safe[s:e] &= ~(pen > tol).any(axis=1)
+    if triangles is not None and triangles.num_triangles:
+        v0 = np.asarray(triangles.v0, np.float64)
+        v1 = v0 + np.asarray(triangles.e1, np.float64)
+        v2 = v0 + np.asarray(triangles.e2, np.float64)
+        lo = np.minimum(np.minimum(v0, v1), v2)
+        hi = np.maximum(np.maximum(v0, v1), v2)
+        for s in range(0, n, 256):
+            e = min(n, s + 256)
+            near = np.clip(c[s:e, None, :], lo[None], hi[None])
+            d = np.sqrt(((near - c[s:e, None, :]) ** 2).sum(-1))
+            tol = np.maximum(T_MIN * T_MIN / (8.0 * np.maximum(r[s:e, None],
+                                                               1e-30)),
+                             eps8 * (d + r[s:e, None]))
+            safe[s:e] &= ~(d < r[s:e, None] - tol).any(axis=1)
     return safe
 
 
@@ -143,16 +178,20 @@ class BakedScene:
     """Device tables of one bake (layout: the module docstring and
     ``csrc/baked.cu``).
 
-    ``items`` are in visit order: for a culled bake the globals in scene
-    order, then each cluster's spheres (Morton order) cluster by cluster
-    in sweep order; for an unculled bake every sphere in scene order.
-    ``cluster_boxes``/``cluster_ranges`` hold one row per cluster in
-    sweep order; ``super_boxes``/``super_ranges`` are empty unless the
-    sweep is two-level (more than ``SUPER_GATE`` clusters).  ``consts`` is
-    (16,) float32: shift xyz, slab lo xyz, slab hi xyz, zeros.  The
-    metadata match the reference closure's attributes of the same names;
-    ``cluster_aabbs`` lists (lo, hi) per cluster in the one-level visit
-    order (nearest box to the camera hint first).
+    ``items`` are the spheres in visit order: for a culled bake the
+    globals in scene order, then each cluster's spheres (Morton order)
+    cluster by cluster in sweep order; for an unculled bake every sphere
+    in scene order.  ``cluster_boxes``/``cluster_ranges`` hold one row
+    per sphere cluster in sweep order; ``super_boxes``/``super_ranges``
+    are empty unless that sweep is two-level (more than ``SUPER_GATE``
+    clusters).  The ``tri_*`` tables are the same for the triangles
+    (``tri_items`` in scene order for an unculled bake; all empty without
+    triangles).  ``consts`` is (16,) float32: shift xyz, sphere slab lo
+    xyz, hi xyz, triangle slab lo xyz, hi xyz, 0.  The metadata match
+    the reference closure's attributes of the same names, both
+    hierarchies together; ``cluster_aabbs`` lists (lo, hi) per cluster
+    in the one-level visit order (nearest box to the camera hint first),
+    spheres first.
     """
 
     culled: bool
@@ -161,6 +200,11 @@ class BakedScene:
     cluster_ranges: torch.Tensor
     super_boxes: torch.Tensor
     super_ranges: torch.Tensor
+    tri_items: torch.Tensor
+    tri_cluster_boxes: torch.Tensor
+    tri_cluster_ranges: torch.Tensor
+    tri_super_boxes: torch.Tensor
+    tri_super_ranges: torch.Tensor
     consts: torch.Tensor
     n_globals: int
     n_clusters: int
@@ -174,6 +218,10 @@ class BakedScene:
         return self.items.shape[0]
 
     @property
+    def n_triangles(self) -> int:
+        return self.tri_items.shape[0]
+
+    @property
     def mean_cluster_size(self) -> float:
         return self.n_clustered_items / max(self.n_clusters, 1)
 
@@ -184,18 +232,34 @@ class BakedScene:
         return dataclasses.replace(self, **tensors)
 
 
-def host_spheres(scene_arrays) -> dict:
+def host_scene(scene_arrays) -> dict:
     """The sphere tables of ``scene_arrays`` (tensors on any device, or
-    anything ``np.asarray`` takes) as float32 numpy arrays, plus
-    ``"key"``, a fingerprint of their bytes for the bake cache."""
+    anything ``np.asarray`` takes), and its triangle tables when it has
+    triangles, as float32 numpy arrays, plus ``"key"``: one fingerprint
+    of all their bytes, for the bake and dynamic-table caches.  Made
+    once per scene (``convert.scene_arrays_to_torch``)."""
+    keys = SPHERE_KEYS
+    if "tri_v0" in scene_arrays and scene_arrays["tri_v0"].shape[0]:
+        keys = keys + TRI_KEYS
     out = {}
-    for key in SPHERE_KEYS:
+    for key in keys:
         v = scene_arrays[key]
         if isinstance(v, torch.Tensor):
             v = v.cpu().numpy()
         out[key] = np.asarray(v, np.float32)
-    out["key"] = hash(b"".join(out[k].tobytes() for k in SPHERE_KEYS))
+    out["key"] = hash(b"".join(out[k].tobytes() for k in keys))
     return out
+
+
+def _host(scene_arrays) -> dict:
+    return scene_arrays if "key" in scene_arrays else host_scene(scene_arrays)
+
+
+def host_triangles(host) -> TriangleSoA | None:
+    """The triangles of a :func:`host_scene` copy, or None."""
+    if "tri_v0" not in host:
+        return None
+    return TriangleSoA(*(host[k] for k in TRI_KEYS))
 
 
 def _item_rows(a, idx, q0, any_neg, elide, attrs, culled):
@@ -218,7 +282,82 @@ def _item_rows(a, idx, q0, any_neg, elide, attrs, culled):
     return rows
 
 
-def _tables(culled, items, clusters, supers, consts, **meta):
+def tri_rows(tris: TriangleSoA, nrm, packed: bool) -> np.ndarray:
+    """(T, TRI_COLS) float32 rows of the triangles in scene order, with
+    the unit normals ``nrm`` and the attributes decoded from the pack
+    when ``packed``."""
+    rows = np.zeros((tris.num_triangles, TRI_COLS), np.float32)
+    rows[:, 0:3] = tris.v0
+    rows[:, 3:6] = tris.e1
+    rows[:, 6:9] = tris.e2
+    rows[:, 9:12] = nrm
+    attrs = decoded_attributes(tris.albedo, tris.mat_type, packed)
+    rows[:, 12:15] = attrs[:, 0:3]
+    rows[:, 15] = tris.fuzz
+    rows[:, 16] = tris.refract_idx
+    rows[:, 17] = attrs[:, 3]
+    return rows
+
+
+def _hierarchy(aabb_lo, aabb_hi, members, cluster_size, camera_hint):
+    """Clusters of ``cluster_size`` consecutive members, supers of
+    ``SUPER_FACTOR`` clusters and the slab over per-member boxes (the
+    reference's ``build_hierarchy``, pallas_kernels.py:991-1024).
+    Membership follows the given (Morton) order, so boxes stay tight;
+    with a camera hint the visit order is nearest box first at both
+    levels, clusters re-sorted within their super.  Returns (clusters,
+    supers, slab): clusters as (lo, hi, members, key) and supers as (lo,
+    hi, clusters, key), each list in visit order."""
+    def key(lo, hi, start):
+        if camera_hint is None:
+            return float(start)
+        # Squared distance from the hint to the box; 0 inside it.
+        p = np.minimum(np.maximum(np.asarray(camera_hint, np.float64),
+                                  lo), hi)
+        return float(np.sum((p - camera_hint) ** 2))
+
+    clusters = []
+    for start in range(0, len(members), cluster_size):
+        sl = slice(start, start + cluster_size)
+        lo = aabb_lo[sl].min(axis=0)
+        hi = aabb_hi[sl].max(axis=0)
+        clusters.append((lo.tolist(), hi.tolist(), members[sl],
+                         key(lo, hi, start)))
+    supers = []
+    for start in range(0, len(clusters), SUPER_FACTOR):
+        grp = sorted(clusters[start:start + SUPER_FACTOR],
+                     key=lambda c: c[3])
+        lo = np.min([c[0] for c in grp], axis=0)
+        hi = np.max([c[1] for c in grp], axis=0)
+        supers.append((lo.tolist(), hi.tolist(), grp, key(lo, hi, start)))
+    supers.sort(key=lambda s: s[3])
+    clusters.sort(key=lambda c: c[3])
+    return clusters, supers, (aabb_lo.min(axis=0), aabb_hi.max(axis=0))
+
+
+def _sweep(clusters, supers, first):
+    """A hierarchy's sweep: the flat sorted clusters, or super by super
+    above ``SUPER_GATE`` (clusters sorted within their super).  Returns
+    (members in sweep order, cluster rows, super rows); a row is (lo, hi,
+    (first, count)), cluster item ranges counted from ``first``."""
+    two_level = len(clusters) > SUPER_GATE
+    sweep = [c for s in supers for c in s[2]] if two_level else clusters
+    members, cluster_rows = [], []
+    for lo, hi, mem, _ in sweep:
+        cluster_rows.append((lo, hi, (first, len(mem))))
+        members.append(mem)
+        first += len(mem)
+    super_rows = []
+    if two_level:
+        k = 0
+        for lo, hi, grp, _ in supers:
+            super_rows.append((lo, hi, (k, len(grp))))
+            k += len(grp)
+    return members, cluster_rows, super_rows
+
+
+def _tables(culled, items, clusters, supers, tris, tri_clusters, tri_supers,
+            consts, **meta):
     def f32(rows, width):
         return torch.from_numpy(
             np.asarray(rows, np.float32).reshape(-1, width))
@@ -235,17 +374,25 @@ def _tables(culled, items, clusters, supers, consts, **meta):
         cluster_ranges=i32([rng for _, _, rng in clusters]),
         super_boxes=boxes(supers),
         super_ranges=i32([rng for _, _, rng in supers]),
+        tri_items=f32(tris, TRI_COLS),
+        tri_cluster_boxes=boxes(tri_clusters),
+        tri_cluster_ranges=i32([rng for _, _, rng in tri_clusters]),
+        tri_super_boxes=boxes(tri_supers),
+        tri_super_ranges=i32([rng for _, _, rng in tri_supers]),
         consts=f32(consts, 16).reshape(16), **meta)
 
 
 def bake_unculled(scene_arrays, *, device="cpu") -> BakedScene:
-    """The bake of ``baked_intersect`` (pallas_kernels.py:632-670, spheres):
-    every sphere in scene order, with elision flags, sign-only 1/r and
-    the attribute pack."""
-    a = host_spheres(scene_arrays)
+    """The bake of ``baked_intersect`` (pallas_kernels.py:632-670):
+    every sphere, then every triangle, in scene order, with elision
+    flags, sign-only 1/r and the attribute pack.  The triangle normals
+    are normalised without a floor, as the reference's are (663)."""
+    a = _host(scene_arrays)
+    tris = host_triangles(a)
     n = a["centers"].shape[0]
-    pack_w = _resolve_pack(a["albedo"])
-    elide = _t2_elidable(a["centers"], a["radii"], a["mat_type"], a["fuzz"])
+    pack_w = _resolve_pack(a["albedo"], tris)
+    elide = _t2_elidable(a["centers"], a["radii"], a["mat_type"], a["fuzz"],
+                         tris)
     attrs = decoded_attributes(a["albedo"], a["mat_type"], pack_w is not None)
     r64 = a["radii"].astype(np.float64)
     q0 = np.concatenate([a["centers"],
@@ -253,7 +400,13 @@ def bake_unculled(scene_arrays, *, device="cpu") -> BakedScene:
     idx = np.arange(n)
     items = _item_rows(a, idx, q0, bool((a["radii"] < 0).any()), elide,
                        attrs, culled=False)
-    return _tables(False, items, [], [], np.zeros(16, np.float32),
+    t_rows = np.zeros((0, TRI_COLS), np.float32)
+    if tris is not None:
+        nrm = np.cross(tris.e1, tris.e2)
+        nrm = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
+        t_rows = tri_rows(tris, nrm, pack_w is not None)
+    return _tables(False, items, [], [], t_rows, [], [],
+                   np.zeros(16, np.float32),
                    n_globals=n, n_clusters=0, n_supers=0,
                    n_clustered_items=0, pack_attrs=pack_w,
                    cluster_aabbs=()).to(device)
@@ -262,7 +415,7 @@ def bake_unculled(scene_arrays, *, device="cpu") -> BakedScene:
 def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
                 device="cpu") -> BakedScene:
     """The bake of ``baked_culled_intersect`` (pallas_kernels.py:906-1061,
-    1468-1486; spheres, no textures, no winner hint).
+    1468-1486; no textures, no winner hint).
 
     Giant spheres (radius above ``GLOBAL_RADIUS_FACTOR`` x the median)
     are globals, swept first; the rest go into Morton clusters of
@@ -271,12 +424,15 @@ def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
     Morton order without one.  A scene with at most ``2 * cluster_size``
     non-global spheres is all globals.  The slimmed quadratic runs in a
     frame shifted to the per-axis median of the clustered centres.
+    Triangles get a hierarchy of their own, built the same way over the
+    Morton order of their centroids, swept after the spheres.
     """
-    a = host_spheres(scene_arrays)
+    a = _host(scene_arrays)
+    tris = host_triangles(a)
     centers, radii = a["centers"], a["radii"]
     n = centers.shape[0]
-    pack_w = _resolve_pack(a["albedo"])
-    elide = _t2_elidable(centers, radii, a["mat_type"], a["fuzz"])
+    pack_w = _resolve_pack(a["albedo"], tris)
+    elide = _t2_elidable(centers, radii, a["mat_type"], a["fuzz"], tris)
     any_neg = bool((radii < 0).any())
     attrs = decoded_attributes(a["albedo"], a["mat_type"], pack_w is not None)
 
@@ -296,43 +452,20 @@ def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
     else:
         shift = (0.0, 0.0, 0.0)
 
-    def hint_dist(lo, hi):
-        # Squared distance from the hint to the box; 0 inside it.
-        p = np.minimum(np.maximum(np.asarray(camera_hint, np.float64),
-                                  lo), hi)
-        return float(np.sum((p - camera_hint) ** 2))
-
-    clusters, supers, slab = [], [], None
+    consts = np.zeros(16, np.float32)
+    consts[0:3] = shift
+    clusters, supers = [], []
     if rest.size:
         order = rest[_morton_order(centers[rest])]
         # |r|: negative (inside-out) radii span the same box.
-        aabb_lo = centers[order] - np.abs(radii[order, None])
-        aabb_hi = centers[order] + np.abs(radii[order, None])
-        for start in range(0, len(order), cluster_size):
-            sl = slice(start, start + cluster_size)
-            lo = aabb_lo[sl].min(axis=0)
-            hi = aabb_hi[sl].max(axis=0)
-            clusters.append((lo.tolist(), hi.tolist(), order[sl],
-                             hint_dist(lo, hi) if camera_hint is not None
-                             else float(start)))
-        for start in range(0, len(clusters), SUPER_FACTOR):
-            grp = sorted(clusters[start:start + SUPER_FACTOR],
-                         key=lambda c: c[3])
-            lo = np.min([c[0] for c in grp], axis=0)
-            hi = np.max([c[1] for c in grp], axis=0)
-            supers.append((lo.tolist(), hi.tolist(), grp,
-                           hint_dist(lo, hi) if camera_hint is not None
-                           else float(start)))
-        supers.sort(key=lambda s: s[3])
-        clusters.sort(key=lambda c: c[3])
-        slab = (aabb_lo.min(axis=0), aabb_hi.max(axis=0))
-
-    # Sweep order: the flat sorted clusters, or super by super above the
-    # gate (clusters sorted within their super).
-    two_level = len(clusters) > SUPER_GATE
-    sweep = ([c for s in supers for c in s[2]] if two_level else clusters)
-    visit = [global_idx] + [c[2] for c in sweep]
-    idx = np.concatenate(visit).astype(np.int64)
+        clusters, supers, slab = _hierarchy(
+            centers[order] - np.abs(radii[order, None]),
+            centers[order] + np.abs(radii[order, None]), order,
+            cluster_size, camera_hint)
+        consts[3:6], consts[6:9] = slab
+    members, cluster_rows, super_rows = _sweep(clusters, supers,
+                                               len(global_idx))
+    idx = np.concatenate([global_idx] + members).astype(np.int64)
 
     q0 = np.zeros((len(idx), 4), np.float32)
     for k, i in enumerate(idx):
@@ -348,27 +481,31 @@ def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
                          - np.float64(r) * r)
     items = _item_rows(a, idx, q0, any_neg, elide, attrs, culled=True)
 
-    first = len(global_idx)
-    cluster_rows = []
-    for lo, hi, members, _ in sweep:
-        cluster_rows.append((lo, hi, (first, len(members))))
-        first += len(members)
-    super_rows = []
-    if two_level:
-        first = 0
-        for lo, hi, grp, _ in supers:
-            super_rows.append((lo, hi, (first, len(grp))))
-            first += len(grp)
+    t_clusters, t_supers = [], []
+    t_items = np.zeros((0, TRI_COLS), np.float32)
+    t_cluster_rows, t_super_rows = [], []
+    if tris is not None:
+        v0, e1, e2 = tris.v0, tris.e1, tris.e2
+        nrm = np.cross(e1, e2)
+        nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True),
+                               1e-20)
+        t_order = _morton_order(v0 + (e1 + e2) / 3.0)
+        verts = np.stack([v0, v0 + e1, v0 + e2], axis=1)[t_order]
+        t_clusters, t_supers, t_slab = _hierarchy(
+            verts.min(axis=1), verts.max(axis=1), t_order, cluster_size,
+            camera_hint)
+        consts[9:12], consts[12:15] = t_slab
+        t_members, t_cluster_rows, t_super_rows = _sweep(t_clusters,
+                                                         t_supers, 0)
+        t_items = tri_rows(tris, nrm, pack_w is not None)[
+            np.concatenate(t_members)]
 
-    consts = np.zeros(16, np.float32)
-    consts[0:3] = shift
-    if slab is not None:
-        consts[3:6] = slab[0]
-        consts[6:9] = slab[1]
+    all_clusters = clusters + t_clusters
     return _tables(
-        True, items, cluster_rows, super_rows, consts,
-        n_globals=len(global_idx), n_clusters=len(clusters),
-        n_supers=len(supers),
-        n_clustered_items=sum(len(c[2]) for c in clusters),
+        True, items, cluster_rows, super_rows, t_items, t_cluster_rows,
+        t_super_rows, consts,
+        n_globals=len(global_idx), n_clusters=len(all_clusters),
+        n_supers=len(supers) + len(t_supers),
+        n_clustered_items=sum(len(c[2]) for c in all_clusters),
         pack_attrs=pack_w,
-        cluster_aabbs=tuple((c[0], c[1]) for c in clusters)).to(device)
+        cluster_aabbs=tuple((c[0], c[1]) for c in all_clusters)).to(device)

@@ -5,9 +5,10 @@ CUDA kernel.
 Port of ``wavefront_path_tracer_tpu/ops/pallas_kernels.py``:
 ``fused_render_baked`` (3157) with ``baked_intersect`` (612, the
 unculled sweep) or ``baked_culled_intersect`` (831, Morton clusters under
-box conds), spheres only.  The tables come from ``ops/bake.py``; the
-kernel is ``csrc/baked.cu``; the persistent loop, raygen and shade are
-those of ``ops/fused_kernels.py``.
+box conds), spheres and triangles (two-sided Moller-Trumbore, after the
+spheres; checker textures and the winner hint are not ported yet).  The
+tables come from ``ops/bake.py``; the kernel is ``csrc/baked.cu``; the
+persistent loop, raygen and shade are those of ``ops/fused_kernels.py``.
 
 Culling is decided per ray, against the ray's own current nearest hit
 (the TPU kernel decided per 1024-lane tile, by consensus, with a cap one
@@ -20,7 +21,11 @@ from __future__ import annotations
 
 import torch
 
-from wavefront_path_tracer_tpu_torch.ops.bake import ITEM_COLS, BakedScene
+from wavefront_path_tracer_tpu_torch.ops.bake import (
+    ITEM_COLS,
+    TRI_COLS,
+    BakedScene,
+)
 from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     T_FAR,
     T_MIN,
@@ -42,17 +47,33 @@ def _col(v):
     return v[:, None]
 
 
-def _winner(items, best_t, best_i):
+def _winner(items, best_t, best_i, tris=None):
     """The intersect tuple of the winners' rows: (best_t, cx, cy, cz,
     1/r sign, albedo rgb, fuzz, ior, mat_type); a miss carries
-    (T_FAR, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0)."""
+    (T_FAR, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0).  With a triangle table
+    ``tris`` the index space runs on past the spheres into it, and the
+    tuple gains (nx, ny, nz, is_tri): a triangle winner carries its
+    normal and a sphere winner zeros (shade reads one or the other)."""
+    n = items.shape[0]
     hit = best_i >= 0
-    row = items[best_i.clamp_min(0)]
-    # Columns of ops/bake.py's item table, in the tuple's order.
-    row = row[:, [8, 9, 10, 16, 12, 13, 14, 15, 11, 17]]
     miss = torch.tensor(_MISS, dtype=torch.float32, device=items.device)
-    row = torch.where(hit[:, None], row, miss)
-    return (best_t, *row.unbind(dim=1))
+    sph = best_i < n
+    row = items[best_i.clamp(0, max(n - 1, 0))] if n else None
+    # Columns of ops/bake.py's item table, in the tuple's order.
+    row = (row[:, [8, 9, 10, 16, 12, 13, 14, 15, 11, 17]] if n
+           else miss.expand(best_i.shape[0], -1))
+    row = torch.where((hit & sph)[:, None], row, miss)
+    if tris is None:
+        return (best_t, *row.unbind(dim=1))
+    is_tri = hit & ~sph
+    trow = tris[(best_i - n).clamp(0, max(tris.shape[0] - 1, 0))]
+    # (albedo rgb, fuzz, ior, mat_type) into the tuple's slots 5-10.
+    tattr = trow[:, [12, 13, 14, 15, 16, 17]]
+    row = torch.cat([row[:, :4], torch.where(is_tri[:, None], tattr,
+                                             row[:, 4:])], dim=1)
+    nrm = torch.where(is_tri[:, None], trow[:, 9:12], 0.0)
+    return (best_t, *row.unbind(dim=1), *nrm.unbind(dim=1),
+            is_tri.to(torch.float32))
 
 
 def _take(t, offset, best_t, best_i, mask=None):
@@ -69,12 +90,55 @@ def _take(t, offset, best_t, best_i, mask=None):
             torch.where(better, k + offset, best_i))
 
 
+def tri_t(tris, ox, oy, oz, dx, dy, dz):
+    """Per-triangle ``t`` (rays x triangles) of the two-sided
+    Moller-Trumbore test over ``TRI_COLS`` rows (``tri_tests``,
+    pallas_kernels.py:1191-1210, in its order of operations): ``T_FAR``
+    where |det| <= 1e-9, the barycentrics leave the triangle or ``t`` <=
+    T_MIN.  A NaN padding row gives ``T_FAR``."""
+    v0x, v0y, v0z = tris[:, 0], tris[:, 1], tris[:, 2]
+    e1x, e1y, e1z = tris[:, 3], tris[:, 4], tris[:, 5]
+    e2x, e2y, e2z = tris[:, 6], tris[:, 7], tris[:, 8]
+    dx, dy, dz = _col(dx), _col(dy), _col(dz)
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok = torch.abs(det) > 1e-9
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    tvx = _col(ox) - v0x
+    tvy = _col(oy) - v0y
+    tvz = _col(oz) - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    tt = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    valid = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (tt > T_MIN)
+    return torch.where(valid, tt, T_FAR)
+
+
+def take_subset(t_fn, rows, offset, best_t, best_i, enter, rays):
+    """Fold the items ``rows`` into the running nearest hit of the rays
+    where ``enter`` holds, computing ``t_fn(rows, *rays)`` for those rays
+    only (elementwise, so the values are those of a full pass)."""
+    r = torch.nonzero(enter)[:, 0]
+    if r.numel():
+        t = t_fn(rows, *(v[r] for v in rays))
+        bt, bi = _take(t, offset, best_t[r], best_i[r])
+        best_t = best_t.index_put((r,), bt)
+        best_i = best_i.index_put((r,), bi)
+    return best_t, best_i
+
+
 def baked_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz):
     """Nearest hit over an unculled bake (``baked_intersect.intersect``,
-    pallas_kernels.py:672-745): the generic quadratic with ``inv_a`` and
-    the ``disc >= 0`` select, far root elided per sphere, in scene order.
-    Returns the winner tuple and (None, None) for the cull counters."""
-    items = baked.items
+    pallas_kernels.py:672-797): the generic quadratic with ``inv_a`` and
+    the ``disc >= 0`` select, far root elided per sphere, then the
+    triangles, all in scene order.  Returns the winner tuple and (None,
+    None) for the cull counters."""
+    items, tris = baked.items, baked.tri_items
     a_q = dx * dx + dy * dy + dz * dz
     inv_a = 1.0 / a_q
     best_t = torch.full_like(ox, T_FAR)
@@ -95,7 +159,12 @@ def baked_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz):
         t = torch.where(t1 > T_MIN, t1, far)
         t = torch.where(disc >= 0.0, t, T_FAR)
         best_t, best_i = _take(t, lo, best_t, best_i)
-    return _winner(items, best_t, best_i) + (None, None)
+    if not baked.n_triangles:
+        return _winner(items, best_t, best_i) + (None, None)
+    for lo in range(0, tris.shape[0], _ITEM_BLOCK):
+        t = tri_t(tris[lo:lo + _ITEM_BLOCK], ox, oy, oz, dx, dy, dz)
+        best_t, best_i = _take(t, items.shape[0] + lo, best_t, best_i)
+    return _winner(items, best_t, best_i, tris) + (None, None)
 
 
 def _box_range(lo, hi, ox, oy, oz, idx, idy, idz):
@@ -113,6 +182,15 @@ def _box_range(lo, hi, ox, oy, oz, idx, idy, idz):
         tmin = torch.maximum(tmin, lo_a)
         tmax = torch.minimum(tmax, hi_a)
     return tmin, tmax
+
+
+def slab_exit(lo, hi, ox, oy, oz, idx, idy, idz):
+    """``slab_exit`` (pallas_kernels.py:1261-1267): the exit distance
+    from the box that holds a hierarchy, which bounds every hit inside
+    it; -1 for a ray that misses the box."""
+    s_min, s_max = _box_range(lo, hi, ox, oy, oz, idx, idy, idz)
+    s_min, s_max = s_min[:, 0], s_max[:, 0]
+    return torch.where((s_min <= s_max) & (s_max > T_MIN), s_max, -1.0)
 
 
 def _slim_t(items, oxp, oyp, ozp, dd_o, oo2, dx, dy, dz):
@@ -141,75 +219,94 @@ def _slim_t(items, oxp, oyp, ozp, dd_o, oo2, dx, dy, dz):
 def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
                                *, ranges=None):
     """Nearest hit over a culled bake (``baked_culled_intersect.intersect``,
-    pallas_kernels.py:1063-1466, spheres): globals first, then the
-    clusters (under supers when the sweep is two-level) whose box cond
-    holds for the ray against its own current nearest hit.  Returns the
-    winner tuple and the per-ray supers and clusters entered (int64).
+    pallas_kernels.py:1063-1466): globals first, then the sphere
+    clusters and then the triangle clusters (each hierarchy under supers
+    when its sweep is two-level) whose box cond holds for the ray against
+    its own current nearest hit.  Returns the winner tuple and the
+    per-ray supers and clusters entered (int64).
 
-    ``ranges`` is (cluster ranges, super ranges) as host lists; they are
-    read from the tables when not given."""
+    ``ranges`` is :func:`host_ranges` of the bake; it is read from the
+    tables when not given."""
     if ranges is None:
         ranges = host_ranges(baked)
-    cranges, sranges = ranges
     items, consts = baked.items, baked.consts
+    tris = baked.tri_items if baked.n_triangles else None
     oxp = ox - consts[0]
     oyp = oy - consts[1]
     ozp = oz - consts[2]
     dd_o = dx * oxp + dy * oyp + dz * ozp
     oo2 = oxp * oxp + oyp * oyp + ozp * ozp
-    t = _slim_t(items, oxp, oyp, ozp, dd_o, oo2, dx, dy, dz)
+    t_sph = _slim_t(items, oxp, oyp, ozp, dd_o, oo2, dx, dy, dz)
 
     best_t = torch.full_like(ox, T_FAR)
     best_i = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
     zeros = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
     supers, clusters = zeros, zeros
     if baked.n_globals:
-        best_t, best_i = _take(t[:, :baked.n_globals], 0, best_t, best_i)
-    if not cranges:
-        return _winner(items, best_t, best_i) + (supers, clusters)
+        best_t, best_i = _take(t_sph[:, :baked.n_globals], 0, best_t, best_i)
+    if not (ranges[0][0] or ranges[1][0]):
+        return _winner(items, best_t, best_i, tris) + (supers, clusters)
 
-    idx, idy, idz = 1.0 / dx, 1.0 / dy, 1.0 / dz
-    s_min, s_max = _box_range(consts[3:6], consts[6:9], ox, oy, oz, idx,
-                              idy, idz)
-    s_min, s_max = s_min[:, 0], s_max[:, 0]
-    t_exit = torch.where((s_min <= s_max) & (s_max > T_MIN), s_max, -1.0)
+    rays = (ox, oy, oz, dx, dy, dz)
+    inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
+    everyone = torch.ones(ox.shape, dtype=torch.bool, device=ox.device)
 
     def conds(boxes):
         c_min, c_max = _box_range(boxes[:, 0:3], boxes[:, 4:7], ox, oy, oz,
-                                  idx, idy, idz)
+                                  *inv)
         return (c_min <= c_max) & (c_max > T_MIN), torch.clamp_min(c_min, 0.0)
 
-    c_ok, c_entry = conds(baked.cluster_boxes)
+    def hierarchy(boxes, sboxes, cranges, sranges, slab, fold):
+        nonlocal best_t, best_i, supers, clusters
+        t_exit = slab_exit(slab[0:3], slab[3:6], ox, oy, oz, *inv)
+        c_ok, c_entry = conds(boxes)
 
-    def sweep(c, gate):
-        nonlocal best_t, best_i, clusters
-        enter = gate & c_ok[:, c] & (c_entry[:, c]
-                                     < torch.minimum(best_t, t_exit))
-        clusters = clusters + enter
-        first, count = cranges[c]
-        best_t, best_i = _take(t[:, first:first + count], first, best_t,
-                               best_i, enter)
+        def sweep(c, gate):
+            nonlocal best_t, best_i, clusters
+            enter = gate & c_ok[:, c] & (c_entry[:, c]
+                                         < torch.minimum(best_t, t_exit))
+            clusters = clusters + enter
+            best_t, best_i = fold(*cranges[c], enter, best_t, best_i)
 
-    if sranges:
-        s_ok, s_entry = conds(baked.super_boxes)
-        for s, (first, count) in enumerate(sranges):
-            enter = s_ok[:, s] & (s_entry[:, s]
-                                  < torch.minimum(best_t, t_exit))
-            supers = supers + enter
-            for c in range(first, first + count):
-                sweep(c, enter)
-    else:
-        everyone = torch.ones(ox.shape, dtype=torch.bool, device=ox.device)
-        for c in range(len(cranges)):
-            sweep(c, everyone)
-    return _winner(items, best_t, best_i) + (supers, clusters)
+        if sranges:
+            s_ok, s_entry = conds(sboxes)
+            for s, (first, count) in enumerate(sranges):
+                enter = s_ok[:, s] & (s_entry[:, s]
+                                      < torch.minimum(best_t, t_exit))
+                supers = supers + enter
+                for c in range(first, first + count):
+                    sweep(c, enter)
+        else:
+            for c in range(len(cranges)):
+                sweep(c, everyone)
+
+    def fold_spheres(first, count, enter, best_t, best_i):
+        return _take(t_sph[:, first:first + count], first, best_t, best_i,
+                     enter)
+
+    def fold_triangles(first, count, enter, best_t, best_i):
+        return take_subset(tri_t, tris[first:first + count],
+                           items.shape[0] + first, best_t, best_i, enter,
+                           rays)
+
+    (cranges, sranges), (tcranges, tsranges) = ranges
+    if cranges:
+        hierarchy(baked.cluster_boxes, baked.super_boxes, cranges, sranges,
+                  consts[3:9], fold_spheres)
+    if tcranges:
+        hierarchy(baked.tri_cluster_boxes, baked.tri_super_boxes, tcranges,
+                  tsranges, consts[9:15], fold_triangles)
+    return _winner(items, best_t, best_i, tris) + (supers, clusters)
 
 
 def host_ranges(baked: BakedScene):
-    """(cluster ranges, super ranges) of a bake as lists of (first,
-    count), for the plain version's Python loops."""
-    return (baked.cluster_ranges.cpu().tolist(),
-            baked.super_ranges.cpu().tolist())
+    """((cluster ranges, super ranges) of the spheres, the same of the
+    triangles) of a bake as lists of (first, count), for the plain
+    version's Python loops."""
+    return tuple((c.cpu().tolist(), s.cpu().tolist())
+                 for c, s in ((baked.cluster_ranges, baked.super_ranges),
+                              (baked.tri_cluster_ranges,
+                               baked.tri_super_ranges)))
 
 
 def fused_render_baked_reference(
@@ -260,6 +357,11 @@ def fused_render_baked(
         "cluster_ranges": (baked.cluster_ranges, 2, torch.int32),
         "super_boxes": (baked.super_boxes, 8, torch.float32),
         "super_ranges": (baked.super_ranges, 2, torch.int32),
+        "tri_items": (baked.tri_items, TRI_COLS, torch.float32),
+        "tri_cluster_boxes": (baked.tri_cluster_boxes, 8, torch.float32),
+        "tri_cluster_ranges": (baked.tri_cluster_ranges, 2, torch.int32),
+        "tri_super_boxes": (baked.tri_super_boxes, 8, torch.float32),
+        "tri_super_ranges": (baked.tri_super_ranges, 2, torch.int32),
         "consts": (baked.consts.reshape(1, -1), 16, torch.float32),
     })
     if sampler not in ("random", "stratified"):
@@ -274,10 +376,11 @@ def fused_render_baked(
     from wavefront_path_tracer_tpu_torch.ops._build import load_library
 
     frame, sample_base, max_bounces, n_samples = _salts(salts)
-    check_aligned(items=baked.items, cluster_boxes=baked.cluster_boxes,
-                  cluster_ranges=baked.cluster_ranges,
-                  super_boxes=baked.super_boxes,
-                  super_ranges=baked.super_ranges, consts=baked.consts)
+    tables = (baked.items, baked.cluster_boxes, baked.cluster_ranges,
+              baked.super_boxes, baked.super_ranges, baked.tri_items,
+              baked.tri_cluster_boxes, baked.tri_cluster_ranges,
+              baked.tri_super_boxes, baked.tri_super_ranges, baked.consts)
+    check_aligned(**{f"table {i}": t for i, t in enumerate(tables)})
     lib = load_library()
     rad_r = torch.empty_like(xs)
     rad_g = torch.empty_like(xs)
@@ -291,6 +394,13 @@ def fused_render_baked(
             baked.cluster_boxes.shape[0],
             baked.super_boxes.data_ptr(), baked.super_ranges.data_ptr(),
             baked.super_boxes.shape[0],
+            baked.tri_items.data_ptr(), baked.n_triangles,
+            baked.tri_cluster_boxes.data_ptr(),
+            baked.tri_cluster_ranges.data_ptr(),
+            baked.tri_cluster_boxes.shape[0],
+            baked.tri_super_boxes.data_ptr(),
+            baked.tri_super_ranges.data_ptr(),
+            baked.tri_super_boxes.shape[0],
             baked.consts.data_ptr(), int(baked.culled),
             cam_params.data_ptr(), pix.data_ptr(), xs.data_ptr(),
             ys.data_ptr(), valid.data_ptr(), soff.data_ptr(),

@@ -1,0 +1,293 @@
+"""The persistent-lane render over the dynamic culled tables: the plain
+PyTorch version of the dynamic culled intersect, and the wrapper that
+launches the CUDA kernel.
+
+Port of ``wavefront_path_tracer_tpu/ops/pallas_kernels.py``:
+``fused_render_dynculled`` (3211) with ``make_dynamic_culled_intersect``
+(1772) as its nearest-hit function, spheres and triangles (checker
+textures are not ported yet).  The tables are ``ops/dyn_tables.py``'s; the
+kernel is ``csrc/dynculled.cu``; the persistent loop, raygen and shade
+are those of ``ops/fused_kernels.py``.
+
+What the intersect computes, per ray:
+
+- every global sphere, unconditionally and in table order;
+- then the sphere hierarchy and then the triangle hierarchy, each capped
+  by the exit distance from its own slab.  At or below 64 clusters a
+  hierarchy is swept flat, clusters in camera-hint order, in batches of
+  16: every cluster's box cond is taken against the cap
+  ``min(best_t, t_exit)`` at its batch's start.  Above 64 clusters the
+  sweep is over supers of 16 clusters in hint order: a super's cond is
+  taken against the running cap when the sweep reaches it, and its 16
+  children's conds against the cap at its entry;
+- a sphere pair is the slimmed quadratic in the shifted frame with both
+  roots; a triangle pair is the two-sided Moller-Trumbore test.
+
+The TPU kernel decided each cond by tile consensus, one batch stale;
+here each ray decides against its own nearest hit.  Within a batch
+(or a super) the conds are fixed, so the sequential strict ``t <
+best_t`` walk of the kernel over the entered clusters in visit order
+equals a masked ``argmin`` over the batch (first minimum, then strictly
+better than the running best), which is how the plain version batches
+it.  The two agree bit for bit, cull counters included.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from wavefront_path_tracer_tpu_torch.ops.bake import TRI_COLS
+from wavefront_path_tracer_tpu_torch.ops.baked_kernels import (
+    _box_range,
+    _col,
+    _take,
+    slab_exit,
+    tri_t,
+)
+from wavefront_path_tracer_tpu_torch.ops.dyn_tables import (
+    _DYN_SUPER,
+    SPHERE_COLS,
+    DynTables,
+)
+from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
+    T_FAR,
+    T_MIN,
+    _salts,
+    check_aligned,
+    check_inputs,
+    persistent_reference,
+)
+
+# Clusters per cond batch of the flat sweep (the reference's refresh).
+REFRESH = 16
+
+# Kernel launches by fused_render_dynculled on CUDA tensors.
+LAUNCHES = 0
+
+
+def _winner(tab: DynTables, best_t, best_i):
+    """The 15-field intersect tuple of the winners (index space: sphere
+    rows, then triangle rows): (best_t, cx, cy, cz, 1/r, albedo rgb, fuzz,
+    ior, mat_type, nx, ny, nz, is_tri).  A sphere winner carries zeros
+    for the normal and a triangle winner the miss's sphere fields (shade
+    reads one or the other); a miss carries (T_FAR, 0, 0, 0, 1, 0, 0, 0,
+    0, 1, 0, 0, 0, 0, 0)."""
+    sph, tris = tab.spheres, tab.triangles
+    n = sph.shape[0]
+    hit = best_i >= 0
+    is_sph = hit & (best_i < n)
+    is_tri = hit & (best_i >= n)
+    srow = sph[best_i.clamp(0, n - 1)]
+    trow = tris[(best_i - n).clamp(0, tris.shape[0] - 1)]
+    zero = torch.zeros_like(best_t)
+    one = torch.ones_like(best_t)
+
+    def pick(s, t, miss):
+        return torch.where(is_sph, s, torch.where(is_tri, t, miss))
+
+    return (best_t,
+            pick(srow[:, 4], zero, zero), pick(srow[:, 5], zero, zero),
+            pick(srow[:, 6], zero, zero), pick(srow[:, 7], one, one),
+            pick(srow[:, 8], trow[:, 12], zero),
+            pick(srow[:, 9], trow[:, 13], zero),
+            pick(srow[:, 10], trow[:, 14], zero),
+            pick(srow[:, 11], trow[:, 15], zero),
+            pick(srow[:, 12], trow[:, 16], one),
+            pick(srow[:, 13], trow[:, 17], zero),
+            torch.where(is_tri, trow[:, 9], zero),
+            torch.where(is_tri, trow[:, 10], zero),
+            torch.where(is_tri, trow[:, 11], zero),
+            is_tri.to(torch.float32))
+
+
+def dynculled_intersect_reference(tab: DynTables, ox, oy, oz, dx, dy, dz):
+    """Nearest hit over the dynamic tables (``make_dynamic_culled_
+    intersect.intersect``, pallas_kernels.py:1983-2408; the sweep rules
+    are the module docstring's).  Returns the 15-field winner tuple and
+    the per-ray supers and clusters entered (int64)."""
+    shx, shy, shz = tab.slab[1, 0], tab.slab[1, 1], tab.slab[1, 2]
+    oxp = ox - shx
+    oyp = oy - shy
+    ozp = oz - shz
+    quad = (oxp, oyp, ozp, 0.5 * dx, 0.5 * dy, 0.5 * dz,
+            dx * oxp + dy * oyp + dz * ozp,
+            oxp * oxp + oyp * oyp + ozp * ozp)
+
+    def sphere_t(rows, oxp, oyp, ozp, hdx, hdy, hdz, dd_o, oo2):
+        # sphere_block (1854-1864): both roots; NaN from a negative disc
+        # or a padding row falls through to T_FAR.
+        c2x, c2y, c2z, kappa = rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3]
+        nb = (_col(hdx) * c2x + _col(hdy) * c2y + _col(hdz) * c2z) \
+            - _col(dd_o)
+        c_q = (_col(oo2) + kappa) - (_col(oxp) * c2x + _col(oyp) * c2y
+                                     + _col(ozp) * c2z)
+        disc = nb * nb - c_q
+        sq = torch.sqrt(disc)
+        t1 = nb - sq
+        t2 = nb + sq
+        return torch.where(t1 > T_MIN, t1,
+                           torch.where(t2 > T_MIN, t2, T_FAR))
+
+    best_t = torch.full_like(ox, T_FAR)
+    best_i = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
+    zeros = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
+    supers, clusters = zeros, zeros
+    best_t, best_i = _take(sphere_t(tab.spheres[:tab.n_globals], *quad), 0,
+                           best_t, best_i)
+    if tab.n_clusters == 0 and tab.n_tri_clusters == 0:
+        return _winner(tab, best_t, best_i) + (supers, clusters)
+
+    rays = (ox, oy, oz, dx, dy, dz)
+    inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
+    cs = tab.cluster_size
+
+    def box_cond(box, cap):
+        """cluster_cond (2156-2157) of one box for every ray."""
+        c_min, c_max = _box_range(box[0:3], box[3:6], ox, oy, oz, *inv)
+        c_min, c_max = c_min[:, 0], c_max[:, 0]
+        return ((c_min <= c_max) & (c_max > T_MIN)
+                & (torch.clamp_min(c_min, 0.0) < cap))
+
+    def batch(k0, k1, boxes, table, row0, offset, t_fn, ray_args, cap,
+              rows_of):
+        """Enter the clusters k0..k1-1 of a hierarchy where their conds
+        hold against ``cap`` (per ray, for the rays ``rows_of``) and fold
+        their items in: returns the entered (rays x clusters) mask."""
+        nonlocal best_t, best_i
+        r = rows_of
+        box = boxes[k0:k1]
+        c_min, c_max = _box_range(box[:, 0:3], box[:, 3:6], ox[r], oy[r],
+                                  oz[r], inv[0][r], inv[1][r], inv[2][r])
+        enter = ((c_min <= c_max) & (c_max > T_MIN)
+                 & (torch.clamp_min(c_min, 0.0) < _col(cap[r])))
+        any_in = enter.any(dim=1)
+        rr = r[any_in]
+        if rr.numel():
+            rows = table[row0 + k0 * cs:row0 + k1 * cs]
+            t = t_fn(rows, *(v[rr] for v in ray_args))
+            mask = enter[any_in].repeat_interleave(cs, dim=1)
+            t = torch.where(mask, t, T_FAR)
+            bt, bi = _take(t, offset + row0 + k0 * cs, best_t[rr],
+                           best_i[rr])
+            best_t = best_t.index_put((rr,), bt)
+            best_i = best_i.index_put((rr,), bi)
+        return enter
+
+    def hierarchy(n, n_sup, boxes, sboxes, slab, table, row0, offset,
+                  t_fn, ray_args):
+        nonlocal supers, clusters
+        t_exit = slab_exit(slab[0:3], slab[3:6], ox, oy, oz, *inv)
+        everyone = torch.arange(ox.shape[0], device=ox.device)
+        if not n_sup:
+            for k0 in range(0, n, REFRESH):
+                k1 = min(n, k0 + REFRESH)
+                cap = torch.minimum(best_t, t_exit)
+                enter = batch(k0, k1, boxes, table, row0, offset, t_fn,
+                              ray_args, cap, everyone)
+                clusters = clusters + enter.sum(dim=1)
+            return
+        for s in range(n_sup):
+            cap = torch.minimum(best_t, t_exit)
+            s_enter = box_cond(sboxes[s], cap)
+            supers = supers + s_enter
+            r = torch.nonzero(s_enter)[:, 0]
+            if r.numel():
+                k0 = s * _DYN_SUPER
+                enter = batch(k0, k0 + _DYN_SUPER, boxes, table, row0,
+                              offset, t_fn, ray_args, cap, r)
+                clusters = clusters.index_add(0, r, enter.sum(dim=1))
+
+    if tab.n_clusters:
+        hierarchy(tab.n_clusters, tab.n_supers, tab.boxes, tab.super_boxes,
+                  tab.slab[0], tab.spheres, tab.n_globals, 0, sphere_t, quad)
+    if tab.n_tri_clusters:
+        hierarchy(tab.n_tri_clusters, tab.n_tri_supers, tab.tri_boxes,
+                  tab.tri_super_boxes, tab.tri_slab[0], tab.triangles, 0,
+                  tab.spheres.shape[0], tri_t, rays)
+    return _winner(tab, best_t, best_i) + (supers, clusters)
+
+
+def fused_render_dynculled_reference(
+        tab: DynTables, salts, cam_params, pix, xs, ys, valid, soff, *,
+        rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
+        sampler: str = "random"):
+    """Plain PyTorch version of the dynamic culled kernel: the
+    persistent loop of ``ops/fused_kernels.py`` over
+    :func:`dynculled_intersect_reference`.  Same arguments and results
+    as :func:`fused_render_dynculled`."""
+    def intersect(ox, oy, oz, dx, dy, dz):
+        return dynculled_intersect_reference(tab, ox, oy, oz, dx, dy, dz)
+
+    return persistent_reference(
+        intersect, salts, cam_params, pix, xs, ys, valid, soff,
+        rr_start=rr_start, rr_floor=rr_floor, clamp=clamp, sampler=sampler)
+
+
+def fused_render_dynculled(
+        tab: DynTables, salts, cam_params, pix, xs, ys, valid, soff, *,
+        rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
+        sampler: str = "random"):
+    """All samples x all bounces of every lane over the dynamic culled
+    tables.
+
+    Returns (rad_r, rad_g, rad_b, stats): radiance sums as (R, 128)
+    float32 planes in lane order, and an int64 tensor [rays, iterations,
+    supers entered, clusters entered], counted per ray (one iteration
+    per ray traced; a ray entering a cluster adds one).
+
+    On CPU tensors this is the plain version; on CUDA tensors it launches
+    ``csrc/dynculled.cu`` on the current stream; any other device raises.
+    The kernel's results, counters included, are bit-identical to the
+    plain version's.
+    """
+    global LAUNCHES
+    planes = (pix, xs, ys, valid, soff)
+    tables = (tab.spheres, tab.boxes, tab.super_boxes, tab.slab,
+              tab.triangles, tab.tri_boxes, tab.tri_super_boxes,
+              tab.tri_slab)
+    device = check_inputs(cam_params, planes, {
+        "spheres": (tab.spheres, SPHERE_COLS, torch.float32),
+        "boxes": (tab.boxes, 8, torch.float32),
+        "super_boxes": (tab.super_boxes, 8, torch.float32),
+        "slab": (tab.slab, 8, torch.float32),
+        "triangles": (tab.triangles, TRI_COLS, torch.float32),
+        "tri_boxes": (tab.tri_boxes, 8, torch.float32),
+        "tri_super_boxes": (tab.tri_super_boxes, 8, torch.float32),
+        "tri_slab": (tab.tri_slab, 8, torch.float32),
+    })
+    if sampler not in ("random", "stratified"):
+        raise ValueError(f"unknown sampler {sampler!r}")
+    if device.type == "cpu":
+        return fused_render_dynculled_reference(
+            tab, salts, cam_params, *planes, rr_start=rr_start,
+            rr_floor=rr_floor, clamp=clamp, sampler=sampler)
+    if device.type != "cuda":
+        raise NotImplementedError(
+            f"fused_render_dynculled runs on cpu or cuda, not {device}")
+    from wavefront_path_tracer_tpu_torch.ops._build import load_library
+
+    frame, sample_base, max_bounces, n_samples = _salts(salts)
+    check_aligned(**{f"table {i}": t for i, t in enumerate(tables)})
+    lib = load_library()
+    rad_r = torch.empty_like(xs)
+    rad_g = torch.empty_like(xs)
+    rad_b = torch.empty_like(xs)
+    counts = torch.empty((3, *pix.shape), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.wpt_dynculled_launch(
+            *(t.data_ptr() for t in tables),
+            tab.n_globals, tab.n_clusters, tab.n_supers, tab.n_tri_clusters,
+            tab.n_tri_supers, tab.cluster_size,
+            cam_params.data_ptr(), pix.data_ptr(), xs.data_ptr(),
+            ys.data_ptr(), valid.data_ptr(), soff.data_ptr(),
+            rad_r.data_ptr(), rad_g.data_ptr(), rad_b.data_ptr(),
+            counts[0].data_ptr(), counts[1].data_ptr(), counts[2].data_ptr(),
+            pix.numel(), frame, sample_base, max_bounces, n_samples,
+            int(rr_start), float(rr_floor), float(clamp),
+            int(sampler == "stratified"), stream)
+    if rc != 0:
+        raise RuntimeError(f"dynculled kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
+    return rad_r, rad_g, rad_b, torch.stack([rays, rays, supers, clusters])

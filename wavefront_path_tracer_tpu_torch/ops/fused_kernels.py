@@ -176,10 +176,12 @@ def intersect_tile(scene_packed, n_spheres: int, ox, oy, oz, dx, dy, dz):
 
 
 def shade_tile(pix, frame, sample, bounce, ox, oy, oz, dx, dy, dz,
-               best_t, b_cx, b_cy, b_cz, b_inv_r, b_fuzz, b_ior, b_mt):
+               best_t, b_cx, b_cy, b_cz, b_inv_r, b_fuzz, b_ior, b_mt,
+               b_nx=None, b_ny=None, b_nz=None, b_is_tri=None):
     """Branchless RTIOW shading (the reference ``_shade_tile``): hit
     point and unit scattered direction, from the stream of event slot
-    ``bounce + 1``."""
+    ``bounce + 1``.  Triangle winners (``b_is_tri`` > 0) take their
+    geometric normal, flipped toward the ray unless dielectric."""
     device = pix.device
     base = jenkins_hash(as_u32(pix) ^ jenkins_hash(as_u32(frame, device)))
     state = jenkins_hash(
@@ -205,6 +207,13 @@ def shade_tile(pix, frame, sample, bounce, ox, oy, oz, dx, dy, dz,
     nz = (p_z - b_cz) * b_inv_r
     n_norm = torch.rsqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-37))
     nx, ny, nz = nx * n_norm, ny * n_norm, nz * n_norm
+    if b_is_tri is not None:
+        is_tri = b_is_tri > 0
+        d_dot_tn = dx * b_nx + dy * b_ny + dz * b_nz
+        flip = (d_dot_tn > 0.0) & (b_mt != 2.0)   # dielectrics self-flip
+        nx = torch.where(is_tri, torch.where(flip, -b_nx, b_nx), nx)
+        ny = torch.where(is_tri, torch.where(flip, -b_ny, b_ny), ny)
+        nz = torch.where(is_tri, torch.where(flip, -b_nz, b_nz), nz)
 
     lx, ly, lz = nx + sx, ny + sy, nz + sz
     degen = lx * lx + ly * ly + lz * lz < 1e-6
@@ -264,8 +273,10 @@ def persistent_reference(
     """The plain persistent-lane loop, over any nearest-hit function.
 
     ``intersect(ox, oy, oz, dx, dy, dz)`` returns the
-    :func:`intersect_tile` tuple followed by the per-ray supers and
-    clusters entered (int64 tensors, or None without culling).  The loop
+    :func:`intersect_tile` tuple, extended with the triangle winner's
+    (nx, ny, nz, is_tri) in a scene with triangles, followed by the
+    per-ray supers and clusters entered (int64 tensors, or None without
+    culling).  The loop
     runs in lockstep, samples outside and bounces inside, over the flat
     lanes of a chunk, keeping only the live paths at each bounce.  Every
     (pixel, sample, bounce) stream, formula and rounding is the CUDA
@@ -299,9 +310,11 @@ def persistent_reference(
             bounce = 0
             while live.numel():
                 counts[0] += live.numel()
+                *fields, supers, clusters = intersect(ox, oy, oz, dx, dy,
+                                                      dz)
                 (best_t, b_cx, b_cy, b_cz, b_inv_r, b_ar, b_ag, b_ab,
-                 b_fuzz, b_ior, b_mt, supers, clusters) = intersect(
-                    ox, oy, oz, dx, dy, dz)
+                 b_fuzz, b_ior, b_mt) = fields[:11]
+                tri_fields = fields[11:]
                 if supers is not None:
                     counts[1] += supers.sum()
                     counts[2] += clusters.sum()
@@ -326,7 +339,7 @@ def persistent_reference(
                 ox, oy, oz, dx, dy, dz = shade_tile(
                     p, frame, sample, bounce, ox, oy, oz, dx, dy, dz,
                     *map(sel, (best_t, b_cx, b_cy, b_cz, b_inv_r, b_fuzz,
-                               b_ior, b_mt)))
+                               b_ior, b_mt, *tri_fields)))
                 thr = thr * torch.stack([sel(b_ar), sel(b_ag), sel(b_ab)],
                                         dim=-1)
                 bounce += 1

@@ -1,11 +1,14 @@
 """Profile one frame of the port's main path on a CUDA card.
 
     python -m wavefront_path_tracer_tpu_torch.profile_frame [CLI flags]
+    python -m wavefront_path_tracer_tpu_torch.profile_frame --row NAME
 
 Runs the CLI once to warm up (scene, size, samples and intersector as
 given, e.g. ``--intersector baked --clusters 16`` for the headline path;
 the defaults are book_one_final at 1920x1080, 32 spp in one frame, 50
-bounces, brute force), then one more frame of the same configuration under
+bounces, brute force), or renders one frame of a mesh row (``--row``,
+one of :data:`MESH_ROWS`, built as the reference's ``bench.py`` builds
+it), then one more frame of the same configuration under
 ``torch.profiler``, and prints one JSON line: the frame's wall time, the
 device time of each kernel and copy, the share of the frame in which the
 device was busy (the union of device activity intervals over the
@@ -20,6 +23,45 @@ import subprocess
 import sys
 import tempfile
 import time
+
+
+# The reference's mesh rows (bench.py:52-56, built by bench_once with
+# clusters of 16, 50 bounces): name -> (scene, width, height, spp,
+# intersector).
+MESH_ROWS = {
+    "terrain_baked": ("mesh_terrain", 800, 448, 32, "baked"),
+    "terrain_dynamic": ("mesh_terrain", 800, 448, 32, "bruteforce"),
+    "knot50k_dynamic": ("mesh_knot50k", 800, 448, 8, "bruteforce"),
+}
+
+
+def row_renderer(name: str, device="cuda", **config):
+    """A :class:`Renderer` of the mesh row ``name`` as ``bench.py:
+    bench_once`` builds it: ``mesh_terrain_scene()`` (seed 7) under the
+    book camera, or the 50k-triangle knot under its own camera; one
+    frame of all the row's samples, 50 bounces, clusters of 16, block
+    order.  ``config`` overrides fields of the :class:`RenderConfig`."""
+    from wavefront_path_tracer_tpu_torch.renderer import Renderer
+    from wavefront_path_tracer_tpu_torch.scene import (
+        CameraController,
+        knot_camera,
+        knot_scene,
+        mesh_terrain_scene,
+    )
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+
+    scene_name, width, height, spp, intersector = MESH_ROWS[name]
+    if scene_name == "mesh_terrain":
+        scene, tris = mesh_terrain_scene()
+        cc = CameraController.book_one_final()
+    else:
+        scene, tris = knot_scene(50000)
+        cc = knot_camera()
+    cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
+                       samples_per_frame=spp, max_bounces=50, engine="fused",
+                       intersector=intersector, baked_clusters=16,
+                       block_tiles=32)
+    return Renderer(scene, cc, cfg.replace(**config), tris, device=device)
 
 
 def _union_us(intervals) -> float:
@@ -45,12 +87,16 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    with tempfile.TemporaryDirectory() as tmp:
-        args = ["--device", "cuda", "--width", "1920", "--height", "1080",
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--row"]:
+        renderer = row_renderer(argv[1])
+        renderer.render_frame()
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            renderer, _ = cli.run([
+                "--device", "cuda", "--width", "1920", "--height", "1080",
                 "--spp", "32", "--spf", "32", "--max-bounces", "50",
-                "--quiet", "--out", os.path.join(tmp, "frame.png"),
-                *(sys.argv[1:] if argv is None else argv)]
-        renderer, _ = cli.run(args)
+                "--quiet", "--out", os.path.join(tmp, "frame.png"), *argv])
     renderer.reset_accumulation()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

@@ -34,10 +34,14 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def prepare_scene(scene: Scene, config: RenderConfig,
-                  device="cuda") -> dict:
-    """Host scene -> sphere tables on ``device``, plus what the fused
-    engine derives once per scene (``convert.scene_arrays_to_torch``)."""
+def prepare_scene(scene: Scene, config: RenderConfig, device="cuda",
+                  triangles=None) -> dict:
+    """Host scene -> sphere tables on ``device``, with the triangle
+    tables of a mesh (``triangles``, a :class:`TriangleSoA`) as the
+    seven ``tri_*`` keys of the reference's ``prepare_scene``, plus what
+    the fused engine derives once per scene
+    (``convert.scene_arrays_to_torch``).  The reference's ``tri_normal``
+    and triangle BVH serve its XLA engines, which are not ported yet."""
     if scene.tex_kind is not None:
         raise NotImplementedError(
             "textured scenes are not ported yet (ROADMAP.md queue 2 item 5 "
@@ -54,6 +58,16 @@ def prepare_scene(scene: Scene, config: RenderConfig,
         "fuzz": scene.fuzz,
         "refract_idx": scene.refract_idx,
     }
+    if triangles is not None and triangles.num_triangles > 0:
+        arrays.update({
+            "tri_v0": triangles.v0,
+            "tri_e1": triangles.e1,
+            "tri_e2": triangles.e2,
+            "tri_albedo": triangles.albedo,
+            "tri_fuzz": triangles.fuzz,
+            "tri_refract": triangles.refract_idx,
+            "tri_mat_type": triangles.mat_type,
+        })
     return scene_arrays_to_torch(arrays, device)
 
 
@@ -84,15 +98,17 @@ class RenderResult:
 class Renderer:
     """Progressive renderer with accumulation-restart semantics, on the
     CUDA card unless ``device`` names another (``device="cpu"`` runs the
-    plain PyTorch versions)."""
+    plain PyTorch versions).  ``triangles`` (a :class:`TriangleSoA`)
+    adds a mesh to the scene, as in the reference."""
 
     def __init__(self, scene: Scene, camera: CameraController,
-                 config: RenderConfig, *, device="cuda"):
+                 config: RenderConfig, triangles=None, *, device="cuda"):
         self.device = resolve_device(device)
         self.config = config
         self.camera = camera
         self._engine = get_engine(config.engine)
-        self.scene_arrays = prepare_scene(scene, config, self.device)
+        self.scene_arrays = prepare_scene(scene, config, self.device,
+                                          triangles)
         self._engine.check_supported(config, self.scene_arrays)
         self.progress = RenderProgress()
         self._prev_display = None
@@ -185,7 +201,7 @@ class Renderer:
 
 
 def render(scene: Scene, camera: CameraController, config: RenderConfig,
-           *, device="cuda") -> RenderResult:
+           triangles=None, *, device="cuda") -> RenderResult:
     """One-shot convenience wrapper; renders on the card unless
     ``device`` names another."""
-    return Renderer(scene, camera, config, device=device).render()
+    return Renderer(scene, camera, config, triangles, device=device).render()

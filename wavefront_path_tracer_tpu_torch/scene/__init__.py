@@ -1,13 +1,23 @@
 """Scenes and cameras: the port's own numpy-only host modules.
 
-``scene.py`` and ``camera.py`` are copies of the reference package's
-modules of the same names (only the imports may differ);
-``tests/test_torch_host.py`` holds them to byte-identical tables and
-equal camera matrices.
+``scene.py``, ``camera.py`` and ``mesh.py`` are copies of the reference
+package's modules of the same names (only the imports may differ);
+``tests/test_torch_host.py`` and ``tests/test_torch_mesh.py`` hold them
+to byte-identical tables and equal camera matrices.
 """
 
 from wavefront_path_tracer_tpu_torch.scene.camera import (  # noqa: F401
     CameraController,
+)
+from wavefront_path_tracer_tpu_torch.scene.mesh import (  # noqa: F401
+    MeshSceneBuilder,
+    TriangleSoA,
+    knot_camera,
+    knot_scene,
+    load_obj,
+    mesh_demo_scene,
+    mesh_terrain_scene,
+    torus_knot,
 )
 from wavefront_path_tracer_tpu_torch.scene.scene import (  # noqa: F401
     SCENE_CAMERAS,
