@@ -50,7 +50,29 @@ Phases (all by default, in this order), each of which raises on failure
    the mesh rows' planes (800x448, 1 spp): dynamic culled on terrain and
    on the knot, baked culled/16 and unculled on terrain, with kernel and
    plain times and the bound; and each mesh kernel's time at its row's
-   samples per lane beside its bound.
+   samples per lane beside its bound;
+9. textures (``tex``): the textured kernels against their plain versions,
+   bit for bit, at 160x90@4spp with padding lanes, 50 bounces: book_checker
+   (a checker ground and an image sphere on book_one_final's spheres)
+   through baked culled/16 (default, and roulette/clamp/stratified AA/
+   lane_split=2), with the winner hint, with a 512-texel LUT (so that
+   pooling runs), baked unculled and dynamic culled/16;
+   ``examples/scene.json`` (a negative radius, its own camera) through
+   baked culled/16; and a textured mesh (a scene file with a checker
+   sphere and an OBJ that the script writes) through baked culled/16 and
+   dynamic culled/16;
+10. textures at full size (``texfull``): the CLI with ``--scene
+   book_checker`` at 1920x1080, 32 spp in one frame, through baked
+   culled/16, baked culled/16 with ``--winner-hint`` and dynamic
+   culled/16, each warmed up and then timed with the launch counts read
+   alone; the textured culled and dynamic kernels bit for bit at the
+   1080p planes at 1 spp with kernel and plain times; the three textured
+   intersects (baked culled/16, baked unculled, dynamic/16) pairwise at
+   400x224@64spp: the statistical rule's image limits and ray counts
+   (the diverged share recorded, beside book_one_final's); and each
+   textured kernel's time
+   at 1080p@32spp beside its bound and beside the untextured headline
+   kernel's in the same call.
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -97,6 +119,11 @@ KERNELS = {
                           "make_dynamic_culled_intersect",
                   "source": SOURCE + "dynculled.cu",
                   "replaces": REPLACES + "3211"},
+    # The texture step of the persistent body; its main path is the
+    # book_checker CLI run of phase 10, through the textured culled kernel.
+    "textured": {"name": "_apply_image_textures",
+                 "source": SOURCE + "common.cuh",
+                 "replaces": REPLACES + "298"},
 }
 MESH_SIZE = (800, 448)
 
@@ -120,6 +147,14 @@ FLOPS_RAY_SHIFT = {        # per ray before the sweep
     "culled": 16,          # shifted origin 3, dd_o 5, oo2 5, 1/d 3
     "dynculled": 19,       # the same and d / 2
 }
+# The texture step (common.cuh apply_textures), per event counted by the
+# plain version (ops/textures.py EVENTS): a hit whose winner has a checker
+# scale: s * p 3, each sinf counted as 1 operation (not its libdevice
+# sequence, so that the bound stays a least time), the product 2; a hit on
+# an image sphere: the normal 6, atan2_approx 16, acos_approx with its
+# clamp 14, u and v 3, the texel index 3, the decode 3.
+FLOPS_CHECKER = 8
+FLOPS_IMAGE = 45
 
 
 def log(msg: str) -> None:
@@ -173,7 +208,8 @@ class Case:
     them, with the kernel, its plain version and its launch counter."""
 
     def __init__(self, kind, clusters, scene, cc, width, height, spp, split,
-                 kw, device, triangles=None):
+                 kw, device, triangles=None, winner_hint=False,
+                 lut_max=8192):
         from wavefront_path_tracer_tpu_torch.models import fused
         from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
         from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
@@ -183,6 +219,8 @@ class Case:
 
         self.kind, self.spp, self.split = kind, spp, split
         self.n_pixels = width * height
+        self.textured = False
+        self.tex_events = None     # per-ray texture event shares
         cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
                            samples_per_frame=spp, max_bounces=50,
                            engine="fused")
@@ -207,25 +245,32 @@ class Case:
                 table, n, salts, cam, *self.planes, **kw)
             self.launches = lambda: fk.LAUNCHES
         elif kind == "dynculled":
-            tab = fused._dyn_tables(arrays, clusters, camera_pos=eye)
+            tab = fused._dyn_tables(arrays, clusters, camera_pos=eye,
+                                    lut_max=lut_max)
             self.tab = tab
+            self.textured = tab.textured
             self.tables = (tab.spheres, tab.boxes, tab.super_boxes, tab.slab,
                            tab.triangles, tab.tri_boxes, tab.tri_super_boxes,
-                           tab.tri_slab)
+                           tab.tri_slab, tab.sphere_tex, tab.images.centres,
+                           tab.images.words)
             self.kernel = lambda: dk.fused_render_dynculled(
                 tab, salts, cam, *self.planes, **kw)
             self.plain = lambda: dk.fused_render_dynculled_reference(
                 tab, salts, cam, *self.planes, **kw)
             self.launches = lambda: dk.LAUNCHES
         else:
-            baked = fused._baked_scene(arrays, clusters, camera_pos=eye)
+            baked = fused._baked_scene(arrays, clusters, camera_pos=eye,
+                                       winner_hint=winner_hint,
+                                       lut_max=lut_max)
             self.baked = baked
+            self.textured = baked.textured
             self.tables = (baked.items, baked.cluster_boxes,
                            baked.cluster_ranges, baked.super_boxes,
                            baked.super_ranges, baked.tri_items,
                            baked.tri_cluster_boxes, baked.tri_cluster_ranges,
                            baked.tri_super_boxes, baked.tri_super_ranges,
-                           baked.consts)
+                           baked.consts, baked.tex_items,
+                           baked.images.centres, baked.images.words)
             self.kernel = lambda: bk.fused_render_baked(
                 baked, salts, cam, *self.planes, **kw)
             self.plain = lambda: bk.fused_render_baked_reference(
@@ -273,7 +318,9 @@ class Case:
         over the FP32 rate (each input read once, each output written
         once; the pairs and boxes that this run's rays needed).  Cluster
         entries are attributed to the one hierarchy that has clusters
-        (every scene of this script has at most one)."""
+        (every scene of this script has at most one).  A textured launch
+        adds the texture step for the checker and image events a ray of
+        the plain version's run met (``tex_events``, per ray)."""
         rays, _iters, supers, clusters = (float(v) for v in stats)
         n_lanes = self.planes[0].numel()
         counters = 1 if self.kind == "persistent" else 3
@@ -307,6 +354,9 @@ class Case:
                 boxes = (rays * n_sup + supers * children if n_sup
                          else rays * n)
                 ops += boxes * FLOPS_BOX
+        if self.textured:
+            checker, image = self.tex_events or (0.0, 0.0)
+            ops += rays * (checker * FLOPS_CHECKER + image * FLOPS_IMAGE)
         t_bytes, t_ops = n_bytes / PEAK_BYTES, ops / PEAK_FP32
         return {"pairs": pairs, "ops": ops, "bytes": n_bytes,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -320,19 +370,27 @@ def _check(label, case, reps: int = 0) -> dict:
     of the plain version (one call)."""
     from wavefront_path_tracer_tpu_torch.utils.parity import parity_report
 
+    from wavefront_path_tracer_tpu_torch.ops import textures
+
     before = case.launches()
     k = case.kernel()
     torch.cuda.synchronize()
     if case.launches() != before + 1:
         raise AssertionError(f"{label}: the wrapper did not count its launch")
+    textures.EVENTS.update(checker=0, image=0)
     plain_ms, p = _time_ms(case.plain, 1)
     stats_k, stats_p = k[3].tolist(), p[3].tolist()
+    if case.textured:
+        rays = max(stats_p[0], 1)
+        case.tex_events = (textures.EVENTS["checker"] / rays,
+                           textures.EVENTS["image"] / rays)
     bit_exact = stats_k == stats_p and all(
         torch.equal(a.view(torch.int32), b.view(torch.int32))
         for a, b in zip(k[:3], p[:3]))
     rep = parity_report(case.image(k), case.image(p))
     rep.update(case=label, kernel=case.kind, stats_kernel=stats_k,
-               stats_plain=stats_p, bit_exact=bit_exact)
+               stats_plain=stats_p, bit_exact=bit_exact,
+               textured=case.textured, tex_events=case.tex_events)
     if reps:
         rep["kernel_ms"], _ = _time_ms(case.kernel, reps)
         rep["plain_ms"] = plain_ms
@@ -720,7 +778,265 @@ def phase_mesh_full_size(device, smi: str) -> dict:
     return {"checks": checks, "timed": timed}
 
 
-PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull")
+TEX_OPTS = {"rr_start": 3, "clamp": 0.5, "sampler": "stratified"}
+TEX_PAIR_SIZE = (400, 224, 64)   # the GATE_SWEEP.json texture rows' size
+
+
+def _book_checker():
+    from wavefront_path_tracer_tpu_torch.scene import get_scene
+
+    return get_scene("book_checker"), None, _cli_camera("book_checker")
+
+
+def _from_scene_file(path: str):
+    """(scene, triangles, camera) of a scene file, with the CLI's camera
+    layers (its camera block over the reference camera)."""
+    from wavefront_path_tracer_tpu_torch.cli import (
+        build_camera,
+        build_parser,
+        build_scene,
+    )
+
+    args = build_parser().parse_args(["--scene-file", path])
+    scene, tris, file_cam = build_scene(args)
+    return scene, tris, build_camera(args, file_cam)
+
+
+def _textured_mesh_file() -> str:
+    """A scene file that this script writes under OUT_DIR: a checker
+    ground, a checker sphere, a glass sphere and an OBJ torus knot (1,000
+    triangles, also written here), with a camera block."""
+    from wavefront_path_tracer_tpu_torch.scene import torus_knot
+
+    folder = os.path.join(OUT_DIR, "tex_mesh")
+    os.makedirs(folder, exist_ok=True)
+    verts, faces = torus_knot(1000)
+    with open(os.path.join(folder, "knot.obj"), "w") as f:
+        f.write("".join(f"v {x} {y} {z}\n" for x, y, z in verts))
+        f.write("".join(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in faces))
+    doc = {
+        "camera": {"look_from": [0, 2.2, 6.5], "look_at": [0, 0.9, 0],
+                   "vfov": 38, "defocus_angle": 0},
+        "spheres": [
+            {"center": [0, -1000, 0], "radius": 1000,
+             "material": {"type": "lambertian", "albedo": [0.5, 0.5, 0.5],
+                          "texture": {"checker": [0.9, 0.9, 0.9],
+                                      "scale": 4.0}}},
+            {"center": [-2.2, 0.8, 0.5], "radius": 0.8,
+             "material": {"type": "metal", "albedo": [0.8, 0.3, 0.2],
+                          "fuzz": 0.1,
+                          "texture": {"checker": [0.1, 0.2, 0.8],
+                                      "scale": 12.0}}},
+            {"center": [2.2, 0.8, 0.5], "radius": 0.8,
+             "material": {"type": "dielectric", "ior": 1.5}},
+        ],
+        "objs": [{"path": "knot.obj", "scale": 0.9,
+                  "translate": [0, 1.1, -0.5]}],
+    }
+    path = os.path.join(folder, "scene.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def phase_textures(device) -> list[dict]:
+    """Phase 9: the textured kernels against their plain versions at
+    160x90@4spp, bit for bit."""
+    book = _book_checker()
+    example = _from_scene_file(os.path.join(ROOT, "examples", "scene.json"))
+    mesh = _from_scene_file(_textured_mesh_file())
+    cases = [
+        ("culled16 book_checker 160x90@4spp default", "culled", 16, book,
+         {}, 1, {}),
+        ("culled16 book_checker 160x90@4spp rr3/clamp0.5/stratified/split2",
+         "culled", 16, book, TEX_OPTS, 2, {}),
+        ("culled16 book_checker 160x90@4spp winner_hint", "culled", 16,
+         book, {}, 1, {"winner_hint": True}),
+        ("culled16 book_checker 160x90@4spp tex_lut_max=512", "culled", 16,
+         book, {}, 1, {"lut_max": 512}),
+        ("unculled book_checker 160x90@4spp default", "unculled", 0, book,
+         {}, 1, {}),
+        ("dynculled16 book_checker 160x90@4spp default", "dynculled", 16,
+         book, {}, 1, {}),
+        ("culled16 examples/scene.json 160x90@4spp default", "culled", 16,
+         example, {}, 1, {}),
+        ("culled16 textured mesh 160x90@4spp default", "culled", 16, mesh,
+         {}, 1, {}),
+        ("dynculled16 textured mesh 160x90@4spp default", "dynculled", 16,
+         mesh, {}, 1, {}),
+    ]
+    out = []
+    for label, kind, clusters, (scene, tris, cam), kw, split, bake_kw in cases:
+        case = Case(kind, clusters, scene, cam, 160, 90, 4, split, kw,
+                    device, triangles=tris, **bake_kw)
+        if not case.textured:
+            raise AssertionError(f"{label}: the tables are not textured")
+        if "winner_hint" in bake_kw and not case.baked.winner_hint:
+            raise AssertionError(f"{label}: the winner hint is off")
+        rep = _check(label, case)
+        checker, image = rep["tex_events"]
+        if not checker > 0 or ("book_checker" in label and not image > 0):
+            raise AssertionError(f"{label}: no texture event {checker, image}")
+        out.append(rep)
+    return out
+
+
+def _texture_agreement(device, scene, cc) -> dict:
+    """The three textured intersects (baked culled/16, baked unculled,
+    dynamic culled/16) pairwise on book_checker at the texture gate's
+    scale (400x224@64spp, 50 bounces), beside the same three on
+    book_one_final (no textures).  The statistical rule's image limits
+    (mean, display RMSE) and the ray counts must hold; the diverged-pixel
+    share is recorded: the unculled intersect's generic quadratic flips
+    near-tie winners of the culled ones' slimmed quadratic on a few of the
+    64 x 50 events of many pixels, with or without textures."""
+    from wavefront_path_tracer_tpu_torch.renderer import render
+    from wavefront_path_tracer_tpu_torch.scene import get_scene
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+    from wavefront_path_tracer_tpu_torch.utils.parity import (
+        DISPLAY_RMSE_TOL,
+        MEAN_TOL,
+        RAYS_REL_TOL,
+        parity_report,
+    )
+
+    w, h, spp = TEX_PAIR_SIZE
+    paths = (("culled16", {"intersector": "baked", "baked_clusters": 16}),
+             ("unculled", {"intersector": "baked", "baked_clusters": 0}),
+             ("dynculled16", {"intersector": "bruteforce",
+                              "baked_clusters": 16}))
+    out = {}
+    for name, sc in (("book_checker", scene),
+                     ("book_one_final", get_scene("book_one_final"))):
+        images = {}
+        for label, kw in paths:
+            cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                               samples_per_frame=spp, max_bounces=50,
+                               engine="fused", **kw)
+            res = render(sc, cc, cfg, device=device)
+            images[label] = (res.accumulated / res.samples,
+                             res.rays_traced)
+        for a, b in (("culled16", "unculled"), ("culled16", "dynculled16"),
+                     ("unculled", "dynculled16")):
+            (ia, ra), (ib, rb) = images[a], images[b]
+            key = f"{name} {w}x{h}@{spp}spp {a} vs {b}"
+            rep = parity_report(ia, ib)
+            rep["rays_rel_diff"] = abs(ra - rb) / max(rb, 1.0)
+            log(f"[tex-agree] {key}: {json.dumps(rep)}")
+            if not (rep["finite"] and rep["mean_diff"] < MEAN_TOL
+                    and rep["display_rmse"] < DISPLAY_RMSE_TOL
+                    and rep["rays_rel_diff"] < RAYS_REL_TOL):
+                raise AssertionError(f"{key}: {rep}")
+            out[key] = rep
+    return out
+
+
+def phase_textures_full(device, smi: str) -> dict:
+    """Phase 10: book_checker through the CLI at 1080p@32spp, the textured
+    kernels bit for bit at the 1080p planes, the three textured intersects
+    pairwise at 400x224@64spp, and each textured kernel's time at
+    1080p@32spp beside its bound and the untextured headline kernel's."""
+    from wavefront_path_tracer_tpu_torch import cli
+
+    out = {"cli": {}}
+    for label, kind, flags in (
+            ("culled", "culled", ["--intersector", "baked", "--clusters",
+                                  "16"]),
+            ("culled_hint", "culled", ["--intersector", "baked",
+                                       "--clusters", "16", "--winner-hint"]),
+            ("dynculled", "dynculled", ["--intersector", "bruteforce",
+                                        "--clusters", "16"])):
+        argv = ["--device", device.type, "--scene", "book_checker",
+                "--width", str(MAIN_WIDTH), "--height", str(MAIN_HEIGHT),
+                "--spp", str(MAIN_SPP), "--spf", str(MAIN_SPP),
+                "--max-bounces", "50", *flags, "--quiet",
+                "--out", os.path.join(OUT_DIR, f"book_checker_{label}.png")]
+        cli.run(argv)                                  # warm-up
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        renderer, result = cli.run(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        img = result.accumulated / result.samples
+        if launches[kind] != 1:
+            raise AssertionError(f"book_checker {label}: launches {launches}")
+        if not np.isfinite(img).all() or not img.mean() > 0.01:
+            raise AssertionError(f"bad book_checker image ({label})")
+        mrays = result.rays_traced / result.wall_time_s / 1e6
+        log(f"[tex-cli] book_checker {' '.join(flags)}: {MAIN_WIDTH}x"
+            f"{MAIN_HEIGHT}@{MAIN_SPP}spp, 50 bounces: {seconds:.3f} s end "
+            f"to end, render {result.wall_time_s:.4f} s, "
+            f"{result.rays_traced:.0f} rays, {mrays:.1f} Mrays/s, launches "
+            f"{launches}, image mean {img.mean():.4f} [{smi}]")
+        out["cli"][label] = {"seconds_end_to_end": seconds,
+                             "render_seconds": result.wall_time_s,
+                             "rays": result.rays_traced,
+                             "mrays_per_s": mrays,
+                             "launches": launches[kind],
+                             "all_launches": launches,
+                             "image_mean": float(img.mean())}
+
+    scene, _tris, cc = _book_checker()
+    checks = []
+    for kind in ("culled", "dynculled"):
+        case = Case(kind, 16, scene, cc, MAIN_WIDTH, MAIN_HEIGHT, 1, 1, {},
+                    device)
+        rep = _check(f"{kind}16 book_checker {MAIN_WIDTH}x{MAIN_HEIGHT}@1spp"
+                     " default", case, reps=3)
+        log(f"[timing] textured {kind}16 book_checker {MAIN_WIDTH}x"
+            f"{MAIN_HEIGHT}@1spp: kernel {rep['kernel_ms']!r} ms, plain "
+            f"{rep['plain_ms']!r} ms, bound {rep['bound_ms']!r} ms "
+            f"({rep['bound_by']}), texture events a ray {rep['tex_events']} "
+            f"[{smi}]")
+        checks.append(rep)
+    out["checks"] = checks
+    events = checks[0]["tex_events"]
+
+    out["agreement"] = _texture_agreement(device, scene, cc)
+
+    # 1080p@32spp: the untextured headline first and last, the textured
+    # kernels between; the bounds take the texture events a ray of the
+    # 1 spp plain run (the same scene and camera).
+    book, book_cc = _smoke_scene()
+    timed = []
+    for label, kind, clusters, textured, bake_kw in (
+            ("headline book_one_final culled16", "culled", 16, False, {}),
+            ("book_checker culled16", "culled", 16, True, {}),
+            ("book_checker culled16 winner_hint", "culled", 16, True,
+             {"winner_hint": True}),
+            ("book_checker dynculled16", "dynculled", 16, True, {}),
+            ("book_checker unculled", "unculled", 0, True, {}),
+            ("headline book_one_final culled16 (again)", "culled", 16, False,
+             {})):
+        case = Case(kind, clusters, scene if textured else book,
+                    cc if textured else book_cc, MAIN_WIDTH, MAIN_HEIGHT,
+                    MAIN_SPP, 1, {}, device, **bake_kw)
+        case.tex_events = events if textured else None
+        case.kernel()                                  # warm-up
+        ms, res = _time_ms(case.kernel, 3)
+        stats = res[3].tolist()
+        rep = {"label": label, "kind": kind, "textured": textured,
+               "kernel_ms": ms, "stats": stats, **case.bound(stats),
+               "clusters_per_ray": stats[3] / stats[0]}
+        log(f"[timing] {label} {MAIN_WIDTH}x{MAIN_HEIGHT}@{MAIN_SPP}spp, 50 "
+            f"bounces: kernel {ms!r} ms, bound {rep['bound_ms']!r} ms "
+            f"({rep['bound_by']}), rays {stats[0]}, supers {stats[2]}, "
+            f"clusters {stats[3]} ({rep['clusters_per_ray']:.4f} per ray), "
+            f"{stats[0] / ms / 1e3:.2f} Mrays/s [{smi}]")
+        timed.append(rep)
+    head = (timed[0]["kernel_ms"] + timed[-1]["kernel_ms"]) / 2
+    log(f"[tex-price] textured culled16 kernel {timed[1]['kernel_ms']!r} ms "
+        f"vs untextured headline {head!r} ms (mean of the two runs around "
+        f"it): {timed[1]['kernel_ms'] / head - 1:+.2%}; winner hint "
+        f"{timed[2]['kernel_ms']!r} ms ({timed[2]['kernel_ms'] / timed[1]['kernel_ms'] - 1:+.2%}) [{smi}]")
+    out["timed"] = timed
+    return out
+
+
+PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull", "tex",
+          "texfull")
 
 
 def main(argv=None) -> int:
@@ -747,7 +1063,10 @@ def main(argv=None) -> int:
              ("full", "full_size", lambda: phase_full_size(device, smi)),
              ("mesh", "mesh_rows", lambda: phase_mesh_rows(device, smi)),
              ("meshfull", "mesh_full_size",
-              lambda: phase_mesh_full_size(device, smi)))
+              lambda: phase_mesh_full_size(device, smi)),
+             ("tex", "textures", lambda: phase_textures(device)),
+             ("texfull", "textures_full",
+              lambda: phase_textures_full(device, smi)))
     for phase, key, run in steps:
         if phase in phases:
             t0 = time.perf_counter()
@@ -773,10 +1092,29 @@ def main(argv=None) -> int:
         f"1080p@1spp kernel {full['checks']['culled'][0]['kernel_ms']!r} ms "
         f"vs plain {full['checks']['culled'][0]['plain_ms']!r} ms [{smi}]")
     mesh_checks = record["mesh_full_size"]["checks"]
+    tex, tex_full = record["textures"], record["textures_full"]
     kernels = []
     for kind, spec in KERNELS.items():
-        reps = [r for r in parity if r["kernel"] == kind]
+        reps = [r for r in parity + tex + tex_full["checks"]
+                if r["kernel"] == kind]
         reps += [r for r in mesh_checks if r["kernel"] == kind]
+        if kind == "textured":
+            # ms and bound: the textured culled kernel at 1080p@32spp;
+            # plain_ms: its plain version at the 1080p planes, 1 spp.
+            timed = tex_full["timed"][1]
+            kernels.append({
+                "name": spec["name"], "route": "cuda",
+                "source": spec["source"], "replaces": spec["replaces"],
+                "launches": tex_full["cli"]["culled"]["launches"],
+                "max_abs_err": max(r["max_abs_err"] for r in
+                                   tex + tex_full["checks"]),
+                "ms": timed["kernel_ms"],
+                "plain_ms": tex_full["checks"][0]["plain_ms"],
+                "bound_ms": timed["bound_ms"],
+                "bound_by": timed["bound_by"],
+                "library_ms": None,
+            })
+            continue
         if kind == "dynculled":
             main_check = mesh_checks[0]            # terrain 800x448@1spp
             launches = mesh["terrain_dynamic"]["launches"]

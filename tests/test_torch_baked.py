@@ -200,24 +200,37 @@ def test_one_tile_matches_jax_closure(culled):
 
 # --- refusals ----------------------------------------------------------------
 
-@pytest.mark.parametrize("change", [
-    {"winner_hint": True, "baked_clusters": 4},
-    {"recluster": 1, "baked_clusters": 4},
-    {"num_devices": 2},
-    {"intersector": "bruteforce", "baked_clusters": 16, "winner_hint": True},
-], ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))
-def test_baked_refusals(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("change,match", [
+    # The winner hint renders on the baked path (test_torch_textures.py);
+    # on the dynamic culled path the reference refuses it
+    # (models/fused.py:329-334).
+    pytest.param({"intersector": "bruteforce", "baked_clusters": 8,
+                  "winner_hint": True}, "reference",
+                 id="winner_hint=True,baked_clusters=4"),
+    pytest.param({"recluster": 1, "baked_clusters": 4}, "ROADMAP",
+                 id="recluster=1,baked_clusters=4"),
+    pytest.param({"num_devices": 2}, "ROADMAP", id="num_devices=2"),
+    pytest.param({"intersector": "bruteforce", "baked_clusters": 16,
+                  "winner_hint": True}, "reference",
+                 id="intersector=bruteforce,baked_clusters=16,"
+                    "winner_hint=True"),
+])
+def test_baked_refusals(change, match):
+    with pytest.raises(NotImplementedError, match=match):
         Renderer(get_scene("book_cover"), _cover_camera(),
                  BASE.replace(**change), device="cpu")
 
 
 def test_baked_refuses_textures_and_triangles():
-    """Textures are refused on every path; triangles only on the plain
-    brute-force kernel (no clusters), as the reference refuses them."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Renderer(get_scene("book_checker"), _cover_camera(), BASE,
+    """Textures and triangles are refused only on the plain brute-force
+    kernel (no clusters), as the reference refuses them; the baked path
+    takes both."""
+    with pytest.raises(NotImplementedError, match="reference"):
+        Renderer(get_scene("book_checker"), _cover_camera(),
+                 BASE.replace(intersector="bruteforce"), device="cpu")
+    r = Renderer(get_scene("book_checker"), _cover_camera(), BASE,
                  device="cpu")
+    assert "tex_kind" in r.scene_arrays
     arrays = {"centers": torch.zeros((1, 3)), "tri_v0": torch.zeros(1)}
     tfused.check_supported(BASE.replace(baked_clusters=16), arrays)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item"):

@@ -1,5 +1,8 @@
 """The port's command line on the CPU."""
 
+from pathlib import Path
+
+import numpy as np
 import pytest
 import torch
 
@@ -98,22 +101,83 @@ def test_cli_mesh_and_culled_paths_write_png(argv, tmp_path):
         assert "tri_v0" in renderer.scene_arrays
 
 
-@pytest.mark.parametrize("argv", [
-    ["--intersector", "auto", "--winner-hint"],
-    ["--intersector", "bvh"],
-    ["--recluster", "2"],
-    ["--winner-hint"],
-    ["--scene-file", "s.json"],
-    ["--tex-lut", "512"],
-    ["--serve", "0"],
-    ["--interactive"],
-    ["--aov", "out"],
-    ["--scene", "book_checker"],
-], ids=lambda a: "_".join(a).strip("-"))
-def test_cli_refusals(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+SCENE_JSON = str(Path(__file__).resolve().parents[1] / "examples"
+                 / "scene.json")
+# What still refuses: flags of later slices (naming their ROADMAP item),
+# and what the reference refuses itself: textures on the plain
+# brute-force kernel (no clusters) and the winner hint off the baked path
+# (its models/fused.py:322-334), and the hint without clusters (its
+# RenderConfig).
+_HINT = (NotImplementedError, "intersector='baked'")
+_TEX = (NotImplementedError, "carries no texture")
+_LATER = (NotImplementedError, "ROADMAP")
+
+
+@pytest.mark.parametrize("argv,refusal", [
+    pytest.param(["--intersector", "auto", "--winner-hint", "--scene",
+                  "procedural", "--spheres", "2500"], _HINT,
+                 id="intersector_auto_--winner-hint"),
+    pytest.param(["--intersector", "bvh"], _LATER, id="intersector_bvh"),
+    pytest.param(["--recluster", "2"], _LATER, id="recluster_2"),
+    pytest.param(["--winner-hint"], (ValueError, "requires baked_clusters"),
+                 id="winner-hint"),
+    pytest.param(["--scene-file", SCENE_JSON], _TEX, id="scene-file_s.json"),
+    pytest.param(["--tex-lut", "512", "--scene", "book_checker"], _TEX,
+                 id="tex-lut_512"),
+    pytest.param(["--serve", "0"], _LATER, id="serve_0"),
+    pytest.param(["--interactive"], _LATER, id="interactive"),
+    pytest.param(["--aov", "out"], _LATER, id="aov_out"),
+    pytest.param(["--scene", "book_checker"], _TEX, id="scene_book_checker"),
+])
+def test_cli_refusals(argv, refusal, tmp_path):
+    error, match = refusal
+    with pytest.raises(error, match=match):
         cli.main(["--device", "cpu", "--out", str(tmp_path / "r.png"),
                   *argv])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--scene", "book_checker", "--intersector", "baked", "--clusters",
+     "16"],
+    ["--scene", "book_checker", "--intersector", "baked", "--clusters",
+     "16", "--winner-hint"],
+    ["--scene", "book_checker", "--intersector", "bruteforce", "--clusters",
+     "16", "--tex-lut", "512"],
+    ["--scene-file", SCENE_JSON, "--intersector", "auto"],
+], ids=["book_checker", "winner_hint", "tex_lut", "scene_file"])
+def test_cli_texture_paths_write_png(argv, tmp_path):
+    """What the port once refused: book_checker on the baked and dynamic
+    culled paths, the winner hint, a LUT budget and a scene file (whose
+    camera block wins over the reference camera)."""
+    out = tmp_path / "r.png"
+    renderer, result = cli.run(["--device", "cpu", "--width", "16",
+                                "--height", "9", "--spp", "1",
+                                "--max-bounces", "8", "--out", str(out),
+                                "--quiet", *argv])
+    img = read_png(str(out))
+    assert img.shape == (9, 16, 3) and img.mean() > 10
+    assert "tex_kind" in renderer.scene_arrays
+    cfg = renderer.config
+    assert cfg.winner_hint == ("--winner-hint" in argv)
+    assert cfg.tex_lut_max == (512 if "--tex-lut" in argv else 8192)
+    if "--scene-file" in argv:
+        assert (cfg.intersector, cfg.baked_clusters) == ("baked", -1)
+        assert renderer.camera.vfov_deg == 32.0
+        assert renderer.camera.defocus_angle_deg == 0.0
+
+
+def test_scene_file_camera_layers_as_reference(tmp_path):
+    """Flag > scene-file camera > reference camera, field by field, and a
+    scene file takes no named scene's default view."""
+    args = cli.build_parser().parse_args(
+        ["--scene-file", SCENE_JSON, "--scene", "book_cover", "--vfov",
+         "50"])
+    _scene, _tris, file_cam = cli.build_scene(args)
+    cc = cli.build_camera(args, file_cam)
+    assert cc.vfov_deg == 50.0                  # the flag
+    assert cc.defocus_angle_deg == 0.0          # the file
+    assert cc.focus_distance == 10.0            # the reference default
+    np.testing.assert_allclose(cc.camera.position, [0.0, 1.5, 6.0])
 
 
 def test_default_camera_is_reference_camera():

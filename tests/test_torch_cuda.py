@@ -184,3 +184,56 @@ def test_mesh_render_on_cuda(device):
                  device=device)
     assert tdk.LAUNCHES == before + 1
     assert np.isfinite(res.accumulated).all() and res.image.mean() > 0.05
+
+
+@pytest.mark.parametrize("case", ["book_checker/culled16",
+                                  "book_checker/culled16_hint",
+                                  "book_checker/unculled",
+                                  "book_checker/dyn16",
+                                  "book_checker/culled16_lut512",
+                                  "scene_json/culled16"])
+def test_textured_kernels_match_plain(device, case):
+    """The textured instantiations (checker fields, the image LUT, the
+    winner hint): radiance words and all four counters bit-identical."""
+    from pathlib import Path
+
+    from wavefront_path_tracer_tpu_torch.scene import load_scene_file
+
+    scene_name, path = case.split("/")
+    cc = CameraController.book_one_final()
+    if scene_name == "book_checker":
+        scene = get_scene("book_checker")
+    else:
+        scene, _tris, _cam = load_scene_file(str(
+            Path(__file__).resolve().parents[1] / "examples" / "scene.json"))
+    cfg = RenderConfig(width=64, height=36, engine="fused")
+    arrays = prepare_scene(scene, cfg, device)
+    eye = tfused._concrete_eye(cc.view_matrix())
+    cam = torch.from_numpy(tfused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(64, 36),
+        cfg)).to(device)
+    _, planes = _planes(64, 36, device)
+    salts = (0, 0, 50, 2)
+    if path == "dyn16":
+        tab = tfused._dyn_tables(arrays, 16, camera_pos=eye)
+        assert tab.textured
+        before = tdk.LAUNCHES
+        k = tdk.fused_render_dynculled(tab, salts, cam, *planes)
+        torch.cuda.synchronize()
+        assert tdk.LAUNCHES == before + 1
+        p = tdk.fused_render_dynculled_reference(tab, salts, cam, *planes)
+    else:
+        clusters = 0 if path == "unculled" else 16
+        baked = tfused._baked_scene(
+            arrays, clusters, camera_pos=eye, winner_hint="hint" in path,
+            lut_max=512 if "lut512" in path else 8192)
+        assert baked.textured and baked.winner_hint == ("hint" in path)
+        key = "culled" if clusters else "unculled"
+        before = tbk.LAUNCHES[key]
+        k = tbk.fused_render_baked(baked, salts, cam, *planes)
+        torch.cuda.synchronize()
+        assert tbk.LAUNCHES[key] == before + 1
+        p = tbk.fused_render_baked_reference(baked, salts, cam, *planes)
+    for a, b in zip(k[:3], p[:3]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert k[3].tolist() == p[3].tolist()

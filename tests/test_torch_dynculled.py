@@ -339,7 +339,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="multiple of 8"):
         Renderer(scene, _cover_camera(), BASE.replace(baked_clusters=4),
                  tris, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The winner hint is the baked path's, as in the reference
+    # (models/fused.py:329-334).
+    with pytest.raises(NotImplementedError, match="intersector='baked'"):
         Renderer(scene, _cover_camera(),
                  BASE.replace(baked_clusters=8, winner_hint=True), tris,
                  device="cpu")

@@ -106,18 +106,29 @@ def test_block_perm_bit_exact(size, block):
     assert tp.dtype == jp.dtype and ti.dtype == ji.dtype
 
 
-@pytest.mark.parametrize("change", [
-    {"intersector": "baked", "recluster": 1},
-    {"intersector": "baked", "winner_hint": True, "baked_clusters": 16},
-    {"intersector": "bvh"},
-    {"recluster": 1, "intersector": "bruteforce"},
-    {"winner_hint": True, "baked_clusters": 4},
-    {"num_devices": 2},
-    {"engine": "megakernel"},
-    {"engine": "wavefront"},
-], ids=lambda c: ",".join(f"{k}={v}" for k, v in c.items()))
-def test_refusals(cover, change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+# The winner hint now runs on the baked path; on the dynamic culled path
+# the reference itself refuses it (models/fused.py:329-334).
+HINT_ON_DYNAMIC = {"intersector": "bruteforce", "winner_hint": True,
+                   "baked_clusters": 16}
+
+
+@pytest.mark.parametrize("change,match", [
+    pytest.param({"intersector": "baked", "recluster": 1}, "ROADMAP",
+                 id="intersector=baked,recluster=1"),
+    pytest.param(HINT_ON_DYNAMIC, "reference",
+                 id="intersector=baked,winner_hint=True,baked_clusters=16"),
+    pytest.param({"intersector": "bvh"}, "ROADMAP", id="intersector=bvh"),
+    pytest.param({"recluster": 1, "intersector": "bruteforce"}, "ROADMAP",
+                 id="recluster=1,intersector=bruteforce"),
+    pytest.param({"winner_hint": True, "baked_clusters": 4}, "reference",
+                 id="winner_hint=True,baked_clusters=4"),
+    pytest.param({"num_devices": 2}, "ROADMAP", id="num_devices=2"),
+    pytest.param({"engine": "megakernel"}, "ROADMAP",
+                 id="engine=megakernel"),
+    pytest.param({"engine": "wavefront"}, "ROADMAP", id="engine=wavefront"),
+])
+def test_refusals(cover, change, match):
+    with pytest.raises(NotImplementedError, match=match):
         Renderer(cover, _cover_camera(), BASE.replace(**change), device="cpu")
 
 
@@ -133,7 +144,10 @@ def test_bruteforce_with_clusters_matches_jax(cover, change):
 
 
 def test_refuses_textured_scene():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Textures render on every culled or baked path; the plain brute-force
+    kernel (no clusters) refuses them, as the reference does
+    (models/fused.py:322-328)."""
+    with pytest.raises(NotImplementedError, match="reference"):
         Renderer(get_scene("book_checker"), _cover_camera(), BASE,
                  device="cpu")
 
@@ -141,8 +155,12 @@ def test_refuses_textured_scene():
 def test_refuses_triangles_and_textures_in_engine(cover):
     arrays = {"centers": torch.zeros((1, 3))}
     for extra in ("tri_v0", "tex_kind"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="reference"):
             tfused.check_supported(BASE, {**arrays, extra: torch.zeros(1)})
+    # With clusters, both run on the dynamic culled path.
+    for extra in ("tri_v0", "tex_kind"):
+        tfused.check_supported(BASE.replace(baked_clusters=8),
+                               {**arrays, extra: torch.zeros(1)})
 
 
 def test_converted_jax_scene_renders_with_stats(cover):

@@ -3,10 +3,12 @@
 A subset of ``python -m wavefront_path_tracer_tpu.cli``: the fused engine
 with the brute-force and the baked intersects (``--clusters N|auto``
 culls either: the baked sweep, or the dynamic culled sweep over runtime
-tables for brute force), on sphere scenes and triangle meshes
-(``--scene mesh_demo|mesh_terrain``, ``--obj``), on a torch device.
-Flags of the reference CLI that this port does not carry yet are refused
-with the ROADMAP.md item that will bring them.
+tables for brute force), on sphere scenes, textured scenes
+(``--scene book_checker``, ``--scene-file``, ``--tex-lut``) and triangle
+meshes (``--scene mesh_demo|mesh_terrain``, ``--obj``), with the winner
+hint (``--winner-hint``), on a torch device.  Flags of the reference CLI
+that this port does not carry yet are refused with the ROADMAP.md item
+that will bring them.
 
 Example (the headline configuration)::
 
@@ -26,20 +28,12 @@ import numpy as np
 # Reference-CLI flags this slice refuses: flag -> (dest, ROADMAP item).
 _REFUSED = {
     "--recluster": ("recluster", "queue 2 item 6 (recluster segments)"),
-    "--winner-hint": ("winner_hint", "queue 2 item 2 (the winner-hint "
-                                     "shortlist of the baked culled "
-                                     "intersect)"),
-    "--scene-file": ("scene_file", "queue 1 item 9 (cli and app layer)"),
-    "--tex-lut": ("tex_lut", "queue 2 item 5 (textures)"),
     "--serve": ("serve", "queue 1 item 9 (preview server)"),
     "--interactive": ("interactive", "queue 1 item 9 (app layer)"),
     "--aov": ("aov", "queue 1 item 9 (aov.py)"),
 }
 _REFUSED_INTERSECTORS = {
     "bvh": "queue 1 item 8 (BVH traversal on the XLA-style engines)",
-}
-_REFUSED_SCENES = {
-    "book_checker": "queue 2 item 5 (textures)",
 }
 
 
@@ -52,8 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "is no fallback to the CPU)")
     p.add_argument("--scene", default="book_one_final",
                    help="book_cover | book_one_final | book_bubble | "
-                        "procedural | cornell_spheres | mesh_demo | "
-                        "mesh_terrain")
+                        "book_checker | procedural | cornell_spheres | "
+                        "mesh_demo | mesh_terrain")
+    p.add_argument("--scene-file", default=None, metavar="JSON",
+                   help="render a user scene file (scene/file.py format; "
+                        "overrides --scene)")
     p.add_argument("--scene-seed", type=int, default=42)
     p.add_argument("--obj", default=None,
                    help="render an OBJ file (triangle mesh over a ground "
@@ -82,6 +79,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "8 for bruteforce)")
     p.add_argument("--sampler", default="random",
                    choices=("random", "stratified"))
+    p.add_argument("--tex-lut", type=int, default=None, metavar="TEXELS",
+                   help="texel budget per image-texture LUT (default: the "
+                        "RenderConfig default)")
+    p.add_argument("--winner-hint", action="store_true",
+                   help="baked culled: test each lane's last winner "
+                        "cluster first, to tighten the cull cap")
     p.add_argument("--rr", type=int, default=0, metavar="BOUNCE",
                    help="Russian roulette from this surface event (0 = off)")
     p.add_argument("--rr-floor", type=float, default=0.05, metavar="P")
@@ -99,10 +102,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quiet", action="store_true")
     # Refused: parsed so the refusal can name what will bring them.
     p.add_argument("--recluster", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--winner-hint", action="store_true", default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--scene-file", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--tex-lut", default=None, help=argparse.SUPPRESS)
     p.add_argument("--serve", default=None, help=argparse.SUPPRESS)
     p.add_argument("--interactive", action="store_true", default=None,
                    help=argparse.SUPPRESS)
@@ -121,10 +120,6 @@ def check_args(args) -> None:
             f"--intersector {args.intersector} is not ported yet (ROADMAP.md "
             f"{_REFUSED_INTERSECTORS[args.intersector]}); use bruteforce "
             "or baked")
-    if args.scene in _REFUSED_SCENES:
-        raise NotImplementedError(
-            f"--scene {args.scene} is not ported yet (ROADMAP.md "
-            f"{_REFUSED_SCENES[args.scene]})")
 
 
 def resolve_intersector(intersector: str, clusters: int, scene,
@@ -152,30 +147,35 @@ def resolve_intersector(intersector: str, clusters: int, scene,
     return intersector, clusters, notes
 
 
-def build_camera(args):
-    """The reference CLI's camera: explicit flag > the named scene's
-    default view > the reference camera (cli.py:290-322)."""
+def build_camera(args, file_cam=None):
+    """The reference CLI's camera, field by field: explicit flag > the
+    scene file's camera block > the named scene's default view (none for
+    a scene file) > the reference camera (cli.py:286-322)."""
     from wavefront_path_tracer_tpu_torch.scene import (
         SCENE_CAMERAS,
         CameraController,
     )
 
-    scene_cam = SCENE_CAMERAS.get(args.scene, {})
+    scene_cam = {} if args.scene_file else SCENE_CAMERAS.get(args.scene, {})
+    file_cam = file_cam or {}
     ref_cam = {"look_from": [13.0, 2.0, 3.0], "look_at": [0.0, 0.0, 0.0],
                "vfov": 20.0, "defocus_angle": 0.6}
 
     def cam_field(name, cli_value):
         if cli_value is not None:
             return cli_value
-        for layer in (scene_cam, ref_cam):
+        for layer in (file_cam, scene_cam, ref_cam):
             if name in layer:
                 return layer[name]
         return None
 
     look_from = cam_field("look_from", args.look_from)
     look_at = cam_field("look_at", args.look_at)
-    focus = (args.focus_distance if args.focus_distance is not None
-             else scene_cam.get("focus_distance", 10.0))
+    if args.focus_distance is not None:
+        focus = args.focus_distance
+    else:
+        focus = file_cam.get("focus_distance",
+                             scene_cam.get("focus_distance", 10.0))
     cc = CameraController.book_one_final()
     cc.camera = cc.camera.look_at(look_from, look_at)
     cc.vfov_deg = float(cam_field("vfov", args.vfov))
@@ -191,32 +191,35 @@ def build_camera(args):
 
 
 def build_scene(args):
-    """(scene, triangles | None) from parsed arguments, as the reference
-    CLI's ``build_scene`` (cli.py:220-251)."""
+    """(scene, triangles | None, file camera block | None) from parsed
+    arguments, as the reference CLI's ``build_scene`` (cli.py:220-251)."""
     from wavefront_path_tracer_tpu_torch.scene import (
         MeshSceneBuilder,
         get_scene,
         load_obj,
+        load_scene_file,
         mesh_demo_scene,
         mesh_terrain_scene,
     )
 
+    if args.scene_file:
+        return load_scene_file(args.scene_file)
     if args.obj:
         b = MeshSceneBuilder()
         ground = b.lambertian([0.5, 0.5, 0.5])
         b.sphere([0.0, -1000.0, 0.0], 1000.0, ground)
         load_obj(args.obj, builder=b, scale=args.obj_scale)
-        return b.build_mesh_scene()
+        return b.build_mesh_scene() + (None,)
     if args.scene == "mesh_demo":
-        return mesh_demo_scene()
+        return mesh_demo_scene() + (None,)
     if args.scene == "mesh_terrain":
-        return mesh_terrain_scene(seed=args.scene_seed)
+        return mesh_terrain_scene(seed=args.scene_seed) + (None,)
     kwargs = {}
     if args.scene == "book_one_final":
         kwargs["seed"] = args.scene_seed
     elif args.scene == "procedural":
         kwargs = {"n": args.spheres, "seed": args.scene_seed}
-    return get_scene(args.scene, **kwargs), None
+    return get_scene(args.scene, **kwargs), None, None
 
 
 def run(argv=None):
@@ -232,21 +235,25 @@ def run(argv=None):
         write_png,
     )
 
-    scene, triangles = build_scene(args)
+    scene, triangles, file_cam = build_scene(args)
     intersector, clusters, notes = resolve_intersector(
         args.intersector, args.clusters, scene, triangles)
     if not args.quiet:
         for note in notes:
             print(note, file=sys.stderr)
+    overrides = {}
+    if args.tex_lut is not None:
+        overrides["tex_lut_max"] = args.tex_lut
     cfg = RenderConfig(
         width=args.width, height=args.height,
         samples_per_pixel=args.spp, samples_per_frame=args.spf,
         max_bounces=args.max_bounces, frame=args.frame,
         engine="fused", intersector=intersector, baked_clusters=clusters,
-        block_tiles=args.block_tiles, sampler=args.sampler,
-        rr_start_bounce=args.rr, rr_floor=args.rr_floor, clamp=args.clamp,
+        block_tiles=args.block_tiles, winner_hint=args.winner_hint,
+        sampler=args.sampler, rr_start_bounce=args.rr,
+        rr_floor=args.rr_floor, clamp=args.clamp, **overrides,
     )
-    renderer = Renderer(scene, build_camera(args), cfg, triangles,
+    renderer = Renderer(scene, build_camera(args, file_cam), cfg, triangles,
                         device=args.device)
     t_start = time.perf_counter()
     rays = 0.0

@@ -3,9 +3,10 @@
 // Replaces wavefront_path_tracer_tpu/ops/pallas_kernels.py:
 // fused_render_baked (3157) with either of its intersects,
 // baked_culled_intersect (831) or baked_intersect (612), over spheres and
-// triangles (checker textures and the winner hint are not ported yet).
-// The persistent body (samples, bounces, raygen, shade, sky, clamp,
-// roulette) is common.cuh's, the same as persistent.cu's.
+// triangles, with checker and image textures and, for the culled one, the
+// winner hint.  The persistent body (samples, bounces, raygen, shade, sky,
+// clamp, roulette, the texture step) is common.cuh's, the same as
+// persistent.cu's.
 //
 // "Baked" on Hopper is a table, not code.  The TPU unrolled the scene into
 // the kernel as vector immediates because dynamic scalar loads from its
@@ -23,8 +24,11 @@
 //       reference's folded constant 2.0 * cxp; unculled: 0
 //   q2  world centre (xyz), ior
 //   q3  albedo rgb, fuzz
-//   q4  1/r sign, mat_type, 0, 0
+//   q4  1/r sign (the true 1/r with image textures), mat_type, image
+//       slot (textured bakes), 0
 // The pair loop reads q0 and q1; q2-q4 are read once, for the winner.
+// A textured bake adds a float4 per item (checker albedo2 rgb, scale),
+// also read once for the winner, and common.cuh's image LUTs.
 // Boxes are (n, 8) f32 rows (lo xyz, 0, hi xyz, 0); ranges are (n, 2)
 // int32 rows (first, count) into the item table (clusters) or the cluster
 // table (supers).  consts: shift xyz, slab lo xyz, slab hi xyz, triangle
@@ -35,8 +39,16 @@
 // their own hierarchy (clusters, supers, slab) after the sphere
 // hierarchy, as the reference does (pallas_kernels.py:1310).  The winner
 // is one index, with kTriBit set for a triangle.  Both intersects are
-// templates on kTris: a sphere-only bake launches the kTris = false
-// instantiation, whose code is that of the sphere-only kernel.
+// templates on kTris and kTex (textures), the culled one on kHint too: a
+// sphere-only untextured bake launches the instantiation whose code is
+// that of the sphere-only kernel.
+//
+// The winner hint (pallas_kernels.py:892-904, 1330-1367) is per thread:
+// the thread keeps the cluster of its previous ray's winner (-1 after a
+// global win, a miss, or at the lane's start; it carries over samples),
+// tests that cluster first, counted as a cluster entered, and skips it in
+// the main sweep, so each cluster is tested at most once.  Clusters are
+// numbered in sweep order, the triangle hierarchy's after the spheres'.
 //
 // Culling is per thread.  A thread enters a cluster (or super) only when
 // its own ray's box cond holds against its own current best_t:
@@ -78,7 +90,9 @@ using wpt::nan_min;
 
 constexpr int kItem = 5;  // float4 per item row
 
+template <bool kTex>
 __device__ __forceinline__ void fill_hit(const float4* __restrict__ items,
+                                         const float4* __restrict__ tex,
                                          int best, float best_t, Hit& h) {
   const float4 q2 = __ldg(items + kItem * best + 2);
   const float4 q3 = __ldg(items + kItem * best + 3);
@@ -98,6 +112,14 @@ __device__ __forceinline__ void fill_hit(const float4* __restrict__ items,
   h.ny = 0.0f;
   h.nz = 0.0f;
   h.is_tri = false;
+  if (kTex) {
+    const float4 c = __ldg(tex + best);
+    h.a2r = c.x;
+    h.a2g = c.y;
+    h.a2b = c.z;
+    h.ts = c.w;
+    h.slot = static_cast<int>(q4.z);
+  }
 }
 
 // The triangles of rows first..first+count-1 against the running best.
@@ -114,15 +136,15 @@ __device__ __forceinline__ void test_triangles(
   }
 }
 
-template <bool kTris>
+template <bool kTris, bool kTex>
 __device__ __forceinline__ bool finish(const float4* items,
-                                       const float4* tris, int best,
-                                       float best_t, Hit& h) {
+                                       const float4* tex, const float4* tris,
+                                       int best, float best_t, Hit& h) {
   if (best < 0) return false;
   if (kTris && (best & kTriBit)) {
     wpt::fill_tri_hit(tris, best & ~kTriBit, best_t, h);
   } else {
-    fill_hit(items, best, best_t, h);
+    fill_hit<kTex>(items, tex, best, best_t, h);
   }
   return true;
 }
@@ -130,17 +152,20 @@ __device__ __forceinline__ bool finish(const float4* items,
 // baked_intersect.intersect (pallas_kernels.py:672-797): the generic
 // quadratic with inv_a and the disc >= 0 select, in scene order; then the
 // triangles in scene order.
-template <bool kTris>
+template <bool kTris, bool kTex>
 struct UnculledIntersect {
   static constexpr bool kTriangles = kTris;
+  static constexpr bool kTextured = kTex;
   const float4* items;
   int n_items;
   const float4* tris;
   int n_tris;
+  const float4* tex_items;
+  wpt::TexTables tex;
 
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
-      Counts&) const {
+      Counts&, int&) const {
     const float a = dx * dx + dy * dy + dz * dz;
     const float inv_a = 1.0f / a;
     int best = -1;
@@ -173,7 +198,7 @@ struct UnculledIntersect {
     }
     if (kTris)
       test_triangles(tris, 0, n_tris, ox, oy, oz, dx, dy, dz, best_t, best);
-    return finish<kTris>(items, tris, best, best_t, h);
+    return finish<kTris, kTex>(items, tex_items, tris, best, best_t, h);
   }
 };
 
@@ -199,11 +224,13 @@ struct Hierarchy {
 
   // The sweep (pallas_kernels.py:1362-1455) with per-thread conds:
   // supers front to back and the clusters of an entered super in their
-  // bake order, or the flat sorted clusters.  `fold(first, count)` tests
-  // a cluster's items against the running best_t.
-  template <class Fold>
+  // bake order, or the flat sorted clusters.  `fold(c, first, count)`
+  // tests cluster c's items against the running best_t.  With kSkip,
+  // cluster `skip` (the hint's, already tested) is passed over.
+  template <bool kSkip, class Fold>
   __device__ __forceinline__ void sweep(const BoxRay& r, const float& best_t,
-                                        Counts& counts, Fold fold) const {
+                                        Counts& counts, int skip,
+                                        Fold fold) const {
     const float t_exit = wpt::slab_exit(r, lo[0], lo[1], lo[2], hi[0],
                                         hi[1], hi[2]);
     if (n_supers > 0) {
@@ -212,19 +239,21 @@ struct Hierarchy {
         ++counts.supers;
         const int2 range = __ldg(sranges + s);
         for (int c = range.x; c < range.x + range.y; ++c) {
-          if (enters(r, boxes, c, nan_min(best_t, t_exit))) {
+          if ((!kSkip || c != skip)
+              && enters(r, boxes, c, nan_min(best_t, t_exit))) {
             ++counts.clusters;
             const int2 items = __ldg(ranges + c);
-            fold(items.x, items.y);
+            fold(c, items.x, items.y);
           }
         }
       }
     } else {
       for (int c = 0; c < n_clusters; ++c) {
-        if (enters(r, boxes, c, nan_min(best_t, t_exit))) {
+        if ((!kSkip || c != skip)
+            && enters(r, boxes, c, nan_min(best_t, t_exit))) {
           ++counts.clusters;
           const int2 items = __ldg(ranges + c);
-          fold(items.x, items.y);
+          fold(c, items.x, items.y);
         }
       }
     }
@@ -232,14 +261,17 @@ struct Hierarchy {
 };
 
 // baked_culled_intersect.intersect (pallas_kernels.py:1063-1466).
-template <bool kTris>
+template <bool kTris, bool kTex, bool kHint>
 struct CulledIntersect {
   static constexpr bool kTriangles = kTris;
+  static constexpr bool kTextured = kTex;
   const float4* items;
   int n_globals;
   Hierarchy spheres;
   const float4* tris;
   Hierarchy triangles;
+  const float4* tex_items;
+  wpt::TexTables tex;
   float shx, shy, shz;
 
   struct Ray {
@@ -277,7 +309,7 @@ struct CulledIntersect {
 
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
-      Counts& counts) const {
+      Counts& counts, int& hint) const {
     Ray r;
     r.dx = dx; r.dy = dy; r.dz = dz;
     r.oxp = ox - shx;
@@ -288,40 +320,61 @@ struct CulledIntersect {
     int best = -1;
     float best_t = kTFar;
     for (int i = 0; i < n_globals; ++i) test(r, i, best_t, best);
+    int best_c = -1;   // the winner's cluster (kHint)
     if (spheres.n_clusters > 0 || (kTris && triangles.n_clusters > 0)) {
       const BoxRay br{ox, oy, oz, 1.0f / dx, 1.0f / dy, 1.0f / dz};
-      if (spheres.n_clusters > 0) {
-        spheres.sweep(br, best_t, counts, [&](int first, int count) {
-          for (int i = first; i < first + count; ++i)
-            test(r, i, best_t, best);
-        });
+      const int n_sph = spheres.n_clusters;
+      const auto fold_spheres = [&](int c, int first, int count) {
+        const int before = best;
+        for (int i = first; i < first + count; ++i)
+          test(r, i, best_t, best);
+        if (kHint && best != before) best_c = c;
+      };
+      const auto fold_triangles = [&](int c, int first, int count) {
+        const int before = best;
+        test_triangles(tris, first, count, ox, oy, oz, dx, dy, dz, best_t,
+                       best);
+        if (kHint && best != before) best_c = n_sph + c;
+      };
+      if (kHint && hint >= 0) {
+        // The prepass: the previous winner's cluster, unconditionally.
+        ++counts.clusters;
+        if (hint < n_sph) {
+          const int2 items = __ldg(spheres.ranges + hint);
+          fold_spheres(hint, items.x, items.y);
+        } else if (kTris) {
+          const int2 items = __ldg(triangles.ranges + hint - n_sph);
+          fold_triangles(hint - n_sph, items.x, items.y);
+        }
       }
-      if (kTris && triangles.n_clusters > 0) {
-        triangles.sweep(br, best_t, counts, [&](int first, int count) {
-          test_triangles(tris, first, count, ox, oy, oz, dx, dy, dz, best_t,
-                         best);
-        });
-      }
+      const int skip = kHint ? hint : -1;
+      if (n_sph > 0)
+        spheres.sweep<kHint>(br, best_t, counts, skip, fold_spheres);
+      if (kTris && triangles.n_clusters > 0)
+        triangles.sweep<kHint>(br, best_t, counts, skip - n_sph,
+                               fold_triangles);
     }
-    return finish<kTris>(items, tris, best, best_t, h);
+    if (kHint) hint = best_c;
+    return finish<kTris, kTex>(items, tex_items, tris, best, best_t, h);
   }
 };
 
 // Eight blocks per SM cap both kernels at 64 registers a thread (72 by
 // default): the occupancy gained outweighs the extra spills, by 1.5% on
 // the headline frame and 5% on the unculled one (PERF.md).
-template <bool kTris>
+template <bool kTris, bool kTex>
 __global__ void __launch_bounds__(kThreads, 8)
 baked_unculled_kernel(const wpt::LaneParams p,
-                      const UnculledIntersect<kTris> isect) {
+                      const UnculledIntersect<kTris, kTex> isect) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.n_lanes) return;
   wpt::trace_lane(p, lane, isect);
 }
 
-template <bool kTris>
+template <bool kTris, bool kTex, bool kHint>
 __global__ void __launch_bounds__(kThreads, 8)
-baked_culled_kernel(const wpt::LaneParams p, CulledIntersect<kTris> isect,
+baked_culled_kernel(const wpt::LaneParams p,
+                    CulledIntersect<kTris, kTex, kHint> isect,
                     const float* __restrict__ consts) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.n_lanes) return;
@@ -348,19 +401,42 @@ Hierarchy hierarchy(const float* boxes, const int* ranges, int n_clusters,
                    {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
 }
 
-template <bool kTris>
-void launch(const wpt::LaneParams& p, int culled, const float4* items,
-            int n_globals, const Hierarchy& spheres, const float4* tris,
-            int n_tris, const Hierarchy& triangles, const float* consts,
-            cudaStream_t s) {
+// The tables of one launch.
+struct Tables {
+  const float4* items;
+  int n_globals;
+  Hierarchy spheres;
+  const float4* tris;
+  int n_tris;
+  Hierarchy triangles;
+  const float* consts;
+  const float4* tex_items;
+  wpt::TexTables tex;
+};
+
+template <bool kTris, bool kTex, bool kHint>
+void launch_culled(const wpt::LaneParams& p, const Tables& t,
+                   cudaStream_t s) {
   const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
-  if (culled) {
-    const CulledIntersect<kTris> isect{items, n_globals, spheres, tris,
-                                       triangles, 0.0f, 0.0f, 0.0f};
-    baked_culled_kernel<kTris><<<blocks, kThreads, 0, s>>>(p, isect, consts);
+  const CulledIntersect<kTris, kTex, kHint> isect{
+      t.items, t.n_globals, t.spheres, t.tris, t.triangles, t.tex_items,
+      t.tex, 0.0f, 0.0f, 0.0f};
+  baked_culled_kernel<kTris, kTex, kHint><<<blocks, kThreads, 0, s>>>(
+      p, isect, t.consts);
+}
+
+template <bool kTris, bool kTex>
+void launch(const wpt::LaneParams& p, int culled, int hint, const Tables& t,
+            cudaStream_t s) {
+  if (culled && hint) {
+    launch_culled<kTris, kTex, true>(p, t, s);
+  } else if (culled) {
+    launch_culled<kTris, kTex, false>(p, t, s);
   } else {
-    const UnculledIntersect<kTris> isect{items, n_globals, tris, n_tris};
-    baked_unculled_kernel<kTris><<<blocks, kThreads, 0, s>>>(p, isect);
+    const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
+    const UnculledIntersect<kTris, kTex> isect{t.items, t.n_globals, t.tris,
+                                               t.n_tris, t.tex_items, t.tex};
+    baked_unculled_kernel<kTris, kTex><<<blocks, kThreads, 0, s>>>(p, isect);
   }
 }
 
@@ -369,8 +445,10 @@ void launch(const wpt::LaneParams& p, int culled, const float4* items,
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  With
 // culled == 0 the item and triangle tables are swept in full (n_globals =
 // the item table's row count) with the generic quadratic, and the box
-// tables are not read.  n_tris == 0 launches the sphere-only kernels.  The
-// wrapper (ops/baked_kernels.py) checks shapes, types and alignment.
+// tables are not read.  n_tris == 0 launches the sphere-only kernels,
+// textured == 0 the untextured ones (the texture tables are not read),
+// hint != 0 (culled only) the winner-hint ones.  The wrapper
+// (ops/baked_kernels.py) checks shapes, types and alignment.
 extern "C" int wpt_baked_launch(
     const float* items, int n_globals,
     const float* cboxes, const int* cranges, int n_clusters,
@@ -379,6 +457,8 @@ extern "C" int wpt_baked_launch(
     const float* tcboxes, const int* tcranges, int n_tri_clusters,
     const float* tsboxes, const int* tsranges, int n_tri_supers,
     const float* consts, int culled,
+    const float* tex_items, const float* img_centres, const int* img_words,
+    int img_h, int img_w, int textured, int hint,
     const float* cam, const uint32_t* pix, const float* xs, const float* ys,
     const float* valid, const uint32_t* soff,
     float* rad_r, float* rad_g, float* rad_b, int* rays, int* supers,
@@ -391,18 +471,24 @@ extern "C" int wpt_baked_launch(
                           rad_r, rad_g, rad_b, rays, supers, clusters,
                           n_lanes, frame, sample_base, max_bounces,
                           n_samples, rr_start, rr_floor, clamp, stratified};
-  const float4* item4 = reinterpret_cast<const float4*>(items);
-  const float4* tri4 = reinterpret_cast<const float4*>(tris);
-  const Hierarchy sph = hierarchy(cboxes, cranges, n_clusters, sboxes,
-                                  sranges, n_supers);
-  const Hierarchy tri = hierarchy(tcboxes, tcranges, n_tri_clusters,
-                                  tsboxes, tsranges, n_tri_supers);
+  const Tables t{
+      reinterpret_cast<const float4*>(items), n_globals,
+      hierarchy(cboxes, cranges, n_clusters, sboxes, sranges, n_supers),
+      reinterpret_cast<const float4*>(tris), n_tris,
+      hierarchy(tcboxes, tcranges, n_tri_clusters, tsboxes, tsranges,
+                n_tri_supers),
+      consts, reinterpret_cast<const float4*>(tex_items),
+      {reinterpret_cast<const float4*>(img_centres), img_words, img_h,
+       img_w}};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_tris > 0) {
-    launch<true>(p, culled, item4, n_globals, sph, tri4, n_tris, tri,
-                 consts, s);
+  if (n_tris > 0 && textured) {
+    launch<true, true>(p, culled, hint, t, s);
+  } else if (n_tris > 0) {
+    launch<true, false>(p, culled, hint, t, s);
+  } else if (textured) {
+    launch<false, true>(p, culled, hint, t, s);
   } else {
-    launch<false>(p, culled, item4, n_globals, sph, tri4, 0, tri, consts, s);
+    launch<false, false>(p, culled, hint, t, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,16 @@
 // Device code shared by the persistent-lane kernels (persistent.cu,
 // baked.cu, dynculled.cu): the PCG streams, primary-ray generation,
 // shading, the per-lane sample and bounce loop with the sky/miss
-// accumulation, the clamp and Russian roulette, and the box and triangle
-// tests of the culled intersects.  Each kernel supplies only its
-// nearest-hit function (see trace_lane).
+// accumulation, the clamp and Russian roulette, the texture step, and the
+// box and triangle tests of the culled intersects.  Each kernel supplies
+// only its nearest-hit function (see trace_lane).
 //
 // Port of wavefront_path_tracer_tpu/ops/pallas_kernels.py: _jenkins /
 // _pcg_next / _next_f32 (81-103), _raygen_tile (461), _shade_tile (167),
-// the loop body of _persistent_impl (2451), box_range (1245) and the
-// two-sided Moller-Trumbore test of tri_tests (1191).  Every float
+// the loop body of _persistent_impl (2451) with its checker select
+// (2694-2702) and _apply_image_textures (298) with _acos_approx (274) and
+// _atan2_approx (283), box_range (1245) and the two-sided Moller-Trumbore
+// test of tri_tests (1191).  Every float
 // operation is written in the reference's order; with -fmad=false
 // (ops/_build.py) the results are bit-identical to the plain PyTorch
 // versions in ops/fused_kernels.py.
@@ -31,6 +33,13 @@ constexpr uint32_t kSampleStride = 0x9E3779B9u;
 constexpr uint32_t kBounceStride = 0x85EBCA6Bu;
 constexpr uint32_t kRrSalt = 0x52455252u;
 constexpr int kThreads = 128;
+// The texture step's constants, rounded from the reference's float64
+// Python values to float32 as JAX and PyTorch round them.
+constexpr float kPiF = (float)3.1415927;
+constexpr float kHalfPiF = (float)1.5707963;
+constexpr float kInv2Pi = (float)(1.0 / (2.0 * 3.1415927));
+constexpr float kInvPi = (float)(1.0 / 3.1415927);
+constexpr float kInv1023 = (float)(1.0 / 1023.0);
 
 __device__ __forceinline__ uint32_t jenkins(uint32_t x) {
   x = x + (x << 10);
@@ -122,8 +131,9 @@ __device__ __forceinline__ void raygen(
 
 // The winner of a nearest-hit search: what shade and the throughput
 // update read.  The triangle fields are read only by kernels whose
-// nearest-hit function has kTriangles set; sphere-only kernels never
-// write them, so they cost those kernels nothing.
+// nearest-hit function has kTriangles set, the texture fields only by
+// those with kTextured set; other kernels never write them, so they cost
+// those kernels nothing.
 struct Hit {
   float t;
   float cx, cy, cz, inv_r;   // world-space centre; 1/r or its sign
@@ -131,7 +141,86 @@ struct Hit {
   float fuzz, ior, mt;       // mt: 0 Lambertian, 1 metal, 2 dielectric
   float nx, ny, nz;          // a triangle winner's unit normal
   bool is_tri;               // the winner is a triangle
+  float a2r, a2g, a2b, ts;   // checker second albedo and scale (0: none)
+  int slot;                  // image slot, -1: none (always for a triangle)
 };
+
+// jnp.minimum / jnp.maximum (and torch's): NaN in, NaN out; fminf and
+// fmaxf would drop a NaN.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+// Image LUTs of a textured launch (ops/textures.py): per slot the
+// sphere's centre and 1/r, and (slots, h * w) words of 10:10:10 texels.
+struct TexTables {
+  const float4* centres;
+  const int* words;
+  int h, w;
+};
+
+// _acos_approx (pallas_kernels.py:274): A&S 4.4.45, in its order.
+__device__ __forceinline__ float acos_approx(float x) {
+  const float a = fabsf(x);
+  const float base = sqrtf(nan_max(1.0f - a, 0.0f)) * (
+      (float)1.5707288 + a * ((float)-0.2121144 + a * (
+          (float)0.0742610 - (float)0.0187293 * a)));
+  return (x < 0.0f) ? kPiF - base : base;
+}
+
+// _atan2_approx (pallas_kernels.py:283): A&S 4.4.49, an IEEE division.
+__device__ __forceinline__ float atan2_approx(float y, float x) {
+  const float ax = fabsf(x);
+  const float ay = fabsf(y);
+  const float mx = nan_max(ax, ay);
+  const float z = nan_min(ax, ay) / nan_max(mx, (float)1e-30);
+  const float z2 = z * z;
+  float at = z * ((float)0.9998660 + z2 * ((float)-0.3302995 + z2 * (
+      (float)0.1801410 + z2 * ((float)-0.0851330
+                               + (float)0.0208351 * z2))));
+  at = (ay > ax) ? kHalfPiF - at : at;
+  at = (x < 0.0f) ? kPiF - at : at;
+  return (y < 0.0f) ? -at : at;
+}
+
+// The texture step of _persistent_impl (2694-2707) for a hit at p: the
+// checker select (a scale of 0 never selects: sin(0 * p) is 0), then,
+// for a sphere winner with an image slot, the texel at the equirect UV
+// of p: one 4-byte read of a packed word, which L1 holds (book_checker's
+// LUT is 8 KB).  The TPU evaluated the LUT as a select tree per tile that
+// saw the sphere, and found the sphere by its centre and 1/r; here the
+// winner carries its slot, which agrees unless two spheres share centre
+// and signed radius.
+__device__ __forceinline__ void apply_textures(
+    const TexTables& tex, const Hit& h, float px, float py, float pz,
+    float& ar, float& ag, float& ab) {
+  if (h.ts != 0.0f) {
+    const float s = h.ts;
+    if (sinf(s * px) * sinf(s * py) * sinf(s * pz) < 0.0f) {
+      ar = h.a2r;
+      ag = h.a2g;
+      ab = h.a2b;
+    }
+  }
+  if (h.slot < 0) return;
+  const float4 c = __ldg(tex.centres + h.slot);
+  const float nx = (px - c.x) * c.w;
+  const float ny = (py - c.y) * c.w;
+  const float nz = (pz - c.z) * c.w;
+  const float u = (atan2_approx(-nz, nx) + kPiF) * kInv2Pi;
+  const float v = acos_approx(nan_min(nan_max(-ny, -1.0f), 1.0f)) * kInvPi;
+  const int yi = min(max((int)((1.0f - v) * (float)tex.h), 0), tex.h - 1);
+  const int xi = min(max((int)(u * (float)tex.w), 0), tex.w - 1);
+  const int word = __ldg(tex.words + (size_t)h.slot * tex.h * tex.w
+                         + yi * tex.w + xi);
+  ar = (float)((word >> 20) & 1023) * kInv1023;
+  ag = (float)((word >> 10) & 1023) * kInv1023;
+  ab = (float)(word & 1023) * kInv1023;
+}
 
 // Per-lane counters; a nearest-hit function adds its cull entries.
 struct Counts {
@@ -259,15 +348,19 @@ struct LaneParams {
 
 // The persistent body (_persistent_impl) for one lane: every sample and
 // every bounce of the lane, one thread.  `isect(ox, oy, oz, dx, dy, dz,
-// hit, counts)` returns whether the ray hits and fills `hit`;
-// Isect::kTriangles says whether the winner may be a triangle.  Each lane
-// writes its own radiance words and counters once: no atomics, and the
-// result is deterministic.
+// hit, counts, hint)` returns whether the ray hits and fills `hit`;
+// Isect::kTriangles says whether the winner may be a triangle and
+// Isect::kTextured whether the texture step runs (over isect.tex).
+// `hint` is the lane's state for the winner hint: -1 for a new lane, then
+// whatever the last call left (intersects without a hint ignore it).
+// Each lane writes its own radiance words and counters once: no atomics,
+// and the result is deterministic.
 template <class Isect>
 __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
                                            const Isect& isect) {
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   Counts counts;
+  int hint = -1;
   if (p.valid[lane] > 0.0f) {
     const Camera cam = load_camera(p.cam);
     const uint32_t pix = p.pix[lane];
@@ -286,7 +379,7 @@ __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
       while (true) {
         ++counts.rays;
         Hit h;
-        if (!isect(ox, oy, oz, dx, dy, dz, h, counts)) {
+        if (!isect(ox, oy, oz, dx, dy, dz, h, counts, hint)) {
           // Miss: throughput x sky gradient, optionally clamped.
           const float sky_a = 0.5f * (dy + 1.0f);
           float con_r = tr * ((1.0f - sky_a) + sky_a * 0.5f);
@@ -305,11 +398,15 @@ __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
         float px, py, pz, ndx, ndy, ndz;
         shade<Isect::kTriangles>(base, sample, bounce, ox, oy, oz, dx, dy,
                                  dz, h, px, py, pz, ndx, ndy, ndz);
+        float ar = h.ar, ag = h.ag, ab = h.ab;
+        if constexpr (Isect::kTextured) {
+          apply_textures(isect.tex, h, px, py, pz, ar, ag, ab);
+        }
         ox = px; oy = py; oz = pz;
         dx = ndx; dy = ndy; dz = ndz;
-        tr *= h.ar;
-        tg *= h.ag;
-        tb *= h.ab;
+        tr *= ar;
+        tg *= ag;
+        tb *= ab;
         ++bounce;
         if (p.rr_start != 0u && bounce >= p.rr_start) {
           uint32_t st = jenkins((base + sample * kSampleStride
@@ -333,16 +430,6 @@ __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
   p.rays[lane] = counts.rays;
   if (p.supers != nullptr) p.supers[lane] = counts.supers;
   if (p.clusters != nullptr) p.clusters[lane] = counts.clusters;
-}
-
-// jnp.minimum / jnp.maximum (and torch's): NaN in, NaN out; fminf and
-// fmaxf would drop a NaN.
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
 }
 
 // A ray with its precomputed inverse direction, for box tests.
@@ -453,6 +540,8 @@ __device__ __forceinline__ void fill_tri_hit(const float4* __restrict__ tris,
   h.ny = q2.z;
   h.nz = q2.w;
   h.is_tri = true;
+  h.ts = 0.0f;     // a triangle win clears the checker (pallas_kernels.py
+  h.slot = -1;     // :791-797, 1231-1234) and never matches an image
 }
 
 }  // namespace wpt

@@ -3,13 +3,13 @@
 //
 // Replaces wavefront_path_tracer_tpu/ops/pallas_kernels.py:
 // fused_render_dynculled (3211) with make_dynamic_culled_intersect (1772)
-// as its nearest-hit function, over spheres and triangles (checker
-// textures are not ported yet).  The persistent body (samples, bounces,
-// raygen, shade, sky, clamp, roulette) is common.cuh's.
+// as its nearest-hit function, over spheres and triangles, with checker
+// and image textures.  The persistent body (samples, bounces, raygen,
+// shade, sky, clamp, roulette, the texture step) is common.cuh's.
 //
 // Tables (ops/dyn_tables.py, derived row for row from pack_culled_scene):
 //   spheres (N_pad, 16) f32, four float4 a row: 2c' xyz, kappa | centre,
-//     1/r | albedo rgb, fuzz | ior, mat_type, 0, 0.  The first
+//     1/r | albedo rgb, fuzz | ior, mat_type, image slot, 0.  The first
 //     n_globals rows are the globals, then cluster_size rows per
 //     cluster in visit order; NaN padding rows never win.
 //   boxes / super boxes (C, 8) f32: lo xyz, hi xyz, 0, 0; NaN padding
@@ -17,6 +17,10 @@
 //   slab (2, 8): row 0 the sphere clusters' slab, row 1 the shift.
 //   triangles: common.cuh's kTri rows, cluster_size rows per cluster;
 //     tri_slab (1, 8).
+//   textured scenes (kTex): sphere_tex (N_pad, 4), the reference table's
+//     columns 16-19 (checker albedo2 rgb, scale), read for the winner
+//     only, and common.cuh's image LUTs; a triangle win clears the
+//     checker (pallas_kernels.py:1973-1981).
 // The packed attribute words of the reference's tables are decoded on
 // the host, so no float op here touches a bit pattern.
 //
@@ -119,11 +123,14 @@ struct Level {
   }
 };
 
-template <bool kTris>
+template <bool kTris, bool kTex>
 struct DynIntersect {
   static constexpr bool kTriangles = kTris;
+  static constexpr bool kTextured = kTex;
   const float4* spheres;
   const float4* tris;
+  const float4* sphere_tex;
+  wpt::TexTables tex;
   Level sph;
   Level tri;
   int n_globals;      // global rows, NaN padding included
@@ -153,7 +160,7 @@ struct DynIntersect {
 
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
-      Counts& counts) const {
+      Counts& counts, int&) const {
     Ray r;
     r.oxp = ox - shx;
     r.oyp = oy - shy;
@@ -212,15 +219,23 @@ struct DynIntersect {
     h.ny = 0.0f;
     h.nz = 0.0f;
     h.is_tri = false;
+    if (kTex) {
+      const float4 c = __ldg(sphere_tex + best);
+      h.a2r = c.x;
+      h.a2g = c.y;
+      h.a2b = c.z;
+      h.ts = c.w;
+      h.slot = static_cast<int>(q3.z);
+    }
     return true;
   }
 };
 
 // Eight blocks per SM cap the kernel at 64 registers a thread, as the
 // other kernels are (PERF.md).
-template <bool kTris>
+template <bool kTris, bool kTex>
 __global__ void __launch_bounds__(kThreads, 8)
-dynculled_kernel(const wpt::LaneParams p, DynIntersect<kTris> isect,
+dynculled_kernel(const wpt::LaneParams p, DynIntersect<kTris, kTex> isect,
                  const float* __restrict__ slab,
                  const float* __restrict__ tri_slab) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -246,10 +261,19 @@ Level level(const float* boxes, const float* sboxes, int n_clusters,
                n_supers, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
 }
 
+template <bool kTris, bool kTex>
+void launch(const wpt::LaneParams& p, const DynIntersect<kTris, kTex>& isect,
+            const float* slab, const float* tri_slab, cudaStream_t s) {
+  const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
+  dynculled_kernel<kTris, kTex><<<blocks, kThreads, 0, s>>>(p, isect, slab,
+                                                           tri_slab);
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).
-// n_tri_clusters == 0 launches the sphere-only kernel.  The wrapper
+// n_tri_clusters == 0 launches the sphere-only kernel, textured == 0 the
+// untextured one (the texture tables are not read).  The wrapper
 // (ops/dynculled_kernels.py) checks shapes, types and alignment.
 extern "C" int wpt_dynculled_launch(
     const float* spheres, const float* boxes, const float* sboxes,
@@ -257,6 +281,8 @@ extern "C" int wpt_dynculled_launch(
     const float* tsboxes, const float* tri_slab,
     int n_globals, int n_clusters, int n_supers, int n_tri_clusters,
     int n_tri_supers, int cluster_size,
+    const float* sphere_tex, const float* img_centres, const int* img_words,
+    int img_h, int img_w, int textured,
     const float* cam, const uint32_t* pix, const float* xs, const float* ys,
     const float* valid, const uint32_t* soff,
     float* rad_r, float* rad_g, float* rad_b, int* rays, int* supers,
@@ -273,18 +299,25 @@ extern "C" int wpt_dynculled_launch(
   const float4* tri4 = reinterpret_cast<const float4*>(tris);
   const Level sph = level(boxes, sboxes, n_clusters, n_supers);
   const Level tri = level(tboxes, tsboxes, n_tri_clusters, n_tri_supers);
-  const int blocks = (n_lanes + kThreads - 1) / kThreads;
+  const float4* tex4 = reinterpret_cast<const float4*>(sphere_tex);
+  const wpt::TexTables tex{reinterpret_cast<const float4*>(img_centres),
+                           img_words, img_h, img_w};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_tri_clusters > 0) {
-    const DynIntersect<true> isect{sph4, tri4, sph, tri, n_globals,
-                                   cluster_size, 0.0f, 0.0f, 0.0f};
-    dynculled_kernel<true><<<blocks, kThreads, 0, s>>>(p, isect, slab,
-                                                       tri_slab);
+  if (n_tri_clusters > 0 && textured) {
+    launch<true, true>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
+                           cluster_size, 0.0f, 0.0f, 0.0f}, slab, tri_slab, s);
+  } else if (n_tri_clusters > 0) {
+    launch<true, false>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
+                            cluster_size, 0.0f, 0.0f, 0.0f}, slab, tri_slab,
+                        s);
+  } else if (textured) {
+    launch<false, true>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
+                            cluster_size, 0.0f, 0.0f, 0.0f}, slab, tri_slab,
+                        s);
   } else {
-    const DynIntersect<false> isect{sph4, tri4, sph, tri, n_globals,
-                                    cluster_size, 0.0f, 0.0f, 0.0f};
-    dynculled_kernel<false><<<blocks, kThreads, 0, s>>>(p, isect, slab,
-                                                        tri_slab);
+    launch<false, false>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
+                             cluster_size, 0.0f, 0.0f, 0.0f}, slab, tri_slab,
+                         s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,14 +57,17 @@ using wpt::kThreads;
 // table in table order, strict `<`, so the first index wins ties and a NaN
 // padding row (every compare false) never wins.  The winner is carried as
 // a row index and its attributes are fetched once after the loop.
+// The reference refuses textures on this kernel (models/fused.py:322-328),
+// so its texture step is compiled out.
 struct TableIntersect {
   static constexpr bool kTriangles = false;
+  static constexpr bool kTextured = false;
   const float4* rows;
   int n_rows;
 
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
-      wpt::Counts&) const {
+      wpt::Counts&, int&) const {
     const float a = dx * dx + dy * dy + dz * dz;
     const float inv_a = 1.0f / a;
     int best = -1;

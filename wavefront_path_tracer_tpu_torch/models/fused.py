@@ -8,7 +8,9 @@ swept in full, ``ops/fused_kernels.py``) or ``baked_clusters`` N or -1
 ``intersector="baked"`` with ``baked_clusters`` 0, N or -1: the scene
 baked once into visit-ordered tables (``ops/bake.py``) and swept unculled
 or through Morton clusters (``ops/baked_kernels.py``).  Triangle meshes
-run on the baked and dynamic culled paths, as in the reference.  Pixels
+and textured scenes (checker and image textures, ``ops/textures.py``)
+run on the baked and dynamic culled paths, and the winner hint on the
+baked culled one, as in the reference.  Pixels
 go to lanes in 32x32 image-block order (``block_tiles``), each lane
 traces all of its pixel's samples in one kernel call, and radiance is
 scattered back to natural pixel order.  The planes are built on the
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from wavefront_path_tracer_tpu_torch.ops.bake import (
+    TEX_LUT_MAX,
     BakedScene,
     bake_culled,
     bake_unculled,
@@ -86,7 +89,8 @@ def _effective_split(requested: int, n_samples: int) -> int:
 
 def check_supported(config: RenderConfig, scene_arrays) -> None:
     """Refuse what this port does not carry yet, naming the ROADMAP.md
-    item that will, and what the reference itself refuses."""
+    item that will, and what the reference itself refuses, naming its
+    refusal."""
     if config.intersector == "auto":
         raise ValueError(
             "the fused engine has no 'auto' intersector: the command line "
@@ -101,19 +105,25 @@ def check_supported(config: RenderConfig, scene_arrays) -> None:
         raise NotImplementedError(
             "recluster > 0 is not ported yet (ROADMAP.md queue 2 item 6: "
             "the recluster segment kernels)")
-    if config.winner_hint:
-        raise NotImplementedError(
-            "winner_hint is not ported yet: the winner-hint shortlist is "
-            "what remains of ROADMAP.md queue 2 item 2 (the reference "
-            "carries it on intersector='baked' only)")
     if config.num_devices != 1:
         raise NotImplementedError(
             "multi-device rendering is not ported yet (ROADMAP.md queue 1 "
             "item 10)")
-    if "tex_kind" in scene_arrays:
+    brute = config.intersector == "bruteforce"
+    if (brute and "tex_kind" in scene_arrays
+            and _resolve_clusters(config, scene_arrays) <= 0):
+        # The reference's own refusal (models/fused.py:322-328).
         raise NotImplementedError(
-            "textured scenes are not ported yet: checker and image textures "
-            "are ROADMAP.md queue 2 items 2, 4 and 5 (and queue 1 item 3)")
+            "the fused engine evaluates textures with intersector='baked' "
+            "or the dynamic culled path (baked_clusters > 0); the plain "
+            "brute-force kernel carries no texture winner fields, as in "
+            "the reference (its models/fused.py:322-328)")
+    if brute and config.winner_hint:
+        # The reference's own refusal (models/fused.py:329-334).
+        raise NotImplementedError(
+            "winner_hint is implemented only for intersector='baked' (the "
+            "dynamic culled path has no shortlist prepass), as in the "
+            "reference (its models/fused.py:329-334)")
     if (config.intersector == "bruteforce" and "tri_v0" in scene_arrays
             and _resolve_clusters(config, scene_arrays) <= 0):
         # The reference's own refusal (models/fused.py:344-349).
@@ -174,40 +184,46 @@ def _cached(cache, key, make):
     return value
 
 
-def _baked_scene(scene_arrays, clusters: int = 0,
-                 camera_pos=None) -> BakedScene:
-    """The bake for a scene, cluster size and camera hint, from a bounded
-    LRU.  The host copy of the sphere and triangle tables and its
-    fingerprint are ``scene_arrays["host_scene"]``, made once with the
-    scene (``convert.scene_arrays_to_torch``)."""
+def _baked_scene(scene_arrays, clusters: int = 0, camera_pos=None,
+                 winner_hint: bool = False,
+                 lut_max: int = TEX_LUT_MAX) -> BakedScene:
+    """The bake for a scene, cluster size, camera hint, winner hint and
+    image-LUT budget, from a bounded LRU keyed as the reference's
+    ``_baked_fn`` keys its cache.  The host copy of the scene's tables and
+    its fingerprint (textures included) are ``scene_arrays["host_scene"]``,
+    made once with the scene (``convert.scene_arrays_to_torch``).  The
+    winner hint applies to a culled bake only; the reference's unculled
+    bake takes the flag and ignores it (models/fused.py:247-255)."""
     host = scene_arrays["host_scene"]
     hint_key, camera_pos = (_quantized_hint(host["centers"], camera_pos)
                             if clusters > 0 else (None, None))
+    winner_hint = bool(winner_hint) and clusters > 0
     device = scene_arrays["centers"].device
     key = (host["centers"].shape[0], host["key"], clusters, hint_key,
-           str(device))
+           winner_hint, lut_max, str(device))
     if clusters > 0:
         return _cached(_BAKED_CACHE, key, lambda: bake_culled(
             host, cluster_size=clusters, camera_hint=camera_pos,
-            device=device))
-    return _cached(_BAKED_CACHE, key,
-                   lambda: bake_unculled(host, device=device))
+            winner_hint=winner_hint, lut_max=lut_max, device=device))
+    return _cached(_BAKED_CACHE, key, lambda: bake_unculled(
+        host, lut_max=lut_max, device=device))
 
 
-def _dyn_tables(scene_arrays, cluster_size: int,
-                camera_pos=None) -> DynTables:
-    """The dynamic culled tables for a scene, cluster size and camera
-    hint (the reference's ``_dyn_tables``), from a bounded LRU.  The
-    visit order lives in the tables, so the hint is quantized only to
-    keep the cache from thrashing on small moves."""
+def _dyn_tables(scene_arrays, cluster_size: int, camera_pos=None,
+                lut_max: int = TEX_LUT_MAX) -> DynTables:
+    """The dynamic culled tables for a scene, cluster size, camera hint
+    and image-LUT budget (the reference's ``_dyn_tables`` and
+    ``_static_image_luts``), from a bounded LRU.  The visit order lives
+    in the tables, so the hint is quantized only to keep the cache from
+    thrashing on small moves."""
     host = scene_arrays["host_scene"]
     hint_key, camera_pos = _quantized_hint(host["centers"], camera_pos)
     device = scene_arrays["centers"].device
-    key = (host["key"], cluster_size, hint_key, str(device))
+    key = (host["key"], cluster_size, hint_key, lut_max, str(device))
     return _cached(_DYN_CACHE, key, lambda: device_tables(
         pack_culled_scene(host, cluster_size=cluster_size,
                           camera_hint=camera_pos),
-        cluster_size, device=device))
+        cluster_size, device=device, scene_arrays=host, lut_max=lut_max))
 
 
 def camera_params(cam, view, inv_proj, config: RenderConfig) -> np.ndarray:
@@ -314,10 +330,13 @@ def _render_samples_impl(scene_arrays, cam, view, inv_proj,
     tables = {}
     if config.intersector == "baked":
         tables["baked"] = _baked_scene(scene_arrays, clusters,
-                                       camera_pos=_concrete_eye(view))
+                                       camera_pos=_concrete_eye(view),
+                                       winner_hint=config.winner_hint,
+                                       lut_max=config.tex_lut_max)
     elif clusters > 0:
         tables["dyn"] = _dyn_tables(scene_arrays, clusters,
-                                    camera_pos=_concrete_eye(view))
+                                    camera_pos=_concrete_eye(view),
+                                    lut_max=config.tex_lut_max)
     if config.block_tiles:
         perm, _inv = _block_perm(config.width, config.height,
                                  config.block_tiles)
@@ -350,7 +369,8 @@ def render_samples_with_stats(scene_arrays, cam, view, inv_proj,
                               config: RenderConfig, frame, sample_base,
                               n_samples: int):
     """Like :func:`render_samples`, plus the kernel's counters
-    {iterations, supers_entered, clusters_entered}."""
+    {iterations, supers_entered, clusters_entered}; clusters_entered
+    includes the winner hint's prepass entries."""
     return _render_samples_impl(scene_arrays, cam, view, inv_proj, config,
                                 frame, sample_base, n_samples,
                                 with_stats=True)

@@ -146,6 +146,8 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, i32,                 # triangle cluster boxes, ranges, n
         ptr, ptr, i32,                 # triangle super boxes, ranges, n
         ptr, i32,                      # consts, culled
+        ptr, ptr, ptr, i32, i32,       # checker rows, image centres, words,
+        i32, i32,                      # h, w, textured, hint
         *lane_args, *out_args, *salt_args,
     ]
     fn.restype = ctypes.c_int
@@ -156,6 +158,8 @@ def load_library() -> ctypes.CDLL:
         i32, i32, i32, i32, i32, i32,  # n_globals, n_clusters, n_supers,
                                        # n_tri_clusters, n_tri_supers,
                                        # cluster_size
+        ptr, ptr, ptr, i32, i32,       # checker rows, image centres, words,
+        i32,                           # h, w, textured
         *lane_args, *out_args, *salt_args,
     ]
     fn.restype = ctypes.c_int

@@ -18,9 +18,14 @@ The item table holds 20 float32 columns per sphere, in visit order::
           the reference folded into its constants; unculled: 0
     8-11  world centre (xyz), ior
     12-15 albedo rgb (decoded from the pack where it applies), fuzz
-    16-19 1/r sign, mat_type, 0, 0
+    16-19 1/r sign (the true 1/r in a scene with image textures),
+          mat_type, image slot (-1 = none; 0 in an untextured bake), 0
 
 The pair loop reads columns 0-7 only; the rest is read for the winner.
+A textured bake (the scene has ``tex_kind``) adds ``tex_items``, one
+float4 row per item in the same order: the checker's second albedo rgb
+and its scale (0 = no checker), read once for the winner by the textured
+kernels only; and the scene's image LUTs (``ops/textures.py``).
 Every constant is rounded to float32 as the JAX closure's Python floats
 are when they meet float32 arrays (doubling is exact, so 2c' is the
 rounding of the reference's ``2.0 * cxp``).
@@ -43,12 +48,15 @@ import dataclasses
 import numpy as np
 import torch
 
+from wavefront_path_tracer_tpu_torch.ops.textures import ImageLuts, image_luts
 from wavefront_path_tracer_tpu_torch.scene.mesh import TriangleSoA
 
 T_MIN = 0.001
 SUPER_FACTOR = 8
 SUPER_GATE = 48
 GLOBAL_RADIUS_FACTOR = 10.0
+TEX_LUT_MAX = 8192        # RenderConfig.tex_lut_max's default
+HINT_MAX_CLUSTERS = 64    # the winner hint is off above this estimate
 
 ITEM_COLS = 20
 TRI_COLS = 20
@@ -57,6 +65,7 @@ SPHERE_KEYS = ("centers", "radii", "albedo", "fuzz", "refract_idx",
                "mat_type")
 TRI_KEYS = ("tri_v0", "tri_e1", "tri_e2", "tri_albedo", "tri_fuzz",
             "tri_refract", "tri_mat_type")
+TEX_KEYS = ("tex_kind", "tex_albedo2", "tex_scale", "tex_id", "tex_data")
 
 
 def _signed32(word):
@@ -191,11 +200,16 @@ class BakedScene:
     the reference closure's attributes of the same names, both
     hierarchies together; ``cluster_aabbs`` lists (lo, hi) per cluster
     in the one-level visit order (nearest box to the camera hint first),
-    spheres first.
+    spheres first.  ``tex_items`` (n_items, 4) and ``images`` are
+    empty unless ``textured``; ``winner_hint`` says whether the culled
+    kernel runs the winner-hint prepass (asked for, and at most
+    ``HINT_MAX_CLUSTERS`` clusters estimated, as in the reference).
     """
 
     culled: bool
     items: torch.Tensor
+    tex_items: torch.Tensor
+    images: ImageLuts
     cluster_boxes: torch.Tensor
     cluster_ranges: torch.Tensor
     super_boxes: torch.Tensor
@@ -212,6 +226,8 @@ class BakedScene:
     n_clustered_items: int
     pack_attrs: str | None
     cluster_aabbs: tuple
+    textured: bool = False
+    winner_hint: bool = False
 
     @property
     def n_items(self) -> int:
@@ -226,28 +242,38 @@ class BakedScene:
         return self.n_clustered_items / max(self.n_clusters, 1)
 
     def to(self, device) -> "BakedScene":
-        tensors = {f.name: getattr(self, f.name).to(device)
-                   for f in dataclasses.fields(self)
-                   if isinstance(getattr(self, f.name), torch.Tensor)}
-        return dataclasses.replace(self, **tensors)
+        return on_device(self, device)
+
+
+def on_device(tables, device):
+    """A frozen dataclass of tables with every tensor (and
+    :class:`ImageLuts`) field moved to ``device``."""
+    moved = {f.name: getattr(tables, f.name).to(device)
+             for f in dataclasses.fields(tables)
+             if isinstance(getattr(tables, f.name),
+                           (torch.Tensor, ImageLuts))}
+    return dataclasses.replace(tables, **moved)
 
 
 def host_scene(scene_arrays) -> dict:
     """The sphere tables of ``scene_arrays`` (tensors on any device, or
-    anything ``np.asarray`` takes), and its triangle tables when it has
-    triangles, as float32 numpy arrays, plus ``"key"``: one fingerprint
-    of all their bytes, for the bake and dynamic-table caches.  Made
-    once per scene (``convert.scene_arrays_to_torch``)."""
+    anything ``np.asarray`` takes), its triangle tables when it has
+    triangles and its texture tables when it has textures, as numpy
+    arrays (float32, the texture kinds and ids int32), plus ``"key"``:
+    one fingerprint of all their bytes, for the bake and dynamic-table
+    caches.  Made once per scene (``convert.scene_arrays_to_torch``)."""
     keys = SPHERE_KEYS
     if "tri_v0" in scene_arrays and scene_arrays["tri_v0"].shape[0]:
         keys = keys + TRI_KEYS
+    keys = keys + tuple(k for k in TEX_KEYS if k in scene_arrays)
     out = {}
     for key in keys:
         v = scene_arrays[key]
         if isinstance(v, torch.Tensor):
             v = v.cpu().numpy()
-        out[key] = np.asarray(v, np.float32)
-    out["key"] = hash(b"".join(out[k].tobytes() for k in keys))
+        out[key] = np.asarray(v, np.int32 if key in ("tex_kind", "tex_id")
+                              else np.float32)
+    out["key"] = hash(b"".join(k.encode() + out[k].tobytes() for k in keys))
     return out
 
 
@@ -262,9 +288,12 @@ def host_triangles(host) -> TriangleSoA | None:
     return TriangleSoA(*(host[k] for k in TRI_KEYS))
 
 
-def _item_rows(a, idx, q0, any_neg, elide, attrs, culled):
+def _item_rows(a, idx, q0, any_neg, elide, attrs, culled, slot=None):
     """(len(idx), 20) float32 rows for spheres ``idx`` with the given
-    first four columns."""
+    first four columns.  With the per-sphere image ``slot`` of a textured
+    scene, column 18 holds it; a scene with an image texture keeps the
+    true 1/r in column 16 (the reference's ``full_inv_r``, whose winner
+    identity reads it), rounded once from float64."""
     rows = np.zeros((len(idx), ITEM_COLS), np.float32)
     rows[:, 0:4] = q0
     rows[:, 4] = elide[idx].astype(np.float32)
@@ -274,12 +303,28 @@ def _item_rows(a, idx, q0, any_neg, elide, attrs, culled):
     rows[:, 11] = a["refract_idx"][idx]
     rows[:, 12:15] = attrs[idx, 0:3]
     rows[:, 15] = a["fuzz"][idx]
-    if any_neg:
+    if slot is not None and (slot >= 0).any():
+        rows[:, 16] = 1.0 / a["radii"][idx].astype(np.float64)
+    elif any_neg:
         rows[:, 16] = np.where(a["radii"][idx] > 0, 1.0, -1.0)
     else:
         rows[:, 16] = 1.0
     rows[:, 17] = attrs[idx, 3]
+    if slot is not None:
+        rows[:, 18] = slot[idx]
     return rows
+
+
+def _textures(a, lut_max):
+    """(per-sphere image slot, (n, 4) checker rows: albedo2 rgb and
+    scale, ImageLuts) of a host scene; (None, None, no LUTs) for an
+    untextured one."""
+    luts, slot = image_luts(a, lut_max)
+    if "tex_kind" not in a:
+        return None, None, luts
+    checker = np.concatenate([a["tex_albedo2"], a["tex_scale"][:, None]],
+                             axis=1).astype(np.float32)
+    return slot, checker, luts
 
 
 def tri_rows(tris: TriangleSoA, nrm, packed: bool) -> np.ndarray:
@@ -356,8 +401,8 @@ def _sweep(clusters, supers, first):
     return members, cluster_rows, super_rows
 
 
-def _tables(culled, items, clusters, supers, tris, tri_clusters, tri_supers,
-            consts, **meta):
+def _tables(culled, items, tex_items, clusters, supers, tris, tri_clusters,
+            tri_supers, consts, **meta):
     def f32(rows, width):
         return torch.from_numpy(
             np.asarray(rows, np.float32).reshape(-1, width))
@@ -370,6 +415,7 @@ def _tables(culled, items, clusters, supers, tris, tri_clusters, tri_supers,
 
     return BakedScene(
         culled=culled, items=f32(items, ITEM_COLS),
+        tex_items=f32(tex_items, 4),
         cluster_boxes=boxes(clusters),
         cluster_ranges=i32([rng for _, _, rng in clusters]),
         super_boxes=boxes(supers),
@@ -382,11 +428,14 @@ def _tables(culled, items, clusters, supers, tris, tri_clusters, tri_supers,
         consts=f32(consts, 16).reshape(16), **meta)
 
 
-def bake_unculled(scene_arrays, *, device="cpu") -> BakedScene:
+def bake_unculled(scene_arrays, *, lut_max: int = TEX_LUT_MAX,
+                  device="cpu") -> BakedScene:
     """The bake of ``baked_intersect`` (pallas_kernels.py:632-670):
     every sphere, then every triangle, in scene order, with elision
-    flags, sign-only 1/r and the attribute pack.  The triangle normals
-    are normalised without a floor, as the reference's are (663)."""
+    flags, sign-only 1/r and the attribute pack, and a textured scene's
+    checker rows and image LUTs of at most ``lut_max`` texels.  The
+    triangle normals are normalised without a floor, as the reference's
+    are (663)."""
     a = _host(scene_arrays)
     tris = host_triangles(a)
     n = a["centers"].shape[0]
@@ -394,28 +443,30 @@ def bake_unculled(scene_arrays, *, device="cpu") -> BakedScene:
     elide = _t2_elidable(a["centers"], a["radii"], a["mat_type"], a["fuzz"],
                          tris)
     attrs = decoded_attributes(a["albedo"], a["mat_type"], pack_w is not None)
+    slot, checker, luts = _textures(a, lut_max)
     r64 = a["radii"].astype(np.float64)
     q0 = np.concatenate([a["centers"],
                          (r64 * r64).astype(np.float32)[:, None]], axis=1)
     idx = np.arange(n)
     items = _item_rows(a, idx, q0, bool((a["radii"] < 0).any()), elide,
-                       attrs, culled=False)
+                       attrs, culled=False, slot=slot)
     t_rows = np.zeros((0, TRI_COLS), np.float32)
     if tris is not None:
         nrm = np.cross(tris.e1, tris.e2)
         nrm = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
         t_rows = tri_rows(tris, nrm, pack_w is not None)
-    return _tables(False, items, [], [], t_rows, [], [],
-                   np.zeros(16, np.float32),
-                   n_globals=n, n_clusters=0, n_supers=0,
-                   n_clustered_items=0, pack_attrs=pack_w,
-                   cluster_aabbs=()).to(device)
+    return _tables(False, items, checker[idx] if slot is not None else [],
+                   [], [], t_rows, [], [], np.zeros(16, np.float32),
+                   images=luts, n_globals=n, n_clusters=0, n_supers=0,
+                   n_clustered_items=0, pack_attrs=pack_w, cluster_aabbs=(),
+                   textured=slot is not None).to(device)
 
 
 def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
+                winner_hint: bool = False, lut_max: int = TEX_LUT_MAX,
                 device="cpu") -> BakedScene:
     """The bake of ``baked_culled_intersect`` (pallas_kernels.py:906-1061,
-    1468-1486; no textures, no winner hint).
+    1468-1486).
 
     Giant spheres (radius above ``GLOBAL_RADIUS_FACTOR`` x the median)
     are globals, swept first; the rest go into Morton clusters of
@@ -425,7 +476,11 @@ def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
     non-global spheres is all globals.  The slimmed quadratic runs in a
     frame shifted to the per-axis median of the clustered centres.
     Triangles get a hierarchy of their own, built the same way over the
-    Morton order of their centroids, swept after the spheres.
+    Morton order of their centroids, swept after the spheres.  A textured
+    scene gets its checker rows and image LUTs (``lut_max`` texels);
+    ``winner_hint`` asks for the winner-hint prepass, which stays off
+    above ``HINT_MAX_CLUSTERS`` estimated clusters (pallas_kernels.py:
+    921-928).
     """
     a = _host(scene_arrays)
     tris = host_triangles(a)
@@ -435,6 +490,9 @@ def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
     elide = _t2_elidable(centers, radii, a["mat_type"], a["fuzz"], tris)
     any_neg = bool((radii < 0).any())
     attrs = decoded_attributes(a["albedo"], a["mat_type"], pack_w is not None)
+    slot, checker, luts = _textures(a, lut_max)
+    n_tris = tris.num_triangles if tris is not None else 0
+    est_clusters = -(-n // cluster_size) + -(-n_tris // cluster_size)
 
     med_r = float(np.median(radii))
     is_global = radii > GLOBAL_RADIUS_FACTOR * med_r
@@ -479,7 +537,8 @@ def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
                          + (np.float64(cy) - shift[1]) ** 2
                          + (np.float64(cz) - shift[2]) ** 2
                          - np.float64(r) * r)
-    items = _item_rows(a, idx, q0, any_neg, elide, attrs, culled=True)
+    items = _item_rows(a, idx, q0, any_neg, elide, attrs, culled=True,
+                       slot=slot)
 
     t_clusters, t_supers = [], []
     t_items = np.zeros((0, TRI_COLS), np.float32)
@@ -502,10 +561,13 @@ def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
 
     all_clusters = clusters + t_clusters
     return _tables(
-        True, items, cluster_rows, super_rows, t_items, t_cluster_rows,
-        t_super_rows, consts,
-        n_globals=len(global_idx), n_clusters=len(all_clusters),
-        n_supers=len(supers) + len(t_supers),
+        True, items, checker[idx] if slot is not None else [], cluster_rows,
+        super_rows, t_items, t_cluster_rows, t_super_rows, consts,
+        images=luts, n_globals=len(global_idx),
+        n_clusters=len(all_clusters), n_supers=len(supers) + len(t_supers),
         n_clustered_items=sum(len(c[2]) for c in all_clusters),
         pack_attrs=pack_w,
-        cluster_aabbs=tuple((c[0], c[1]) for c in all_clusters)).to(device)
+        cluster_aabbs=tuple((c[0], c[1]) for c in all_clusters),
+        textured=slot is not None,
+        winner_hint=(bool(winner_hint) and bool(all_clusters)
+                     and est_clusters <= HINT_MAX_CLUSTERS)).to(device)

@@ -6,15 +6,18 @@ Port of ``wavefront_path_tracer_tpu/ops/pallas_kernels.py``:
 ``fused_render_baked`` (3157) with ``baked_intersect`` (612, the
 unculled sweep) or ``baked_culled_intersect`` (831, Morton clusters under
 box conds), spheres and triangles (two-sided Moller-Trumbore, after the
-spheres; checker textures and the winner hint are not ported yet).  The
-tables come from ``ops/bake.py``; the kernel is ``csrc/baked.cu``; the
-persistent loop, raygen and shade are those of ``ops/fused_kernels.py``.
+spheres), checker and image textures, and the culled sweep's winner
+hint.  The tables come from ``ops/bake.py``; the kernel is
+``csrc/baked.cu``; the persistent loop, raygen, shade and the texture
+step are those of ``ops/fused_kernels.py`` and ``ops/textures.py``.
 
 Culling is decided per ray, against the ray's own current nearest hit
 (the TPU kernel decided per 1024-lane tile, by consensus, with a cap one
-batch stale).  The plain version makes the same per-ray decisions in the
-same order as the kernel, so the two agree bit for bit, cull counters
-included.
+batch stale).  The winner hint is per ray too: the ray's lane keeps the
+cluster of its previous winner, the culled sweep tests that cluster
+first (a cluster entered) and passes it over in the main sweep.  The
+plain version makes the same per-ray decisions in the same order as the
+kernel, so the two agree bit for bit, cull counters included.
 """
 
 from __future__ import annotations
@@ -47,13 +50,33 @@ def _col(v):
     return v[:, None]
 
 
-def _winner(items, best_t, best_i, tris=None):
+def _winner(baked: BakedScene, best_t, best_i):
     """The intersect tuple of the winners' rows: (best_t, cx, cy, cz,
     1/r sign, albedo rgb, fuzz, ior, mat_type); a miss carries
-    (T_FAR, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0).  With a triangle table
-    ``tris`` the index space runs on past the spheres into it, and the
+    (T_FAR, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0).  With triangles the index
+    space runs on past the spheres into the triangle table, and the
     tuple gains (nx, ny, nz, is_tri): a triangle winner carries its
-    normal and a sphere winner zeros (shade reads one or the other)."""
+    normal and a sphere winner zeros (shade reads one or the other).  A
+    textured bake always has those four and then (albedo2 rgb, checker
+    scale, image slot): a sphere winner's own, and (0, 0, 0, 0, -1) for a
+    triangle or a miss."""
+    items = baked.items
+    tris = baked.tri_items if baked.n_triangles else None
+    fields = _winner_rows(items, best_t, best_i, tris)
+    if not baked.textured:
+        return fields
+    n = items.shape[0]
+    if tris is None:
+        zero = torch.zeros_like(best_t)
+        fields = fields + (zero, zero, zero, zero)
+    sph = (best_i >= 0) & (best_i < n)
+    k = best_i.clamp(0, max(n - 1, 0))
+    checker = torch.where(sph[:, None], baked.tex_items[k], 0.0)
+    slot = torch.where(sph, items[k, 18].to(torch.int64), -1)
+    return fields + (*checker.unbind(dim=1), slot)
+
+
+def _winner_rows(items, best_t, best_i, tris=None):
     n = items.shape[0]
     hit = best_i >= 0
     miss = torch.tensor(_MISS, dtype=torch.float32, device=items.device)
@@ -159,12 +182,10 @@ def baked_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz):
         t = torch.where(t1 > T_MIN, t1, far)
         t = torch.where(disc >= 0.0, t, T_FAR)
         best_t, best_i = _take(t, lo, best_t, best_i)
-    if not baked.n_triangles:
-        return _winner(items, best_t, best_i) + (None, None)
     for lo in range(0, tris.shape[0], _ITEM_BLOCK):
         t = tri_t(tris[lo:lo + _ITEM_BLOCK], ox, oy, oz, dx, dy, dz)
         best_t, best_i = _take(t, items.shape[0] + lo, best_t, best_i)
-    return _winner(items, best_t, best_i, tris) + (None, None)
+    return _winner(baked, best_t, best_i) + (None, None)
 
 
 def _box_range(lo, hi, ox, oy, oz, idx, idy, idz):
@@ -217,7 +238,7 @@ def _slim_t(items, oxp, oyp, ozp, dd_o, oo2, dx, dy, dz):
 
 
 def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
-                               *, ranges=None):
+                               *, ranges=None, hint=None):
     """Nearest hit over a culled bake (``baked_culled_intersect.intersect``,
     pallas_kernels.py:1063-1466): globals first, then the sphere
     clusters and then the triangle clusters (each hierarchy under supers
@@ -225,12 +246,21 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
     its own current nearest hit.  Returns the winner tuple and the
     per-ray supers and clusters entered (int64).
 
+    With ``hint`` (int64 per ray: a cluster in sweep order, the triangle
+    clusters numbered after the spheres', or -1) the winner hint runs
+    (pallas_kernels.py:1330-1367): after the globals each ray tests its
+    hinted cluster unconditionally, counted as entered, and the main
+    sweep passes that cluster over; the tuple then gains, before the
+    counters, each ray's winner cluster (-1 for a global win or a miss).
+
     ``ranges`` is :func:`host_ranges` of the bake; it is read from the
     tables when not given."""
     if ranges is None:
         ranges = host_ranges(baked)
     items, consts = baked.items, baked.consts
     tris = baked.tri_items if baked.n_triangles else None
+    best_c = (torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
+              if hint is not None else None)
     oxp = ox - consts[0]
     oyp = oy - consts[1]
     ozp = oz - consts[2]
@@ -244,8 +274,9 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
     supers, clusters = zeros, zeros
     if baked.n_globals:
         best_t, best_i = _take(t_sph[:, :baked.n_globals], 0, best_t, best_i)
+    keep = (best_c,) if hint is not None else ()
     if not (ranges[0][0] or ranges[1][0]):
-        return _winner(items, best_t, best_i, tris) + (supers, clusters)
+        return _winner(baked, best_t, best_i) + keep + (supers, clusters)
 
     rays = (ox, oy, oz, dx, dy, dz)
     inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
@@ -256,17 +287,28 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
                                   *inv)
         return (c_min <= c_max) & (c_max > T_MIN), torch.clamp_min(c_min, 0.0)
 
-    def hierarchy(boxes, sboxes, cranges, sranges, slab, fold):
-        nonlocal best_t, best_i, supers, clusters
+    def fold_cluster(cid, fold, first, count, enter):
+        """Fold one cluster in for the rays ``enter``; with a hint, a ray
+        whose winner changed now has its winner in cluster ``cid``."""
+        nonlocal best_t, best_i, best_c
+        before = best_i
+        best_t, best_i = fold(first, count, enter, best_t, best_i)
+        if hint is not None:
+            best_c = torch.where(best_i != before, cid, best_c)
+
+    def hierarchy(boxes, sboxes, cranges, sranges, slab, fold, id0):
+        nonlocal supers, clusters
         t_exit = slab_exit(slab[0:3], slab[3:6], ox, oy, oz, *inv)
         c_ok, c_entry = conds(boxes)
 
         def sweep(c, gate):
-            nonlocal best_t, best_i, clusters
+            nonlocal clusters
             enter = gate & c_ok[:, c] & (c_entry[:, c]
                                          < torch.minimum(best_t, t_exit))
+            if hint is not None:
+                enter = enter & (hint != id0 + c)
             clusters = clusters + enter
-            best_t, best_i = fold(*cranges[c], enter, best_t, best_i)
+            fold_cluster(id0 + c, fold, *cranges[c], enter)
 
         if sranges:
             s_ok, s_entry = conds(sboxes)
@@ -290,13 +332,24 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
                            rays)
 
     (cranges, sranges), (tcranges, tsranges) = ranges
+    n_sph = len(cranges)
+    if hint is not None:
+        # The prepass: each ray's hinted cluster, whatever its box says.
+        for cid in torch.unique(hint[hint >= 0]).tolist():
+            m = hint == cid
+            clusters = clusters + m
+            if cid < n_sph:
+                fold_cluster(cid, fold_spheres, *cranges[cid], m)
+            else:
+                fold_cluster(cid, fold_triangles, *tcranges[cid - n_sph], m)
     if cranges:
         hierarchy(baked.cluster_boxes, baked.super_boxes, cranges, sranges,
-                  consts[3:9], fold_spheres)
+                  consts[3:9], fold_spheres, 0)
     if tcranges:
         hierarchy(baked.tri_cluster_boxes, baked.tri_super_boxes, tcranges,
-                  tsranges, consts[9:15], fold_triangles)
-    return _winner(items, best_t, best_i, tris) + (supers, clusters)
+                  tsranges, consts[9:15], fold_triangles, n_sph)
+    keep = (best_c,) if hint is not None else ()
+    return _winner(baked, best_t, best_i) + keep + (supers, clusters)
 
 
 def host_ranges(baked: BakedScene):
@@ -314,22 +367,26 @@ def fused_render_baked_reference(
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
         sampler: str = "random"):
     """Plain PyTorch version of the baked kernel: the persistent loop of
-    ``ops/fused_kernels.py`` over :func:`culled_intersect_reference` or
-    :func:`baked_intersect_reference`, as ``baked.culled`` says.  Same
-    arguments and results as :func:`fused_render_baked`."""
+    ``ops/fused_kernels.py`` over :func:`culled_intersect_reference` (with
+    the winner hint where ``baked.winner_hint``) or
+    :func:`baked_intersect_reference`, as ``baked.culled`` says, with the
+    texture step for a textured bake.  Same arguments and results as
+    :func:`fused_render_baked`."""
     if baked.culled:
         ranges = host_ranges(baked)
 
-        def intersect(ox, oy, oz, dx, dy, dz):
+        def intersect(ox, oy, oz, dx, dy, dz, hint=None):
             return culled_intersect_reference(baked, ox, oy, oz, dx, dy, dz,
-                                              ranges=ranges)
+                                              ranges=ranges, hint=hint)
     else:
         def intersect(ox, oy, oz, dx, dy, dz):
             return baked_intersect_reference(baked, ox, oy, oz, dx, dy, dz)
 
     return persistent_reference(
         intersect, salts, cam_params, pix, xs, ys, valid, soff,
-        rr_start=rr_start, rr_floor=rr_floor, clamp=clamp, sampler=sampler)
+        rr_start=rr_start, rr_floor=rr_floor, clamp=clamp, sampler=sampler,
+        images=baked.images if baked.textured else None,
+        hinted=baked.culled and baked.winner_hint)
 
 
 def fused_render_baked(
@@ -342,8 +399,9 @@ def fused_render_baked(
     float32 planes in lane order, and an int64 tensor [rays, iterations,
     supers entered, clusters entered].  ``iterations`` counts one per
     ray traced.  The cull counters count per-ray entries (a ray entering
-    a cluster adds one), not the TPU kernel's per-tile consensus
-    entries; they are zero for an unculled bake.
+    a cluster adds one, and so does a winner-hint prepass), not the TPU
+    kernel's per-tile consensus entries; they are zero for an unculled
+    bake.
 
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/baked.cu`` on the current stream; any other device raises.
@@ -363,6 +421,10 @@ def fused_render_baked(
         "tri_super_boxes": (baked.tri_super_boxes, 8, torch.float32),
         "tri_super_ranges": (baked.tri_super_ranges, 2, torch.int32),
         "consts": (baked.consts.reshape(1, -1), 16, torch.float32),
+        "tex_items": (baked.tex_items, 4, torch.float32),
+        "image centres": (baked.images.centres, 4, torch.float32),
+        "image words": (baked.images.words, baked.images.words.shape[1],
+                        torch.int32),
     })
     if sampler not in ("random", "stratified"):
         raise ValueError(f"unknown sampler {sampler!r}")
@@ -376,11 +438,15 @@ def fused_render_baked(
     from wavefront_path_tracer_tpu_torch.ops._build import load_library
 
     frame, sample_base, max_bounces, n_samples = _salts(salts)
+    images = baked.images
     tables = (baked.items, baked.cluster_boxes, baked.cluster_ranges,
               baked.super_boxes, baked.super_ranges, baked.tri_items,
               baked.tri_cluster_boxes, baked.tri_cluster_ranges,
-              baked.tri_super_boxes, baked.tri_super_ranges, baked.consts)
+              baked.tri_super_boxes, baked.tri_super_ranges, baked.consts,
+              baked.tex_items, images.centres, images.words)
     check_aligned(**{f"table {i}": t for i, t in enumerate(tables)})
+    if baked.textured and baked.tex_items.shape[0] != baked.n_items:
+        raise ValueError("a textured bake needs one tex_items row per item")
     lib = load_library()
     rad_r = torch.empty_like(xs)
     rad_g = torch.empty_like(xs)
@@ -402,6 +468,9 @@ def fused_render_baked(
             baked.tri_super_ranges.data_ptr(),
             baked.tri_super_boxes.shape[0],
             baked.consts.data_ptr(), int(baked.culled),
+            baked.tex_items.data_ptr(), images.centres.data_ptr(),
+            images.words.data_ptr(), images.h, images.w,
+            int(baked.textured), int(baked.culled and baked.winner_hint),
             cam_params.data_ptr(), pix.data_ptr(), xs.data_ptr(),
             ys.data_ptr(), valid.data_ptr(), soff.data_ptr(),
             rad_r.data_ptr(), rad_g.data_ptr(), rad_b.data_ptr(),

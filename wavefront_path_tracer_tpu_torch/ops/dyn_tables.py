@@ -18,13 +18,16 @@ touches a bit pattern.  Sphere rows (16 float32)::
     0-2 2c' (xyz, in the frame shifted by slab row 1), 3 kappa
     4-6 centre, 7 1/r
     8-10 albedo rgb, 11 fuzz
-    12 ior, 13 mat_type, 14-15 0
+    12 ior, 13 mat_type, 14 image slot (-1 = none; 0 untextured), 15 0
 
-The pair loop reads the first float4.  Triangle rows are ``ops/bake.py``'s
-``TRI_COLS`` layout.  NaN padding rows stay NaN in every column, so they
-never win a nearest-hit compare; NaN box rows are never entered.  The box
-tables (lo xyz, hi xyz, 0, 0), the slabs and the counts are the
-reference's as they are.
+The pair loop reads the first float4.  A textured scene's 24-column
+reference table gives its columns 16-19 (checker albedo2 rgb, scale) as a
+separate (N_pad, 4) table, one float4 read for the winner only, and the
+scene's image LUTs come from ``ops/textures.py``.  Triangle rows are
+``ops/bake.py``'s ``TRI_COLS`` layout.  NaN padding rows stay NaN in
+every column, so they never win a nearest-hit compare; NaN box rows are
+never entered.  The box tables (lo xyz, hi xyz, 0, 0), the slabs and the
+counts are the reference's as they are.
 """
 
 from __future__ import annotations
@@ -35,10 +38,13 @@ import numpy as np
 import torch
 
 from wavefront_path_tracer_tpu_torch.ops.bake import (
+    TEX_LUT_MAX,
     TRI_COLS,
     _morton_order,
     _unpack_albedo_mat,
+    on_device,
 )
+from wavefront_path_tracer_tpu_torch.ops.textures import ImageLuts, image_luts
 
 _DYN_UNROLL_CLUSTERS = 64
 _DYN_SUPER = 16
@@ -91,12 +97,13 @@ def pack_culled_scene(scene_arrays, cluster_size: int = 16,
                       global_radius_factor: float = 10.0,
                       camera_hint=None, pack_attrs: bool = True):
     """Host-side tables for the dynamic culled intersector (the
-    reference's ``pack_culled_scene``, checker textures aside: a
-    textured scene is refused before it gets here).
+    reference's ``pack_culled_scene``).
 
     Returns (scn (N_pad, 16) f32 NaN-padded reordered sphere table: cols
     0-2 centre, 3 radius, 4-6 albedo, 7 fuzz, 8 ior, 9 mat_type, 10
-    kappa, 11 1/r, 12-14 2c', 15 NaN; clu (C, 8) f32 cluster AABBs [lo
+    kappa, 11 1/r, 12-14 2c', 15 NaN; (N_pad, 24) when the scene has
+    textures, cols 16-18 checker albedo2 rgb and 19 checker scale (0 =
+    untextured sphere), 20-23 NaN; clu (C, 8) f32 cluster AABBs [lo
     xyz, hi xyz, 0, 0]; sup (S, 8) f32 supercluster AABBs (built only
     above _DYN_UNROLL_CLUSTERS clusters; a NaN placeholder otherwise);
     slab (2, 8) f32 [row 0: cluster-slab lo xyz, hi xyz; row 1: the
@@ -118,11 +125,11 @@ def pack_culled_scene(scene_arrays, cluster_size: int = 16,
     fuzz = np.asarray(scene_arrays["fuzz"], np.float32)
     refract = np.asarray(scene_arrays["refract_idx"], np.float32)
     mat = np.asarray(scene_arrays["mat_type"], np.float32)
-    if "tex_kind" in scene_arrays:
-        raise NotImplementedError(
-            "checker textures on the dynamic tables are not ported yet "
-            "(ROADMAP.md queue 2 item 3)")
-    ncols = 16
+    textured = "tex_kind" in scene_arrays
+    ncols = 24 if textured else 16
+    if textured:
+        tex_a2 = np.asarray(scene_arrays["tex_albedo2"], np.float32)
+        tex_sc = np.asarray(scene_arrays["tex_scale"], np.float32)
 
     def _pk_words(alb, mt_col):
         """16:16 albedo+mat words as f32 BIT patterns (see docstring)."""
@@ -175,6 +182,9 @@ def pack_culled_scene(scene_arrays, cluster_size: int = 16,
                        - radii[idx].astype(np.float64) ** 2)
         out[:n, 11] = 1.0 / radii[idx]
         out[:n, 12:15] = 2.0 * c64
+        if textured:
+            out[:n, 16:19] = tex_a2[idx]
+            out[:n, 19] = tex_sc[idx]
         if attrs_packed:
             out[:n, 4:6] = _pk_words(albedo[idx], mat[idx])
         return out
@@ -301,9 +311,10 @@ def _attrs(tab, cols, b_col, mt_col, packed):
     return out
 
 
-def sphere_rows(scn, packed: bool) -> np.ndarray:
+def sphere_rows(scn, packed: bool, slot=None) -> np.ndarray:
     """The device layout (module docstring) of a reference sphere
-    table, row for row."""
+    table, row for row, with the rows' image ``slot`` (a textured
+    scene's) in column 14."""
     out = np.full((scn.shape[0], SPHERE_COLS), np.nan, np.float32)
     real = ~np.isnan(scn[:, 0])
     attrs = _attrs(scn, [4, 5], 6, 9, packed)
@@ -316,6 +327,27 @@ def sphere_rows(scn, packed: bool) -> np.ndarray:
     out[:, 12] = scn[:, 8]
     out[:, 13] = attrs[:, 3]
     out[real, 14:16] = 0.0
+    if slot is not None:
+        out[real, 14] = slot[real]
+    return out
+
+
+def row_slots(scn, scene_arrays, sphere_slot) -> np.ndarray:
+    """The image slot of each row of a reference sphere table (-1: none,
+    or a padding row): the slot of the image sphere whose centre and
+    radius the row carries bit for bit, the last one where several do.
+    The reference's kernel identifies an image sphere the same way, by
+    its centre and 1/r (``_apply_image_textures``, pallas_kernels.py:
+    322-325)."""
+    out = np.full(scn.shape[0], -1, np.int32)
+    img = np.nonzero(sphere_slot >= 0)[0]
+    keys = np.concatenate([np.asarray(scene_arrays["centers"], np.float32),
+                           np.asarray(scene_arrays["radii"],
+                                      np.float32)[:, None]], axis=1)
+    rows = np.ascontiguousarray(scn[:, 0:4]).view(np.int32)
+    for i in img:
+        hit = (rows == keys[i].view(np.int32)).all(axis=1)
+        out[hit] = sphere_slot[i]
     return out
 
 
@@ -339,9 +371,13 @@ class DynTables:
     ``spheres`` (N_pad, 16), ``boxes`` / ``super_boxes`` (C, 8) /
     (S, 8), ``slab`` (2, 8) with the shift in row 1, and the same for
     triangles (``tri_slab`` (1, 8)), plus the reference's counts.
-    ``cluster_size`` rows per cluster, globals first in ``spheres``."""
+    ``cluster_size`` rows per cluster, globals first in ``spheres``.
+    ``sphere_tex`` (N_pad, 4) checker rows and ``images`` are empty
+    unless ``textured``."""
 
     spheres: torch.Tensor
+    sphere_tex: torch.Tensor
+    images: ImageLuts
     boxes: torch.Tensor
     super_boxes: torch.Tensor
     slab: torch.Tensor
@@ -356,25 +392,33 @@ class DynTables:
     n_tri_supers: int
     cluster_size: int
     attrs_packed: bool
+    textured: bool = False
 
     def to(self, device) -> "DynTables":
-        tensors = {f.name: getattr(self, f.name).to(device)
-                   for f in dataclasses.fields(self)
-                   if isinstance(getattr(self, f.name), torch.Tensor)}
-        return dataclasses.replace(self, **tensors)
+        return on_device(self, device)
 
 
-def device_tables(packed, cluster_size: int, device="cpu") -> DynTables:
+def device_tables(packed, cluster_size: int, device="cpu", scene_arrays=None,
+                  lut_max: int = TEX_LUT_MAX) -> DynTables:
     """:class:`DynTables` on ``device`` from the 14 values that
-    :func:`pack_culled_scene` returns for ``cluster_size``."""
+    :func:`pack_culled_scene` returns for ``cluster_size``; a textured
+    (24-column) table also needs the host ``scene_arrays``, for its image
+    LUTs of at most ``lut_max`` texels."""
     (scn, clu, sup, slab, tri, tri_clu, tri_sup, tri_slab, ngb, ncl, nsup,
      ntc, ntsup, pkd) = packed
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32))
 
+    textured = scn.shape[1] >= 20
+    luts, rows = ImageLuts.empty(), None
+    if textured:
+        luts, slot = image_luts(scene_arrays, lut_max)
+        rows = row_slots(scn, scene_arrays, slot)
     return DynTables(
-        spheres=t(sphere_rows(scn, pkd)), boxes=t(clu), super_boxes=t(sup),
+        spheres=t(sphere_rows(scn, pkd, rows)),
+        sphere_tex=t(scn[:, 16:20] if textured else np.zeros((0, 4))),
+        images=luts, textured=textured, boxes=t(clu), super_boxes=t(sup),
         slab=t(slab), triangles=t(triangle_rows(tri, pkd)),
         tri_boxes=t(tri_clu), tri_super_boxes=t(tri_sup),
         tri_slab=t(tri_slab), n_globals=ngb * 8, n_clusters=ncl,

@@ -4,10 +4,11 @@ launches the CUDA kernel.
 
 Port of ``wavefront_path_tracer_tpu/ops/pallas_kernels.py``:
 ``fused_render_dynculled`` (3211) with ``make_dynamic_culled_intersect``
-(1772) as its nearest-hit function, spheres and triangles (checker
-textures are not ported yet).  The tables are ``ops/dyn_tables.py``'s; the
-kernel is ``csrc/dynculled.cu``; the persistent loop, raygen and shade
-are those of ``ops/fused_kernels.py``.
+(1772) as its nearest-hit function, spheres and triangles, with checker
+and image textures.  The tables are ``ops/dyn_tables.py``'s; the kernel
+is ``csrc/dynculled.cu``; the persistent loop, raygen, shade and the
+texture step are those of ``ops/fused_kernels.py`` and
+``ops/textures.py``.
 
 What the intersect computes, per ray:
 
@@ -71,7 +72,9 @@ def _winner(tab: DynTables, best_t, best_i):
     ior, mat_type, nx, ny, nz, is_tri).  A sphere winner carries zeros
     for the normal and a triangle winner the miss's sphere fields (shade
     reads one or the other); a miss carries (T_FAR, 0, 0, 0, 1, 0, 0, 0,
-    0, 1, 0, 0, 0, 0, 0)."""
+    0, 1, 0, 0, 0, 0, 0).  Textured tables add (albedo2 rgb, checker
+    scale, image slot): a sphere winner's own, (0, 0, 0, 0, -1) for a
+    triangle or a miss."""
     sph, tris = tab.spheres, tab.triangles
     n = sph.shape[0]
     hit = best_i >= 0
@@ -85,6 +88,12 @@ def _winner(tab: DynTables, best_t, best_i):
     def pick(s, t, miss):
         return torch.where(is_sph, s, torch.where(is_tri, t, miss))
 
+    tex = ()
+    if tab.textured:
+        k = best_i.clamp(0, n - 1)
+        checker = torch.where(is_sph[:, None], tab.sphere_tex[k], 0.0)
+        tex = (*checker.unbind(dim=1),
+               torch.where(is_sph, srow[:, 14].to(torch.int64), -1))
     return (best_t,
             pick(srow[:, 4], zero, zero), pick(srow[:, 5], zero, zero),
             pick(srow[:, 6], zero, zero), pick(srow[:, 7], one, one),
@@ -97,7 +106,7 @@ def _winner(tab: DynTables, best_t, best_i):
             torch.where(is_tri, trow[:, 9], zero),
             torch.where(is_tri, trow[:, 10], zero),
             torch.where(is_tri, trow[:, 11], zero),
-            is_tri.to(torch.float32))
+            is_tri.to(torch.float32), *tex)
 
 
 def dynculled_intersect_reference(tab: DynTables, ox, oy, oz, dx, dy, dz):
@@ -220,7 +229,8 @@ def fused_render_dynculled_reference(
 
     return persistent_reference(
         intersect, salts, cam_params, pix, xs, ys, valid, soff,
-        rr_start=rr_start, rr_floor=rr_floor, clamp=clamp, sampler=sampler)
+        rr_start=rr_start, rr_floor=rr_floor, clamp=clamp, sampler=sampler,
+        images=tab.images if tab.textured else None)
 
 
 def fused_render_dynculled(
@@ -245,6 +255,7 @@ def fused_render_dynculled(
     tables = (tab.spheres, tab.boxes, tab.super_boxes, tab.slab,
               tab.triangles, tab.tri_boxes, tab.tri_super_boxes,
               tab.tri_slab)
+    images = tab.images
     device = check_inputs(cam_params, planes, {
         "spheres": (tab.spheres, SPHERE_COLS, torch.float32),
         "boxes": (tab.boxes, 8, torch.float32),
@@ -254,6 +265,9 @@ def fused_render_dynculled(
         "tri_boxes": (tab.tri_boxes, 8, torch.float32),
         "tri_super_boxes": (tab.tri_super_boxes, 8, torch.float32),
         "tri_slab": (tab.tri_slab, 8, torch.float32),
+        "sphere_tex": (tab.sphere_tex, 4, torch.float32),
+        "image centres": (images.centres, 4, torch.float32),
+        "image words": (images.words, images.words.shape[1], torch.int32),
     })
     if sampler not in ("random", "stratified"):
         raise ValueError(f"unknown sampler {sampler!r}")
@@ -267,7 +281,11 @@ def fused_render_dynculled(
     from wavefront_path_tracer_tpu_torch.ops._build import load_library
 
     frame, sample_base, max_bounces, n_samples = _salts(salts)
-    check_aligned(**{f"table {i}": t for i, t in enumerate(tables)})
+    check_aligned(**{f"table {i}": t for i, t in enumerate(
+        tables + (tab.sphere_tex, images.centres, images.words))})
+    if tab.textured and tab.sphere_tex.shape[0] != tab.spheres.shape[0]:
+        raise ValueError("textured tables need one sphere_tex row per "
+                         "sphere row")
     lib = load_library()
     rad_r = torch.empty_like(xs)
     rad_g = torch.empty_like(xs)
@@ -279,6 +297,8 @@ def fused_render_dynculled(
             *(t.data_ptr() for t in tables),
             tab.n_globals, tab.n_clusters, tab.n_supers, tab.n_tri_clusters,
             tab.n_tri_supers, tab.cluster_size,
+            tab.sphere_tex.data_ptr(), images.centres.data_ptr(),
+            images.words.data_ptr(), images.h, images.w, int(tab.textured),
             cam_params.data_ptr(), pix.data_ptr(), xs.data_ptr(),
             ys.data_ptr(), valid.data_ptr(), soff.data_ptr(),
             rad_r.data_ptr(), rad_g.data_ptr(), rad_b.data_ptr(),

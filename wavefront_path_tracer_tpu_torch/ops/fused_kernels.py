@@ -29,6 +29,7 @@ from wavefront_path_tracer_tpu_torch.ops.rng import (
     next_f32,
     next_u32,
 )
+from wavefront_path_tracer_tpu_torch.ops.textures import apply_textures
 
 T_MIN = 0.001
 T_FAR = 1e30
@@ -269,14 +270,20 @@ def _salts(salts) -> tuple[int, int, int, int]:
 def persistent_reference(
         intersect, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random"):
+        sampler: str = "random", images=None, hinted: bool = False):
     """The plain persistent-lane loop, over any nearest-hit function.
 
     ``intersect(ox, oy, oz, dx, dy, dz)`` returns the
     :func:`intersect_tile` tuple, extended with the triangle winner's
     (nx, ny, nz, is_tri) in a scene with triangles, followed by the
     per-ray supers and clusters entered (int64 tensors, or None without
-    culling).  The loop
+    culling).  With ``images`` (the scene's ``ops/textures.ImageLuts``)
+    the scene is textured: the tuple always carries the triangle fields
+    and then the winner's (albedo2 rgb, checker scale, image slot), and
+    the texture step runs after shade.  With ``hinted`` the intersect
+    takes a fifth argument, each ray's winner hint (int64: its lane's
+    state, -1 at the lane's start), and returns the rays' new hints
+    before the counters; the lane keeps it across samples.  The loop
     runs in lockstep, samples outside and bounces inside, over the flat
     lanes of a chunk, keeping only the live paths at each bounce.  Every
     (pixel, sample, bounce) stream, formula and rounding is the CUDA
@@ -295,6 +302,7 @@ def persistent_reference(
     n_lanes = pix_f.shape[0]
     acc = torch.zeros((n_lanes, 3), dtype=torch.float32, device=device)
     counts = torch.zeros(3, dtype=torch.int64, device=device)
+    hints = torch.full((n_lanes,), -1, dtype=torch.int64, device=device)
 
     for lo in range(0, n_lanes, _LANE_CHUNK):
         lanes = torch.nonzero(valid_f[lo:lo + _LANE_CHUNK])[:, 0] + lo
@@ -310,11 +318,17 @@ def persistent_reference(
             bounce = 0
             while live.numel():
                 counts[0] += live.numel()
-                *fields, supers, clusters = intersect(ox, oy, oz, dx, dy,
-                                                      dz)
+                if hinted:
+                    *fields, hint, supers, clusters = intersect(
+                        ox, oy, oz, dx, dy, dz, hints[live])
+                    hints[live] = hint
+                else:
+                    *fields, supers, clusters = intersect(ox, oy, oz, dx,
+                                                          dy, dz)
                 (best_t, b_cx, b_cy, b_cz, b_inv_r, b_ar, b_ag, b_ab,
                  b_fuzz, b_ior, b_mt) = fields[:11]
-                tri_fields = fields[11:]
+                tri_fields = fields[11:15]
+                tex_fields = fields[15:]
                 if supers is not None:
                     counts[1] += supers.sum()
                     counts[2] += clusters.sum()
@@ -340,8 +354,12 @@ def persistent_reference(
                     p, frame, sample, bounce, ox, oy, oz, dx, dy, dz,
                     *map(sel, (best_t, b_cx, b_cy, b_cz, b_inv_r, b_fuzz,
                                b_ior, b_mt, *tri_fields)))
-                thr = thr * torch.stack([sel(b_ar), sel(b_ag), sel(b_ab)],
-                                        dim=-1)
+                albedo = tuple(map(sel, (b_ar, b_ag, b_ab)))
+                if images is not None:
+                    # ox, oy, oz now hold the hit points.
+                    albedo = apply_textures(images, *map(sel, tex_fields),
+                                            ox, oy, oz, *albedo)
+                thr = thr * torch.stack(albedo, dim=-1)
                 bounce += 1
                 if rr_start and bounce >= rr_start:
                     base = jenkins_hash(p ^ jenkins_hash(as_u32(frame,

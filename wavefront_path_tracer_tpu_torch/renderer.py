@@ -38,14 +38,12 @@ def prepare_scene(scene: Scene, config: RenderConfig, device="cuda",
                   triangles=None) -> dict:
     """Host scene -> sphere tables on ``device``, with the triangle
     tables of a mesh (``triangles``, a :class:`TriangleSoA`) as the
-    seven ``tri_*`` keys of the reference's ``prepare_scene``, plus what
-    the fused engine derives once per scene
+    seven ``tri_*`` keys of the reference's ``prepare_scene`` and a
+    textured scene's ``tex_kind``, ``tex_albedo2``, ``tex_scale``,
+    ``tex_id`` and (with images) ``tex_data`` (its renderer.py:111-119),
+    plus what the fused engine derives once per scene
     (``convert.scene_arrays_to_torch``).  The reference's ``tri_normal``
     and triangle BVH serve its XLA engines, which are not ported yet."""
-    if scene.tex_kind is not None:
-        raise NotImplementedError(
-            "textured scenes are not ported yet (ROADMAP.md queue 2 item 5 "
-            "and queue 1 item 3)")
     if config.intersector == "bvh":
         raise NotImplementedError(
             "the BVH intersector is not ported yet (ROADMAP.md queue 1 "
@@ -68,6 +66,15 @@ def prepare_scene(scene: Scene, config: RenderConfig, device="cuda",
             "tri_refract": triangles.refract_idx,
             "tri_mat_type": triangles.mat_type,
         })
+    if scene.tex_kind is not None:
+        arrays.update({
+            "tex_kind": scene.tex_kind,
+            "tex_albedo2": scene.tex_albedo2,
+            "tex_scale": scene.tex_scale,
+            "tex_id": scene.tex_id,
+        })
+        if scene.tex_data is not None:
+            arrays["tex_data"] = scene.tex_data
     return scene_arrays_to_torch(arrays, device)
 
 

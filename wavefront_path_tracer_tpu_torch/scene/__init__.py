@@ -1,13 +1,18 @@
 """Scenes and cameras: the port's own numpy-only host modules.
 
-``scene.py``, ``camera.py`` and ``mesh.py`` are copies of the reference
-package's modules of the same names (only the imports may differ);
-``tests/test_torch_host.py`` and ``tests/test_torch_mesh.py`` hold them
-to byte-identical tables and equal camera matrices.
+``scene.py``, ``camera.py``, ``mesh.py`` and ``file.py`` are copies of
+the reference package's modules of the same names (only the imports may
+differ); ``tests/test_torch_host.py``, ``tests/test_torch_mesh.py`` and
+``tests/test_torch_textures.py`` hold them to byte-identical tables and
+equal camera matrices.
 """
 
 from wavefront_path_tracer_tpu_torch.scene.camera import (  # noqa: F401
     CameraController,
+)
+from wavefront_path_tracer_tpu_torch.scene.file import (  # noqa: F401
+    apply_camera_dict,
+    load_scene_file,
 )
 from wavefront_path_tracer_tpu_torch.scene.mesh import (  # noqa: F401
     MeshSceneBuilder,
