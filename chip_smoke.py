@@ -29,11 +29,11 @@ Phases (all by default, in this order), each of which raises on failure
    < 1e-3, with the brute-force intersector and with baked/cull16;
 5. main paths (``main``): the CLI at 1920x1080, 32 spp in one frame, 50
    bounces, for the brute-force path, the headline path (``--intersector
-   baked --clusters 16``) and the unculled baked path, each warmed up and
-   then timed, with the launch counts set to 0 just before the timed run
-   and read just after;
+   baked --clusters 16``), the unculled baked path and the headline path
+   segmented (``--recluster 2``), each warmed up and then timed, with the
+   launch counts set to 0 just before the timed run and read just after;
 6. full size (``full``): the checks of phase 3 at the main paths' planes
-   (1920x1080, block order): the persistent kernel at 1 and 4 samples
+   (1920x1080, block order): the persistent kernel at 1 and 2 samples
    per lane, the two baked kernels at 1; the plain versions' times there;
    and each kernel's time at 32 samples per lane beside its bound;
 7. mesh rows (``mesh``): the reference's three mesh rows (``bench.py``
@@ -72,7 +72,26 @@ Phases (all by default, in this order), each of which raises on failure
    (the diverged share recorded, beside book_one_final's); and each
    textured kernel's time
    at 1080p@32spp beside its bound and beside the untextured headline
-   kernel's in the same call.
+   kernel's in the same call;
+11. segments (``seg``): the recluster segment kernels against their plain
+   versions through whole segmented renders at 160x90@4spp with padding
+   lanes, recluster 2, 50 bounces: book_one_final baked culled/16 (default,
+   and roulette/clamp/stratified AA), baked unculled, dynamic culled/16
+   on terrain and on the knot at 2 spp, book_checker culled/16; the
+   state, ids and counters of two segments bit for bit; recluster 1,
+   recluster 2 and recluster 2 without the sort giving the same radiance
+   words and counters; and ``--recluster`` through the CLI on each
+   culling intersector, a mesh and a textured scene (brute force without
+   clusters refuses);
+12. segments at full size (``segfull``): both segment kernels bit for bit
+   at the 1080p book's and the knot's planes at 1 spp, with their device
+   time, the plain versions' times and the bound (bytes counted from the
+   lanes alive at each launch); the segment kernels' time with and
+   without the sort; the segmented rows (knot50k_dynamic at recluster 0,
+   1 and 2, both terrain rows and the headline at 0 and 2) through
+   ``Renderer`` with frame time, device time split, device kernels and
+   copies and busy share under torch.profiler, recluster 2 against 0 by
+   the statistical rule; and the golden gate at recluster 2.
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -124,7 +143,20 @@ KERNELS = {
     "textured": {"name": "_apply_image_textures",
                  "source": SOURCE + "common.cuh",
                  "replaces": REPLACES + "298"},
+    # The recluster segments: the headline through the CLI at
+    # --recluster 2 (phase 5), and the knot row at recluster 2 (phase 12).
+    "segment_culled": {"name": "fused_segment_baked/_segment_impl",
+                       "source": SOURCE + "baked.cu",
+                       "replaces": REPLACES + "2997",
+                       "argv": ["--intersector", "baked", "--clusters", "16",
+                                "--recluster", "2"]},
+    "segment_dynculled": {"name": "fused_segment_dynculled/_segment_impl",
+                          "source": SOURCE + "dynculled.cu",
+                          "replaces": REPLACES + "3027"},
 }
+# The port's kernels by the names the profiler gives them.
+KERNEL_NAMES = ("persistent_kernel", "baked_culled_kernel",
+                "baked_unculled_kernel", "dynculled_kernel")
 MESH_SIZE = (800, 448)
 
 # The bound's inputs: H100 SXM peak rates at 700 W.
@@ -221,10 +253,12 @@ class Case:
         self.n_pixels = width * height
         self.textured = False
         self.tex_events = None     # per-ray texture event shares
+        self.table_passes = 1      # reads of the tables the bound counts
         cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
                            samples_per_frame=spp, max_bounces=50,
                            engine="fused")
         arrays = prepare_scene(scene, cfg, device, triangles)
+        self.arrays, self.cc = arrays, cc
         perm, _ = fused._block_perm(width, height, 32)
         self.perm_t = torch.from_numpy(perm.astype(np.int64)).to(device)
         self.planes = fused.lane_planes(self.perm_t, width, cfg.tile_rows,
@@ -286,6 +320,11 @@ class Case:
         img[self.perm_t] = lanes
         return (img / self.spp).cpu().numpy()
 
+    def lane_bytes(self) -> int:
+        """The lane planes in and out of one launch, and the camera."""
+        counters = 1 if self.kind == "persistent" else 3
+        return self.planes[0].numel() * 4 * (5 + 3 + counters) + 24 * 4
+
     def has_clusters(self) -> bool:
         return bool(self._hierarchies())
 
@@ -322,10 +361,8 @@ class Case:
         adds the texture step for the checker and image events a ray of
         the plain version's run met (``tex_events``, per ray)."""
         rays, _iters, supers, clusters = (float(v) for v in stats)
-        n_lanes = self.planes[0].numel()
-        counters = 1 if self.kind == "persistent" else 3
-        n_bytes = (n_lanes * 4 * (5 + 3 + counters) + 24 * 4
-                   + sum(t.numel() * t.element_size() for t in self.tables))
+        n_bytes = (self.lane_bytes() + self.table_passes * sum(
+            t.numel() * t.element_size() for t in self.tables))
         if self.kind == "persistent":
             pairs = rays * self.n_rows
             ops = pairs * FLOPS_PAIR["persistent"] + rays * FLOPS_RAY
@@ -543,7 +580,9 @@ def _reset_launches():
 
     fk.LAUNCHES = 0
     dk.LAUNCHES = 0
-    bk.LAUNCHES.update(culled=0, unculled=0)
+    dk.SEGMENT_LAUNCHES = 0
+    for key in bk.LAUNCHES:
+        bk.LAUNCHES[key] = 0
 
 
 def _read_launches() -> dict:
@@ -552,7 +591,8 @@ def _read_launches() -> dict:
     from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
 
     return {"persistent": fk.LAUNCHES, **bk.LAUNCHES,
-            "dynculled": dk.LAUNCHES}
+            "dynculled": dk.LAUNCHES,
+            "segment_dynculled": dk.SEGMENT_LAUNCHES}
 
 
 def phase_main_paths(device, smi: str) -> dict:
@@ -604,7 +644,7 @@ def phase_full_size(device, smi: str) -> dict:
     lane beside its bound."""
     scene, cc = _smoke_scene()
     checks = {kind: [] for kind in ("persistent", "culled", "unculled")}
-    for kind, clusters, spp in (("persistent", 0, 1), ("persistent", 0, 4),
+    for kind, clusters, spp in (("persistent", 0, 1), ("persistent", 0, 2),
                                 ("culled", 16, 1), ("unculled", 0, 1)):
         case = Case(kind, clusters, scene, cc, MAIN_WIDTH, MAIN_HEIGHT, spp,
                     1, {}, device)
@@ -1034,9 +1074,521 @@ def phase_textures_full(device, smi: str) -> dict:
     out["timed"] = timed
     return out
 
+class SegCase(Case):
+    """The recluster path's inputs at one shape (models/fused.py
+    ``render_pixels_recluster``, block lane order, padding lanes): its
+    kernel is the segmented render through the segment kernels, its plain
+    version the same render through their plain versions, on the same
+    CUDA tensors."""
+
+    def __init__(self, kind, clusters, scene, cc, width, height, spp, kw,
+                 device, triangles=None, recluster=2):
+        from wavefront_path_tracer_tpu_torch.models import fused
+        from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+        from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
+        from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+
+        super().__init__(kind, clusters, scene, cc, width, height, spp, 1,
+                         {}, device, triangles=triangles)
+        self.cfg = RenderConfig(
+            width=width, height=height, samples_per_pixel=spp,
+            samples_per_frame=spp, max_bounces=50, engine="fused",
+            recluster=recluster, rr_start_bounce=kw.get("rr_start", 0),
+            clamp=kw.get("clamp", 0.0),
+            sampler=kw.get("sampler", "random"))
+        self.segments = len(fused._segment_schedule(recluster, 50))
+        self.view = cc.view_matrix()
+        self.inv_proj = cc.inverse_projection(width, height)
+        if kind == "dynculled":
+            self.seg_tables = self.tab
+            self.table_kw = {"dyn": self.tab}
+            self.segment = dk.fused_segment_dynculled
+            self.segment_plain = dk.fused_segment_dynculled_reference
+            self.launches = lambda: dk.SEGMENT_LAUNCHES
+        else:
+            self.seg_tables = self.baked
+            self.table_kw = {"baked": self.baked}
+            self.segment = bk.fused_segment_baked
+            self.segment_plain = bk.fused_segment_baked_reference
+            self.launches = lambda: bk.LAUNCHES[f"segment_{kind}"]
+        # The tables are read once a launch.
+        self.table_passes = spp * self.segments
+        self.kernel = lambda: fused.render_pixels_recluster(
+            self.perm_t, self.arrays, self.cc.gpu_camera(), self.view,
+            self.inv_proj, self.cfg, 0, 0, self.spp, with_stats=True,
+            **self.table_kw)
+        self.plain = lambda: self.render(segment=self.segment_plain)
+
+    def render(self, cfg=None, segment=None, order=None):
+        """The segmented render through ``segment`` (the kernel's wrapper
+        by default) with the lanes ordered by ``order`` (the coherence
+        sort by default)."""
+        from wavefront_path_tracer_tpu_torch.models import fused
+
+        return fused._recluster(
+            segment or self.segment, order or fused.coherence_order,
+            self.seg_tables, self.perm_t, self.arrays, self.cc.gpu_camera(),
+            self.view, self.inv_proj, cfg or self.cfg, 0, 0, self.spp, True)
+
+    def image(self, out):
+        img = torch.empty_like(out[0])
+        img[self.perm_t] = out[0]
+        return (img / self.spp).cpu().numpy()
+
+    def alive_lanes(self) -> list[int]:
+        """The lanes alive at the start of each segment launch of one
+        render through the kernels (a run of its own, which reads each
+        count back before the launch)."""
+        alive = []
+
+        def segment(tables, salts, ids, state, counts, **kw):
+            alive.append(int((state[12] > 0).sum()))
+            return self.segment(tables, salts, ids, state, counts, **kw)
+
+        self.render(segment=segment)
+        return alive
+
+    def lane_bytes(self) -> int:
+        """The state traffic of this render's launches, from the lanes
+        alive at the start of each (common.cuh trace_segment): a live
+        lane reads 13 state words, pix, sample, bounce and 3 counters
+        (76 B) and writes back the 13 words, bounce and the counters
+        (68 B); a dead lane reads its alive word (4 B) and returns."""
+        n_pad = -(-self.n_pixels // 1024) * 1024
+        alive = self.alive_lanes()
+        live = sum(alive)
+        return live * (76 + 68) + (len(alive) * n_pad - live) * 4
+
+
+def _keep_order(ids, state, lo, inv_ext):
+    """The lanes as they are: the recluster loop without the sort."""
+    return ids, state
+
+
+def _seg_stats(out) -> list:
+    st = out[2]
+    return [int(out[1]), int(st["iterations"]), int(st["supers_entered"]),
+            int(st["clusters_entered"])]
+
+
+def _device_split(fn):
+    """(ms of the port's kernels, ms of all other device work, the
+    result) of one call of ``fn``, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    ours = sum(e.device_time for e in events
+               if any(k in e.name for k in KERNEL_NAMES)) / 1e3
+    return ours, sum(e.device_time for e in events) / 1e3 - ours, out
+
+
+def _check_seg(label, case, timed: bool = False) -> dict:
+    """The segmented render through the segment kernels against the same
+    render through their plain versions, on the same CUDA tensors:
+    radiance words and [rays, iterations, supers, clusters]
+    bit-identical; the kernel launched once a segment.  With ``timed``,
+    the checked render runs under torch.profiler (the segment kernels'
+    device time and the rest's), the plain render under CUDA events, and
+    the bound counts the bytes from a run that reads the live lanes at
+    each launch."""
+    from wavefront_path_tracer_tpu_torch.utils.parity import parity_report
+
+    before = case.launches()
+    if timed:
+        kernel_ms, other_ms, k = _device_split(case.kernel)
+    else:
+        k = case.kernel()
+        torch.cuda.synchronize()
+    want = case.spp * case.segments
+    if case.launches() != before + want:
+        raise AssertionError(f"{label}: {case.launches() - before} segment "
+                             f"launches, not {want}")
+    plain_ms, p = _time_ms(case.plain, 1)
+    stats_k, stats_p = _seg_stats(k), _seg_stats(p)
+    bit_exact = stats_k == stats_p and torch.equal(
+        k[0].view(torch.int32), p[0].view(torch.int32))
+    rep = parity_report(case.image(k), case.image(p))
+    rep.update(case=label, kernel=f"segment_{case.kind}",
+               stats_kernel=stats_k, stats_plain=stats_p,
+               bit_exact=bit_exact, launches=want)
+    if timed:
+        rep.update(kernel_ms=kernel_ms, other_device_ms=other_ms,
+                   plain_ms=plain_ms, **case.bound(stats_k))
+    log(f"[seg-vs-plain] {label}: {json.dumps(rep)}")
+    if not bit_exact:
+        raise AssertionError(f"{label}: kernel and plain version differ")
+    if case.has_clusters() and not stats_k[3] > 0:
+        raise AssertionError(f"{label}: no cluster was entered")
+    return rep
+
+
+def _check_seg_state(label, case) -> None:
+    """Two segments of sample 0 with the coherence sort between them, the
+    kernel and the plain version on clones of the same state: the state,
+    ids and counters after each, bit for bit."""
+    from wavefront_path_tracer_tpu_torch.models import fused
+
+    fns, tables = (case.segment, case.segment_plain), case.seg_tables
+    n_pad = -(-case.n_pixels // 1024) * 1024
+    ids, state = fused.segment_state(case.perm_t, n_pad, case.cfg, 0, 0,
+                                     case.cc.gpu_camera(), case.view,
+                                     case.inv_proj)
+    lo, inv_ext = fused._scene_box(case.arrays)
+    kw = {"rr_start": case.cfg.rr_start_bounce, "clamp": case.cfg.clamp}
+    counts = torch.zeros((3, n_pad), dtype=torch.int32, device=state.device)
+    for i, k in enumerate(fused._segment_schedule(case.cfg.recluster,
+                                                  50)[:2]):
+        if i:
+            ids, state = fused.coherence_order(ids, state, lo, inv_ext)
+        outs = [fn(tables, (0, 50, k, 0), ids.clone(), state.clone(),
+                   counts.clone(), **kw) for fn in fns]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(*outs))
+        alive = int((outs[0][1][12] > 0).sum())
+        log(f"[seg-state] {label} segment {i} (k={k}): state, ids and "
+            f"counters bit-identical {same}, {alive} lanes alive after")
+        if not same:
+            raise AssertionError(f"{label}: segment {i} state differs")
+        ids, state, counts = outs[0]
+
+
+def phase_segments(device) -> list[dict]:
+    """Phase 11 (``seg``): both segment kernels against their plain
+    versions at 160x90@4spp with padding lanes, recluster 2, 50 bounces:
+    book_one_final baked culled/16 (default, and roulette/clamp/
+    stratified AA), baked unculled, dynamic culled/16 on terrain and on
+    the knot at 2 spp, book_checker culled/16 (textured); the state of
+    two segments bit for bit; recluster 1, recluster 2 and no sort
+    giving the same radiance words and counters; and ``--recluster``
+    through the CLI on each intersector, a mesh and a textured scene."""
+    book, book_cc = _smoke_scene()
+    terrain, tris, cc = _terrain()
+    knot, knot_tris, knot_cc = _knot()
+    checker = _book_checker()
+    cases = [
+        ("seg culled16 book_one_final 160x90@4spp default", "culled", 16,
+         (book, None, book_cc), 4, {}),
+        ("seg culled16 book_one_final 160x90@4spp rr3/clamp0.5/stratified",
+         "culled", 16, (book, None, book_cc), 4, TEX_OPTS),
+        ("seg unculled book_one_final 160x90@4spp default", "unculled", 0,
+         (book, None, book_cc), 4, {}),
+        ("seg dynculled16 terrain 160x90@4spp default", "dynculled", 16,
+         (terrain, tris, cc), 4, {}),
+        ("seg dynculled16 knot50k 160x90@2spp default", "dynculled", 16,
+         (knot, knot_tris, knot_cc), 2, {}),
+        ("seg culled16 book_checker 160x90@4spp default", "culled", 16,
+         checker, 4, {}),
+    ]
+    out = []
+    for label, kind, clusters, (scene, t, cam), spp, kw in cases:
+        case = SegCase(kind, clusters, scene, cam, 160, 90, spp, kw, device,
+                       triangles=t)
+        if "book_checker" in label and not case.textured:
+            raise AssertionError(f"{label}: the tables are not textured")
+        rep = _check_seg(label, case)
+        if "default" in label:
+            _check_seg_state(label, case)
+        out.append(rep)
+    for kind, clusters, (scene, t, cam) in (
+            ("culled", 16, (book, None, book_cc)),
+            ("dynculled", 16, (terrain, tris, cc))):
+        case = SegCase(kind, clusters, scene, cam, 160, 90, 4, {}, device,
+                       triangles=t)
+        runs = {"recluster 2": case.render(),
+                "recluster 1": case.render(case.cfg.replace(recluster=1)),
+                "recluster 2, no sort": case.render(order=_keep_order)}
+        ref = runs["recluster 2"]
+        same = {name: torch.equal(r[0].view(torch.int32),
+                                  ref[0].view(torch.int32))
+                and _seg_stats(r) == _seg_stats(ref)
+                for name, r in runs.items()}
+        log(f"[seg-invariance] {kind}16 160x90@4spp: radiance words and "
+            f"counters equal to recluster 2's: {same}, stats "
+            f"{_seg_stats(ref)}")
+        if not all(same.values()):
+            raise AssertionError(f"{kind}: recluster 1/2/no sort differ")
+        _check_no_waits(f"{kind}16 160x90@4spp", case)
+    _segments_through_cli(device)
+    return out
+
+
+def _check_no_waits(label, case) -> None:
+    """The segmented render, given its matrices on the card, under CUDA's
+    sync debug mode, which raises on any call that waits for the device:
+    the host loop queues every sample's work without waiting."""
+    from wavefront_path_tracer_tpu_torch.models import fused
+
+    dev = case.perm_t.device
+    view, inv_proj = (torch.as_tensor(m, dtype=torch.float32, device=dev)
+                      for m in (case.view, case.inv_proj))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused.render_pixels_recluster(
+            case.perm_t, case.arrays, case.cc.gpu_camera(), view, inv_proj,
+            case.cfg, 0, 0, case.spp, **case.table_kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[seg-waits] {label}: the recluster loop ran under sync debug "
+        f"mode 'error' without a wait for the device")
+
+
+def _segments_through_cli(device) -> None:
+    """``--recluster K`` through the CLI at 160x90@4spp on each culling
+    intersector, a mesh and a textured scene: the segment kernel of the
+    path launches, and the image is finite; brute force without clusters
+    refuses, as the reference does."""
+    from wavefront_path_tracer_tpu_torch import cli
+
+    base = ["--device", device.type, "--width", "160", "--height", "90",
+            "--spp", "4", "--spf", "4", "--max-bounces", "50", "--quiet",
+            "--out", os.path.join(OUT_DIR, "seg_cli.png")]
+    for kind, flags in (
+            ("segment_unculled", ["--intersector", "baked", "--clusters",
+                                  "0", "--recluster", "1"]),
+            ("segment_dynculled", ["--intersector", "bruteforce",
+                                   "--clusters", "16", "--recluster", "2"]),
+            ("segment_dynculled", ["--scene", "mesh_demo", "--intersector",
+                                   "bruteforce", "--clusters", "16",
+                                   "--recluster", "2"]),
+            ("segment_culled", ["--scene", "book_checker", "--intersector",
+                                "baked", "--clusters", "16", "--recluster",
+                                "2"])):
+        _reset_launches()
+        _, result = cli.run(base + flags)
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        img = result.accumulated / result.samples
+        log(f"[seg-cli] {' '.join(flags)}: launches {launches}, image mean "
+            f"{img.mean():.4f}")
+        if launches[kind] < 1 or not np.isfinite(img).all() \
+                or not img.mean() > 0.01:
+            raise AssertionError(f"--recluster via the CLI, {flags}: "
+                                 f"{launches}, mean {img.mean()}")
+    try:
+        cli.run(base + ["--intersector", "bruteforce", "--recluster", "2"])
+    except NotImplementedError as exc:
+        if "culling intersector" not in str(exc):
+            raise
+    else:
+        raise AssertionError("--recluster with brute force and no clusters "
+                             "did not refuse")
+
+
+# The segmented rows: (label, kind, row or CLI flags, clusters).
+SEG_ROWS = (
+    ("knot50k_dynamic", "dynculled", (0, 1, 2)),
+    ("terrain_dynamic", "dynculled", (0, 2)),
+    ("terrain_baked", "culled", (0, 2)),
+    ("headline", "culled", (0, 2)),
+)
+
+
+def _schedule(cfg) -> tuple:
+    """The segment lengths of a configuration; (max_bounces,) without
+    recluster."""
+    from wavefront_path_tracer_tpu_torch.models import fused
+
+    if not cfg.recluster:
+        return (cfg.max_bounces,)
+    return fused._segment_schedule(cfg.recluster, cfg.max_bounces)
+
+
+def _seg_frame(renderer, label: str, kind: str, recluster: int,
+               smi: str) -> dict:
+    """A warm-up frame, a timed frame whose launch counts are read alone,
+    and a frame under torch.profiler: frame time, Mrays/s, the device
+    time of the segment kernels and of the rest (sort, gathers, raygen,
+    scatter) and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wavefront_path_tracer_tpu_torch.profile_frame import _union_us
+
+    renderer.render_frame()                            # warm-up
+    renderer.reset_accumulation()
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    result = renderer.render_frame()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    img = result.accumulated / result.samples
+    seg_kind = f"segment_{kind}"
+    want = seg_kind if recluster else kind
+    if launches[want] < 1:
+        raise AssertionError(f"{label} recluster {recluster} launched no "
+                             f"{want} kernel: {launches}")
+    if not np.isfinite(img).all() or not img.mean() > 0.01:
+        raise AssertionError(f"bad image ({label}): mean {img.mean()}")
+    renderer.reset_accumulation()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        renderer.render_frame()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t1) * 1e3
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = _union_us((e.time_range.start, e.time_range.end)
+                        for e in events) / 1e3
+    ours = sorted((e for e in events
+                   if any(k in e.name for k in KERNEL_NAMES)),
+                  key=lambda e: e.time_range.start)
+    kernel_ms = sum(e.device_time for e in ours) / 1e3
+    other_ms = sum(e.device_time for e in events) / 1e3 - kernel_ms
+    # The launches in issue order, summed by their index in the schedule
+    # (segment i of every sample).
+    ks = _schedule(renderer.config)
+    per_segment = [0.0] * len(ks)
+    for i, e in enumerate(ours):
+        per_segment[i % len(per_segment)] += e.device_time / 1e3
+    mrays = result.rays_traced / result.wall_time_s / 1e6
+    rep = {"row": label, "recluster": recluster,
+           "render_seconds": result.wall_time_s, "seconds": seconds,
+           "rays": result.rays_traced, "mrays_per_s": mrays,
+           "launches": launches[want], "all_launches": launches,
+           "kernel_ms": kernel_ms, "other_device_ms": other_ms,
+           "segments": list(ks), "kernel_ms_by_segment": per_segment,
+           "profiled_frame_ms": prof_ms, "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / prof_ms,
+           "device_ops": len(events),
+           "image_mean": float(img.mean()), "image": img}
+    log(f"[seg-row] {label} recluster {recluster}: frame "
+        f"{result.wall_time_s * 1e3:.2f} ms, {mrays:.2f} Mrays/s, "
+        f"{result.rays_traced:.0f} rays, launches {launches[want]}; "
+        f"profiled frame {prof_ms:.2f} ms, {len(events)} device kernels "
+        f"and copies: kernels {kernel_ms:.2f} ms "
+        f"(by segment {ks}: {[round(v, 2) for v in per_segment]}), "
+        f"other device work (sort, gathers, raygen) {other_ms:.2f} ms, "
+        f"device busy {busy_ms / prof_ms:.1%} [{smi}]")
+    return rep
+
+
+def phase_segments_full(device, smi: str) -> dict:
+    """Phase 12 (``segfull``): the segment kernels bit for bit at the
+    knot's and the 1080p book's planes at 1 spp with kernel and plain
+    times and the bound; the segmented rows beside their recluster-0
+    forms (frame time, Mrays/s, segment-kernel and other device time,
+    launches, busy share); and the golden gate for baked/cull16 at
+    recluster 2."""
+    from wavefront_path_tracer_tpu_torch.profile_frame import row_renderer
+    from wavefront_path_tracer_tpu_torch.renderer import Renderer, render
+    from wavefront_path_tracer_tpu_torch.scene import (
+        CameraController,
+        get_scene,
+    )
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+    from wavefront_path_tracer_tpu_torch.utils.image import rmse
+    from wavefront_path_tracer_tpu_torch.utils.parity import (
+        DISPLAY_RMSE_TOL,
+        MEAN_TOL,
+        RAYS_REL_TOL,
+        parity_report,
+    )
+
+    book, book_cc = _smoke_scene()
+    knot, knot_tris, knot_cc = _knot()
+    w, h = MESH_SIZE
+    checks = {}
+    for name, kind, scene, t, cam, width, height in (
+            ("culled", "culled", book, None, book_cc, MAIN_WIDTH,
+             MAIN_HEIGHT),
+            ("dynculled", "dynculled", knot, knot_tris, knot_cc, w, h)):
+        case = SegCase(kind, 16, scene, cam, width, height, 1, {}, device,
+                       triangles=t)
+        rep = _check_seg(f"seg {kind}16 {width}x{height}@1spp default",
+                         case, timed=True)
+        log(f"[timing] segment {kind}16 {width}x{height}@1spp, 50 bounces, "
+            f"{case.segments} segments: segment kernels "
+            f"{rep['kernel_ms']!r} ms, other device work "
+            f"{rep['other_device_ms']!r} ms, plain {rep['plain_ms']!r} ms, "
+            f"bound {rep['bound_ms']!r} ms ({rep['bound_by']}; "
+            f"{rep['bytes']:.0f} B, {rep['ops']:.0f} operations) [{smi}]")
+        checks[name] = rep
+
+    # What the sort buys: the segment kernels' device time with the
+    # coherence sort and with the lanes left in block order (the same
+    # rays, the same results), in turns: sort, no sort, no sort, sort.
+    sort_gain = {}
+    for name, kind, scene, t, cam, width, height, spp in (
+            ("headline", "culled", book, None, book_cc, MAIN_WIDTH,
+             MAIN_HEIGHT, 4),
+            ("knot50k_dynamic", "dynculled", knot, knot_tris, knot_cc, w, h,
+             8)):
+        case = SegCase(kind, 16, scene, cam, width, height, spp, {}, device,
+                       triangles=t)
+        case.kernel()                                  # warm-up
+        times = {"sort": [], "no sort": []}
+        for label in ("sort", "no sort", "no sort", "sort"):
+            fn = case.kernel if label == "sort" else (
+                lambda: case.render(order=_keep_order))
+            times[label].append(_device_split(fn)[0])
+        rep = {k: sum(v) / len(v) for k, v in times.items()}
+        log(f"[seg-sort] {name} {width}x{height}@{spp}spp recluster 2: "
+            f"segment kernels with the sort {rep['sort']!r} ms, without "
+            f"{rep['no sort']!r} ms ({rep['sort'] / rep['no sort'] - 1:+.2%}); "
+            f"runs {times} [{smi}]")
+        sort_gain[name] = {"spp": spp, **rep, "runs": times}
+
+    rows = []
+    images, agreement = {}, {}
+    for label, kind, reclusters in SEG_ROWS:
+        for k in reclusters:
+            if label == "headline":
+                cfg = RenderConfig(
+                    width=MAIN_WIDTH, height=MAIN_HEIGHT,
+                    samples_per_pixel=MAIN_SPP, samples_per_frame=MAIN_SPP,
+                    max_bounces=50, engine="fused", intersector="baked",
+                    baked_clusters=16, recluster=k)
+                renderer = Renderer(book, book_cc, cfg, device=device)
+            else:
+                renderer = row_renderer(label, device=device, recluster=k)
+            rep = _seg_frame(renderer, label, kind, k, smi)
+            images[(label, k)] = (rep.pop("image"), rep["rays"])
+            rows.append(rep)
+    # The segment path's raygen differs from the persistent kernels' by
+    # ulps, so the two agree by the statistical rule's image limits and
+    # ray counts; the diverged-pixel share is recorded (50 bounces give
+    # a near-tie flip many chances, as in phase 10).
+    for label, _kind, _reclusters in SEG_ROWS:
+        (a, ra), (b, rb) = images[(label, 0)], images[(label, 2)]
+        rep = parity_report(b, a)
+        rep["rays_rel_diff"] = abs(rb - ra) / max(ra, 1.0)
+        log(f"[seg-agree] {label} recluster 2 vs 0: {json.dumps(rep)}")
+        if not (rep["finite"] and rep["mean_diff"] < MEAN_TOL
+                and rep["display_rmse"] < DISPLAY_RMSE_TOL
+                and rep["rays_rel_diff"] < RAYS_REL_TOL):
+            raise AssertionError(f"{label} recluster 2 vs 0: {rep}")
+        agreement[label] = rep
+
+    cfg = RenderConfig(width=400, height=225, samples_per_pixel=1000,
+                       samples_per_frame=200, max_bounces=50, engine="fused",
+                       intersector="baked", baked_clusters=16, recluster=2)
+    z = np.load(GOLDEN, allow_pickle=False)
+    t0 = time.perf_counter()
+    res = render(get_scene("book_one_final"),
+                 CameraController.book_one_final(), cfg, device=device)
+    seconds = time.perf_counter() - t0
+    err = rmse(res.image, z["image"])
+    log(f"[golden] baked/cull16 recluster 2: book_one_final 400x225@1000spp "
+        f"display RMSE {err!r} (gate {GOLDEN_GATE}) in {seconds:.2f} s, "
+        f"{res.rays_traced:.0f} rays [{smi}]")
+    if not err < GOLDEN_GATE:
+        raise AssertionError(f"recluster golden RMSE {err} >= {GOLDEN_GATE}")
+    return {"checks": checks, "sort_gain": sort_gain, "rows": rows,
+            "agreement": agreement,
+            "golden": {"rmse": err, "seconds": seconds,
+                       "rays": res.rays_traced}}
+
 
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull", "tex",
-          "texfull")
+          "texfull", "seg", "segfull")
 
 
 def main(argv=None) -> int:
@@ -1066,7 +1618,10 @@ def main(argv=None) -> int:
               lambda: phase_mesh_full_size(device, smi)),
              ("tex", "textures", lambda: phase_textures(device)),
              ("texfull", "textures_full",
-              lambda: phase_textures_full(device, smi)))
+              lambda: phase_textures_full(device, smi)),
+             ("seg", "segments", lambda: phase_segments(device)),
+             ("segfull", "segments_full",
+              lambda: phase_segments_full(device, smi)))
     for phase, key, run in steps:
         if phase in phases:
             t0 = time.perf_counter()
@@ -1115,7 +1670,16 @@ def main(argv=None) -> int:
                 "library_ms": None,
             })
             continue
-        if kind == "dynculled":
+        if kind.startswith("segment_"):
+            seg = record["segments_full"]
+            reps = [r for r in record["segments"] + list(
+                seg["checks"].values()) if r["kernel"] == kind]
+            main_check = seg["checks"][kind[len("segment_"):]]
+            launches = (main_paths[kind]["launches"] if "argv" in spec
+                        else next(r["launches"] for r in seg["rows"]
+                                  if r["row"] == "knot50k_dynamic"
+                                  and r["recluster"] == 2))
+        elif kind == "dynculled":
             main_check = mesh_checks[0]            # terrain 800x448@1spp
             launches = mesh["terrain_dynamic"]["launches"]
         else:

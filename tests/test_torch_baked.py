@@ -207,8 +207,6 @@ def test_one_tile_matches_jax_closure(culled):
     pytest.param({"intersector": "bruteforce", "baked_clusters": 8,
                   "winner_hint": True}, "reference",
                  id="winner_hint=True,baked_clusters=4"),
-    pytest.param({"recluster": 1, "baked_clusters": 4}, "ROADMAP",
-                 id="recluster=1,baked_clusters=4"),
     pytest.param({"num_devices": 2}, "ROADMAP", id="num_devices=2"),
     pytest.param({"intersector": "bruteforce", "baked_clusters": 16,
                   "winner_hint": True}, "reference",
@@ -219,6 +217,24 @@ def test_baked_refusals(change, match):
     with pytest.raises(NotImplementedError, match=match):
         Renderer(get_scene("book_cover"), _cover_camera(),
                  BASE.replace(**change), device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    pytest.param({"recluster": 1, "baked_clusters": 4},
+                 id="recluster=1,baked_clusters=4"),
+    pytest.param({"recluster": 2, "baked_clusters": 0},
+                 id="recluster=2,baked_clusters=0"),
+])
+def test_recluster_baked_matches_persistent(change):
+    """Once refused: the segments over the baked tables, culled and
+    unculled (the reference takes both), render what the persistent
+    baked kernel renders, by the statistical rule."""
+    scene, cc = get_scene("procedural", n=96, seed=3), _cover_camera()
+    cfg = BASE.replace(**change)
+    seg = torch_render(scene, cc, cfg, device="cpu")
+    pers = torch_render(scene, cc, cfg.replace(recluster=0), device="cpu")
+    check_parity(seg.accumulated / 2, pers.accumulated / 2, seg.rays_traced,
+                 pers.rays_traced)
 
 
 def test_baked_refuses_textures_and_triangles():

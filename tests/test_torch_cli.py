@@ -101,6 +101,30 @@ def test_cli_mesh_and_culled_paths_write_png(argv, tmp_path):
         assert "tri_v0" in renderer.scene_arrays
 
 
+@pytest.mark.parametrize("argv", [
+    ["--recluster", "2", "--intersector", "baked", "--clusters", "16"],
+    ["--recluster", "1", "--intersector", "baked", "--clusters", "0"],
+    ["--recluster", "2", "--intersector", "bruteforce", "--clusters", "16"],
+    ["--recluster", "2", "--scene", "mesh_demo", "--intersector", "baked",
+     "--clusters", "16"],
+    ["--recluster", "2", "--scene", "book_checker", "--intersector",
+     "baked", "--clusters", "16"],
+], ids=["recluster_2", "recluster_1_unculled", "recluster_2_dynamic",
+        "recluster_2_mesh", "recluster_2_textured"])
+def test_cli_recluster_writes_png(argv, tmp_path):
+    """What the port once refused: ``--recluster K`` on each culling
+    intersector, on meshes and on textured scenes."""
+    out = tmp_path / "r.png"
+    renderer, result = cli.run(["--device", "cpu", "--width", "16",
+                                "--height", "9", "--spp", "1",
+                                "--max-bounces", "8", "--out", str(out),
+                                "--quiet", *argv])
+    img = read_png(str(out))
+    assert img.shape == (9, 16, 3) and img.mean() > 10
+    assert renderer.config.recluster == int(argv[1])
+    assert result.rays_traced > 16 * 9
+
+
 SCENE_JSON = str(Path(__file__).resolve().parents[1] / "examples"
                  / "scene.json")
 # What still refuses: flags of later slices (naming their ROADMAP item),
@@ -118,7 +142,13 @@ _LATER = (NotImplementedError, "ROADMAP")
                   "procedural", "--spheres", "2500"], _HINT,
                  id="intersector_auto_--winner-hint"),
     pytest.param(["--intersector", "bvh"], _LATER, id="intersector_bvh"),
-    pytest.param(["--recluster", "2"], _LATER, id="recluster_2"),
+    # The reference's own refusal: recluster needs a culling intersector.
+    pytest.param(["--recluster", "2", "--intersector", "bruteforce"],
+                 (NotImplementedError, "culling intersector"),
+                 id="recluster_2_bruteforce_clusters_0"),
+    pytest.param(["--recluster", "3", "--intersector", "baked"],
+                 (ValueError, "recluster must be <= 2"),
+                 id="recluster_3"),
     pytest.param(["--winner-hint"], (ValueError, "requires baked_clusters"),
                  id="winner-hint"),
     pytest.param(["--scene-file", SCENE_JSON], _TEX, id="scene-file_s.json"),

@@ -237,3 +237,104 @@ def test_textured_kernels_match_plain(device, case):
     for a, b in zip(k[:3], p[:3]):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert k[3].tolist() == p[3].tolist()
+
+
+@pytest.mark.parametrize("case", ["book_one_final/culled16",
+                                  "book_one_final/unculled",
+                                  "terrain/dyn16", "book_checker/culled16",
+                                  "book_checker/dyn16"])
+def test_segment_kernels_match_plain(device, case):
+    """The recluster segment kernels against their plain versions on the
+    same CUDA tensors: a whole segmented render (recluster 2, roulette
+    from bounce 3) with radiance words and counters bit-identical, one
+    launch a segment."""
+    scene_name, path = case.split("/")
+    cc = CameraController.book_one_final()
+    tris = None
+    if scene_name == "terrain":
+        scene, tris = mesh_terrain_scene(n_quads=20)
+    else:
+        scene = get_scene(scene_name)
+    cfg = RenderConfig(width=64, height=36, samples_per_pixel=2,
+                       samples_per_frame=2, max_bounces=50, engine="fused",
+                       recluster=2, rr_start_bounce=3)
+    arrays = prepare_scene(scene, cfg, device, tris)
+    eye = tfused._concrete_eye(cc.view_matrix())
+    if path == "dyn16":
+        tables = {"dyn": tfused._dyn_tables(arrays, 16, camera_pos=eye)}
+        plain = tdk.fused_segment_dynculled_reference
+        launches = lambda: tdk.SEGMENT_LAUNCHES  # noqa: E731
+    else:
+        clusters = 0 if path == "unculled" else 16
+        tables = {"baked": tfused._baked_scene(arrays, clusters,
+                                               camera_pos=eye)}
+        plain = tbk.fused_segment_baked_reference
+        key = "segment_culled" if clusters else "segment_unculled"
+        launches = lambda: tbk.LAUNCHES[key]  # noqa: E731
+    perm, _ = _planes(64, 36, device)
+    args = (perm, arrays, cc.gpu_camera(), cc.view_matrix(),
+            cc.inverse_projection(64, 36), cfg, 0, 0, 2)
+    before = launches()
+    k = tfused.render_pixels_recluster(*args, with_stats=True, **tables)
+    torch.cuda.synchronize()
+    assert launches() == before + 2 * len(tfused._segment_schedule(2, 50))
+    p = tfused._recluster(plain, tfused.coherence_order,
+                          *tables.values(), *args, True)
+    assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+    assert int(k[1]) == int(p[1])
+    assert {n: int(v) for n, v in k[2].items()} == {
+        n: int(v) for n, v in p[2].items()}
+    assert path == "unculled" or int(k[2]["clusters_entered"]) > 0
+
+
+def test_recluster_loop_never_waits_for_the_card(device):
+    """Given its matrices on the card, the segmented render issues its
+    raygen, sorts, launches and scatters without one call that waits for
+    the device (CUDA's sync debug mode raises on such a call)."""
+    scene = get_scene("book_one_final")
+    cc = CameraController.book_one_final()
+    cfg = RenderConfig(width=64, height=36, samples_per_pixel=2,
+                       samples_per_frame=2, max_bounces=50, engine="fused",
+                       recluster=2)
+    arrays = prepare_scene(scene, cfg, device)
+    baked = tfused._baked_scene(arrays, 16, camera_pos=tfused._concrete_eye(
+        cc.view_matrix()))
+    perm, _ = _planes(64, 36, device)
+    view, inv_proj = (torch.as_tensor(m, dtype=torch.float32, device=device)
+                      for m in (cc.view_matrix(),
+                                cc.inverse_projection(64, 36)))
+    tfused.render_pixels_recluster(perm, arrays, cc.gpu_camera(), view,
+                                   inv_proj, cfg, 0, 0, 2, baked=baked)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rad, rays = tfused.render_pixels_recluster(
+            perm, arrays, cc.gpu_camera(), view, inv_proj, cfg, 0, 0, 2,
+            baked=baked)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(rays) > 0 and bool(torch.isfinite(rad).all())
+
+
+@pytest.mark.parametrize("change", [
+    {"intersector": "baked", "baked_clusters": 16},
+    {"intersector": "bruteforce", "baked_clusters": 16},
+], ids=["culled16", "dyn16"])
+def test_recluster_invariance_on_card(device, change):
+    """Recluster 1 and recluster 2 render the same bits on the card, and
+    the segmented render matches the persistent one by the statistical
+    rule."""
+    from wavefront_path_tracer_tpu_torch.utils.parity import check_parity
+
+    scene, tris = mesh_terrain_scene(n_quads=10)
+    cfg = RenderConfig(width=96, height=54, samples_per_pixel=4,
+                       samples_per_frame=4, max_bounces=50, engine="fused",
+                       **change)
+    cc = CameraController.book_one_final()
+    out = {k: render(scene, cc, cfg.replace(recluster=k), tris,
+                     device=device) for k in (0, 1, 2)}
+    assert np.array_equal(out[1].accumulated.view(np.int32),
+                          out[2].accumulated.view(np.int32))
+    assert out[1].rays_traced == out[2].rays_traced
+    check_parity(out[2].accumulated / 4, out[0].accumulated / 4,
+                 out[2].rays_traced, out[0].rays_traced)

@@ -113,12 +113,13 @@ HINT_ON_DYNAMIC = {"intersector": "bruteforce", "winner_hint": True,
 
 
 @pytest.mark.parametrize("change,match", [
-    pytest.param({"intersector": "baked", "recluster": 1}, "ROADMAP",
-                 id="intersector=baked,recluster=1"),
     pytest.param(HINT_ON_DYNAMIC, "reference",
                  id="intersector=baked,winner_hint=True,baked_clusters=16"),
     pytest.param({"intersector": "bvh"}, "ROADMAP", id="intersector=bvh"),
-    pytest.param({"recluster": 1, "intersector": "bruteforce"}, "ROADMAP",
+    # The reference's own refusal (models/fused.py:359-364): recluster
+    # needs a culling intersector.
+    pytest.param({"recluster": 1, "intersector": "bruteforce"},
+                 "culling intersector",
                  id="recluster=1,intersector=bruteforce"),
     pytest.param({"winner_hint": True, "baked_clusters": 4}, "reference",
                  id="winner_hint=True,baked_clusters=4"),
@@ -130,6 +131,27 @@ HINT_ON_DYNAMIC = {"intersector": "bruteforce", "winner_hint": True,
 def test_refusals(cover, change, match):
     with pytest.raises(NotImplementedError, match=match):
         Renderer(cover, _cover_camera(), BASE.replace(**change), device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    pytest.param({"intersector": "baked", "recluster": 1},
+                 id="intersector=baked,recluster=1"),
+    pytest.param({"intersector": "bruteforce", "baked_clusters": 8,
+                  "recluster": 2},
+                 id="intersector=bruteforce,baked_clusters=8,recluster=2"),
+])
+def test_recluster_matches_persistent(cover, change):
+    """Once refused: the segmented path renders what the persistent path
+    renders, by the statistical rule, with the same ray counts up to the
+    two raygens' ulps (the reference's tests/test_fused.py:565-577)."""
+    cfg = BASE.replace(**change)
+    seg = torch_render(cover, _cover_camera(), cfg, device="cpu")
+    pers = torch_render(cover, _cover_camera(), cfg.replace(recluster=0),
+                        device="cpu")
+    check_parity(seg.accumulated / seg.samples,
+                 pers.accumulated / pers.samples, seg.rays_traced,
+                 pers.rays_traced)
+    assert abs(seg.rays_traced - pers.rays_traced) / pers.rays_traced < 1e-3
 
 
 @pytest.mark.parametrize("change", [

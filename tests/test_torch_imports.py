@@ -104,9 +104,14 @@ def test_no_launches_on_cpu():
            CFG.replace(intersector="baked", baked_clusters=2), device="cpu")
     render(book_cover(), CameraController.book_one_final(),
            CFG.replace(baked_clusters=8), device="cpu")
+    render(book_cover(), CameraController.book_one_final(),
+           CFG.replace(baked_clusters=8, recluster=2), device="cpu")
+    render(book_cover(), CameraController.book_one_final(),
+           CFG.replace(intersector="baked", recluster=1), device="cpu")
     assert tfk.LAUNCHES == before == 0
-    assert tbk.LAUNCHES == {"culled": 0, "unculled": 0}
-    assert tdk.LAUNCHES == 0
+    assert tbk.LAUNCHES == {"culled": 0, "unculled": 0, "segment_culled": 0,
+                            "segment_unculled": 0}
+    assert tdk.LAUNCHES == tdk.SEGMENT_LAUNCHES == 0
 
 
 def test_build_flags(monkeypatch):
@@ -119,7 +124,9 @@ def test_build_flags(monkeypatch):
     assert [p.name for p in _build.headers()] == ["common.cuh"]
     for name, fn in (("persistent.cu", "wpt_persistent_launch"),
                      ("baked.cu", "wpt_baked_launch"),
-                     ("dynculled.cu", "wpt_dynculled_launch")):
+                     ("baked.cu", "wpt_baked_segment_launch"),
+                     ("dynculled.cu", "wpt_dynculled_launch"),
+                     ("dynculled.cu", "wpt_dynculled_segment_launch")):
         src = (_build.CSRC / name).read_text()
         assert f'extern "C" int {fn}' in src
         assert "cudaGetLastError" in src

@@ -83,3 +83,17 @@ def test_mul32_matches_python_ints(words):
     for b in (trng.SAMPLE_STRIDE, trng.BOUNCE_STRIDE, 0xFFFFFFFF, 1):
         want = np.array([(int(x) * b) & 0xFFFFFFFF for x in a], np.int64)
         np.testing.assert_array_equal(trng.mul32(_t(a), b).numpy(), want)
+
+
+def test_sample_unit_disk_matches_jax(words):
+    """The disk sampler of the segment path's raygen: the same stream
+    state bit for bit, the point to 2 ulps at 1.0 (sqrt, cos and sin of
+    XLA:CPU and of PyTorch need not round alike)."""
+    st_j, xj, yj = jrng.sample_unit_disk(jnp.asarray(words["state"]))
+    st_t, xt, yt = trng.sample_unit_disk(_t(words["state"]))
+    _same(st_j, st_t)
+    assert xt.dtype == yt.dtype == torch.float32
+    for j, t in ((xj, xt), (yj, yt)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0,
+                                   atol=2.4e-7)
+    assert float((xt * xt + yt * yt).max()) <= 1.0

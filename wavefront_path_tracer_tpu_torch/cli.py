@@ -6,7 +6,8 @@ culls either: the baked sweep, or the dynamic culled sweep over runtime
 tables for brute force), on sphere scenes, textured scenes
 (``--scene book_checker``, ``--scene-file``, ``--tex-lut``) and triangle
 meshes (``--scene mesh_demo|mesh_terrain``, ``--obj``), with the winner
-hint (``--winner-hint``), on a torch device.  Flags of the reference CLI
+hint (``--winner-hint``) or the segmented re-clustering path
+(``--recluster K``), on a torch device.  Flags of the reference CLI
 that this port does not carry yet are refused with the ROADMAP.md item
 that will bring them.
 
@@ -27,7 +28,6 @@ import numpy as np
 
 # Reference-CLI flags this slice refuses: flag -> (dest, ROADMAP item).
 _REFUSED = {
-    "--recluster": ("recluster", "queue 2 item 6 (recluster segments)"),
     "--serve": ("serve", "queue 1 item 9 (preview server)"),
     "--interactive": ("interactive", "queue 1 item 9 (app layer)"),
     "--aov": ("aov", "queue 1 item 9 (aov.py)"),
@@ -85,6 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--winner-hint", action="store_true",
                    help="baked culled: test each lane's last winner "
                         "cluster first, to tighten the cull cap")
+    p.add_argument("--recluster", type=int, default=0, metavar="K",
+                   help="re-sort live rays by origin Morton cell x "
+                        "direction octant every K bounces (segment "
+                        "lengths double after the second; 0 = off, at "
+                        "most 2); needs baked or --clusters")
     p.add_argument("--rr", type=int, default=0, metavar="BOUNCE",
                    help="Russian roulette from this surface event (0 = off)")
     p.add_argument("--rr-floor", type=float, default=0.05, metavar="P")
@@ -101,7 +106,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default="render.png")
     p.add_argument("--quiet", action="store_true")
     # Refused: parsed so the refusal can name what will bring them.
-    p.add_argument("--recluster", default=None, help=argparse.SUPPRESS)
     p.add_argument("--serve", default=None, help=argparse.SUPPRESS)
     p.add_argument("--interactive", action="store_true", default=None,
                    help=argparse.SUPPRESS)
@@ -250,8 +254,9 @@ def run(argv=None):
         max_bounces=args.max_bounces, frame=args.frame,
         engine="fused", intersector=intersector, baked_clusters=clusters,
         block_tiles=args.block_tiles, winner_hint=args.winner_hint,
-        sampler=args.sampler, rr_start_bounce=args.rr,
-        rr_floor=args.rr_floor, clamp=args.clamp, **overrides,
+        recluster=args.recluster, sampler=args.sampler,
+        rr_start_bounce=args.rr, rr_floor=args.rr_floor, clamp=args.clamp,
+        **overrides,
     )
     renderer = Renderer(scene, build_camera(args, file_cam), cfg, triangles,
                         device=args.device)

@@ -8,6 +8,14 @@
 // clamp, roulette, the texture step) is common.cuh's, the same as
 // persistent.cu's.
 //
+// The same kernels, instantiated with common.cuh's SegParams, replace
+// fused_segment_baked (2997) under _segment_impl (2785): one recluster
+// segment of at most K bounces of each live lane's stored path, culled or
+// unculled, with the persistent body's bounce step (bounce_step).  What
+// bounds a segment is what bounds the persistent kernel, plus reading and
+// writing 17 words of state a lane; the coherence sort between segments
+// (models/fused.py) is what may win warp coherence back.
+//
 // "Baked" on Hopper is a table, not code.  The TPU unrolled the scene into
 // the kernel as vector immediates because dynamic scalar loads from its
 // vector memory cost about ten times the math.  Here a load from L1 is
@@ -72,6 +80,7 @@
 // source are later steps.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -361,20 +370,19 @@ struct CulledIntersect {
 
 // Eight blocks per SM cap both kernels at 64 registers a thread (72 by
 // default): the occupancy gained outweighs the extra spills, by 1.5% on
-// the headline frame and 5% on the unculled one (PERF.md).
-template <bool kTris, bool kTex>
+// the headline frame and 5% on the unculled one (PERF.md).  `P` is
+// LaneParams (the persistent loop) or SegParams (one recluster segment).
+template <class P, bool kTris, bool kTex>
 __global__ void __launch_bounds__(kThreads, 8)
-baked_unculled_kernel(const wpt::LaneParams p,
-                      const UnculledIntersect<kTris, kTex> isect) {
+baked_unculled_kernel(const P p, const UnculledIntersect<kTris, kTex> isect) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.n_lanes) return;
-  wpt::trace_lane(p, lane, isect);
+  wpt::trace(p, lane, isect);
 }
 
-template <bool kTris, bool kTex, bool kHint>
+template <class P, bool kTris, bool kTex, bool kHint>
 __global__ void __launch_bounds__(kThreads, 8)
-baked_culled_kernel(const wpt::LaneParams p,
-                    CulledIntersect<kTris, kTex, kHint> isect,
+baked_culled_kernel(const P p, CulledIntersect<kTris, kTex, kHint> isect,
                     const float* __restrict__ consts) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= p.n_lanes) return;
@@ -389,7 +397,7 @@ baked_culled_kernel(const wpt::LaneParams p,
       isect.triangles.hi[k] = __ldg(consts + 12 + k);
     }
   }
-  wpt::trace_lane(p, lane, isect);
+  wpt::trace(p, lane, isect);
 }
 
 Hierarchy hierarchy(const float* boxes, const int* ranges, int n_clusters,
@@ -414,30 +422,54 @@ struct Tables {
   wpt::TexTables tex;
 };
 
-template <bool kTris, bool kTex, bool kHint>
-void launch_culled(const wpt::LaneParams& p, const Tables& t,
-                   cudaStream_t s) {
+template <class P, bool kTris, bool kTex, bool kHint>
+void launch_culled(const P& p, const Tables& t, cudaStream_t s) {
   const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
   const CulledIntersect<kTris, kTex, kHint> isect{
       t.items, t.n_globals, t.spheres, t.tris, t.triangles, t.tex_items,
       t.tex, 0.0f, 0.0f, 0.0f};
-  baked_culled_kernel<kTris, kTex, kHint><<<blocks, kThreads, 0, s>>>(
+  baked_culled_kernel<P, kTris, kTex, kHint><<<blocks, kThreads, 0, s>>>(
       p, isect, t.consts);
 }
 
-template <bool kTris, bool kTex>
-void launch(const wpt::LaneParams& p, int culled, int hint, const Tables& t,
+// A segment never runs the winner hint (recluster and the hint exclude
+// each other, utils/config.py), so only LaneParams instantiates it.
+template <class P, bool kTris, bool kTex>
+void launch(const P& p, int culled, int hint, const Tables& t,
             cudaStream_t s) {
-  if (culled && hint) {
-    launch_culled<kTris, kTex, true>(p, t, s);
-  } else if (culled) {
-    launch_culled<kTris, kTex, false>(p, t, s);
+  if constexpr (std::is_same_v<P, wpt::LaneParams>) {
+    if (culled && hint) {
+      launch_culled<P, kTris, kTex, true>(p, t, s);
+      return;
+    }
+  }
+  if (culled) {
+    launch_culled<P, kTris, kTex, false>(p, t, s);
   } else {
     const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
     const UnculledIntersect<kTris, kTex> isect{t.items, t.n_globals, t.tris,
                                                t.n_tris, t.tex_items, t.tex};
-    baked_unculled_kernel<kTris, kTex><<<blocks, kThreads, 0, s>>>(p, isect);
+    baked_unculled_kernel<P, kTris, kTex><<<blocks, kThreads, 0, s>>>(
+        p, isect);
   }
+}
+
+// The instantiation for the scene's kinds (triangles, textures); returns
+// cudaGetLastError().
+template <class P>
+int dispatch(const P& p, int n_tris, int culled, int textured, int hint,
+             const Tables& t, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_tris > 0 && textured) {
+    launch<P, true, true>(p, culled, hint, t, s);
+  } else if (n_tris > 0) {
+    launch<P, true, false>(p, culled, hint, t, s);
+  } else if (textured) {
+    launch<P, false, true>(p, culled, hint, t, s);
+  } else {
+    launch<P, false, false>(p, culled, hint, t, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -480,15 +512,37 @@ extern "C" int wpt_baked_launch(
       consts, reinterpret_cast<const float4*>(tex_items),
       {reinterpret_cast<const float4*>(img_centres), img_words, img_h,
        img_w}};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_tris > 0 && textured) {
-    launch<true, true>(p, culled, hint, t, s);
-  } else if (n_tris > 0) {
-    launch<true, false>(p, culled, hint, t, s);
-  } else if (textured) {
-    launch<false, true>(p, culled, hint, t, s);
-  } else {
-    launch<false, false>(p, culled, hint, t, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(p, n_tris, culled, textured, hint, t, stream);
+}
+
+// One recluster segment (fused_segment_baked, pallas_kernels.py:2997) over
+// the same tables, culled or unculled, never with the winner hint: at
+// most k_iters bounces of every live lane of the state planes, updated in
+// place (common.cuh's SegParams).  Returns cudaGetLastError().
+extern "C" int wpt_baked_segment_launch(
+    const float* items, int n_globals,
+    const float* cboxes, const int* cranges, int n_clusters,
+    const float* sboxes, const int* sranges, int n_supers,
+    const float* tris, int n_tris,
+    const float* tcboxes, const int* tcranges, int n_tri_clusters,
+    const float* tsboxes, const int* tsranges, int n_tri_supers,
+    const float* consts, int culled,
+    const float* tex_items, const float* img_centres, const int* img_words,
+    int img_h, int img_w, int textured,
+    float* state, uint32_t* ids, int* counts, int n_lanes,
+    uint32_t frame, uint32_t max_bounces, uint32_t k_iters,
+    uint32_t rr_start, float rr_floor, float clamp, void* stream) {
+  if (n_lanes <= 0) return 0;
+  const wpt::SegParams p{state, ids, counts, n_lanes, frame, max_bounces,
+                         k_iters, rr_start, rr_floor, clamp};
+  const Tables t{
+      reinterpret_cast<const float4*>(items), n_globals,
+      hierarchy(cboxes, cranges, n_clusters, sboxes, sranges, n_supers),
+      reinterpret_cast<const float4*>(tris), n_tris,
+      hierarchy(tcboxes, tcranges, n_tri_clusters, tsboxes, tsranges,
+                n_tri_supers),
+      consts, reinterpret_cast<const float4*>(tex_items),
+      {reinterpret_cast<const float4*>(img_centres), img_words, img_h,
+       img_w}};
+  return dispatch(p, n_tris, culled, textured, 0, t, stream);
 }

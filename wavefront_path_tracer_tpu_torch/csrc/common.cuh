@@ -2,16 +2,19 @@
 // baked.cu, dynculled.cu): the PCG streams, primary-ray generation,
 // shading, the per-lane sample and bounce loop with the sky/miss
 // accumulation, the clamp and Russian roulette, the texture step, and the
-// box and triangle tests of the culled intersects.  Each kernel supplies
-// only its nearest-hit function (see trace_lane).
+// box and triangle tests of the culled intersects; and the recluster
+// segment body (trace_segment), which runs the same bounce step from and
+// back into stored lane state.  Each kernel supplies only its nearest-hit
+// function (see bounce_step).
 //
 // Port of wavefront_path_tracer_tpu/ops/pallas_kernels.py: _jenkins /
 // _pcg_next / _next_f32 (81-103), _raygen_tile (461), _shade_tile (167),
 // the loop body of _persistent_impl (2451) with its checker select
-// (2694-2702) and _apply_image_textures (298) with _acos_approx (274) and
-// _atan2_approx (283), box_range (1245) and the two-sided Moller-Trumbore
-// test of tri_tests (1191).  Every float
-// operation is written in the reference's order; with -fmad=false
+// (2694-2702), the loop body of _segment_impl (2785),
+// _apply_image_textures (298) with _acos_approx (274) and _atan2_approx
+// (283), box_range (1245) and the two-sided Moller-Trumbore test of
+// tri_tests (1191).  Every float operation is written in the reference's
+// order; with -fmad=false
 // (ops/_build.py) the results are bit-identical to the plain PyTorch
 // versions in ops/fused_kernels.py.
 
@@ -346,19 +349,86 @@ struct LaneParams {
   int stratified;
 };
 
-// The persistent body (_persistent_impl) for one lane: every sample and
-// every bounce of the lane, one thread.  `isect(ox, oy, oz, dx, dy, dz,
-// hit, counts, hint)` returns whether the ray hits and fills `hit`;
+// The state of one path between bounces.
+struct Path {
+  float ox, oy, oz, dx, dy, dz;
+  float tr, tg, tb;           // throughput
+  float acc_r, acc_g, acc_b;  // radiance gathered
+  uint32_t bounce;            // surface events so far
+};
+
+// One bounce of a live path: the loop body of _persistent_impl (2451)
+// and of _segment_impl (2854-2936), shared by trace_lane and
+// trace_segment so that the two cannot drift.  `isect(ox, oy, oz, dx, dy,
+// dz, hit, counts, hint)` returns whether the ray hits and fills `hit`;
 // Isect::kTriangles says whether the winner may be a triangle and
-// Isect::kTextured whether the texture step runs (over isect.tex).
-// `hint` is the lane's state for the winner hint: -1 for a new lane, then
-// whatever the last call left (intersects without a hint ignore it).
-// Each lane writes its own radiance words and counters once: no atomics,
-// and the result is deterministic.
+// Isect::kTextured whether the texture step runs (over isect.tex).  A
+// miss adds throughput x the sky gradient (optionally clamped) and ends
+// the path; a hit shades, applies the texture step, scatters, and runs
+// roulette from rr_start.  Returns whether the path goes on.  `P` is
+// LaneParams or SegParams: its max_bounces, rr_start, rr_floor and clamp.
+template <class Isect, class P>
+__device__ __forceinline__ bool bounce_step(const P& p, const Isect& isect,
+                                            uint32_t base, uint32_t sample,
+                                            Path& q, Counts& counts,
+                                            int& hint) {
+  Hit h;
+  if (!isect(q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, h, counts, hint)) {
+    const float sky_a = 0.5f * (q.dy + 1.0f);
+    float con_r = q.tr * ((1.0f - sky_a) + sky_a * 0.5f);
+    float con_g = q.tg * ((1.0f - sky_a) + sky_a * 0.7f);
+    float con_b = q.tb * ((1.0f - sky_a) + sky_a * 1.0f);
+    if (p.clamp > 0.0f) {
+      con_r = fminf(con_r, p.clamp);
+      con_g = fminf(con_g, p.clamp);
+      con_b = fminf(con_b, p.clamp);
+    }
+    q.acc_r += con_r;
+    q.acc_g += con_g;
+    q.acc_b += con_b;
+    return false;
+  }
+  float px, py, pz, ndx, ndy, ndz;
+  shade<Isect::kTriangles>(base, sample, q.bounce, q.ox, q.oy, q.oz, q.dx,
+                           q.dy, q.dz, h, px, py, pz, ndx, ndy, ndz);
+  float ar = h.ar, ag = h.ag, ab = h.ab;
+  if constexpr (Isect::kTextured) {
+    apply_textures(isect.tex, h, px, py, pz, ar, ag, ab);
+  }
+  q.ox = px; q.oy = py; q.oz = pz;
+  q.dx = ndx; q.dy = ndy; q.dz = ndz;
+  q.tr *= ar;
+  q.tg *= ag;
+  q.tb *= ab;
+  ++q.bounce;
+  if (p.rr_start != 0u && q.bounce >= p.rr_start) {
+    uint32_t st = jenkins((base + sample * kSampleStride
+                           + q.bounce * kBounceStride) ^ kRrSalt);
+    const float u_rr = next_f32(st);
+    const float keep_p = fminf(fmaxf(fmaxf(q.tr, fmaxf(q.tg, q.tb)),
+                                     p.rr_floor), 1.0f);
+    if (!(u_rr < keep_p)) return false;
+    const float inv_p = 1.0f / keep_p;
+    q.tr *= inv_p;
+    q.tg *= inv_p;
+    q.tb *= inv_p;
+  }
+  return q.bounce < p.max_bounces;
+}
+
+// The persistent body (_persistent_impl) for one lane: every sample and
+// every bounce of the lane, one thread.  `hint` is the lane's state for
+// the winner hint: -1 for a new lane, then whatever the last call left
+// (intersects without a hint ignore it).  Each lane writes its own
+// radiance words and counters once: no atomics, and the result is
+// deterministic.
 template <class Isect>
 __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
                                            const Isect& isect) {
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  Path q;
+  q.acc_r = 0.0f;
+  q.acc_g = 0.0f;
+  q.acc_b = 0.0f;
   Counts counts;
   int hint = -1;
   if (p.valid[lane] > 0.0f) {
@@ -372,64 +442,114 @@ __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
 
     for (uint32_t s = 0; s < p.n_samples; ++s) {
       const uint32_t sample = p.sample_base + soff + s;
-      float ox, oy, oz, dx, dy, dz;
-      raygen(cam, xs, ys, base, sample, stratified, ox, oy, oz, dx, dy, dz);
-      float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-      uint32_t bounce = 0;
-      while (true) {
+      raygen(cam, xs, ys, base, sample, stratified, q.ox, q.oy, q.oz, q.dx,
+             q.dy, q.dz);
+      q.tr = 1.0f;
+      q.tg = 1.0f;
+      q.tb = 1.0f;
+      q.bounce = 0;
+      do {
         ++counts.rays;
-        Hit h;
-        if (!isect(ox, oy, oz, dx, dy, dz, h, counts, hint)) {
-          // Miss: throughput x sky gradient, optionally clamped.
-          const float sky_a = 0.5f * (dy + 1.0f);
-          float con_r = tr * ((1.0f - sky_a) + sky_a * 0.5f);
-          float con_g = tg * ((1.0f - sky_a) + sky_a * 0.7f);
-          float con_b = tb * ((1.0f - sky_a) + sky_a * 1.0f);
-          if (p.clamp > 0.0f) {
-            con_r = fminf(con_r, p.clamp);
-            con_g = fminf(con_g, p.clamp);
-            con_b = fminf(con_b, p.clamp);
-          }
-          acc_r += con_r;
-          acc_g += con_g;
-          acc_b += con_b;
-          break;
-        }
-        float px, py, pz, ndx, ndy, ndz;
-        shade<Isect::kTriangles>(base, sample, bounce, ox, oy, oz, dx, dy,
-                                 dz, h, px, py, pz, ndx, ndy, ndz);
-        float ar = h.ar, ag = h.ag, ab = h.ab;
-        if constexpr (Isect::kTextured) {
-          apply_textures(isect.tex, h, px, py, pz, ar, ag, ab);
-        }
-        ox = px; oy = py; oz = pz;
-        dx = ndx; dy = ndy; dz = ndz;
-        tr *= ar;
-        tg *= ag;
-        tb *= ab;
-        ++bounce;
-        if (p.rr_start != 0u && bounce >= p.rr_start) {
-          uint32_t st = jenkins((base + sample * kSampleStride
-                                 + bounce * kBounceStride) ^ kRrSalt);
-          const float u_rr = next_f32(st);
-          const float keep_p = fminf(fmaxf(fmaxf(tr, fmaxf(tg, tb)),
-                                           p.rr_floor), 1.0f);
-          if (!(u_rr < keep_p)) break;
-          const float inv_p = 1.0f / keep_p;
-          tr *= inv_p;
-          tg *= inv_p;
-          tb *= inv_p;
-        }
-        if (bounce >= p.max_bounces) break;
-      }
+      } while (bounce_step(p, isect, base, sample, q, counts, hint));
     }
   }
-  p.rad_r[lane] = acc_r;
-  p.rad_g[lane] = acc_g;
-  p.rad_b[lane] = acc_b;
+  p.rad_r[lane] = q.acc_r;
+  p.rad_g[lane] = q.acc_g;
+  p.rad_b[lane] = q.acc_b;
   p.rays[lane] = counts.rays;
   if (p.supers != nullptr) p.supers[lane] = counts.supers;
   if (p.clusters != nullptr) p.clusters[lane] = counts.clusters;
+}
+
+// Lane state and salts of one segment launch (_segment_impl, 2785).  The
+// state is planes of n_lanes, row-major: `state` (kSegState, n) f32 of o
+// xyz, d xyz, throughput rgb, radiance rgb, alive; `ids` (kSegIds, n) of
+// pix, sample, bounce, slot.  Each thread reads and writes only its own
+// lane, so the launch updates them in place.  `counts` (3, n): rays,
+// supers and clusters entered, added to.
+constexpr int kSegState = 13;
+constexpr int kSegIds = 4;
+
+struct SegParams {
+  float* state;
+  uint32_t* ids;
+  int* counts;
+  int n_lanes;
+  uint32_t frame, max_bounces, k_iters;
+  uint32_t rr_start;        // 0 = roulette off
+  float rr_floor;
+  float clamp;              // 0 = off
+};
+
+// One segment for one lane: at most k_iters bounces of the lane's path
+// from its stored state, with no raygen and no sample restart, then the
+// state back.  A dead lane returns at once: the per-thread form of the
+// reference's whole-tile early exit (after the coherence sort the dead
+// lanes fill whole warps at the back).  A lane's bounce counter stops at
+// its path's end (the reference's tile loop kept counting a dead lane's,
+// which nothing reads).
+template <class Isect>
+__device__ __forceinline__ void trace_segment(const SegParams& p, int lane,
+                                              const Isect& isect) {
+  const size_t n = static_cast<size_t>(p.n_lanes);
+  float* s = p.state + lane;
+  if (!(s[12 * n] > 0.0f)) return;
+  Path q;
+  q.ox = s[0];
+  q.oy = s[n];
+  q.oz = s[2 * n];
+  q.dx = s[3 * n];
+  q.dy = s[4 * n];
+  q.dz = s[5 * n];
+  q.tr = s[6 * n];
+  q.tg = s[7 * n];
+  q.tb = s[8 * n];
+  q.acc_r = s[9 * n];
+  q.acc_g = s[10 * n];
+  q.acc_b = s[11 * n];
+  uint32_t* u = p.ids + lane;
+  const uint32_t pix = u[0];
+  const uint32_t sample = u[n];
+  q.bounce = u[2 * n];
+  const uint32_t base = jenkins(pix ^ jenkins(p.frame));
+  Counts counts;
+  int hint = -1;
+  bool alive = true;
+  for (uint32_t it = 0; alive && it < p.k_iters; ++it) {
+    ++counts.rays;
+    alive = bounce_step(p, isect, base, sample, q, counts, hint);
+  }
+  s[0] = q.ox;
+  s[n] = q.oy;
+  s[2 * n] = q.oz;
+  s[3 * n] = q.dx;
+  s[4 * n] = q.dy;
+  s[5 * n] = q.dz;
+  s[6 * n] = q.tr;
+  s[7 * n] = q.tg;
+  s[8 * n] = q.tb;
+  s[9 * n] = q.acc_r;
+  s[10 * n] = q.acc_g;
+  s[11 * n] = q.acc_b;
+  s[12 * n] = alive ? 1.0f : 0.0f;
+  u[2 * n] = q.bounce;
+  int* c = p.counts + lane;
+  c[0] += counts.rays;
+  c[n] += counts.supers;
+  c[2 * n] += counts.clusters;
+}
+
+// A kernel body for either launch kind: the persistent loop, or a segment.
+template <class Isect>
+__device__ __forceinline__ void trace(const LaneParams& p, int lane,
+                                      const Isect& isect) {
+  trace_lane(p, lane, isect);
+}
+
+template <class Isect>
+__device__ __forceinline__ void trace(const SegParams& p, int lane,
+                                      const Isect& isect) {
+  trace_segment(p, lane, isect);
 }
 
 // A ray with its precomputed inverse direction, for box tests.

@@ -5,7 +5,10 @@
 // fused_render_dynculled (3211) with make_dynamic_culled_intersect (1772)
 // as its nearest-hit function, over spheres and triangles, with checker
 // and image textures.  The persistent body (samples, bounces, raygen,
-// shade, sky, clamp, roulette, the texture step) is common.cuh's.
+// shade, sky, clamp, roulette, the texture step) is common.cuh's.  The
+// same kernel, instantiated with common.cuh's SegParams, replaces
+// fused_segment_dynculled (3027) under _segment_impl (2785): one recluster
+// segment of at most K bounces of each live lane's stored path.
 //
 // Tables (ops/dyn_tables.py, derived row for row from pack_culled_scene):
 //   spheres (N_pad, 16) f32, four float4 a row: 2c' xyz, kappa | centre,
@@ -232,10 +235,11 @@ struct DynIntersect {
 };
 
 // Eight blocks per SM cap the kernel at 64 registers a thread, as the
-// other kernels are (PERF.md).
-template <bool kTris, bool kTex>
+// other kernels are (PERF.md).  `P` is LaneParams (the persistent loop) or
+// SegParams (one recluster segment).
+template <class P, bool kTris, bool kTex>
 __global__ void __launch_bounds__(kThreads, 8)
-dynculled_kernel(const wpt::LaneParams p, DynIntersect<kTris, kTex> isect,
+dynculled_kernel(const P p, DynIntersect<kTris, kTex> isect,
                  const float* __restrict__ slab,
                  const float* __restrict__ tri_slab) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -251,7 +255,7 @@ dynculled_kernel(const wpt::LaneParams p, DynIntersect<kTris, kTex> isect,
       isect.tri.hi[k] = __ldg(tri_slab + 3 + k);
     }
   }
-  wpt::trace_lane(p, lane, isect);
+  wpt::trace(p, lane, isect);
 }
 
 Level level(const float* boxes, const float* sboxes, int n_clusters,
@@ -261,12 +265,51 @@ Level level(const float* boxes, const float* sboxes, int n_clusters,
                n_supers, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
 }
 
-template <bool kTris, bool kTex>
-void launch(const wpt::LaneParams& p, const DynIntersect<kTris, kTex>& isect,
+template <class P, bool kTris, bool kTex>
+void launch(const P& p, const DynIntersect<kTris, kTex>& isect,
             const float* slab, const float* tri_slab, cudaStream_t s) {
   const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
-  dynculled_kernel<kTris, kTex><<<blocks, kThreads, 0, s>>>(p, isect, slab,
-                                                           tri_slab);
+  dynculled_kernel<P, kTris, kTex><<<blocks, kThreads, 0, s>>>(p, isect,
+                                                              slab, tri_slab);
+}
+
+// The tables of one launch, and the instantiation for the scene's kinds
+// (triangles, textures); returns cudaGetLastError().
+template <class P>
+int dispatch(const P& p, const float* spheres, const float* boxes,
+             const float* sboxes, const float* slab, const float* tris,
+             const float* tboxes, const float* tsboxes,
+             const float* tri_slab, int n_globals, int n_clusters,
+             int n_supers, int n_tri_clusters, int n_tri_supers,
+             int cluster_size, const float* sphere_tex,
+             const float* img_centres, const int* img_words, int img_h,
+             int img_w, int textured, void* stream) {
+  const float4* sph4 = reinterpret_cast<const float4*>(spheres);
+  const float4* tri4 = reinterpret_cast<const float4*>(tris);
+  const Level sph = level(boxes, sboxes, n_clusters, n_supers);
+  const Level tri = level(tboxes, tsboxes, n_tri_clusters, n_tri_supers);
+  const float4* tex4 = reinterpret_cast<const float4*>(sphere_tex);
+  const wpt::TexTables tex{reinterpret_cast<const float4*>(img_centres),
+                           img_words, img_h, img_w};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_tri_clusters > 0 && textured) {
+    launch<P, true, true>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
+                              cluster_size, 0.0f, 0.0f, 0.0f}, slab,
+                          tri_slab, s);
+  } else if (n_tri_clusters > 0) {
+    launch<P, true, false>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
+                               cluster_size, 0.0f, 0.0f, 0.0f}, slab,
+                           tri_slab, s);
+  } else if (textured) {
+    launch<P, false, true>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
+                               cluster_size, 0.0f, 0.0f, 0.0f}, slab,
+                           tri_slab, s);
+  } else {
+    launch<P, false, false>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
+                                cluster_size, 0.0f, 0.0f, 0.0f}, slab,
+                            tri_slab, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -295,29 +338,32 @@ extern "C" int wpt_dynculled_launch(
                           rad_r, rad_g, rad_b, rays, supers, clusters,
                           n_lanes, frame, sample_base, max_bounces,
                           n_samples, rr_start, rr_floor, clamp, stratified};
-  const float4* sph4 = reinterpret_cast<const float4*>(spheres);
-  const float4* tri4 = reinterpret_cast<const float4*>(tris);
-  const Level sph = level(boxes, sboxes, n_clusters, n_supers);
-  const Level tri = level(tboxes, tsboxes, n_tri_clusters, n_tri_supers);
-  const float4* tex4 = reinterpret_cast<const float4*>(sphere_tex);
-  const wpt::TexTables tex{reinterpret_cast<const float4*>(img_centres),
-                           img_words, img_h, img_w};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_tri_clusters > 0 && textured) {
-    launch<true, true>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
-                           cluster_size, 0.0f, 0.0f, 0.0f}, slab, tri_slab, s);
-  } else if (n_tri_clusters > 0) {
-    launch<true, false>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
-                            cluster_size, 0.0f, 0.0f, 0.0f}, slab, tri_slab,
-                        s);
-  } else if (textured) {
-    launch<false, true>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
-                            cluster_size, 0.0f, 0.0f, 0.0f}, slab, tri_slab,
-                        s);
-  } else {
-    launch<false, false>(p, {sph4, tri4, tex4, tex, sph, tri, n_globals,
-                             cluster_size, 0.0f, 0.0f, 0.0f}, slab, tri_slab,
-                         s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch(p, spheres, boxes, sboxes, slab, tris, tboxes, tsboxes,
+                  tri_slab, n_globals, n_clusters, n_supers, n_tri_clusters,
+                  n_tri_supers, cluster_size, sphere_tex, img_centres,
+                  img_words, img_h, img_w, textured, stream);
+}
+
+// One recluster segment (fused_segment_dynculled, pallas_kernels.py:3027)
+// over the same tables: at most k_iters bounces of every live lane of the
+// state planes, updated in place (common.cuh's SegParams).  Returns
+// cudaGetLastError().
+extern "C" int wpt_dynculled_segment_launch(
+    const float* spheres, const float* boxes, const float* sboxes,
+    const float* slab, const float* tris, const float* tboxes,
+    const float* tsboxes, const float* tri_slab,
+    int n_globals, int n_clusters, int n_supers, int n_tri_clusters,
+    int n_tri_supers, int cluster_size,
+    const float* sphere_tex, const float* img_centres, const int* img_words,
+    int img_h, int img_w, int textured,
+    float* state, uint32_t* ids, int* counts, int n_lanes,
+    uint32_t frame, uint32_t max_bounces, uint32_t k_iters,
+    uint32_t rr_start, float rr_floor, float clamp, void* stream) {
+  if (n_lanes <= 0) return 0;
+  const wpt::SegParams p{state, ids, counts, n_lanes, frame, max_bounces,
+                         k_iters, rr_start, rr_floor, clamp};
+  return dispatch(p, spheres, boxes, sboxes, slab, tris, tboxes, tsboxes,
+                  tri_slab, n_globals, n_clusters, n_supers, n_tri_clusters,
+                  n_tri_supers, cluster_size, sphere_tex, img_centres,
+                  img_words, img_h, img_w, textured, stream);
 }

@@ -16,6 +16,12 @@ traces all of its pixel's samples in one kernel call, and radiance is
 scattered back to natural pixel order.  The planes are built on the
 scene's device, so nothing per pixel crosses to the host.
 
+With ``recluster`` K > 0 the render is segmented, as the reference's
+``_render_recluster_impl``: per sample, primary rays from
+``ops/raygen.py``, then segments of K, K, 2K, ... bounces, each one
+launch of a segment kernel over lane state, with the lanes re-sorted by
+origin Morton cell and direction octant between segments.
+
 ``tile_rows``, ``lane_rotate`` and ``lane_rotate_cols`` steer TPU
 scheduling; they are accepted and do not change the image beyond the
 parity rule (``tile_rows`` only pads the planes).  ``lane_split`` splits
@@ -38,6 +44,7 @@ from wavefront_path_tracer_tpu_torch.ops.bake import (
 )
 from wavefront_path_tracer_tpu_torch.ops.baked_kernels import (
     fused_render_baked,
+    fused_segment_baked,
 )
 from wavefront_path_tracer_tpu_torch.ops.dyn_tables import (
     DynTables,
@@ -46,11 +53,16 @@ from wavefront_path_tracer_tpu_torch.ops.dyn_tables import (
 )
 from wavefront_path_tracer_tpu_torch.ops.dynculled_kernels import (
     fused_render_dynculled,
+    fused_segment_dynculled,
 )
 from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     LANES,
+    SEG_IDS,
+    SEG_STATE,
     fused_render_persistent,
 )
+from wavefront_path_tracer_tpu_torch.ops.raygen import generate_rays
+from wavefront_path_tracer_tpu_torch.ops.rng import MASK32
 from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
 
 # Bakes keyed like the reference's _BAKED_CACHE (scene fingerprint,
@@ -101,10 +113,6 @@ def check_supported(config: RenderConfig, scene_arrays) -> None:
             f"intersector={config.intersector!r} does not exist on the "
             "fused engine; the BVH runs on the wavefront/megakernel "
             "engines, not ported yet (ROADMAP.md queue 1 items 4 and 8)")
-    if config.recluster > 0:
-        raise NotImplementedError(
-            "recluster > 0 is not ported yet (ROADMAP.md queue 2 item 6: "
-            "the recluster segment kernels)")
     if config.num_devices != 1:
         raise NotImplementedError(
             "multi-device rendering is not ported yet (ROADMAP.md queue 1 "
@@ -138,6 +146,13 @@ def check_supported(config: RenderConfig, scene_arrays) -> None:
             "the dynamic culled path takes clusters of a multiple of 8 "
             "(its tables are 8-row blocks, as in the reference), got "
             f"{config.baked_clusters}")
+    if (brute and config.recluster > 0
+            and _resolve_clusters(config, scene_arrays) <= 0):
+        # The reference's own refusal (models/fused.py:359-364).
+        raise NotImplementedError(
+            "recluster > 0 needs a culling intersector; use "
+            "intersector='baked' or baked_clusters > 0, as in the "
+            "reference (its models/fused.py:359-364)")
 
 
 def _concrete_eye(view) -> np.ndarray:
@@ -320,6 +335,177 @@ def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
     return radiance, stats[0]
 
 
+def _segment_schedule(k: int, max_bounces: int) -> tuple:
+    """Segment lengths of the re-clustering path: K, K, 2K, 4K, ...
+    clipped so that they sum to ``max_bounces`` (every path has ended
+    after the last segment), as the reference's ``_segment_schedule``."""
+    ks = [min(k, max_bounces)]
+    tot = ks[0]
+    step = k
+    while tot < max_bounces:
+        step_eff = min(step, max_bounces - tot)
+        ks.append(step_eff)
+        tot += step_eff
+        step *= 2
+    return tuple(ks)
+
+
+def _coherence_key(ox, oy, oz, dx, dy, dz, alive, lo, inv_ext):
+    """Sort key of each lane (int32), bit-exact with the reference's
+    ``_coherence_key``: the 21-bit Morton cell of the origin on a 128^3
+    grid over the scene box (``lo``, ``inv_ext``: float32 3-vectors)
+    shifted by 3, OR the direction octant; a dead lane keys to int32 max,
+    so one ascending stable sort compacts the live lanes to the front and
+    groups them by cell and octant."""
+    # The three axes at once: clip, then truncate (a NaN converts to 0,
+    # as XLA converts it), then spread each cell's 7 bits 3 apart.
+    s = (torch.stack([ox, oy, oz]) - lo[:, None]) * inv_ext[:, None] * 128.0
+    s = torch.nan_to_num(torch.clamp(s, 0.0, 127.0), nan=0.0).to(torch.int32)
+    s = (s | (s << 16)) & 0x030000FF
+    s = (s | (s << 8)) & 0x0300F00F
+    s = (s | (s << 4)) & 0x030C30C3
+    s = (s | (s << 2)) & 0x09249249
+    m = (s[0] << 2) | (s[1] << 1) | s[2]
+    octant = ((dx < 0).to(torch.int32) * 4 + (dy < 0).to(torch.int32) * 2
+              + (dz < 0).to(torch.int32))
+    return torch.where(alive > 0, (m << 3) | octant,
+                       torch.full_like(m, 0x7FFFFFFF))
+
+
+def _scene_box(scene_arrays):
+    """(lo, 1 / extent) of the scene's primitive box in float32: scatter
+    origins lie on primitive surfaces, so it holds every live origin
+    (the reference's render_pixels_recluster, 761-771)."""
+    centers = scene_arrays["centers"].to(torch.float32)
+    absr = torch.abs(scene_arrays["radii"].to(torch.float32))[:, None]
+    lo = (centers - absr).min(dim=0).values
+    hi = (centers + absr).max(dim=0).values
+    if "tri_v0" in scene_arrays:
+        v0 = scene_arrays["tri_v0"].to(torch.float32)
+        v1 = v0 + scene_arrays["tri_e1"].to(torch.float32)
+        v2 = v0 + scene_arrays["tri_e2"].to(torch.float32)
+        lo = torch.minimum(lo, torch.minimum(
+            v0, torch.minimum(v1, v2)).min(dim=0).values)
+        hi = torch.maximum(hi, torch.maximum(
+            v0, torch.maximum(v1, v2)).max(dim=0).values)
+    return lo, 1.0 / torch.clamp_min(hi - lo, 1e-6)
+
+
+def _i32(word: int) -> int:
+    """A 32-bit word as the int32 value of the same bits."""
+    word &= MASK32
+    return word - (1 << 32) if word >= 1 << 31 else word
+
+
+def segment_state(pixel_idx, n_pad: int, config: RenderConfig, frame,
+                  sample: int, cam, view, inv_proj):
+    """(ids, state) of one sample's primary rays for the segment path:
+    the pixel ids ``pixel_idx`` (int64) in their lanes, then padding
+    lanes up to ``n_pad``, which start dead with zero throughput,
+    direction +z (a finite 1/d) and slot n (``ops/fused_kernels.py``
+    SEG_STATE and SEG_IDS)."""
+    device = pixel_idx.device
+    n = pixel_idx.shape[0]
+    origin, direction = generate_rays(
+        pixel_idx, config.width, config.height, frame, sample, cam, view,
+        inv_proj, sampler=config.sampler)
+    state = torch.zeros((SEG_STATE, n_pad), dtype=torch.float32,
+                        device=device)
+    state[0:3, :n] = origin.T
+    state[3:6, :n] = direction.T
+    state[5, n:] = 1.0
+    state[6:9, :n] = 1.0
+    state[12, :n] = 1.0
+    ids = torch.zeros((SEG_IDS, n_pad), dtype=torch.int32, device=device)
+    ids[0, :n] = pixel_idx.to(torch.int32)
+    ids[1] = _i32(sample)
+    ids[3] = torch.arange(n_pad, dtype=torch.int32, device=device)
+    ids[3, n:] = n
+    return ids, state
+
+
+def coherence_order(ids, state, lo, inv_ext):
+    """The lanes of (ids, state) reordered by :func:`_coherence_key`:
+    one stable sort, then one gather of each tensor."""
+    key = _coherence_key(*state[0:6], state[12], lo, inv_ext)
+    order = torch.sort(key, stable=True).indices
+    return ids.index_select(1, order), state.index_select(1, order)
+
+
+def render_pixels_recluster(pixel_idx, scene_arrays, cam, view, inv_proj,
+                            config: RenderConfig, frame, sample_base,
+                            n_samples: int, with_stats: bool = False,
+                            baked: BakedScene | None = None,
+                            dyn: DynTables | None = None):
+    """The segmented re-clustering render (``config.recluster`` > 0) of
+    a subset of pixel ids (int64 tensor on the scene's device), over
+    ``baked`` or ``dyn``; radiance comes back in ``pixel_idx`` order.
+
+    Per sample: raygen (:func:`segment_state`) in the caller's pixel
+    order, then the segments of :func:`_segment_schedule`, each one
+    launch of the segment kernel over every lane; before every segment
+    but the first the lanes are reordered by :func:`coherence_order`.
+    Each ray's radiance goes back to its pixel's slot once per sample;
+    the padding lanes' slot n is dropped.  The RNG streams are keyed per
+    (pixel, sample, bounce) and the cull is per ray, so a ray's result
+    depends neither on its lane nor on where the segments end: every K,
+    and any lane order, give the same image.
+
+    Returns ((N, 3) radiance sum, rays traced) and, with ``with_stats``,
+    {iterations, supers_entered, clusters_entered}, like
+    :func:`render_pixels` (iterations: one per ray traced)."""
+    if baked is not None:
+        tables, segment = baked, fused_segment_baked
+    else:
+        tables, segment = dyn, fused_segment_dynculled
+    return _recluster(segment, coherence_order, tables, pixel_idx,
+                      scene_arrays, cam, view, inv_proj, config, frame,
+                      sample_base, n_samples, with_stats)
+
+
+def _recluster(segment, order, tables, pixel_idx, scene_arrays, cam, view,
+               inv_proj, config: RenderConfig, frame, sample_base,
+               n_samples: int, with_stats: bool):
+    """The loop of :func:`render_pixels_recluster` over the segment
+    function ``segment`` (a segment wrapper, or its plain version) and
+    the lane order ``order`` (:func:`coherence_order`'s signature).
+
+    Nothing in the loop waits for the device: the matrices go to it once,
+    and the scatter indexes an (n + 1, 3) accumulator by slot, whose row
+    n takes the padding lanes and is dropped, so no mask is read back."""
+    device = scene_arrays["centers"].device
+    n = pixel_idx.shape[0]
+    rows = -(-n // LANES)
+    n_pad = -(-rows // config.tile_rows) * config.tile_rows * LANES
+    lo, inv_ext = _scene_box(scene_arrays)
+    view = torch.as_tensor(view, dtype=torch.float32, device=device)
+    inv_proj = torch.as_tensor(inv_proj, dtype=torch.float32, device=device)
+    opts = {"rr_start": config.rr_start_bounce,
+            "rr_floor": config.rr_floor, "clamp": config.clamp}
+    acc = torch.zeros((n + 1, 3), dtype=torch.float32, device=device)
+    counts = torch.zeros((3, n_pad), dtype=torch.int32, device=device)
+    for s in range(n_samples):
+        ids, state = segment_state(pixel_idx, n_pad, config, frame,
+                                   (int(sample_base) + s) & MASK32, cam,
+                                   view, inv_proj)
+        for i, k in enumerate(_segment_schedule(config.recluster,
+                                                config.max_bounces)):
+            if i > 0:
+                ids, state = order(ids, state, lo, inv_ext)
+            segment(tables, (frame, config.max_bounces, k, 0), ids, state,
+                    counts, **opts)
+        # Gather, add, scatter by slot (no float atomics); the live slots
+        # are unique, the padding lanes all write row n.
+        slot = ids[3].to(torch.int64)
+        acc[slot] = acc[slot] + state[9:12].T
+    acc = acc[:n]
+    rays, supers, clusters = counts.sum(dim=1, dtype=torch.int64)
+    if with_stats:
+        return acc, rays, {"iterations": rays, "supers_entered": supers,
+                           "clusters_entered": clusters}
+    return acc, rays
+
+
 def _render_samples_impl(scene_arrays, cam, view, inv_proj,
                          config: RenderConfig, frame, sample_base,
                          n_samples: int, with_stats: bool = False):
@@ -337,23 +523,29 @@ def _render_samples_impl(scene_arrays, cam, view, inv_proj,
         tables["dyn"] = _dyn_tables(scene_arrays, clusters,
                                     camera_pos=_concrete_eye(view),
                                     lut_max=config.tex_lut_max)
+    if config.recluster > 0:
+        # The reference's _render_recluster_impl: block order in, natural
+        # order out; lane_split has no meaning there.
+        def render(pixel_idx):
+            return render_pixels_recluster(
+                pixel_idx, scene_arrays, cam, view, inv_proj, config, frame,
+                sample_base, n_samples, with_stats=with_stats, **tables)
+    else:
+        def render(pixel_idx):
+            return render_pixels(pixel_idx, scene_arrays, cam, view,
+                                 inv_proj, config, frame, sample_base,
+                                 n_samples, with_stats=with_stats,
+                                 lane_split=split, **tables)
     if config.block_tiles:
         perm, _inv = _block_perm(config.width, config.height,
                                  config.block_tiles)
         perm_t = torch.from_numpy(perm.astype(np.int64)).to(device)
-        out = render_pixels(perm_t, scene_arrays, cam, view, inv_proj,
-                            config, frame, sample_base, n_samples,
-                            with_stats=with_stats, lane_split=split,
-                            **tables)
+        out = render(perm_t)
         radiance = torch.empty_like(out[0])
         radiance[perm_t] = out[0]
         return (radiance,) + out[1:]
-    pixel_idx = torch.arange(config.num_pixels, dtype=torch.int64,
-                             device=device)
-    return render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
-                         config, frame, sample_base, n_samples,
-                         with_stats=with_stats, lane_split=split,
-                         **tables)
+    return render(torch.arange(config.num_pixels, dtype=torch.int64,
+                               device=device))
 
 
 def render_samples(scene_arrays, cam, view, inv_proj, config: RenderConfig,

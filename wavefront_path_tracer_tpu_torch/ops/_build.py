@@ -137,8 +137,7 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr,  # rad_r, rad_g, rad_b, rays, supers,
         i32,                           # clusters, n_lanes
     ]
-    fn = lib.wpt_baked_launch
-    fn.argtypes = [
+    baked_tables = [
         ptr, i32,                      # items, n_globals
         ptr, ptr, i32,                 # cluster boxes, ranges, n_clusters
         ptr, ptr, i32,                 # super boxes, ranges, n_supers
@@ -147,12 +146,15 @@ def load_library() -> ctypes.CDLL:
         ptr, ptr, i32,                 # triangle super boxes, ranges, n
         ptr, i32,                      # consts, culled
         ptr, ptr, ptr, i32, i32,       # checker rows, image centres, words,
-        i32, i32,                      # h, w, textured, hint
+                                       # h, w
+    ]
+    fn = lib.wpt_baked_launch
+    fn.argtypes = [
+        *baked_tables, i32, i32,       # textured, hint
         *lane_args, *out_args, *salt_args,
     ]
     fn.restype = ctypes.c_int
-    fn = lib.wpt_dynculled_launch
-    fn.argtypes = [
+    dyn_tables = [
         ptr, ptr, ptr, ptr,            # spheres, boxes, super boxes, slab
         ptr, ptr, ptr, ptr,            # the same for the triangles
         i32, i32, i32, i32, i32, i32,  # n_globals, n_clusters, n_supers,
@@ -160,7 +162,20 @@ def load_library() -> ctypes.CDLL:
                                        # cluster_size
         ptr, ptr, ptr, i32, i32,       # checker rows, image centres, words,
         i32,                           # h, w, textured
-        *lane_args, *out_args, *salt_args,
     ]
+    fn = lib.wpt_dynculled_launch
+    fn.argtypes = [*dyn_tables, *lane_args, *out_args, *salt_args]
+    fn.restype = ctypes.c_int
+    seg_args = [
+        ptr, ptr, ptr, i32,            # state, ids, counts, n_lanes
+        u32, u32, u32,                 # frame, max_bounces, k_iters
+        u32, f32, f32,                 # rr_start, rr_floor, clamp
+        ptr,                           # stream
+    ]
+    fn = lib.wpt_baked_segment_launch
+    fn.argtypes = [*baked_tables, i32, *seg_args]   # textured
+    fn.restype = ctypes.c_int
+    fn = lib.wpt_dynculled_segment_launch
+    fn.argtypes = [*dyn_tables, *seg_args]
     fn.restype = ctypes.c_int
     return lib

@@ -10,6 +10,9 @@ spheres), checker and image textures, and the culled sweep's winner
 hint.  The tables come from ``ops/bake.py``; the kernel is
 ``csrc/baked.cu``; the persistent loop, raygen, shade and the texture
 step are those of ``ops/fused_kernels.py`` and ``ops/textures.py``.
+``fused_segment_baked`` (2997, through ``_segment_impl``, 2785) runs one
+recluster segment over the same tables (the same kernel file, its
+segment instantiations).
 
 Culling is decided per ray, against the ray's own current nearest hit
 (the TPU kernel decided per 1024-lane tile, by consensus, with a cap one
@@ -35,13 +38,17 @@ from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     _salts,
     check_aligned,
     check_inputs,
+    check_segment,
     persistent_reference,
+    segment_reference,
 )
 
 _ITEM_BLOCK = 64
 
-# Kernel launches by fused_render_baked on CUDA tensors, per intersect.
-LAUNCHES = {"culled": 0, "unculled": 0}
+# Kernel launches on CUDA tensors, per intersect: fused_render_baked's,
+# and fused_segment_baked's (one a segment).
+LAUNCHES = {"culled": 0, "unculled": 0, "segment_culled": 0,
+            "segment_unculled": 0}
 
 _MISS = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
@@ -389,6 +396,56 @@ def fused_render_baked_reference(
         hinted=baked.culled and baked.winner_hint)
 
 
+def _tables(baked: BakedScene) -> dict:
+    """The bake's device tables as check_inputs takes them."""
+    return {
+        "items": (baked.items, ITEM_COLS, torch.float32),
+        "cluster_boxes": (baked.cluster_boxes, 8, torch.float32),
+        "cluster_ranges": (baked.cluster_ranges, 2, torch.int32),
+        "super_boxes": (baked.super_boxes, 8, torch.float32),
+        "super_ranges": (baked.super_ranges, 2, torch.int32),
+        "tri_items": (baked.tri_items, TRI_COLS, torch.float32),
+        "tri_cluster_boxes": (baked.tri_cluster_boxes, 8, torch.float32),
+        "tri_cluster_ranges": (baked.tri_cluster_ranges, 2, torch.int32),
+        "tri_super_boxes": (baked.tri_super_boxes, 8, torch.float32),
+        "tri_super_ranges": (baked.tri_super_ranges, 2, torch.int32),
+        "consts": (baked.consts.reshape(1, -1), 16, torch.float32),
+        "tex_items": (baked.tex_items, 4, torch.float32),
+        "image centres": (baked.images.centres, 4, torch.float32),
+        "image words": (baked.images.words, baked.images.words.shape[1],
+                        torch.int32),
+    }
+
+
+def _table_args(baked: BakedScene) -> tuple:
+    """The table arguments of both C entry points, checked for alignment:
+    everything before ``textured``."""
+    images = baked.images
+    tables = (baked.items, baked.cluster_boxes, baked.cluster_ranges,
+              baked.super_boxes, baked.super_ranges, baked.tri_items,
+              baked.tri_cluster_boxes, baked.tri_cluster_ranges,
+              baked.tri_super_boxes, baked.tri_super_ranges, baked.consts,
+              baked.tex_items, images.centres, images.words)
+    check_aligned(**{f"table {i}": t for i, t in enumerate(tables)})
+    if baked.textured and baked.tex_items.shape[0] != baked.n_items:
+        raise ValueError("a textured bake needs one tex_items row per item")
+    return (baked.items.data_ptr(), baked.n_globals,
+            baked.cluster_boxes.data_ptr(), baked.cluster_ranges.data_ptr(),
+            baked.cluster_boxes.shape[0],
+            baked.super_boxes.data_ptr(), baked.super_ranges.data_ptr(),
+            baked.super_boxes.shape[0],
+            baked.tri_items.data_ptr(), baked.n_triangles,
+            baked.tri_cluster_boxes.data_ptr(),
+            baked.tri_cluster_ranges.data_ptr(),
+            baked.tri_cluster_boxes.shape[0],
+            baked.tri_super_boxes.data_ptr(),
+            baked.tri_super_ranges.data_ptr(),
+            baked.tri_super_boxes.shape[0],
+            baked.consts.data_ptr(), int(baked.culled),
+            baked.tex_items.data_ptr(), images.centres.data_ptr(),
+            images.words.data_ptr(), images.h, images.w)
+
+
 def fused_render_baked(
         baked: BakedScene, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
@@ -409,23 +466,7 @@ def fused_render_baked(
     plain version's.
     """
     planes = (pix, xs, ys, valid, soff)
-    device = check_inputs(cam_params, planes, {
-        "items": (baked.items, ITEM_COLS, torch.float32),
-        "cluster_boxes": (baked.cluster_boxes, 8, torch.float32),
-        "cluster_ranges": (baked.cluster_ranges, 2, torch.int32),
-        "super_boxes": (baked.super_boxes, 8, torch.float32),
-        "super_ranges": (baked.super_ranges, 2, torch.int32),
-        "tri_items": (baked.tri_items, TRI_COLS, torch.float32),
-        "tri_cluster_boxes": (baked.tri_cluster_boxes, 8, torch.float32),
-        "tri_cluster_ranges": (baked.tri_cluster_ranges, 2, torch.int32),
-        "tri_super_boxes": (baked.tri_super_boxes, 8, torch.float32),
-        "tri_super_ranges": (baked.tri_super_ranges, 2, torch.int32),
-        "consts": (baked.consts.reshape(1, -1), 16, torch.float32),
-        "tex_items": (baked.tex_items, 4, torch.float32),
-        "image centres": (baked.images.centres, 4, torch.float32),
-        "image words": (baked.images.words, baked.images.words.shape[1],
-                        torch.int32),
-    })
+    device = check_inputs(cam_params, planes, _tables(baked))
     if sampler not in ("random", "stratified"):
         raise ValueError(f"unknown sampler {sampler!r}")
     if device.type == "cpu":
@@ -438,15 +479,7 @@ def fused_render_baked(
     from wavefront_path_tracer_tpu_torch.ops._build import load_library
 
     frame, sample_base, max_bounces, n_samples = _salts(salts)
-    images = baked.images
-    tables = (baked.items, baked.cluster_boxes, baked.cluster_ranges,
-              baked.super_boxes, baked.super_ranges, baked.tri_items,
-              baked.tri_cluster_boxes, baked.tri_cluster_ranges,
-              baked.tri_super_boxes, baked.tri_super_ranges, baked.consts,
-              baked.tex_items, images.centres, images.words)
-    check_aligned(**{f"table {i}": t for i, t in enumerate(tables)})
-    if baked.textured and baked.tex_items.shape[0] != baked.n_items:
-        raise ValueError("a textured bake needs one tex_items row per item")
+    tables = _table_args(baked)
     lib = load_library()
     rad_r = torch.empty_like(xs)
     rad_g = torch.empty_like(xs)
@@ -455,21 +488,7 @@ def fused_render_baked(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.wpt_baked_launch(
-            baked.items.data_ptr(), baked.n_globals,
-            baked.cluster_boxes.data_ptr(), baked.cluster_ranges.data_ptr(),
-            baked.cluster_boxes.shape[0],
-            baked.super_boxes.data_ptr(), baked.super_ranges.data_ptr(),
-            baked.super_boxes.shape[0],
-            baked.tri_items.data_ptr(), baked.n_triangles,
-            baked.tri_cluster_boxes.data_ptr(),
-            baked.tri_cluster_ranges.data_ptr(),
-            baked.tri_cluster_boxes.shape[0],
-            baked.tri_super_boxes.data_ptr(),
-            baked.tri_super_ranges.data_ptr(),
-            baked.tri_super_boxes.shape[0],
-            baked.consts.data_ptr(), int(baked.culled),
-            baked.tex_items.data_ptr(), images.centres.data_ptr(),
-            images.words.data_ptr(), images.h, images.w,
+            *tables,
             int(baked.textured), int(baked.culled and baked.winner_hint),
             cam_params.data_ptr(), pix.data_ptr(), xs.data_ptr(),
             ys.data_ptr(), valid.data_ptr(), soff.data_ptr(),
@@ -483,3 +502,74 @@ def fused_render_baked(
     LAUNCHES["culled" if baked.culled else "unculled"] += 1
     rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
     return rad_r, rad_g, rad_b, torch.stack([rays, rays, supers, clusters])
+
+
+def fused_segment_baked_reference(baked: BakedScene, salts, ids, state,
+                                  counts, *, rr_start: int = 0,
+                                  rr_floor: float = 0.05, clamp: float = 0.0):
+    """Plain PyTorch version of the baked segment kernel: the
+    :func:`segment_reference` loop over :func:`culled_intersect_reference`
+    or :func:`baked_intersect_reference`, as ``baked.culled`` says, with
+    the texture step for a textured bake.  Same arguments and results as
+    :func:`fused_segment_baked`."""
+    if baked.culled:
+        ranges = host_ranges(baked)
+
+        def intersect(ox, oy, oz, dx, dy, dz):
+            return culled_intersect_reference(baked, ox, oy, oz, dx, dy, dz,
+                                              ranges=ranges)
+    else:
+        def intersect(ox, oy, oz, dx, dy, dz):
+            return baked_intersect_reference(baked, ox, oy, oz, dx, dy, dz)
+
+    return segment_reference(
+        intersect, salts, ids, state, counts, rr_start=rr_start,
+        rr_floor=rr_floor, clamp=clamp,
+        images=baked.images if baked.textured else None)
+
+
+def fused_segment_baked(baked: BakedScene, salts, ids, state, counts, *,
+                        rr_start: int = 0, rr_floor: float = 0.05,
+                        clamp: float = 0.0):
+    """One recluster segment over a baked scene (the reference's
+    ``fused_segment_baked``): at most ``k_iters`` bounces of every live
+    lane, from and back into ``state`` (SEG_STATE, N) float32 and ``ids``
+    (SEG_IDS, N) int32 (``ops/fused_kernels.py``), updated in place;
+    ``counts`` (3, N) int32 gains each lane's rays, supers and clusters
+    entered.  ``salts`` are [frame, max_bounces, k_iters, 0].  Returns
+    (ids, state, counts).  A bake with the winner hint is refused: the
+    reference's ``RenderConfig`` keeps recluster and the hint apart.
+
+    On CPU tensors this is the plain version; on CUDA tensors it launches
+    ``csrc/baked.cu``'s segment kernel on the current stream; any other
+    device raises.  The kernel's results, counters included, are
+    bit-identical to the plain version's.
+    """
+    device = check_segment(ids, state, counts, _tables(baked))
+    if baked.culled and baked.winner_hint:
+        raise ValueError("a segment runs no winner hint (recluster and "
+                         "winner_hint exclude each other)")
+    if device.type == "cpu":
+        return fused_segment_baked_reference(
+            baked, salts, ids, state, counts, rr_start=rr_start,
+            rr_floor=rr_floor, clamp=clamp)
+    if device.type != "cuda":
+        raise NotImplementedError(
+            f"fused_segment_baked runs on cpu or cuda, not {device}")
+    from wavefront_path_tracer_tpu_torch.ops._build import load_library
+
+    frame, max_bounces, k_iters, _ = _salts(salts)
+    table_args = _table_args(baked)
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.wpt_baked_segment_launch(
+            *table_args, int(baked.textured), state.data_ptr(),
+            ids.data_ptr(), counts.data_ptr(), state.shape[1], frame,
+            max_bounces, k_iters, int(rr_start), float(rr_floor),
+            float(clamp), stream)
+    if rc != 0:
+        raise RuntimeError(f"baked segment kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["segment_culled" if baked.culled else "segment_unculled"] += 1
+    return ids, state, counts

@@ -5,9 +5,11 @@ launches the CUDA kernel.
 Port of ``wavefront_path_tracer_tpu/ops/pallas_kernels.py``:
 ``fused_render_dynculled`` (3211) with ``make_dynamic_culled_intersect``
 (1772) as its nearest-hit function, spheres and triangles, with checker
-and image textures.  The tables are ``ops/dyn_tables.py``'s; the kernel
-is ``csrc/dynculled.cu``; the persistent loop, raygen, shade and the
-texture step are those of ``ops/fused_kernels.py`` and
+and image textures, and ``fused_segment_dynculled`` (3027, through
+``_segment_impl``, 2785), one recluster segment over the same tables.
+The tables are ``ops/dyn_tables.py``'s; the kernel is
+``csrc/dynculled.cu``; the persistent and segment loops, raygen, shade
+and the texture step are those of ``ops/fused_kernels.py`` and
 ``ops/textures.py``.
 
 What the intersect computes, per ray:
@@ -56,14 +58,18 @@ from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     _salts,
     check_aligned,
     check_inputs,
+    check_segment,
     persistent_reference,
+    segment_reference,
 )
 
 # Clusters per cond batch of the flat sweep (the reference's refresh).
 REFRESH = 16
 
-# Kernel launches by fused_render_dynculled on CUDA tensors.
+# Kernel launches on CUDA tensors by fused_render_dynculled, and by
+# fused_segment_dynculled (one a segment).
 LAUNCHES = 0
+SEGMENT_LAUNCHES = 0
 
 
 def _winner(tab: DynTables, best_t, best_i):
@@ -233,6 +239,43 @@ def fused_render_dynculled_reference(
         images=tab.images if tab.textured else None)
 
 
+def _tables(tab: DynTables) -> dict:
+    """The tables as check_inputs takes them."""
+    images = tab.images
+    return {
+        "spheres": (tab.spheres, SPHERE_COLS, torch.float32),
+        "boxes": (tab.boxes, 8, torch.float32),
+        "super_boxes": (tab.super_boxes, 8, torch.float32),
+        "slab": (tab.slab, 8, torch.float32),
+        "triangles": (tab.triangles, TRI_COLS, torch.float32),
+        "tri_boxes": (tab.tri_boxes, 8, torch.float32),
+        "tri_super_boxes": (tab.tri_super_boxes, 8, torch.float32),
+        "tri_slab": (tab.tri_slab, 8, torch.float32),
+        "sphere_tex": (tab.sphere_tex, 4, torch.float32),
+        "image centres": (images.centres, 4, torch.float32),
+        "image words": (images.words, images.words.shape[1], torch.int32),
+    }
+
+
+def _table_args(tab: DynTables) -> tuple:
+    """The table arguments of both C entry points, checked for
+    alignment."""
+    images = tab.images
+    tables = (tab.spheres, tab.boxes, tab.super_boxes, tab.slab,
+              tab.triangles, tab.tri_boxes, tab.tri_super_boxes,
+              tab.tri_slab)
+    check_aligned(**{f"table {i}": t for i, t in enumerate(
+        tables + (tab.sphere_tex, images.centres, images.words))})
+    if tab.textured and tab.sphere_tex.shape[0] != tab.spheres.shape[0]:
+        raise ValueError("textured tables need one sphere_tex row per "
+                         "sphere row")
+    return (*(t.data_ptr() for t in tables),
+            tab.n_globals, tab.n_clusters, tab.n_supers, tab.n_tri_clusters,
+            tab.n_tri_supers, tab.cluster_size,
+            tab.sphere_tex.data_ptr(), images.centres.data_ptr(),
+            images.words.data_ptr(), images.h, images.w, int(tab.textured))
+
+
 def fused_render_dynculled(
         tab: DynTables, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
@@ -252,23 +295,7 @@ def fused_render_dynculled(
     """
     global LAUNCHES
     planes = (pix, xs, ys, valid, soff)
-    tables = (tab.spheres, tab.boxes, tab.super_boxes, tab.slab,
-              tab.triangles, tab.tri_boxes, tab.tri_super_boxes,
-              tab.tri_slab)
-    images = tab.images
-    device = check_inputs(cam_params, planes, {
-        "spheres": (tab.spheres, SPHERE_COLS, torch.float32),
-        "boxes": (tab.boxes, 8, torch.float32),
-        "super_boxes": (tab.super_boxes, 8, torch.float32),
-        "slab": (tab.slab, 8, torch.float32),
-        "triangles": (tab.triangles, TRI_COLS, torch.float32),
-        "tri_boxes": (tab.tri_boxes, 8, torch.float32),
-        "tri_super_boxes": (tab.tri_super_boxes, 8, torch.float32),
-        "tri_slab": (tab.tri_slab, 8, torch.float32),
-        "sphere_tex": (tab.sphere_tex, 4, torch.float32),
-        "image centres": (images.centres, 4, torch.float32),
-        "image words": (images.words, images.words.shape[1], torch.int32),
-    })
+    device = check_inputs(cam_params, planes, _tables(tab))
     if sampler not in ("random", "stratified"):
         raise ValueError(f"unknown sampler {sampler!r}")
     if device.type == "cpu":
@@ -281,11 +308,7 @@ def fused_render_dynculled(
     from wavefront_path_tracer_tpu_torch.ops._build import load_library
 
     frame, sample_base, max_bounces, n_samples = _salts(salts)
-    check_aligned(**{f"table {i}": t for i, t in enumerate(
-        tables + (tab.sphere_tex, images.centres, images.words))})
-    if tab.textured and tab.sphere_tex.shape[0] != tab.spheres.shape[0]:
-        raise ValueError("textured tables need one sphere_tex row per "
-                         "sphere row")
+    table_args = _table_args(tab)
     lib = load_library()
     rad_r = torch.empty_like(xs)
     rad_g = torch.empty_like(xs)
@@ -294,11 +317,7 @@ def fused_render_dynculled(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.wpt_dynculled_launch(
-            *(t.data_ptr() for t in tables),
-            tab.n_globals, tab.n_clusters, tab.n_supers, tab.n_tri_clusters,
-            tab.n_tri_supers, tab.cluster_size,
-            tab.sphere_tex.data_ptr(), images.centres.data_ptr(),
-            images.words.data_ptr(), images.h, images.w, int(tab.textured),
+            *table_args,
             cam_params.data_ptr(), pix.data_ptr(), xs.data_ptr(),
             ys.data_ptr(), valid.data_ptr(), soff.data_ptr(),
             rad_r.data_ptr(), rad_g.data_ptr(), rad_b.data_ptr(),
@@ -311,3 +330,63 @@ def fused_render_dynculled(
     LAUNCHES += 1
     rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
     return rad_r, rad_g, rad_b, torch.stack([rays, rays, supers, clusters])
+
+
+def fused_segment_dynculled_reference(tab: DynTables, salts, ids, state,
+                                      counts, *, rr_start: int = 0,
+                                      rr_floor: float = 0.05,
+                                      clamp: float = 0.0):
+    """Plain PyTorch version of the dynamic culled segment kernel: the
+    :func:`segment_reference` loop over
+    :func:`dynculled_intersect_reference`.  Same arguments and results as
+    :func:`fused_segment_dynculled`."""
+    def intersect(ox, oy, oz, dx, dy, dz):
+        return dynculled_intersect_reference(tab, ox, oy, oz, dx, dy, dz)
+
+    return segment_reference(
+        intersect, salts, ids, state, counts, rr_start=rr_start,
+        rr_floor=rr_floor, clamp=clamp,
+        images=tab.images if tab.textured else None)
+
+
+def fused_segment_dynculled(tab: DynTables, salts, ids, state, counts, *,
+                            rr_start: int = 0, rr_floor: float = 0.05,
+                            clamp: float = 0.0):
+    """One recluster segment over the dynamic culled tables (the
+    reference's ``fused_segment_dynculled``): at most ``k_iters`` bounces
+    of every live lane, from and back into ``state`` (SEG_STATE, N)
+    float32 and ``ids`` (SEG_IDS, N) int32 (``ops/fused_kernels.py``),
+    updated in place; ``counts`` (3, N) int32 gains each lane's rays,
+    supers and clusters entered.  ``salts`` are [frame, max_bounces,
+    k_iters, 0].  Returns (ids, state, counts).
+
+    On CPU tensors this is the plain version; on CUDA tensors it launches
+    ``csrc/dynculled.cu``'s segment kernel on the current stream; any
+    other device raises.  The kernel's results, counters included, are
+    bit-identical to the plain version's.
+    """
+    global SEGMENT_LAUNCHES
+    device = check_segment(ids, state, counts, _tables(tab))
+    if device.type == "cpu":
+        return fused_segment_dynculled_reference(
+            tab, salts, ids, state, counts, rr_start=rr_start,
+            rr_floor=rr_floor, clamp=clamp)
+    if device.type != "cuda":
+        raise NotImplementedError(
+            f"fused_segment_dynculled runs on cpu or cuda, not {device}")
+    from wavefront_path_tracer_tpu_torch.ops._build import load_library
+
+    frame, max_bounces, k_iters, _ = _salts(salts)
+    table_args = _table_args(tab)
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.wpt_dynculled_segment_launch(
+            *table_args, state.data_ptr(), ids.data_ptr(),
+            counts.data_ptr(), state.shape[1], frame, max_bounces, k_iters,
+            int(rr_start), float(rr_floor), float(clamp), stream)
+    if rc != 0:
+        raise RuntimeError(f"dynculled segment kernel launch failed: CUDA "
+                           f"error {rc}")
+    SEGMENT_LAUNCHES += 1
+    return ids, state, counts

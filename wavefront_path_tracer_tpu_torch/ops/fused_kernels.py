@@ -4,7 +4,9 @@ version, and the wrapper that launches the CUDA kernel.
 Port of ``wavefront_path_tracer_tpu/ops/pallas_kernels.py``:
 ``pack_scene`` (3296), ``_raygen_tile`` (461), ``_intersect_tile`` (106),
 ``_shade_tile`` (167) and ``fused_render_persistent`` (3098) with its body
-``_persistent_impl`` (2451).  The kernel is ``csrc/persistent.cu``.
+``_persistent_impl`` (2451).  The kernel is ``csrc/persistent.cu``.  The
+plain segment loop of ``_segment_impl`` (2785), over any nearest-hit
+function, is here too (:func:`segment_reference`).
 
 Planes follow the reference layout: (R, 128) tensors of lanes, where
 ``pix`` and ``soff`` hold 32-bit words in ``torch.int32`` storage, and
@@ -82,8 +84,7 @@ def raygen_tile(xs, ys, pix, frame, sample, cam, sampler: str = "random"):
     radius, [16] focus distance, [17] width, [18] height.
     Returns (ox, oy, oz, dx, dy, dz) with a unit direction.
     """
-    state = jenkins_hash(as_u32(pix) ^ jenkins_hash(as_u32(frame,
-                                                           pix.device)))
+    state = jenkins_hash(as_u32(pix) ^ jenkins_hash(as_u32(frame)))
     state = jenkins_hash((state + mul32(as_u32(sample), SAMPLE_STRIDE))
                          & MASK32)
     state, u1 = next_f32(state)
@@ -183,11 +184,10 @@ def shade_tile(pix, frame, sample, bounce, ox, oy, oz, dx, dy, dz,
     point and unit scattered direction, from the stream of event slot
     ``bounce + 1``.  Triangle winners (``b_is_tri`` > 0) take their
     geometric normal, flipped toward the ray unless dielectric."""
-    device = pix.device
-    base = jenkins_hash(as_u32(pix) ^ jenkins_hash(as_u32(frame, device)))
+    base = jenkins_hash(as_u32(pix) ^ jenkins_hash(as_u32(frame)))
     state = jenkins_hash(
-        (base + mul32(as_u32(sample, device), SAMPLE_STRIDE)
-         + mul32(as_u32(bounce, device) + 1, BOUNCE_STRIDE)) & MASK32)
+        (base + mul32(as_u32(sample), SAMPLE_STRIDE)
+         + mul32(as_u32(bounce) + 1, BOUNCE_STRIDE)) & MASK32)
     state, _ = next_u32(state)   # ball-radius draw: unused, advances
     state, u2 = next_f32(state)
     state, u3 = next_f32(state)
@@ -362,11 +362,10 @@ def persistent_reference(
                 thr = thr * torch.stack(albedo, dim=-1)
                 bounce += 1
                 if rr_start and bounce >= rr_start:
-                    base = jenkins_hash(p ^ jenkins_hash(as_u32(frame,
-                                                                device)))
+                    base = jenkins_hash(p ^ jenkins_hash(as_u32(frame)))
                     st = jenkins_hash(
                         ((base + mul32(sample, SAMPLE_STRIDE)
-                          + mul32(as_u32(bounce, device), BOUNCE_STRIDE))
+                          + mul32(as_u32(bounce), BOUNCE_STRIDE))
                          & MASK32) ^ RR_SALT)
                     _, u_rr = next_f32(st)
                     keep_p = torch.clamp(thr.max(dim=-1).values,
@@ -385,6 +384,123 @@ def persistent_reference(
     rad = acc.reshape(*shape, 3)
     stats = torch.stack([counts[0], counts[0], counts[1], counts[2]])
     return rad[..., 0], rad[..., 1], rad[..., 2], stats
+
+
+# The state of the segment path (the reference's _SEG_STATE planes, with
+# the bounce counter moved to the integer planes): SEG_STATE float32 rows
+# of o xyz, d xyz, throughput rgb, radiance rgb, alive, and SEG_IDS int32
+# rows of pix, sample, bounce, slot (32-bit words).
+SEG_STATE = 13
+SEG_IDS = 4
+
+
+def segment_reference(intersect, salts, ids, state, counts, *,
+                      rr_start: int = 0, rr_floor: float = 0.05,
+                      clamp: float = 0.0, images=None):
+    """The plain segment loop (the reference's ``_segment_impl``), over
+    any nearest-hit function: at most ``k_iters`` bounces of every live
+    lane's path, from the state ``state`` (SEG_STATE, N) float32 and
+    ``ids`` (SEG_IDS, N) int32, which it updates in place; ``counts``
+    (3, N) int32 gains each lane's rays, supers and clusters entered.
+
+    ``salts`` are [frame, max_bounces, k_iters, 0].  ``intersect`` and
+    ``images`` are as for :func:`persistent_reference` (no winner hint).
+    Per ray, the arithmetic and its order are :func:`persistent_reference`'s
+    and the kernels' (``csrc/common.cuh`` bounce_step): a miss adds
+    throughput x sky to the lane's radiance and ends it; a hit shades,
+    scatters and runs roulette from ``rr_start``; a path ends after
+    ``max_bounces`` surface events.  A lane's bounce counter stops where
+    its path ends.  Returns (ids, state, counts)."""
+    frame, max_bounces, k_iters, _ = _salts(salts)
+    live = torch.nonzero(state[12] > 0)[:, 0]
+    p = ids[0, live].to(torch.int64) & MASK32
+    sample = ids[1, live].to(torch.int64) & MASK32
+    bounce = ids[2, live].to(torch.int64)
+    ox, oy, oz, dx, dy, dz = (state[k, live] for k in range(6))
+    thr = state[6:9, live].T
+    base = jenkins_hash(p ^ jenkins_hash(as_u32(frame)))
+    for _ in range(k_iters):
+        if not live.numel():
+            break
+        counts[0, live] += 1
+        *fields, supers, clusters = intersect(ox, oy, oz, dx, dy, dz)
+        (best_t, b_cx, b_cy, b_cz, b_inv_r, b_ar, b_ag, b_ab,
+         b_fuzz, b_ior, b_mt) = fields[:11]
+        tri_fields = fields[11:15]
+        tex_fields = fields[15:]
+        if supers is not None:
+            counts[1, live] += supers.to(torch.int32)
+            counts[2, live] += clusters.to(torch.int32)
+        hit = best_t < T_FAR
+        miss = ~hit
+        sky_a = 0.5 * (dy[miss] + 1.0)
+        sky = torch.stack([(1.0 - sky_a) + sky_a * 0.5,
+                           (1.0 - sky_a) + sky_a * 0.7,
+                           (1.0 - sky_a) + sky_a * 1.0])
+        con = thr[miss].T * sky
+        if clamp > 0.0:
+            con = torch.clamp_max(con, clamp)
+        idx = live[miss]
+        state[9:12, idx] = state[9:12, idx] + con
+        state[12, idx] = 0.0
+
+        keep = torch.nonzero(hit)[:, 0]
+        sel = lambda v: v[keep]  # noqa: E731
+        live, p, sample, bounce, base, thr = map(
+            sel, (live, p, sample, bounce, base, thr))
+        ox, oy, oz, dx, dy, dz = shade_tile(
+            p, frame, sample, bounce, *map(sel, (ox, oy, oz, dx, dy, dz)),
+            *map(sel, (best_t, b_cx, b_cy, b_cz, b_inv_r, b_fuzz, b_ior,
+                       b_mt, *tri_fields)))
+        albedo = tuple(map(sel, (b_ar, b_ag, b_ab)))
+        if images is not None:
+            albedo = apply_textures(images, *map(sel, tex_fields),
+                                    ox, oy, oz, *albedo)
+        thr = thr * torch.stack(albedo, dim=-1)
+        bounce = bounce + 1
+        go_on = bounce < max_bounces
+        if rr_start:
+            st = jenkins_hash(
+                ((base + mul32(sample, SAMPLE_STRIDE)
+                  + mul32(bounce, BOUNCE_STRIDE)) & MASK32) ^ RR_SALT)
+            _, u_rr = next_f32(st)
+            keep_p = torch.clamp(thr.max(dim=-1).values, rr_floor, 1.0)
+            active = bounce >= rr_start
+            survive = u_rr < keep_p
+            thr = torch.where((active & survive)[:, None],
+                              thr * (1.0 / keep_p)[:, None], thr)
+            go_on = go_on & (survive | ~active)
+        for k, v in enumerate((ox, oy, oz, dx, dy, dz)):
+            state[k, live] = v
+        state[6:9, live] = thr.T
+        state[12, live] = go_on.to(torch.float32)
+        ids[2, live] = bounce.to(torch.int32)
+
+        keep = torch.nonzero(go_on)[:, 0]
+        live, p, sample, bounce, base, thr = map(
+            sel, (live, p, sample, bounce, base, thr))
+        ox, oy, oz, dx, dy, dz = map(sel, (ox, oy, oz, dx, dy, dz))
+    return ids, state, counts
+
+
+def check_segment(ids, state, counts, tables):
+    """Validate the segment state and ``tables`` (as for
+    :func:`check_inputs`); returns the one device they all lie on."""
+    n = state.shape[-1]
+    for name, t, rows, dtype in (("state", state, SEG_STATE, torch.float32),
+                                 ("ids", ids, SEG_IDS, torch.int32),
+                                 ("counts", counts, 3, torch.int32)):
+        if (t.shape != (rows, n) or t.dtype != dtype
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({rows}, {n}) "
+                             f"{dtype} tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    _check_tables(tables)
+    devices = {t.device for t in (ids, state, counts)}
+    devices |= {t.device for t, _cols, _dtype in tables.values()}
+    if len(devices) != 1:
+        raise ValueError(f"all tensors must be on one device, got {devices}")
+    return devices.pop()
 
 
 def fused_render_persistent_reference(
@@ -421,12 +537,7 @@ def check_inputs(cam_params, planes, tables):
             raise ValueError(f"{name} must be a contiguous {dtype} plane of "
                              f"shape {tuple(shape)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    for name, (t, cols, dtype) in tables.items():
-        if (t.dim() != 2 or t.shape[1] != cols or t.dtype != dtype
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous (N, {cols}) "
-                             f"{dtype} table, got {t.dtype} "
-                             f"{tuple(t.shape)}")
+    _check_tables(tables)
     if (cam_params.shape != (24,) or cam_params.dtype != torch.float32
             or not cam_params.is_contiguous()):
         raise ValueError("cam_params must be a contiguous (24,) float32 "
@@ -436,6 +547,15 @@ def check_inputs(cam_params, planes, tables):
     if len(devices) != 1:
         raise ValueError(f"all tensors must be on one device, got {devices}")
     return devices.pop()
+
+
+def _check_tables(tables) -> None:
+    for name, (t, cols, dtype) in tables.items():
+        if (t.dim() != 2 or t.shape[1] != cols or t.dtype != dtype
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous (N, {cols}) "
+                             f"{dtype} table, got {t.dtype} "
+                             f"{tuple(t.shape)}")
 
 
 def check_aligned(**tensors) -> None:

@@ -28,11 +28,13 @@ BOUNCE_STRIDE = 0x85EBCA6B
 RR_SALT = 0x52455252
 
 
-def as_u32(x, device=None) -> torch.Tensor:
-    """A tensor or Python int as an int64 tensor of 32-bit words."""
+def as_u32(x) -> torch.Tensor:
+    """A tensor or Python int as an int64 tensor of 32-bit words.  An int
+    becomes a 0-d CPU tensor, which PyTorch takes as a scalar beside a
+    tensor on any device: no copy to the card, which would wait for it."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & MASK32
-    return torch.tensor(int(x) & MASK32, dtype=torch.int64, device=device)
+    return torch.tensor(int(x) & MASK32, dtype=torch.int64)
 
 
 def mul32(a: torch.Tensor, b) -> torch.Tensor:
@@ -81,14 +83,12 @@ def next_f32(state) -> tuple[torch.Tensor, torch.Tensor]:
 def pixel_seed(pixel_idx, frame) -> torch.Tensor:
     """Per-pixel base seed: ``jenkins(pixel ^ jenkins(frame))``."""
     pixel_idx = as_u32(pixel_idx)
-    return jenkins_hash(pixel_idx ^ jenkins_hash(
-        as_u32(frame, pixel_idx.device)))
+    return jenkins_hash(pixel_idx ^ jenkins_hash(as_u32(frame)))
 
 
 def _event(base, sample, bounce) -> torch.Tensor:
-    device = base.device
-    return (base + mul32(as_u32(sample, device), SAMPLE_STRIDE)
-            + mul32(as_u32(bounce, device), BOUNCE_STRIDE)) & MASK32
+    return (base + mul32(as_u32(sample), SAMPLE_STRIDE)
+            + mul32(as_u32(bounce), BOUNCE_STRIDE)) & MASK32
 
 
 def stream_state(pixel_idx, frame, sample, bounce) -> torch.Tensor:
@@ -101,3 +101,16 @@ def rr_state(pixel_idx, frame, sample, bounce) -> torch.Tensor:
     apart from :func:`stream_state`."""
     return jenkins_hash(
         _event(pixel_seed(pixel_idx, frame), sample, bounce) ^ RR_SALT)
+
+
+TWO_PI = 2.0 * 3.1415927   # rounds to f32 as the reference's 2 * f32(pi)
+
+
+def sample_unit_disk(state) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """Uniform point in the unit disk from two draws; (state, x, y)."""
+    state, u1 = next_f32(state)
+    state, u2 = next_f32(state)
+    r = torch.sqrt(u1)
+    alpha = TWO_PI * u2
+    return state, r * torch.cos(alpha), r * torch.sin(alpha)

@@ -1,10 +1,12 @@
 """Profile one frame of the port's main path on a CUDA card.
 
     python -m wavefront_path_tracer_tpu_torch.profile_frame [CLI flags]
-    python -m wavefront_path_tracer_tpu_torch.profile_frame --row NAME
+    python -m wavefront_path_tracer_tpu_torch.profile_frame --row NAME \
+        [--recluster K]
 
 Runs the CLI once to warm up (scene, size, samples and intersector as
-given, e.g. ``--intersector baked --clusters 16`` for the headline path;
+given, e.g. ``--intersector baked --clusters 16`` for the headline path,
+with ``--recluster K`` for its segmented form;
 the defaults are book_one_final at 1920x1080, 32 spp in one frame, 50
 bounces, brute force), or renders one frame of a mesh row (``--row``,
 one of :data:`MESH_ROWS`, built as the reference's ``bench.py`` builds
@@ -12,7 +14,9 @@ it), then one more frame of the same configuration under
 ``torch.profiler``, and prints one JSON line: the frame's wall time, the
 device time of each kernel and copy, the share of the frame in which the
 device was busy (the union of device activity intervals over the
-frame's wall time), and the card's name and power limit.
+frame's wall time) and the rest, the host gap, the number of device
+kernels and copies, the number of host calls that waited for the device,
+and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -89,7 +93,10 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--row"]:
-        renderer = row_renderer(argv[1])
+        config = {}
+        if argv[2:3] == ["--recluster"]:
+            config["recluster"] = int(argv[3])
+        renderer = row_renderer(argv[1], **config)
         renderer.render_frame()
     else:
         with tempfile.TemporaryDirectory() as tmp:
@@ -106,8 +113,12 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    device_events = [e for e in prof.events()
-                     if e.device_type.name == "CUDA"]
+    events = prof.events()
+    device_events = [e for e in events if e.device_type.name == "CUDA"]
+    # Host calls that wait for the device (stream or device synchronize,
+    # as a blocking copy or a read-back issues), the closing one included.
+    waits = sum(1 for e in events if e.device_type.name == "CPU"
+                and e.name.startswith("cuda") and "Synchronize" in e.name)
     busy_ms = _union_us((e.time_range.start, e.time_range.end)
                         for e in device_events) / 1e3
     per_name: dict[str, float] = {}
@@ -121,6 +132,9 @@ def main(argv=None) -> int:
         "mrays_per_s": result.rays_traced / wall_ms / 1e3,
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
+        "host_gap_ms": wall_ms - busy_ms,
+        "device_ops": len(device_events),
+        "host_waits": waits,
         "device_ms_by_name": top,
     }))
     return 0
