@@ -80,18 +80,32 @@ Phases (all by default, in this order), each of which raises on failure
    on terrain and on the knot at 2 spp, book_checker culled/16; the
    state, ids and counters of two segments bit for bit; recluster 1,
    recluster 2 and recluster 2 without the sort giving the same radiance
-   words and counters; and ``--recluster`` through the CLI on each
+   words and rays, supers and clusters (their loop trips per warp, which
+   the lane order moves, printed); and ``--recluster`` through the CLI on each
    culling intersector, a mesh and a textured scene (brute force without
    clusters refuses);
-12. segments at full size (``segfull``): both segment kernels bit for bit
-   at the 1080p book's and the knot's planes at 1 spp, with their device
+12. segments at full size (``segfull``): the segment kernels bit for bit
+   at the 1080p book's planes at 1 spp (baked culled/16 and unculled) and
+   the knot's (dynamic culled/16), with their device
    time, the plain versions' times and the bound (bytes counted from the
    lanes alive at each launch); the segment kernels' time with and
    without the sort; the segmented rows (knot50k_dynamic at recluster 0,
    1 and 2, both terrain rows and the headline at 0 and 2) through
    ``Renderer`` with frame time, device time split, device kernels and
    copies and busy share under torch.profiler, recluster 2 against 0 by
-   the statistical rule; and the golden gate at recluster 2.
+   the statistical rule; and the golden gate at recluster 2;
+13. probes (``probes``): the four probe kernels of ``probes/`` against
+   their plain versions on the card (the pair ceiling's C6 and A2, the
+   gated sweeps' W8 and C8 patterns under per-thread, warp-vote and
+   worklist gating, the four triangle-pair forms, bit for bit at 2 reps;
+   the stream's plain and cp.async kernels at 8-64 KB chunks within the
+   float32 summation bound of the float64 sums), one timed full-width
+   call of each beside its plain version and bound (torch.sum beside the
+   stream), the SASS instructions a pair of the ceiling's kernels, and
+   each probe's command line at its defaults with the launch counts read
+   alone; a reading above the card's spec fails.  After it, each culled
+   and mesh kernel's time beside the time of its pairs at the measured
+   ceiling.
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -664,11 +678,13 @@ def phase_full_size(device, smi: str) -> dict:
         ms, out = _time_ms(case.kernel, 3)
         stats = out[3].tolist()
         rep = {"kernel_ms": ms, "stats": stats, **case.bound(stats),
-               "clusters_per_ray": stats[3] / stats[0]}
+               "clusters_per_ray": stats[3] / stats[0],
+               "warp_fullness": stats[0] / (32 * stats[1])}
         log(f"[timing] {kind} {MAIN_WIDTH}x{MAIN_HEIGHT}@{MAIN_SPP}spp "
             f"book_one_final, 50 bounces: kernel {ms!r} ms, bound "
             f"{rep['bound_ms']!r} ms ({rep['bound_by']}), rays {stats[0]}, "
-            f"supers {stats[2]}, clusters {stats[3]} "
+            f"loop trips {stats[1]} (warps {rep['warp_fullness']:.4f} "
+            f"full), supers {stats[2]}, clusters {stats[3]} "
             f"({rep['clusters_per_ray']:.4f} per ray) [{smi}]")
         timed[kind] = rep
     return {"checks": checks, "timed": timed}
@@ -808,10 +824,12 @@ def phase_mesh_full_size(device, smi: str) -> dict:
         trep = {"kind": kind, "scene": scene_name, "spp": row_spp,
                 "kernel_ms": ms, "stats": stats, **case.bound(stats),
                 "clusters_per_ray": stats[3] / stats[0],
-                "supers_per_ray": stats[2] / stats[0]}
+                "supers_per_ray": stats[2] / stats[0],
+                "warp_fullness": stats[0] / (32 * stats[1])}
         log(f"[timing] {kind} {w}x{h}@{row_spp}spp {scene_name}, 50 "
             f"bounces: kernel {ms!r} ms, bound {trep['bound_ms']!r} ms "
-            f"({trep['bound_by']}), rays {stats[0]}, supers {stats[2]}, "
+            f"({trep['bound_by']}), rays {stats[0]}, loop trips {stats[1]} "
+            f"(warps {trep['warp_fullness']:.4f} full), supers {stats[2]}, "
             f"clusters {stats[3]} ({trep['clusters_per_ray']:.4f} per ray), "
             f"{stats[0] / ms / 1e3:.2f} Mrays/s [{smi}]")
         timed.append(trep)
@@ -1153,11 +1171,15 @@ class SegCase(Case):
         alive at the start of each (common.cuh trace_segment): a live
         lane reads 13 state words, pix, sample, bounce and 3 counters
         (76 B) and writes back the 13 words, bounce and the counters
-        (68 B); a dead lane reads its alive word (4 B) and returns."""
+        (68 B); a dead lane reads its alive word (4 B) and returns; a
+        warp with a live lane reads and writes its loop trips (8 B; the
+        least count of such warps, one for each 32 live lanes)."""
         n_pad = -(-self.n_pixels // 1024) * 1024
         alive = self.alive_lanes()
         live = sum(alive)
-        return live * (76 + 68) + (len(alive) * n_pad - live) * 4
+        warps = sum(-(-a // 32) for a in alive)
+        return (live * (76 + 68) + (len(alive) * n_pad - live) * 4
+                + warps * 8)
 
 
 def _keep_order(ids, state, lo, inv_ext):
@@ -1231,6 +1253,7 @@ def _check_seg_state(label, case) -> None:
     kernel and the plain version on clones of the same state: the state,
     ids and counters after each, bit for bit."""
     from wavefront_path_tracer_tpu_torch.models import fused
+    from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
 
     fns, tables = (case.segment, case.segment_plain), case.seg_tables
     n_pad = -(-case.n_pixels // 1024) * 1024
@@ -1239,7 +1262,8 @@ def _check_seg_state(label, case) -> None:
                                      case.inv_proj)
     lo, inv_ext = fused._scene_box(case.arrays)
     kw = {"rr_start": case.cfg.rr_start_bounce, "clamp": case.cfg.clamp}
-    counts = torch.zeros((3, n_pad), dtype=torch.int32, device=state.device)
+    counts = torch.zeros((fk.SEG_COUNTS, n_pad), dtype=torch.int32,
+                         device=state.device)
     for i, k in enumerate(fused._segment_schedule(case.cfg.recluster,
                                                   50)[:2]):
         if i:
@@ -1264,7 +1288,8 @@ def phase_segments(device) -> list[dict]:
     stratified AA), baked unculled, dynamic culled/16 on terrain and on
     the knot at 2 spp, book_checker culled/16 (textured); the state of
     two segments bit for bit; recluster 1, recluster 2 and no sort
-    giving the same radiance words and counters; and ``--recluster``
+    giving the same radiance words and per-ray counters (the loop trips
+    per warp printed beside them); and ``--recluster``
     through the CLI on each intersector, a mesh and a textured scene."""
     book, book_cc = _smoke_scene()
     terrain, tris, cc = _terrain()
@@ -1303,13 +1328,17 @@ def phase_segments(device) -> list[dict]:
                 "recluster 1": case.render(case.cfg.replace(recluster=1)),
                 "recluster 2, no sort": case.render(order=_keep_order)}
         ref = runs["recluster 2"]
+        # The loop trips per warp depend on which lanes share a warp at
+        # each launch: the one counter that K and the sort may move.
+        per_ray = lambda r: [_seg_stats(r)[i] for i in (0, 2, 3)]  # noqa
         same = {name: torch.equal(r[0].view(torch.int32),
                                   ref[0].view(torch.int32))
-                and _seg_stats(r) == _seg_stats(ref)
+                and per_ray(r) == per_ray(ref)
                 for name, r in runs.items()}
+        trips = {name: _seg_stats(r)[1] for name, r in runs.items()}
         log(f"[seg-invariance] {kind}16 160x90@4spp: radiance words and "
-            f"counters equal to recluster 2's: {same}, stats "
-            f"{_seg_stats(ref)}")
+            f"rays, supers and clusters equal to recluster 2's: {same}, "
+            f"stats {_seg_stats(ref)}; loop trips per warp {trips}")
         if not all(same.values()):
             raise AssertionError(f"{kind}: recluster 1/2/no sort differ")
         _check_no_waits(f"{kind}16 160x90@4spp", case)
@@ -1472,8 +1501,8 @@ def _seg_frame(renderer, label: str, kind: str, recluster: int,
 
 def phase_segments_full(device, smi: str) -> dict:
     """Phase 12 (``segfull``): the segment kernels bit for bit at the
-    knot's and the 1080p book's planes at 1 spp with kernel and plain
-    times and the bound; the segmented rows beside their recluster-0
+    knot's planes and the 1080p book's (culled and unculled) at 1 spp with
+    kernel and plain times and the bound; the segmented rows beside their recluster-0
     forms (frame time, Mrays/s, segment-kernel and other device time,
     launches, busy share); and the golden gate for baked/cull16 at
     recluster 2."""
@@ -1496,15 +1525,18 @@ def phase_segments_full(device, smi: str) -> dict:
     knot, knot_tris, knot_cc = _knot()
     w, h = MESH_SIZE
     checks = {}
-    for name, kind, scene, t, cam, width, height in (
-            ("culled", "culled", book, None, book_cc, MAIN_WIDTH,
+    for name, kind, clusters, scene, t, cam, width, height in (
+            ("culled", "culled", 16, book, None, book_cc, MAIN_WIDTH,
              MAIN_HEIGHT),
-            ("dynculled", "dynculled", knot, knot_tris, knot_cc, w, h)):
-        case = SegCase(kind, 16, scene, cam, width, height, 1, {}, device,
-                       triangles=t)
-        rep = _check_seg(f"seg {kind}16 {width}x{height}@1spp default",
-                         case, timed=True)
-        log(f"[timing] segment {kind}16 {width}x{height}@1spp, 50 bounces, "
+            ("unculled", "unculled", 0, book, None, book_cc, MAIN_WIDTH,
+             MAIN_HEIGHT),
+            ("dynculled", "dynculled", 16, knot, knot_tris, knot_cc, w, h)):
+        case = SegCase(kind, clusters, scene, cam, width, height, 1, {},
+                       device, triangles=t)
+        rep = _check_seg(f"seg {kind}{clusters or ''} {width}x{height}@1spp "
+                         f"default", case, timed=True)
+        log(f"[timing] segment {kind}{clusters or ''} {width}x{height}@1spp, "
+            f"50 bounces, "
             f"{case.segments} segments: segment kernels "
             f"{rep['kernel_ms']!r} ms, other device work "
             f"{rep['other_device_ms']!r} ms, plain {rep['plain_ms']!r} ms, "
@@ -1587,8 +1619,279 @@ def phase_segments_full(device, smi: str) -> dict:
                        "rays": res.rays_traced}}
 
 
+# The probes (queue 2 items 14, 10, 7 and 13): their entries in the
+# kernels line, each with the variant that its numbers there are of.
+PROBE_KERNELS = {
+    "pair_ceiling": {"name": "pair_ceiling C6 (table through L1)",
+                     "source": SOURCE + "probe_pairs.cu",
+                     "replaces": "exp/pair_ceiling.py:89"},
+    "tripair": {"name": "tripair T1 (Moller-Trumbore, 11-field carry)",
+                "source": SOURCE + "probe_tripair.cu",
+                "replaces": "exp/tripair.py:233"},
+    "hbm_bw": {"name": "hbm_bw stream (cp.async double buffer, 32 KB)",
+               "source": SOURCE + "probe_stream.cu",
+               "replaces": "exp/hbm_bw.py:108"},
+    "gated": {"name": "run_gated C8 pattern, per-thread gating",
+              "source": SOURCE + "probe_pairs.cu",
+              "replaces": "exp/micro_r2.py:1106"},
+}
+PROBE_REPS = 4             # reps of a probe kernel's timed call
+PROBE_PASSES = 1           # passes of the stream's timed call
+
+
+def _probe_modules():
+    from wavefront_path_tracer_tpu_torch.probes import hbm_bw, micro_r2
+    from wavefront_path_tracer_tpu_torch.probes import pair_ceiling, tripair
+
+    return pair_ceiling, tripair, hbm_bw, micro_r2
+
+
+def _probe_launch_counts() -> dict:
+    pc, tp, hb, m = _probe_modules()
+    return {"pair_ceiling": sum(pc.LAUNCHES.values()),
+            "tripair": sum(tp.LAUNCHES.values()),
+            "hbm_bw": sum(hb.LAUNCHES.values()),
+            "gated": sum(m.LAUNCHES.values())}
+
+
+def _reset_probe_launches() -> None:
+    for module in _probe_modules():
+        for key in module.LAUNCHES:
+            module.LAUNCHES[key] = 0
+
+
+def _same_bits(label: str, k, p) -> float:
+    """Raise unless the kernel's output ``k`` is the plain version's
+    ``p`` bit for bit; the largest absolute difference (0.0)."""
+    same = torch.equal(k.view(torch.int32), p.view(torch.int32))
+    err = float((k.double() - p.double()).abs().max())
+    log(f"[probe-vs-plain] {label}: bit-identical {same}, max abs err "
+        f"{err!r}, {int((k < 1e29).sum())} of {k.numel()} rays hit")
+    if not same:
+        raise AssertionError(f"{label}: kernel and plain version differ")
+    if not bool((k < 1e29).any()):
+        raise AssertionError(f"{label}: no ray hit anything")
+    return err
+
+
+def _sass_per_pair(smi: str) -> dict:
+    """SASS instructions of the pair-ceiling kernels (``cuobjdump -sass``
+    of the built library) over the pairs their sweep loop's body holds
+    (C6 unrolled by 4, A2 by 8); the counts include the kernel's set-up,
+    the rep loop and the square root's slow path, so they bound the pair
+    from above."""
+    import re
+    import shutil
+
+    from wavefront_path_tracer_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("[probe-sass] cuobjdump not found: instructions a pair not "
+            "measured")
+        return {}
+    lib = _build.build()[0]
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.splitlines()[0].strip()
+        if "probe_pair_sweep" not in name:
+            continue
+        n = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+\S", part, re.M))
+        variant, pairs = ("A2", 8) if "Lb1E" in name else ("C6", 4)
+        out[variant] = {"function": name, "instructions": n,
+                        "per_pair": n / pairs}
+        log(f"[probe-sass] {variant} {name}: {n} SASS instructions, "
+            f"{n / pairs:.1f} a pair at most [{smi}]")
+    return out
+
+
+def _probe_timed(label, kernel, plain, bound) -> dict:
+    """A probe kernel's CUDA-event time (mean of 5 calls after a warm-up)
+    and its plain version's (one call) on the same inputs, beside the
+    bound of the same work; the kernel checked against the plain version
+    on the way (``bound`` gives the check: bits or a tolerance)."""
+    k = kernel()
+    ms, k = _time_ms(kernel, 5)
+    plain_ms, p = _time_ms(plain, 1)
+    rep = {"case": label, "kernel_ms": ms, "plain_ms": plain_ms, **bound}
+    rep["max_abs_err"] = (_same_bits(label, k, p) if rep.pop("bits")
+                          else float((k.double() - p.double()).abs().max()))
+    return rep
+
+
+def _bound(ops: float, n_bytes: float, bits: bool = True) -> dict:
+    t_ops, t_bytes = ops / PEAK_FP32, n_bytes / PEAK_BYTES
+    return {"ops": ops, "bytes": n_bytes, "bits": bits,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_probes(device, smi: str) -> dict:
+    """Phase 13 (``probes``): the four probe kernels (csrc/probe_pairs.cu,
+    probe_tripair.cu, probe_stream.cu).  Each kernel against its plain
+    version on the card: the pair ceiling's C6 and A2, the gated sweeps'
+    two patterns under the three gatings, and the four triangle forms bit
+    for bit at 2 reps over the reference's 1024 rays; the stream's two
+    kernels at each chunk size within the stated float32 summation bound
+    of the float64 sums.  One timed call of each kernels-line variant at
+    full width, beside its plain version and its bound (and torch.sum for
+    the stream).  Then each probe's command line at its defaults, with the
+    launch counts set to 0 just before and read just after; every rate
+    beside the card's name, power limit and clock; a rate above the
+    card's spec (pairs x operations over 67 TFLOP/s, bytes over 3.35
+    TB/s) fails the phase."""
+    from wavefront_path_tracer_tpu_torch.probes import _slope
+
+    pc, tp, hb, m = _probe_modules()
+    card = _slope.card()
+    tab = torch.from_numpy(m.PACKED_SM).to(device)
+    rays1 = m.ray_planes(device)
+    errs = {k: 0.0 for k in PROBE_KERNELS}
+    for variant in pc.VARIANTS:
+        errs["pair_ceiling"] = max(errs["pair_ceiling"], _same_bits(
+            f"pair_ceiling {variant} 1024 rays 2 reps",
+            pc.pair_sweep(tab, rays1, 2, variant),
+            pc.pair_sweep_reference(tab, rays1, 2)))
+    for pattern in m.PATTERNS:
+        cond = torch.from_numpy(m.cond_table(pattern)).to(device)
+        for gating in m.GATINGS:
+            errs["gated"] = max(errs["gated"], _same_bits(
+                f"gated {pattern} {gating} 1024 rays 2 reps",
+                m.gated_sweep(tab, cond, rays1, 2, pattern, gating),
+                m.gated_reference(tab, cond, rays1, 2,
+                                  m.PATTERNS[pattern][2])))
+    tri_rays1 = tp.ray_planes(device)
+    for form, (ttab, pk) in tp.tables(device).items():
+        errs["tripair"] = max(errs["tripair"], _same_bits(
+            f"tripair {form} 1024 rays 2 reps",
+            tp.tripair_sweep(ttab, pk, tri_rays1, 2, form),
+            tp.tripair_reference(ttab, pk, tri_rays1, 2, form)))
+    data = hb.make_data(256, device)
+    exact = hb.exact_sums(data, 3)
+    for kind in hb.KINDS:
+        for chunk_kb in hb.CHUNKS_KB:
+            out = hb.stream(data, 3, 64, chunk_kb, kind)
+            grid = hb.stream_grid(kind, chunk_kb, data.shape[0])
+            bound = hb.tolerance(data, 3, chunk_kb, grid)
+            err = float((out.double() - exact).abs().max())
+            plain_err = float((out - hb.stream_reference(
+                data, 3, 64, chunk_kb)).abs().max())
+            errs["hbm_bw"] = max(errs["hbm_bw"], plain_err)
+            log(f"[probe-vs-plain] hbm_bw {kind} {chunk_kb} KB 256 MB 3 "
+                f"passes 64 fma: max abs err {err!r} against the float64 "
+                f"sums (bound {bound!r}), {plain_err!r} against the plain "
+                f"version")
+            if not err <= bound:
+                raise AssertionError(f"hbm_bw {kind} {chunk_kb} KB: error "
+                                     f"{err} above the bound {bound}")
+
+    # The kernels line's calls: full width, PROBE_REPS reps.
+    rays = m.ray_planes(device, m.RAY_COPIES)
+    n = rays.shape[1]
+    ray_bytes = rays.numel() * 4 + n * 4
+    timed = {}
+    pairs = m.S * n * PROBE_REPS
+    timed["pair_ceiling"] = _probe_timed(
+        "pair_ceiling C6", lambda: pc.pair_sweep(tab, rays, PROBE_REPS),
+        lambda: pc.pair_sweep_reference(tab, rays, PROBE_REPS),
+        _bound(pairs * pc.FLOPS_PAIR + n * PROBE_REPS * pc.FLOPS_RAY_REP,
+               tab.numel() * 4 + ray_bytes))
+    ttab, pk = tp.tables(device)["T1"]
+    tri_rays = tp.ray_planes(device, m.RAY_COPIES)
+    pairs = tp.NTRI // 2 * n * PROBE_REPS
+    timed["tripair"] = _probe_timed(
+        "tripair T1", lambda: tp.tripair_sweep(ttab, pk, tri_rays,
+                                               PROBE_REPS),
+        lambda: tp.tripair_reference(ttab, pk, tri_rays, PROBE_REPS, "T1"),
+        _bound(pairs * tp.FLOPS_PAIR["T1"],
+               (ttab.numel() + pk.numel()) * 4 + ray_bytes))
+    cond = torch.from_numpy(m.cond_table("C8")).to(device)
+    pairs = m.pairs_per_rep("C8", n) * PROBE_REPS
+    timed["gated"] = _probe_timed(
+        "gated C8 thread", lambda: m.gated_sweep(tab, cond, rays, PROBE_REPS,
+                                                 "C8"),
+        lambda: m.gated_reference(tab, cond, rays, PROBE_REPS, False),
+        _bound(pairs * m.FLOPS_SLIM + n * PROBE_REPS * pc.FLOPS_RAY_REP,
+               tab.numel() * 4 + cond.numel() * 4 + ray_bytes))
+    timed["hbm_bw"] = _probe_timed(
+        "hbm_bw async 32 KB", lambda: hb.stream(data, PROBE_PASSES, 0, 32),
+        lambda: hb.stream_reference(data, PROBE_PASSES, 0, 32),
+        _bound(data.numel() * PROBE_PASSES, data.nbytes * PROBE_PASSES
+               + 8 * 128 * 4, bits=False))
+    view = data.reshape(-1, 8, 128)
+    timed["hbm_bw"]["library_ms"], _ = _time_ms(
+        lambda: torch.sum(view, dim=0), 5)
+    for key, rep in timed.items():
+        log(f"[probe-timing] {rep['case']}: kernel {rep['kernel_ms']!r} ms, "
+            f"plain {rep['plain_ms']!r} ms, bound {rep['bound_ms']!r} ms "
+            f"({rep['bound_by']}), library "
+            f"{rep.get('library_ms')!r} ms [{smi}]")
+    sass = _sass_per_pair(smi)
+
+    # The probes' command lines at their defaults: the main path.
+    _reset_probe_launches()
+    readings = {"pair_ceiling": pc.run([]), "tripair": tp.run([]),
+                "hbm_bw": hb.run([]), "gated": m.run([])}
+    launches = _probe_launch_counts()
+    log(f"[probe-launches] the probes' runs at their defaults: "
+        f"{json.dumps(launches)}")
+    for key, count in launches.items():
+        if not count > 0:
+            raise AssertionError(f"{key}: its kernel was not launched")
+    impossible = []
+    for r in readings["pair_ceiling"]:
+        if r["fp32_rate"] > PEAK_FP32:
+            impossible.append(f"pair_ceiling {r['variant']}")
+    for r in readings["tripair"]:
+        if r["fp32_rate"] > PEAK_FP32:
+            impossible.append(f"tripair {r['form']}")
+    for r in readings["gated"]:
+        if r["fp32_rate"] > PEAK_FP32:
+            impossible.append(f"gated {r['pattern']} {r['gating']}")
+    for r in readings["hbm_bw"]:
+        if r["gb_s"] * 1e9 > PEAK_BYTES:
+            impossible.append(f"hbm_bw {r['kind']} {r.get('chunk_kb')} KB "
+                              f"{r.get('fmas')} fma")
+    log(f"[probe-spec] readings above the card's spec: {impossible} "
+        f"[{card}]")
+    if impossible:
+        raise AssertionError(f"readings above the card's spec: {impossible}")
+    return {"card": card, "max_abs_err": errs, "timed": timed,
+            "launches": launches, "readings": readings, "sass": sass}
+
+
+def _ceiling_shares(record: dict) -> list:
+    """Each culled and mesh kernel's time beside the time its pairs take
+    at the measured pair ceiling (C6 for spheres, T1 for triangles: the
+    mesh rows' pairs are counted at the triangle rate), and beside its
+    spec bound."""
+    ceil = {r["variant"]: r["gpairs"] * 1e9
+            for r in record["probes"]["readings"]["pair_ceiling"]}
+    tri = {r["form"]: r["gpairs"] * 1e9
+           for r in record["probes"]["readings"]["tripair"]}
+    rows = [("culled book 1080p@32spp", record["full_size"]["timed"]
+             ["culled"], ceil["C6"])]
+    for rep in record["mesh_full_size"]["timed"]:
+        rows.append((f"{rep['kind']} {rep['scene']} 800x448@{rep['spp']}spp",
+                     rep, tri["T1"]))
+    out = []
+    for label, rep, rate in rows:
+        at_ceiling = rep["pairs"] / rate * 1e3
+        share = {"case": label, "kernel_ms": rep["kernel_ms"],
+                 "pairs": rep["pairs"], "ceiling_ms": at_ceiling,
+                 "ceiling_share": at_ceiling / rep["kernel_ms"],
+                 "bound_ms": rep["bound_ms"],
+                 "bound_share": rep["bound_ms"] / rep["kernel_ms"]}
+        log(f"[ceiling-share] {json.dumps(share)}")
+        out.append(share)
+    return out
+
+
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull", "tex",
-          "texfull", "seg", "segfull")
+          "texfull", "seg", "segfull", "probes")
 
 
 def main(argv=None) -> int:
@@ -1621,7 +1924,8 @@ def main(argv=None) -> int:
               lambda: phase_textures_full(device, smi)),
              ("seg", "segments", lambda: phase_segments(device)),
              ("segfull", "segments_full",
-              lambda: phase_segments_full(device, smi)))
+              lambda: phase_segments_full(device, smi)),
+             ("probes", "probes", lambda: phase_probes(device, smi)))
     for phase, key, run in steps:
         if phase in phases:
             t0 = time.perf_counter()
@@ -1697,6 +2001,22 @@ def main(argv=None) -> int:
             "bound_by": main_check["bound_by"],
             "library_ms": None,
         })
+    record["ceiling_shares"] = _ceiling_shares(record)
+    probes = record["probes"]
+    for key, spec in PROBE_KERNELS.items():
+        rep = probes["timed"][key]
+        kernels.append({
+            "name": spec["name"], "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"],
+            "launches": probes["launches"][key],
+            "max_abs_err": max(probes["max_abs_err"][key],
+                               rep["max_abs_err"]),
+            "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": rep.get("library_ms"),
+        })
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

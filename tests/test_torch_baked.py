@@ -16,6 +16,7 @@ from wavefront_path_tracer_tpu.renderer import render as jax_render
 from wavefront_path_tracer_tpu_torch.models import fused as tfused
 from wavefront_path_tracer_tpu_torch.ops import bake
 from wavefront_path_tracer_tpu_torch.ops import baked_kernels as tbk
+from wavefront_path_tracer_tpu_torch.ops import fused_kernels as tfk
 from wavefront_path_tracer_tpu_torch.renderer import Renderer, prepare_scene
 from wavefront_path_tracer_tpu_torch.renderer import render as torch_render
 from wavefront_path_tracer_tpu_torch.scene import CameraController, get_scene
@@ -75,7 +76,7 @@ def test_headline_config_matches_jax():
           BASE.replace(baked_clusters=16))
 
 
-def test_culled_equals_unculled():
+def test_culled_equals_unculled(monkeypatch):
     """Culling is conservative: the port's culled image is its unculled
     image up to near-tie winners (the statistical rule; the two sweep in
     different orders with different quadratics), and only the culled
@@ -84,6 +85,13 @@ def test_culled_equals_unculled():
     arrays = prepare_scene(scene, BASE, "cpu")
     view = cc.view_matrix()
     inv_proj = cc.inverse_projection(BASE.width, BASE.height)
+    seen, real = [], tfk.warp_trips
+
+    def spy(lane_rays):
+        seen.append(lane_rays.clone())
+        return real(lane_rays)
+
+    monkeypatch.setattr(tfk, "warp_trips", spy)
     out = {}
     for clusters in (0, 8):
         cfg = BASE.replace(baked_clusters=clusters)
@@ -93,7 +101,10 @@ def test_culled_equals_unculled():
     check_parity(rad8.numpy() / 2, rad0.numpy() / 2, rays8, rays0)
     assert int(st0["clusters_entered"]) == 0
     assert int(st8["clusters_entered"]) > 0
-    assert int(st8["iterations"]) == int(rays8)
+    # Loop trips per warp: the 32-lane groups' largest ray counts.
+    lane_rays = seen[-1].numpy()
+    assert lane_rays.sum() == int(rays8)
+    assert int(st8["iterations"]) == lane_rays.reshape(-1, 32).max(1).sum()
 
 
 def test_clusters_auto_resolves_as_reference():

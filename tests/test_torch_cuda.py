@@ -338,3 +338,69 @@ def test_recluster_invariance_on_card(device, change):
     assert out[1].rays_traced == out[2].rays_traced
     check_parity(out[2].accumulated / 4, out[0].accumulated / 4,
                  out[2].rays_traced, out[0].rays_traced)
+
+
+PROBE_CASES = (["pair/C6", "pair/A2"]
+               + [f"gated/{p}/{g}" for p in ("W8", "C8")
+                  for g in ("thread", "vote", "worklist")]
+               + [f"tripair/{f}" for f in ("T1", "T1p", "T2", "T2p")])
+
+
+@pytest.mark.parametrize("case", PROBE_CASES)
+def test_probe_kernels_match_plain(device, case):
+    """Each probe kernel against its plain version on the same CUDA
+    tensors, 2 reps over the reference's 1024 rays and over two copies
+    of them: bit-identical, one launch a call."""
+    from wavefront_path_tracer_tpu_torch.probes import micro_r2 as pm
+    from wavefront_path_tracer_tpu_torch.probes import pair_ceiling as pc
+    from wavefront_path_tracer_tpu_torch.probes import tripair as tp
+
+    kind, *rest = case.split("/")
+    for copies in (1, 2):
+        if kind == "tripair":
+            rays = tp.ray_planes(device, copies)
+            tab, pk = tp.tables(device)[rest[0]]
+            args = (tab, pk, rays, 2)
+            fn = lambda: tp.tripair_sweep(*args, rest[0])  # noqa: E731
+            plain = lambda: tp.tripair_reference(*args, rest[0])  # noqa
+            launches = lambda: tp.LAUNCHES[rest[0]]  # noqa: E731
+        else:
+            rays = pm.ray_planes(device, copies)
+            tab = torch.from_numpy(pm.PACKED_SM).to(device)
+            if kind == "pair":
+                fn = lambda: pc.pair_sweep(tab, rays, 2, rest[0])  # noqa
+                plain = lambda: pc.pair_sweep_reference(tab, rays, 2)  # noqa
+                launches = lambda: pc.LAUNCHES[rest[0]]  # noqa: E731
+            else:
+                pattern, gating = rest
+                cond = torch.from_numpy(pm.cond_table(pattern)).to(device)
+                fn = lambda: pm.gated_sweep(  # noqa: E731
+                    tab, cond, rays, 2, pattern, gating)
+                plain = lambda: pm.gated_reference(  # noqa: E731
+                    tab, cond, rays, 2, pm.PATTERNS[pattern][2])
+                launches = lambda: pm.LAUNCHES[(pattern, gating)]  # noqa
+        before = launches()
+        k = fn()
+        torch.cuda.synchronize()
+        assert launches() == before + 1
+        p = plain()
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+        assert bool((k < 1e29).any())
+        if copies == 2:
+            assert torch.equal(k[:1024], k[1024:])
+
+
+@pytest.mark.parametrize("kind", ["plain", "async"])
+def test_stream_kernels_within_bound(device, kind):
+    """The stream kernels against the float64 sums within the stated
+    float32 summation bound, at each chunk size."""
+    from wavefront_path_tracer_tpu_torch.probes import hbm_bw as hb
+
+    data = hb.make_data(8, device)
+    exact = hb.exact_sums(data, 3)
+    for chunk_kb in hb.CHUNKS_KB:
+        out = hb.stream(data, 3, 64, chunk_kb, kind)
+        torch.cuda.synchronize()
+        grid = hb.stream_grid(kind, chunk_kb, data.shape[0])
+        bound = hb.tolerance(data, 3, chunk_kb, grid)
+        assert float((out.double() - exact).abs().max()) <= bound

@@ -185,13 +185,28 @@ def test_refuses_triangles_and_textures_in_engine(cover):
                                {**arrays, extra: torch.zeros(1)})
 
 
-def test_converted_jax_scene_renders_with_stats(cover):
+def _spy_lane_rays(monkeypatch) -> list:
+    """Record each per-lane ray plane that ``warp_trips`` reduces."""
+    seen, real = [], tfk.warp_trips
+
+    def spy(lane_rays):
+        seen.append(lane_rays.clone())
+        return real(lane_rays)
+
+    monkeypatch.setattr(tfk, "warp_trips", spy)
+    return seen
+
+
+def test_converted_jax_scene_renders_with_stats(cover, monkeypatch):
     """Scene arrays from the JAX prepare_scene, carried over by
     convert.py, render the same as the port's own prepared scene; the
-    stats report per-lane iterations (one per ray) and no culling."""
+    stats report loop trips per warp and no culling.  The iterations
+    equal an independent numpy reduction of the lanes' rays: the sum over
+    32-lane groups, in lane order, of each group's largest count."""
     from wavefront_path_tracer_tpu.renderer import prepare_scene
     from wavefront_path_tracer_tpu_torch.convert import scene_arrays_to_torch
 
+    seen = _spy_lane_rays(monkeypatch)
     cc = _cover_camera()
     arrays = scene_arrays_to_torch(prepare_scene(cover, BASE), "cpu")
     assert arrays["mat_type"].dtype == torch.int32
@@ -204,8 +219,47 @@ def test_converted_jax_scene_renders_with_stats(cover):
     ref = torch_render(cover, cc, BASE, device="cpu")
     np.testing.assert_array_equal(rad.reshape(16, 32, 3).numpy(),
                                   ref.accumulated)
-    assert int(rays) == ref.rays_traced == int(stats["iterations"])
+    assert int(rays) == ref.rays_traced
+    lane_rays = seen[0].numpy()
+    assert lane_rays.shape == (1024,) and lane_rays.sum() == int(rays)
+    want = lane_rays.reshape(-1, 32).max(axis=1).sum()
+    assert int(stats["iterations"]) == want
+    assert int(rays) / 32 <= want < int(rays)
     assert int(stats["supers_entered"]) == int(stats["clusters_entered"]) == 0
+
+
+@pytest.mark.parametrize("change", [
+    {},
+    {"intersector": "baked", "baked_clusters": 16},
+], ids=["bruteforce", "baked-cull16"])
+def test_iterations_match_jax_tiles(cover, monkeypatch, change):
+    """Grouped as the reference groups lanes into a tile (tile_rows x
+    128 = 1024 lanes, lane rotation off, so that each lane traces its own
+    pixel), the port's loop trips come within the 1% that the rays get of
+    the JAX kernel's `niter` summed over its two tiles, at 50 bounces so
+    that no tile runs into the cap: a tile's trips are its largest lane's
+    ray count, as a warp's are."""
+    from wavefront_path_tracer_tpu.renderer import prepare_scene as jprep
+    from wavefront_path_tracer_tpu_torch.renderer import prepare_scene
+
+    cfg = BASE.replace(width=64, height=32, lane_rotate=False,
+                       max_bounces=50, **change)
+    monkeypatch.setattr(tfk, "WARP", cfg.tile_rows * 128)
+    cc = _cover_camera()
+    view, inv_proj = cc.view_matrix(), cc.inverse_projection(64, 32)
+    _, rays_t, st_t = tfused.render_samples_with_stats(
+        prepare_scene(cover, cfg, "cpu"), cc.gpu_camera(), view, inv_proj,
+        cfg, 0, 0, 2)
+    _, rays_j, st_j = jfused.render_samples_with_stats(
+        jprep(cover, cfg), cc.gpu_camera(), view, inv_proj, cfg, 0, 0, 2)
+    rays_t, rays_j = int(rays_t), float(rays_j)
+    it_t, it_j = int(st_t["iterations"]), float(st_j["iterations"])
+    assert abs(rays_t - rays_j) / rays_j < 0.01
+    assert abs(it_t - it_j) / it_j < 0.01, (it_t, it_j)
+    # Below the cap of 2 tiles x 2 samples x 50 bounces: the tiles' trips
+    # are their longest lanes', not the cap's.
+    assert it_j < 2 * 2 * cfg.max_bounces
+    assert it_j < rays_j / 100
 
 
 def test_get_engine_unknown():

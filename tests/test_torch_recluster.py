@@ -21,6 +21,7 @@ from wavefront_path_tracer_tpu_torch.ops import bake
 from wavefront_path_tracer_tpu_torch.ops import baked_kernels as tbk
 from wavefront_path_tracer_tpu_torch.ops import dyn_tables as dt
 from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as tdk
+from wavefront_path_tracer_tpu_torch.ops import fused_kernels as tfk
 from wavefront_path_tracer_tpu_torch.ops.raygen import generate_rays
 from wavefront_path_tracer_tpu_torch.renderer import Renderer, prepare_scene
 from wavefront_path_tracer_tpu_torch.renderer import render as torch_render
@@ -231,7 +232,7 @@ def test_one_segment_matches_jax(kind):
     pix, samp, seg = _jax_state(ids, state)
     opts = {"rr_start": 2, "clamp": 0.5}
     salts = (0, 8, 2, 0)
-    counts = torch.zeros((3, 1024), dtype=torch.int32)
+    counts = torch.zeros((tfk.SEG_COUNTS, 1024), dtype=torch.int32)
     hint = np.array([-2.0, 2.0, 1.0])
     if kind == "dynculled":
         packed = dt.pack_culled_scene(a, cluster_size=8, camera_hint=hint)
@@ -270,6 +271,15 @@ def test_one_segment_matches_jax(kind):
     assert int(counts[0].sum()) == int(np.asarray(aux)[:, 0].sum())
     if kind == "culled":
         assert int(counts[2].sum()) > 0
+    # Loop trips: each warp's entry of row 3 is the largest ray count of
+    # its 32 lanes (a numpy reduction of the per-lane rays); grouped as
+    # the reference's tile (all 1024 lanes), the largest count is the
+    # tile's lockstep trips, its `niter`.
+    rays = counts[0].numpy()
+    want = rays.reshape(-1, 32).max(axis=1)
+    np.testing.assert_array_equal(counts[3, :32].numpy(), want)
+    assert not counts[3, 32:].any()
+    assert rays.max() == int(np.asarray(aux)[:, 1].sum())
 
 
 # --- whole renders -------------------------------------------------------------
@@ -322,7 +332,9 @@ def test_mesh_demo_recluster_matches_persistent():
 def test_recluster_invariant_to_order_and_k(change):
     """A ray's result depends neither on its lane nor on the segment
     boundaries: recluster 1, recluster 2 and recluster 2 with no sort
-    give the same radiance words and counters."""
+    give the same radiance words and per-ray counters (rays, supers and
+    clusters entered); the loop trips per warp lie between rays / 32 and
+    rays."""
     scene, cc = _clustered_scene(), _cover_camera()
     cfg = BASE.replace(width=40, height=24, **change)
     r = Renderer(scene, cc, cfg, device="cpu")
@@ -348,12 +360,50 @@ def test_recluster_invariant_to_order_and_k(change):
     unsorted[perm] = rad
     outs.append((unsorted, rays, stats))
     ref = outs[0]
+    # Loop trips per warp depend on which lanes share a warp at each
+    # launch, so they are the one counter that K and the sort may move.
+    per_ray = ("supers_entered", "clusters_entered")
     for rad, rays, stats in outs[1:]:
         assert torch.equal(rad.view(torch.int32), ref[0].view(torch.int32))
         assert int(rays) == int(ref[1])
-        assert {k: int(v) for k, v in stats.items()} == {
-            k: int(v) for k, v in ref[2].items()}
+        assert {k: int(stats[k]) for k in per_ray} == {
+            k: int(ref[2][k]) for k in per_ray}
+    for _rad, rays, stats in outs:
+        assert int(rays) / 32 <= int(stats["iterations"]) <= int(rays)
     assert (int(ref[2]["clusters_entered"]) > 0) == (clusters > 0)
+
+
+@pytest.mark.parametrize("sort", [True, False], ids=["sorted", "unsorted"])
+def test_recluster_iterations_sum_launch_warps(sort):
+    """The segmented path's iterations: over every launch, the sum over
+    32-lane groups, in the launch's lane order, of each group's largest
+    count of rays traced in that launch (numpy, from the per-lane counts
+    around each launch)."""
+    scene, cc = _clustered_scene(), _cover_camera()
+    cfg = BASE.replace(width=40, height=24, intersector="baked",
+                       baked_clusters=16, recluster=2)
+    r = Renderer(scene, cc, cfg, device="cpu")
+    args = (r.scene_arrays, cc.gpu_camera(), cc.view_matrix(),
+            cc.inverse_projection(40, 24))
+    tables = tfused._baked_scene(r.scene_arrays, 16,
+                                 camera_pos=tfused._concrete_eye(args[2]))
+    want = []
+
+    def segment(tables, salts, ids, state, counts, **kw):
+        before = counts[0].numpy().copy()
+        out = tbk.fused_segment_baked(tables, salts, ids, state, counts, **kw)
+        rays = counts[0].numpy() - before
+        want.append(rays.reshape(-1, 32).max(axis=1).sum())
+        return out
+
+    order = tfused.coherence_order if sort else (
+        lambda ids, state, lo, inv_ext: (ids, state))
+    _, rays, stats = tfused._recluster(segment, order, tables,
+                                       torch.arange(40 * 24), *args, cfg, 0,
+                                       0, 2, True)
+    assert len(want) == 2 * len(tfused._segment_schedule(2, cfg.max_bounces))
+    assert int(stats["iterations"]) == sum(want)
+    assert int(rays) / 32 <= sum(want) < int(rays)
 
 
 def test_refuses_bruteforce_without_clusters():

@@ -434,3 +434,53 @@ def test_book_checker_matches_megakernel(path):
     assert mk.image.std() > 0.01
     assert rmse(t.image, mk.image) < 5e-3
     assert abs(t.accumulated.mean() / 4 - mk.accumulated.mean() / 4) < 2e-3
+
+
+# --- which sphere gets the image texture ------------------------------------------
+
+def _twin_scene_file(tmp_path, textured_first: bool) -> str:
+    """A scene file with two spheres that share a centre and a signed
+    radius, one of them green and one image-textured (a red PNG the test
+    writes), on a grey ground: every ray that hits one hits both at the
+    same t, so the winner is whichever the sweep visits first."""
+    write_png(str(tmp_path / "red.png"),
+              np.tile(np.array([230, 25, 25], np.uint8), (4, 8, 1)))
+    green = {"center": [0, 1, 0], "radius": 1,
+             "material": {"type": "lambertian", "albedo": [0.1, 0.9, 0.1]}}
+    image = {"center": [0, 1, 0], "radius": 1,
+             "material": {"type": "lambertian", "albedo": [1, 1, 1],
+                          "texture": {"image": "red.png"}}}
+    twins = [image, green] if textured_first else [green, image]
+    doc = {"spheres": [
+        {"center": [0, -1000, 0], "radius": 1000,
+         "material": {"type": "lambertian", "albedo": [0.5, 0.5, 0.5]}},
+        *twins]}
+    path = tmp_path / "twins.json"
+    path.write_text(json.dumps(doc))
+    return str(path)
+
+
+@pytest.mark.parametrize("order", ["green-first", "image-first"])
+@pytest.mark.parametrize("path", ["baked8", "unculled", "dynamic8"])
+def test_shared_centre_image_sphere_matches_jax(tmp_path, path, order):
+    """The reference picks the image sphere by exact equality of the
+    winner's centre and 1/r with the LUT's (``_apply_image_textures``,
+    pallas_kernels.py:322-325), so a sphere that shares both with an
+    image sphere takes its texture too, whichever of the two wins.  The
+    port follows that rule on every textured path: its render of the
+    twins matches the JAX fused engine's under the parity rule, and the
+    sphere in the middle of the frame is red (the texture), not green."""
+    file = _twin_scene_file(tmp_path, order == "image-first")
+    port, ref = load_scene_file(file), jfile.load_scene_file(file)
+    cc = _camera()
+    cfg = {"baked8": BASE.replace(baked_clusters=8),
+           "unculled": BASE.replace(baked_clusters=0),
+           "dynamic8": BASE.replace(intersector="bruteforce",
+                                    baked_clusters=8)}[path]
+    j = jax_render(ref[0], cc, cfg)
+    t = torch_render(port[0], cc, cfg, device="cpu")
+    check_parity(t.accumulated / t.samples, j.accumulated / j.samples,
+                 t.rays_traced, j.rays_traced)
+    for img in (t.accumulated, j.accumulated):
+        centre = img[5:11, 12:20].mean(axis=(0, 1))
+        assert centre[0] > 2.0 * centre[1], centre

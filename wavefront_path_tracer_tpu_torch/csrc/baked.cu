@@ -376,7 +376,6 @@ template <class P, bool kTris, bool kTex>
 __global__ void __launch_bounds__(kThreads, 8)
 baked_unculled_kernel(const P p, const UnculledIntersect<kTris, kTex> isect) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.n_lanes) return;
   wpt::trace(p, lane, isect);
 }
 
@@ -385,7 +384,6 @@ __global__ void __launch_bounds__(kThreads, 8)
 baked_culled_kernel(const P p, CulledIntersect<kTris, kTex, kHint> isect,
                     const float* __restrict__ consts) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.n_lanes) return;
   isect.shx = __ldg(consts + 0);
   isect.shy = __ldg(consts + 1);
   isect.shz = __ldg(consts + 2);

@@ -465,10 +465,12 @@ __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
 // state is planes of n_lanes, row-major: `state` (kSegState, n) f32 of o
 // xyz, d xyz, throughput rgb, radiance rgb, alive; `ids` (kSegIds, n) of
 // pix, sample, bounce, slot.  Each thread reads and writes only its own
-// lane, so the launch updates them in place.  `counts` (3, n): rays,
-// supers and clusters entered, added to.
+// lane, so the launch updates them in place.  `counts` (kSegCounts, n),
+// added to: rays, supers and clusters entered per lane, and in row 3 the
+// loop trips of warp w (lanes 32w to 32w + 31) at entry w.
 constexpr int kSegState = 13;
 constexpr int kSegIds = 4;
+constexpr int kSegCounts = 4;
 
 struct SegParams {
   float* state;
@@ -483,17 +485,17 @@ struct SegParams {
 
 // One segment for one lane: at most k_iters bounces of the lane's path
 // from its stored state, with no raygen and no sample restart, then the
-// state back.  A dead lane returns at once: the per-thread form of the
-// reference's whole-tile early exit (after the coherence sort the dead
-// lanes fill whole warps at the back).  A lane's bounce counter stops at
-// its path's end (the reference's tile loop kept counting a dead lane's,
-// which nothing reads).
+// state back; returns the rays the lane traced.  A dead lane returns at
+// once: the per-thread form of the reference's whole-tile early exit
+// (after the coherence sort the dead lanes fill whole warps at the back).
+// A lane's bounce counter stops at its path's end (the reference's tile
+// loop kept counting a dead lane's, which nothing reads).
 template <class Isect>
-__device__ __forceinline__ void trace_segment(const SegParams& p, int lane,
-                                              const Isect& isect) {
+__device__ __forceinline__ int trace_segment(const SegParams& p, int lane,
+                                             const Isect& isect) {
   const size_t n = static_cast<size_t>(p.n_lanes);
   float* s = p.state + lane;
-  if (!(s[12 * n] > 0.0f)) return;
+  if (!(s[12 * n] > 0.0f)) return 0;
   Path q;
   q.ox = s[0];
   q.oy = s[n];
@@ -537,19 +539,31 @@ __device__ __forceinline__ void trace_segment(const SegParams& p, int lane,
   c[0] += counts.rays;
   c[n] += counts.supers;
   c[2 * n] += counts.clusters;
+  return counts.rays;
 }
 
-// A kernel body for either launch kind: the persistent loop, or a segment.
+// A kernel body for either launch kind: the persistent loop, or a
+// segment.  Every thread of the grid calls it, those past the last lane
+// too, so that a segment's warp can reduce over all 32 of its lanes.
 template <class Isect>
 __device__ __forceinline__ void trace(const LaneParams& p, int lane,
                                       const Isect& isect) {
-  trace_lane(p, lane, isect);
+  if (lane < p.n_lanes) trace_lane(p, lane, isect);
 }
 
+// A warp runs its loop until its last lane is done, so its loop trips in
+// this launch are the largest ray count among its lanes (the analog of
+// the reference's lockstep `niter`, for 32 lanes where a TPU tile held
+// 1024).  Lane 0 adds them to the warp's entry of counts row 3; the
+// entries are the warp's own, so no atomics.
 template <class Isect>
 __device__ __forceinline__ void trace(const SegParams& p, int lane,
                                       const Isect& isect) {
-  trace_segment(p, lane, isect);
+  const int rays = lane < p.n_lanes ? trace_segment(p, lane, isect) : 0;
+  const int trips = __reduce_max_sync(0xffffffffu, rays);
+  if ((lane & 31) == 0 && trips > 0) {
+    p.counts[3 * static_cast<size_t>(p.n_lanes) + (lane >> 5)] += trips;
+  }
 }
 
 // A ray with its precomputed inverse direction, for box tests.

@@ -243,7 +243,6 @@ dynculled_kernel(const P p, DynIntersect<kTris, kTex> isect,
                  const float* __restrict__ slab,
                  const float* __restrict__ tri_slab) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.n_lanes) return;
   isect.shx = __ldg(slab + 8);
   isect.shy = __ldg(slab + 9);
   isect.shz = __ldg(slab + 10);

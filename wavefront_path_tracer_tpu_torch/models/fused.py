@@ -57,6 +57,7 @@ from wavefront_path_tracer_tpu_torch.ops.dynculled_kernels import (
 )
 from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     LANES,
+    SEG_COUNTS,
     SEG_IDS,
     SEG_STATE,
     fused_render_persistent,
@@ -299,7 +300,9 @@ def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
     over ``baked`` or ``dyn`` when given, else over the (S, 16) table.
 
     Returns ((N, 3) radiance sum, rays traced) and, with ``with_stats``,
-    a dict {iterations, supers_entered, clusters_entered} of 0-d tensors.
+    a dict {iterations, supers_entered, clusters_entered} of 0-d tensors;
+    iterations are loop trips per warp of 32 lanes (the reference's
+    ``niter`` counts them per tile of tile_rows x 128 lanes).
     """
     device = scene_arrays["centers"].device
     num_pixels = pixel_idx.shape[0]
@@ -453,7 +456,9 @@ def render_pixels_recluster(pixel_idx, scene_arrays, cam, view, inv_proj,
 
     Returns ((N, 3) radiance sum, rays traced) and, with ``with_stats``,
     {iterations, supers_entered, clusters_entered}, like
-    :func:`render_pixels` (iterations: one per ray traced)."""
+    :func:`render_pixels`; iterations sums each launch's loop trips per
+    warp of 32 lanes (a TPU tile held 1024), so it also shows how full
+    the sort keeps the warps."""
     if baked is not None:
         tables, segment = baked, fused_segment_baked
     else:
@@ -483,7 +488,8 @@ def _recluster(segment, order, tables, pixel_idx, scene_arrays, cam, view,
     opts = {"rr_start": config.rr_start_bounce,
             "rr_floor": config.rr_floor, "clamp": config.clamp}
     acc = torch.zeros((n + 1, 3), dtype=torch.float32, device=device)
-    counts = torch.zeros((3, n_pad), dtype=torch.int32, device=device)
+    counts = torch.zeros((SEG_COUNTS, n_pad), dtype=torch.int32,
+                         device=device)
     for s in range(n_samples):
         ids, state = segment_state(pixel_idx, n_pad, config, frame,
                                    (int(sample_base) + s) & MASK32, cam,
@@ -499,9 +505,11 @@ def _recluster(segment, order, tables, pixel_idx, scene_arrays, cam, view,
         slot = ids[3].to(torch.int64)
         acc[slot] = acc[slot] + state[9:12].T
     acc = acc[:n]
-    rays, supers, clusters = counts.sum(dim=1, dtype=torch.int64)
+    rays, supers, clusters, iterations = counts.sum(dim=1,
+                                                    dtype=torch.int64)
     if with_stats:
-        return acc, rays, {"iterations": rays, "supers_entered": supers,
+        return acc, rays, {"iterations": iterations,
+                           "supers_entered": supers,
                            "clusters_entered": clusters}
     return acc, rays
 

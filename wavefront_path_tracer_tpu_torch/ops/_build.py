@@ -178,4 +178,26 @@ def load_library() -> ctypes.CDLL:
     fn = lib.wpt_dynculled_segment_launch
     fn.argtypes = [*dyn_tables, *seg_args]
     fn.restype = ctypes.c_int
+    # The probes (probes/): csrc/probe_pairs.cu, probe_tripair.cu and
+    # probe_stream.cu.
+    fn = lib.wpt_probe_pair_launch
+    fn.argtypes = [ptr, ptr, ptr, i32, i32,   # tab, tab4, rays, n, reps
+                   ptr, ptr]                  # out, stream
+    fn.restype = ctypes.c_int
+    fn = lib.wpt_probe_gated_launch
+    fn.argtypes = [ptr, ptr, ptr, i32, i32,   # tab, cond, rays, n, reps
+                   i32, i32, ptr, ptr]        # generic, gate, out, stream
+    fn.restype = ctypes.c_int
+    fn = lib.wpt_probe_tripair_launch
+    fn.argtypes = [ptr, ptr, i32, ptr, i32,   # tab, pk, n_tri, rays, n
+                   i32, i32, ptr, ptr]        # reps, form, out, stream
+    fn.restype = ctypes.c_int
+    fn = lib.wpt_probe_stream_grid
+    fn.argtypes = [i32, i32, ctypes.c_int64]  # async, chunk_f4, n_chunks
+    fn.restype = ctypes.c_int
+    fn = lib.wpt_probe_stream_launch
+    fn.argtypes = [ptr, ctypes.c_int64, i32,  # data, n_chunks, chunk_f4
+                   i32, i32, i32, i32,        # passes, fmas, async, grid
+                   ptr, ptr, ptr, ptr]        # part, xs, out, stream
+    fn.restype = ctypes.c_int
     return lib

@@ -41,6 +41,7 @@ from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     check_segment,
     persistent_reference,
     segment_reference,
+    warp_trips,
 )
 
 _ITEM_BLOCK = 64
@@ -454,8 +455,10 @@ def fused_render_baked(
 
     Returns (rad_r, rad_g, rad_b, stats): radiance sums as (R, 128)
     float32 planes in lane order, and an int64 tensor [rays, iterations,
-    supers entered, clusters entered].  ``iterations`` counts one per
-    ray traced.  The cull counters count per-ray entries (a ray entering
+    supers entered, clusters entered].  ``iterations`` counts loop trips
+    per warp (``ops/fused_kernels.py`` :func:`warp_trips`: a warp of 32
+    lanes where the TPU kernel's lockstep tile held 1024).  The cull
+    counters count per-ray entries (a ray entering
     a cluster adds one, and so does a winner-hint prepass), not the TPU
     kernel's per-tile consensus entries; they are zero for an unculled
     bake.
@@ -501,7 +504,8 @@ def fused_render_baked(
         raise RuntimeError(f"baked kernel launch failed: CUDA error {rc}")
     LAUNCHES["culled" if baked.culled else "unculled"] += 1
     rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
-    return rad_r, rad_g, rad_b, torch.stack([rays, rays, supers, clusters])
+    return rad_r, rad_g, rad_b, torch.stack([rays, warp_trips(counts[0]),
+                                             supers, clusters])
 
 
 def fused_segment_baked_reference(baked: BakedScene, salts, ids, state,
@@ -535,8 +539,9 @@ def fused_segment_baked(baked: BakedScene, salts, ids, state, counts, *,
     ``fused_segment_baked``): at most ``k_iters`` bounces of every live
     lane, from and back into ``state`` (SEG_STATE, N) float32 and ``ids``
     (SEG_IDS, N) int32 (``ops/fused_kernels.py``), updated in place;
-    ``counts`` (3, N) int32 gains each lane's rays, supers and clusters
-    entered.  ``salts`` are [frame, max_bounces, k_iters, 0].  Returns
+    ``counts`` (SEG_COUNTS, N) int32 gains each lane's rays, supers and
+    clusters entered, and each warp's loop trips in the launch
+    (``ops/fused_kernels.py`` :func:`segment_reference`).  ``salts`` are [frame, max_bounces, k_iters, 0].  Returns
     (ids, state, counts).  A bake with the winner hint is refused: the
     reference's ``RenderConfig`` keeps recluster and the hint apart.
 

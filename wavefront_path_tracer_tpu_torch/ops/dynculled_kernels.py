@@ -61,6 +61,7 @@ from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     check_segment,
     persistent_reference,
     segment_reference,
+    warp_trips,
 )
 
 # Clusters per cond batch of the flat sweep (the reference's refresh).
@@ -285,8 +286,10 @@ def fused_render_dynculled(
 
     Returns (rad_r, rad_g, rad_b, stats): radiance sums as (R, 128)
     float32 planes in lane order, and an int64 tensor [rays, iterations,
-    supers entered, clusters entered], counted per ray (one iteration
-    per ray traced; a ray entering a cluster adds one).
+    supers entered, clusters entered]: ``iterations`` counts loop trips
+    per warp (``ops/fused_kernels.py`` :func:`warp_trips`: a warp of 32
+    lanes where the TPU kernel's lockstep tile held 1024), and a ray
+    entering a cluster adds one.
 
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/dynculled.cu`` on the current stream; any other device raises.
@@ -329,7 +332,8 @@ def fused_render_dynculled(
         raise RuntimeError(f"dynculled kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
-    return rad_r, rad_g, rad_b, torch.stack([rays, rays, supers, clusters])
+    return rad_r, rad_g, rad_b, torch.stack([rays, warp_trips(counts[0]),
+                                             supers, clusters])
 
 
 def fused_segment_dynculled_reference(tab: DynTables, salts, ids, state,
@@ -356,9 +360,11 @@ def fused_segment_dynculled(tab: DynTables, salts, ids, state, counts, *,
     reference's ``fused_segment_dynculled``): at most ``k_iters`` bounces
     of every live lane, from and back into ``state`` (SEG_STATE, N)
     float32 and ``ids`` (SEG_IDS, N) int32 (``ops/fused_kernels.py``),
-    updated in place; ``counts`` (3, N) int32 gains each lane's rays,
-    supers and clusters entered.  ``salts`` are [frame, max_bounces,
-    k_iters, 0].  Returns (ids, state, counts).
+    updated in place; ``counts`` (SEG_COUNTS, N) int32 gains each lane's
+    rays, supers and clusters entered, and each warp's loop trips in the
+    launch (``ops/fused_kernels.py`` :func:`segment_reference`).
+    ``salts`` are [frame, max_bounces, k_iters, 0].  Returns (ids, state,
+    counts).
 
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/dynculled.cu``'s segment kernel on the current stream; any

@@ -43,6 +43,29 @@ _LANE_CHUNK = 131072   # lanes per pass of the plain version (bounds memory)
 # Kernel launches by fused_render_persistent on a CUDA tensor.
 LAUNCHES = 0
 
+# Lanes of a warp, in lane order.  A warp runs its loop until its last
+# lane is done, so the ``iterations`` counter counts each warp's largest
+# ray count: the reference's lockstep loop trips (``niter``), for a warp
+# of 32 lanes where a TPU tile held tile_rows x 128 = 1024.
+WARP = 32
+
+
+def warp_max(lane_rays: torch.Tensor) -> torch.Tensor:
+    """Each warp's loop trips from a plane of per-lane ray counts in
+    lane order: the largest count of each group of :data:`WARP` lanes
+    (the last group padded with zeros), in the plane's dtype."""
+    flat = lane_rays.reshape(-1)
+    pad = -flat.numel() % WARP
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.reshape(-1, WARP).amax(dim=1)
+
+
+def warp_trips(lane_rays: torch.Tensor) -> torch.Tensor:
+    """The warps' loop trips summed (a 0-d int64 tensor): the
+    ``iterations`` counter of a persistent launch."""
+    return warp_max(lane_rays.to(torch.int64)).sum()
+
 
 def pack_scene(scene_arrays, pad_to: int = 8, device="cpu") -> torch.Tensor:
     """Scene SoA tables -> one (S, 16) float32 table on ``device``.
@@ -289,8 +312,9 @@ def persistent_reference(
     (pixel, sample, bounce) stream, formula and rounding is the CUDA
     kernels' (``csrc/common.cuh``), and each lane sums its samples in the
     same order, so on the card the two agree bit for bit.  Returns
-    (rad_r, rad_g, rad_b, stats) with stats = [rays, rays, supers,
-    clusters] as int64.
+    (rad_r, rad_g, rad_b, stats) with stats = [rays, iterations, supers,
+    clusters] as int64, iterations by :func:`warp_trips` of each lane's
+    rays.
     """
     frame, sample_base, max_bounces, n_samples = _salts(salts)
     shape = pix.shape
@@ -302,6 +326,7 @@ def persistent_reference(
     n_lanes = pix_f.shape[0]
     acc = torch.zeros((n_lanes, 3), dtype=torch.float32, device=device)
     counts = torch.zeros(3, dtype=torch.int64, device=device)
+    lane_rays = torch.zeros(n_lanes, dtype=torch.int64, device=device)
     hints = torch.full((n_lanes,), -1, dtype=torch.int64, device=device)
 
     for lo in range(0, n_lanes, _LANE_CHUNK):
@@ -318,6 +343,7 @@ def persistent_reference(
             bounce = 0
             while live.numel():
                 counts[0] += live.numel()
+                lane_rays.index_add_(0, live, torch.ones_like(live))
                 if hinted:
                     *fields, hint, supers, clusters = intersect(
                         ox, oy, oz, dx, dy, dz, hints[live])
@@ -382,16 +408,20 @@ def persistent_reference(
                     break
 
     rad = acc.reshape(*shape, 3)
-    stats = torch.stack([counts[0], counts[0], counts[1], counts[2]])
+    stats = torch.stack([counts[0], warp_trips(lane_rays), counts[1],
+                         counts[2]])
     return rad[..., 0], rad[..., 1], rad[..., 2], stats
 
 
 # The state of the segment path (the reference's _SEG_STATE planes, with
 # the bounce counter moved to the integer planes): SEG_STATE float32 rows
 # of o xyz, d xyz, throughput rgb, radiance rgb, alive, and SEG_IDS int32
-# rows of pix, sample, bounce, slot (32-bit words).
+# rows of pix, sample, bounce, slot (32-bit words).  SEG_COUNTS int32
+# rows of rays, supers and clusters entered per lane, and the loop trips
+# of warp w (lanes w * WARP to w * WARP + WARP - 1) at entry w of row 3.
 SEG_STATE = 13
 SEG_IDS = 4
+SEG_COUNTS = 4
 
 
 def segment_reference(intersect, salts, ids, state, counts, *,
@@ -401,7 +431,9 @@ def segment_reference(intersect, salts, ids, state, counts, *,
     any nearest-hit function: at most ``k_iters`` bounces of every live
     lane's path, from the state ``state`` (SEG_STATE, N) float32 and
     ``ids`` (SEG_IDS, N) int32, which it updates in place; ``counts``
-    (3, N) int32 gains each lane's rays, supers and clusters entered.
+    (SEG_COUNTS, N) int32 gains each lane's rays, supers and clusters
+    entered, and each warp's loop trips in this launch (the largest of
+    its lanes' rays in this launch) at the warp's entry of row 3.
 
     ``salts`` are [frame, max_bounces, k_iters, 0].  ``intersect`` and
     ``images`` are as for :func:`persistent_reference` (no winner hint).
@@ -419,10 +451,12 @@ def segment_reference(intersect, salts, ids, state, counts, *,
     ox, oy, oz, dx, dy, dz = (state[k, live] for k in range(6))
     thr = state[6:9, live].T
     base = jenkins_hash(p ^ jenkins_hash(as_u32(frame)))
+    launch_rays = torch.zeros_like(counts[0])
     for _ in range(k_iters):
         if not live.numel():
             break
         counts[0, live] += 1
+        launch_rays[live] += 1
         *fields, supers, clusters = intersect(ox, oy, oz, dx, dy, dz)
         (best_t, b_cx, b_cy, b_cz, b_inv_r, b_ar, b_ag, b_ab,
          b_fuzz, b_ior, b_mt) = fields[:11]
@@ -480,6 +514,8 @@ def segment_reference(intersect, salts, ids, state, counts, *,
         live, p, sample, bounce, base, thr = map(
             sel, (live, p, sample, bounce, base, thr))
         ox, oy, oz, dx, dy, dz = map(sel, (ox, oy, oz, dx, dy, dz))
+    trips = warp_max(launch_rays)
+    counts[3, :trips.shape[0]] += trips
     return ids, state, counts
 
 
@@ -489,7 +525,8 @@ def check_segment(ids, state, counts, tables):
     n = state.shape[-1]
     for name, t, rows, dtype in (("state", state, SEG_STATE, torch.float32),
                                  ("ids", ids, SEG_IDS, torch.int32),
-                                 ("counts", counts, 3, torch.int32)):
+                                 ("counts", counts, SEG_COUNTS,
+                                  torch.int32)):
         if (t.shape != (rows, n) or t.dtype != dtype
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous ({rows}, {n}) "
@@ -574,10 +611,10 @@ def fused_render_persistent(
 
     Returns (rad_r, rad_g, rad_b, stats): radiance sums over the lane's
     samples as (R, 128) float32 planes in lane order, and an int64
-    tensor [rays, iterations, 0, 0].  ``iterations`` counts per-lane
-    loop iterations (one per ray traced), not the TPU kernel's lockstep
-    tile iterations; the last two slots are the cull counters, zero
-    without culling.
+    tensor [rays, iterations, 0, 0].  ``iterations`` counts loop trips
+    per warp (:func:`warp_trips` of each lane's rays: a warp of 32 lanes
+    where the TPU kernel's lockstep tile held 1024); the last two slots
+    are the cull counters, zero without culling.
 
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/persistent.cu`` on the current stream; any other device
@@ -624,4 +661,5 @@ def fused_render_persistent(
     LAUNCHES += 1
     total = rays.sum(dtype=torch.int64)
     zero = torch.zeros_like(total)
-    return rad_r, rad_g, rad_b, torch.stack([total, total, zero, zero])
+    return rad_r, rad_g, rad_b, torch.stack([total, warp_trips(rays), zero,
+                                             zero])

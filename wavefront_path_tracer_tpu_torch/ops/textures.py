@@ -23,8 +23,9 @@ that saw the sphere; here the LUT is a device table of int32 words,
 words, 8 KB, held by L1).  It is the same function with the same
 values.  The reference identifies the image sphere by exact equality of
 the winner's centre and 1/r with the LUT's; the port reads the winner's
-own slot.  The two agree unless two spheres share centre and signed
-radius.
+slot, which :func:`image_luts` gives every sphere by that same rule, so
+a sphere that shares its centre and signed radius with an image sphere
+takes its texture too.
 """
 
 from __future__ import annotations
@@ -115,15 +116,22 @@ class ImageLuts:
 
 def image_luts(scene_arrays, lut_max: int) -> tuple[ImageLuts, np.ndarray]:
     """(:class:`ImageLuts` on the CPU, per-sphere slot: int32, -1 for a
-    sphere without an image texture) of a scene."""
-    n = np.asarray(scene_arrays["centers"]).shape[0]
-    slot = np.full(n, -1, np.int32)
-    luts = bake_image_luts(scene_arrays, np.asarray(scene_arrays["centers"]),
-                           lut_max=lut_max)
+    sphere that takes no image texture) of a scene.  A sphere's slot is
+    that of the last image sphere whose float32 centre and 1/r (rounded
+    once from float64) equal its own: the reference's winner identity
+    (``_apply_image_textures``, pallas_kernels.py:322-325, where a later
+    LUT overwrites an earlier one)."""
+    centers = np.asarray(scene_arrays["centers"])
+    slot = np.full(centers.shape[0], -1, np.int32)
+    luts = bake_image_luts(scene_arrays, centers, lut_max=lut_max)
     if not luts:
         return ImageLuts.empty(), slot
-    slot[np.nonzero(np.asarray(scene_arrays["tex_kind"]) == 2)[0]] = \
-        np.arange(len(luts))
+    c32 = centers.astype(np.float32)
+    inv_r = (1.0 / np.asarray(scene_arrays["radii"]).astype(np.float64)
+             ).astype(np.float32)
+    images = np.nonzero(np.asarray(scene_arrays["tex_kind"]) == 2)[0]
+    for k, i in enumerate(images):
+        slot[(c32 == c32[i]).all(axis=1) & (inv_r == inv_r[i])] = k
     h, w = luts[0][4].shape[:2]
     centres = np.array([lut[:4] for lut in luts], np.float32)
     words = np.stack([pack_lut(lut[4]) for lut in luts])
