@@ -45,7 +45,9 @@ Phases (all by default, in this order), each of which raises on failure
    ``--scene mesh_terrain --intersector auto`` (5,003 primitives:
    dynamic culled in clusters of 32); and terrain through the dynamic,
    baked culled and baked unculled kernels, pairwise equal by the
-   statistical rule;
+   statistical rule; then the rays of a terrain frame at 800x448@1spp
+   (the dynamic culled plain version) that are parallel to an axis and
+   start on a face plane of one of its boxes, counted;
 8. mesh full size (``meshfull``): the mesh kernels checked bit for bit at
    the mesh rows' planes (800x448, 1 spp): dynamic culled on terrain and
    on the knot, baked culled/16 and unculled on terrain, with kernel and
@@ -94,18 +96,25 @@ Phases (all by default, in this order), each of which raises on failure
    ``Renderer`` with frame time, device time split, device kernels and
    copies and busy share under torch.profiler, recluster 2 against 0 by
    the statistical rule; and the golden gate at recluster 2;
-13. probes (``probes``): the four probe kernels of ``probes/`` against
-   their plain versions on the card (the pair ceiling's C6 and A2, the
-   gated sweeps' W8 and C8 patterns under per-thread, warp-vote and
-   worklist gating, the four triangle-pair forms, bit for bit at 2 reps;
-   the stream's plain and cp.async kernels at 8-64 KB chunks within the
-   float32 summation bound of the float64 sums), one timed full-width
-   call of each beside its plain version and bound (torch.sum beside the
-   stream), the SASS instructions a pair of the ceiling's kernels, and
-   each probe's command line at its defaults with the launch counts read
-   alone; a reading above the card's spec fails.  After it, each culled
-   and mesh kernel's time beside the time of its pairs at the measured
-   ceiling.
+13. probes (``probes``): the probe kernels of ``probes/`` against their
+   plain versions on the card (the pair ceiling's C6 and A2, the gated
+   sweeps' W8 and C8 patterns under per-thread, warp-vote and worklist
+   gating, the four triangle-pair forms, and run_pairs's 21 other
+   designs in each of their forms (table place, lanes a ray) over the
+   full-width rays, copy 0 against the 1024 rays alone, bit for bit at 2
+   reps; bf16_issue's seven chain forms bit for bit (the fused ones
+   rounding each multiply-add once); matmul_bench's seven rows within
+   their stated bound, every cluster copy equal; the stream's plain and
+   cp.async kernels at 8-64 KB chunks within the float32 summation
+   bound of the float64 sums), one timed full-width call of each
+   kernels-line entry beside its plain version and bound (torch.sum
+   beside the stream, the torch.matmul loop beside the matmul row), the
+   SASS instructions a pair of the ceiling's kernels, and each probe's
+   command line (micro_r2 with every design's name, and micro_slope, at
+   reduced rep points) with the launch counts set to 0 just before it
+   and read just after; a reading above the card's spec fails.  After
+   it, each culled and mesh kernel's time beside the time of its pairs
+   at the measured ceiling.
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -123,6 +132,12 @@ import time
 
 import numpy as np
 import torch
+
+# The bound's inputs: the card's published peaks, kept with the probes'
+# spec check.
+from wavefront_path_tracer_tpu_torch.probes._slope import (PEAK_BYTES,
+                                                           PEAK_FP32,
+                                                           PEAK_TF32)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -173,9 +188,6 @@ KERNEL_NAMES = ("persistent_kernel", "baked_culled_kernel",
                 "baked_unculled_kernel", "dynculled_kernel")
 MESH_SIZE = (800, 448)
 
-# The bound's inputs: H100 SXM peak rates at 700 W.
-PEAK_FP32 = 67e12          # FLOP/s, FP32 outside the tensor cores
-PEAK_BYTES = 3.35e12       # B/s, HBM3
 # FP32 operations counted from the sources (adds, multiplies, divides,
 # square roots, min/max; compares and selects not counted):
 FLOPS_PAIR = {
@@ -281,6 +293,7 @@ class Case:
             cc.gpu_camera(), cc.view_matrix(),
             cc.inverse_projection(width, height), cfg)).to(device)
         salts = (0, 0, 50, spp // split)
+        self.salts, self.cam = salts, cam
         eye = fused._concrete_eye(cc.view_matrix())
         if kind == "persistent":
             table = arrays["scene_packed"]
@@ -792,7 +805,52 @@ def phase_mesh_rows(device, smi: str) -> dict:
     for rep in out.values():
         rep.pop("image", None)
     out["agreement"] = agreement
+    out["face_rays"] = _face_rays(device, smi)
     return out
+
+
+def _face_rays(device, smi: str) -> dict:
+    """The rays of a terrain frame (800x448@1spp, 50 bounces, the dynamic
+    culled plain version on the card, clusters of 16) that are parallel
+    to an axis and start on a face plane of a box of the scene's tables:
+    their slab terms are NaN, and box_enters enters them."""
+    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
+    from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
+    from wavefront_path_tracer_tpu_torch.ops.baked_kernels import on_face
+
+    terrain, tris, cc = _terrain()
+    case = Case("dynculled", 16, terrain, cc, *MESH_SIZE, 1, 1, {}, device,
+                triangles=tris)
+    tab = case.tab
+    boxes = torch.cat([
+        tab.boxes[:tab.n_clusters, :6], tab.super_boxes[:tab.n_supers, :6],
+        tab.slab[0:1, :6], tab.tri_boxes[:tab.n_tri_clusters, :6],
+        tab.tri_super_boxes[:tab.n_tri_supers, :6], tab.tri_slab[0:1, :6]])
+    counts = {"rays": 0, "axis_parallel": 0, "on_face": 0}
+
+    def intersect(ox, oy, oz, dx, dy, dz):
+        inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
+        par = torch.isinf(inv[0]) | torch.isinf(inv[1]) | torch.isinf(inv[2])
+        counts["rays"] += ox.numel()
+        idx = torch.nonzero(par)[:, 0]
+        counts["axis_parallel"] += idx.numel()
+        if idx.numel():
+            face = on_face(boxes[:, 0:3], boxes[:, 3:6], ox[idx], oy[idx],
+                           oz[idx], inv[0][idx], inv[1][idx], inv[2][idx])
+            counts["on_face"] += int(face.any(dim=1).sum())
+        return dk.dynculled_intersect_reference(tab, ox, oy, oz, dx, dy, dz)
+
+    t0 = time.perf_counter()
+    fk.persistent_reference(intersect, case.salts, case.cam, *case.planes)
+    torch.cuda.synchronize()
+    counts["seconds"] = time.perf_counter() - t0
+    counts["boxes"] = boxes.shape[0]
+    log(f"[face-rays] terrain {MESH_SIZE[0]}x{MESH_SIZE[1]}@1spp, 50 "
+        f"bounces, dynamic culled/16 plain version: {counts['rays']} "
+        f"rays, {counts['axis_parallel']} with a zero direction component, "
+        f"{counts['on_face']} of them starting on a face plane of one of "
+        f"{counts['boxes']} boxes [{smi}]")
+    return counts
 
 
 def phase_mesh_full_size(device, smi: str) -> dict:
@@ -1634,24 +1692,60 @@ PROBE_KERNELS = {
     "gated": {"name": "run_gated C8 pattern, per-thread gating",
               "source": SOURCE + "probe_pairs.cu",
               "replaces": "exp/micro_r2.py:1106"},
+    # Queue 2 items 8 (its C45/C7 part), 9, 11 and 12.
+    "micro_slope": {"name": "micro_slope C45 (device table through L1, "
+                            "ten attribute selects)",
+                    "source": SOURCE + "probe_designs.cu",
+                    "replaces": "exp/micro_slope.py:56"},
+    "bf16_issue": {"name": "bf16_issue f32 chains (FMUL then FADD)",
+                   "source": SOURCE + "probe_issue.cu",
+                   "replaces": "exp/bf16_issue.py:66"},
+    "run_pairs": {"name": "run_pairs A (constant bank, ten attribute "
+                          "selects)",
+                  "source": SOURCE + "probe_designs.cu",
+                  "replaces": "exp/micro_r2.py:273"},
+    "matmul": {"name": "matmul_bench (256,128)x(128,256) DEFAULT (TF32 "
+                       "mma.sync, cluster-shared acc)",
+               "source": SOURCE + "probe_mma.cu",
+               "replaces": "exp/micro_r2.py:301"},
 }
 PROBE_REPS = 4             # reps of a probe kernel's timed call
 PROBE_PASSES = 1           # passes of the stream's timed call
+PROBE_PRODUCTS = 64        # products of a matmul row's timed call
+# The reference's names that run every run_pairs design (micro_r2.NAMES).
+RUN_PAIRS_NAMES = ("A", "B", "C", "C2", "C3", "Q", "Q2", "Q4", "Q8", "W",
+                   "W5", "W6", "W7", "C4", "C5", "C45", "C6", "C7", "A2")
+# The design command line's rep points here (its default is 50 -> 350;
+# the slope widens a window under 20 ms itself, and the constant bank's
+# 8-lane forms take 8 ms a rep).
+DESIGN_REPS = ("--reps-lo", "2", "--reps-hi", "14")
+# micro_slope's, in the reference's 1:9 ratio (its default 2000 -> 18000
+# takes minutes at full width).
+SLOPE_REPS = ("--reps-lo", "2", "--reps-hi", "18")
 
 
 def _probe_modules():
-    from wavefront_path_tracer_tpu_torch.probes import hbm_bw, micro_r2
+    from wavefront_path_tracer_tpu_torch.probes import bf16_issue, hbm_bw
+    from wavefront_path_tracer_tpu_torch.probes import matmul_r2, micro_r2
     from wavefront_path_tracer_tpu_torch.probes import pair_ceiling, tripair
+    from wavefront_path_tracer_tpu_torch.probes import run_pairs
 
-    return pair_ceiling, tripair, hbm_bw, micro_r2
+    return (pair_ceiling, tripair, hbm_bw, micro_r2, run_pairs, bf16_issue,
+            matmul_r2)
 
 
 def _probe_launch_counts() -> dict:
-    pc, tp, hb, m = _probe_modules()
+    pc, tp, hb, m, rp, bi, mr = _probe_modules()
+    slope = sum(v for (d, _p, _n), v in rp.LAUNCHES.items()
+                if d in ("C45", "C7"))
     return {"pair_ceiling": sum(pc.LAUNCHES.values()),
             "tripair": sum(tp.LAUNCHES.values()),
             "hbm_bw": sum(hb.LAUNCHES.values()),
-            "gated": sum(m.LAUNCHES.values())}
+            "gated": sum(m.LAUNCHES.values()),
+            "micro_slope": slope,
+            "bf16_issue": sum(bi.LAUNCHES.values()),
+            "run_pairs": sum(rp.LAUNCHES.values()),
+            "matmul": sum(mr.LAUNCHES.values())}
 
 
 def _reset_probe_launches() -> None:
@@ -1660,16 +1754,24 @@ def _reset_probe_launches() -> None:
             module.LAUNCHES[key] = 0
 
 
-def _same_bits(label: str, k, p) -> float:
+def _counted(run) -> tuple:
+    """(``run()``'s readings, the probe launch counts it made alone)."""
+    _reset_probe_launches()
+    readings = run()
+    return readings, _probe_launch_counts()
+
+
+def _same_bits(label: str, k, p, hits: bool = True) -> float:
     """Raise unless the kernel's output ``k`` is the plain version's
-    ``p`` bit for bit; the largest absolute difference (0.0)."""
+    ``p`` bit for bit (and, with ``hits``, some ray hit); the largest
+    absolute difference (0.0)."""
     same = torch.equal(k.view(torch.int32), p.view(torch.int32))
     err = float((k.double() - p.double()).abs().max())
     log(f"[probe-vs-plain] {label}: bit-identical {same}, max abs err "
         f"{err!r}, {int((k < 1e29).sum())} of {k.numel()} rays hit")
     if not same:
         raise AssertionError(f"{label}: kernel and plain version differ")
-    if not bool((k < 1e29).any()):
+    if hits and not bool((k < 1e29).any()):
         raise AssertionError(f"{label}: no ray hit anything")
     return err
 
@@ -1722,11 +1824,126 @@ def _probe_timed(label, kernel, plain, bound) -> dict:
     return rep
 
 
-def _bound(ops: float, n_bytes: float, bits: bool = True) -> dict:
-    t_ops, t_bytes = ops / PEAK_FP32, n_bytes / PEAK_BYTES
+def _bound(ops: float, n_bytes: float, bits: bool = True,
+           peak: float = PEAK_FP32) -> dict:
+    t_ops, t_bytes = ops / peak, n_bytes / PEAK_BYTES
     return {"ops": ops, "bytes": n_bytes, "bits": bits,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _bits(t):
+    """``t`` as integers of its width, for bit-for-bit comparisons."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
+    return t
+
+
+def _check_new_probes(device, rays1, rays, errs: dict) -> None:
+    """Queue 2 items 8 (C45/C7), 9, 11 and 12 against their plain versions
+    on the card: every run_pairs design in each of its forms bit for bit
+    over the full-width rays at 2 reps, and its output over the
+    reference's 1024 rays alone equal to copy 0; bf16_issue's chains over
+    the full copies at 2 reps bit for bit (the fused forms against their
+    own plain version, one rounding a multiply-add), the (256, 128) block
+    alone equal to copy 0; matmul_bench's rows at 8
+    products, every cluster copy equal and within the stated bound of the
+    plain version.  ``errs`` takes each kernel's largest difference."""
+    _pc, _tp, _hb, _m, rp, bi, mr = _probe_modules()
+    for design in rp.DESIGNS:
+        if design in ("C6", "A2"):           # the pair ceiling's kernels
+            continue
+        tab = rp.table_for(design, device)
+        plain = rp.design_reference(tab, rays, 2, design)
+        key = "micro_slope" if design in ("C45", "C7") else "run_pairs"
+        for place, lanes in rp.forms(design):
+            label = (f"run_pairs {design} {place} {lanes} lane(s) "
+                     f"{rays.shape[1]} rays 2 reps")
+            k = rp.design_sweep(tab, rays, 2, design, place, lanes)
+            errs[key] = max(errs[key], _same_bits(label, k, plain,
+                                                  hits=design != "W2"))
+            one = rp.design_sweep(tab, rays1, 2, design, place, lanes)
+            if not torch.equal(_bits(one), _bits(k[:rays1.shape[1]])):
+                raise AssertionError(f"{label}: copy 0 differs from the "
+                                     f"1024 rays alone")
+    for form in bi.FORMS:
+        x = bi.make_x(form, bi.COPIES[form], device)
+        k = bi.chains(x, 2, form)
+        p = bi.chains_reference(x, 2, form)
+        ok = torch.equal(_bits(k), _bits(p))
+        one = bi.chains(bi.make_x(form, 1, device), 2, form)
+        ok = ok and torch.equal(_bits(one), _bits(k[:bi.ROWS]))
+        err = float((k.double() - p.double()).abs().max())
+        note = ""
+        if form in bi.FUSED:
+            unfused = bi.chains_reference(x, 2, form.replace("_fma", ""))
+            apart = float((k.double() - unfused.double()).abs().max())
+            note = (f"; another rounding than the unfused chains, max abs "
+                    f"diff {apart!r}")
+        log(f"[probe-vs-plain] bf16_issue {form} {x.numel()} elements 2 "
+            f"reps: bits {ok}, max abs err {err!r}{note}")
+        if not ok:
+            raise AssertionError(f"bf16_issue {form}: kernel and plain "
+                                 f"version differ")
+        errs["bf16_issue"] = max(errs["bf16_issue"], err)
+    for row, (a, b) in enumerate(mr.inputs(device)):
+        k = mr.matmul(a, b, 8, row)
+        p = mr.matmul_reference(a, b, 8, row)
+        diff = (k[0] - p).abs()
+        bound = mr.tolerance(a, b, 8, row, p)
+        ok = bool((diff <= bound).all()) and bool((k == k[:1]).all())
+        log(f"[probe-vs-plain] matmul {mr.ROWS[row][0]} 8 products, "
+            f"{k.shape[0]} cluster copies: within the bound {ok}, max abs "
+            f"err {float(diff.max())!r} (largest bound "
+            f"{float(bound.max())!r})")
+        if not ok:
+            raise AssertionError(f"matmul row {row}: kernel and plain "
+                                 f"version differ beyond the bound")
+        errs["matmul"] = max(errs["matmul"], float(diff.max()))
+
+
+ISSUE_REPS = 400           # reps of bf16_issue's timed call
+
+
+def _time_new_probes(device, rays, ray_bytes: int) -> dict:
+    """The kernels line's calls of items 8, 9, 11 and 12 at full width,
+    beside their plain versions and bounds (torch.matmul's loop beside
+    the matmul row)."""
+    _pc, _tp, _hb, m, rp, bi, mr = _probe_modules()
+    n = rays.shape[1]
+    timed = {}
+    for key, design in (("run_pairs", "A"), ("micro_slope", "C45")):
+        tab = rp.table_for(design, device)
+        ops = (m.S * n * PROBE_REPS * rp.flops_pair(design)
+               + n * PROBE_REPS * 4)       # dxm and the three adds a rep
+        timed[key] = _probe_timed(
+            f"run_pairs {design}",
+            lambda tab=tab, d=design: rp.design_sweep(tab, rays,
+                                                      PROBE_REPS, d),
+            lambda tab=tab, d=design: rp.design_reference(tab, rays,
+                                                          PROBE_REPS, d),
+            _bound(ops, tab.numel() * 4 + ray_bytes))
+    x = bi.make_x("f32", bi.COPIES["f32"], device)
+    timed["bf16_issue"] = _probe_timed(
+        "bf16_issue f32", lambda: bi.chains(x, ISSUE_REPS, "f32"),
+        lambda: bi.chains_reference(x, ISSUE_REPS, "f32"),
+        _bound(bi.CHAIN * 2 * x.numel() * ISSUE_REPS, 2 * x.nbytes))
+    row = 4
+    a, b = mr.inputs(device)[row]
+    _name, (mm, kk, nn), _prec = mr.ROWS[row]
+    copies = mr.copies(row)
+    timed["matmul"] = _probe_timed(
+        f"matmul {mr.ROWS[row][0]} {PROBE_PRODUCTS} products",
+        lambda: mr.matmul(a, b, PROBE_PRODUCTS, row),
+        lambda: mr.matmul_reference(a, b, PROBE_PRODUCTS, row),
+        _bound(2 * mm * kk * nn * PROBE_PRODUCTS * copies,
+               a.nbytes + b.nbytes + copies * mm * nn * 4, bits=False,
+               peak=PEAK_TF32))
+    timed["matmul"]["library_ms"], _ = _time_ms(
+        lambda: mr.library_loop(a, b, PROBE_PRODUCTS, row), 5)
+    return timed
 
 
 def phase_probes(device, smi: str) -> dict:
@@ -1745,7 +1962,7 @@ def phase_probes(device, smi: str) -> dict:
     TB/s) fails the phase."""
     from wavefront_path_tracer_tpu_torch.probes import _slope
 
-    pc, tp, hb, m = _probe_modules()
+    pc, tp, hb, m, rp, bi, mr = _probe_modules()
     card = _slope.card()
     tab = torch.from_numpy(m.PACKED_SM).to(device)
     rays1 = m.ray_planes(device)
@@ -1787,9 +2004,10 @@ def phase_probes(device, smi: str) -> dict:
             if not err <= bound:
                 raise AssertionError(f"hbm_bw {kind} {chunk_kb} KB: error "
                                      f"{err} above the bound {bound}")
+    rays = m.ray_planes(device, m.RAY_COPIES)
+    _check_new_probes(device, rays1, rays, errs)
 
     # The kernels line's calls: full width, PROBE_REPS reps.
-    rays = m.ray_planes(device, m.RAY_COPIES)
     n = rays.shape[1]
     ray_bytes = rays.numel() * 4 + n * 4
     timed = {}
@@ -1824,6 +2042,7 @@ def phase_probes(device, smi: str) -> dict:
     view = data.reshape(-1, 8, 128)
     timed["hbm_bw"]["library_ms"], _ = _time_ms(
         lambda: torch.sum(view, dim=0), 5)
+    timed.update(_time_new_probes(device, rays, ray_bytes))
     for key, rep in timed.items():
         log(f"[probe-timing] {rep['case']}: kernel {rep['kernel_ms']!r} ms, "
             f"plain {rep['plain_ms']!r} ms, bound {rep['bound_ms']!r} ms "
@@ -1831,17 +2050,36 @@ def phase_probes(device, smi: str) -> dict:
             f"{rep.get('library_ms')!r} ms [{smi}]")
     sass = _sass_per_pair(smi)
 
-    # The probes' command lines at their defaults: the main path.
-    _reset_probe_launches()
-    readings = {"pair_ceiling": pc.run([]), "tripair": tp.run([]),
-                "hbm_bw": hb.run([]), "gated": m.run([])}
-    launches = _probe_launch_counts()
-    log(f"[probe-launches] the probes' runs at their defaults: "
+    # The probes' command lines: the main path, each with the launch
+    # counts set to 0 just before it and read just after it.
+    from wavefront_path_tracer_tpu_torch.probes import micro_slope
+
+    runs = {"pair_ceiling": lambda: pc.run([]),
+            "tripair": lambda: tp.run([]), "hbm_bw": lambda: hb.run([]),
+            "gated": lambda: m.run(["C8", "C9"]),
+            "run_pairs": lambda: m.run([*RUN_PAIRS_NAMES, *DESIGN_REPS]),
+            "micro_slope": lambda: micro_slope.run(list(SLOPE_REPS)),
+            "bf16_issue": lambda: bi.run([]), "matmul": lambda: mr.run([])}
+    readings, launches = {}, {}
+    for key, run in runs.items():
+        readings[key], counts = _counted(run)
+        launches[key] = counts[key]
+    log(f"[probe-launches] each probe's command line alone: "
         f"{json.dumps(launches)}")
     for key, count in launches.items():
         if not count > 0:
             raise AssertionError(f"{key}: its kernel was not launched")
     impossible = []
+    for r in readings["run_pairs"] + readings["micro_slope"]:
+        if r["fp32_rate"] > PEAK_FP32:
+            impossible.append(f"run_pairs {r.get('design', r.get('pattern'))}"
+                              f" {r.get('place', r.get('gating'))}")
+    for r in readings["bf16_issue"]:
+        if r["gops"] > r["peak_gops"]:
+            impossible.append(f"bf16_issue {r['form']}")
+    for r in readings["matmul"]:
+        if max(r["tflops"], r["library_tflops"]) > r["peak_tflops"]:
+            impossible.append(f"matmul {r['name']}")
     for r in readings["pair_ceiling"]:
         if r["fp32_rate"] > PEAK_FP32:
             impossible.append(f"pair_ceiling {r['variant']}")

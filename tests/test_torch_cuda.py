@@ -16,6 +16,7 @@ from wavefront_path_tracer_tpu_torch.ops import bake
 from wavefront_path_tracer_tpu_torch.ops import baked_kernels as tbk
 from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as tdk
 from wavefront_path_tracer_tpu_torch.ops import fused_kernels as tfk
+from wavefront_path_tracer_tpu_torch.probes import run_pairs as trp
 from wavefront_path_tracer_tpu_torch.renderer import prepare_scene, render
 from wavefront_path_tracer_tpu_torch.scene import (
     CameraController,
@@ -404,3 +405,63 @@ def test_stream_kernels_within_bound(device, kind):
         grid = hb.stream_grid(kind, chunk_kb, data.shape[0])
         bound = hb.tolerance(data, 3, chunk_kb, grid)
         assert float((out.double() - exact).abs().max()) <= bound
+
+
+DESIGN_CASES = [f"{d}/{p}/{n}" for d, p, n in trp.LAUNCHES]
+
+
+@pytest.mark.parametrize("case", DESIGN_CASES)
+def test_design_kernels_match_plain(device, case):
+    """Each run_pairs design in each of its forms (table place, lanes a
+    ray) against its plain version on the same CUDA tensors, 2 reps over
+    the reference's 1024 rays and over two copies: bit-identical, one
+    launch a call."""
+    from wavefront_path_tracer_tpu_torch.probes import micro_r2 as pm
+    from wavefront_path_tracer_tpu_torch.probes import run_pairs as rp
+
+    design, place, lanes = case.split("/")
+    lanes = int(lanes)
+    tab = rp.table_for(design, device)
+    for copies in (1, 2):
+        rays = pm.ray_planes(device, copies)
+        before = rp.LAUNCHES[(design, place, lanes)]
+        k = rp.design_sweep(tab, rays, 2, design, place, lanes)
+        torch.cuda.synchronize()
+        assert rp.LAUNCHES[(design, place, lanes)] == before + 1
+        p = rp.design_reference(tab, rays, 2, design)
+        assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+        assert design == "W2" or bool((k < 1e29).any())
+        if copies == 2:
+            assert torch.equal(k[:1024], k[1024:])
+
+
+@pytest.mark.parametrize("form", ["f32", "f32_fma", "bf16x2", "bf16",
+                                  "bf16x2_fma", "i16", "i8"])
+def test_issue_kernels_match_plain(device, form):
+    """bf16_issue's chains at 2 reps over two copies of the block, bit for
+    bit against the plain version (the fused forms against their own, one
+    rounding a multiply-add)."""
+    from wavefront_path_tracer_tpu_torch.probes import bf16_issue as bi
+
+    x = bi.make_x(form, 2, device)
+    k = bi.chains(x, 2, form)
+    torch.cuda.synchronize()
+    p = bi.chains_reference(x, 2, form)
+    assert torch.equal(k, p)
+    assert torch.equal(k[:256], k[256:])
+
+
+@pytest.mark.parametrize("row", range(7))
+def test_mma_kernels_within_bound(device, row):
+    """matmul_bench's rows at 8 products: every cluster copy the same,
+    copy 0 within the stated bound of the plain version."""
+    from wavefront_path_tracer_tpu_torch.probes import matmul_r2 as mr
+
+    a, b = mr.inputs(device)[row]
+    k = mr.matmul(a, b, 8, row)
+    torch.cuda.synchronize()
+    p = mr.matmul_reference(a, b, 8, row)
+    assert k.shape[0] == mr.copies(row) >= 1
+    assert bool((k == k[:1]).all())
+    err = (k[0] - p).abs()
+    assert bool((err <= mr.tolerance(a, b, 8, row, p)).all())

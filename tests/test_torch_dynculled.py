@@ -283,11 +283,14 @@ def test_one_tile_matches_jax_closure(name):
 
     One exception, on terrain: an axis-parallel ray whose origin lies on
     a box face gets (lo - o) * inf = NaN, so its own cond for that box
-    is false in both packages (the reference's per-lane cond); the JAX
-    tile still enters the box when another lane's cond holds, and then
-    finds the terrain-edge triangles that lie in that face plane, while
-    the port, deciding per ray, skips them.  Such rays are measure zero
-    in a render; here they are compared only for hit or miss."""
+    is false in the reference (its per-lane cond); the JAX tile still
+    enters the box when another lane's cond holds, and then finds the
+    terrain-edge triangles that lie in that face plane.  The port, which
+    decides per ray, enters every box whose cond such a ray makes NaN
+    (``box_conds``; tests/test_torch_mesh.py holds it to the unculled
+    intersect), so it finds them too, and may enter boxes the tile does
+    not.  Such rays are measure zero in a render; here they are compared
+    only for hit or miss."""
     a, cs, hint = PACK_SCENES[name]()
     if name == "terrain6":
         cs = 8

@@ -33,7 +33,8 @@ def test_port_never_imports_jax():
         sys.modules["wavefront_path_tracer_tpu"] = None
         sys.modules["examples"] = None
         # Nor any module of exp/ (its scripts import each other by name).
-        for name in ("exp", "micro_r2", "tripair", "hbm_bw", "pair_ceiling"):
+        for name in ("exp", "micro_r2", "tripair", "hbm_bw", "pair_ceiling",
+                     "bf16_issue", "micro_slope"):
             sys.modules[name] = None
         import torch
         torch.set_num_threads(1)
@@ -47,9 +48,13 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.ops.fused_kernels
         import wavefront_path_tracer_tpu_torch.profile_frame
         import wavefront_path_tracer_tpu_torch.probes._slope
+        import wavefront_path_tracer_tpu_torch.probes.bf16_issue
         import wavefront_path_tracer_tpu_torch.probes.hbm_bw
+        import wavefront_path_tracer_tpu_torch.probes.matmul_r2
         import wavefront_path_tracer_tpu_torch.probes.micro_r2
+        import wavefront_path_tracer_tpu_torch.probes.micro_slope
         import wavefront_path_tracer_tpu_torch.probes.pair_ceiling
+        import wavefront_path_tracer_tpu_torch.probes.run_pairs
         import wavefront_path_tracer_tpu_torch.probes.tripair
         import wavefront_path_tracer_tpu_torch.utils.image
         import wavefront_path_tracer_tpu_torch.utils.parity
@@ -69,13 +74,16 @@ def test_port_never_imports_jax():
             res = render(scene, cc, cfg.replace(**extra), tris, device="cpu")
             assert res.image.shape == (8, 8, 3)
         from wavefront_path_tracer_tpu_torch.probes import (
-            hbm_bw, micro_r2, pair_ceiling, tripair)
+            bf16_issue, hbm_bw, matmul_r2, micro_r2, micro_slope,
+            pair_ceiling, tripair)
         import contextlib, io
-        for probe in (hbm_bw, micro_r2, pair_ceiling, tripair):
+        for probe in (bf16_issue, hbm_bw, matmul_r2, micro_r2, micro_slope,
+                      pair_ceiling, tripair):
             with contextlib.redirect_stdout(io.StringIO()):
                 assert probe.main(["--device", "cpu"]) == 0
         for name in ("jax", "wavefront_path_tracer_tpu", "examples",
-                     "micro_r2", "tripair", "hbm_bw", "pair_ceiling"):
+                     "micro_r2", "tripair", "hbm_bw", "pair_ceiling",
+                     "bf16_issue", "micro_slope"):
             assert sys.modules[name] is None
             assert not [m for m in sys.modules if m.startswith(name + ".")]
         print("ok")
@@ -97,14 +105,17 @@ def test_no_file_imports_the_jax_package():
     files = [f for f in files if f.suffix in (".py", ".cu", ".cuh")]
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
-    assert ROOT / "wavefront_path_tracer_tpu_torch/probes/micro_r2.py" in files
+    for name in ("micro_r2", "run_pairs", "micro_slope", "bf16_issue",
+                 "matmul_r2"):
+        assert ROOT / f"wavefront_path_tracer_tpu_torch/probes/{name}.py" in files
     offenders = [f"{f.relative_to(ROOT)}:{n}"
                  for f in files
                  for n, line in enumerate(f.read_text().splitlines(), 1)
                  if _JAX_PACKAGE_IMPORT.search(line)
                  or re.search(r"^\s*(import|from) (jax|examples|exp)\b", line)
                  or re.search(r"^\s*import (micro_r2|tripair|hbm_bw|"
-                              r"pair_ceiling)\b", line)
+                              r"pair_ceiling|bf16_issue|micro_slope)\b",
+                              line)
                  or re.search(r"sys\.path.*exp", line)]
     assert not offenders, offenders
 
@@ -139,8 +150,9 @@ def test_build_flags(monkeypatch):
     assert not any("fast_math" in flag or "fast-math" in flag for flag in cmd)
     assert "-fmad=false" in cmd      # bit-identical to the plain version
     assert [p.name for p in _build.sources()] == [
-        "baked.cu", "dynculled.cu", "persistent.cu", "probe_pairs.cu",
-        "probe_stream.cu", "probe_tripair.cu"]
+        "baked.cu", "dynculled.cu", "persistent.cu", "probe_designs.cu",
+        "probe_issue.cu", "probe_mma.cu", "probe_pairs.cu", "probe_stream.cu",
+        "probe_tripair.cu"]
     assert [p.name for p in _build.headers()] == ["common.cuh"]
     for name, fn in (("persistent.cu", "wpt_persistent_launch"),
                      ("baked.cu", "wpt_baked_launch"),
@@ -150,7 +162,11 @@ def test_build_flags(monkeypatch):
                      ("probe_pairs.cu", "wpt_probe_pair_launch"),
                      ("probe_pairs.cu", "wpt_probe_gated_launch"),
                      ("probe_tripair.cu", "wpt_probe_tripair_launch"),
-                     ("probe_stream.cu", "wpt_probe_stream_launch")):
+                     ("probe_stream.cu", "wpt_probe_stream_launch"),
+                     ("probe_designs.cu", "wpt_probe_design_launch"),
+                     ("probe_issue.cu", "wpt_probe_issue_launch"),
+                     ("probe_mma.cu", "wpt_probe_mma_copies"),
+                     ("probe_mma.cu", "wpt_probe_mma_launch")):
         src = (_build.CSRC / name).read_text()
         assert f'extern "C" int {fn}' in src
         assert "cudaGetLastError" in src

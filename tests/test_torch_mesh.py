@@ -18,6 +18,7 @@ from wavefront_path_tracer_tpu.scene import mesh as jmesh
 from wavefront_path_tracer_tpu_torch.models import fused as tfused
 from wavefront_path_tracer_tpu_torch.ops import bake
 from wavefront_path_tracer_tpu_torch.ops import baked_kernels as tbk
+from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as tdk
 from wavefront_path_tracer_tpu_torch.renderer import prepare_scene
 from wavefront_path_tracer_tpu_torch.renderer import render as torch_render
 from wavefront_path_tracer_tpu_torch.scene import (
@@ -307,3 +308,46 @@ def test_mesh_builder_without_spheres():
     b.quad([0, 0, 0], [1, 0, 0], [0, 1, 0], b.lambertian([0.5, 0.5, 0.5]))
     scene, tris = b.build_mesh_scene()
     assert scene.num_spheres == 1 and tris.num_triangles == 2
+
+
+def test_face_rays_culled_equal_unculled():
+    """Axis-parallel rays whose origin lies on a face of a box they test
+    (``ROADMAP.md`` F3): straight down in the plane of each triangle
+    cluster box's x and z faces, onto the terrain edges that the box
+    face holds.  Their slab term is (lo - o) * inf = NaN.  The plain
+    culled intersects (baked in clusters of 4, dynamic in clusters of 8)
+    must find the unculled intersect's hit for every ray: t bit for bit
+    and a triangle: culling never drops a hit.  (A ray on an interior
+    face plane meets the edge two triangles share at one t; the
+    intersects break that tie in their own visit orders, and the culled
+    bake packs its attributes, so the winners' other fields are not
+    compared.)"""
+    scene, tris = mesh_terrain_scene(n_quads=4)
+    cfg = BASE.replace(intersector="bruteforce", baked_clusters=8)
+    arrays = prepare_scene(scene, cfg, "cpu", tris)
+    hint = np.array([0.0, 6.0, 12.0])
+    dyn = tfused._dyn_tables(arrays, 8, camera_pos=hint)
+    boxes = dyn.tri_boxes[:dyn.n_tri_clusters, :6].numpy()
+    o = []
+    for lo, hi in zip(boxes[:, :3], boxes[:, 3:6]):
+        a, b = lo + 0.37 * (hi - lo), lo + 0.61 * (hi - lo)
+        for x, z in ((lo[0], a[2]), (hi[0], b[2]), (a[0], lo[2]),
+                     (b[0], hi[2])):
+            o.append((x, hi[1] + 2.0, z))
+    o = torch.tensor(np.array(o, np.float32))
+    n = o.shape[0]
+    d = torch.zeros((3, n))
+    d[1] = -1.0
+    rays = (o[:, 0], o[:, 1], o[:, 2], d[0], d[1], d[2])
+    unculled = tbk.baked_intersect_reference(tfused._baked_scene(arrays, 0),
+                                             *rays)
+    culled = tbk.culled_intersect_reference(
+        tfused._baked_scene(arrays, 4, camera_pos=hint), *rays)
+    dynamic = tdk.dynculled_intersect_reference(dyn, *rays)
+    hit = unculled[0] < 1e29
+    assert hit.float().mean() > 0.9
+    for name, out in (("baked culled/4", culled), ("dynamic/8", dynamic)):
+        assert torch.equal(out[0] < 1e29, hit), name
+        for k in (0, 14):
+            assert torch.equal(out[k][hit].view(torch.int32),
+                               unculled[k][hit].view(torch.int32)), (name, k)

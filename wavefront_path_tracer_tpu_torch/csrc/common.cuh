@@ -592,24 +592,44 @@ __device__ __forceinline__ void box_range(const BoxRay& r, float lox,
   tmax = nan_min(tmax, nan_max(tz0, tz1));
 }
 
+// Is the ray parallel to an axis (1/d infinite) with its origin on the
+// box's face plane on that axis?  Its slab term (lo - o) * inf is NaN.
+// NaN padding boxes compare false here.
+__device__ __forceinline__ bool on_face(const BoxRay& r, float lox,
+                                        float loy, float loz, float hix,
+                                        float hiy, float hiz) {
+  return (isinf(r.idx) & ((lox == r.ox) | (hix == r.ox))) |
+         (isinf(r.idy) & ((loy == r.oy) | (hiy == r.oy))) |
+         (isinf(r.idz) & ((loz == r.oz) | (hiz == r.oz)));
+}
+
 // cluster_cond (1269-1272): the ray may hit something inside the box
-// nearer than `cap`.
+// nearer than `cap`.  A cond made NaN by a ray on a face plane enters,
+// whatever the cap: the reference's per-lane cond is false there, and a
+// per-ray cull would drop hits on the face that the unculled intersect
+// finds (the reference's tile still entered when another lane's cond
+// held).
 __device__ __forceinline__ bool box_enters(const BoxRay& r, float lox,
                                            float loy, float loz, float hix,
                                            float hiy, float hiz, float cap) {
   float c_min, c_max;
   box_range(r, lox, loy, loz, hix, hiy, hiz, c_min, c_max);
+  if (c_min != c_min) return on_face(r, lox, loy, loz, hix, hiy, hiz);
   return (c_min <= c_max) & (c_max > kTMin) & (nan_max(c_min, 0.0f) < cap);
 }
 
 // slab_exit (1261-1267): the exit from the box that holds a hierarchy
 // bounds every hit inside it; a ray that misses the box gets -1, so no
-// cluster of it passes its cond.
+// cluster of it passes its cond.  A ray on a face plane of the box gets
+// no bound (kTFar).
 __device__ __forceinline__ float slab_exit(const BoxRay& r, float lox,
                                            float loy, float loz, float hix,
                                            float hiy, float hiz) {
   float s_min, s_max;
   box_range(r, lox, loy, loz, hix, hiy, hiz, s_min, s_max);
+  if (s_min != s_min) {
+    return on_face(r, lox, loy, loz, hix, hiy, hiz) ? kTFar : -1.0f;
+  }
   return ((s_min <= s_max) & (s_max > kTMin)) ? s_max : -1.0f;
 }
 

@@ -200,4 +200,20 @@ def load_library() -> ctypes.CDLL:
                    i32, i32, i32, i32,        # passes, fmas, async, grid
                    ptr, ptr, ptr, ptr]        # part, xs, out, stream
     fn.restype = ctypes.c_int
+    # probe_designs.cu, probe_issue.cu and probe_mma.cu.
+    fn = lib.wpt_probe_design_launch
+    fn.argtypes = [ptr, i32, ptr, i32, i32,   # tab, cols, rays, n, reps
+                   i32, i32, i32, ptr, ptr]   # design, place, lanes, out,
+    fn.restype = ctypes.c_int                 # stream
+    fn = lib.wpt_probe_issue_launch
+    fn.argtypes = [i32, ptr, i32, i32,        # form, x, n_elems, reps
+                   f32, f32, ptr, ptr]        # one, half, out, stream
+    fn.restype = ctypes.c_int
+    fn = lib.wpt_probe_mma_copies
+    fn.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]   # row, copies
+    fn.restype = ctypes.c_int
+    fn = lib.wpt_probe_mma_launch
+    fn.argtypes = [i32, ptr, ptr, i32, i32,   # row, a, b, products, copies
+                   ptr, ptr]                  # out, stream
+    fn.restype = ctypes.c_int
     return lib

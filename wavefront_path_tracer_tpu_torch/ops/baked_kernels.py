@@ -213,13 +213,45 @@ def _box_range(lo, hi, ox, oy, oz, idx, idy, idz):
     return tmin, tmax
 
 
+def on_face(lo, hi, ox, oy, oz, idx, idy, idz):
+    """Rays parallel to an axis (1/d infinite) whose origin lies on a
+    box's face plane on that axis, shaped as :func:`_box_range`'s
+    results: their slab term (lo - o) * inf is NaN (``common.cuh
+    on_face``).  NaN padding boxes compare false."""
+    face = None
+    for a, o, inv in ((0, ox, idx), (1, oy, idy), (2, oz, idz)):
+        on = torch.isinf(_col(inv)) & ((lo[..., a] == _col(o))
+                                       | (hi[..., a] == _col(o)))
+        face = on if face is None else face | on
+    return face
+
+
+def box_conds(lo, hi, ox, oy, oz, idx, idy, idz):
+    """(ok, entry) of each ray against boxes: the ray enters a box where
+    ok and entry < its cap.  A cond made NaN by a ray on a face plane
+    enters whatever the cap (ok, entry -inf), as ``common.cuh
+    box_enters``: a per-ray cull must not drop the hits on the face that
+    the unculled intersect finds."""
+    c_min, c_max = _box_range(lo, hi, ox, oy, oz, idx, idy, idz)
+    ok = (c_min <= c_max) & (c_max > T_MIN)
+    entry = torch.clamp_min(c_min, 0.0)
+    nan = torch.isnan(c_min)
+    face = nan & on_face(lo, hi, ox, oy, oz, idx, idy, idz)
+    return (torch.where(nan, face, ok),
+            torch.where(face, -torch.inf, entry))
+
+
 def slab_exit(lo, hi, ox, oy, oz, idx, idy, idz):
     """``slab_exit`` (pallas_kernels.py:1261-1267): the exit distance
     from the box that holds a hierarchy, which bounds every hit inside
-    it; -1 for a ray that misses the box."""
+    it; -1 for a ray that misses the box, T_FAR (no bound) for a ray on
+    one of its face planes."""
     s_min, s_max = _box_range(lo, hi, ox, oy, oz, idx, idy, idz)
     s_min, s_max = s_min[:, 0], s_max[:, 0]
-    return torch.where((s_min <= s_max) & (s_max > T_MIN), s_max, -1.0)
+    exit_t = torch.where((s_min <= s_max) & (s_max > T_MIN), s_max, -1.0)
+    face = on_face(lo, hi, ox, oy, oz, idx, idy, idz)[:, 0]
+    return torch.where(torch.isnan(s_min), torch.where(face, T_FAR, -1.0),
+                       exit_t)
 
 
 def _slim_t(items, oxp, oyp, ozp, dd_o, oo2, dx, dy, dz):
@@ -291,9 +323,7 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
     everyone = torch.ones(ox.shape, dtype=torch.bool, device=ox.device)
 
     def conds(boxes):
-        c_min, c_max = _box_range(boxes[:, 0:3], boxes[:, 4:7], ox, oy, oz,
-                                  *inv)
-        return (c_min <= c_max) & (c_max > T_MIN), torch.clamp_min(c_min, 0.0)
+        return box_conds(boxes[:, 0:3], boxes[:, 4:7], ox, oy, oz, *inv)
 
     def fold_cluster(cid, fold, first, count, enter):
         """Fold one cluster in for the rays ``enter``; with a hint, a ray

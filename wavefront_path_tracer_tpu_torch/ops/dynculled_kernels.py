@@ -41,9 +41,9 @@ import torch
 
 from wavefront_path_tracer_tpu_torch.ops.bake import TRI_COLS
 from wavefront_path_tracer_tpu_torch.ops.baked_kernels import (
-    _box_range,
     _col,
     _take,
+    box_conds,
     slab_exit,
     tri_t,
 )
@@ -158,11 +158,10 @@ def dynculled_intersect_reference(tab: DynTables, ox, oy, oz, dx, dy, dz):
     cs = tab.cluster_size
 
     def box_cond(box, cap):
-        """cluster_cond (2156-2157) of one box for every ray."""
-        c_min, c_max = _box_range(box[0:3], box[3:6], ox, oy, oz, *inv)
-        c_min, c_max = c_min[:, 0], c_max[:, 0]
-        return ((c_min <= c_max) & (c_max > T_MIN)
-                & (torch.clamp_min(c_min, 0.0) < cap))
+        """cluster_cond (2156-2157) of one box for every ray (a ray on a
+        face plane of the box enters: ``baked_kernels.box_conds``)."""
+        ok, entry = box_conds(box[0:3], box[3:6], ox, oy, oz, *inv)
+        return ok[:, 0] & (entry[:, 0] < cap)
 
     def batch(k0, k1, boxes, table, row0, offset, t_fn, ray_args, cap,
               rows_of):
@@ -172,10 +171,9 @@ def dynculled_intersect_reference(tab: DynTables, ox, oy, oz, dx, dy, dz):
         nonlocal best_t, best_i
         r = rows_of
         box = boxes[k0:k1]
-        c_min, c_max = _box_range(box[:, 0:3], box[:, 3:6], ox[r], oy[r],
-                                  oz[r], inv[0][r], inv[1][r], inv[2][r])
-        enter = ((c_min <= c_max) & (c_max > T_MIN)
-                 & (torch.clamp_min(c_min, 0.0) < _col(cap[r])))
+        ok, entry = box_conds(box[:, 0:3], box[:, 3:6], ox[r], oy[r], oz[r],
+                              inv[0][r], inv[1][r], inv[2][r])
+        enter = ok & (entry < _col(cap[r]))
         any_in = enter.any(dim=1)
         rr = r[any_in]
         if rr.numel():

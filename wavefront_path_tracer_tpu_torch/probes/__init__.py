@@ -8,9 +8,17 @@ Each module follows its ``exp/`` namesake and runs as
   over a table read through L1, A2 over the constant bank);
 - :mod:`.tripair`: the triangle-pair forms T1, T1p, T2 and T2p;
 - :mod:`.hbm_bw`: the device-memory stream, plain and ``cp.async``;
-- :mod:`.micro_r2`: its module data, and the cond-gated sweeps of
-  ``run_gated`` (per-thread, warp-vote and worklist gating).
+- :mod:`.micro_r2`: its module data, the cond-gated sweeps of
+  ``run_gated`` (per-thread, warp-vote and worklist gating), and its
+  command line by the reference's variant names;
+- :mod:`.run_pairs`: the 23 intersect-loop designs of ``run_pairs``;
+- :mod:`.micro_slope`: ``micro_slope``'s rep points over micro_r2's
+  command line;
+- :mod:`.bf16_issue`: dependent chains by type (f32, bf16, int16, int8;
+  unfused and fused);
+- :mod:`.matmul_r2`: ``matmul_bench``'s dependent in-kernel products.
 
-The kernels are ``csrc/probe_pairs.cu``, ``csrc/probe_tripair.cu`` and
-``csrc/probe_stream.cu``; :mod:`._slope` times them.
+The kernels are ``csrc/probe_pairs.cu``, ``probe_tripair.cu``,
+``probe_stream.cu``, ``probe_designs.cu``, ``probe_issue.cu`` and
+``probe_mma.cu``; :mod:`._slope` times them.
 """

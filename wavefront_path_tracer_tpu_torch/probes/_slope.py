@@ -19,6 +19,8 @@ MIN_WINDOW = 0.02          # s: the least slope window a rate rests on
 # The card's published peaks (H100 SXM at 700 W): a reading above either
 # measures code motion, not the card.
 PEAK_FP32 = 67e12          # FLOP/s, FP32 outside the tensor cores
+PEAK_TF32 = 495e12         # FLOP/s, TF32 tensor cores, dense
+PEAK_BF16 = 989e12         # FLOP/s, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12       # B/s, HBM3
 
 

@@ -1,8 +1,17 @@
-"""The port's copy of ``exp/micro_r2.py``'s module data, and its
-cond-gated sweeps (``run_gated``, micro_r2.py:1106) on the card.
+"""The port's copy of ``exp/micro_r2.py``'s module data, its cond-gated
+sweeps (``run_gated``, micro_r2.py:1106) on the card, and its command
+line.
 
     python -m wavefront_path_tracer_tpu_torch.probes.micro_r2 \
-        [--reps-lo 200] [--reps-hi 1400] [--device cuda|cpu]
+        [A B C C2 C3 Q Q2 Q4 Q8 W W5 W6 W7 C4 C5 C45 C6 C7 A2 C8 C9 D ...] \
+        [--reps-lo N] [--reps-hi N] [--device cuda|cpu]
+
+The names are the reference's (exp/micro_r2.py:1236-1293, default A B C
+C2 C3 D): the intersect-loop designs of ``run_pairs`` (``run_pairs.py``;
+W runs W, W0 and W2, C6 C6 and C6d, A2 A2 and A2d), the gated sweeps
+below (C8: the W8 and C8 patterns under every gating; C9: C8's pattern
+under the worklist; W8: its pattern), and D, ``matmul_bench``'s rows
+(``matmul_r2.py``).
 
 The data are the reference's draws, in its order and with its float64
 steps, byte for byte (``tests/test_torch_probes.py`` holds them equal):
@@ -282,40 +291,108 @@ def measure_gated(pattern: str, gating: str, reps=REPS,
             "checksum": float(out[:ROWS * 128].double().sum())}
 
 
+# The reference's command-line names (exp/micro_r2.py:1236-1293): each
+# runs these run_pairs designs ("D": matmul_bench's rows; "C8", "C9", "W8":
+# run_gated's patterns and the gatings that stand for them here).
+NAMES = {
+    "A": ("A",), "B": ("B",), "C": ("C",), "C2": ("C2",), "C3": ("C3",),
+    "Q": ("Q",), "Q2": ("Q2",), "Q4": ("Q4",), "Q8": ("Q8",),
+    "W": ("W", "W0", "W2"), "W0": ("W0",), "W2": ("W2",), "W5": ("W5",),
+    "W6": ("W6",), "W7": ("W7",), "C4": ("C4",), "C5": ("C5",),
+    "C45": ("C45",), "C6": ("C6", "C6d"), "C6d": ("C6d",), "C7": ("C7",),
+    "A2": ("A2", "A2d"), "A2d": ("A2d",), "D": (), "W8": (), "C8": (),
+    "C9": (),
+}
+GATED_NAMES = {"W8": (("W8", GATINGS),),
+               "C8": (("W8", GATINGS), ("C8", GATINGS)),
+               "C9": (("C8", ("worklist",)),)}
+DEFAULT_NAMES = ("A", "B", "C", "C2", "C3", "D")
+
+
+def _print_design(r: dict, card: str) -> None:
+    print(f"{r['design']:4s} {r['place']:6s} {r['lanes']} lane(s)/ray: "
+          f"{r['gpairs']:8.2f} Gpairs/s by slope ({r['ns_per_rep']:.1f} "
+          f"ns/rep, {r['fp32_rate'] / 1e12:.2f} TFLOP/s FP32, single call "
+          f"(lo) {r['single_lo_gpairs']:.2f} Gpairs/s, slope window "
+          f"{r['window_ms']:.1f} ms, checksum {r['checksum']:.6e}) "
+          f"[{card}]", flush=True)
+    print(json.dumps(r), flush=True)
+
+
 def run(argv=None) -> list:
-    """The probe as its command line runs it: prints its table and
-    returns its readings (the plain versions' checksums with
+    """The probe as its command line runs it: the reference's variant
+    names (:data:`NAMES`; default A B C C2 C3 D), each design in every
+    form it runs in (table place, lanes a ray), slope-timed; prints its
+    table and returns its readings (the plain versions' checksums with
     ``--device cpu``)."""
+    from wavefront_path_tracer_tpu_torch.probes import matmul_r2
+    from wavefront_path_tracer_tpu_torch.probes import run_pairs as rp
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reps-lo", type=int, default=REPS[0])
-    ap.add_argument("--reps-hi", type=int, default=REPS[1])
+    ap.add_argument("variants", nargs="*", metavar="VARIANT",
+                    help="the reference's names: " + " ".join(NAMES))
+    ap.add_argument("--reps-lo", type=int, default=None,
+                    help="slope's low rep count (default: each probe's)")
+    ap.add_argument("--reps-hi", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    which = args.variants or list(DEFAULT_NAMES)
+    unknown = [v for v in which if v not in NAMES]
+    if unknown:
+        ap.error(f"unknown variants {unknown}; known: {' '.join(NAMES)}")
+    designs = list(dict.fromkeys(d for v in which for d in NAMES[v]))
+    gated = list(dict.fromkeys((p, g) for v in which
+                               for p, gs in GATED_NAMES.get(v, ())
+                               for g in gs))
     dev = _slope.device(args.device)
+
+    def reps(default):
+        return (args.reps_lo or default[0], args.reps_hi or default[1])
+
     readings = []
     if dev.type == "cpu":
-        tab = torch.from_numpy(PACKED_SM)
         rays = ray_planes()
-        for pattern in PATTERNS:
-            out = gated_sweep(tab, torch.from_numpy(cond_table(pattern)),
-                              rays, 2, pattern)
+        for design in designs:
+            out = rp.design_sweep(rp.table_for(design), rays, 2, design)
+            checksum = float(out.double().sum())
+            print(f"{design} plain version, 2 reps, 1024 rays: checksum "
+                  f"{checksum!r} (times: not measured on the CPU)")
+            readings.append({"design": design, "checksum": checksum})
+        for pattern in dict.fromkeys(p for p, _g in gated):
+            out = gated_sweep(torch.from_numpy(PACKED_SM),
+                              torch.from_numpy(cond_table(pattern)), rays, 2,
+                              pattern)
             checksum = float(out.double().sum())
             print(f"{pattern} plain version, 2 reps, 1024 rays: checksum "
                   f"{checksum!r} (times: not measured on the CPU)")
             readings.append({"pattern": pattern, "checksum": checksum})
+        if "D" in which:
+            readings += matmul_r2.run(["--device", "cpu"])
         return readings
     card = _slope.card()
-    for pattern in PATTERNS:
-        for gating in GATINGS:
-            r = measure_gated(pattern, gating, (args.reps_lo, args.reps_hi),
-                              dev)
-            print(f"{pattern} {gating:8s}: {r['ns_per_rep']:.1f} ns/rep "
-                  f"({r['gpairs_eff']:.1f} Gpairs/s eff, "
-                  f"{r['fp32_rate'] / 1e12:.2f} TFLOP/s FP32, slope window "
-                  f"{r['window_ms']:.1f} ms, checksum {r['checksum']:.6e}) "
-                  f"[{card}]", flush=True)
-            print(json.dumps(r), flush=True)
+    print(f"S={S} rays={ROWS * 128}x{RAY_COPIES} variants {which} [{card}]",
+          flush=True)
+    for design in designs:
+        for place, lanes in rp.forms(design):
+            r = rp.measure(design, place, lanes, reps(rp.REPS), dev)
+            _print_design(r, card)
             readings.append(r)
+    for pattern, gating in gated:
+        r = measure_gated(pattern, gating, reps(REPS), dev)
+        print(f"{pattern} {gating:8s}: {r['ns_per_rep']:.1f} ns/rep "
+              f"({r['gpairs_eff']:.1f} Gpairs/s eff, "
+              f"{r['fp32_rate'] / 1e12:.2f} TFLOP/s FP32, slope window "
+              f"{r['window_ms']:.1f} ms, checksum {r['checksum']:.6e}) "
+              f"[{card}]", flush=True)
+        print(json.dumps(r), flush=True)
+        readings.append(r)
+    if "D" in which:
+        flags = []
+        for flag, value in (("--reps-lo", args.reps_lo),
+                            ("--reps-hi", args.reps_hi)):
+            if value is not None:
+                flags += [flag, str(value)]
+        readings += matmul_r2.run(flags)
     return readings
 
 
