@@ -8,15 +8,17 @@ Phases (all by default, in this order), each of which raises on failure
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the CUDA kernels from ``csrc/`` with nvcc, one process
    per source, all started together, and prints ptxas's lines for every
-   kernel (persistent, baked culled and unculled, dynamic culled);
+   kernel (persistent, baked culled and unculled, dynamic culled), then
+   each baked culled instantiation's registers, stack and spills;
 3. kernels vs plain (``kernels``): each kernel against its plain PyTorch
    version on the same CUDA tensors, in block lane order with padding
    lanes, 50 bounces.  On book_one_final at 160x90@4spp, the CLI's
    default view: the persistent-lane kernel (default, and roulette/clamp/
    stratified AA/lane_split=2), the baked kernel culled in clusters of 16
    (the same two option sets), culled in clusters of 2 (243 clusters, so
-   the two-level sweep) and unculled.  Then the mesh cases: the dynamic
-   culled kernel on mesh_terrain (seed 7, 5,000 triangles, the book
+   the two-level sweep) and unculled, and culled in clusters of 16 on the
+   book with every sphere twice (exact ties).  Then the mesh cases: the
+   dynamic culled kernel on mesh_terrain (seed 7, 5,000 triangles, the book
    camera) at 160x90@4spp in the two option sets, on the 50k-triangle
    knot at 160x90@2spp (rolled triangle supers), on procedural 10,000
    spheres (seed 42) in clusters of 32 (rolled sphere supers) and on
@@ -114,7 +116,18 @@ Phases (all by default, in this order), each of which raises on failure
    reduced rep points) with the launch counts set to 0 just before it
    and read just after; a reading above the card's spec fails.  After
    it, each culled and mesh kernel's time beside the time of its pairs
-   at the measured ceiling.
+   at the measured ceiling;
+14. sweep forms (``sweep``): the baked culled kernel's serial sweep (T =
+   0, every entered cluster on its own thread) and its shipped form (a
+   vote per cluster, the cooperative fold where at most T lanes enter)
+   at the four cells that chose the form (the headline, book_checker and
+   the winner-hint headline at 1920x1080@32spp, terrain_baked at
+   800x448@32spp): every form bit for bit with the serial one at that
+   size, then one launch of each timed by CUDA events in turns (serial,
+   cooperative, cooperative, serial), each run and the serial runs'
+   spread printed; and the headline's warp-divergence count from the
+   plain version over 16 image blocks at the middle of the lane order,
+   held to the kernel's counters over the same lanes.
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -234,19 +247,64 @@ def phase_device() -> tuple[str, str]:
     return name, smi
 
 
-def phase_build() -> float:
+def phase_build() -> dict:
+    """Build the library and print ptxas's lines, then each culled
+    kernel's registers and spills."""
     from wavefront_path_tracer_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     path, report, _ = _build.build()
     _build.load_library()
     seconds = time.perf_counter() - t0
-    log(f"[build] {path.relative_to(ROOT)} from "
+    tag = "[build]"
+    log(f"{tag} {path.relative_to(ROOT)} from "
         f"{[p.name for p in _build.sources()]} in {seconds:.2f} s")
     for line in report.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
-    return seconds
+            log(f"{tag} ptxas: {line.strip()}")
+    culled = _ptxas_kernels(report, "baked_culled_kernel")
+    for rep in culled:
+        log(f"{tag} culled {rep['kernel']}: {rep.get('registers')} "
+            f"registers, {rep.get('stack')} bytes stack, "
+            f"{rep.get('spill_stores')} / {rep.get('spill_loads')} bytes "
+            f"spilled (stores / loads)")
+    return {"seconds": seconds, "culled_ptxas": culled}
+
+
+def _ptxas_kernels(report: str, match: str) -> list[dict]:
+    """Registers, stack frame and spills of each kernel whose mangled name
+    holds ``match``, from ptxas's -v lines; the name shortened to its
+    template arguments (demangled by c++filt where the machine has it)."""
+    import re
+    import shutil
+
+    props, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            cur = m.group(1)
+            props.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            props[cur].update(stack=int(m[1]), spill_stores=int(m[2]),
+                              spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            props[cur]["registers"] = int(m[1])
+    names = [n for n in props if match in n]
+    shown = names
+    tool = shutil.which("c++filt")
+    if tool and names:
+        shown = subprocess.run([tool], input="\n".join(names),
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+        shown = [d.split(match + "<", 1)[-1].split(">(", 1)[0]
+                 .replace("(anonymous namespace)::", "").replace("wpt::", "")
+                 for d in shown]
+    return [{"kernel": d, **props[n]} for n, d in zip(names, shown)]
 
 
 def _time_ms(fn, reps: int):
@@ -497,7 +555,17 @@ def phase_kernel_vs_plain(device) -> list[dict]:
     two_level = out[4]["stats_kernel"]
     if not two_level[2] > 0:
         raise AssertionError("the two-level case entered no super")
+    # Every sphere twice: each hit on a doubled sphere is an exact tie of
+    # two items of one cluster, which the smaller index must win.
+    case = Case("culled", 16, _doubled(scene), cc, 160, 90, 4, 1, {}, device)
+    out.append(_check("culled16 book_one_final doubled 160x90@4spp (exact "
+                      "ties)", case))
     return out + phase_mesh_vs_plain(device)
+
+
+def _doubled(scene):
+    """The scene with every sphere twice, each copy beside its twin."""
+    return scene.permuted(np.repeat(np.arange(scene.num_spheres), 2))
 
 
 def _cli_camera(scene: str):
@@ -2128,8 +2196,144 @@ def _ceiling_shares(record: dict) -> list:
     return out
 
 
+# The window of the headline's lanes that the divergence count reads: 16
+# image blocks of 32x32 at the middle of the 1080p lane order.
+DIVERGENCE_WINDOW = 16 * 1024
+
+
+def _sweep_cells(device) -> dict:
+    """The four cells that chose the culled kernel's sweep form, at
+    their sizes: the headline and its winner-hint form (book_one_final),
+    book_checker (textured) at 1080p@32spp, terrain_baked (triangles) at
+    800x448@32spp; baked culled in clusters of 16."""
+    book, book_cc = _smoke_scene()
+    checker, _tris, checker_cc = _book_checker()
+    terrain, tris, terrain_cc = _terrain()
+    full = (MAIN_WIDTH, MAIN_HEIGHT, MAIN_SPP, 1, {}, device)
+    return {
+        "headline": Case("culled", 16, book, book_cc, *full),
+        "book_checker": Case("culled", 16, checker, checker_cc, *full),
+        "winner_hint": Case("culled", 16, book, book_cc, *full,
+                            winner_hint=True),
+        "terrain_baked": Case("culled", 16, terrain, terrain_cc, *MESH_SIZE,
+                              MAIN_SPP, 1, {}, device, triangles=tris),
+    }
+
+
+def _sweep_launch(case, sweep: int):
+    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+
+    return bk.fused_render_baked(case.baked, case.salts, case.cam,
+                                 *case.planes, sweep=sweep)
+
+
+def _same_render(a, b) -> bool:
+    """Radiance words and all four counters equal."""
+    return a[3].tolist() == b[3].tolist() and all(
+        torch.equal(x.view(torch.int32), y.view(torch.int32))
+        for x, y in zip(a[:3], b[:3]))
+
+
+def _headline_divergence(device, smi: str) -> dict:
+    """How the headline's warps diverge over its clusters, counted from
+    the plain version (``baked_kernels.warp_divergence``) over a window of
+    DIVERGENCE_WINDOW lanes at the middle of the 1080p@32spp lane order,
+    beside the kernel's own counters over the same window (they must agree
+    on rays, loop trips and clusters entered)."""
+    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+
+    book, book_cc = _smoke_scene()
+    case = Case("culled", 16, book, book_cc, MAIN_WIDTH, MAIN_HEIGHT,
+                MAIN_SPP, 1, {}, device)
+    lo = case.planes[0].numel() // 2 // 1024 * 1024 - DIVERGENCE_WINDOW // 2
+    window = [p.reshape(-1)[lo:lo + DIVERGENCE_WINDOW].reshape(-1, 128)
+              for p in case.planes]
+    t0 = time.perf_counter()
+    counts = bk.warp_divergence(case.baked, case.salts, case.cam, *window)
+    seconds = time.perf_counter() - t0
+    stats = bk.fused_render_baked(case.baked, case.salts, case.cam,
+                                  *window)[3].tolist()
+    if (counts["rays"], counts["trips"],
+            round(counts["clusters_per_ray"] * counts["rays"])) != (
+            stats[0], stats[1], stats[3]):
+        raise AssertionError(f"divergence count {counts} disagrees with the "
+                             f"kernel's counters {stats}")
+    hist = counts["entering_lanes"]
+    total = max(sum(hist), 1)
+    shares = {"1": hist[0] / total, "2": hist[1] / total,
+              "3-8": sum(hist[2:8]) / total,
+              "9-27": sum(hist[8:27]) / total,
+              "28-32": sum(hist[27:32]) / total}
+    rep = {**counts, "lanes": [lo, lo + DIVERGENCE_WINDOW],
+           "entering_shares": shares, "kernel_stats": stats,
+           "card_warp_fullness": stats[0] / (32 * stats[1]),
+           "seconds": seconds}
+    log(f"[divergence] headline {MAIN_WIDTH}x{MAIN_HEIGHT}@{MAIN_SPP}spp "
+        f"lanes {lo}..{lo + DIVERGENCE_WINDOW} (16 blocks of 32x32), plain "
+        f"version: {counts['rays']} rays in {counts['trips']} warp trips "
+        f"(warps {counts['warp_fullness']:.4f} full; the kernel's counters "
+        f"over the window agree), {counts['clusters_per_ray']:.4f} clusters "
+        f"a ray, {counts['union_clusters_per_trip']:.4f} union clusters a "
+        f"trip, useful lane-pairs {counts['useful_pairs']} of "
+        f"{counts['issued_pairs']} issued "
+        f"({counts['useful_share']:.4f}); lanes entering an entered (trip, "
+        f"cluster): {json.dumps(shares)}; histogram 1..32 {hist} "
+        f"({seconds:.1f} s) [{smi}]")
+    return rep
+
+
+def phase_sweep(device, smi: str) -> dict:
+    """The culled kernel's sweep forms at the four cells that chose the
+    shipped one: warm-up runs of each form, bit for bit against the serial
+    form's (T = 0: the per-thread sweep), then CUDA-event times of one
+    launch each in turns (serial, cooperative, cooperative, serial), each
+    run printed with the serial runs' spread; then the headline's
+    divergence count."""
+    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+
+    forms = {"serial": bk.SWEEP_SERIAL, "coop": bk.SWEEP_COOP}
+    out = {}
+    order = ["serial", "coop", "coop", "serial"]
+    cells = {}
+    for cell, case in _sweep_cells(device).items():
+        ref = _sweep_launch(case, bk.SWEEP_SERIAL)
+        for name, sweep in forms.items():
+            if not _same_render(_sweep_launch(case, sweep), ref):
+                raise AssertionError(f"{cell}: sweep form {name} differs "
+                                     f"from the serial form")
+        runs = {name: [] for name in forms}
+        for name in order:
+            ms, _ = _time_ms(lambda: _sweep_launch(case, forms[name]), 1)
+            runs[name].append(ms)
+        mean = {name: sum(v) / len(v) for name, v in runs.items()}
+        serial = runs["serial"]
+        spread = max(serial) - min(serial)
+        stats = ref[3].tolist()
+        rep = {"runs": runs, "order": order, "mean_ms": mean,
+               "serial_spread_ms": spread, "stats": stats,
+               "warp_fullness": stats[0] / (32 * stats[1]),
+               "vs_serial": {n: m / mean["serial"] for n, m in mean.items()},
+               "coop_within_spread":
+                   mean["coop"] - mean["serial"] <= spread}
+        w, h = (MESH_SIZE if cell == "terrain_baked"
+                else (MAIN_WIDTH, MAIN_HEIGHT))
+        turns = ", ".join(f"{n} {runs[n][order[:i].count(n)]!r}"
+                          for i, n in enumerate(order))
+        ratios = {n: round(v, 4) for n, v in rep["vs_serial"].items()}
+        log(f"[sweep] {cell} {w}x{h}@{MAIN_SPP}spp culled16, runs in turn "
+            f"(ms): {turns}; serial spread {spread!r} ms "
+            f"({spread / mean['serial']:.4%}); mean vs serial "
+            f"{json.dumps(ratios)}; rays {stats[0]}, warps "
+            f"{rep['warp_fullness']:.4f} full, every form bit-identical to "
+            f"serial [{smi}]")
+        cells[cell] = rep
+    out["cells"] = cells
+    out["divergence"] = _headline_divergence(device, smi)
+    return out
+
+
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull", "tex",
-          "texfull", "seg", "segfull", "probes")
+          "texfull", "seg", "segfull", "probes", "sweep")
 
 
 def main(argv=None) -> int:
@@ -2149,7 +2353,9 @@ def main(argv=None) -> int:
     torch.cuda.set_device(device)
     os.makedirs(OUT_DIR, exist_ok=True)
     t_start = time.perf_counter()
-    record = {"card": smi, "device": name, "build_seconds": phase_build()}
+    build = phase_build()
+    record = {"card": smi, "device": name, "build_seconds": build["seconds"],
+              "culled_ptxas": build["culled_ptxas"]}
     steps = (("kernels", "parity", lambda: phase_kernel_vs_plain(device)),
              ("golden", "golden", lambda: phase_golden(device)),
              ("main", "main_paths", lambda: phase_main_paths(device, smi)),
@@ -2163,7 +2369,8 @@ def main(argv=None) -> int:
              ("seg", "segments", lambda: phase_segments(device)),
              ("segfull", "segments_full",
               lambda: phase_segments_full(device, smi)),
-             ("probes", "probes", lambda: phase_probes(device, smi)))
+             ("probes", "probes", lambda: phase_probes(device, smi)),
+             ("sweep", "sweep", lambda: phase_sweep(device, smi)))
     for phase, key, run in steps:
         if phase in phases:
             t0 = time.perf_counter()

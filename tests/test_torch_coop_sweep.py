@@ -1,0 +1,424 @@
+"""The cooperative culled sweep's reduction rule, and the warp-divergence
+count, on the CPU.
+
+``csrc/baked.cu`` lets the lanes of a warp share the rays of the few
+lanes that enter a cluster: G lanes test one ray's items, a shuffle tree
+keeps the least (t, index), and the ray's own lane takes the result where
+it is strictly below its best.  The kernel runs only on the card; here a
+plain emulation of that fold (its lane shares, its tree's order, the
+owner's strict-< take) and of the per-cluster choice (a vote: the
+cooperative fold where at most T lanes enter) is held bit for bit to the
+serial fold and to ``culled_intersect_reference`` on numpy-seeded rays and
+items: ties built within a lane's share and across lanes, a 5-item cluster
+at G = 8, NaN pad rows, rays that enter no cluster, two-level sweeps and
+the winner hint's cluster.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from wavefront_path_tracer_tpu_torch.models import fused as tfused
+from wavefront_path_tracer_tpu_torch.ops import bake
+from wavefront_path_tracer_tpu_torch.ops import baked_kernels as tbk
+from wavefront_path_tracer_tpu_torch.ops.fused_kernels import T_FAR
+from wavefront_path_tracer_tpu_torch.scene import CameraController, get_scene
+from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+
+WARP = 32
+INT_MAX = 2**31 - 1
+
+
+def coop_fold(t, first, best_t, best_i, enter, g_lanes):
+    """The kernel's cooperative fold (csrc/baked.cu coop_fold) of one
+    cluster for one warp: ``t`` (32, count) float32 holds each lane's
+    ray's t against the cluster's items, ``enter`` (32,) bool the entering
+    lanes.  Returns (best_t, best_i, took) after the fold."""
+    t = np.asarray(t, dtype=np.float32)
+    best_t = np.array(best_t, dtype=np.float32)
+    best_i = np.array(best_i, dtype=np.int64)
+    took = np.zeros(WARP, dtype=bool)
+    groups = WARP // g_lanes
+    rem = [lane for lane in range(WARP) if enter[lane]]
+    partner = np.arange(WARP)
+    while rem:
+        owners = rem[:groups]
+        t_min = np.full(WARP, T_FAR, dtype=np.float32)
+        i_min = np.full(WARP, INT_MAX, dtype=np.int64)
+        for lane in range(WARP):
+            g, j = divmod(lane, g_lanes)
+            if g >= len(owners):
+                continue
+            for i in range(j, t.shape[1], g_lanes):
+                if t[owners[g], i] < t_min[lane]:
+                    t_min[lane], i_min[lane] = t[owners[g], i], first + i
+        off = g_lanes // 2
+        while off:
+            t2, i2 = t_min[partner ^ off], i_min[partner ^ off]
+            better = (t2 < t_min) | ((t2 == t_min) & (i2 < i_min))
+            t_min = np.where(better, t2, t_min)
+            i_min = np.where(better, i2, i_min)
+            off //= 2
+        for k, owner in enumerate(owners):
+            if t_min[k * g_lanes] < best_t[owner]:
+                best_t[owner] = t_min[k * g_lanes]
+                best_i[owner] = i_min[k * g_lanes]
+                took[owner] = True
+        rem = rem[groups:]
+    return best_t, best_i, took
+
+
+def serial_fold(t, first, best_t, best_i, enter):
+    """The plain version's fold of one cluster (``_take`` with a mask)."""
+    bt, bi = tbk._take(torch.from_numpy(np.asarray(t, dtype=np.float32)),
+                       first, torch.from_numpy(np.array(best_t,
+                                                        dtype=np.float32)),
+                       torch.from_numpy(np.array(best_i, dtype=np.int64)),
+                       torch.from_numpy(np.asarray(enter)))
+    return bt.numpy(), bi.numpy()
+
+
+def assert_same(a_t, a_i, b_t, b_i):
+    assert np.array_equal(np.asarray(a_t, np.float32).view(np.int32),
+                          np.asarray(b_t, np.float32).view(np.int32))
+    assert np.array_equal(a_i, b_i)
+
+
+def _items(rng, n, nan_rows=0):
+    """A culled item table of ``n`` random spheres (slimmed columns, the
+    bake's layout) and ``nan_rows`` NaN pad rows."""
+    items = np.zeros((n + nan_rows, tbk.ITEM_COLS), dtype=np.float32)
+    c = rng.uniform(-2.0, 2.0, (n, 3)).astype(np.float32)
+    r = rng.uniform(0.2, 0.8, n).astype(np.float32)
+    items[:n, 0:3] = c
+    items[:n, 3] = (c * c).sum(1) - r * r
+    items[:n, 5:8] = 2.0 * c
+    items[n:] = np.nan
+    return torch.from_numpy(items)
+
+
+def _rays(rng, n):
+    o = rng.uniform(-4.0, 4.0, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return [torch.from_numpy(np.ascontiguousarray(v)) for v in
+            (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])]
+
+
+def _slim(items, ox, oy, oz, dx, dy, dz):
+    """Each ray's t against every item, as the plain version computes it
+    (shift 0)."""
+    dd_o = dx * ox + dy * oy + dz * oz
+    oo2 = ox * ox + oy * oy + oz * oz
+    return tbk._slim_t(items, ox, oy, oz, dd_o, oo2, dx, dy,
+                       dz).numpy()
+
+
+@pytest.mark.parametrize("g_lanes", [2, 4, 8, 16, 32])
+def test_coop_fold_equals_serial_fold(g_lanes):
+    """Random rays and items, random entering lanes and prior bests."""
+    rng = np.random.default_rng(5 + g_lanes)
+    items = _items(rng, 16, nan_rows=3)
+    for trial in range(40):
+        t = _slim(items, *_rays(rng, WARP))
+        first = int(rng.integers(60, 200))   # prior winners lie below
+        best_t = np.where(rng.random(WARP) < 0.3, T_FAR,
+                          rng.uniform(0.5, 6.0, WARP)).astype(np.float32)
+        best_i = rng.integers(-1, 50, WARP)
+        enter = rng.random(WARP) < rng.uniform(0.05, 1.0)
+        c_t, c_i, took = coop_fold(t, first, best_t, best_i, enter, g_lanes)
+        s_t, s_i = serial_fold(t, first, best_t, best_i, enter)
+        assert_same(c_t, c_i, s_t, s_i)
+        assert np.array_equal(took, s_i != best_i)
+        # NaN pad rows give T_FAR and never win.
+        assert not np.isin(s_i[took], first + np.arange(16, 19)).any()
+
+
+@pytest.mark.parametrize("g_lanes", [2, 4, 8])
+def test_ties_go_to_the_smaller_index(g_lanes):
+    """Exact ties within one lane's share (items j and j + G) and across
+    the lanes of a group go to the smaller index, as in the serial
+    fold's first minimum."""
+    rng = np.random.default_rng(11)
+    count = 16
+    t = rng.uniform(1.0, 9.0, (WARP, count)).astype(np.float32)
+    for lane in range(WARP):
+        lo = np.float32(0.5 + lane / 64)
+        if lane % 3 == 0:
+            t[lane, [3, 3 + g_lanes]] = lo               # one lane's share
+        elif lane % 3 == 1:
+            t[lane, [2, 5, 14]] = lo                     # across lanes
+        else:
+            t[lane, :] = lo                              # every item
+    enter = np.ones(WARP, dtype=bool)
+    best = np.full(WARP, T_FAR, dtype=np.float32)
+    none = np.full(WARP, -1)
+    c_t, c_i, _ = coop_fold(t, 40, best, none, enter, g_lanes)
+    s_t, s_i = serial_fold(t, 40, best, none, enter)
+    assert_same(c_t, c_i, s_t, s_i)
+    expect = [43 if lane % 3 == 0 else 42 if lane % 3 == 1 else 40
+              for lane in range(WARP)]
+    assert c_i.tolist() == expect
+    # A prior best equal to the cluster's least t keeps its own winner.
+    c_t, c_i, took = coop_fold(t, 40, c_t, none, enter, g_lanes)
+    assert (c_i == -1).all() and not took.any()
+
+
+def test_five_item_cluster_at_g8_and_empty_votes():
+    """A cluster of 5 items (the headline bake's smallest) at G = 8 leaves
+    three lanes of each group without an item; they hold (T_FAR, INT_MAX)
+    and never win.  A warp where no lane enters changes nothing."""
+    rng = np.random.default_rng(3)
+    items = _items(rng, 5)
+    t = _slim(items, *_rays(rng, WARP))
+    best_t = np.full(WARP, T_FAR, dtype=np.float32)
+    best_i = np.full(WARP, -1)
+    enter = np.zeros(WARP, dtype=bool)
+    enter[[0, 7, 8, 30]] = True
+    c_t, c_i, took = coop_fold(t, 20, best_t, best_i, enter, 8)
+    s_t, s_i = serial_fold(t, 20, best_t, best_i, enter)
+    assert_same(c_t, c_i, s_t, s_i)
+    assert (c_i[~enter] == -1).all() and not took[~enter].any()
+    none = np.zeros(WARP, dtype=bool)
+    c_t, c_i, took = coop_fold(t, 20, best_t, best_i, none, 8)
+    assert_same(c_t, c_i, best_t, best_i)
+    assert not took.any()
+
+
+def _bake(scene_name, clusters, copies=1):
+    scene = get_scene(scene_name)
+    if copies > 1:
+        scene = scene.permuted(np.repeat(np.arange(scene.num_spheres),
+                                         copies))
+    arrays = {k: getattr(scene, k) for k in ("centers", "radii", "albedo",
+                                             "fuzz", "refract_idx",
+                                             "mat_type")}
+    cc = CameraController.book_one_final()
+    eye = tfused._concrete_eye(cc.view_matrix())
+    return bake.bake_culled(arrays, clusters, camera_hint=eye)
+
+
+def _scene_rays(rng, n):
+    """Rays over book_one_final's spheres: the first half incoherent
+    (origins above the ground, random unit directions, some up and away
+    so that they enter nothing), the second a narrow beam from the book's
+    camera position, whose warps enter the same clusters."""
+    half = n // 2
+    o = np.stack([rng.uniform(-12, 12, n), rng.uniform(0.05, 2.5, n),
+                  rng.uniform(-12, 12, n)], axis=1).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d[: n // 8, 1] = np.abs(d[: n // 8, 1]) + 2.0      # up and away
+    o[half:] = (13.0, 2.0, 3.0)
+    d[half:] = (np.float32((-13.0, -1.8, -3.0))
+                + rng.normal(0.0, 0.02, (n - half, 3)).astype(np.float32))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return [torch.from_numpy(np.ascontiguousarray(v)) for v in
+            (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])]
+
+
+def coop_sweep(baked, rays, g_lanes, t_max, hint=None):
+    """The kernel's warp sweep (csrc/baked.cu nearest with a voting form)
+    emulated warp by warp: globals, the hint's prepass, then each cluster
+    in visit order (supers front to back, a super's clusters walked when
+    any lane entered it) with the lane conds of the plain version, a vote,
+    and the serial fold where more than ``t_max`` lanes enter, the
+    cooperative fold otherwise.  Returns (best_t, best_i, best_c, supers,
+    clusters) per ray, and the count of folds of each kind."""
+    (cranges, sranges), _ = tbk.host_ranges(baked)
+    consts = baked.consts
+    ox, oy, oz, dx, dy, dz = rays
+    oxp, oyp, ozp = ox - consts[0], oy - consts[1], oz - consts[2]
+    dd_o = dx * oxp + dy * oyp + dz * ozp
+    oo2 = oxp * oxp + oyp * oyp + ozp * ozp
+    t_all = tbk._slim_t(baked.items, oxp, oyp, ozp, dd_o, oo2, dx, dy,
+                        dz).numpy()
+    inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
+    boxes, sboxes = baked.cluster_boxes, baked.super_boxes
+    c_ok, c_entry = (v.numpy() for v in tbk.box_conds(
+        boxes[:, 0:3], boxes[:, 4:7], ox, oy, oz, *inv))
+    s_ok, s_entry = (v.numpy() for v in tbk.box_conds(
+        sboxes[:, 0:3], sboxes[:, 4:7], ox, oy, oz, *inv))
+    t_exit = tbk.slab_exit(consts[3:6], consts[6:9], ox, oy, oz,
+                           *inv).numpy()
+    n = ox.shape[0]
+    out_t = np.full(n, T_FAR, dtype=np.float32)
+    out_i = np.full(n, -1, dtype=np.int64)
+    out_c = np.full(n, -1, dtype=np.int64)
+    supers = np.zeros(n, dtype=np.int64)
+    clusters = np.zeros(n, dtype=np.int64)
+    hints = (np.full(n, -1) if hint is None else hint.numpy())
+    kinds = {"coop": 0, "serial": 0}
+    for w in range(0, n, WARP):
+        lanes = np.arange(w, w + WARP)
+        t = t_all[lanes]
+        b_t, b_i = serial_fold(t[:, :baked.n_globals], 0,
+                               out_t[lanes], out_i[lanes],
+                               np.ones(WARP, dtype=bool))
+        b_c = np.full(WARP, -1)
+        h = hints[lanes]
+
+        def fold(c, enter, vote):
+            nonlocal b_t, b_i
+            first, count = cranges[c]
+            tc = t[:, first:first + count]
+            if vote and enter.sum() <= t_max:
+                kinds["coop"] += 1
+                b_t, b_i, took = coop_fold(tc, first, b_t, b_i, enter,
+                                           g_lanes)
+            else:
+                kinds["serial"] += vote
+                before = b_i
+                b_t, b_i = serial_fold(tc, first, b_t, b_i, enter)
+                took = b_i != before
+            b_c[took] = c
+
+        for lane in range(WARP):          # the prepass, per lane
+            if h[lane] >= 0:
+                clusters[w + lane] += 1
+                one = np.arange(WARP) == lane
+                fold(int(h[lane]), one, vote=False)
+
+        def visit(c, gate):
+            cap = np.minimum(b_t, t_exit[lanes])
+            enter = (gate & c_ok[lanes, c] & (c_entry[lanes, c] < cap)
+                     & (h != c))
+            clusters[lanes] += enter
+            if enter.any():
+                fold(c, enter, vote=True)
+
+        if sranges:
+            for s, (first, count) in enumerate(sranges):
+                cap = np.minimum(b_t, t_exit[lanes])
+                es = s_ok[lanes, s] & (s_entry[lanes, s] < cap)
+                supers[lanes] += es
+                if es.any():
+                    for c in range(first, first + count):
+                        visit(c, es)
+        else:
+            for c in range(len(cranges)):
+                visit(c, np.ones(WARP, dtype=bool))
+        out_t[lanes], out_i[lanes], out_c[lanes] = b_t, b_i, b_c
+    return out_t, out_i, out_c, supers, clusters, kinds
+
+
+@pytest.mark.parametrize("case", [
+    ("book_one_final", 16, 1, 8, 16),
+    ("book_one_final", 16, 1, 4, 32),
+    ("book_one_final", 16, 1, 2, 4),
+    ("book_one_final", 16, 2, 8, 16),     # every sphere twice: exact ties
+    ("book_one_final", 2, 1, 8, 16),      # two-level: supers
+], ids=["g8t16", "g4t32", "g2t4", "doubled-g8t16", "two-level-g8t16"])
+def test_coop_sweep_equals_plain_version(case):
+    """The emulated warp sweep gives, ray by ray, the serial form's winner
+    index bit for bit (its T = 0 form), and both give
+    culled_intersect_reference's winner, t and cull counters."""
+    scene_name, clusters, copies, g_lanes, t_max = case
+    baked = _bake(scene_name, clusters, copies)
+    rng = np.random.default_rng(clusters * 10 + copies + g_lanes)
+    rays = _scene_rays(rng, 4 * WARP)
+    c_t, c_i, _, c_sup, c_clu, kinds = coop_sweep(baked, rays, g_lanes,
+                                                  t_max)
+    s_t, s_i, _, s_sup, s_clu, _ = coop_sweep(baked, rays, g_lanes, 0)
+    assert_same(c_t, c_i, s_t, s_i)
+    assert np.array_equal(c_sup, s_sup) and np.array_equal(c_clu, s_clu)
+    ref = tbk.culled_intersect_reference(baked, *rays)
+    *fields, supers, clusters_ref = ref
+    assert np.array_equal(c_t.view(np.int32),
+                          fields[0].numpy().view(np.int32))
+    winner = tbk._winner(baked, torch.from_numpy(c_t),
+                         torch.from_numpy(c_i))
+    for a, b in zip(winner, fields):
+        assert torch.equal(a, b)
+    assert np.array_equal(c_sup, supers.numpy())
+    assert np.array_equal(c_clu, clusters_ref.numpy())
+    # The vote took both branches (only the cooperative one at T = 32),
+    # and some rays entered nothing.
+    assert kinds["coop"] > 0 and (kinds["serial"] > 0) == (t_max < WARP)
+    assert (c_clu == 0).any() and c_clu.max() > 0
+    if copies > 1:
+        assert (c_i >= 0).sum() > WARP
+
+
+def test_coop_sweep_hint_cluster_equals_plain_version():
+    """With the winner hint: the prepass per lane, the hinted cluster
+    skipped in the sweep, and each ray's winner cluster (best_c) as the
+    plain version reports it."""
+    baked = _bake("book_one_final", 16)
+    rng = np.random.default_rng(21)
+    rays = _scene_rays(rng, 4 * WARP)
+    n_clusters = baked.cluster_boxes.shape[0]
+    hint = torch.from_numpy(rng.integers(-1, n_clusters, 4 * WARP))
+    c_t, c_i, c_c, _, c_clu, _ = coop_sweep(baked, rays, 8, 16, hint=hint)
+    *fields, best_c, _, clusters = tbk.culled_intersect_reference(
+        baked, *rays, hint=hint)
+    assert np.array_equal(c_t.view(np.int32),
+                          fields[0].numpy().view(np.int32))
+    assert np.array_equal(c_c, best_c.numpy())
+    assert np.array_equal(c_clu, clusters.numpy())
+    assert (c_c >= 0).any()
+
+
+def test_divergence_counts_hand_made():
+    """Three trips of a 4-lane warp over clusters of 3 and 5 items."""
+    keys = torch.tensor([0, 0, 0, 1, 1, 5])
+    entered = torch.tensor([[1, 0], [1, 1], [0, 0], [0, 1], [0, 0], [1, 1]],
+                           dtype=torch.bool)
+    got = tbk.divergence_counts(keys, entered, [3, 5], warp=4)
+    assert got == {
+        "rays": 6, "trips": 3, "warp_fullness": 0.5,
+        "clusters_per_ray": 1.0, "union_clusters_per_trip": 5 / 3,
+        "issued_pairs": (8 + 5 + 8) * 4, "useful_pairs": 11 + 5 + 8,
+        "useful_share": 24 / 84, "entering_lanes": [4, 1, 0, 0]}
+
+
+@pytest.mark.parametrize("hint", [False, True], ids=["plain", "hint"])
+def test_warp_divergence_matches_counters(hint):
+    """The count over a small render agrees with the plain version's own
+    counters: its rays, its loop trips per warp and its clusters entered;
+    and the plain version's results are untouched by the spy."""
+    baked = _bake("book_one_final", 16)
+    if hint:
+        baked = dataclasses.replace(baked, winner_hint=True)
+    w, h = 32, 16
+    cc = CameraController.book_one_final()
+    cfg = RenderConfig(width=w, height=h, engine="fused")
+    cam = torch.from_numpy(tfused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(w, h), cfg))
+    perm, _ = tfused._block_perm(w, h, 32)
+    planes = tfused.lane_planes(torch.from_numpy(perm.astype(np.int64)), w,
+                                8)
+    salts = (0, 0, 50, 2)
+    before = tbk.fused_render_baked_reference(baked, salts, cam, *planes)
+    got = tbk.warp_divergence(baked, salts, cam, *planes)
+    after = tbk.fused_render_baked_reference(baked, salts, cam, *planes)
+    rays, trips, _, clusters = before[3].tolist()
+    assert got["rays"] == rays and got["trips"] == trips
+    assert round(got["clusters_per_ray"] * rays) == clusters
+    assert sum(got["entering_lanes"]) > 0
+    assert got["useful_pairs"] <= got["issued_pairs"]
+    for a, b in zip(before, after):
+        assert torch.equal(a, b)
+    assert tbk._take.__name__ == "_take"
+
+
+def test_sweep_form_is_checked_and_changes_nothing_on_cpu():
+    baked = _bake("book_one_final", 16)
+    w, h = 16, 8
+    cc = CameraController.book_one_final()
+    cfg = RenderConfig(width=w, height=h, engine="fused")
+    cam = torch.from_numpy(tfused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(w, h), cfg))
+    perm, _ = tfused._block_perm(w, h, 32)
+    planes = tfused.lane_planes(torch.from_numpy(perm.astype(np.int64)), w,
+                                8)
+    salts = (0, 0, 8, 1)
+    a = tbk.fused_render_baked(baked, salts, cam, *planes)
+    b = tbk.fused_render_baked(baked, salts, cam, *planes,
+                               sweep=tbk.SWEEP_SERIAL)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="sweep form"):
+        tbk.fused_render_baked(baked, salts, cam, *planes,
+                               sweep=tbk.SWEEP_COOP + 1)

@@ -126,6 +126,41 @@ def test_baked_kernel_matches_plain(device, clusters):
     assert clusters != 2 or int(k[3][2]) > 0
 
 
+@pytest.mark.parametrize("case", ["headline", "doubled", "hint"])
+def test_culled_sweep_matches_plain_at_full_width(device, case):
+    """The headline's culled kernel at full lane width (1920x1080@1spp,
+    block order) in its shipped sweep form (a vote per cluster, the rays of
+    few entering lanes shared by the warp) and in the serial form:
+    radiance words and all four counters bit-identical to the plain
+    version.  "doubled" holds every sphere twice, so that a hit on one is
+    an exact tie of two items, which the smaller index must win; "hint"
+    runs the winner hint."""
+    scene = get_scene("book_one_final")
+    if case == "doubled":
+        scene = scene.permuted(np.repeat(np.arange(scene.num_spheres), 2))
+    arrays = {k: getattr(scene, k) for k in ("centers", "radii", "albedo",
+                                             "fuzz", "refract_idx",
+                                             "mat_type")}
+    cc = CameraController.book_one_final()
+    eye = tfused._concrete_eye(cc.view_matrix())
+    baked = bake.bake_culled(arrays, 16, camera_hint=eye,
+                             winner_hint=case == "hint", device=device)
+    w, h = 1920, 1080
+    cfg = RenderConfig(width=w, height=h, engine="fused")
+    cam = torch.from_numpy(tfused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(w, h),
+        cfg)).to(device)
+    _, planes = _planes(w, h, device)
+    salts = (0, 0, 50, 1)
+    p = tbk.fused_render_baked_reference(baked, salts, cam, *planes)
+    for sweep in (tbk.SWEEP_COOP, tbk.SWEEP_SERIAL):
+        k = tbk.fused_render_baked(baked, salts, cam, *planes, sweep=sweep)
+        for a, b in zip(k[:3], p[:3]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert k[3].tolist() == p[3].tolist()
+    assert int(p[3][3]) > 0
+
+
 @pytest.mark.parametrize("case", ["terrain/dyn16", "knot1120/dyn16",
                                   "procedural1200/dyn16", "terrain/culled8",
                                   "terrain/unculled"])

@@ -69,16 +69,30 @@
 // axis-parallel ray can give (lo - o) * inf = NaN, and then the cond is
 // false and the cluster is skipped, as in the reference.
 //
-// What bounds it on this card: FP32 issue over ray-primitive pairs plus
-// the box tests, and warp divergence once the rays of a warp disagree on a
-// cluster (a warp runs a cluster's 16 tests if any of its threads enters).
-// The design keeps the pair loop lean (a 32-byte read per pair, the winner
-// carried as an index, its attributes fetched once after the sweep) and
-// leans on the 32x32 block lane order of models/fused.py, which puts rays
-// of one image block, whose primary rays share a frustum, in one warp.
-// Warp-vote consensus, shared-memory staging and generated per-scene
-// source are later steps.
+// What bounds it on this card: FP32 issue over ray-primitive pairs and
+// box tests, multiplied by warp divergence.  A warp runs a cluster's pair
+// tests on all 32 lanes when any of its lanes enters the cluster.  On the
+// headline (book_one_final at 1080p@32 spp; chip_smoke.py phase sweep
+// counts it from the plain version over 16 image blocks) a warp trip runs
+// 6.43 clusters where a ray enters 3.68, 41.5% of the lane-pairs issued
+// test a pair that a lane needs, and of the (trip, cluster) pairs that
+// some lane enters, 24.7% have one lane entering and 18.3% have 28-32.
+// The design: in the persistent loop the warp's lanes run in step
+// (common.cuh trace_warp), each cluster takes a vote of the lanes' own
+// conds, and where at most T lanes enter, the warp's lanes share their
+// rays, G lanes a ray (coop_fold, with G = 8 and T = 12: a lone entering
+// ray's 16 pairs take 2 steps of the warp, not 16); where more enter, each
+// tests its own (the serial fold).  Which rays enter which cluster, and
+// which item wins, are the per-thread sweep's, so the kernel stays bit for
+// bit equal to its plain version.  Box tests stay per thread; the tables
+// stay in L1 (__ldg, read warp-uniformly, which probes showed as fast as
+// shared memory); the pair loop stays lean (a 32-byte read a pair, the
+// winner carried as an index and its attributes fetched once after the
+// sweep); and the 32x32 block lane order of models/fused.py puts rays of
+// one image block, whose primary rays share a frustum, in one warp.  The
+// segments keep the per-thread sweep.
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
@@ -233,44 +247,127 @@ struct Hierarchy {
 
   // The sweep (pallas_kernels.py:1362-1455) with per-thread conds:
   // supers front to back and the clusters of an entered super in their
-  // bake order, or the flat sorted clusters.  `fold(c, first, count)`
-  // tests cluster c's items against the running best_t.  With kSkip,
-  // cluster `skip` (the hint's, already tested) is passed over.
-  template <bool kSkip, class Fold>
-  __device__ __forceinline__ void sweep(const BoxRay& r, const float& best_t,
-                                        Counts& counts, int skip,
-                                        Fold fold) const {
+  // bake order, or the flat sorted clusters.  `visit(c, enter)` is called
+  // for every cluster the sweep reaches, `enter` being the thread's cond
+  // (false for a thread that is not `live`); it tests cluster c's items
+  // against the running best_t where it enters.  With kSkip, cluster
+  // `skip` (the hint's, already tested) is passed over.  With kWarp every
+  // lane of the warp runs the sweep together: the clusters of a super are
+  // walked when any lane entered it, and a lane that did not has enter =
+  // false for them.  Without it a thread walks only its own supers.
+  template <bool kSkip, bool kWarp, class Visit>
+  __device__ __forceinline__ void sweep(bool live, const BoxRay& r,
+                                        const float& best_t, Counts& counts,
+                                        int skip, Visit visit) const {
     const float t_exit = wpt::slab_exit(r, lo[0], lo[1], lo[2], hi[0],
                                         hi[1], hi[2]);
     if (n_supers > 0) {
       for (int s = 0; s < n_supers; ++s) {
-        if (!enters(r, sboxes, s, nan_min(best_t, t_exit))) continue;
-        ++counts.supers;
+        const bool es = live
+            && enters(r, sboxes, s, nan_min(best_t, t_exit));
+        if (es) ++counts.supers;
+        if (kWarp ? !__any_sync(wpt::kFullMask, es) : !es) continue;
         const int2 range = __ldg(sranges + s);
         for (int c = range.x; c < range.x + range.y; ++c) {
-          if ((!kSkip || c != skip)
-              && enters(r, boxes, c, nan_min(best_t, t_exit))) {
-            ++counts.clusters;
-            const int2 items = __ldg(ranges + c);
-            fold(c, items.x, items.y);
-          }
+          visit(c, es && (!kSkip || c != skip)
+                       && enters(r, boxes, c, nan_min(best_t, t_exit)));
         }
       }
     } else {
       for (int c = 0; c < n_clusters; ++c) {
-        if ((!kSkip || c != skip)
-            && enters(r, boxes, c, nan_min(best_t, t_exit))) {
-          ++counts.clusters;
-          const int2 items = __ldg(ranges + c);
-          fold(c, items.x, items.y);
-        }
+        visit(c, live && (!kSkip || c != skip)
+                     && enters(r, boxes, c, nan_min(best_t, t_exit)));
       }
     }
   }
 };
 
-// baked_culled_intersect.intersect (pallas_kernels.py:1063-1466).
-template <bool kTris, bool kTex, bool kHint>
+// The form of the culled sweep, for spheres and triangles alike: the
+// lanes that share one ray (G) and the most entering lanes of a warp for
+// which a cluster takes the cooperative fold (T).  T = 0 is the serial
+// fold of every cluster in the per-thread loop (common.cuh trace_lane);
+// T above 0 votes per cluster, which needs the warp's lanes in step
+// (trace_warp).
+template <int kGroup, int kMaxLanes>
+struct Sweep {
+  static constexpr int kG = kGroup, kT = kMaxLanes;
+  static constexpr bool kWarp = kMaxLanes > 0;
+  static_assert(!kWarp || (kGroup >= 2 && kGroup <= 32 && 32 % kGroup == 0),
+                "G divides the warp");
+};
+// The per-thread sweep of every cluster: the segments' and the T = 0
+// comparator's.
+using Serial = Sweep<1, 0>;
+// The shipped form, chosen on the card (PERF.md section 6).
+using Coop = Sweep<8, 12>;
+
+// The cooperative fold of one cluster, items first..first+count-1, for
+// the entering lanes `m` of the warp; every lane of the warp calls it,
+// with `took` set where the lane's best changed.  G lanes serve one
+// entering ray, 32 / G rays a pass, taken from m in lane order.  A group
+// reads its ray's N fields with `fetch(owner, v)`, and lane j of the group
+// tests items first + j, first + j + G, ... with `item_t(v, i)`, keeping
+// its first strict minimum (t, i).  A shuffle tree over the group keeps
+// the smaller t and, on equal t, the smaller index; the entering lane
+// takes the result (tagged with `tag`) only where it is strictly below
+// the best_t it held before the cluster.  So its winner is the serial
+// fold's, bit for bit: the first item of least t below the old best.
+// Lanes without an item hold (kTFar, INT_MAX), which never wins.
+template <int G, int N, class Fetch, class ItemT>
+__device__ __forceinline__ bool coop_fold(unsigned m, int first, int count,
+                                          int tag, Fetch fetch, ItemT item_t,
+                                          float& best_t, int& best) {
+  constexpr int kGroups = 32 / G;
+  const int me = static_cast<int>(threadIdx.x & 31u);
+  const int g = me / G;
+  const int j = me % G;
+  const unsigned below = (1u << me) - 1u;
+  bool took = false;
+  for (unsigned rem = m; rem != 0u;) {
+    unsigned x = rem;              // group g serves the g-th lane of rem
+    for (int k = 0; k < g; ++k) x &= x - 1u;
+    const bool serves = x != 0u;
+    float v[N];
+    fetch(serves ? __ffs(x) - 1 : me, v);
+    float t_min = kTFar;
+    int i_min = INT_MAX;
+    if (serves) {
+      for (int i = first + j; i < first + count; i += G) {
+        const float t = item_t(v, i);
+        if (t < t_min) {
+          t_min = t;
+          i_min = i;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+      const float t2 = __shfl_xor_sync(wpt::kFullMask, t_min, off);
+      const int i2 = __shfl_xor_sync(wpt::kFullMask, i_min, off);
+      if (t2 < t_min || (t2 == t_min && i2 < i_min)) {
+        t_min = t2;
+        i_min = i2;
+      }
+    }
+    const int rank = __popc(rem & below);
+    const bool served = ((rem >> me) & 1u) && rank < kGroups;
+    const int src = served ? rank * G : me;
+    const float t_res = __shfl_sync(wpt::kFullMask, t_min, src);
+    const int i_res = __shfl_sync(wpt::kFullMask, i_min, src);
+    if (served && t_res < best_t) {
+      best_t = t_res;
+      best = tag | i_res;
+      took = true;
+    }
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) rem &= rem - 1u;
+  }
+  return took;
+}
+
+// baked_culled_intersect.intersect (pallas_kernels.py:1063-1466), with
+// the sweep form S.
+template <bool kTris, bool kTex, bool kHint, class S>
 struct CulledIntersect {
   static constexpr bool kTriangles = kTris;
   static constexpr bool kTextured = kTex;
@@ -291,13 +388,14 @@ struct CulledIntersect {
   // The slimmed quadratic of sphere_tests (1090-1130), in its order of
   // operations: unit directions, NaN from sqrt of a negative disc falls
   // through both selects to T_FAR.
-  __device__ __forceinline__ void test(const Ray& r, int i, float& best_t,
-                                       int& best) const {
+  __device__ __forceinline__ float sphere_t(float oxp, float oyp, float ozp,
+                                            float dd_o, float oo2, float dx,
+                                            float dy, float dz,
+                                            int i) const {
     const float4 q = __ldg(items + kItem * i);
     const float4 q1 = __ldg(items + kItem * i + 1);
-    const float nb = (r.dx * q.x + r.dy * q.y + r.dz * q.z) - r.dd_o;
-    const float c_q = (r.oo2 + q.w)
-        - (r.oxp * q1.y + r.oyp * q1.z + r.ozp * q1.w);
+    const float nb = (dx * q.x + dy * q.y + dz * q.z) - dd_o;
+    const float c_q = (oo2 + q.w) - (oxp * q1.y + oyp * q1.z + ozp * q1.w);
     const float disc = nb * nb - c_q;
     const float sq = sqrtf(disc);
     const float t1 = nb - sq;
@@ -310,15 +408,41 @@ struct CulledIntersect {
       const float t2 = nb + sq;
       t = (t2 > kTMin) ? t2 : kTFar;
     }
+    return t;
+  }
+
+  __device__ __forceinline__ void test(const Ray& r, int i, float& best_t,
+                                       int& best) const {
+    const float t = sphere_t(r.oxp, r.oyp, r.ozp, r.dd_o, r.oo2, r.dx, r.dy,
+                             r.dz, i);
     if (t < best_t) {
       best_t = t;
       best = i;
     }
   }
 
+  // The call of trace_lane and of the segment body: a per-thread sweep.
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
       Counts& counts, int& hint) const {
+    return nearest<false>(true, ox, oy, oz, dx, dy, dz, h, counts, hint);
+  }
+
+  // The call of trace_warp: every lane of the warp, live or not.
+  __device__ __forceinline__ bool operator()(
+      bool live, float ox, float oy, float oz, float dx, float dy, float dz,
+      Hit& h, Counts& counts, int& hint) const {
+    return nearest<S::kWarp>(live, ox, oy, oz, dx, dy, dz, h, counts, hint);
+  }
+
+  // The nearest hit of the thread's ray (if `live`).  With kW the warp's
+  // lanes are in step, and each cluster that some lane enters takes the
+  // serial fold where more than T lanes enter it and the cooperative fold
+  // where at most T do (a vote per cluster).
+  template <bool kW>
+  __device__ __forceinline__ bool nearest(
+      bool live, float ox, float oy, float oz, float dx, float dy, float dz,
+      Hit& h, Counts& counts, int& hint) const {
     Ray r;
     r.dx = dx; r.dy = dy; r.dz = dz;
     r.oxp = ox - shx;
@@ -328,7 +452,9 @@ struct CulledIntersect {
     r.oo2 = r.oxp * r.oxp + r.oyp * r.oyp + r.ozp * r.ozp;
     int best = -1;
     float best_t = kTFar;
-    for (int i = 0; i < n_globals; ++i) test(r, i, best_t, best);
+    if (live) {
+      for (int i = 0; i < n_globals; ++i) test(r, i, best_t, best);
+    }
     int best_c = -1;   // the winner's cluster (kHint)
     if (spheres.n_clusters > 0 || (kTris && triangles.n_clusters > 0)) {
       const BoxRay br{ox, oy, oz, 1.0f / dx, 1.0f / dy, 1.0f / dz};
@@ -345,25 +471,86 @@ struct CulledIntersect {
                        best);
         if (kHint && best != before) best_c = n_sph + c;
       };
-      if (kHint && hint >= 0) {
+      // The cooperative folds' ray fetches and item tests.
+      const auto fetch_sph = [&](int owner, float (&v)[8]) {
+        const float mine[8] = {r.oxp, r.oyp, r.ozp, r.dd_o, r.oo2, dx, dy, dz};
+#pragma unroll
+        for (int f = 0; f < 8; ++f)
+          v[f] = __shfl_sync(wpt::kFullMask, mine[f], owner);
+      };
+      const auto sph_t = [&](const float (&v)[8], int i) {
+        return sphere_t(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], i);
+      };
+      const auto fetch_tri = [&](int owner, float (&v)[6]) {
+        const float mine[6] = {ox, oy, oz, dx, dy, dz};
+#pragma unroll
+        for (int f = 0; f < 6; ++f)
+          v[f] = __shfl_sync(wpt::kFullMask, mine[f], owner);
+      };
+      const auto tri_t = [&](const float (&v)[6], int i) {
+        return wpt::tri_test(tris + kTri * i, v[0], v[1], v[2], v[3], v[4],
+                             v[5]);
+      };
+      // One cluster of each hierarchy, as the sweep reaches it.
+      const auto visit_spheres = [&](int c, bool enter) {
+        if (enter) ++counts.clusters;
+        if constexpr (kW) {
+          const unsigned m = __ballot_sync(wpt::kFullMask, enter);
+          if (m == 0u) return;
+          const int2 range = __ldg(spheres.ranges + c);
+          if (__popc(m) > S::kT) {
+            if (enter) fold_spheres(c, range.x, range.y);
+          } else {
+            const bool took = coop_fold<S::kG, 8>(
+                m, range.x, range.y, 0, fetch_sph, sph_t, best_t, best);
+            if (kHint && took) best_c = c;
+          }
+        } else if (enter) {
+          const int2 range = __ldg(spheres.ranges + c);
+          fold_spheres(c, range.x, range.y);
+        }
+      };
+      const auto visit_triangles = [&](int c, bool enter) {
+        if (enter) ++counts.clusters;
+        if constexpr (kW) {
+          const unsigned m = __ballot_sync(wpt::kFullMask, enter);
+          if (m == 0u) return;
+          const int2 range = __ldg(triangles.ranges + c);
+          if (__popc(m) > S::kT) {
+            if (enter) fold_triangles(c, range.x, range.y);
+          } else {
+            const bool took = coop_fold<S::kG, 6>(
+                m, range.x, range.y, kTriBit, fetch_tri, tri_t, best_t,
+                best);
+            if (kHint && took) best_c = n_sph + c;
+          }
+        } else if (enter) {
+          const int2 range = __ldg(triangles.ranges + c);
+          fold_triangles(c, range.x, range.y);
+        }
+      };
+      if (kHint && live && hint >= 0) {
         // The prepass: the previous winner's cluster, unconditionally.
         ++counts.clusters;
         if (hint < n_sph) {
-          const int2 items = __ldg(spheres.ranges + hint);
-          fold_spheres(hint, items.x, items.y);
+          const int2 range = __ldg(spheres.ranges + hint);
+          fold_spheres(hint, range.x, range.y);
         } else if (kTris) {
-          const int2 items = __ldg(triangles.ranges + hint - n_sph);
-          fold_triangles(hint - n_sph, items.x, items.y);
+          const int2 range = __ldg(triangles.ranges + hint - n_sph);
+          fold_triangles(hint - n_sph, range.x, range.y);
         }
       }
       const int skip = kHint ? hint : -1;
-      if (n_sph > 0)
-        spheres.sweep<kHint>(br, best_t, counts, skip, fold_spheres);
-      if (kTris && triangles.n_clusters > 0)
-        triangles.sweep<kHint>(br, best_t, counts, skip - n_sph,
-                               fold_triangles);
+      if (n_sph > 0) {
+        spheres.sweep<kHint, kW>(live, br, best_t, counts, skip,
+                                 visit_spheres);
+      }
+      if (kTris && triangles.n_clusters > 0) {
+        triangles.sweep<kHint, kW>(live, br, best_t, counts, skip - n_sph,
+                                   visit_triangles);
+      }
     }
-    if (kHint) hint = best_c;
+    if (kHint && live) hint = best_c;
     return finish<kTris, kTex>(items, tex_items, tris, best, best_t, h);
   }
 };
@@ -379,9 +566,12 @@ baked_unculled_kernel(const P p, const UnculledIntersect<kTris, kTex> isect) {
   wpt::trace(p, lane, isect);
 }
 
-template <class P, bool kTris, bool kTex, bool kHint>
+// A sweep form that votes (S::kWarp) runs the persistent loop with the
+// warp's lanes in step (trace_warp); the serial form runs trace_lane, or
+// the segment body.
+template <class P, bool kTris, bool kTex, bool kHint, class S>
 __global__ void __launch_bounds__(kThreads, 8)
-baked_culled_kernel(const P p, CulledIntersect<kTris, kTex, kHint> isect,
+baked_culled_kernel(const P p, CulledIntersect<kTris, kTex, kHint, S> isect,
                     const float* __restrict__ consts) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   isect.shx = __ldg(consts + 0);
@@ -395,7 +585,13 @@ baked_culled_kernel(const P p, CulledIntersect<kTris, kTex, kHint> isect,
       isect.triangles.hi[k] = __ldg(consts + 12 + k);
     }
   }
-  wpt::trace(p, lane, isect);
+  if constexpr (S::kWarp) {
+    static_assert(std::is_same_v<P, wpt::LaneParams>,
+                  "a voting sweep runs only the persistent loop");
+    wpt::trace_warp(p, lane, isect);
+  } else {
+    wpt::trace(p, lane, isect);
+  }
 }
 
 Hierarchy hierarchy(const float* boxes, const int* ranges, int n_clusters,
@@ -420,53 +616,69 @@ struct Tables {
   wpt::TexTables tex;
 };
 
-template <class P, bool kTris, bool kTex, bool kHint>
+template <class P, bool kTris, bool kTex, bool kHint, class S>
 void launch_culled(const P& p, const Tables& t, cudaStream_t s) {
   const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
-  const CulledIntersect<kTris, kTex, kHint> isect{
+  const CulledIntersect<kTris, kTex, kHint, S> isect{
       t.items, t.n_globals, t.spheres, t.tris, t.triangles, t.tex_items,
       t.tex, 0.0f, 0.0f, 0.0f};
-  baked_culled_kernel<P, kTris, kTex, kHint><<<blocks, kThreads, 0, s>>>(
+  baked_culled_kernel<P, kTris, kTex, kHint, S><<<blocks, kThreads, 0, s>>>(
       p, isect, t.consts);
+}
+
+// The culled kernel of sweep form `sweep`: 0 Serial, 1 Coop (the
+// persistent loop only; a segment always runs Serial).  False for any
+// other form.
+template <class P, bool kTris, bool kTex, bool kHint>
+bool launch_sweep(const P& p, int sweep, const Tables& t, cudaStream_t s) {
+  if (sweep == 0) {
+    launch_culled<P, kTris, kTex, kHint, Serial>(p, t, s);
+    return true;
+  }
+  if constexpr (std::is_same_v<P, wpt::LaneParams>) {
+    if (sweep == 1) {
+      launch_culled<P, kTris, kTex, kHint, Coop>(p, t, s);
+      return true;
+    }
+  }
+  return false;
 }
 
 // A segment never runs the winner hint (recluster and the hint exclude
 // each other, utils/config.py), so only LaneParams instantiates it.
 template <class P, bool kTris, bool kTex>
-void launch(const P& p, int culled, int hint, const Tables& t,
+bool launch(const P& p, int culled, int hint, int sweep, const Tables& t,
             cudaStream_t s) {
   if constexpr (std::is_same_v<P, wpt::LaneParams>) {
     if (culled && hint) {
-      launch_culled<P, kTris, kTex, true>(p, t, s);
-      return;
+      return launch_sweep<P, kTris, kTex, true>(p, sweep, t, s);
     }
   }
-  if (culled) {
-    launch_culled<P, kTris, kTex, false>(p, t, s);
-  } else {
-    const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
-    const UnculledIntersect<kTris, kTex> isect{t.items, t.n_globals, t.tris,
-                                               t.n_tris, t.tex_items, t.tex};
-    baked_unculled_kernel<P, kTris, kTex><<<blocks, kThreads, 0, s>>>(
-        p, isect);
-  }
+  if (culled) return launch_sweep<P, kTris, kTex, false>(p, sweep, t, s);
+  const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
+  const UnculledIntersect<kTris, kTex> isect{t.items, t.n_globals, t.tris,
+                                             t.n_tris, t.tex_items, t.tex};
+  baked_unculled_kernel<P, kTris, kTex><<<blocks, kThreads, 0, s>>>(p, isect);
+  return true;
 }
 
 // The instantiation for the scene's kinds (triangles, textures); returns
-// cudaGetLastError().
+// cudaGetLastError(), or cudaErrorInvalidValue for an unknown sweep form.
 template <class P>
 int dispatch(const P& p, int n_tris, int culled, int textured, int hint,
-             const Tables& t, void* stream) {
+             int sweep, const Tables& t, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bool ok;
   if (n_tris > 0 && textured) {
-    launch<P, true, true>(p, culled, hint, t, s);
+    ok = launch<P, true, true>(p, culled, hint, sweep, t, s);
   } else if (n_tris > 0) {
-    launch<P, true, false>(p, culled, hint, t, s);
+    ok = launch<P, true, false>(p, culled, hint, sweep, t, s);
   } else if (textured) {
-    launch<P, false, true>(p, culled, hint, t, s);
+    ok = launch<P, false, true>(p, culled, hint, sweep, t, s);
   } else {
-    launch<P, false, false>(p, culled, hint, t, s);
+    ok = launch<P, false, false>(p, culled, hint, sweep, t, s);
   }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,8 +689,10 @@ int dispatch(const P& p, int n_tris, int culled, int textured, int hint,
 // the item table's row count) with the generic quadratic, and the box
 // tables are not read.  n_tris == 0 launches the sphere-only kernels,
 // textured == 0 the untextured ones (the texture tables are not read),
-// hint != 0 (culled only) the winner-hint ones.  The wrapper
-// (ops/baked_kernels.py) checks shapes, types and alignment.
+// hint != 0 (culled only) the winner-hint ones.  `sweep` picks the
+// culled sweep's form (launch_sweep: 0 the serial fold of every cluster,
+// 1 the shipped per-cluster choice).  The wrapper (ops/baked_kernels.py)
+// checks shapes, types and alignment.
 extern "C" int wpt_baked_launch(
     const float* items, int n_globals,
     const float* cboxes, const int* cranges, int n_clusters,
@@ -488,7 +702,7 @@ extern "C" int wpt_baked_launch(
     const float* tsboxes, const int* tsranges, int n_tri_supers,
     const float* consts, int culled,
     const float* tex_items, const float* img_centres, const int* img_words,
-    int img_h, int img_w, int textured, int hint,
+    int img_h, int img_w, int textured, int hint, int sweep,
     const float* cam, const uint32_t* pix, const float* xs, const float* ys,
     const float* valid, const uint32_t* soff,
     float* rad_r, float* rad_g, float* rad_b, int* rays, int* supers,
@@ -510,7 +724,7 @@ extern "C" int wpt_baked_launch(
       consts, reinterpret_cast<const float4*>(tex_items),
       {reinterpret_cast<const float4*>(img_centres), img_words, img_h,
        img_w}};
-  return dispatch(p, n_tris, culled, textured, hint, t, stream);
+  return dispatch(p, n_tris, culled, textured, hint, sweep, t, stream);
 }
 
 // One recluster segment (fused_segment_baked, pallas_kernels.py:2997) over
@@ -542,5 +756,5 @@ extern "C" int wpt_baked_segment_launch(
       consts, reinterpret_cast<const float4*>(tex_items),
       {reinterpret_cast<const float4*>(img_centres), img_words, img_h,
        img_w}};
-  return dispatch(p, n_tris, culled, textured, 0, t, stream);
+  return dispatch(p, n_tris, culled, textured, 0, 0, t, stream);
 }

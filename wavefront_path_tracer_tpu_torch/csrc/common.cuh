@@ -36,6 +36,7 @@ constexpr uint32_t kSampleStride = 0x9E3779B9u;
 constexpr uint32_t kBounceStride = 0x85EBCA6Bu;
 constexpr uint32_t kRrSalt = 0x52455252u;
 constexpr int kThreads = 128;
+constexpr unsigned kFullMask = 0xffffffffu;   // all 32 lanes of a warp
 // The texture step's constants, rounded from the reference's float64
 // Python values to float32 as JAX and PyTorch round them.
 constexpr float kPiF = (float)3.1415927;
@@ -357,23 +358,22 @@ struct Path {
   uint32_t bounce;            // surface events so far
 };
 
-// One bounce of a live path: the loop body of _persistent_impl (2451)
-// and of _segment_impl (2854-2936), shared by trace_lane and
-// trace_segment so that the two cannot drift.  `isect(ox, oy, oz, dx, dy,
-// dz, hit, counts, hint)` returns whether the ray hits and fills `hit`;
-// Isect::kTriangles says whether the winner may be a triangle and
+// What follows the nearest-hit search in one bounce of a live path
+// (`hit`: whether the ray hit, and then `h` its winner): the loop body of
+// _persistent_impl (2451) and of _segment_impl (2854-2936) after the
+// intersect, shared by bounce_step and trace_warp so that they cannot
+// drift.  Isect::kTriangles says whether the winner may be a triangle and
 // Isect::kTextured whether the texture step runs (over isect.tex).  A
 // miss adds throughput x the sky gradient (optionally clamped) and ends
 // the path; a hit shades, applies the texture step, scatters, and runs
 // roulette from rr_start.  Returns whether the path goes on.  `P` is
 // LaneParams or SegParams: its max_bounces, rr_start, rr_floor and clamp.
 template <class Isect, class P>
-__device__ __forceinline__ bool bounce_step(const P& p, const Isect& isect,
-                                            uint32_t base, uint32_t sample,
-                                            Path& q, Counts& counts,
-                                            int& hint) {
-  Hit h;
-  if (!isect(q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, h, counts, hint)) {
+__device__ __forceinline__ bool bounce_finish(const P& p, const Isect& isect,
+                                              uint32_t base, uint32_t sample,
+                                              Path& q, bool hit,
+                                              const Hit& h) {
+  if (!hit) {
     const float sky_a = 0.5f * (q.dy + 1.0f);
     float con_r = q.tr * ((1.0f - sky_a) + sky_a * 0.5f);
     float con_g = q.tg * ((1.0f - sky_a) + sky_a * 0.7f);
@@ -416,6 +416,20 @@ __device__ __forceinline__ bool bounce_step(const P& p, const Isect& isect,
   return q.bounce < p.max_bounces;
 }
 
+// One bounce of a live path, shared by trace_lane and trace_segment:
+// `isect(ox, oy, oz, dx, dy, dz, hit, counts, hint)` returns whether the
+// ray hits and fills `hit`; then bounce_finish.
+template <class Isect, class P>
+__device__ __forceinline__ bool bounce_step(const P& p, const Isect& isect,
+                                            uint32_t base, uint32_t sample,
+                                            Path& q, Counts& counts,
+                                            int& hint) {
+  Hit h;
+  const bool hit = isect(q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, h, counts,
+                         hint);
+  return bounce_finish(p, isect, base, sample, q, hit, h);
+}
+
 // The persistent body (_persistent_impl) for one lane: every sample and
 // every bounce of the lane, one thread.  `hint` is the lane's state for
 // the winner hint: -1 for a new lane, then whatever the last call left
@@ -453,6 +467,77 @@ __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
       } while (bounce_step(p, isect, base, sample, q, counts, hint));
     }
   }
+  p.rad_r[lane] = q.acc_r;
+  p.rad_g[lane] = q.acc_g;
+  p.rad_b[lane] = q.acc_b;
+  p.rays[lane] = counts.rays;
+  if (p.supers != nullptr) p.supers[lane] = counts.supers;
+  if (p.clusters != nullptr) p.clusters[lane] = counts.clusters;
+}
+
+// trace_lane with the warp's lanes in step, for nearest-hit functions
+// that vote and shuffle across the warp (baked.cu's cooperative culled
+// sweep).  In trace_lane a lane that has finished its samples leaves, and
+// the lanes reach the intersect at unrelated points, so no warp-wide
+// __ballot_sync or __shfl_sync is safe there.  Here the warp runs one loop
+// of trips, and in each trip every lane of the warp, those past n_lanes
+// too, calls `isect(live, ox, oy, oz, dx, dy, dz, hit, counts, hint)`
+// once: a lane with a ray passes live = true, one with none left live =
+// false, and then enters nothing and counts nothing but still joins every
+// vote and shuffle.  The loop ends when no lane of the warp is live.  Each
+// lane traces the rays of trace_lane in the same order (a lane starts its
+// next sample on the trip after its path ends), so its radiance words, its
+// streams and its counters are trace_lane's, and the trips of a warp are
+// still the largest ray count among its lanes.
+template <class Isect>
+__device__ __forceinline__ void trace_warp(const LaneParams& p, int lane,
+                                           const Isect& isect) {
+  const bool in = lane < p.n_lanes;
+  Path q;
+  q.ox = 0.0f; q.oy = 0.0f; q.oz = 0.0f;
+  q.dx = 0.0f; q.dy = 0.0f; q.dz = 0.0f;
+  q.acc_r = 0.0f;
+  q.acc_g = 0.0f;
+  q.acc_b = 0.0f;
+  Counts counts;
+  int hint = -1;
+  bool live = in && p.n_samples > 0 && p.valid[lane] > 0.0f;
+  uint32_t pix = 0, soff = 0;
+  float xs = 0.0f, ys = 0.0f;
+  if (live) {
+    pix = p.pix[lane];
+    xs = p.xs[lane];
+    ys = p.ys[lane];
+    soff = p.soff[lane];
+  }
+  const Camera cam = load_camera(p.cam);
+  const uint32_t base = jenkins(pix ^ jenkins(p.frame));
+  const bool stratified = p.stratified != 0;
+  uint32_t s = 0, sample = 0;
+  bool fresh = true;       // the lane's next ray starts a sample
+  while (__any_sync(kFullMask, live)) {
+    if (live && fresh) {
+      sample = p.sample_base + soff + s;
+      raygen(cam, xs, ys, base, sample, stratified, q.ox, q.oy, q.oz, q.dx,
+             q.dy, q.dz);
+      q.tr = 1.0f;
+      q.tg = 1.0f;
+      q.tb = 1.0f;
+      q.bounce = 0;
+      fresh = false;
+    }
+    Hit h;
+    const bool hit = isect(live, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, h,
+                           counts, hint);
+    if (live) {
+      ++counts.rays;
+      if (!bounce_finish(p, isect, base, sample, q, hit, h)) {
+        fresh = true;
+        live = ++s < p.n_samples;
+      }
+    }
+  }
+  if (!in) return;
   p.rad_r[lane] = q.acc_r;
   p.rad_g[lane] = q.acc_g;
   p.rad_b[lane] = q.acc_b;

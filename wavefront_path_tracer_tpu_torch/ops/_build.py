@@ -150,7 +150,7 @@ def load_library() -> ctypes.CDLL:
     ]
     fn = lib.wpt_baked_launch
     fn.argtypes = [
-        *baked_tables, i32, i32,       # textured, hint
+        *baked_tables, i32, i32, i32,  # textured, hint, sweep
         *lane_args, *out_args, *salt_args,
     ]
     fn.restype = ctypes.c_int

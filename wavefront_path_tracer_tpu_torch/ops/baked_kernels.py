@@ -35,6 +35,7 @@ from wavefront_path_tracer_tpu_torch.ops.bake import (
 from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     T_FAR,
     T_MIN,
+    WARP,
     _salts,
     check_aligned,
     check_inputs,
@@ -52,6 +53,13 @@ LAUNCHES = {"culled": 0, "unculled": 0, "segment_culled": 0,
             "segment_unculled": 0}
 
 _MISS = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
+
+# The culled kernel's sweep forms (csrc/baked.cu launch_sweep), both with
+# the plain version's results: SWEEP_SERIAL tests every entered cluster on
+# its own thread (the lanes of a warp at unrelated points); SWEEP_COOP,
+# the default, votes per cluster, and where few lanes of the warp enter it
+# their rays share the warp's lanes.
+SWEEP_SERIAL, SWEEP_COOP = 0, 1
 
 
 def _col(v):
@@ -427,6 +435,106 @@ def fused_render_baked_reference(
         hinted=baked.culled and baked.winner_hint)
 
 
+def divergence_counts(keys, entered, sizes, warp: int = WARP) -> dict:
+    """How the lanes of a warp diverge over a culled sweep's clusters.
+
+    ``keys`` (R,) int64 names each ray's warp trip (one key per (warp,
+    ordinal): trip k of a warp runs the k-th ray of each of its lanes),
+    ``entered`` (R, C) bool the clusters each ray entered, ``sizes`` (C,)
+    the clusters' item counts.  A trip runs the union of its lanes'
+    clusters, and each of those clusters' pair tests on all ``warp``
+    lanes.  Returns the rays, the trips, the warps' fullness (rays / (warp
+    x trips)), clusters entered per ray, union clusters per trip, the
+    issued and useful lane-pairs of the clusters and the useful share, and
+    ``entering_lanes``: for n = 1 .. warp, how many (trip, cluster) pairs
+    that some lane entered had n lanes entering."""
+    sizes = torch.as_tensor(sizes, dtype=torch.int64, device=entered.device)
+    _, trip = torch.unique(keys, return_inverse=True)
+    n_trips = int(trip.max()) + 1 if trip.numel() else 0
+    lanes_in = torch.zeros((n_trips, entered.shape[1]), dtype=torch.int64,
+                           device=entered.device)
+    lanes_in.index_add_(0, trip, entered.to(torch.int64))
+    union = lanes_in > 0
+    issued = int((union.to(torch.int64) * sizes).sum()) * warp
+    useful = int((lanes_in * sizes).sum())
+    hist = torch.bincount(lanes_in[union], minlength=warp + 1)[1:]
+    rays = int(keys.numel())
+    return {"rays": rays, "trips": n_trips,
+            "warp_fullness": rays / max(warp * n_trips, 1),
+            "clusters_per_ray": int(entered.sum()) / max(rays, 1),
+            "union_clusters_per_trip": int(union.sum()) / max(n_trips, 1),
+            "issued_pairs": issued, "useful_pairs": useful,
+            "useful_share": useful / max(issued, 1),
+            "entering_lanes": hist.tolist()}
+
+
+def warp_divergence(baked: BakedScene, salts, cam_params, pix, xs, ys,
+                    valid, soff, *, rr_start: int = 0,
+                    rr_floor: float = 0.05, clamp: float = 0.0,
+                    sampler: str = "random", warp: int = WARP) -> dict:
+    """:func:`divergence_counts` of a culled bake's persistent loop over
+    the given lane planes (a warp is ``warp`` consecutive lanes of them),
+    from the plain version: :func:`fused_render_baked_reference`'s loop,
+    with a spy on :func:`culled_intersect_reference`'s folds that records
+    the clusters each ray entered (a winner-hint prepass counts as an
+    entry, as in the kernel), and each ray's lane and ordinal among its
+    lane's rays.  The plain version's results are not changed; the spy is
+    removed on return."""
+    if not baked.culled:
+        raise ValueError("warp_divergence needs a culled bake")
+    ranges = host_ranges(baked)
+    (cranges, _), (tcranges, _) = ranges
+    n_items, n_sph = baked.items.shape[0], len(cranges)
+    cluster_of = {first: c for c, (first, _) in enumerate(cranges)}
+    cluster_of.update({n_items + first: n_sph + c
+                       for c, (first, _) in enumerate(tcranges)})
+    sizes = [n for _, n in cranges] + [n for _, n in tcranges]
+    device = pix.device
+    ordinal = torch.zeros(pix.numel(), dtype=torch.int64, device=device)
+    _, _, max_bounces, n_samples = _salts(salts)
+    max_rays = max(max_bounces * n_samples, 1)
+    keys, entered, rows, seen = [], [], [], {}
+    take, subset = _take, take_subset
+
+    def spy_take(t, offset, best_t, best_i, mask=None):
+        if mask is not None:
+            rows[0][:, cluster_of[offset]] |= mask
+        return take(t, offset, best_t, best_i, mask)
+
+    def spy_subset(t_fn, items, offset, best_t, best_i, enter, rays):
+        rows[0][:, cluster_of[offset]] |= enter
+        return subset(t_fn, items, offset, best_t, best_i, enter, rays)
+
+    def intersect(ox, oy, oz, dx, dy, dz, hint=None):
+        lanes = seen["lanes"]
+        rows[:] = [torch.zeros((lanes.numel(), len(sizes)), dtype=torch.bool,
+                               device=device)]
+        out = culled_intersect_reference(baked, ox, oy, oz, dx, dy, dz,
+                                         ranges=ranges, hint=hint)
+        keys.append(lanes // warp * max_rays + ordinal[lanes])
+        entered.append(rows[0])
+        ordinal[lanes] += 1
+        return out
+
+    module = globals()
+    module["_take"], module["take_subset"] = spy_take, spy_subset
+    try:
+        persistent_reference(
+            intersect, salts, cam_params, pix, xs, ys, valid, soff,
+            rr_start=rr_start, rr_floor=rr_floor, clamp=clamp,
+            sampler=sampler,
+            images=baked.images if baked.textured else None,
+            hinted=baked.winner_hint,
+            observe=lambda lanes: seen.update(lanes=lanes))
+    finally:
+        module["_take"], module["take_subset"] = take, subset
+    keys.append(torch.zeros(0, dtype=torch.int64, device=device))
+    entered.append(torch.zeros((0, len(sizes)), dtype=torch.bool,
+                               device=device))
+    return divergence_counts(torch.cat(keys), torch.cat(entered), sizes,
+                             warp)
+
+
 def _tables(baked: BakedScene) -> dict:
     """The bake's device tables as check_inputs takes them."""
     return {
@@ -480,7 +588,7 @@ def _table_args(baked: BakedScene) -> tuple:
 def fused_render_baked(
         baked: BakedScene, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random"):
+        sampler: str = "random", sweep: int = SWEEP_COOP):
     """All samples x all bounces of every lane over a baked scene.
 
     Returns (rad_r, rad_g, rad_b, stats): radiance sums as (R, 128)
@@ -493,6 +601,9 @@ def fused_render_baked(
     kernel's per-tile consensus entries; they are zero for an unculled
     bake.
 
+    ``sweep`` picks the culled kernel's sweep form (:data:`SWEEP_COOP` or
+    :data:`SWEEP_SERIAL`); both give the same results.
+
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/baked.cu`` on the current stream; any other device raises.
     The kernel's results, counters included, are bit-identical to the
@@ -502,6 +613,8 @@ def fused_render_baked(
     device = check_inputs(cam_params, planes, _tables(baked))
     if sampler not in ("random", "stratified"):
         raise ValueError(f"unknown sampler {sampler!r}")
+    if sweep not in (SWEEP_SERIAL, SWEEP_COOP):
+        raise ValueError(f"unknown sweep form {sweep}")
     if device.type == "cpu":
         return fused_render_baked_reference(
             baked, salts, cam_params, *planes, rr_start=rr_start,
@@ -523,7 +636,7 @@ def fused_render_baked(
         rc = lib.wpt_baked_launch(
             *tables,
             int(baked.textured), int(baked.culled and baked.winner_hint),
-            cam_params.data_ptr(), pix.data_ptr(), xs.data_ptr(),
+            int(sweep), cam_params.data_ptr(), pix.data_ptr(), xs.data_ptr(),
             ys.data_ptr(), valid.data_ptr(), soff.data_ptr(),
             rad_r.data_ptr(), rad_g.data_ptr(), rad_b.data_ptr(),
             counts[0].data_ptr(), counts[1].data_ptr(), counts[2].data_ptr(),
@@ -531,7 +644,8 @@ def fused_render_baked(
             int(rr_start), float(rr_floor), float(clamp),
             int(sampler == "stratified"), stream)
     if rc != 0:
-        raise RuntimeError(f"baked kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"baked kernel launch failed (sweep {sweep}): "
+                           f"CUDA error {rc}")
     LAUNCHES["culled" if baked.culled else "unculled"] += 1
     rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
     return rad_r, rad_g, rad_b, torch.stack([rays, warp_trips(counts[0]),

@@ -293,7 +293,8 @@ def _salts(salts) -> tuple[int, int, int, int]:
 def persistent_reference(
         intersect, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random", images=None, hinted: bool = False):
+        sampler: str = "random", images=None, hinted: bool = False,
+        observe=None):
     """The plain persistent-lane loop, over any nearest-hit function.
 
     ``intersect(ox, oy, oz, dx, dy, dz)`` returns the
@@ -314,7 +315,9 @@ def persistent_reference(
     same order, so on the card the two agree bit for bit.  Returns
     (rad_r, rad_g, rad_b, stats) with stats = [rays, iterations, supers,
     clusters] as int64, iterations by :func:`warp_trips` of each lane's
-    rays.
+    rays.  ``observe(lanes)``, where given, is called before each
+    intersect call with the lanes (int64 indices into the flat planes)
+    whose rays it traces, in the order of its rays.
     """
     frame, sample_base, max_bounces, n_samples = _salts(salts)
     shape = pix.shape
@@ -344,6 +347,8 @@ def persistent_reference(
             while live.numel():
                 counts[0] += live.numel()
                 lane_rays.index_add_(0, live, torch.ones_like(live))
+                if observe is not None:
+                    observe(live)
                 if hinted:
                     *fields, hint, supers, clusters = intersect(
                         ox, oy, oz, dx, dy, dz, hints[live])
