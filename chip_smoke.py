@@ -9,7 +9,8 @@ Phases (all by default, in this order), each of which raises on failure
 2. build: compiles the CUDA kernels from ``csrc/`` with nvcc, one process
    per source, all started together, and prints ptxas's lines for every
    kernel (persistent, baked culled and unculled, dynamic culled), then
-   each baked culled instantiation's registers, stack and spills;
+   each baked culled and dynamic culled instantiation's registers, stack
+   and spills;
 3. kernels vs plain (``kernels``): each kernel against its plain PyTorch
    version on the same CUDA tensors, in block lane order with padding
    lanes, 50 bounces.  On book_one_final at 160x90@4spp, the CLI's
@@ -93,7 +94,8 @@ Phases (all by default, in this order), each of which raises on failure
    the knot's (dynamic culled/16), with their device
    time, the plain versions' times and the bound (bytes counted from the
    lanes alive at each launch); the segment kernels' time with and
-   without the sort; the segmented rows (knot50k_dynamic at recluster 0,
+   without the sort; their time and bound at the samples the segmented
+   rows run (the headline at 32 spp, the knot at 8); the segmented rows (knot50k_dynamic at recluster 0,
    1 and 2, both terrain rows and the headline at 0 and 2) through
    ``Renderer`` with frame time, device time split, device kernels and
    copies and busy share under torch.profiler, recluster 2 against 0 by
@@ -117,17 +119,23 @@ Phases (all by default, in this order), each of which raises on failure
    and read just after; a reading above the card's spec fails.  After
    it, each culled and mesh kernel's time beside the time of its pairs
    at the measured ceiling;
-14. sweep forms (``sweep``): the baked culled kernel's serial sweep (T =
-   0, every entered cluster on its own thread) and its shipped form (a
-   vote per cluster, the cooperative fold where at most T lanes enter)
-   at the four cells that chose the form (the headline, book_checker and
-   the winner-hint headline at 1920x1080@32spp, terrain_baked at
-   800x448@32spp): every form bit for bit with the serial one at that
-   size, then one launch of each timed by CUDA events in turns (serial,
-   cooperative, cooperative, serial), each run and the serial runs'
-   spread printed; and the headline's warp-divergence count from the
-   plain version over 16 image blocks at the middle of the lane order,
-   held to the kernel's counters over the same lanes.
+14. sweep forms (``sweep``): the serial sweep (T = 0, every entered
+   cluster on its own thread) and the shipped form (a vote per cluster,
+   the cooperative fold where at most T lanes enter) of the baked culled
+   kernel at the four cells that chose its form (the headline,
+   book_checker and the winner-hint headline at 1920x1080@32spp,
+   terrain_baked at 800x448@32spp) and of the dynamic culled kernel at
+   terrain_dynamic (800x448@32spp), knot50k_dynamic (800x448@8spp) and
+   book_checker dynamic/16 (1920x1080@32spp): every form bit for bit with
+   the serial one at that size, then one launch of each timed by CUDA
+   events in turns (serial, cooperative, cooperative, serial), each run
+   and the serial runs' spread printed; both dynamic forms bit for bit
+   with the plain version at 160x90@4spp on terrain, the knot,
+   book_checker and the book with every sphere twice (exact ties); and
+   the warp-divergence count of the headline (16 image blocks of 32x32)
+   and of terrain_dynamic and knot50k_dynamic (4 blocks each, at 8 spp)
+   from the plain version at the middle of each lane order, held to the
+   kernel's counters over the same lanes.
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -177,7 +185,8 @@ KERNELS = {
                  "argv": ["--intersector", "baked", "--clusters", "0"]},
     # Its main path is the dynamic mesh rows (phase 7), not a book path.
     "dynculled": {"name": "fused_render_dynculled/"
-                          "make_dynamic_culled_intersect",
+                          "make_dynamic_culled_intersect (sweep form Coop: "
+                          "a vote per cluster, the cooperative fold)",
                   "source": SOURCE + "dynculled.cu",
                   "replaces": REPLACES + "3211"},
     # The texture step of the persistent body; its main path is the
@@ -248,8 +257,8 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> dict:
-    """Build the library and print ptxas's lines, then each culled
-    kernel's registers and spills."""
+    """Build the library and print ptxas's lines, then each culled and
+    dynamic culled kernel's registers and spills."""
     from wavefront_path_tracer_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -262,13 +271,16 @@ def phase_build() -> dict:
     for line in report.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"{tag} ptxas: {line.strip()}")
-    culled = _ptxas_kernels(report, "baked_culled_kernel")
-    for rep in culled:
-        log(f"{tag} culled {rep['kernel']}: {rep.get('registers')} "
-            f"registers, {rep.get('stack')} bytes stack, "
-            f"{rep.get('spill_stores')} / {rep.get('spill_loads')} bytes "
-            f"spilled (stores / loads)")
-    return {"seconds": seconds, "culled_ptxas": culled}
+    out = {"seconds": seconds}
+    for kind, match in (("culled", "baked_culled_kernel"),
+                        ("dynculled", "dynculled_kernel")):
+        out[f"{kind}_ptxas"] = _ptxas_kernels(report, match)
+        for rep in out[f"{kind}_ptxas"]:
+            log(f"{tag} {kind} {rep['kernel']}: {rep.get('registers')} "
+                f"registers, {rep.get('stack')} bytes stack, "
+                f"{rep.get('spill_stores')} / {rep.get('spill_loads')} "
+                f"bytes spilled (stores / loads)")
+    return out
 
 
 def _ptxas_kernels(report: str, match: str) -> list[dict]:
@@ -675,6 +687,7 @@ def _reset_launches():
 
     fk.LAUNCHES = 0
     dk.LAUNCHES = 0
+    dk.COOP_LAUNCHES = 0
     dk.SEGMENT_LAUNCHES = 0
     for key in bk.LAUNCHES:
         bk.LAUNCHES[key] = 0
@@ -686,7 +699,7 @@ def _read_launches() -> dict:
     from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
 
     return {"persistent": fk.LAUNCHES, **bk.LAUNCHES,
-            "dynculled": dk.LAUNCHES,
+            "dynculled": dk.LAUNCHES, "dynculled_coop": dk.COOP_LAUNCHES,
             "segment_dynculled": dk.SEGMENT_LAUNCHES}
 
 
@@ -787,6 +800,9 @@ def _frame(renderer, kind: str, label: str, smi: str) -> dict:
     img = result.accumulated / result.samples
     if launches[kind] < 1:
         raise AssertionError(f"{label} launched no {kind} kernel")
+    if kind == "dynculled" and launches["dynculled_coop"] != launches[kind]:
+        raise AssertionError(f"{label} launched the dynamic culled kernel "
+                             f"in another form than Coop: {launches}")
     if not np.isfinite(img).all() or not img.mean() > 0.01:
         raise AssertionError(f"bad image ({label}): mean {img.mean()}")
     mrays = result.rays_traced / result.wall_time_s / 1e6
@@ -1694,6 +1710,27 @@ def phase_segments_full(device, smi: str) -> dict:
             f"runs {times} [{smi}]")
         sort_gain[name] = {"spp": spp, **rep, "runs": times}
 
+    # The segment kernels' bound at the samples the segmented rows run:
+    # the headline at 32 spp and the knot at 8, recluster 2.
+    row_bounds = {}
+    for name, kind, scene, t, cam, width, height, spp in (
+            ("headline", "culled", book, None, book_cc, MAIN_WIDTH,
+             MAIN_HEIGHT, MAIN_SPP),
+            ("knot50k_dynamic", "dynculled", knot, knot_tris, knot_cc, w, h,
+             8)):
+        case = SegCase(kind, 16, scene, cam, width, height, spp, {}, device,
+                       triangles=t)
+        kernel_ms, other_ms, res = _device_split(case.kernel)
+        rep = {"spp": spp, "kernel_ms": kernel_ms,
+               "other_device_ms": other_ms, "stats": _seg_stats(res),
+               **case.bound(_seg_stats(res))}
+        log(f"[seg-bound] {name} {width}x{height}@{spp}spp recluster 2, 50 "
+            f"bounces, {case.segments} segments a sample: segment kernels "
+            f"{kernel_ms!r} ms, other device work {other_ms!r} ms, bound "
+            f"{rep['bound_ms']!r} ms ({rep['bound_by']}; {rep['bytes']:.0f} "
+            f"B, {rep['ops']:.0f} operations) [{smi}]")
+        row_bounds[name] = rep
+
     rows = []
     images, agreement = {}, {}
     for label, kind, reclusters in SEG_ROWS:
@@ -1739,7 +1776,8 @@ def phase_segments_full(device, smi: str) -> dict:
         f"{res.rays_traced:.0f} rays [{smi}]")
     if not err < GOLDEN_GATE:
         raise AssertionError(f"recluster golden RMSE {err} >= {GOLDEN_GATE}")
-    return {"checks": checks, "sort_gain": sort_gain, "rows": rows,
+    return {"checks": checks, "sort_gain": sort_gain,
+            "row_bounds": row_bounds, "rows": rows,
             "agreement": agreement,
             "golden": {"rmse": err, "seconds": seconds,
                        "rays": res.rays_traced}}
@@ -2196,19 +2234,28 @@ def _ceiling_shares(record: dict) -> list:
     return out
 
 
-# The window of the headline's lanes that the divergence count reads: 16
-# image blocks of 32x32 at the middle of the 1080p lane order.
-DIVERGENCE_WINDOW = 16 * 1024
+# The windows that the divergence counts read, at the middle of each
+# frame's lane order: (image blocks of 32x32, samples a pixel).  The
+# dynamic rows' plain version (a rolled sweep of many small launches)
+# takes about 3 s a sample on the card whatever the window's width, so
+# terrain is counted at 8 of its 32 samples.
+DIVERGENCE_WINDOWS = {"headline": (16, MAIN_SPP), "terrain_dynamic": (4, 8),
+                      "knot50k_dynamic": (4, 8)}
 
 
 def _sweep_cells(device) -> dict:
-    """The four cells that chose the culled kernel's sweep form, at
-    their sizes: the headline and its winner-hint form (book_one_final),
-    book_checker (textured) at 1080p@32spp, terrain_baked (triangles) at
-    800x448@32spp; baked culled in clusters of 16."""
+    """The cells that chose each culled kernel's sweep form, at their
+    sizes, in clusters of 16: for the baked culled kernel the headline and
+    its winner-hint form (book_one_final) and book_checker (textured) at
+    1080p@32spp and terrain_baked (triangles) at 800x448@32spp; for the
+    dynamic culled kernel the two dynamic mesh rows, terrain_dynamic
+    (800x448@32spp, a rolled triangle sweep) and knot50k_dynamic
+    (800x448@8spp, incoherent rays, 196 supers), and book_checker at
+    1080p@32spp (textured, a flat sphere sweep)."""
     book, book_cc = _smoke_scene()
     checker, _tris, checker_cc = _book_checker()
     terrain, tris, terrain_cc = _terrain()
+    knot, knot_tris, knot_cc = _knot()
     full = (MAIN_WIDTH, MAIN_HEIGHT, MAIN_SPP, 1, {}, device)
     return {
         "headline": Case("culled", 16, book, book_cc, *full),
@@ -2217,14 +2264,28 @@ def _sweep_cells(device) -> dict:
                             winner_hint=True),
         "terrain_baked": Case("culled", 16, terrain, terrain_cc, *MESH_SIZE,
                               MAIN_SPP, 1, {}, device, triangles=tris),
+        "terrain_dynamic": Case("dynculled", 16, terrain, terrain_cc,
+                                *MESH_SIZE, MAIN_SPP, 1, {}, device,
+                                triangles=tris),
+        "knot50k_dynamic": Case("dynculled", 16, knot, knot_cc, *MESH_SIZE,
+                                8, 1, {}, device, triangles=knot_tris),
+        "book_checker_dynamic": Case("dynculled", 16, checker, checker_cc,
+                                     *full),
     }
 
 
-def _sweep_launch(case, sweep: int):
+def _sweep_launch(case, sweep: int, planes=None):
+    """The case's culled or dynamic culled kernel in sweep form
+    ``sweep``, over its lane planes or ``planes``."""
     from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
 
-    return bk.fused_render_baked(case.baked, case.salts, case.cam,
-                                 *case.planes, sweep=sweep)
+    planes = case.planes if planes is None else planes
+    if case.kind == "dynculled":
+        return dk.fused_render_dynculled(case.tab, case.salts, case.cam,
+                                         *planes, sweep=sweep)
+    return bk.fused_render_baked(case.baked, case.salts, case.cam, *planes,
+                                 sweep=sweep)
 
 
 def _same_render(a, b) -> bool:
@@ -2234,68 +2295,130 @@ def _same_render(a, b) -> bool:
         for x, y in zip(a[:3], b[:3]))
 
 
-def _headline_divergence(device, smi: str) -> dict:
-    """How the headline's warps diverge over its clusters, counted from
-    the plain version (``baked_kernels.warp_divergence``) over a window of
-    DIVERGENCE_WINDOW lanes at the middle of the 1080p@32spp lane order,
-    beside the kernel's own counters over the same window (they must agree
-    on rays, loop trips and clusters entered)."""
-    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+def _dyn_forms_vs_plain(device) -> list[dict]:
+    """Both sweep forms of the dynamic culled kernel against its plain
+    version at 160x90 (radiance words and the four counters bit for bit):
+    terrain and book_checker at 4 spp, the knot at 2, and book_one_final
+    with every sphere twice at 4 (each sphere hit an exact tie of two rows,
+    which the smaller index must win)."""
+    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
 
     book, book_cc = _smoke_scene()
-    case = Case("culled", 16, book, book_cc, MAIN_WIDTH, MAIN_HEIGHT,
-                MAIN_SPP, 1, {}, device)
-    lo = case.planes[0].numel() // 2 // 1024 * 1024 - DIVERGENCE_WINDOW // 2
-    window = [p.reshape(-1)[lo:lo + DIVERGENCE_WINDOW].reshape(-1, 128)
-              for p in case.planes]
+    terrain, tris, terrain_cc = _terrain()
+    knot, knot_tris, knot_cc = _knot()
+    checker, _tris, checker_cc = _book_checker()
+    specs = [("terrain", terrain, tris, terrain_cc, 4),
+             ("knot50k", knot, knot_tris, knot_cc, 2),
+             ("book_checker", checker, None, checker_cc, 4),
+             ("book_one_final doubled", _doubled(book), None, book_cc, 4)]
+    out = []
+    for label, scene, t, cam, spp in specs:
+        case = Case("dynculled", 16, scene, cam, 160, 90, spp, 1, {}, device,
+                    triangles=t)
+        rep = _check(f"dynculled16 {label} 160x90@{spp}spp sweep coop",
+                     case)
+        if not _same_render(_sweep_launch(case, dk.SWEEP_SERIAL),
+                            case.kernel()):
+            raise AssertionError(f"dynculled16 {label} 160x90: sweep form "
+                                 f"serial differs from coop")
+        rep["serial_bit_exact"] = True
+        out.append(rep)
+    return out
+
+
+def _divergence(label, case, tables, window, lo, smi) -> dict:
+    """How the warps of ``case``'s kernel diverge over its clusters,
+    counted from the plain version (``warp_divergence`` of its module)
+    over the lane planes ``window`` (its first lane ``lo``) of the case's
+    frame, beside the kernel's own counters over the same window (they
+    must agree on rays, loop trips, supers and clusters entered)."""
+    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
+
+    module = dk if case.kind == "dynculled" else bk
     t0 = time.perf_counter()
-    counts = bk.warp_divergence(case.baked, case.salts, case.cam, *window)
+    counts = module.warp_divergence(tables, case.salts, case.cam, *window)
     seconds = time.perf_counter() - t0
-    stats = bk.fused_render_baked(case.baked, case.salts, case.cam,
-                                  *window)[3].tolist()
-    if (counts["rays"], counts["trips"],
-            round(counts["clusters_per_ray"] * counts["rays"])) != (
-            stats[0], stats[1], stats[3]):
-        raise AssertionError(f"divergence count {counts} disagrees with the "
-                             f"kernel's counters {stats}")
+    stats = _sweep_launch(case, module.SWEEP_COOP, window)[3].tolist()
+    supers = round(counts.get("supers_per_ray", stats[2] / max(stats[0], 1))
+                   * counts["rays"])
+    if (counts["rays"], counts["trips"], supers,
+            round(counts["clusters_per_ray"] * counts["rays"])) != tuple(
+            stats):
+        raise AssertionError(f"{label}: divergence count {counts} disagrees "
+                             f"with the kernel's counters {stats}")
     hist = counts["entering_lanes"]
     total = max(sum(hist), 1)
     shares = {"1": hist[0] / total, "2": hist[1] / total,
               "3-8": sum(hist[2:8]) / total,
-              "9-27": sum(hist[8:27]) / total,
+              "9-12": sum(hist[8:12]) / total,
+              "13-27": sum(hist[12:27]) / total,
               "28-32": sum(hist[27:32]) / total}
-    rep = {**counts, "lanes": [lo, lo + DIVERGENCE_WINDOW],
-           "entering_shares": shares, "kernel_stats": stats,
+    n = window[0].numel()
+    rep = {**counts, "lanes": [lo, lo + n], "entering_shares": shares,
+           "kernel_stats": stats,
            "card_warp_fullness": stats[0] / (32 * stats[1]),
            "seconds": seconds}
-    log(f"[divergence] headline {MAIN_WIDTH}x{MAIN_HEIGHT}@{MAIN_SPP}spp "
-        f"lanes {lo}..{lo + DIVERGENCE_WINDOW} (16 blocks of 32x32), plain "
-        f"version: {counts['rays']} rays in {counts['trips']} warp trips "
-        f"(warps {counts['warp_fullness']:.4f} full; the kernel's counters "
-        f"over the window agree), {counts['clusters_per_ray']:.4f} clusters "
-        f"a ray, {counts['union_clusters_per_trip']:.4f} union clusters a "
+    supers_note = ""
+    if "super_boxes_per_ray" in counts:
+        supers_note = (f", {counts['super_boxes_per_ray']} super boxes a "
+                       f"ray, {counts['supers_per_ray']:.4f} supers entered "
+                       f"a ray, {counts['union_supers_per_trip']:.4f} a "
+                       f"warp trip")
+    log(f"[divergence] {label} lanes {lo}..{lo + n} ({n // 1024} blocks of "
+        f"32x32), plain version: {counts['rays']} rays in "
+        f"{counts['trips']} warp trips (warps "
+        f"{counts['warp_fullness']:.4f} full; the kernel's counters over "
+        f"the window agree), {counts['clusters_per_ray']:.4f} clusters a "
+        f"ray, {counts['union_clusters_per_trip']:.4f} union clusters a "
         f"trip, useful lane-pairs {counts['useful_pairs']} of "
-        f"{counts['issued_pairs']} issued "
-        f"({counts['useful_share']:.4f}); lanes entering an entered (trip, "
-        f"cluster): {json.dumps(shares)}; histogram 1..32 {hist} "
-        f"({seconds:.1f} s) [{smi}]")
+        f"{counts['issued_pairs']} issued ({counts['useful_share']:.4f})"
+        f"{supers_note}; lanes entering an entered (trip, cluster): "
+        f"{json.dumps(shares)}; histogram 1..32 {hist} ({seconds:.1f} s) "
+        f"[{smi}]")
     return rep
 
 
+def _divergences(cells: dict, device, smi: str) -> dict:
+    """The divergence count of the headline and of the two dynamic mesh
+    rows over DIVERGENCE_WINDOWS at the middle of each lane order (the
+    lanes that ``profile_frame --row NAME --divergence`` reads)."""
+    out = {}
+    for name, (blocks, spp) in DIVERGENCE_WINDOWS.items():
+        case = cells[name]
+        if spp != case.spp:
+            scene, tris, cc = {"terrain_dynamic": _terrain,
+                               "knot50k_dynamic": _knot}[name]()
+            case = Case(case.kind, 16, scene, cc, *MESH_SIZE, spp, 1, {},
+                        device, triangles=tris)
+        lanes = blocks * 1024
+        lo = case.planes[0].numel() // 2 // 1024 * 1024 - lanes // 2
+        window = [p.reshape(-1)[lo:lo + lanes].reshape(-1, 128)
+                  for p in case.planes]
+        w, h = ((MAIN_WIDTH, MAIN_HEIGHT) if name == "headline"
+                else MESH_SIZE)
+        out[name] = _divergence(
+            f"{name} {w}x{h}@{case.spp}spp", case,
+            case.tab if case.kind == "dynculled" else case.baked, window,
+            lo, smi)
+    return out
+
+
 def phase_sweep(device, smi: str) -> dict:
-    """The culled kernel's sweep forms at the four cells that chose the
+    """Each culled kernel's sweep forms at the cells that chose the
     shipped one: warm-up runs of each form, bit for bit against the serial
     form's (T = 0: the per-thread sweep), then CUDA-event times of one
     launch each in turns (serial, cooperative, cooperative, serial), each
-    run printed with the serial runs' spread; then the headline's
-    divergence count."""
+    run printed with the serial runs' spread; the dynamic kernel's forms
+    against its plain version at 160x90; then the divergence counts."""
     from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
 
     forms = {"serial": bk.SWEEP_SERIAL, "coop": bk.SWEEP_COOP}
     out = {}
     order = ["serial", "coop", "coop", "serial"]
     cells = {}
-    for cell, case in _sweep_cells(device).items():
+    all_cells = _sweep_cells(device)
+    for cell, case in all_cells.items():
         ref = _sweep_launch(case, bk.SWEEP_SERIAL)
         for name, sweep in forms.items():
             if not _same_render(_sweep_launch(case, sweep), ref):
@@ -2309,26 +2432,30 @@ def phase_sweep(device, smi: str) -> dict:
         serial = runs["serial"]
         spread = max(serial) - min(serial)
         stats = ref[3].tolist()
-        rep = {"runs": runs, "order": order, "mean_ms": mean,
+        rep = {"kind": case.kind, "spp": case.spp, "runs": runs,
+               "order": order, "mean_ms": mean,
                "serial_spread_ms": spread, "stats": stats,
                "warp_fullness": stats[0] / (32 * stats[1]),
                "vs_serial": {n: m / mean["serial"] for n, m in mean.items()},
                "coop_within_spread":
-                   mean["coop"] - mean["serial"] <= spread}
-        w, h = (MESH_SIZE if cell == "terrain_baked"
-                else (MAIN_WIDTH, MAIN_HEIGHT))
+                   mean["coop"] - mean["serial"] <= spread,
+               **case.bound(stats)}
+        w, h = ((MAIN_WIDTH, MAIN_HEIGHT) if case.n_pixels
+                == MAIN_WIDTH * MAIN_HEIGHT else MESH_SIZE)
         turns = ", ".join(f"{n} {runs[n][order[:i].count(n)]!r}"
                           for i, n in enumerate(order))
         ratios = {n: round(v, 4) for n, v in rep["vs_serial"].items()}
-        log(f"[sweep] {cell} {w}x{h}@{MAIN_SPP}spp culled16, runs in turn "
-            f"(ms): {turns}; serial spread {spread!r} ms "
+        log(f"[sweep] {cell} {w}x{h}@{case.spp}spp {case.kind}16, runs in "
+            f"turn (ms): {turns}; serial spread {spread!r} ms "
             f"({spread / mean['serial']:.4%}); mean vs serial "
-            f"{json.dumps(ratios)}; rays {stats[0]}, warps "
-            f"{rep['warp_fullness']:.4f} full, every form bit-identical to "
-            f"serial [{smi}]")
+            f"{json.dumps(ratios)}; bound {rep['bound_ms']!r} ms "
+            f"({rep['bound_by']}); rays {stats[0]}, warps "
+            f"{rep['warp_fullness']:.4f} full, supers {stats[2]}, clusters "
+            f"{stats[3]}, every form bit-identical to serial [{smi}]")
         cells[cell] = rep
     out["cells"] = cells
-    out["divergence"] = _headline_divergence(device, smi)
+    out["dyn_vs_plain"] = _dyn_forms_vs_plain(device)
+    out["divergence"] = _divergences(all_cells, device, smi)
     return out
 
 
@@ -2355,7 +2482,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     build = phase_build()
     record = {"card": smi, "device": name, "build_seconds": build["seconds"],
-              "culled_ptxas": build["culled_ptxas"]}
+              "culled_ptxas": build["culled_ptxas"],
+              "dynculled_ptxas": build["dynculled_ptxas"]}
     steps = (("kernels", "parity", lambda: phase_kernel_vs_plain(device)),
              ("golden", "golden", lambda: phase_golden(device)),
              ("main", "main_paths", lambda: phase_main_paths(device, smi)),

@@ -1,20 +1,26 @@
-"""The cooperative culled sweep's reduction rule, and the warp-divergence
-count, on the CPU.
+"""The cooperative culled sweeps' reduction rule, and the warp-divergence
+counts, on the CPU.
 
-``csrc/baked.cu`` lets the lanes of a warp share the rays of the few
-lanes that enter a cluster: G lanes test one ray's items, a shuffle tree
-keeps the least (t, index), and the ray's own lane takes the result where
-it is strictly below its best.  The kernel runs only on the card; here a
-plain emulation of that fold (its lane shares, its tree's order, the
-owner's strict-< take) and of the per-cluster choice (a vote: the
-cooperative fold where at most T lanes enter) is held bit for bit to the
-serial fold and to ``culled_intersect_reference`` on numpy-seeded rays and
-items: ties built within a lane's share and across lanes, a 5-item cluster
-at G = 8, NaN pad rows, rays that enter no cluster, two-level sweeps and
-the winner hint's cluster.
+``csrc/baked.cu`` and ``csrc/dynculled.cu`` let the lanes of a warp share
+the rays of the few lanes that enter a cluster (``common.cuh``
+``coop_fold``): G lanes test one ray's items, a shuffle tree keeps the
+least (t, index), and the ray's own lane takes the result where it is
+strictly below its best.  The kernels run only on the card; here a plain
+emulation of that fold (its lane shares, its tree's order, the owner's
+strict-< take) and of the per-cluster choice (a vote: the cooperative fold
+where at most T lanes enter) is held bit for bit to the serial fold, to
+``culled_intersect_reference`` (ties built within a lane's share and
+across lanes, a 5-item cluster at G = 8, NaN pad rows, rays that enter no
+cluster, two-level sweeps and the winner hint's cluster) and to
+``dynculled_intersect_reference`` (the flat sweep's batches of 16 and
+their cap, the rolled sweep's children capped at their super's entry,
+spheres with exact ties, triangles, NaN pad rows, a textured table) on
+numpy-seeded rays.  The divergence counts are held to the plain versions'
+own counters.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -23,8 +29,14 @@ import torch
 from wavefront_path_tracer_tpu_torch.models import fused as tfused
 from wavefront_path_tracer_tpu_torch.ops import bake
 from wavefront_path_tracer_tpu_torch.ops import baked_kernels as tbk
-from wavefront_path_tracer_tpu_torch.ops.fused_kernels import T_FAR
-from wavefront_path_tracer_tpu_torch.scene import CameraController, get_scene
+from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as tdk
+from wavefront_path_tracer_tpu_torch.ops.fused_kernels import T_FAR, T_MIN
+from wavefront_path_tracer_tpu_torch.renderer import prepare_scene
+from wavefront_path_tracer_tpu_torch.scene import (
+    CameraController,
+    get_scene,
+    mesh_terrain_scene,
+)
 from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
 
 WARP = 32
@@ -422,3 +434,292 @@ def test_sweep_form_is_checked_and_changes_nothing_on_cpu():
     with pytest.raises(ValueError, match="sweep form"):
         tbk.fused_render_baked(baked, salts, cam, *planes,
                                sweep=tbk.SWEEP_COOP + 1)
+
+
+# --- the dynamic culled sweep (csrc/dynculled.cu) ------------------------------
+
+
+def _dyn_case(name):
+    """Dynamic culled tables (``models/fused.py`` ``_dyn_tables``, the book
+    camera's hint) and the camera, for a scene at a cluster size: spheres
+    swept flat (book_one_final/16, 31 clusters in two batches of 16) or
+    rolled (the book with every sphere twice, /8: 128 clusters in 8 supers,
+    exact ties), triangles flat (terrain 11x11 quads /8: 31 clusters, the
+    last padded) or rolled (terrain 19x19 /8: 91 clusters in 6 supers),
+    textured (book_checker/16)."""
+    book = get_scene("book_one_final")
+    scene, tris, cs = {
+        "flat": (book, None, 16),
+        "rolled": (book.permuted(np.repeat(np.arange(book.num_spheres), 2)),
+                   None, 8),
+        "tri-flat": (*mesh_terrain_scene(n_quads=11), 8),
+        "tri-rolled": (*mesh_terrain_scene(n_quads=19), 8),
+        "textured": (get_scene("book_checker"), None, 16),
+    }[name]
+    cc = CameraController.book_one_final()
+    cfg = RenderConfig(width=16, height=8, engine="fused")
+    arrays = prepare_scene(scene, cfg, "cpu", tris)
+    eye = tfused._concrete_eye(cc.view_matrix())
+    return tfused._dyn_tables(arrays, cs, camera_pos=eye), cc
+
+
+def _dyn_rays(tab, rng, n):
+    """Rays over a hierarchy's slab box: the first half incoherent
+    (origins in and around the box, random unit directions, a quarter of
+    them straight up from above the box, so that they enter nothing), the
+    second a narrow beam from outside the box at its centre, whose warps
+    enter the same clusters."""
+    slab = (tab.tri_slab if tab.n_tri_clusters else tab.slab)[0].numpy()
+    lo, hi = slab[0:3], slab[3:6]
+    mid, ext = (lo + hi) / 2, (hi - lo) / 2
+    half = n // 2
+    o = (mid + ext * rng.uniform(-1.2, 1.2, (n, 3))).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    up = slice(0, n // 8)
+    o[up, 1] = hi[1] + 1.0
+    d[up] = (0.0, 1.0, 0.0) + rng.normal(0.0, 0.1, (n // 8, 3))
+    eye = mid + np.float32((0.9, 0.5, 1.1)) * np.maximum(ext, 1.0) * 2.5
+    o[half:] = eye
+    d[half:] = (mid - eye) + rng.normal(0.0, 0.05, (n - half, 3)) \
+        * np.linalg.norm(mid - eye)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return [torch.from_numpy(np.ascontiguousarray(v, np.float32)) for v in
+            (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])]
+
+
+def _dyn_sphere_t(tab, ox, oy, oz, dx, dy, dz):
+    """Each ray's t against every sphere row (rays x rows): the slimmed
+    quadratic in the shifted frame with both roots, in the kernel's order
+    of operations (csrc/dynculled.cu sphere_t)."""
+    sh = tab.slab[1]
+    oxp, oyp, ozp = ox - sh[0], oy - sh[1], oz - sh[2]
+    hdx, hdy, hdz = 0.5 * dx, 0.5 * dy, 0.5 * dz
+    dd_o = dx * oxp + dy * oyp + dz * ozp
+    oo2 = oxp * oxp + oyp * oyp + ozp * ozp
+    rows = tab.spheres
+    c2x, c2y, c2z, kappa = rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3]
+    col = tbk._col
+    nb = (col(hdx) * c2x + col(hdy) * c2y + col(hdz) * c2z) - col(dd_o)
+    c_q = (col(oo2) + kappa) - (col(oxp) * c2x + col(oyp) * c2y
+                                + col(ozp) * c2z)
+    disc = nb * nb - c_q
+    sq = torch.sqrt(disc)
+    t1, t2 = nb - sq, nb + sq
+    return torch.where(t1 > T_MIN, t1,
+                       torch.where(t2 > T_MIN, t2, T_FAR)).numpy()
+
+
+def dyn_coop_sweep(tab, rays, g_lanes, t_max):
+    """The kernel's warp sweep over the dynamic tables (csrc/dynculled.cu
+    nearest with a voting form) emulated warp by warp: the globals per
+    lane, then each hierarchy with each lane's conds (a flat sweep in
+    batches of 16 whose conds take the cap at the batch's start; a rolled
+    one over supers of 16, a super's cond against the running cap, its
+    children's against the cap at its entry, walked when any lane entered
+    it), a vote per cluster, and the serial fold where more than ``t_max``
+    lanes enter, the cooperative fold otherwise.  Winners in the plain
+    version's index space (sphere rows, then triangle rows).  Returns
+    (best_t, best_i, supers, clusters) per ray, the count of folds of each
+    kind, and the count of entries that the cap rules let in where the
+    running cap would not."""
+    ox, oy, oz, dx, dy, dz = rays
+    inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
+    cs = tab.cluster_size
+    levels = []
+    for n, n_sup, boxes, sboxes, slab, t_all, row0, offset in (
+            (tab.n_clusters, tab.n_supers, tab.boxes, tab.super_boxes,
+             tab.slab[0], _dyn_sphere_t(tab, *rays), tab.n_globals, 0),
+            (tab.n_tri_clusters, tab.n_tri_supers, tab.tri_boxes,
+             tab.tri_super_boxes, tab.tri_slab[0],
+             tbk.tri_t(tab.triangles, *rays).numpy(), 0,
+             tab.spheres.shape[0])):
+        if not n:
+            continue
+        c_ok, c_entry = (v.numpy() for v in tbk.box_conds(
+            boxes[:, 0:3], boxes[:, 3:6], ox, oy, oz, *inv))
+        s_ok, s_entry = (v.numpy() for v in tbk.box_conds(
+            sboxes[:, 0:3], sboxes[:, 3:6], ox, oy, oz, *inv))
+        t_exit = tbk.slab_exit(slab[0:3], slab[3:6], ox, oy, oz,
+                               *inv).numpy()
+        levels.append((n, n_sup, c_ok, c_entry, s_ok, s_entry, t_exit, t_all,
+                       row0, offset))
+    t_glob = _dyn_sphere_t(tab, *rays)[:, :tab.n_globals]
+    n = ox.shape[0]
+    out_t = np.full(n, T_FAR, dtype=np.float32)
+    out_i = np.full(n, -1, dtype=np.int64)
+    supers = np.zeros(n, dtype=np.int64)
+    clusters = np.zeros(n, dtype=np.int64)
+    kinds = {"coop": 0, "serial": 0, "stale": 0}
+    for w in range(0, n, WARP):
+        lanes = np.arange(w, w + WARP)
+        b_t, b_i = serial_fold(t_glob[lanes], 0, out_t[lanes], out_i[lanes],
+                               np.ones(WARP, dtype=bool))
+        for (n_cl, n_sup, c_ok, c_entry, s_ok, s_entry, t_exit, t_all, row0,
+             offset) in levels:
+
+            def visit(k, gate, cap):
+                nonlocal b_t, b_i
+                enter = (gate & c_ok[lanes, k] & (c_entry[lanes, k] < cap))
+                running = np.minimum(b_t, t_exit[lanes])
+                kinds["stale"] += int((enter & ~(c_entry[lanes, k]
+                                                 < running)).sum())
+                clusters[lanes] += enter
+                if not enter.any():
+                    return
+                first = row0 + k * cs
+                tc = t_all[lanes, first:first + cs]
+                if enter.sum() <= t_max:
+                    kinds["coop"] += 1
+                    b_t, b_i, _ = coop_fold(tc, offset + first, b_t, b_i,
+                                            enter, g_lanes)
+                else:
+                    kinds["serial"] += 1
+                    b_t, b_i = serial_fold(tc, offset + first, b_t, b_i,
+                                           enter)
+
+            everyone = np.ones(WARP, dtype=bool)
+            if not n_sup:
+                for k0 in range(0, n_cl, 16):
+                    cap = np.minimum(b_t, t_exit[lanes])
+                    for k in range(k0, min(n_cl, k0 + 16)):
+                        visit(k, everyone, cap)
+                continue
+            for s in range(n_sup):
+                cap = np.minimum(b_t, t_exit[lanes])
+                es = s_ok[lanes, s] & (s_entry[lanes, s] < cap)
+                supers[lanes] += es
+                if es.any():
+                    for k in range(s * 16, (s + 1) * 16):
+                        visit(k, es, cap)
+        out_t[lanes], out_i[lanes] = b_t, b_i
+    return out_t, out_i, supers, clusters, kinds
+
+
+@pytest.mark.parametrize("case", [
+    ("flat", 8, 12), ("flat", 4, 32), ("rolled", 8, 12), ("rolled", 2, 4),
+    ("tri-flat", 8, 12), ("tri-rolled", 8, 12), ("textured", 8, 12),
+], ids=["flat-g8t12", "flat-g4t32", "rolled-g8t12", "rolled-g2t4",
+        "tri-flat-g8t12", "tri-rolled-g8t12", "textured-g8t12"])
+def test_dyn_coop_sweep_equals_plain_version(case):
+    """The emulated warp sweep over the dynamic tables gives, ray by ray,
+    the serial form's (T = 0) winner bit for bit, and both give
+    dynculled_intersect_reference's winner fields and cull counters; the
+    vote took the cooperative branch (and the serial one below T = 32),
+    the cap rules let in entries that a running cap would not, some rays
+    entered nothing, and the tables hold NaN pad rows."""
+    name, g_lanes, t_max = case
+    tab, _ = _dyn_case(name)
+    rng = np.random.default_rng(len(name) * 100 + g_lanes)
+    rays = _dyn_rays(tab, rng, 4 * WARP)
+    c_t, c_i, c_sup, c_clu, kinds = dyn_coop_sweep(tab, rays, g_lanes,
+                                                   t_max)
+    s_t, s_i, s_sup, s_clu, _ = dyn_coop_sweep(tab, rays, g_lanes, 0)
+    assert_same(c_t, c_i, s_t, s_i)
+    assert np.array_equal(c_sup, s_sup) and np.array_equal(c_clu, s_clu)
+    *fields, supers, clusters = tdk.dynculled_intersect_reference(tab,
+                                                                  *rays)
+    winner = tdk._winner(tab, torch.from_numpy(c_t), torch.from_numpy(c_i))
+    assert len(winner) == len(fields)
+    for a, b in zip(winner, fields):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b)
+    assert np.array_equal(c_sup, supers.numpy())
+    assert np.array_equal(c_clu, clusters.numpy())
+    assert kinds["coop"] > 0 and (kinds["serial"] > 0) == (t_max < WARP)
+    assert kinds["stale"] > 0
+    assert (c_clu == 0).any() and c_clu.max() > 0 and (c_i >= 0).any()
+    rolled = tab.n_supers or tab.n_tri_supers
+    assert bool(rolled) == name.endswith("rolled")
+    if rolled:
+        assert (c_sup > 0).any() and (c_sup < c_sup.max()).any()
+    pads = (tab.triangles if tab.n_tri_clusters else tab.spheres)[:, 0]
+    assert torch.isnan(pads).any()
+    assert tab.textured == (name == "textured")
+
+
+def test_dyn_coop_sweep_exact_ties():
+    """The book with every sphere twice: each sphere hit is an exact tie of
+    two rows, and the winner is the first of them (the smaller row index),
+    in the cooperative fold as in the serial walk."""
+    tab, _ = _dyn_case("rolled")
+    rng = np.random.default_rng(17)
+    rays = _dyn_rays(tab, rng, 4 * WARP)
+    c_t, c_i, *_ = dyn_coop_sweep(tab, rays, 8, 32)   # always cooperative
+    t = _dyn_sphere_t(tab, *rays)
+    hit = c_i >= 0
+    twins = (t[hit] == c_t[hit, None]).sum(axis=1)
+    assert (twins >= 2).sum() > WARP
+    first = np.argmax(t[hit] == c_t[hit, None], axis=1)
+    assert np.array_equal(c_i[hit], first)
+
+
+@pytest.mark.parametrize("name", ["flat", "tri-rolled"])
+def test_dyn_warp_divergence_matches_counters(name):
+    """The dynamic count over a small render agrees with the plain
+    version's own counters: its rays, its loop trips per warp, its
+    clusters and supers entered; and the plain version's results are
+    untouched by the spy."""
+    tab, cc = _dyn_case(name)
+    w, h = 16, 8
+    cfg = RenderConfig(width=w, height=h, engine="fused")
+    cam = torch.from_numpy(tfused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(w, h), cfg))
+    perm, _ = tfused._block_perm(w, h, 32)
+    planes = tfused.lane_planes(torch.from_numpy(perm.astype(np.int64)), w,
+                                8)
+    salts = (0, 0, 6, 2)
+    before = tdk.fused_render_dynculled_reference(tab, salts, cam, *planes)
+    got = tdk.warp_divergence(tab, salts, cam, *planes)
+    after = tdk.fused_render_dynculled_reference(tab, salts, cam, *planes)
+    rays, trips, supers, clusters = before[3].tolist()
+    assert got["rays"] == rays and got["trips"] == trips
+    assert round(got["clusters_per_ray"] * rays) == clusters
+    assert round(got["supers_per_ray"] * rays) == supers
+    assert got["super_boxes_per_ray"] == tab.n_supers + tab.n_tri_supers
+    assert (supers > 0) == name.endswith("rolled")
+    assert sum(got["entering_lanes"]) > 0
+    assert got["useful_pairs"] <= got["issued_pairs"]
+    for a, b in zip(before, after):
+        assert torch.equal(a, b)
+    assert tdk._col is tbk._col and tdk.torch is torch
+
+
+def test_dyn_sweep_form_is_checked_and_changes_nothing_on_cpu():
+    tab, cc = _dyn_case("tri-flat")
+    w, h = 16, 8
+    cfg = RenderConfig(width=w, height=h, engine="fused")
+    cam = torch.from_numpy(tfused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(w, h), cfg))
+    perm, _ = tfused._block_perm(w, h, 32)
+    planes = tfused.lane_planes(torch.from_numpy(perm.astype(np.int64)), w,
+                                8)
+    salts = (0, 0, 8, 1)
+    a = tdk.fused_render_dynculled(tab, salts, cam, *planes)
+    b = tdk.fused_render_dynculled(tab, salts, cam, *planes,
+                                   sweep=tdk.SWEEP_SERIAL)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="sweep form"):
+        tdk.fused_render_dynculled(tab, salts, cam, *planes,
+                                   sweep=tdk.SWEEP_COOP + 1)
+    assert tdk.LAUNCHES == tdk.COOP_LAUNCHES == 0
+
+
+def test_row_divergence_command_on_cpu(capsys):
+    """``profile_frame --row NAME --divergence LANES --spp N --device cpu``
+    counts a mesh row's window from the plain version on the host: one
+    block of the knot row at 1 spp, its counts consistent with themselves
+    (every ray tests the row's 196 super boxes)."""
+    from wavefront_path_tracer_tpu_torch import profile_frame
+
+    assert profile_frame.main(["--row", "knot50k_dynamic", "--divergence",
+                               "1024", "--spp", "1", "--device", "cpu"]) == 0
+    rep = json.loads(capsys.readouterr().out)
+    assert rep["row"] == "knot50k_dynamic" and rep["spp"] == 1
+    assert rep["lanes"][1] - rep["lanes"][0] == 1024
+    assert rep["rays"] >= 1024 and rep["trips"] >= 1024 // WARP
+    assert rep["super_boxes_per_ray"] == 196
+    assert 0 < rep["supers_per_ray"] <= rep["union_supers_per_trip"]
+    with pytest.raises(ValueError, match="32x32"):
+        profile_frame.row_divergence("knot50k_dynamic", 1000, "cpu", 1)

@@ -161,6 +161,60 @@ def test_culled_sweep_matches_plain_at_full_width(device, case):
     assert int(p[3][3]) > 0
 
 
+@pytest.mark.parametrize("case", ["terrain", "knot", "book_checker",
+                                  "doubled"])
+def test_dynculled_sweep_matches_plain_at_full_width(device, case):
+    """The dynamic culled kernel in clusters of 16 at its rows' full lane
+    width (1 spp, block order) in its shipped sweep form (the warp's lanes
+    in step, a vote per cluster, the rays of few entering lanes shared by
+    the warp) and in the serial form: radiance words and all four counters
+    bit-identical to the plain version.  terrain (5,000 triangles: 313
+    clusters in 20 supers) and the 50k knot (196 supers) at 800x448,
+    rolled triangle sweeps; book_checker (textured, a flat sphere sweep of
+    31 clusters) at 1920x1080; "doubled" holds every sphere of
+    book_one_final twice (a rolled sphere sweep at clusters of 8; every
+    sphere hit an exact tie of two rows, which the smaller index must win)
+    at 800x448."""
+    from wavefront_path_tracer_tpu_torch.cli import build_camera, build_parser
+
+    tris, cc, cs, (w, h) = None, CameraController.book_one_final(), 16, (
+        800, 448)
+    if case == "terrain":
+        scene, tris = mesh_terrain_scene()
+    elif case == "knot":
+        (scene, tris), cc = knot_scene(50000), knot_camera()
+    elif case == "book_checker":
+        scene, (w, h) = get_scene("book_checker"), (1920, 1080)
+        cc = build_camera(build_parser().parse_args(["--scene",
+                                                     "book_checker"]))
+    else:
+        scene = get_scene("book_one_final")
+        scene, cs = scene.permuted(np.repeat(np.arange(scene.num_spheres),
+                                             2)), 8
+    cfg = RenderConfig(width=w, height=h, engine="fused")
+    arrays = prepare_scene(scene, cfg, device, tris)
+    eye = tfused._concrete_eye(cc.view_matrix())
+    tab = tfused._dyn_tables(arrays, cs, camera_pos=eye)
+    assert tab.textured == (case == "book_checker")
+    cam = torch.from_numpy(tfused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(w, h),
+        cfg)).to(device)
+    _, planes = _planes(w, h, device)
+    salts = (0, 0, 50, 1)
+    p = tdk.fused_render_dynculled_reference(tab, salts, cam, *planes)
+    for sweep in (tdk.SWEEP_COOP, tdk.SWEEP_SERIAL):
+        before = (tdk.LAUNCHES, tdk.COOP_LAUNCHES)
+        k = tdk.fused_render_dynculled(tab, salts, cam, *planes, sweep=sweep)
+        torch.cuda.synchronize()
+        assert (tdk.LAUNCHES, tdk.COOP_LAUNCHES) == (
+            before[0] + 1, before[1] + (sweep == tdk.SWEEP_COOP))
+        for a, b in zip(k[:3], p[:3]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert k[3].tolist() == p[3].tolist()
+    assert int(p[3][3]) > 0
+    assert (int(p[3][2]) > 0) == (case != "book_checker")
+
+
 @pytest.mark.parametrize("case", ["terrain/dyn16", "knot1120/dyn16",
                                   "procedural1200/dyn16", "terrain/culled8",
                                   "terrain/unculled"])

@@ -2,11 +2,11 @@
 (``wavefront_path_tracer_tpu_torch/probes/run_pairs.py``) on the CPU:
 each design's plain version against its ``exp/`` Pallas kernel in
 interpret mode over 16 or 32 of the spheres nearest the rays, 2 reps (the
-exp module's globals set with monkeypatch; no file of ``exp/`` is
-edited).  The kernels run only on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``)."""
+exp module loaded as this file's own module object, its globals set with
+monkeypatch; no file of ``exp/`` is edited).  The kernels run only on the
+card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
-import sys
+import importlib.util
 from pathlib import Path
 
 import jax
@@ -23,10 +23,23 @@ from wavefront_path_tracer_tpu_torch.probes import run_pairs as trp
 torch.set_num_threads(2)
 
 EXP = Path(__file__).resolve().parents[1] / "exp"
-if str(EXP) not in sys.path:
-    sys.path.insert(0, str(EXP))
 
-import micro_r2 as jm  # noqa: E402
+
+def _load_reference():
+    """``exp/micro_r2.py`` as a module object of this file's own.  Its
+    kernels read the module's globals (S, REPS, SPH, packed, PACKED_SM)
+    when they are traced, and tests/test_torch_probes.py and
+    tests/test_torch_issue_mm.py set those of the ``micro_r2`` module that
+    they import; here no other file's use of that shared module object,
+    in whatever order a worker runs the files, reaches the references."""
+    spec = importlib.util.spec_from_file_location("micro_r2_run_pairs",
+                                                  EXP / "micro_r2.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+jm = _load_reference()
 
 FULL = pl.BlockSpec(memory_space=pltpu.VMEM)
 

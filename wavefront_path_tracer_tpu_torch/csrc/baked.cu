@@ -80,9 +80,9 @@
 // The design: in the persistent loop the warp's lanes run in step
 // (common.cuh trace_warp), each cluster takes a vote of the lanes' own
 // conds, and where at most T lanes enter, the warp's lanes share their
-// rays, G lanes a ray (coop_fold, with G = 8 and T = 12: a lone entering
-// ray's 16 pairs take 2 steps of the warp, not 16); where more enter, each
-// tests its own (the serial fold).  Which rays enter which cluster, and
+// rays, G lanes a ray (common.cuh coop_fold, with G = 8 and T = 12: a
+// lone entering ray's 16 pairs take 2 steps of the warp, not 16); where
+// more enter, each tests its own (the serial fold).  Which rays enter which cluster, and
 // which item wins, are the per-thread sweep's, so the kernel stays bit for
 // bit equal to its plain version.  Box tests stay per thread; the tables
 // stay in L1 (__ldg, read warp-uniformly, which probes showed as fast as
@@ -92,7 +92,6 @@
 // one image block, whose primary rays share a frustum, in one warp.  The
 // segments keep the per-thread sweep.
 
-#include <climits>
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
@@ -102,6 +101,8 @@
 namespace {
 
 using wpt::BoxRay;
+using wpt::Coop;
+using wpt::coop_fold;
 using wpt::Counts;
 using wpt::Hit;
 using wpt::kTFar;
@@ -110,6 +111,7 @@ using wpt::kTMin;
 using wpt::kTri;
 using wpt::kTriBit;
 using wpt::nan_min;
+using wpt::Serial;
 
 constexpr int kItem = 5;  // float4 per item row
 
@@ -281,89 +283,6 @@ struct Hierarchy {
     }
   }
 };
-
-// The form of the culled sweep, for spheres and triangles alike: the
-// lanes that share one ray (G) and the most entering lanes of a warp for
-// which a cluster takes the cooperative fold (T).  T = 0 is the serial
-// fold of every cluster in the per-thread loop (common.cuh trace_lane);
-// T above 0 votes per cluster, which needs the warp's lanes in step
-// (trace_warp).
-template <int kGroup, int kMaxLanes>
-struct Sweep {
-  static constexpr int kG = kGroup, kT = kMaxLanes;
-  static constexpr bool kWarp = kMaxLanes > 0;
-  static_assert(!kWarp || (kGroup >= 2 && kGroup <= 32 && 32 % kGroup == 0),
-                "G divides the warp");
-};
-// The per-thread sweep of every cluster: the segments' and the T = 0
-// comparator's.
-using Serial = Sweep<1, 0>;
-// The shipped form, chosen on the card (PERF.md section 6).
-using Coop = Sweep<8, 12>;
-
-// The cooperative fold of one cluster, items first..first+count-1, for
-// the entering lanes `m` of the warp; every lane of the warp calls it,
-// with `took` set where the lane's best changed.  G lanes serve one
-// entering ray, 32 / G rays a pass, taken from m in lane order.  A group
-// reads its ray's N fields with `fetch(owner, v)`, and lane j of the group
-// tests items first + j, first + j + G, ... with `item_t(v, i)`, keeping
-// its first strict minimum (t, i).  A shuffle tree over the group keeps
-// the smaller t and, on equal t, the smaller index; the entering lane
-// takes the result (tagged with `tag`) only where it is strictly below
-// the best_t it held before the cluster.  So its winner is the serial
-// fold's, bit for bit: the first item of least t below the old best.
-// Lanes without an item hold (kTFar, INT_MAX), which never wins.
-template <int G, int N, class Fetch, class ItemT>
-__device__ __forceinline__ bool coop_fold(unsigned m, int first, int count,
-                                          int tag, Fetch fetch, ItemT item_t,
-                                          float& best_t, int& best) {
-  constexpr int kGroups = 32 / G;
-  const int me = static_cast<int>(threadIdx.x & 31u);
-  const int g = me / G;
-  const int j = me % G;
-  const unsigned below = (1u << me) - 1u;
-  bool took = false;
-  for (unsigned rem = m; rem != 0u;) {
-    unsigned x = rem;              // group g serves the g-th lane of rem
-    for (int k = 0; k < g; ++k) x &= x - 1u;
-    const bool serves = x != 0u;
-    float v[N];
-    fetch(serves ? __ffs(x) - 1 : me, v);
-    float t_min = kTFar;
-    int i_min = INT_MAX;
-    if (serves) {
-      for (int i = first + j; i < first + count; i += G) {
-        const float t = item_t(v, i);
-        if (t < t_min) {
-          t_min = t;
-          i_min = i;
-        }
-      }
-    }
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
-      const float t2 = __shfl_xor_sync(wpt::kFullMask, t_min, off);
-      const int i2 = __shfl_xor_sync(wpt::kFullMask, i_min, off);
-      if (t2 < t_min || (t2 == t_min && i2 < i_min)) {
-        t_min = t2;
-        i_min = i2;
-      }
-    }
-    const int rank = __popc(rem & below);
-    const bool served = ((rem >> me) & 1u) && rank < kGroups;
-    const int src = served ? rank * G : me;
-    const float t_res = __shfl_sync(wpt::kFullMask, t_min, src);
-    const int i_res = __shfl_sync(wpt::kFullMask, i_min, src);
-    if (served && t_res < best_t) {
-      best_t = t_res;
-      best = tag | i_res;
-      took = true;
-    }
-#pragma unroll
-    for (int k = 0; k < kGroups; ++k) rem &= rem - 1u;
-  }
-  return took;
-}
 
 // baked_culled_intersect.intersect (pallas_kernels.py:1063-1466), with
 // the sweep form S.

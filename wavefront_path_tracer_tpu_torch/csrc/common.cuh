@@ -20,6 +20,7 @@
 
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -476,8 +477,8 @@ __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
 }
 
 // trace_lane with the warp's lanes in step, for nearest-hit functions
-// that vote and shuffle across the warp (baked.cu's cooperative culled
-// sweep).  In trace_lane a lane that has finished its samples leaves, and
+// that vote and shuffle across the warp (the cooperative culled sweeps
+// of baked.cu and dynculled.cu).  In trace_lane a lane that has finished its samples leaves, and
 // the lanes reach the intersect at unrelated points, so no warp-wide
 // __ballot_sync or __shfl_sync is safe there.  Here the warp runs one loop
 // of trips, and in each trip every lane of the warp, those past n_lanes
@@ -544,6 +545,90 @@ __device__ __forceinline__ void trace_warp(const LaneParams& p, int lane,
   p.rays[lane] = counts.rays;
   if (p.supers != nullptr) p.supers[lane] = counts.supers;
   if (p.clusters != nullptr) p.clusters[lane] = counts.clusters;
+}
+
+// The form of a culled sweep (baked.cu's and dynculled.cu's), for
+// spheres and triangles alike: the lanes that share one ray (G) and the
+// most entering lanes of a warp for which a cluster takes the cooperative
+// fold (T).  T = 0 is the serial fold of every cluster in the per-thread
+// loop (trace_lane); T above 0 votes per cluster, which needs the warp's
+// lanes in step (trace_warp).
+template <int kGroup, int kMaxLanes>
+struct Sweep {
+  static constexpr int kG = kGroup, kT = kMaxLanes;
+  static constexpr bool kWarp = kMaxLanes > 0;
+  static_assert(!kWarp || (kGroup >= 2 && kGroup <= 32 && 32 % kGroup == 0),
+                "G divides the warp");
+};
+// The per-thread sweep of every cluster: the segments' and the T = 0
+// comparator's.
+using Serial = Sweep<1, 0>;
+// The shipped form of both culled sweeps, chosen on the card (PERF.md
+// section 6).
+using Coop = Sweep<8, 12>;
+
+// The cooperative fold of one cluster, items first..first+count-1, for
+// the entering lanes `m` of the warp; every lane of the warp calls it,
+// with `took` set where the lane's best changed.  G lanes serve one
+// entering ray, 32 / G rays a pass, taken from m in lane order.  A group
+// reads its ray's N fields with `fetch(owner, v)`, and lane j of the group
+// tests items first + j, first + j + G, ... with `item_t(v, i)`, keeping
+// its first strict minimum (t, i).  A shuffle tree over the group keeps
+// the smaller t and, on equal t, the smaller index; the entering lane
+// takes the result (tagged with `tag`) only where it is strictly below
+// the best_t it held before the cluster.  So its winner is the serial
+// fold's, bit for bit: the first item of least t below the old best.
+// Lanes without an item hold (kTFar, INT_MAX), which never wins.
+template <int G, int N, class Fetch, class ItemT>
+__device__ __forceinline__ bool coop_fold(unsigned m, int first, int count,
+                                          int tag, Fetch fetch, ItemT item_t,
+                                          float& best_t, int& best) {
+  constexpr int kGroups = 32 / G;
+  const int me = static_cast<int>(threadIdx.x & 31u);
+  const int g = me / G;
+  const int j = me % G;
+  const unsigned below = (1u << me) - 1u;
+  bool took = false;
+  for (unsigned rem = m; rem != 0u;) {
+    unsigned x = rem;              // group g serves the g-th lane of rem
+    for (int k = 0; k < g; ++k) x &= x - 1u;
+    const bool serves = x != 0u;
+    float v[N];
+    fetch(serves ? __ffs(x) - 1 : me, v);
+    float t_min = kTFar;
+    int i_min = INT_MAX;
+    if (serves) {
+      for (int i = first + j; i < first + count; i += G) {
+        const float t = item_t(v, i);
+        if (t < t_min) {
+          t_min = t;
+          i_min = i;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+      const float t2 = __shfl_xor_sync(kFullMask, t_min, off);
+      const int i2 = __shfl_xor_sync(kFullMask, i_min, off);
+      if (t2 < t_min || (t2 == t_min && i2 < i_min)) {
+        t_min = t2;
+        i_min = i2;
+      }
+    }
+    const int rank = __popc(rem & below);
+    const bool served = ((rem >> me) & 1u) && rank < kGroups;
+    const int src = served ? rank * G : me;
+    const float t_res = __shfl_sync(kFullMask, t_min, src);
+    const int i_res = __shfl_sync(kFullMask, i_min, src);
+    if (served && t_res < best_t) {
+      best_t = t_res;
+      best = tag | i_res;
+      took = true;
+    }
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) rem &= rem - 1u;
+  }
+  return took;
 }
 
 // Lane state and salts of one segment launch (_segment_impl, 2785).  The

@@ -164,7 +164,8 @@ def load_library() -> ctypes.CDLL:
         i32,                           # h, w, textured
     ]
     fn = lib.wpt_dynculled_launch
-    fn.argtypes = [*dyn_tables, *lane_args, *out_args, *salt_args]
+    fn.argtypes = [*dyn_tables, i32,  # sweep
+                   *lane_args, *out_args, *salt_args]
     fn.restype = ctypes.c_int
     seg_args = [
         ptr, ptr, ptr, i32,            # state, ids, counts, n_lanes

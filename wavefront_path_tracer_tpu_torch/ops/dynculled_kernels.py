@@ -41,9 +41,12 @@ import torch
 
 from wavefront_path_tracer_tpu_torch.ops.bake import TRI_COLS
 from wavefront_path_tracer_tpu_torch.ops.baked_kernels import (
+    SWEEP_COOP,
+    SWEEP_SERIAL,
     _col,
     _take,
     box_conds,
+    divergence_counts,
     slab_exit,
     tri_t,
 )
@@ -55,6 +58,7 @@ from wavefront_path_tracer_tpu_torch.ops.dyn_tables import (
 from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     T_FAR,
     T_MIN,
+    WARP,
     _salts,
     check_aligned,
     check_inputs,
@@ -67,9 +71,11 @@ from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
 # Clusters per cond batch of the flat sweep (the reference's refresh).
 REFRESH = 16
 
-# Kernel launches on CUDA tensors by fused_render_dynculled, and by
-# fused_segment_dynculled (one a segment).
+# Kernel launches on CUDA tensors by fused_render_dynculled (of which
+# COOP_LAUNCHES in sweep form SWEEP_COOP), and by fused_segment_dynculled
+# (one a segment).
 LAUNCHES = 0
+COOP_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 
 
@@ -238,6 +244,136 @@ def fused_render_dynculled_reference(
         images=tab.images if tab.textured else None)
 
 
+class _NonzeroSpy:
+    """The module's ``torch`` during :func:`warp_divergence`: ``real``,
+    with ``nonzero`` also calling ``seen(x, result)`` (the rolled sweep's
+    rays that entered a super)."""
+
+    def __init__(self, real, seen):
+        self._real, self._seen = real, seen
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+    def nonzero(self, x, *args, **kwargs):
+        out = self._real.nonzero(x, *args, **kwargs)
+        self._seen(x, out)
+        return out
+
+
+def warp_divergence(tab: DynTables, salts, cam_params, pix, xs, ys, valid,
+                    soff, *, rr_start: int = 0, rr_floor: float = 0.05,
+                    clamp: float = 0.0, sampler: str = "random",
+                    warp: int = WARP) -> dict:
+    """``baked_kernels.divergence_counts`` of the dynamic culled
+    persistent loop over the given lane planes (a warp is ``warp``
+    consecutive lanes of them), from the plain version:
+    :func:`fused_render_dynculled_reference`'s loop, with a spy on
+    :func:`dynculled_intersect_reference` that records the clusters each
+    ray entered (its batches' conds, read where the plain version reads
+    them: ``box_conds`` and then ``_col`` of the cap) and the supers (the
+    rays that ``nonzero`` is given), and each ray's lane and ordinal among
+    its lane's rays.  Clusters are numbered by box row, the triangle
+    hierarchy's after the spheres'; every cluster has ``cluster_size``
+    items.  Adds the rolled sweeps' super boxes: ``super_boxes_per_ray``
+    (every ray tests each super box of a rolled hierarchy),
+    ``supers_per_ray`` (entered) and ``union_supers_per_trip`` (the supers
+    whose children a warp trip walks).  The plain version's results are
+    not changed; the spy is removed on return."""
+    levels = [(tab.boxes, tab.slab, tab.n_clusters, tab.n_supers),
+              (tab.tri_boxes, tab.tri_slab, tab.n_tri_clusters,
+               tab.n_tri_supers)]
+    n_cols = [boxes.shape[0] if n else 0 for boxes, _, n, _ in levels]
+    col0 = [0, n_cols[0]]
+    n_sups = [n_sup if n else 0 for _, _, n, n_sup in levels]
+    sup0 = [0, n_sups[0]]
+    sizes = [tab.cluster_size] * sum(n_cols)
+    device = pix.device
+    ordinal = torch.zeros(pix.numel(), dtype=torch.int64, device=device)
+    _, _, max_bounces, n_samples = _salts(salts)
+    max_rays = max(max_bounces * n_samples, 1)
+    keys, entered, entered_sup = [], [], []
+    cur = {"level": 0, "super": 0, "rows": None, "conds": None}
+    col, conds_of, exit_of = _col, box_conds, slab_exit
+
+    def level_of(t, which):
+        ptr = t.untyped_storage().data_ptr()
+        return next(k for k, lv in enumerate(levels)
+                    if lv[2] and lv[which].untyped_storage().data_ptr() == ptr)
+
+    def spy_slab_exit(lo, hi, *rays):
+        cur.update(level=level_of(lo, 1), super=0, rows=None)
+        return exit_of(lo, hi, *rays)
+
+    def seen_super(s_enter, nonzero):
+        lv = cur["level"]
+        cur["rows"] = nonzero[:, 0]
+        col = sup0[lv] + cur["super"]
+        entered_sup[-1][:, col] |= s_enter
+        cur["super"] += 1
+
+    def spy_box_conds(lo, hi, *rays):
+        ok, entry = conds_of(lo, hi, *rays)
+        if lo.dim() == 2:               # a batch's clusters
+            lv = level_of(lo, 0)
+            boxes = levels[lv][0]
+            k0 = (lo.storage_offset() - boxes.storage_offset()) \
+                // boxes.stride(0)
+            cur["conds"] = (lv, k0, ok, entry)
+        return ok, entry
+
+    def spy_col(v):
+        pending, cur["conds"] = cur["conds"], None
+        if pending is not None:         # the batch's cap: its conds
+            lv, k0, ok, entry = pending
+            enter = ok & (entry < col(v))
+            c0 = col0[lv] + k0
+            cols = slice(c0, c0 + enter.shape[1])
+            if levels[lv][3]:
+                rows = cur["rows"]
+                entered[-1][rows, cols] = entered[-1][rows, cols] | enter
+            else:
+                entered[-1][:, cols] |= enter
+        return col(v)
+
+    def intersect(ox, oy, oz, dx, dy, dz):
+        lanes = cur["lanes"]
+        n = lanes.numel()
+        entered.append(torch.zeros((n, sum(n_cols)), dtype=torch.bool,
+                                   device=device))
+        entered_sup.append(torch.zeros((n, sum(n_sups)), dtype=torch.bool,
+                                       device=device))
+        out = dynculled_intersect_reference(tab, ox, oy, oz, dx, dy, dz)
+        keys.append(lanes // warp * max_rays + ordinal[lanes])
+        ordinal[lanes] += 1
+        return out
+
+    module = globals()
+    saved = {k: module[k] for k in ("box_conds", "_col", "slab_exit",
+                                    "torch")}
+    module.update(box_conds=spy_box_conds, _col=spy_col,
+                  slab_exit=spy_slab_exit,
+                  torch=_NonzeroSpy(torch, seen_super))
+    try:
+        persistent_reference(
+            intersect, salts, cam_params, pix, xs, ys, valid, soff,
+            rr_start=rr_start, rr_floor=rr_floor, clamp=clamp,
+            sampler=sampler, images=tab.images if tab.textured else None,
+            observe=lambda lanes: cur.update(lanes=lanes))
+    finally:
+        module.update(saved)
+    keys = torch.cat([torch.zeros(0, dtype=torch.int64, device=device)]
+                     + keys)
+    cat = [torch.cat([torch.zeros((0, m), dtype=torch.bool, device=device)]
+                     + parts) for m, parts in ((sum(n_cols), entered),
+                                               (sum(n_sups), entered_sup))]
+    counts = divergence_counts(keys, cat[0], sizes, warp)
+    sup = divergence_counts(keys, cat[1], [1] * sum(n_sups), warp)
+    return {**counts, "super_boxes_per_ray": sum(n_sups),
+            "supers_per_ray": sup["clusters_per_ray"],
+            "union_supers_per_trip": sup["union_clusters_per_trip"]}
+
+
 def _tables(tab: DynTables) -> dict:
     """The tables as check_inputs takes them."""
     images = tab.images
@@ -278,7 +414,7 @@ def _table_args(tab: DynTables) -> tuple:
 def fused_render_dynculled(
         tab: DynTables, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random"):
+        sampler: str = "random", sweep: int = SWEEP_COOP):
     """All samples x all bounces of every lane over the dynamic culled
     tables.
 
@@ -289,16 +425,22 @@ def fused_render_dynculled(
     lanes where the TPU kernel's lockstep tile held 1024), and a ray
     entering a cluster adds one.
 
+    ``sweep`` picks the kernel's sweep form (:data:`SWEEP_COOP`, the warp's
+    lanes in step with a vote per cluster, or :data:`SWEEP_SERIAL`, the
+    per-thread sweep); both give the same results.
+
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/dynculled.cu`` on the current stream; any other device raises.
     The kernel's results, counters included, are bit-identical to the
     plain version's.
     """
-    global LAUNCHES
+    global LAUNCHES, COOP_LAUNCHES
     planes = (pix, xs, ys, valid, soff)
     device = check_inputs(cam_params, planes, _tables(tab))
     if sampler not in ("random", "stratified"):
         raise ValueError(f"unknown sampler {sampler!r}")
+    if sweep not in (SWEEP_SERIAL, SWEEP_COOP):
+        raise ValueError(f"unknown sweep form {sweep}")
     if device.type == "cpu":
         return fused_render_dynculled_reference(
             tab, salts, cam_params, *planes, rr_start=rr_start,
@@ -318,7 +460,7 @@ def fused_render_dynculled(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.wpt_dynculled_launch(
-            *table_args,
+            *table_args, int(sweep),
             cam_params.data_ptr(), pix.data_ptr(), xs.data_ptr(),
             ys.data_ptr(), valid.data_ptr(), soff.data_ptr(),
             rad_r.data_ptr(), rad_g.data_ptr(), rad_b.data_ptr(),
@@ -327,8 +469,10 @@ def fused_render_dynculled(
             int(rr_start), float(rr_floor), float(clamp),
             int(sampler == "stratified"), stream)
     if rc != 0:
-        raise RuntimeError(f"dynculled kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"dynculled kernel launch failed (sweep {sweep}): "
+                           f"CUDA error {rc}")
     LAUNCHES += 1
+    COOP_LAUNCHES += sweep == SWEEP_COOP
     rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
     return rad_r, rad_g, rad_b, torch.stack([rays, warp_trips(counts[0]),
                                              supers, clusters])

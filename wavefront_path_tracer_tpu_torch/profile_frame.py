@@ -3,6 +3,8 @@
     python -m wavefront_path_tracer_tpu_torch.profile_frame [CLI flags]
     python -m wavefront_path_tracer_tpu_torch.profile_frame --row NAME \
         [--recluster K]
+    python -m wavefront_path_tracer_tpu_torch.profile_frame --row NAME \
+        --divergence LANES [--spp N] [--device cpu]
 
 Runs the CLI once to warm up (scene, size, samples and intersector as
 given, e.g. ``--intersector baked --clusters 16`` for the headline path,
@@ -17,6 +19,13 @@ device was busy (the union of device activity intervals over the
 frame's wall time) and the rest, the host gap, the number of device
 kernels and copies, the number of host calls that waited for the device,
 and the card's name and power limit.
+
+With ``--divergence LANES`` it traces no frame: it prints how the warps of
+the row's culled sweep diverge over its clusters (``warp_divergence`` of
+the row's kernel module), counted from the plain version over a window of
+LANES lanes (whole 32x32 image blocks) at the middle of the row's lane
+order, at the row's samples a pixel or ``--spp N``, on the card or, with
+``--device cpu``, on the host.
 """
 
 from __future__ import annotations
@@ -46,6 +55,14 @@ def row_renderer(name: str, device="cuda", **config):
     frame of all the row's samples, 50 bounces, clusters of 16, block
     order.  ``config`` overrides fields of the :class:`RenderConfig`."""
     from wavefront_path_tracer_tpu_torch.renderer import Renderer
+
+    scene, tris, cc, cfg = _row(name)
+    return Renderer(scene, cc, cfg.replace(**config), tris, device=device)
+
+
+def _row(name: str):
+    """(scene, triangles, camera, RenderConfig) of the mesh row ``name``
+    (:func:`row_renderer`)."""
     from wavefront_path_tracer_tpu_torch.scene import (
         CameraController,
         knot_camera,
@@ -65,7 +82,50 @@ def row_renderer(name: str, device="cuda", **config):
                        samples_per_frame=spp, max_bounces=50, engine="fused",
                        intersector=intersector, baked_clusters=16,
                        block_tiles=32)
-    return Renderer(scene, cc, cfg.replace(**config), tris, device=device)
+    return scene, tris, cc, cfg
+
+
+def row_divergence(name: str, lanes: int, device="cuda",
+                   spp: int = 0) -> dict:
+    """``warp_divergence`` of the mesh row ``name``'s plain version, at the
+    row's samples a pixel or ``spp``, over a window of ``lanes`` lanes
+    (whole 32x32 image blocks) at the middle of the frame's lane order,
+    its inputs built as ``models/fused.py`` builds them; with the window's
+    lanes and samples."""
+    import numpy as np
+    import torch
+
+    from wavefront_path_tracer_tpu_torch.models import fused
+    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
+    from wavefront_path_tracer_tpu_torch.renderer import prepare_scene
+
+    scene, tris, cc, cfg = _row(name)
+    if spp:
+        cfg = cfg.replace(samples_per_pixel=spp, samples_per_frame=spp)
+    if lanes <= 0 or lanes % 1024:
+        raise ValueError("the window is whole 32x32 blocks of lanes")
+    arrays = prepare_scene(scene, cfg, device, tris)
+    eye = fused._concrete_eye(cc.view_matrix())
+    if cfg.intersector == "baked":
+        module = bk
+        tables = fused._baked_scene(arrays, 16, camera_pos=eye)
+    else:
+        module = dk
+        tables = fused._dyn_tables(arrays, 16, camera_pos=eye)
+    w, h, spp = cfg.width, cfg.height, cfg.samples_per_pixel
+    perm, _ = fused._block_perm(w, h, 32)
+    planes = fused.lane_planes(
+        torch.from_numpy(perm.astype(np.int64)).to(device), w,
+        cfg.tile_rows, 1, spp)
+    cam = torch.from_numpy(fused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(w, h),
+        cfg)).to(device)
+    lo = planes[0].numel() // 2 // 1024 * 1024 - lanes // 2
+    window = [p.reshape(-1)[lo:lo + lanes].reshape(-1, 128) for p in planes]
+    counts = module.warp_divergence(tables, (0, 0, cfg.max_bounces, spp),
+                                    cam, *window)
+    return {**counts, "lanes": [lo, lo + lanes], "spp": spp}
 
 
 def _union_us(intervals) -> float:
@@ -84,6 +144,25 @@ def main(argv=None) -> int:
 
     from wavefront_path_tracer_tpu_torch import cli
 
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if "--divergence" in argv:
+        import argparse
+
+        ap = argparse.ArgumentParser(prog="profile_frame")
+        ap.add_argument("--row", choices=sorted(MESH_ROWS), required=True)
+        ap.add_argument("--divergence", type=int, required=True)
+        ap.add_argument("--spp", type=int, default=0)
+        ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+        args = ap.parse_args(argv)
+        if args.device == "cuda" and not torch.cuda.is_available():
+            raise SystemExit("profile_frame needs a CUDA card (or --device "
+                             "cpu)")
+        t0 = time.perf_counter()
+        rep = row_divergence(args.row, args.divergence, args.device,
+                             args.spp)
+        print(json.dumps({"row": args.row, "device": args.device, **rep,
+                          "seconds": time.perf_counter() - t0}))
+        return 0
     if not torch.cuda.is_available():
         raise SystemExit("profile_frame needs a CUDA card")
     card = subprocess.run(
@@ -91,7 +170,6 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--row"]:
         config = {}
         if argv[2:3] == ["--recluster"]:
