@@ -9,8 +9,8 @@ Phases (all by default, in this order), each of which raises on failure
 2. build: compiles the CUDA kernels from ``csrc/`` with nvcc, one process
    per source, all started together, and prints ptxas's lines for every
    kernel (persistent, baked culled and unculled, dynamic culled), then
-   each baked culled and dynamic culled instantiation's registers, stack
-   and spills;
+   each persistent, baked unculled, baked culled and dynamic culled
+   instantiation's registers, stack and spills;
 3. kernels vs plain (``kernels``): each kernel against its plain PyTorch
    version on the same CUDA tensors, in block lane order with padding
    lanes, 50 bounces.  On book_one_final at 160x90@4spp, the CLI's
@@ -135,7 +135,21 @@ Phases (all by default, in this order), each of which raises on failure
    the warp-divergence count of the headline (16 image blocks of 32x32)
    and of terrain_dynamic and knot50k_dynamic (4 blocks each, at 8 spp)
    from the plain version at the middle of each lane order, held to the
-   kernel's counters over the same lanes.
+   kernel's counters over the same lanes;
+15. loop forms (``loop``): the two unculled kernels, the persistent
+   (brute force) one and the unculled baked one, in their two loop forms
+   (per thread, ``trace_lane``; in step, ``trace_warp``, the shipped form,
+   the unculled kernel's triangle rows staged a warp at a time in shared
+   memory): every form bit for bit with the plain version at
+   160x90@4spp (the persistent kernel on book_one_final and the doubled
+   book, the unculled on book_one_final, book_checker and terrain) and at
+   1920x1080@1spp (both on book_one_final); then at four cells (persistent
+   and unculled on book_one_final and unculled on book_checker at
+   1920x1080@32spp, unculled on terrain at 800x448@32spp) every form bit
+   for bit with the lane form, one launch of each timed by CUDA events in
+   turns, each run and the lane runs' spread printed beside the bound and
+   the warps' fullness, and the loop trips beside those of a loop that
+   regroups its lanes at every sample end (one launch a sample).
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -171,7 +185,8 @@ REPLACES = "wavefront_path_tracer_tpu/ops/pallas_kernels.py:"
 # The port's kernels: their entries in the kernels line, and the CLI
 # flags of the path that runs each.
 KERNELS = {
-    "persistent": {"name": "fused_render_persistent",
+    "persistent": {"name": "fused_render_persistent (loop form warp: the "
+                           "warp's lanes in step, trace_warp)",
                    "source": SOURCE + "persistent.cu",
                    "replaces": REPLACES + "3098",
                    "argv": ["--intersector", "bruteforce"]},
@@ -179,7 +194,9 @@ KERNELS = {
                "source": SOURCE + "baked.cu",
                "replaces": REPLACES + "3157",
                "argv": ["--intersector", "baked", "--clusters", "16"]},
-    "unculled": {"name": "fused_render_baked/baked_intersect",
+    "unculled": {"name": "fused_render_baked/baked_intersect (sweep form "
+                         "Coop: the warp's lanes in step, trace_warp, the "
+                         "triangle rows staged a warp at a time)",
                  "source": SOURCE + "baked.cu",
                  "replaces": REPLACES + "3157",
                  "argv": ["--intersector", "baked", "--clusters", "0"]},
@@ -257,8 +274,9 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build() -> dict:
-    """Build the library and print ptxas's lines, then each culled and
-    dynamic culled kernel's registers and spills."""
+    """Build the library and print ptxas's lines, then each persistent,
+    baked unculled, baked culled and dynamic culled kernel's registers and
+    spills."""
     from wavefront_path_tracer_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -272,7 +290,9 @@ def phase_build() -> dict:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"{tag} ptxas: {line.strip()}")
     out = {"seconds": seconds}
-    for kind, match in (("culled", "baked_culled_kernel"),
+    for kind, match in (("persistent", "persistent_kernel"),
+                        ("unculled", "baked_unculled_kernel"),
+                        ("culled", "baked_culled_kernel"),
                         ("dynculled", "dynculled_kernel")):
         out[f"{kind}_ptxas"] = _ptxas_kernels(report, match)
         for rep in out[f"{kind}_ptxas"]:
@@ -369,6 +389,7 @@ class Case:
             table = arrays["scene_packed"]
             n = len(scene.radii)
             self.tables = (table,)
+            self.n_spheres = n
             self.n_rows = min(table.shape[0], (n + 7) // 8 * 8)
             self.kernel = lambda: fk.fused_render_persistent(
                 table, n, salts, cam, *self.planes, **kw)
@@ -686,11 +707,13 @@ def _reset_launches():
     from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
 
     fk.LAUNCHES = 0
+    fk.WARP_LAUNCHES = 0
     dk.LAUNCHES = 0
     dk.COOP_LAUNCHES = 0
     dk.SEGMENT_LAUNCHES = 0
-    for key in bk.LAUNCHES:
-        bk.LAUNCHES[key] = 0
+    for counts in (bk.LAUNCHES, bk.COOP_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 def _read_launches() -> dict:
@@ -698,9 +721,24 @@ def _read_launches() -> dict:
     from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
     from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
 
-    return {"persistent": fk.LAUNCHES, **bk.LAUNCHES,
+    return {"persistent": fk.LAUNCHES, "persistent_warp": fk.WARP_LAUNCHES,
+            **bk.LAUNCHES,
+            **{f"{k}_coop": v for k, v in bk.COOP_LAUNCHES.items()},
             "dynculled": dk.LAUNCHES, "dynculled_coop": dk.COOP_LAUNCHES,
             "segment_dynculled": dk.SEGMENT_LAUNCHES}
+
+
+# The shipped form's launch count of each kernel that has forms.
+SHIPPED = {"persistent": "persistent_warp", "culled": "culled_coop",
+           "unculled": "unculled_coop", "dynculled": "dynculled_coop"}
+
+
+def _require_shipped(label: str, kind: str, launches: dict) -> None:
+    """Every launch of ``kind``'s kernel in the run was its shipped form."""
+    if kind in SHIPPED and launches[SHIPPED[kind]] != launches[kind]:
+        raise AssertionError(f"{label} launched the {kind} kernel in "
+                             f"another form than the shipped one: "
+                             f"{launches}")
 
 
 def phase_main_paths(device, smi: str) -> dict:
@@ -729,6 +767,7 @@ def phase_main_paths(device, smi: str) -> dict:
         img = result.accumulated / result.samples
         if launches[kind] < 1:
             raise AssertionError(f"the {kind} path launched no {kind} kernel")
+        _require_shipped(f"the {kind} path", kind, launches)
         if not np.isfinite(img).all() or not img.mean() > 0.01:
             raise AssertionError(f"bad 1080p image ({kind}): mean "
                                  f"{img.mean()}")
@@ -800,9 +839,7 @@ def _frame(renderer, kind: str, label: str, smi: str) -> dict:
     img = result.accumulated / result.samples
     if launches[kind] < 1:
         raise AssertionError(f"{label} launched no {kind} kernel")
-    if kind == "dynculled" and launches["dynculled_coop"] != launches[kind]:
-        raise AssertionError(f"{label} launched the dynamic culled kernel "
-                             f"in another form than Coop: {launches}")
+    _require_shipped(label, kind, launches)
     if not np.isfinite(img).all() or not img.mean() > 0.01:
         raise AssertionError(f"bad image ({label}): mean {img.mean()}")
     mrays = result.rays_traced / result.wall_time_s / 1e6
@@ -2208,16 +2245,17 @@ def phase_probes(device, smi: str) -> dict:
 
 
 def _ceiling_shares(record: dict) -> list:
-    """Each culled and mesh kernel's time beside the time its pairs take
-    at the measured pair ceiling (C6 for spheres, T1 for triangles: the
-    mesh rows' pairs are counted at the triangle rate), and beside its
-    spec bound."""
+    """Each book and mesh kernel's time beside the time its pairs take at
+    the measured pair ceiling (C6 for spheres, T1 for triangles: the mesh
+    rows' pairs are counted at the triangle rate), and beside its spec
+    bound."""
     ceil = {r["variant"]: r["gpairs"] * 1e9
             for r in record["probes"]["readings"]["pair_ceiling"]}
     tri = {r["form"]: r["gpairs"] * 1e9
            for r in record["probes"]["readings"]["tripair"]}
-    rows = [("culled book 1080p@32spp", record["full_size"]["timed"]
-             ["culled"], ceil["C6"])]
+    timed = record["full_size"]["timed"]
+    rows = [(f"{kind} book 1080p@32spp", timed[kind], ceil["C6"])
+            for kind in ("culled", "persistent", "unculled")]
     for rep in record["mesh_full_size"]["timed"]:
         rows.append((f"{rep['kind']} {rep['scene']} 800x448@{rep['spp']}spp",
                      rep, tri["T1"]))
@@ -2459,8 +2497,157 @@ def phase_sweep(device, smi: str) -> dict:
     return out
 
 
+def _loop_forms(case) -> dict:
+    """The loop forms of ``case``'s unculled kernel, the per-thread one
+    (``lane``) first: the persistent kernel's ``loop`` or the unculled
+    baked kernel's ``sweep``."""
+    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+    from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
+
+    if case.kind == "persistent":
+        return {"lane": fk.LOOP_LANE, "warp": fk.LOOP_WARP}
+    return {"lane": bk.SWEEP_SERIAL, "warp": bk.SWEEP_COOP}
+
+
+def _loop_launch(case, form: int, planes=None, salts=None):
+    """``case``'s unculled kernel in loop form ``form``, over its lane
+    planes and salts or the given ones."""
+    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+    from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
+
+    planes = case.planes if planes is None else planes
+    salts = case.salts if salts is None else salts
+    if case.kind == "persistent":
+        return fk.fused_render_persistent(case.tables[0], case.n_spheres,
+                                          salts, case.cam, *planes, loop=form)
+    return bk.fused_render_baked(case.baked, salts, case.cam, *planes,
+                                 sweep=form)
+
+
+def _loop_vs_plain(device) -> list[dict]:
+    """Every loop form of the two unculled kernels against the plain
+    version, radiance words and the four counters bit for bit: at 160x90@4
+    spp the persistent kernel on book_one_final and on the book with every
+    sphere twice (exact ties), the unculled baked kernel on book_one_final,
+    book_checker (textured) and terrain (5,000 triangles); at the main
+    paths' planes (1920x1080@1spp) both kernels on book_one_final."""
+    book, book_cc = _smoke_scene()
+    checker, _tris, checker_cc = _book_checker()
+    terrain, tris, terrain_cc = _terrain()
+    specs = [("persistent", "book_one_final", book, None, book_cc, 160, 90,
+              4),
+             ("persistent", "book_one_final doubled", _doubled(book), None,
+              book_cc, 160, 90, 4),
+             ("unculled", "book_one_final", book, None, book_cc, 160, 90, 4),
+             ("unculled", "book_checker", checker, None, checker_cc, 160, 90,
+              4),
+             ("unculled", "terrain", terrain, tris, terrain_cc, 160, 90, 4),
+             ("persistent", "book_one_final", book, None, book_cc,
+              MAIN_WIDTH, MAIN_HEIGHT, 1),
+             ("unculled", "book_one_final", book, None, book_cc, MAIN_WIDTH,
+              MAIN_HEIGHT, 1)]
+    out = []
+    for kind, name, scene, t, cam, w, h, spp in specs:
+        case = Case(kind, 0, scene, cam, w, h, spp, 1, {}, device,
+                    triangles=t)
+        p = case.plain()
+        forms = _loop_forms(case)
+        same = {f: _same_render(_loop_launch(case, form), p)
+                for f, form in forms.items()}
+        torch.cuda.synchronize()
+        label = f"{kind} {name} {w}x{h}@{spp}spp"
+        log(f"[loop-vs-plain] {label}: bit for bit with the plain version "
+            f"{json.dumps(same)}; stats {p[3].tolist()}")
+        if not all(same.values()):
+            raise AssertionError(f"{label}: a loop form differs from the "
+                                 f"plain version: {same}")
+        out.append({"case": label, "forms": same, "stats": p[3].tolist()})
+    return out
+
+
+def _loop_cells(device) -> dict:
+    """The cells that time the unculled kernels' loop forms, 50 bounces:
+    the persistent and the unculled kernel on book_one_final and the
+    unculled on book_checker at 1920x1080@32spp, the unculled on terrain
+    at 800x448@32spp (profile_frame LOOP_CELLS)."""
+    book, book_cc = _smoke_scene()
+    checker, _tris, checker_cc = _book_checker()
+    terrain, tris, terrain_cc = _terrain()
+    full = (MAIN_WIDTH, MAIN_HEIGHT, MAIN_SPP, 1, {}, device)
+    return {
+        "persistent_book": Case("persistent", 0, book, book_cc, *full),
+        "unculled_book": Case("unculled", 0, book, book_cc, *full),
+        "unculled_book_checker": Case("unculled", 0, checker, checker_cc,
+                                      *full),
+        "unculled_terrain": Case("unculled", 0, terrain, terrain_cc,
+                                 *MESH_SIZE, MAIN_SPP, 1, {}, device,
+                                 triangles=tris),
+    }
+
+
+def phase_loop(device, smi: str) -> dict:
+    """The unculled kernels' loop forms (per thread, trace_lane; in step,
+    trace_warp, with the triangle rows staged): every form against the
+    plain version at 160x90 and the main paths' planes; then at each cell
+    warm-up runs of every form, bit for bit with the lane form's, and
+    CUDA-event times of one launch each in turns (lane, warp, warp, lane),
+    each run printed with the lane runs' spread, the bound and the warps'
+    fullness; and the count model on the
+    card: the trips of the loop of trips (the kernel's iterations) beside
+    those of a loop that regroups its lanes at every sample end (the sum of
+    the iterations of one launch a sample)."""
+    out = {"vs_plain": _loop_vs_plain(device), "cells": {}}
+    for cell, case in _loop_cells(device).items():
+        forms = _loop_forms(case)
+        ref = _loop_launch(case, forms["lane"])
+        for name, form in forms.items():
+            if not _same_render(_loop_launch(case, form), ref):
+                raise AssertionError(f"{cell}: loop form {name} differs from "
+                                     f"the lane form")
+        order = ["lane", "warp", "warp", "lane"]
+        runs = {name: [] for name in forms}
+        for name in order:
+            ms, _ = _time_ms(lambda: _loop_launch(case, forms[name]), 1)
+            runs[name].append(ms)
+        mean = {name: sum(v) / len(v) for name, v in runs.items()}
+        lane = runs["lane"]
+        spread = max(lane) - min(lane)
+        stats = ref[3].tolist()
+        frame, base, bounces, n = case.salts
+        by_sample = sum(
+            int(_loop_launch(case, forms["warp"],
+                             salts=(frame, base + s, bounces, 1))[3][1])
+            for s in range(n))
+        rep = {"kind": case.kind, "spp": case.spp, "runs": runs,
+               "order": order, "mean_ms": mean, "lane_spread_ms": spread,
+               "vs_lane": {f: m / mean["lane"] for f, m in mean.items()},
+               "stats": stats, "warp_fullness": stats[0] / (32 * stats[1]),
+               "sample_trips": by_sample,
+               "model_warp_over_lane": stats[1] / by_sample,
+               **case.bound(stats)}
+        w, h = ((MAIN_WIDTH, MAIN_HEIGHT) if case.n_pixels
+                == MAIN_WIDTH * MAIN_HEIGHT else MESH_SIZE)
+        seen = {f: 0 for f in forms}
+        turns = []
+        for f in order:
+            turns.append(f"{f} {runs[f][seen[f]]!r}")
+            seen[f] += 1
+        ratios = {f: round(v, 4) for f, v in rep["vs_lane"].items()}
+        log(f"[loop] {cell} {w}x{h}@{case.spp}spp {case.kind}, runs in turn "
+            f"(ms): {', '.join(turns)}; lane spread {spread!r} ms "
+            f"({spread / mean['lane']:.4%}); mean vs lane "
+            f"{json.dumps(ratios)}; bound {rep['bound_ms']!r} ms "
+            f"({rep['bound_by']}); rays {stats[0]}, loop trips {stats[1]} "
+            f"(warps {rep['warp_fullness']:.4f} full), trips regrouped at "
+            f"every sample end {by_sample} (model warp / lane "
+            f"{rep['model_warp_over_lane']:.4f}); every form bit-identical "
+            f"to lane [{smi}]")
+        out["cells"][cell] = rep
+    return out
+
+
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull", "tex",
-          "texfull", "seg", "segfull", "probes", "sweep")
+          "texfull", "seg", "segfull", "probes", "sweep", "loop")
 
 
 def main(argv=None) -> int:
@@ -2482,8 +2669,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     build = phase_build()
     record = {"card": smi, "device": name, "build_seconds": build["seconds"],
-              "culled_ptxas": build["culled_ptxas"],
-              "dynculled_ptxas": build["dynculled_ptxas"]}
+              **{k: v for k, v in build.items() if k.endswith("_ptxas")}}
     steps = (("kernels", "parity", lambda: phase_kernel_vs_plain(device)),
              ("golden", "golden", lambda: phase_golden(device)),
              ("main", "main_paths", lambda: phase_main_paths(device, smi)),
@@ -2498,7 +2684,8 @@ def main(argv=None) -> int:
              ("segfull", "segments_full",
               lambda: phase_segments_full(device, smi)),
              ("probes", "probes", lambda: phase_probes(device, smi)),
-             ("sweep", "sweep", lambda: phase_sweep(device, smi)))
+             ("sweep", "sweep", lambda: phase_sweep(device, smi)),
+             ("loop", "loop", lambda: phase_loop(device, smi)))
     for phase, key, run in steps:
         if phase in phases:
             t0 = time.perf_counter()

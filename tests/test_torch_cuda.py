@@ -215,6 +215,64 @@ def test_dynculled_sweep_matches_plain_at_full_width(device, case):
     assert (int(p[3][2]) > 0) == (case != "book_checker")
 
 
+@pytest.mark.parametrize("case", ["persistent/book", "unculled/book",
+                                  "unculled/book_checker",
+                                  "unculled/terrain"])
+def test_unculled_loops_match_plain_at_full_width(device, case):
+    """The two unculled kernels at their rows' full lane width (1 spp,
+    block order) in both loop forms (the warp's lanes in step, the shipped
+    form, the unculled kernel's triangle rows staged; each lane on its own
+    thread):
+    radiance words and all four counters bit-identical to the plain
+    version.  The persistent (brute-force) kernel and the unculled baked
+    kernel on book_one_final at 1920x1080, the unculled on book_checker
+    (textured) at 1920x1080 and on terrain (5,000 triangles) at 800x448."""
+    from wavefront_path_tracer_tpu_torch.cli import build_camera, build_parser
+
+    kind, name = case.split("/")
+    tris, cc, (w, h) = None, CameraController.book_one_final(), (1920, 1080)
+    if name == "terrain":
+        (scene, tris), (w, h) = mesh_terrain_scene(), (800, 448)
+    elif name == "book_checker":
+        scene = get_scene("book_checker")
+        cc = build_camera(build_parser().parse_args(["--scene",
+                                                     "book_checker"]))
+    else:
+        scene = get_scene("book_one_final")
+    cfg = RenderConfig(width=w, height=h, engine="fused")
+    arrays = prepare_scene(scene, cfg, device, tris)
+    cam = torch.from_numpy(tfused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(w, h),
+        cfg)).to(device)
+    _, planes = _planes(w, h, device)
+    salts = (0, 0, 50, 1)
+    if kind == "persistent":
+        table, n = arrays["scene_packed"], len(scene.radii)
+        p = tfk.fused_render_persistent_reference(table, n, salts, cam,
+                                                  *planes)
+        forms = (tfk.LOOP_WARP, tfk.LOOP_LANE)
+        counts = lambda: (tfk.LAUNCHES, tfk.WARP_LAUNCHES)  # noqa: E731
+        run = lambda f: tfk.fused_render_persistent(  # noqa: E731
+            table, n, salts, cam, *planes, loop=f)
+    else:
+        baked = tfused._baked_scene(arrays, 0)
+        assert baked.textured == (name == "book_checker")
+        p = tbk.fused_render_baked_reference(baked, salts, cam, *planes)
+        forms = (tbk.SWEEP_COOP, tbk.SWEEP_SERIAL)
+        counts = lambda: (tbk.LAUNCHES["unculled"],  # noqa: E731
+                          tbk.COOP_LAUNCHES["unculled"])
+        run = lambda f: tbk.fused_render_baked(  # noqa: E731
+            baked, salts, cam, *planes, sweep=f)
+    for form in forms:
+        before = counts()
+        k = run(form)
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 1, before[1] + (form == forms[0]))
+        for a, b in zip(k[:3], p[:3]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert k[3].tolist() == p[3].tolist()
+
+
 @pytest.mark.parametrize("case", ["terrain/dyn16", "knot1120/dyn16",
                                   "procedural1200/dyn16", "terrain/culled8",
                                   "terrain/unculled"])

@@ -91,6 +91,17 @@
 // sweep); and the 32x32 block lane order of models/fused.py puts rays of
 // one image block, whose primary rays share a frustum, in one warp.  The
 // segments keep the per-thread sweep.
+//
+// The unculled kernel tests every row for every ray, so its lanes need no
+// vote: in the persistent loop they run in step (trace_warp), every lane
+// with a ray sweeping the whole table in the same trip, one broadcast
+// read a row, and a lane whose path ends starts its next sample on the
+// next trip (per thread, the warp regrouped at every sample end and ran
+// 1.6-2.0 times the trips: chip_smoke.py phase loop).  The triangle
+// table is staged a warp at a time in shared memory (stage_triangles):
+// terrain's 5,000 rows are 240 KB of what the pair test reads, more than
+// L1 keeps, and one coalesced cp.async of 32 rows, two chunks in flight,
+// beat 32 broadcast reads from L2 (0.69x of their time on terrain).
 
 #include <cstdint>
 #include <type_traits>
@@ -176,7 +187,8 @@ __device__ __forceinline__ bool finish(const float4* items,
 
 // baked_intersect.intersect (pallas_kernels.py:672-797): the generic
 // quadratic with inv_a and the disc >= 0 select, in scene order; then the
-// triangles in scene order.
+// triangles in scene order.  The call of trace_warp reads the triangle
+// table a warp at a time through shared memory (stage_triangles).
 template <bool kTris, bool kTex>
 struct UnculledIntersect {
   static constexpr bool kTriangles = kTris;
@@ -188,13 +200,35 @@ struct UnculledIntersect {
   const float4* tex_items;
   wpt::TexTables tex;
 
+  // The call of trace_lane and of the segment body: a per-thread sweep.
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
       Counts&, int&) const {
-    const float a = dx * dx + dy * dy + dz * dz;
-    const float inv_a = 1.0f / a;
     int best = -1;
     float best_t = kTFar;
+    spheres(ox, oy, oz, dx, dy, dz, best_t, best);
+    if (kTris)
+      test_triangles(tris, 0, n_tris, ox, oy, oz, dx, dy, dz, best_t, best);
+    return finish<kTris, kTex>(items, tex_items, tris, best, best_t, h);
+  }
+
+  // The call of trace_warp: every lane of the warp; a lane that is not
+  // `live` tests nothing (but joins the warp's staging).
+  __device__ __forceinline__ bool operator()(
+      bool live, float ox, float oy, float oz, float dx, float dy, float dz,
+      Hit& h, Counts&, int&) const {
+    int best = -1;
+    float best_t = kTFar;
+    if (live) spheres(ox, oy, oz, dx, dy, dz, best_t, best);
+    if (kTris) stage_triangles(live, ox, oy, oz, dx, dy, dz, best_t, best);
+    return finish<kTris, kTex>(items, tex_items, tris, best, best_t, h);
+  }
+
+  __device__ __forceinline__ void spheres(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          float& best_t, int& best) const {
+    const float a = dx * dx + dy * dy + dz * dz;
+    const float inv_a = 1.0f / a;
     for (int i = 0; i < n_items; ++i) {
       const float4 q = __ldg(items + kItem * i);
       const float elide = __ldg(items + kItem * i + 1).x;
@@ -221,9 +255,61 @@ struct UnculledIntersect {
         best = i;
       }
     }
-    if (kTris)
-      test_triangles(tris, 0, n_tris, ox, oy, oz, dx, dy, dz, best_t, best);
-    return finish<kTris, kTex>(items, tex_items, tris, best, best_t, h);
+  }
+
+  // The triangle rows a warp at a time, every lane of the warp together:
+  // lane k copies the three float4 of row c0 + k that tri_t reads into
+  // the warp's slice of shared memory (cp.async, two chunks in flight),
+  // then every live lane tests rows c0 .. c0 + 31 from there in index
+  // order with tri_t's arithmetic and the strict `<`, so its winner is
+  // test_triangles' bit for bit (first index on ties; a NaN pad row never
+  // wins).  The last chunk stops at n_tris.
+  __device__ __forceinline__ void stage_triangles(
+      bool live, float ox, float oy, float oz, float dx, float dy, float dz,
+      float& best_t, int& best) const {
+    constexpr int kRow = 3;   // float4 of a row that tri_t reads
+    __shared__ float4 stage[kThreads / 32][2][32 * kRow];
+    const int me = static_cast<int>(threadIdx.x & 31u);
+    float4(*slots)[32 * kRow] = stage[threadIdx.x >> 5];
+    const auto copy = [&](int c0, int slot) {
+      if (c0 + me < n_tris) {
+        const float4* src = tris + kTri * (c0 + me);
+#pragma unroll
+        for (int k = 0; k < kRow; ++k) {
+          const unsigned dst = static_cast<unsigned>(
+              __cvta_generic_to_shared(&slots[slot][kRow * me + k]));
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                       :: "r"(dst), "l"(src + k));
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    };
+    copy(0, 0);
+    int slot = 0;
+    for (int c0 = 0; c0 < n_tris; c0 += 32) {
+      if (c0 + 32 < n_tris) {
+        copy(c0 + 32, slot ^ 1);
+        asm volatile("cp.async.wait_group 1;\n" ::);
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::);
+      }
+      __syncwarp();
+      if (live) {
+        const int n = min(32, n_tris - c0);
+        const float4* rows = slots[slot];
+        for (int k = 0; k < n; ++k) {
+          const float t = wpt::tri_t(rows[kRow * k], rows[kRow * k + 1],
+                                     rows[kRow * k + 2], ox, oy, oz, dx, dy,
+                                     dz);
+          if (t < best_t) {
+            best_t = t;
+            best = kTriBit | (c0 + k);
+          }
+        }
+      }
+      __syncwarp();           // the slot is refilled by the next copy
+      slot ^= 1;
+    }
   }
 };
 
@@ -478,11 +564,20 @@ struct CulledIntersect {
 // default): the occupancy gained outweighs the extra spills, by 1.5% on
 // the headline frame and 5% on the unculled one (PERF.md).  `P` is
 // LaneParams (the persistent loop) or SegParams (one recluster segment).
-template <class P, bool kTris, bool kTex>
+// kWarp: the warp's lanes in step (trace_warp; every thread of the grid
+// joins its warp's loop, those past the last lane too), the shipped loop
+// form; otherwise the per-thread loop (trace_lane), or the segment body.
+template <class P, bool kTris, bool kTex, bool kWarp>
 __global__ void __launch_bounds__(kThreads, 8)
 baked_unculled_kernel(const P p, const UnculledIntersect<kTris, kTex> isect) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  wpt::trace(p, lane, isect);
+  if constexpr (kWarp) {
+    static_assert(std::is_same_v<P, wpt::LaneParams>,
+                  "a loop in step runs only the persistent loop");
+    wpt::trace_warp(p, lane, isect);
+  } else {
+    wpt::trace(p, lane, isect);
+  }
 }
 
 // A sweep form that votes (S::kWarp) runs the persistent loop with the
@@ -563,8 +658,20 @@ bool launch_sweep(const P& p, int sweep, const Tables& t, cudaStream_t s) {
   return false;
 }
 
+template <class P, bool kTris, bool kTex, bool kWarp>
+void launch_unculled(const P& p, const Tables& t, cudaStream_t s) {
+  const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
+  const UnculledIntersect<kTris, kTex> isect{t.items, t.n_globals, t.tris,
+                                             t.n_tris, t.tex_items, t.tex};
+  baked_unculled_kernel<P, kTris, kTex, kWarp><<<blocks, kThreads, 0, s>>>(
+      p, isect);
+}
+
 // A segment never runs the winner hint (recluster and the hint exclude
-// each other, utils/config.py), so only LaneParams instantiates it.
+// each other, utils/config.py), so only LaneParams instantiates it.  The
+// unculled kernel takes `sweep` as its loop form: 0 per thread, 1 the
+// warp's lanes in step (the persistent loop only; a segment always runs
+// 0).
 template <class P, bool kTris, bool kTex>
 bool launch(const P& p, int culled, int hint, int sweep, const Tables& t,
             cudaStream_t s) {
@@ -574,15 +681,22 @@ bool launch(const P& p, int culled, int hint, int sweep, const Tables& t,
     }
   }
   if (culled) return launch_sweep<P, kTris, kTex, false>(p, sweep, t, s);
-  const int blocks = (p.n_lanes + kThreads - 1) / kThreads;
-  const UnculledIntersect<kTris, kTex> isect{t.items, t.n_globals, t.tris,
-                                             t.n_tris, t.tex_items, t.tex};
-  baked_unculled_kernel<P, kTris, kTex><<<blocks, kThreads, 0, s>>>(p, isect);
-  return true;
+  if (sweep == 0) {
+    launch_unculled<P, kTris, kTex, false>(p, t, s);
+    return true;
+  }
+  if constexpr (std::is_same_v<P, wpt::LaneParams>) {
+    if (sweep == 1) {
+      launch_unculled<P, kTris, kTex, true>(p, t, s);
+      return true;
+    }
+  }
+  return false;
 }
 
 // The instantiation for the scene's kinds (triangles, textures); returns
-// cudaGetLastError(), or cudaErrorInvalidValue for an unknown sweep form.
+// cudaGetLastError(), or cudaErrorInvalidValue for an unknown sweep or
+// loop form.
 template <class P>
 int dispatch(const P& p, int n_tris, int culled, int textured, int hint,
              int sweep, const Tables& t, void* stream) {
@@ -610,8 +724,10 @@ int dispatch(const P& p, int n_tris, int culled, int textured, int hint,
 // textured == 0 the untextured ones (the texture tables are not read),
 // hint != 0 (culled only) the winner-hint ones.  `sweep` picks the
 // culled sweep's form (launch_sweep: 0 the serial fold of every cluster,
-// 1 the shipped per-cluster choice).  The wrapper (ops/baked_kernels.py)
-// checks shapes, types and alignment.
+// 1 the shipped per-cluster choice), or the unculled kernel's loop form
+// (0 per thread, 1 the shipped form: the warp's lanes in step, the
+// triangles staged).  The wrapper (ops/baked_kernels.py) checks shapes,
+// types and alignment.
 extern "C" int wpt_baked_launch(
     const float* items, int n_globals,
     const float* cboxes, const int* cranges, int n_clusters,

@@ -476,16 +476,20 @@ __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
   if (p.clusters != nullptr) p.clusters[lane] = counts.clusters;
 }
 
-// trace_lane with the warp's lanes in step, for nearest-hit functions
+// trace_lane with the warp's lanes in step: for nearest-hit functions
 // that vote and shuffle across the warp (the cooperative culled sweeps
-// of baked.cu and dynculled.cu).  In trace_lane a lane that has finished its samples leaves, and
-// the lanes reach the intersect at unrelated points, so no warp-wide
-// __ballot_sync or __shfl_sync is safe there.  Here the warp runs one loop
-// of trips, and in each trip every lane of the warp, those past n_lanes
-// too, calls `isect(live, ox, oy, oz, dx, dy, dz, hit, counts, hint)`
-// once: a lane with a ray passes live = true, one with none left live =
-// false, and then enters nothing and counts nothing but still joins every
-// vote and shuffle.  The loop ends when no lane of the warp is live.  Each
+// of baked.cu and dynculled.cu) or stage a table a warp at a time, and
+// for the unculled sweeps (persistent.cu, baked.cu), whose lanes then
+// read each table row in the same trip, one broadcast a row.  In
+// trace_lane a lane that has finished its samples leaves, and the lanes
+// reach the intersect at unrelated points, so no warp-wide
+// __ballot_sync, __shfl_sync or __syncwarp is safe there.  Here the warp
+// runs one loop of trips, and in each trip every lane of the warp, those
+// past n_lanes too, calls
+// `isect(live, ox, oy, oz, dx, dy, dz, hit, counts, hint)` once: a lane
+// with a ray passes live = true, one with none left live = false, and then
+// enters nothing and counts nothing but still joins every vote, shuffle
+// and staging.  The loop ends when no lane of the warp is live.  Each
 // lane traces the rays of trace_lane in the same order (a lane starts its
 // next sample on the trip after its path ends), so its radiance words, its
 // streams and its counters are trace_lane's, and the trips of a warp are
@@ -811,15 +815,14 @@ constexpr int kTri = 5;
 constexpr int kTriBit = 1 << 30;
 
 // Two-sided Moller-Trumbore (tri_tests, pallas_kernels.py:1191-1210, and
-// tri_block, 1926-1943), in their order of operations: t, or kTFar where
-// |det| <= 1e-9, the barycentrics leave the triangle or t <= T_MIN, and
-// for a NaN padding row.
-__device__ __forceinline__ float tri_test(const float4* __restrict__ row,
-                                          float ox, float oy, float oz,
-                                          float dx, float dy, float dz) {
-  const float4 q0 = __ldg(row);
-  const float4 q1 = __ldg(row + 1);
-  const float4 q2 = __ldg(row + 2);
+// tri_block, 1926-1943), in their order of operations, over the first
+// three float4 of a row (q0-q2, wherever they were read from): t, or
+// kTFar where |det| <= 1e-9, the barycentrics leave the triangle or t <=
+// T_MIN, and for a NaN padding row.
+__device__ __forceinline__ float tri_t(const float4& q0, const float4& q1,
+                                       const float4& q2, float ox, float oy,
+                                       float oz, float dx, float dy,
+                                       float dz) {
   const float e1x = q0.w, e1y = q1.x, e1z = q1.y;
   const float e2x = q1.z, e2y = q1.w, e2z = q2.x;
   const float pvx = dy * e2z - dz * e2y;
@@ -840,6 +843,14 @@ __device__ __forceinline__ float tri_test(const float4* __restrict__ row,
   const bool valid = ok && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f)
       && (tt > kTMin);
   return valid ? tt : kTFar;
+}
+
+// tri_t of the row at `row`, read through L1.
+__device__ __forceinline__ float tri_test(const float4* __restrict__ row,
+                                          float ox, float oy, float oz,
+                                          float dx, float dy, float dz) {
+  return tri_t(__ldg(row), __ldg(row + 1), __ldg(row + 2), ox, oy, oz, dx,
+               dy, dz);
 }
 
 // A triangle winner: its normal and attributes; the sphere fields get

@@ -22,15 +22,16 @@
 // What bounds it on this card: FP32 issue.  The brute-force nearest hit
 // costs about 25 flops per ray-sphere pair, and every ray tests all spheres
 // of the table (486 for book_one_final), so the intersect loop is nearly all
-// of the work.  The second cost is divergence across a warp at path ends:
-// a warp runs as long as its longest path chain.  The design answers the
-// first by keeping the intersect loop lean (one 16-byte load of centre and
-// radius per sphere, the winner carried as an index, attributes fetched once
-// after the loop) and leaves the table to L1/L2 (486 x 64 B = 31 KB); the
-// second by giving each thread its own sample loop, so a thread whose path
-// ends early starts its next sample instead of idling until the warp's
-// longest path ends.  Shared-memory staging of the table, culling and
-// tensor-core work are later steps.
+// of the work.  The second cost is how the warp's lanes meet the loop.  The
+// loop stays lean (one 16-byte load of centre and radius per sphere, the
+// winner carried as an index, attributes fetched once after the loop) and
+// the table stays in L1 (486 x 64 B = 31 KB).  The shipped loop form runs
+// the warp's lanes in step (common.cuh trace_warp): one loop of trips in
+// which every lane with a ray sweeps the table together, so each row is
+// one broadcast read for the warp and every lane's pair is useful; a lane
+// whose path ends starts its next sample on the next trip, so the warp
+// runs as many trips as its busiest lane has rays.  The per-thread loop
+// (common.cuh trace_lane) is kept as the comparator (`loop` 0).
 //
 // Numerics.  Build without --use_fast_math: the nearest-hit select relies on
 // a NaN padding row failing the strict `t < best_t`, and division and sqrt
@@ -65,9 +66,24 @@ struct TableIntersect {
   const float4* rows;
   int n_rows;
 
+  // The call of trace_lane: a per-thread sweep.
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
       wpt::Counts&, int&) const {
+    return nearest(ox, oy, oz, dx, dy, dz, h);
+  }
+
+  // The call of trace_warp: every lane of the warp; a lane that is not
+  // `live` tests nothing.
+  __device__ __forceinline__ bool operator()(
+      bool live, float ox, float oy, float oz, float dx, float dy, float dz,
+      Hit& h, wpt::Counts&, int&) const {
+    return live && nearest(ox, oy, oz, dx, dy, dz, h);
+  }
+
+  __device__ __forceinline__ bool nearest(float ox, float oy, float oz,
+                                          float dx, float dy, float dz,
+                                          Hit& h) const {
     const float a = dx * dx + dy * dy + dz * dz;
     const float inv_a = 1.0f / a;
     int best = -1;
@@ -112,26 +128,36 @@ struct TableIntersect {
 
 // Eight blocks per SM cap the kernel at 64 registers a thread.  Without
 // the cap the loop of common.cuh takes 72, and the lower occupancy costs
-// about 3% of kernel time (PERF.md).
+// about 3% of kernel time (PERF.md).  kWarp: the warp's lanes in step
+// (trace_warp; every thread of the grid joins its warp's loop, those past
+// the last lane too); otherwise the per-thread loop.
+template <bool kWarp>
 __global__ void __launch_bounds__(kThreads, 8)
 persistent_kernel(const wpt::LaneParams p, const TableIntersect isect) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.n_lanes) return;
-  wpt::trace_lane(p, lane, isect);
+  if constexpr (kWarp) {
+    wpt::trace_warp(p, lane, isect);
+  } else {
+    wpt::trace(p, lane, isect);
+  }
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  The
-// wrapper (ops/fused_kernels.py) checks shapes, types and alignment.
+// Launch on `stream` in loop form `loop` (0: per thread, trace_lane; 1:
+// the warp's lanes in step, trace_warp, the shipped form); returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for an
+// unknown form.  The wrapper (ops/fused_kernels.py) checks shapes, types
+// and alignment.
 extern "C" int wpt_persistent_launch(
-    const float* scene, int n_rows, const float* cam,
+    const float* scene, int n_rows, int loop, const float* cam,
     const uint32_t* pix, const float* xs, const float* ys,
     const float* valid, const uint32_t* soff,
     float* rad_r, float* rad_g, float* rad_b, int* rays, int n_lanes,
     uint32_t frame, uint32_t sample_base, uint32_t max_bounces,
     uint32_t n_samples, uint32_t rr_start, float rr_floor, float clamp,
     int stratified, void* stream) {
+  if (loop != 0 && loop != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n_lanes <= 0) return 0;
   const wpt::LaneParams p{cam, pix, xs, ys, valid, soff,
                           rad_r, rad_g, rad_b, rays, nullptr, nullptr,
@@ -139,7 +165,11 @@ extern "C" int wpt_persistent_launch(
                           n_samples, rr_start, rr_floor, clamp, stratified};
   const TableIntersect isect{reinterpret_cast<const float4*>(scene), n_rows};
   const int blocks = (n_lanes + kThreads - 1) / kThreads;
-  persistent_kernel<<<blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(p, isect);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (loop == 1) {
+    persistent_kernel<true><<<blocks, kThreads, 0, s>>>(p, isect);
+  } else {
+    persistent_kernel<false><<<blocks, kThreads, 0, s>>>(p, isect);
+  }
   return static_cast<int>(cudaGetLastError());
 }

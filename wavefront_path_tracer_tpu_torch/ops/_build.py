@@ -127,7 +127,7 @@ def load_library() -> ctypes.CDLL:
     ]
     fn = lib.wpt_persistent_launch
     fn.argtypes = [
-        ptr, i32,                      # scene, n_rows
+        ptr, i32, i32,                 # scene, n_rows, loop
         *lane_args,
         ptr, ptr, ptr, ptr, i32,       # rad_r, rad_g, rad_b, rays, n_lanes
         *salt_args,

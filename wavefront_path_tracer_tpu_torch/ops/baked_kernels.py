@@ -48,17 +48,24 @@ from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
 _ITEM_BLOCK = 64
 
 # Kernel launches on CUDA tensors, per intersect: fused_render_baked's,
-# and fused_segment_baked's (one a segment).
+# and fused_segment_baked's (one a segment).  COOP_LAUNCHES counts
+# fused_render_baked's launches in the shipped form SWEEP_COOP, per
+# intersect.
 LAUNCHES = {"culled": 0, "unculled": 0, "segment_culled": 0,
             "segment_unculled": 0}
+COOP_LAUNCHES = {"culled": 0, "unculled": 0}
 
 _MISS = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
-# The culled kernel's sweep forms (csrc/baked.cu launch_sweep), both with
-# the plain version's results: SWEEP_SERIAL tests every entered cluster on
-# its own thread (the lanes of a warp at unrelated points); SWEEP_COOP,
-# the default, votes per cluster, and where few lanes of the warp enter it
-# their rays share the warp's lanes.
+# The kernel's sweep forms (csrc/baked.cu launch_sweep and launch), all
+# with the plain version's results.  Culled: SWEEP_SERIAL tests every
+# entered cluster on its own thread (the lanes of a warp at unrelated
+# points); SWEEP_COOP, the default, votes per cluster, and where few lanes
+# of the warp enter it their rays share the warp's lanes.  Unculled:
+# SWEEP_SERIAL runs each lane's samples and bounces on its own thread
+# (common.cuh trace_lane); SWEEP_COOP, the default, runs the warp's lanes
+# in step (trace_warp), each trip sweeping the whole table together, the
+# triangle rows staged a warp at a time in shared memory.
 SWEEP_SERIAL, SWEEP_COOP = 0, 1
 
 
@@ -601,8 +608,10 @@ def fused_render_baked(
     kernel's per-tile consensus entries; they are zero for an unculled
     bake.
 
-    ``sweep`` picks the culled kernel's sweep form (:data:`SWEEP_COOP` or
-    :data:`SWEEP_SERIAL`); both give the same results.
+    ``sweep`` picks the kernel's form (:data:`SWEEP_COOP` or
+    :data:`SWEEP_SERIAL`): for a culled bake the sweep's, for an unculled
+    one the loop's (the warp's lanes in step, or each on its own thread);
+    both give the same results.
 
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/baked.cu`` on the current stream; any other device raises.
@@ -646,7 +655,9 @@ def fused_render_baked(
     if rc != 0:
         raise RuntimeError(f"baked kernel launch failed (sweep {sweep}): "
                            f"CUDA error {rc}")
-    LAUNCHES["culled" if baked.culled else "unculled"] += 1
+    kind = "culled" if baked.culled else "unculled"
+    LAUNCHES[kind] += 1
+    COOP_LAUNCHES[kind] += sweep == SWEEP_COOP
     rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
     return rad_r, rad_g, rad_b, torch.stack([rays, warp_trips(counts[0]),
                                              supers, clusters])

@@ -40,8 +40,18 @@ _TWO_PI = 2.0 * 3.1415927
 _SPHERE_BLOCK = 64
 _LANE_CHUNK = 131072   # lanes per pass of the plain version (bounds memory)
 
-# Kernel launches by fused_render_persistent on a CUDA tensor.
+# Kernel launches by fused_render_persistent on a CUDA tensor (of which
+# WARP_LAUNCHES in loop form LOOP_WARP).
 LAUNCHES = 0
+WARP_LAUNCHES = 0
+
+# The persistent kernel's loop forms (csrc/persistent.cu), both with the
+# plain version's results: LOOP_LANE runs each lane's samples and bounces
+# on its own thread (common.cuh trace_lane); LOOP_WARP, the default, runs
+# the warp's lanes in step (trace_warp): each trip, every lane with a ray
+# sweeps the table together, and a lane starts its next sample on the trip
+# after its path ends.
+LOOP_LANE, LOOP_WARP = 0, 1
 
 # Lanes of a warp, in lane order.  A warp runs its loop until its last
 # lane is done, so the ``iterations`` counter counts each warp's largest
@@ -65,6 +75,43 @@ def warp_trips(lane_rays: torch.Tensor) -> torch.Tensor:
     """The warps' loop trips summed (a 0-d int64 tensor): the
     ``iterations`` counter of a persistent launch."""
     return warp_max(lane_rays.to(torch.int64)).sum()
+
+
+def sample_trips(per_sample_rays: torch.Tensor) -> torch.Tensor:
+    """The loop trips of a warp loop whose lanes regroup at every sample
+    end, from ``per_sample_rays`` (S, lanes): each lane's rays in each of
+    its S samples, in lane order.  Each sample costs each warp its
+    largest per-lane ray count in that sample; the sum over samples and
+    warps (a 0-d int64 tensor).  Beside :func:`warp_trips` of the summed
+    rays (the trips of ``common.cuh`` trace_warp, where a lane starts its
+    next sample on the next trip) it is the count model of the two loop
+    forms: never fewer trips, and equal at one sample."""
+    rays = per_sample_rays.to(torch.int64)
+    return sum((warp_max(r).sum() for r in rays),
+               torch.zeros((), dtype=torch.int64, device=rays.device))
+
+
+def sample_rays(intersect, salts, cam_params, pix, xs, ys, valid, soff,
+                **kw) -> torch.Tensor:
+    """(samples, lanes) int64: each lane's rays in each of its samples, in
+    the flat planes' lane order, from :func:`persistent_reference` over
+    ``intersect`` run one sample at a time (``salts`` [frame, sample_base,
+    max_bounces, n]: sample s is the run with [frame, sample_base + s,
+    max_bounces, 1]).  ``kw`` goes to :func:`persistent_reference`."""
+    frame, sample_base, max_bounces, n_samples = _salts(salts)
+    n_lanes = pix.numel()
+    out = torch.zeros((n_samples, n_lanes), dtype=torch.int64,
+                      device=pix.device)
+    for s in range(n_samples):
+        row = out[s]
+
+        def observe(lanes, row=row):
+            row.index_add_(0, lanes, torch.ones_like(lanes))
+
+        persistent_reference(intersect, (frame, sample_base + s, max_bounces,
+                                         1), cam_params, pix, xs, ys, valid,
+                             soff, observe=observe, **kw)
+    return out
 
 
 def pack_scene(scene_arrays, pad_to: int = 8, device="cpu") -> torch.Tensor:
@@ -611,7 +658,7 @@ def check_aligned(**tensors) -> None:
 def fused_render_persistent(
         scene_packed, n_spheres, salts, cam_params, pix, xs, ys, valid, soff,
         *, rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random"):
+        sampler: str = "random", loop: int = LOOP_WARP):
     """All samples x all bounces of every lane, persistent lanes.
 
     Returns (rad_r, rad_g, rad_b, stats): radiance sums over the lane's
@@ -621,18 +668,23 @@ def fused_render_persistent(
     where the TPU kernel's lockstep tile held 1024); the last two slots
     are the cull counters, zero without culling.
 
+    ``loop`` picks the kernel's loop form (:data:`LOOP_WARP` or
+    :data:`LOOP_LANE`); both give the same results.
+
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/persistent.cu`` on the current stream; any other device
     raises.  The kernel's results are bit-identical to the plain
     version's.  The TPU kernel's tile rows and lane rotation only
     schedule lanes on the TPU, so they have no counterpart here.
     """
-    global LAUNCHES
+    global LAUNCHES, WARP_LAUNCHES
     planes = (pix, xs, ys, valid, soff)
     device = check_inputs(cam_params, planes,
                           {"scene_packed": (scene_packed, 16, torch.float32)})
     if sampler not in ("random", "stratified"):
         raise ValueError(f"unknown sampler {sampler!r}")
+    if loop not in (LOOP_LANE, LOOP_WARP):
+        raise ValueError(f"unknown loop form {loop}")
     if device.type == "cpu":
         return fused_render_persistent_reference(
             scene_packed, n_spheres, salts, cam_params, *planes,
@@ -654,7 +706,7 @@ def fused_render_persistent(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.wpt_persistent_launch(
-            scene_packed.data_ptr(), n_rows, cam_params.data_ptr(),
+            scene_packed.data_ptr(), n_rows, int(loop), cam_params.data_ptr(),
             pix.data_ptr(), xs.data_ptr(), ys.data_ptr(), valid.data_ptr(),
             soff.data_ptr(), rad_r.data_ptr(), rad_g.data_ptr(),
             rad_b.data_ptr(), rays.data_ptr(), pix.numel(),
@@ -662,8 +714,10 @@ def fused_render_persistent(
             int(rr_start), float(rr_floor), float(clamp),
             int(sampler == "stratified"), stream)
     if rc != 0:
-        raise RuntimeError(f"persistent kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"persistent kernel launch failed (loop {loop}): "
+                           f"CUDA error {rc}")
     LAUNCHES += 1
+    WARP_LAUNCHES += loop == LOOP_WARP
     total = rays.sum(dtype=torch.int64)
     zero = torch.zeros_like(total)
     return rad_r, rad_g, rad_b, torch.stack([total, warp_trips(rays), zero,

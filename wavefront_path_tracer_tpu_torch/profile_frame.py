@@ -5,6 +5,8 @@
         [--recluster K]
     python -m wavefront_path_tracer_tpu_torch.profile_frame --row NAME \
         --divergence LANES [--spp N] [--device cpu]
+    python -m wavefront_path_tracer_tpu_torch.profile_frame --cell NAME \
+        --trips BLOCKS [--spp N] [--device cpu]
 
 Runs the CLI once to warm up (scene, size, samples and intersector as
 given, e.g. ``--intersector baked --clusters 16`` for the headline path,
@@ -26,6 +28,12 @@ the row's kernel module), counted from the plain version over a window of
 LANES lanes (whole 32x32 image blocks) at the middle of the row's lane
 order, at the row's samples a pixel or ``--spp N``, on the card or, with
 ``--device cpu``, on the host.
+
+With ``--trips BLOCKS`` it traces no frame either: it prints the loop
+trips of an unculled cell (one of :data:`LOOP_CELLS`) under the two loop
+forms' count model, from the plain version one sample at a time over
+BLOCKS 32x32 image blocks spread evenly over the lane order
+(:func:`loop_trips`).
 """
 
 from __future__ import annotations
@@ -128,6 +136,95 @@ def row_divergence(name: str, lanes: int, device="cuda",
     return {**counts, "lanes": [lo, lo + lanes], "spp": spp}
 
 
+# The unculled cells that time the loop forms (chip_smoke.py phase loop):
+# name -> (scene, width, height, spp, intersector), 50 bounces; the book
+# scenes under the CLI's camera for them, terrain (mesh_terrain_scene(),
+# seed 7) under the book camera.
+LOOP_CELLS = {
+    "persistent_book": ("book_one_final", 1920, 1080, 32, "bruteforce"),
+    "unculled_book": ("book_one_final", 1920, 1080, 32, "baked"),
+    "unculled_book_checker": ("book_checker", 1920, 1080, 32, "baked"),
+    "unculled_terrain": ("mesh_terrain", 800, 448, 32, "baked"),
+}
+
+
+def loop_trips(cell: str, blocks: int, device="cuda", spp: int = 0) -> dict:
+    """The count model of the unculled kernels' two loop forms over
+    ``blocks`` 32x32 image blocks (1,024 lanes each) spread evenly over
+    the lane order of the cell ``cell`` (:data:`LOOP_CELLS`), at its
+    samples a pixel or ``spp``: each lane's rays in each sample from the
+    plain version (``fused_kernels.sample_rays``), then the trips of a loop
+    whose lanes regroup at every sample end (``sample_trips``) and of the
+    loop of trips (``warp_trips`` of the summed rays, trace_warp's)."""
+    import numpy as np
+    import torch
+
+    from wavefront_path_tracer_tpu_torch.cli import build_camera, build_parser
+    from wavefront_path_tracer_tpu_torch.models import fused
+    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+    from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
+    from wavefront_path_tracer_tpu_torch.renderer import prepare_scene
+    from wavefront_path_tracer_tpu_torch.scene import (
+        CameraController,
+        get_scene,
+        mesh_terrain_scene,
+    )
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+
+    scene_name, w, h, cell_spp, intersector = LOOP_CELLS[cell]
+    spp = spp or cell_spp
+    tris = None
+    if scene_name == "mesh_terrain":
+        scene, tris = mesh_terrain_scene()
+        cc = CameraController.book_one_final()
+    else:
+        scene = get_scene(scene_name, seed=42)
+        argv = [] if scene_name == "book_one_final" else ["--scene",
+                                                          scene_name]
+        cc = build_camera(build_parser().parse_args(argv))
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                       samples_per_frame=spp, max_bounces=50, engine="fused")
+    arrays = prepare_scene(scene, cfg, device, tris)
+    kw = {}
+    if intersector == "bruteforce":
+        table, n = arrays["scene_packed"], len(scene.radii)
+
+        def intersect(*ray):
+            return fk.intersect_tile(table, n, *ray) + (None, None)
+    else:
+        baked = fused._baked_scene(
+            arrays, 0, camera_pos=fused._concrete_eye(cc.view_matrix()))
+        if baked.textured:
+            kw["images"] = baked.images
+
+        def intersect(*ray):
+            return bk.baked_intersect_reference(baked, *ray)
+    perm, _ = fused._block_perm(w, h, 32)
+    planes = fused.lane_planes(
+        torch.from_numpy(perm.astype(np.int64)).to(device), w,
+        cfg.tile_rows, 1, spp)
+    cam = torch.from_numpy(fused.camera_params(
+        cc.gpu_camera(), cc.view_matrix(), cc.inverse_projection(w, h),
+        cfg)).to(device)
+    n_blocks = planes[0].numel() // 1024
+    if not 0 < blocks <= n_blocks:
+        raise ValueError(f"blocks must be 1..{n_blocks}")
+    starts = [(2 * k + 1) * n_blocks // (2 * blocks) * 1024
+              for k in range(blocks)]
+    window = [torch.cat([p.reshape(-1)[lo:lo + 1024] for lo in starts])
+              .reshape(-1, 128) for p in planes]
+    per = fk.sample_rays(intersect, (0, 0, cfg.max_bounces, spp), cam,
+                         *window, **kw)
+    rays = int(per.sum())
+    by_sample = int(fk.sample_trips(per))
+    warp = int(fk.warp_trips(per.sum(dim=0)))
+    return {"cell": cell, "spp": spp, "blocks": starts, "rays": rays,
+            "sample_trips": by_sample, "warp_trips": warp,
+            "warp_over_sample": warp / max(by_sample, 1),
+            "fullness_sample": rays / max(32 * by_sample, 1),
+            "fullness_warp": rays / max(32 * warp, 1)}
+
+
 def _union_us(intervals) -> float:
     total, end = 0.0, float("-inf")
     for lo, hi in sorted(intervals):
@@ -145,6 +242,23 @@ def main(argv=None) -> int:
     from wavefront_path_tracer_tpu_torch import cli
 
     argv = sys.argv[1:] if argv is None else list(argv)
+    if "--trips" in argv:
+        import argparse
+
+        ap = argparse.ArgumentParser(prog="profile_frame")
+        ap.add_argument("--cell", choices=sorted(LOOP_CELLS), required=True)
+        ap.add_argument("--trips", type=int, required=True)
+        ap.add_argument("--spp", type=int, default=0)
+        ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+        args = ap.parse_args(argv)
+        if args.device == "cuda" and not torch.cuda.is_available():
+            raise SystemExit("profile_frame needs a CUDA card (or --device "
+                             "cpu)")
+        t0 = time.perf_counter()
+        rep = loop_trips(args.cell, args.trips, args.device, args.spp)
+        print(json.dumps({"device": args.device, **rep,
+                          "seconds": time.perf_counter() - t0}))
+        return 0
     if "--divergence" in argv:
         import argparse
 
