@@ -78,20 +78,23 @@ Phases (all by default, in this order), each of which raises on failure
    textured kernel's time
    at 1080p@32spp beside its bound and beside the untextured headline
    kernel's in the same call;
-11. segments (``seg``): the recluster segment kernels against their plain
-   versions through whole segmented renders at 160x90@4spp with padding
-   lanes, recluster 2, 50 bounces: book_one_final baked culled/16 (default,
-   and roulette/clamp/stratified AA), baked unculled, dynamic culled/16
-   on terrain and on the knot at 2 spp, book_checker culled/16; the
-   state, ids and counters of two segments bit for bit; recluster 1,
+11. segments (``seg``): the recluster segment kernels in both forms (each
+   lane on its own thread; the shipped one, the warp's lanes in step)
+   against their plain versions through whole segmented renders at
+   160x90@4spp with padding lanes, recluster 2, 50 bounces:
+   book_one_final baked culled/16 (default, and roulette/clamp/stratified
+   AA), the book with every sphere twice (exact ties), baked unculled,
+   dynamic culled/16 on terrain and on the knot at 2 spp, book_checker
+   culled/16; the state, ids and counters of two segments bit for bit in
+   both forms; recluster 1,
    recluster 2 and recluster 2 without the sort giving the same radiance
    words and rays, supers and clusters (their loop trips per warp, which
    the lane order moves, printed); and ``--recluster`` through the CLI on each
    culling intersector, a mesh and a textured scene (brute force without
    clusters refuses);
-12. segments at full size (``segfull``): the segment kernels bit for bit
-   at the 1080p book's planes at 1 spp (baked culled/16 and unculled) and
-   the knot's (dynamic culled/16), with their device
+12. segments at full size (``segfull``): the segment kernels in both
+   forms bit for bit at the 1080p book's planes at 1 spp (baked culled/16
+   and unculled) and the knot's (dynamic culled/16), with their device
    time, the plain versions' times and the bound (bytes counted from the
    lanes alive at each launch); the segment kernels' time with and
    without the sort; their time and bound at the samples the segmented
@@ -149,7 +152,18 @@ Phases (all by default, in this order), each of which raises on failure
    for bit with the lane form, one launch of each timed by CUDA events in
    turns, each run and the lane runs' spread printed beside the bound and
    the warps' fullness, and the loop trips beside those of a loop that
-   regroups its lanes at every sample end (one launch a sample).
+   regroups its lanes at every sample end (one launch a sample);
+16. segment forms (``segform``): the segment kernels' two forms at six
+   cells, recluster 2 (knot50k_dynamic 800x448@8spp and terrain_dynamic
+   800x448@32spp on the dynamic kernel, the headline 1920x1080@32spp and
+   terrain_baked 800x448@32spp on the baked culled one, book_one_final
+   1920x1080@1spp and terrain 800x448@1spp on the unculled one): both
+   forms' frames bit for bit, then one frame of segment launches in each
+   form in turns, each launch timed by CUDA events (behind a device-side
+   spin, so that they bracket the kernel alone) and summed by its index in
+   the segment schedule, beside the serial runs' spread and the bound.
+   The segmented rows of phase 12 and the CLI's ``--recluster`` runs of
+   phases 5 and 11 must launch only the shipped form.
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -213,12 +227,19 @@ KERNELS = {
                  "replaces": REPLACES + "298"},
     # The recluster segments: the headline through the CLI at
     # --recluster 2 (phase 5), and the knot row at recluster 2 (phase 12).
-    "segment_culled": {"name": "fused_segment_baked/_segment_impl",
+    "segment_culled": {"name": "fused_segment_baked/_segment_impl (sweep "
+                               "form Coop: the warp's lanes in step, "
+                               "trace_segment_warp, with the vote and the "
+                               "cooperative fold; unculled: the staged "
+                               "triangle rows)",
                        "source": SOURCE + "baked.cu",
                        "replaces": REPLACES + "2997",
                        "argv": ["--intersector", "baked", "--clusters", "16",
                                 "--recluster", "2"]},
-    "segment_dynculled": {"name": "fused_segment_dynculled/_segment_impl",
+    "segment_dynculled": {"name": "fused_segment_dynculled/_segment_impl "
+                                  "(sweep form Coop: the warp's lanes in "
+                                  "step, trace_segment_warp, with the vote "
+                                  "and the cooperative fold)",
                           "source": SOURCE + "dynculled.cu",
                           "replaces": REPLACES + "3027"},
 }
@@ -596,6 +617,12 @@ def phase_kernel_vs_plain(device) -> list[dict]:
     return out + phase_mesh_vs_plain(device)
 
 
+def _book():
+    """The CLI's default scene and view as (scene, triangles, camera)."""
+    scene, cc = _smoke_scene()
+    return scene, None, cc
+
+
 def _doubled(scene):
     """The scene with every sphere twice, each copy beside its twin."""
     return scene.permuted(np.repeat(np.arange(scene.num_spheres), 2))
@@ -711,6 +738,7 @@ def _reset_launches():
     dk.LAUNCHES = 0
     dk.COOP_LAUNCHES = 0
     dk.SEGMENT_LAUNCHES = 0
+    dk.SEGMENT_COOP_LAUNCHES = 0
     for counts in (bk.LAUNCHES, bk.COOP_LAUNCHES):
         for key in counts:
             counts[key] = 0
@@ -725,12 +753,16 @@ def _read_launches() -> dict:
             **bk.LAUNCHES,
             **{f"{k}_coop": v for k, v in bk.COOP_LAUNCHES.items()},
             "dynculled": dk.LAUNCHES, "dynculled_coop": dk.COOP_LAUNCHES,
-            "segment_dynculled": dk.SEGMENT_LAUNCHES}
+            "segment_dynculled": dk.SEGMENT_LAUNCHES,
+            "segment_dynculled_coop": dk.SEGMENT_COOP_LAUNCHES}
 
 
 # The shipped form's launch count of each kernel that has forms.
 SHIPPED = {"persistent": "persistent_warp", "culled": "culled_coop",
-           "unculled": "unculled_coop", "dynculled": "dynculled_coop"}
+           "unculled": "unculled_coop", "dynculled": "dynculled_coop",
+           "segment_culled": "segment_culled_coop",
+           "segment_unculled": "segment_unculled_coop",
+           "segment_dynculled": "segment_dynculled_coop"}
 
 
 def _require_shipped(label: str, kind: str, launches: dict) -> None:
@@ -1302,12 +1334,17 @@ class SegCase(Case):
             self.segment = dk.fused_segment_dynculled
             self.segment_plain = dk.fused_segment_dynculled_reference
             self.launches = lambda: dk.SEGMENT_LAUNCHES
+            self.coop_launches = lambda: dk.SEGMENT_COOP_LAUNCHES
         else:
             self.seg_tables = self.baked
             self.table_kw = {"baked": self.baked}
             self.segment = bk.fused_segment_baked
             self.segment_plain = bk.fused_segment_baked_reference
             self.launches = lambda: bk.LAUNCHES[f"segment_{kind}"]
+            self.coop_launches = lambda: bk.COOP_LAUNCHES[f"segment_{kind}"]
+        # The segment kernel's forms: each lane on its own thread, and the
+        # shipped one, the warp's lanes in step (the wrappers' default).
+        self.forms = {"serial": bk.SWEEP_SERIAL, "coop": bk.SWEEP_COOP}
         # The tables are read once a launch.
         self.table_passes = spp * self.segments
         self.kernel = lambda: fused.render_pixels_recluster(
@@ -1326,6 +1363,11 @@ class SegCase(Case):
             segment or self.segment, order or fused.coherence_order,
             self.seg_tables, self.perm_t, self.arrays, self.cc.gpu_camera(),
             self.view, self.inv_proj, cfg or self.cfg, 0, 0, self.spp, True)
+
+    def form(self, name: str):
+        """The segment kernel's wrapper in form ``name`` (``forms``)."""
+        sweep = self.forms[name]
+        return lambda *args, **kw: self.segment(*args, sweep=sweep, **kw)
 
     def image(self, out):
         img = torch.empty_like(out[0])
@@ -1387,35 +1429,49 @@ def _device_split(fn):
     return ours, sum(e.device_time for e in events) / 1e3 - ours, out
 
 
+def _same_seg(a, b) -> bool:
+    """Two segmented renders' radiance words and four counters equal."""
+    return _seg_stats(a) == _seg_stats(b) and torch.equal(
+        a[0].view(torch.int32), b[0].view(torch.int32))
+
+
 def _check_seg(label, case, timed: bool = False) -> dict:
     """The segmented render through the segment kernels against the same
     render through their plain versions, on the same CUDA tensors:
     radiance words and [rays, iterations, supers, clusters]
-    bit-identical; the kernel launched once a segment.  With ``timed``,
-    the checked render runs under torch.profiler (the segment kernels'
-    device time and the rest's), the plain render under CUDA events, and
-    the bound counts the bytes from a run that reads the live lanes at
-    each launch."""
+    bit-identical, in the shipped form (the wrapper's default: the warp's
+    lanes in step) and in the per-thread one; the kernel launched once a
+    segment, in the form asked for.  With ``timed``, the shipped render
+    runs under torch.profiler (the segment kernels' device time and the
+    rest's), the plain render under CUDA events, and the bound counts the
+    bytes from a run that reads the live lanes at each launch."""
     from wavefront_path_tracer_tpu_torch.utils.parity import parity_report
 
-    before = case.launches()
+    before, coop_before = case.launches(), case.coop_launches()
     if timed:
         kernel_ms, other_ms, k = _device_split(case.kernel)
     else:
         k = case.kernel()
         torch.cuda.synchronize()
     want = case.spp * case.segments
-    if case.launches() != before + want:
+    if (case.launches() - before, case.coop_launches() - coop_before) != (
+            want, want):
         raise AssertionError(f"{label}: {case.launches() - before} segment "
-                             f"launches, not {want}")
+                             f"launches ({case.coop_launches() - coop_before}"
+                             f" in the shipped form), not {want}")
+    coop_before = case.coop_launches()
+    serial = case.render(segment=case.form("serial"))
+    torch.cuda.synchronize()
+    if case.coop_launches() != coop_before:
+        raise AssertionError(f"{label}: the serial form counted as shipped")
     plain_ms, p = _time_ms(case.plain, 1)
     stats_k, stats_p = _seg_stats(k), _seg_stats(p)
-    bit_exact = stats_k == stats_p and torch.equal(
-        k[0].view(torch.int32), p[0].view(torch.int32))
+    forms = {"coop": _same_seg(k, p), "serial": _same_seg(serial, p)}
+    bit_exact = all(forms.values())
     rep = parity_report(case.image(k), case.image(p))
     rep.update(case=label, kernel=f"segment_{case.kind}",
                stats_kernel=stats_k, stats_plain=stats_p,
-               bit_exact=bit_exact, launches=want)
+               bit_exact=bit_exact, forms_bit_exact=forms, launches=want)
     if timed:
         rep.update(kernel_ms=kernel_ms, other_device_ms=other_ms,
                    plain_ms=plain_ms, **case.bound(stats_k))
@@ -1429,12 +1485,13 @@ def _check_seg(label, case, timed: bool = False) -> dict:
 
 def _check_seg_state(label, case) -> None:
     """Two segments of sample 0 with the coherence sort between them, the
-    kernel and the plain version on clones of the same state: the state,
-    ids and counters after each, bit for bit."""
+    plain version and the kernel in each form on clones of the same state:
+    the state, ids and counters after each, bit for bit."""
     from wavefront_path_tracer_tpu_torch.models import fused
     from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
 
-    fns, tables = (case.segment, case.segment_plain), case.seg_tables
+    fns = (case.segment_plain, case.form("coop"), case.form("serial"))
+    tables = case.seg_tables
     n_pad = -(-case.n_pixels // 1024) * 1024
     ids, state = fused.segment_state(case.perm_t, n_pad, case.cfg, 0, 0,
                                      case.cc.gpu_camera(), case.view,
@@ -1451,10 +1508,11 @@ def _check_seg_state(label, case) -> None:
                    counts.clone(), **kw) for fn in fns]
         torch.cuda.synchronize()
         same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                   for a, b in zip(*outs))
+                   for out in outs[1:] for a, b in zip(out, outs[0]))
         alive = int((outs[0][1][12] > 0).sum())
         log(f"[seg-state] {label} segment {i} (k={k}): state, ids and "
-            f"counters bit-identical {same}, {alive} lanes alive after")
+            f"counters of both forms bit-identical to the plain version's "
+            f"{same}, {alive} lanes alive after")
         if not same:
             raise AssertionError(f"{label}: segment {i} state differs")
         ids, state, counts = outs[0]
@@ -1479,6 +1537,8 @@ def phase_segments(device) -> list[dict]:
          (book, None, book_cc), 4, {}),
         ("seg culled16 book_one_final 160x90@4spp rr3/clamp0.5/stratified",
          "culled", 16, (book, None, book_cc), 4, TEX_OPTS),
+        ("seg culled16 book_one_final doubled 160x90@4spp default (exact "
+         "ties)", "culled", 16, (_doubled(book), None, book_cc), 4, {}),
         ("seg unculled book_one_final 160x90@4spp default", "unculled", 0,
          (book, None, book_cc), 4, {}),
         ("seg dynculled16 terrain 160x90@4spp default", "dynculled", 16,
@@ -1579,6 +1639,8 @@ def _segments_through_cli(device) -> None:
                 or not img.mean() > 0.01:
             raise AssertionError(f"--recluster via the CLI, {flags}: "
                                  f"{launches}, mean {img.mean()}")
+        _require_shipped(f"--recluster via the CLI, {flags}", kind,
+                         launches)
     try:
         cli.run(base + ["--intersector", "bruteforce", "--recluster", "2"])
     except NotImplementedError as exc:
@@ -1633,6 +1695,7 @@ def _seg_frame(renderer, label: str, kind: str, recluster: int,
     if launches[want] < 1:
         raise AssertionError(f"{label} recluster {recluster} launched no "
                              f"{want} kernel: {launches}")
+    _require_shipped(f"{label} recluster {recluster}", want, launches)
     if not np.isfinite(img).all() or not img.mean() > 0.01:
         raise AssertionError(f"bad image ({label}): mean {img.mean()}")
     renderer.reset_accumulation()
@@ -2646,8 +2709,114 @@ def phase_loop(device, smi: str) -> dict:
     return out
 
 
+# The cells that time the segment kernels' forms (phase segform), at
+# recluster 2 and 50 bounces: (name, kind, clusters, scene, size, spp).
+# The unculled kernel is timed on the book at 1 spp and on terrain (its
+# triangle rows staged in the form in step) at 1 spp.
+SEGFORM_CELLS = (
+    ("knot50k_dynamic", "dynculled", 16, "knot", MESH_SIZE, 8),
+    ("terrain_dynamic", "dynculled", 16, "terrain", MESH_SIZE, MAIN_SPP),
+    ("headline", "culled", 16, "book", (MAIN_WIDTH, MAIN_HEIGHT), MAIN_SPP),
+    ("terrain_baked", "culled", 16, "terrain", MESH_SIZE, MAIN_SPP),
+    ("unculled_book", "unculled", 0, "book", (MAIN_WIDTH, MAIN_HEIGHT), 1),
+    ("unculled_terrain", "unculled", 0, "terrain", MESH_SIZE, 1),
+)
+# Device cycles of the spin queued ahead of each timed segment launch
+# (about 0.5 ms at 1.98 GHz).
+SEGFORM_SPIN = 1_000_000
+
+
+def _timed_segments(case, form: str):
+    """One segmented frame of ``case`` with its segment kernel in form
+    ``form``: (the render, each launch's CUDA-event ms in issue order).
+    Ahead of each launch the device spins for SEGFORM_SPIN cycles, so that
+    the host has queued the launch and its end event before the start
+    event runs: the events then bracket the kernel alone, where the
+    segmented loop's host work would otherwise leave the device waiting
+    inside the interval."""
+    events = []
+    segment = case.form(form)
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SEGFORM_SPIN)
+        start.record()
+        out = segment(*args, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    out = case.render(segment=timed)
+    torch.cuda.synchronize()
+    return out, [a.elapsed_time(b) for a, b in events]
+
+
+def phase_segform(device, smi: str) -> dict:
+    """The segment kernels' two forms (each lane on its own thread,
+    trace_segment; the warp's lanes in step, trace_segment_warp, the
+    shipped one) at SEGFORM_CELLS: both forms' frames bit for bit with each
+    other, then one whole frame of segment launches in each form in turns
+    (serial, in step, in step, serial), every launch timed by CUDA events,
+    the frame's launches summed by their index in the segment schedule;
+    each run, the serial runs' spread and the frame's bound printed."""
+    scenes = {"book": _book, "terrain": _terrain, "knot": _knot}
+    order = ["serial", "coop", "coop", "serial"]
+    out = {}
+    for cell, kind, clusters, scene_name, (w, h), spp in SEGFORM_CELLS:
+        scene, tris, cam = scenes[scene_name]()
+        case = SegCase(kind, clusters, scene, cam, w, h, spp, {}, device,
+                       triangles=tris)
+        ref, _ = _timed_segments(case, "serial")        # warm-up, both
+        if not _same_seg(_timed_segments(case, "coop")[0], ref):
+            raise AssertionError(f"segform {cell}: the forms differ")
+        runs = {name: [] for name in case.forms}
+        by_index = {name: [] for name in case.forms}
+        n_seg = case.segments
+        for name in order:
+            _, ms = _timed_segments(case, name)
+            runs[name].append(sum(ms))
+            by_index[name].append([sum(ms[i::n_seg]) for i in range(n_seg)])
+        mean = {n: sum(v) / len(v) for n, v in runs.items()}
+        mean_index = {n: [sum(col) / len(col) for col in zip(*v)]
+                      for n, v in by_index.items()}
+        serial = runs["serial"]
+        spread = max(serial) - min(serial)
+        stats = _seg_stats(ref)
+        bound = case.bound(stats)
+        rep = {"kind": kind, "spp": spp, "size": [w, h], "runs": runs,
+               "order": order, "mean_ms": mean, "serial_spread_ms": spread,
+               "by_index_ms": by_index, "mean_by_index_ms": mean_index,
+               "schedule": list(_schedule(case.cfg)),
+               "coop_over_serial": mean["coop"] / mean["serial"],
+               "coop_over_serial_by_index": [
+                   c / max(s, 1e-9) for c, s in zip(mean_index["coop"],
+                                                    mean_index["serial"])],
+               "stats": stats, **bound,
+               "over_bound": {n: m / bound["bound_ms"]
+                              for n, m in mean.items()}}
+        turns = ", ".join(f"{n} {runs[n][order[:i].count(n)]!r}"
+                          for i, n in enumerate(order))
+        log(f"[segform] {cell} {w}x{h}@{spp}spp {kind}{clusters or ''} "
+            f"recluster 2, 50 bounces: frame of segment launches in turn "
+            f"(ms): {turns}; serial spread {spread!r} ms "
+            f"({spread / mean['serial']:.4%}); in step / serial "
+            f"{rep['coop_over_serial']:.4f}; by schedule index "
+            f"{rep['schedule']}: serial "
+            f"{[round(v, 3) for v in mean_index['serial']]}, in step "
+            f"{[round(v, 3) for v in mean_index['coop']]} (ratios "
+            f"{[round(v, 4) for v in rep['coop_over_serial_by_index']]}); "
+            f"bound {bound['bound_ms']!r} ms ({bound['bound_by']}), serial "
+            f"{rep['over_bound']['serial']:.1f}x and in step "
+            f"{rep['over_bound']['coop']:.1f}x the bound; stats {stats}; "
+            f"both forms bit-identical [{smi}]")
+        out[cell] = rep
+    return out
+
+
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull", "tex",
-          "texfull", "seg", "segfull", "probes", "sweep", "loop")
+          "texfull", "seg", "segfull", "probes", "sweep", "loop",
+          "segform")
 
 
 def main(argv=None) -> int:
@@ -2685,7 +2854,8 @@ def main(argv=None) -> int:
               lambda: phase_segments_full(device, smi)),
              ("probes", "probes", lambda: phase_probes(device, smi)),
              ("sweep", "sweep", lambda: phase_sweep(device, smi)),
-             ("loop", "loop", lambda: phase_loop(device, smi)))
+             ("loop", "loop", lambda: phase_loop(device, smi)),
+             ("segform", "segform", lambda: phase_segform(device, smi)))
     for phase, key, run in steps:
         if phase in phases:
             t0 = time.perf_counter()

@@ -230,14 +230,16 @@ def _scene_rays(rng, n):
             (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])]
 
 
-def coop_sweep(baked, rays, g_lanes, t_max, hint=None):
+def coop_sweep(baked, rays, g_lanes, t_max, hint=None, live=None):
     """The kernel's warp sweep (csrc/baked.cu nearest with a voting form)
     emulated warp by warp: globals, the hint's prepass, then each cluster
     in visit order (supers front to back, a super's clusters walked when
     any lane entered it) with the lane conds of the plain version, a vote,
     and the serial fold where more than ``t_max`` lanes enter, the
-    cooperative fold otherwise.  Returns (best_t, best_i, best_c, supers,
-    clusters) per ray, and the count of folds of each kind."""
+    cooperative fold otherwise.  A lane that is not ``live`` (bool per
+    ray; all are by default) tests and enters nothing, but its warp still
+    sweeps.  Returns (best_t, best_i, best_c, supers, clusters) per ray,
+    and the count of folds of each kind."""
     (cranges, sranges), _ = tbk.host_ranges(baked)
     consts = baked.consts
     ox, oy, oz, dx, dy, dz = rays
@@ -261,13 +263,14 @@ def coop_sweep(baked, rays, g_lanes, t_max, hint=None):
     supers = np.zeros(n, dtype=np.int64)
     clusters = np.zeros(n, dtype=np.int64)
     hints = (np.full(n, -1) if hint is None else hint.numpy())
+    live = np.ones(n, dtype=bool) if live is None else np.asarray(live)
     kinds = {"coop": 0, "serial": 0}
     for w in range(0, n, WARP):
         lanes = np.arange(w, w + WARP)
         t = t_all[lanes]
+        on = live[lanes]
         b_t, b_i = serial_fold(t[:, :baked.n_globals], 0,
-                               out_t[lanes], out_i[lanes],
-                               np.ones(WARP, dtype=bool))
+                               out_t[lanes], out_i[lanes], on)
         b_c = np.full(WARP, -1)
         h = hints[lanes]
 
@@ -287,14 +290,14 @@ def coop_sweep(baked, rays, g_lanes, t_max, hint=None):
             b_c[took] = c
 
         for lane in range(WARP):          # the prepass, per lane
-            if h[lane] >= 0:
+            if on[lane] and h[lane] >= 0:
                 clusters[w + lane] += 1
                 one = np.arange(WARP) == lane
                 fold(int(h[lane]), one, vote=False)
 
         def visit(c, gate):
             cap = np.minimum(b_t, t_exit[lanes])
-            enter = (gate & c_ok[lanes, c] & (c_entry[lanes, c] < cap)
+            enter = (on & gate & c_ok[lanes, c] & (c_entry[lanes, c] < cap)
                      & (h != c))
             clusters[lanes] += enter
             if enter.any():
@@ -303,7 +306,7 @@ def coop_sweep(baked, rays, g_lanes, t_max, hint=None):
         if sranges:
             for s, (first, count) in enumerate(sranges):
                 cap = np.minimum(b_t, t_exit[lanes])
-                es = s_ok[lanes, s] & (s_entry[lanes, s] < cap)
+                es = on & s_ok[lanes, s] & (s_entry[lanes, s] < cap)
                 supers[lanes] += es
                 if es.any():
                     for c in range(first, first + count):
@@ -509,7 +512,7 @@ def _dyn_sphere_t(tab, ox, oy, oz, dx, dy, dz):
                        torch.where(t2 > T_MIN, t2, T_FAR)).numpy()
 
 
-def dyn_coop_sweep(tab, rays, g_lanes, t_max):
+def dyn_coop_sweep(tab, rays, g_lanes, t_max, live=None):
     """The kernel's warp sweep over the dynamic tables (csrc/dynculled.cu
     nearest with a voting form) emulated warp by warp: the globals per
     lane, then each hierarchy with each lane's conds (a flat sweep in
@@ -517,11 +520,12 @@ def dyn_coop_sweep(tab, rays, g_lanes, t_max):
     one over supers of 16, a super's cond against the running cap, its
     children's against the cap at its entry, walked when any lane entered
     it), a vote per cluster, and the serial fold where more than ``t_max``
-    lanes enter, the cooperative fold otherwise.  Winners in the plain
-    version's index space (sphere rows, then triangle rows).  Returns
-    (best_t, best_i, supers, clusters) per ray, the count of folds of each
-    kind, and the count of entries that the cap rules let in where the
-    running cap would not."""
+    lanes enter, the cooperative fold otherwise.  A lane that is not
+    ``live`` (bool per ray; all are by default) tests and enters nothing.
+    Winners in the plain version's index space (sphere rows, then triangle
+    rows).  Returns (best_t, best_i, supers, clusters) per ray, the count
+    of folds of each kind, and the count of entries that the cap rules let
+    in where the running cap would not."""
     ox, oy, oz, dx, dy, dz = rays
     inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
     cs = tab.cluster_size
@@ -550,10 +554,12 @@ def dyn_coop_sweep(tab, rays, g_lanes, t_max):
     supers = np.zeros(n, dtype=np.int64)
     clusters = np.zeros(n, dtype=np.int64)
     kinds = {"coop": 0, "serial": 0, "stale": 0}
+    live = np.ones(n, dtype=bool) if live is None else np.asarray(live)
     for w in range(0, n, WARP):
         lanes = np.arange(w, w + WARP)
+        on = live[lanes]
         b_t, b_i = serial_fold(t_glob[lanes], 0, out_t[lanes], out_i[lanes],
-                               np.ones(WARP, dtype=bool))
+                               on)
         for (n_cl, n_sup, c_ok, c_entry, s_ok, s_entry, t_exit, t_all, row0,
              offset) in levels:
 
@@ -577,16 +583,15 @@ def dyn_coop_sweep(tab, rays, g_lanes, t_max):
                     b_t, b_i = serial_fold(tc, offset + first, b_t, b_i,
                                            enter)
 
-            everyone = np.ones(WARP, dtype=bool)
             if not n_sup:
                 for k0 in range(0, n_cl, 16):
                     cap = np.minimum(b_t, t_exit[lanes])
                     for k in range(k0, min(n_cl, k0 + 16)):
-                        visit(k, everyone, cap)
+                        visit(k, on, cap)
                 continue
             for s in range(n_sup):
                 cap = np.minimum(b_t, t_exit[lanes])
-                es = s_ok[lanes, s] & (s_entry[lanes, s] < cap)
+                es = on & s_ok[lanes, s] & (s_entry[lanes, s] < cap)
                 supers[lanes] += es
                 if es.any():
                     for k in range(s * 16, (s + 1) * 16):

@@ -435,6 +435,76 @@ def test_segment_kernels_match_plain(device, case):
     assert path == "unculled" or int(k[2]["clusters_entered"]) > 0
 
 
+@pytest.mark.parametrize("form", ["serial", "coop"])
+@pytest.mark.parametrize("case", ["book_one_final/culled16",
+                                  "doubled/culled16",
+                                  "book_one_final/unculled",
+                                  "terrain/culled16", "terrain/unculled",
+                                  "terrain/dyn16", "book_checker/dyn16"])
+def test_segment_forms_match_plain(device, case, form):
+    """Each form of the segment kernels (``serial``: each lane on its own
+    thread; ``coop``: the warp's lanes in step, the shipped form) against
+    the plain versions on the same CUDA tensors: a whole segmented render
+    (recluster 2, roulette from bounce 3) with radiance words and the four
+    counters, row 3's trips per warp included, bit-identical; the book
+    with every sphere twice (exact ties), terrain's triangles (the
+    unculled form stages them a warp at a time), a textured dynamic
+    table.  Each launch is counted in the form asked for."""
+    from wavefront_path_tracer_tpu_torch.ops.baked_kernels import SWEEP_COOP
+    from wavefront_path_tracer_tpu_torch.ops.baked_kernels import (
+        SWEEP_SERIAL,
+    )
+
+    scene_name, path = case.split("/")
+    cc = CameraController.book_one_final()
+    tris = None
+    if scene_name == "terrain":
+        scene, tris = mesh_terrain_scene(n_quads=20)
+    elif scene_name == "doubled":
+        book = get_scene("book_one_final")
+        scene = book.permuted(np.repeat(np.arange(book.num_spheres), 2))
+    else:
+        scene = get_scene(scene_name)
+    cfg = RenderConfig(width=64, height=36, samples_per_pixel=2,
+                       samples_per_frame=2, max_bounces=50, engine="fused",
+                       recluster=2, rr_start_bounce=3)
+    arrays = prepare_scene(scene, cfg, device, tris)
+    eye = tfused._concrete_eye(cc.view_matrix())
+    sweep = SWEEP_COOP if form == "coop" else SWEEP_SERIAL
+    if path == "dyn16":
+        tables = tfused._dyn_tables(arrays, 16, camera_pos=eye)
+        kernel, plain = tdk.fused_segment_dynculled, \
+            tdk.fused_segment_dynculled_reference
+        launches = lambda: (tdk.SEGMENT_LAUNCHES,  # noqa: E731
+                            tdk.SEGMENT_COOP_LAUNCHES)
+    else:
+        clusters = 0 if path == "unculled" else 16
+        tables = tfused._baked_scene(arrays, clusters, camera_pos=eye)
+        kernel, plain = tbk.fused_segment_baked, \
+            tbk.fused_segment_baked_reference
+        key = "segment_culled" if clusters else "segment_unculled"
+        launches = lambda: (tbk.LAUNCHES[key],  # noqa: E731
+                            tbk.COOP_LAUNCHES[key])
+
+    def segment(*args, **kw):
+        return kernel(*args, sweep=sweep, **kw)
+
+    perm, _ = _planes(64, 36, device)
+    args = (tables, perm, arrays, cc.gpu_camera(), cc.view_matrix(),
+            cc.inverse_projection(64, 36), cfg, 0, 0, 2, True)
+    before = launches()
+    k = tfused._recluster(segment, tfused.coherence_order, *args)
+    torch.cuda.synchronize()
+    n = 2 * len(tfused._segment_schedule(2, 50))
+    assert launches() == (before[0] + n, before[1] + n * (form == "coop"))
+    p = tfused._recluster(plain, tfused.coherence_order, *args)
+    assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+    assert int(k[1]) == int(p[1])
+    assert {n: int(v) for n, v in k[2].items()} == {
+        n: int(v) for n, v in p[2].items()}
+    assert path == "unculled" or int(k[2]["clusters_entered"]) > 0
+
+
 def test_recluster_loop_never_waits_for_the_card(device):
     """Given its matrices on the card, the segmented render issues its
     raygen, sorts, launches and scatters without one call that waits for

@@ -121,7 +121,8 @@ def test_loop_form_is_checked_and_changes_nothing_on_cpu():
     with pytest.raises(ValueError, match="sweep form"):
         tbk.fused_render_baked(baked, salts, cam, *planes, sweep=-1)
     assert tfk.LAUNCHES == tfk.WARP_LAUNCHES == 0
-    assert tbk.COOP_LAUNCHES == {"culled": 0, "unculled": 0}
+    assert tbk.COOP_LAUNCHES == {"culled": 0, "unculled": 0,
+                                 "segment_culled": 0, "segment_unculled": 0}
 
 
 # --- the staged triangle sweep (csrc/baked.cu stage_triangles) -------------

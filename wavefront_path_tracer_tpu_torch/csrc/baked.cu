@@ -11,10 +11,13 @@
 // The same kernels, instantiated with common.cuh's SegParams, replace
 // fused_segment_baked (2997) under _segment_impl (2785): one recluster
 // segment of at most K bounces of each live lane's stored path, culled or
-// unculled, with the persistent body's bounce step (bounce_step).  What
-// bounds a segment is what bounds the persistent kernel, plus reading and
-// writing 17 words of state a lane; the coherence sort between segments
-// (models/fused.py) is what may win warp coherence back.
+// unculled, with the persistent body's bounce step.  What bounds a segment
+// is what bounds the persistent kernel, plus reading and writing 17 words
+// of state a lane; the coherence sort between segments (models/fused.py)
+// is what may win warp coherence back.  The shipped forms run a segment
+// with the warp's lanes in step (common.cuh trace_segment_warp), as they
+// run the persistent loop (trace_warp): the culled kernel with its vote
+// and cooperative fold, the unculled one with its staged triangle rows.
 //
 // "Baked" on Hopper is a table, not code.  The TPU unrolled the scene into
 // the kernel as vector immediates because dynamic scalar loads from its
@@ -89,8 +92,7 @@
 // shared memory); the pair loop stays lean (a 32-byte read a pair, the
 // winner carried as an index and its attributes fetched once after the
 // sweep); and the 32x32 block lane order of models/fused.py puts rays of
-// one image block, whose primary rays share a frustum, in one warp.  The
-// segments keep the per-thread sweep.
+// one image block, whose primary rays share a frustum, in one warp.
 //
 // The unculled kernel tests every row for every ray, so its lanes need no
 // vote: in the persistent loop they run in step (trace_warp), every lane
@@ -200,7 +202,7 @@ struct UnculledIntersect {
   const float4* tex_items;
   wpt::TexTables tex;
 
-  // The call of trace_lane and of the segment body: a per-thread sweep.
+  // The call of trace_lane and trace_segment: a per-thread sweep.
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
       Counts&, int&) const {
@@ -212,8 +214,9 @@ struct UnculledIntersect {
     return finish<kTris, kTex>(items, tex_items, tris, best, best_t, h);
   }
 
-  // The call of trace_warp: every lane of the warp; a lane that is not
-  // `live` tests nothing (but joins the warp's staging).
+  // The call of trace_warp and trace_segment_warp: every lane of the
+  // warp; a lane that is not `live` tests nothing (but joins the warp's
+  // staging).
   __device__ __forceinline__ bool operator()(
       bool live, float ox, float oy, float oz, float dx, float dy, float dz,
       Hit& h, Counts&, int&) const {
@@ -426,14 +429,15 @@ struct CulledIntersect {
     }
   }
 
-  // The call of trace_lane and of the segment body: a per-thread sweep.
+  // The call of trace_lane and trace_segment: a per-thread sweep.
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
       Counts& counts, int& hint) const {
     return nearest<false>(true, ox, oy, oz, dx, dy, dz, h, counts, hint);
   }
 
-  // The call of trace_warp: every lane of the warp, live or not.
+  // The call of trace_warp and trace_segment_warp: every lane of the
+  // warp, live or not.
   __device__ __forceinline__ bool operator()(
       bool live, float ox, float oy, float oz, float dx, float dy, float dz,
       Hit& h, Counts& counts, int& hint) const {
@@ -564,25 +568,24 @@ struct CulledIntersect {
 // default): the occupancy gained outweighs the extra spills, by 1.5% on
 // the headline frame and 5% on the unculled one (PERF.md).  `P` is
 // LaneParams (the persistent loop) or SegParams (one recluster segment).
-// kWarp: the warp's lanes in step (trace_warp; every thread of the grid
-// joins its warp's loop, those past the last lane too), the shipped loop
-// form; otherwise the per-thread loop (trace_lane), or the segment body.
+// kWarp: the warp's lanes in step (trace_warp, trace_segment_warp; every
+// thread of the grid joins its warp's loop, those past the last lane
+// too), the shipped loop form; otherwise the per-thread loop (trace_lane,
+// trace_segment).
 template <class P, bool kTris, bool kTex, bool kWarp>
 __global__ void __launch_bounds__(kThreads, 8)
 baked_unculled_kernel(const P p, const UnculledIntersect<kTris, kTex> isect) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if constexpr (kWarp) {
-    static_assert(std::is_same_v<P, wpt::LaneParams>,
-                  "a loop in step runs only the persistent loop");
-    wpt::trace_warp(p, lane, isect);
+    wpt::trace_in_step(p, lane, isect);
   } else {
     wpt::trace(p, lane, isect);
   }
 }
 
-// A sweep form that votes (S::kWarp) runs the persistent loop with the
-// warp's lanes in step (trace_warp); the serial form runs trace_lane, or
-// the segment body.
+// A sweep form that votes (S::kWarp) runs the warp's lanes in step
+// (trace_warp, trace_segment_warp); the serial form runs them per thread
+// (trace_lane, trace_segment).
 template <class P, bool kTris, bool kTex, bool kHint, class S>
 __global__ void __launch_bounds__(kThreads, 8)
 baked_culled_kernel(const P p, CulledIntersect<kTris, kTex, kHint, S> isect,
@@ -600,9 +603,7 @@ baked_culled_kernel(const P p, CulledIntersect<kTris, kTex, kHint, S> isect,
     }
   }
   if constexpr (S::kWarp) {
-    static_assert(std::is_same_v<P, wpt::LaneParams>,
-                  "a voting sweep runs only the persistent loop");
-    wpt::trace_warp(p, lane, isect);
+    wpt::trace_in_step(p, lane, isect);
   } else {
     wpt::trace(p, lane, isect);
   }
@@ -640,20 +641,17 @@ void launch_culled(const P& p, const Tables& t, cudaStream_t s) {
       p, isect, t.consts);
 }
 
-// The culled kernel of sweep form `sweep`: 0 Serial, 1 Coop (the
-// persistent loop only; a segment always runs Serial).  False for any
-// other form.
+// The culled kernel of sweep form `sweep`: 0 Serial, 1 Coop.  False for
+// any other form.
 template <class P, bool kTris, bool kTex, bool kHint>
 bool launch_sweep(const P& p, int sweep, const Tables& t, cudaStream_t s) {
   if (sweep == 0) {
     launch_culled<P, kTris, kTex, kHint, Serial>(p, t, s);
     return true;
   }
-  if constexpr (std::is_same_v<P, wpt::LaneParams>) {
-    if (sweep == 1) {
-      launch_culled<P, kTris, kTex, kHint, Coop>(p, t, s);
-      return true;
-    }
+  if (sweep == 1) {
+    launch_culled<P, kTris, kTex, kHint, Coop>(p, t, s);
+    return true;
   }
   return false;
 }
@@ -670,8 +668,7 @@ void launch_unculled(const P& p, const Tables& t, cudaStream_t s) {
 // A segment never runs the winner hint (recluster and the hint exclude
 // each other, utils/config.py), so only LaneParams instantiates it.  The
 // unculled kernel takes `sweep` as its loop form: 0 per thread, 1 the
-// warp's lanes in step (the persistent loop only; a segment always runs
-// 0).
+// warp's lanes in step.
 template <class P, bool kTris, bool kTex>
 bool launch(const P& p, int culled, int hint, int sweep, const Tables& t,
             cudaStream_t s) {
@@ -685,11 +682,9 @@ bool launch(const P& p, int culled, int hint, int sweep, const Tables& t,
     launch_unculled<P, kTris, kTex, false>(p, t, s);
     return true;
   }
-  if constexpr (std::is_same_v<P, wpt::LaneParams>) {
-    if (sweep == 1) {
-      launch_unculled<P, kTris, kTex, true>(p, t, s);
-      return true;
-    }
+  if (sweep == 1) {
+    launch_unculled<P, kTris, kTex, true>(p, t, s);
+    return true;
   }
   return false;
 }
@@ -765,7 +760,10 @@ extern "C" int wpt_baked_launch(
 // One recluster segment (fused_segment_baked, pallas_kernels.py:2997) over
 // the same tables, culled or unculled, never with the winner hint: at
 // most k_iters bounces of every live lane of the state planes, updated in
-// place (common.cuh's SegParams).  Returns cudaGetLastError().
+// place (common.cuh's SegParams).  `sweep` picks the form as for
+// wpt_baked_launch: 0 each lane on its own thread (trace_segment), 1 the
+// shipped form, the warp's lanes in step (trace_segment_warp).  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an unknown form.
 extern "C" int wpt_baked_segment_launch(
     const float* items, int n_globals,
     const float* cboxes, const int* cranges, int n_clusters,
@@ -775,7 +773,7 @@ extern "C" int wpt_baked_segment_launch(
     const float* tsboxes, const int* tsranges, int n_tri_supers,
     const float* consts, int culled,
     const float* tex_items, const float* img_centres, const int* img_words,
-    int img_h, int img_w, int textured,
+    int img_h, int img_w, int textured, int sweep,
     float* state, uint32_t* ids, int* counts, int n_lanes,
     uint32_t frame, uint32_t max_bounces, uint32_t k_iters,
     uint32_t rr_start, float rr_floor, float clamp, void* stream) {
@@ -791,5 +789,5 @@ extern "C" int wpt_baked_segment_launch(
       consts, reinterpret_cast<const float4*>(tex_items),
       {reinterpret_cast<const float4*>(img_centres), img_words, img_h,
        img_w}};
-  return dispatch(p, n_tris, culled, textured, 0, 0, t, stream);
+  return dispatch(p, n_tris, culled, textured, 0, sweep, t, stream);
 }

@@ -3,8 +3,9 @@
 // shading, the per-lane sample and bounce loop with the sky/miss
 // accumulation, the clamp and Russian roulette, the texture step, and the
 // box and triangle tests of the culled intersects; and the recluster
-// segment body (trace_segment), which runs the same bounce step from and
-// back into stored lane state.  Each kernel supplies only its nearest-hit
+// segment body (trace_segment per thread, trace_segment_warp with the
+// warp's lanes in step), which runs the same bounce step from and back
+// into stored lane state.  Each kernel supplies only its nearest-hit
 // function (see bounce_step).
 //
 // Port of wavefront_path_tracer_tpu/ops/pallas_kernels.py: _jenkins /
@@ -555,8 +556,8 @@ __device__ __forceinline__ void trace_warp(const LaneParams& p, int lane,
 // spheres and triangles alike: the lanes that share one ray (G) and the
 // most entering lanes of a warp for which a cluster takes the cooperative
 // fold (T).  T = 0 is the serial fold of every cluster in the per-thread
-// loop (trace_lane); T above 0 votes per cluster, which needs the warp's
-// lanes in step (trace_warp).
+// loops (trace_lane, trace_segment); T above 0 votes per cluster, which
+// needs the warp's lanes in step (trace_warp, trace_segment_warp).
 template <int kGroup, int kMaxLanes>
 struct Sweep {
   static constexpr int kG = kGroup, kT = kMaxLanes;
@@ -564,8 +565,8 @@ struct Sweep {
   static_assert(!kWarp || (kGroup >= 2 && kGroup <= 32 && 32 % kGroup == 0),
                 "G divides the warp");
 };
-// The per-thread sweep of every cluster: the segments' and the T = 0
-// comparator's.
+// The per-thread sweep of every cluster: the T = 0 comparator, in the
+// persistent loop and in a segment alike.
 using Serial = Sweep<1, 0>;
 // The shipped form of both culled sweeps, chosen on the card (PERF.md
 // section 6).
@@ -716,7 +717,90 @@ __device__ __forceinline__ int trace_segment(const SegParams& p, int lane,
   return counts.rays;
 }
 
-// A kernel body for either launch kind: the persistent loop, or a
+// trace_segment with the warp's lanes in step, as trace_warp is for the
+// persistent loop: the reference's lockstep tile loop with its whole-tile
+// early exit (_segment_impl's cond, pallas_kernels.py:2852), at 32 lanes.
+// Every thread of the grid joins its warp's loop, those past n_lanes too.
+// A lane is live if it is in range and its stored alive word is above 0;
+// only a live lane loads its state.  Each trip, every lane calls
+// `isect(live, ...)` once (see trace_warp), and a lane whose path ends is
+// live no more; the loop ends when no lane of the warp is live, or after
+// k_iters trips.  A lane dead at entry writes nothing; a lane live at
+// entry writes back what trace_segment writes, from the same rays in the
+// same order.  The warp's trips are the loop's own (the largest ray count
+// among its lanes, which trace() reduces in the per-thread form); lane 0
+// adds them to the warp's entry of counts row 3.
+template <class Isect>
+__device__ __forceinline__ void trace_segment_warp(const SegParams& p,
+                                                   int lane,
+                                                   const Isect& isect) {
+  const size_t n = static_cast<size_t>(p.n_lanes);
+  const bool in = lane < p.n_lanes;
+  float* s = p.state + lane;
+  uint32_t* u = p.ids + lane;
+  const bool entered = in && s[12 * n] > 0.0f;
+  Path q;
+  q.ox = 0.0f; q.oy = 0.0f; q.oz = 0.0f;
+  q.dx = 0.0f; q.dy = 0.0f; q.dz = 0.0f;
+  q.tr = 0.0f; q.tg = 0.0f; q.tb = 0.0f;
+  q.acc_r = 0.0f; q.acc_g = 0.0f; q.acc_b = 0.0f;
+  q.bounce = 0;
+  uint32_t pix = 0, sample = 0;
+  if (entered) {
+    q.ox = s[0];
+    q.oy = s[n];
+    q.oz = s[2 * n];
+    q.dx = s[3 * n];
+    q.dy = s[4 * n];
+    q.dz = s[5 * n];
+    q.tr = s[6 * n];
+    q.tg = s[7 * n];
+    q.tb = s[8 * n];
+    q.acc_r = s[9 * n];
+    q.acc_g = s[10 * n];
+    q.acc_b = s[11 * n];
+    pix = u[0];
+    sample = u[n];
+    q.bounce = u[2 * n];
+  }
+  const uint32_t base = jenkins(pix ^ jenkins(p.frame));
+  Counts counts;
+  int hint = -1;
+  bool live = entered;
+  uint32_t it = 0;
+  while (__any_sync(kFullMask, live) && it < p.k_iters) {
+    Hit h;
+    const bool hit = isect(live, q.ox, q.oy, q.oz, q.dx, q.dy, q.dz, h,
+                           counts, hint);
+    if (live) {
+      ++counts.rays;
+      live = bounce_finish(p, isect, base, sample, q, hit, h);
+    }
+    ++it;
+  }
+  if ((lane & 31) == 0 && it > 0) p.counts[3 * n + (lane >> 5)] += it;
+  if (!entered) return;
+  s[0] = q.ox;
+  s[n] = q.oy;
+  s[2 * n] = q.oz;
+  s[3 * n] = q.dx;
+  s[4 * n] = q.dy;
+  s[5 * n] = q.dz;
+  s[6 * n] = q.tr;
+  s[7 * n] = q.tg;
+  s[8 * n] = q.tb;
+  s[9 * n] = q.acc_r;
+  s[10 * n] = q.acc_g;
+  s[11 * n] = q.acc_b;
+  s[12 * n] = live ? 1.0f : 0.0f;
+  u[2 * n] = q.bounce;
+  int* c = p.counts + lane;
+  c[0] += counts.rays;
+  c[n] += counts.supers;
+  c[2 * n] += counts.clusters;
+}
+
+// The per-thread body of either launch kind: the persistent loop, or a
 // segment.  Every thread of the grid calls it, those past the last lane
 // too, so that a segment's warp can reduce over all 32 of its lanes.
 template <class Isect>
@@ -738,6 +822,20 @@ __device__ __forceinline__ void trace(const SegParams& p, int lane,
   if ((lane & 31) == 0 && trips > 0) {
     p.counts[3 * static_cast<size_t>(p.n_lanes) + (lane >> 5)] += trips;
   }
+}
+
+// The body of either launch kind with the warp's lanes in step:
+// trace_warp for the persistent loop, trace_segment_warp for a segment.
+template <class Isect>
+__device__ __forceinline__ void trace_in_step(const LaneParams& p, int lane,
+                                              const Isect& isect) {
+  trace_warp(p, lane, isect);
+}
+
+template <class Isect>
+__device__ __forceinline__ void trace_in_step(const SegParams& p, int lane,
+                                              const Isect& isect) {
+  trace_segment_warp(p, lane, isect);
 }
 
 // A ray with its precomputed inverse direction, for box tests.

@@ -59,16 +59,17 @@
 // no lane of the warp enters is skipped, and a lane that did not enter it
 // has no cond for its children.  Which rays enter which cluster, and which
 // item wins (least t, then least index, taken only below the ray's best),
-// are the per-thread sweep's, so both forms give the same bits.  The
-// segments, and sweep form Serial, run the per-thread sweep
-// (trace_lane).  Box tests stay per thread; the tables stay in L1 (__ldg,
-// read warp-uniformly); the sphere pair is one 16-byte load (2c', kappa),
-// the triangle pair three; the winner is an index whose attributes are
-// fetched once after the sweep.  The 50k-triangle knot's triangle table
-// (4.8 MB) stays in L2.
+// are the per-thread sweep's, so both forms give the same bits.  A
+// segment runs the same way (common.cuh trace_segment_warp: the warp's
+// lanes in step from their stored state, the reference's whole-tile early
+// exit at 32 lanes).  Sweep form Serial runs the per-thread sweep
+// (trace_lane, trace_segment).  Box tests stay per thread; the tables
+// stay in L1 (__ldg, read warp-uniformly); the sphere pair is one 16-byte
+// load (2c', kappa), the triangle pair three; the winner is an index
+// whose attributes are fetched once after the sweep.  The 50k-triangle
+// knot's triangle table (4.8 MB) stays in L2.
 
 #include <cstdint>
-#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -190,14 +191,15 @@ struct DynIntersect {
     }
   }
 
-  // The call of trace_lane and of the segment body: a per-thread sweep.
+  // The call of trace_lane and trace_segment: a per-thread sweep.
   __device__ __forceinline__ bool operator()(
       float ox, float oy, float oz, float dx, float dy, float dz, Hit& h,
       Counts& counts, int&) const {
     return nearest<false>(true, ox, oy, oz, dx, dy, dz, h, counts);
   }
 
-  // The call of trace_warp: every lane of the warp, live or not.
+  // The call of trace_warp and trace_segment_warp: every lane of the
+  // warp, live or not.
   __device__ __forceinline__ bool operator()(
       bool live, float ox, float oy, float oz, float dx, float dy, float dz,
       Hit& h, Counts& counts, int&) const {
@@ -335,8 +337,8 @@ struct DynIntersect {
 // Eight blocks per SM cap the kernel at 64 registers a thread, as the
 // other kernels are (PERF.md).  `P` is LaneParams (the persistent loop) or
 // SegParams (one recluster segment).  A sweep form that votes (S::kWarp)
-// runs the persistent loop with the warp's lanes in step (trace_warp);
-// the serial form runs trace_lane, or the segment body.
+// runs the warp's lanes in step (trace_warp, trace_segment_warp); the
+// serial form runs them per thread (trace_lane, trace_segment).
 template <class P, bool kTris, bool kTex, class S>
 __global__ void __launch_bounds__(kThreads, 8)
 dynculled_kernel(const P p, DynIntersect<kTris, kTex, S> isect,
@@ -355,9 +357,7 @@ dynculled_kernel(const P p, DynIntersect<kTris, kTex, S> isect,
     }
   }
   if constexpr (S::kWarp) {
-    static_assert(std::is_same_v<P, wpt::LaneParams>,
-                  "a voting sweep runs only the persistent loop");
-    wpt::trace_warp(p, lane, isect);
+    wpt::trace_in_step(p, lane, isect);
   } else {
     wpt::trace(p, lane, isect);
   }
@@ -411,19 +411,17 @@ void launch(const P& p, const Tables& t, cudaStream_t s) {
       p, isect, t.slab, t.tri_slab);
 }
 
-// The kernel of sweep form `sweep`: 0 Serial, 1 Coop (the persistent
-// loop only; a segment always runs Serial).  False for any other form.
+// The kernel of sweep form `sweep`: 0 Serial, 1 Coop.  False for any
+// other form.
 template <class P, bool kTris, bool kTex>
 bool launch_sweep(const P& p, int sweep, const Tables& t, cudaStream_t s) {
   if (sweep == 0) {
     launch<P, kTris, kTex, Serial>(p, t, s);
     return true;
   }
-  if constexpr (std::is_same_v<P, wpt::LaneParams>) {
-    if (sweep == 1) {
-      launch<P, kTris, kTex, Coop>(p, t, s);
-      return true;
-    }
+  if (sweep == 1) {
+    launch<P, kTris, kTex, Coop>(p, t, s);
+    return true;
   }
   return false;
 }
@@ -487,9 +485,11 @@ extern "C" int wpt_dynculled_launch(
 
 // One recluster segment (fused_segment_dynculled, pallas_kernels.py:3027)
 // over the same tables: at most k_iters bounces of every live lane of the
-// state planes, updated in place (common.cuh's SegParams), with the
-// per-thread sweep (a segment body is per thread: ROADMAP trap 8).
-// Returns cudaGetLastError().
+// state planes, updated in place (common.cuh's SegParams).  `sweep` picks
+// the form as for wpt_dynculled_launch: 0 each lane on its own thread
+// with the serial fold (trace_segment), 1 the shipped form, the warp's
+// lanes in step with a vote per cluster (trace_segment_warp).  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an unknown form.
 extern "C" int wpt_dynculled_segment_launch(
     const float* spheres, const float* boxes, const float* sboxes,
     const float* slab, const float* tris, const float* tboxes,
@@ -497,7 +497,7 @@ extern "C" int wpt_dynculled_segment_launch(
     int n_globals, int n_clusters, int n_supers, int n_tri_clusters,
     int n_tri_supers, int cluster_size,
     const float* sphere_tex, const float* img_centres, const int* img_words,
-    int img_h, int img_w, int textured,
+    int img_h, int img_w, int textured, int sweep,
     float* state, uint32_t* ids, int* counts, int n_lanes,
     uint32_t frame, uint32_t max_bounces, uint32_t k_iters,
     uint32_t rr_start, float rr_floor, float clamp, void* stream) {
@@ -508,5 +508,5 @@ extern "C" int wpt_dynculled_segment_launch(
                           tsboxes, tri_slab, n_globals, n_clusters, n_supers,
                           n_tri_clusters, n_tri_supers, cluster_size,
                           sphere_tex, img_centres, img_words, img_h, img_w);
-  return dispatch(p, 0, t, textured, stream);
+  return dispatch(p, sweep, t, textured, stream);
 }

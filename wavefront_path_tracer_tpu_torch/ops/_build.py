@@ -174,10 +174,11 @@ def load_library() -> ctypes.CDLL:
         ptr,                           # stream
     ]
     fn = lib.wpt_baked_segment_launch
-    fn.argtypes = [*baked_tables, i32, *seg_args]   # textured
+    fn.argtypes = [*baked_tables, i32, i32,         # textured, sweep
+                   *seg_args]
     fn.restype = ctypes.c_int
     fn = lib.wpt_dynculled_segment_launch
-    fn.argtypes = [*dyn_tables, *seg_args]
+    fn.argtypes = [*dyn_tables, i32, *seg_args]     # sweep
     fn.restype = ctypes.c_int
     # The probes (probes/): csrc/probe_pairs.cu, probe_tripair.cu and
     # probe_stream.cu.

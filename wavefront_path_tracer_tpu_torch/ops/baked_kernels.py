@@ -25,6 +25,8 @@ kernel, so the two agree bit for bit, cull counters included.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from wavefront_path_tracer_tpu_torch.ops.bake import (
@@ -48,12 +50,12 @@ from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
 _ITEM_BLOCK = 64
 
 # Kernel launches on CUDA tensors, per intersect: fused_render_baked's,
-# and fused_segment_baked's (one a segment).  COOP_LAUNCHES counts
-# fused_render_baked's launches in the shipped form SWEEP_COOP, per
-# intersect.
+# and fused_segment_baked's (one a segment).  COOP_LAUNCHES counts those
+# of them in the shipped form SWEEP_COOP.
 LAUNCHES = {"culled": 0, "unculled": 0, "segment_culled": 0,
             "segment_unculled": 0}
-COOP_LAUNCHES = {"culled": 0, "unculled": 0}
+COOP_LAUNCHES = {"culled": 0, "unculled": 0, "segment_culled": 0,
+                 "segment_unculled": 0}
 
 _MISS = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
@@ -65,7 +67,10 @@ _MISS = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 # SWEEP_SERIAL runs each lane's samples and bounces on its own thread
 # (common.cuh trace_lane); SWEEP_COOP, the default, runs the warp's lanes
 # in step (trace_warp), each trip sweeping the whole table together, the
-# triangle rows staged a warp at a time in shared memory.
+# triangle rows staged a warp at a time in shared memory.  A segment
+# (fused_segment_baked) takes the same forms: SWEEP_SERIAL each lane on its
+# own thread (trace_segment), SWEEP_COOP the warp's lanes in step
+# (trace_segment_warp) with the culled vote or the staged rows.
 SWEEP_SERIAL, SWEEP_COOP = 0, 1
 
 
@@ -442,6 +447,17 @@ def fused_render_baked_reference(
         hinted=baked.culled and baked.winner_hint)
 
 
+def _lanes_in(keys, entered):
+    """(trips, C) int64: how many lanes of each warp trip (the distinct
+    ``keys``, in their order) entered each cluster."""
+    _, trip = torch.unique(keys, return_inverse=True)
+    n_trips = int(trip.max()) + 1 if trip.numel() else 0
+    lanes_in = torch.zeros((n_trips, entered.shape[1]), dtype=torch.int64,
+                           device=entered.device)
+    lanes_in.index_add_(0, trip, entered.to(torch.int64))
+    return lanes_in
+
+
 def divergence_counts(keys, entered, sizes, warp: int = WARP) -> dict:
     """How the lanes of a warp diverge over a culled sweep's clusters.
 
@@ -456,11 +472,8 @@ def divergence_counts(keys, entered, sizes, warp: int = WARP) -> dict:
     ``entering_lanes``: for n = 1 .. warp, how many (trip, cluster) pairs
     that some lane entered had n lanes entering."""
     sizes = torch.as_tensor(sizes, dtype=torch.int64, device=entered.device)
-    _, trip = torch.unique(keys, return_inverse=True)
-    n_trips = int(trip.max()) + 1 if trip.numel() else 0
-    lanes_in = torch.zeros((n_trips, entered.shape[1]), dtype=torch.int64,
-                           device=entered.device)
-    lanes_in.index_add_(0, trip, entered.to(torch.int64))
+    lanes_in = _lanes_in(keys, entered)
+    n_trips = lanes_in.shape[0]
     union = lanes_in > 0
     issued = int((union.to(torch.int64) * sizes).sum()) * warp
     useful = int((lanes_in * sizes).sum())
@@ -475,32 +488,64 @@ def divergence_counts(keys, entered, sizes, warp: int = WARP) -> dict:
             "entering_lanes": hist.tolist()}
 
 
-def warp_divergence(baked: BakedScene, salts, cam_params, pix, xs, ys,
-                    valid, soff, *, rr_start: int = 0,
-                    rr_floor: float = 0.05, clamp: float = 0.0,
-                    sampler: str = "random", warp: int = WARP) -> dict:
-    """:func:`divergence_counts` of a culled bake's persistent loop over
-    the given lane planes (a warp is ``warp`` consecutive lanes of them),
-    from the plain version: :func:`fused_render_baked_reference`'s loop,
-    with a spy on :func:`culled_intersect_reference`'s folds that records
-    the clusters each ray entered (a winner-hint prepass counts as an
-    entry, as in the kernel), and each ray's lane and ordinal among its
-    lane's rays.  The plain version's results are not changed; the spy is
-    removed on return."""
+def fold_steps(keys, entered, sizes, group: int = 8, t_max: int = 12,
+               warp: int = WARP) -> dict:
+    """The pair steps of the warp (one step: a pair test on every lane)
+    that the two sweep forms spend on the clusters entered in the trips
+    ``keys`` (:func:`divergence_counts`'s arguments).  The per-thread
+    sweep runs every cluster that some lane of the trip entered once over
+    its items (``serial_steps``: the union of the lanes' folds).  The
+    shipped form (``common.cuh`` ``Sweep<group, t_max>``) votes: a cluster
+    that at most ``t_max`` lanes entered takes the cooperative fold, in
+    ``coop_passes`` passes of ``warp / group`` rays, each of ``ceil(size /
+    group)`` steps; one that more entered, the serial fold
+    (``coop_steps``, the passes' shuffles not counted); ``reach`` is the
+    share of the entered (trip, cluster) pairs that take the cooperative
+    fold."""
+    sizes = torch.as_tensor(sizes, dtype=torch.int64, device=entered.device)
+    lanes_in = _lanes_in(keys, entered)
+    union = lanes_in > 0
+    coop = union & (lanes_in <= t_max)
+    rays_a_pass = warp // group
+    passes = torch.where(coop, -(-lanes_in // rays_a_pass), 0)
+    steps = torch.where(coop, passes * -(-sizes // group),
+                        torch.where(union, sizes, 0))
+    return {"serial_steps": int((union * sizes).sum()),
+            "coop_steps": int(steps.sum()),
+            "coop_passes": int(passes.sum()),
+            "reach": int(coop.sum()) / max(int(union.sum()), 1)}
+
+
+def cluster_sizes(baked: BakedScene) -> list[int]:
+    """The item counts of a culled bake's clusters in sweep order, the
+    triangle hierarchy's after the spheres'."""
     if not baked.culled:
-        raise ValueError("warp_divergence needs a culled bake")
+        raise ValueError("a divergence count needs a culled bake")
+    (cranges, _), (tcranges, _) = host_ranges(baked)
+    return [n for _, n in cranges] + [n for _, n in tcranges]
+
+
+@contextlib.contextmanager
+def _entry_spy(baked: BakedScene):
+    """A spy on the culled plain version, while the block runs: it records
+    the clusters each ray entered (the masks of its folds, read through
+    ``_take`` and ``take_subset``; a winner-hint prepass counts as an
+    entry, as in the kernel).  Yields (intersect, drain):
+    ``intersect(keys, ox, oy, oz, dx, dy, dz, hint=None)`` is
+    :func:`culled_intersect_reference`, its rays' entries recorded under
+    the trip ``keys`` (clusters numbered as :func:`cluster_sizes` lists
+    them); ``drain()`` returns the (keys, entered) recorded since its last
+    call.  The plain version's results are not changed; the spy is
+    removed on exit."""
     ranges = host_ranges(baked)
     (cranges, _), (tcranges, _) = ranges
     n_items, n_sph = baked.items.shape[0], len(cranges)
     cluster_of = {first: c for c, (first, _) in enumerate(cranges)}
     cluster_of.update({n_items + first: n_sph + c
                        for c, (first, _) in enumerate(tcranges)})
-    sizes = [n for _, n in cranges] + [n for _, n in tcranges]
-    device = pix.device
-    ordinal = torch.zeros(pix.numel(), dtype=torch.int64, device=device)
-    _, _, max_bounces, n_samples = _salts(salts)
-    max_rays = max(max_bounces * n_samples, 1)
-    keys, entered, rows, seen = [], [], [], {}
+    sizes = cluster_sizes(baked)
+    device = baked.items.device
+    keys, entered, rows = [], [], []
     take, subset = _take, take_subset
 
     def spy_take(t, offset, best_t, best_i, mask=None):
@@ -512,20 +557,55 @@ def warp_divergence(baked: BakedScene, salts, cam_params, pix, xs, ys,
         rows[0][:, cluster_of[offset]] |= enter
         return subset(t_fn, items, offset, best_t, best_i, enter, rays)
 
-    def intersect(ox, oy, oz, dx, dy, dz, hint=None):
-        lanes = seen["lanes"]
-        rows[:] = [torch.zeros((lanes.numel(), len(sizes)), dtype=torch.bool,
+    def intersect(ray_keys, ox, oy, oz, dx, dy, dz, hint=None):
+        rows[:] = [torch.zeros((ox.shape[0], len(sizes)), dtype=torch.bool,
                                device=device)]
         out = culled_intersect_reference(baked, ox, oy, oz, dx, dy, dz,
                                          ranges=ranges, hint=hint)
-        keys.append(lanes // warp * max_rays + ordinal[lanes])
+        keys.append(ray_keys)
         entered.append(rows[0])
-        ordinal[lanes] += 1
+        return out
+
+    def drain():
+        out = (torch.cat([torch.zeros(0, dtype=torch.int64, device=device)]
+                         + keys),
+               torch.cat([torch.zeros((0, len(sizes)), dtype=torch.bool,
+                                      device=device)] + entered))
+        keys.clear()
+        entered.clear()
         return out
 
     module = globals()
     module["_take"], module["take_subset"] = spy_take, spy_subset
     try:
+        yield intersect, drain
+    finally:
+        module["_take"], module["take_subset"] = take, subset
+
+
+def warp_divergence(baked: BakedScene, salts, cam_params, pix, xs, ys,
+                    valid, soff, *, rr_start: int = 0,
+                    rr_floor: float = 0.05, clamp: float = 0.0,
+                    sampler: str = "random", warp: int = WARP) -> dict:
+    """:func:`divergence_counts` of a culled bake's persistent loop over
+    the given lane planes (a warp is ``warp`` consecutive lanes of them),
+    from the plain version: :func:`fused_render_baked_reference`'s loop
+    over :func:`_entry_spy`'s intersect, each ray keyed by its lane's warp
+    and its ordinal among its lane's rays.  The plain version's results
+    are not changed."""
+    ordinal = torch.zeros(pix.numel(), dtype=torch.int64, device=pix.device)
+    _, _, max_bounces, n_samples = _salts(salts)
+    max_rays = max(max_bounces * n_samples, 1)
+    seen = {}
+    sizes = cluster_sizes(baked)
+    with _entry_spy(baked) as (spied, drain):
+        def intersect(ox, oy, oz, dx, dy, dz, hint=None):
+            lanes = seen["lanes"]
+            out = spied(lanes // warp * max_rays + ordinal[lanes], ox, oy,
+                        oz, dx, dy, dz, hint=hint)
+            ordinal[lanes] += 1
+            return out
+
         persistent_reference(
             intersect, salts, cam_params, pix, xs, ys, valid, soff,
             rr_start=rr_start, rr_floor=rr_floor, clamp=clamp,
@@ -533,13 +613,65 @@ def warp_divergence(baked: BakedScene, salts, cam_params, pix, xs, ys,
             images=baked.images if baked.textured else None,
             hinted=baked.winner_hint,
             observe=lambda lanes: seen.update(lanes=lanes))
-    finally:
-        module["_take"], module["take_subset"] = take, subset
-    keys.append(torch.zeros(0, dtype=torch.int64, device=device))
-    entered.append(torch.zeros((0, len(sizes)), dtype=torch.bool,
-                               device=device))
-    return divergence_counts(torch.cat(keys), torch.cat(entered), sizes,
-                             warp)
+        keys, entered = drain()
+    return divergence_counts(keys, entered, sizes, warp)
+
+
+def segment_launch_counts(spy, run, summarize, *, images=None,
+                          warp: int = WARP) -> list[dict]:
+    """Per segment launch, how the warps of a culled segment kernel
+    diverge, counted from its plain version.  ``spy`` is a module's entry
+    spy (:func:`_entry_spy`, or ``dynculled_kernels``'); ``run(segment)``
+    runs a segmented render (``models/fused.py`` ``_recluster``) with
+    ``segment`` as its segment function, which runs
+    :func:`segment_reference` over the spy's intersect.  In a launch the
+    warp's lanes run in step (``common.cuh`` trace_segment_warp): trip k of
+    warp w runs the k-th ray of each lane of lanes w * warp .. w * warp +
+    warp - 1 still live, and the lanes live at a trip are those whose
+    alive word is set when the intersect is called.  Returns one dict a
+    launch, in issue order: its index, ``k_iters``, the lanes live at its
+    start, and ``summarize(keys, *recorded)`` of its trips (the spy's
+    drain)."""
+    out = []
+    with spy as (spied, drain):
+        def segment(tables, salts, ids, state, counts, *, rr_start=0,
+                    rr_floor=0.05, clamp=0.0):
+            k_iters = _salts(salts)[2]
+            trip = [0]
+
+            def intersect(ox, oy, oz, dx, dy, dz):
+                lanes = torch.nonzero(state[12] > 0)[:, 0]
+                res = spied(lanes // warp * (k_iters + 1) + trip[0], ox, oy,
+                            oz, dx, dy, dz)
+                trip[0] += 1
+                return res
+
+            live = int((state[12] > 0).sum())
+            segment_reference(intersect, salts, ids, state, counts,
+                              rr_start=rr_start, rr_floor=rr_floor,
+                              clamp=clamp, images=images)
+            out.append({"launch": len(out), "k_iters": k_iters,
+                        "live_lanes": live, **summarize(*drain())})
+            return ids, state, counts
+
+        run(segment)
+    return out
+
+
+def segment_divergence(baked: BakedScene, run, *, warp: int = WARP,
+                       group: int = 8, t_max: int = 12) -> list[dict]:
+    """:func:`segment_launch_counts` of a culled bake's segments:
+    :func:`divergence_counts` and :func:`fold_steps` (the sweep form
+    ``Sweep<group, t_max>``) of each launch's trips."""
+    sizes = cluster_sizes(baked)
+
+    def summarize(keys, entered):
+        return {**divergence_counts(keys, entered, sizes, warp),
+                **fold_steps(keys, entered, sizes, group, t_max, warp)}
+
+    return segment_launch_counts(
+        _entry_spy(baked), run, summarize,
+        images=baked.images if baked.textured else None, warp=warp)
 
 
 def _tables(baked: BakedScene) -> dict:
@@ -689,7 +821,7 @@ def fused_segment_baked_reference(baked: BakedScene, salts, ids, state,
 
 def fused_segment_baked(baked: BakedScene, salts, ids, state, counts, *,
                         rr_start: int = 0, rr_floor: float = 0.05,
-                        clamp: float = 0.0):
+                        clamp: float = 0.0, sweep: int = SWEEP_COOP):
     """One recluster segment over a baked scene (the reference's
     ``fused_segment_baked``): at most ``k_iters`` bounces of every live
     lane, from and back into ``state`` (SEG_STATE, N) float32 and ``ids``
@@ -700,6 +832,10 @@ def fused_segment_baked(baked: BakedScene, salts, ids, state, counts, *,
     (ids, state, counts).  A bake with the winner hint is refused: the
     reference's ``RenderConfig`` keeps recluster and the hint apart.
 
+    ``sweep`` picks the kernel's form (:data:`SWEEP_COOP`, the warp's
+    lanes in step, or :data:`SWEEP_SERIAL`, each lane on its own thread);
+    both give the same results, row 3's trips included.
+
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/baked.cu``'s segment kernel on the current stream; any other
     device raises.  The kernel's results, counters included, are
@@ -709,6 +845,8 @@ def fused_segment_baked(baked: BakedScene, salts, ids, state, counts, *,
     if baked.culled and baked.winner_hint:
         raise ValueError("a segment runs no winner hint (recluster and "
                          "winner_hint exclude each other)")
+    if sweep not in (SWEEP_SERIAL, SWEEP_COOP):
+        raise ValueError(f"unknown sweep form {sweep}")
     if device.type == "cpu":
         return fused_segment_baked_reference(
             baked, salts, ids, state, counts, rr_start=rr_start,
@@ -724,12 +862,14 @@ def fused_segment_baked(baked: BakedScene, salts, ids, state, counts, *,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.wpt_baked_segment_launch(
-            *table_args, int(baked.textured), state.data_ptr(),
+            *table_args, int(baked.textured), int(sweep), state.data_ptr(),
             ids.data_ptr(), counts.data_ptr(), state.shape[1], frame,
             max_bounces, k_iters, int(rr_start), float(rr_floor),
             float(clamp), stream)
     if rc != 0:
-        raise RuntimeError(f"baked segment kernel launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES["segment_culled" if baked.culled else "segment_unculled"] += 1
+        raise RuntimeError(f"baked segment kernel launch failed (sweep "
+                           f"{sweep}): CUDA error {rc}")
+    kind = "segment_culled" if baked.culled else "segment_unculled"
+    LAUNCHES[kind] += 1
+    COOP_LAUNCHES[kind] += sweep == SWEEP_COOP
     return ids, state, counts

@@ -37,6 +37,8 @@ it.  The two agree bit for bit, cull counters included.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from wavefront_path_tracer_tpu_torch.ops.bake import TRI_COLS
@@ -47,6 +49,8 @@ from wavefront_path_tracer_tpu_torch.ops.baked_kernels import (
     _take,
     box_conds,
     divergence_counts,
+    fold_steps,
+    segment_launch_counts,
     slab_exit,
     tri_t,
 )
@@ -73,10 +77,11 @@ REFRESH = 16
 
 # Kernel launches on CUDA tensors by fused_render_dynculled (of which
 # COOP_LAUNCHES in sweep form SWEEP_COOP), and by fused_segment_dynculled
-# (one a segment).
+# (one a segment; SEGMENT_COOP_LAUNCHES of them in SWEEP_COOP).
 LAUNCHES = 0
 COOP_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
+SEGMENT_COOP_LAUNCHES = 0
 
 
 def _winner(tab: DynTables, best_t, best_i):
@@ -261,37 +266,35 @@ class _NonzeroSpy:
         return out
 
 
-def warp_divergence(tab: DynTables, salts, cam_params, pix, xs, ys, valid,
-                    soff, *, rr_start: int = 0, rr_floor: float = 0.05,
-                    clamp: float = 0.0, sampler: str = "random",
-                    warp: int = WARP) -> dict:
-    """``baked_kernels.divergence_counts`` of the dynamic culled
-    persistent loop over the given lane planes (a warp is ``warp``
-    consecutive lanes of them), from the plain version:
-    :func:`fused_render_dynculled_reference`'s loop, with a spy on
-    :func:`dynculled_intersect_reference` that records the clusters each
-    ray entered (its batches' conds, read where the plain version reads
-    them: ``box_conds`` and then ``_col`` of the cap) and the supers (the
-    rays that ``nonzero`` is given), and each ray's lane and ordinal among
-    its lane's rays.  Clusters are numbered by box row, the triangle
-    hierarchy's after the spheres'; every cluster has ``cluster_size``
-    items.  Adds the rolled sweeps' super boxes: ``super_boxes_per_ray``
-    (every ray tests each super box of a rolled hierarchy),
-    ``supers_per_ray`` (entered) and ``union_supers_per_trip`` (the supers
-    whose children a warp trip walks).  The plain version's results are
-    not changed; the spy is removed on return."""
+def _columns(tab: DynTables) -> tuple[list, list]:
+    """The cluster columns and the super columns of each hierarchy of
+    the tables (spheres, triangles) in a divergence count: its box rows
+    and its supers, or none where it has no clusters."""
+    levels = ((tab.boxes, tab.n_clusters, tab.n_supers),
+              (tab.tri_boxes, tab.n_tri_clusters, tab.n_tri_supers))
+    return ([boxes.shape[0] if n else 0 for boxes, n, _ in levels],
+            [n_sup if n else 0 for _, n, n_sup in levels])
+
+
+@contextlib.contextmanager
+def _entry_spy(tab: DynTables):
+    """A spy on :func:`dynculled_intersect_reference`, while the block
+    runs: it records the clusters each ray entered (its batches' conds,
+    read where the plain version reads them: ``box_conds`` and then
+    ``_col`` of the cap) and the supers (the rays that ``nonzero`` is
+    given).  Clusters are numbered by box row, the triangle hierarchy's
+    after the spheres'; every cluster has ``cluster_size`` items.  Yields
+    (intersect, drain): ``intersect(keys, ox, oy, oz, dx, dy, dz)`` is the
+    plain intersect, its rays' entries recorded under the trip ``keys``;
+    ``drain()`` returns the (keys, entered clusters, entered supers)
+    recorded since its last call.  The plain version's results are not
+    changed; the spy is removed on exit."""
     levels = [(tab.boxes, tab.slab, tab.n_clusters, tab.n_supers),
               (tab.tri_boxes, tab.tri_slab, tab.n_tri_clusters,
                tab.n_tri_supers)]
-    n_cols = [boxes.shape[0] if n else 0 for boxes, _, n, _ in levels]
-    col0 = [0, n_cols[0]]
-    n_sups = [n_sup if n else 0 for _, _, n, n_sup in levels]
-    sup0 = [0, n_sups[0]]
-    sizes = [tab.cluster_size] * sum(n_cols)
-    device = pix.device
-    ordinal = torch.zeros(pix.numel(), dtype=torch.int64, device=device)
-    _, _, max_bounces, n_samples = _salts(salts)
-    max_rays = max(max_bounces * n_samples, 1)
+    n_cols, n_sups = _columns(tab)
+    col0, sup0 = [0, n_cols[0]], [0, n_sups[0]]
+    device = tab.spheres.device
     keys, entered, entered_sup = [], [], []
     cur = {"level": 0, "super": 0, "rows": None, "conds": None}
     col, conds_of, exit_of = _col, box_conds, slab_exit
@@ -336,16 +339,25 @@ def warp_divergence(tab: DynTables, salts, cam_params, pix, xs, ys, valid,
                 entered[-1][:, cols] |= enter
         return col(v)
 
-    def intersect(ox, oy, oz, dx, dy, dz):
-        lanes = cur["lanes"]
-        n = lanes.numel()
+    def intersect(ray_keys, ox, oy, oz, dx, dy, dz):
+        n = ox.shape[0]
         entered.append(torch.zeros((n, sum(n_cols)), dtype=torch.bool,
                                    device=device))
         entered_sup.append(torch.zeros((n, sum(n_sups)), dtype=torch.bool,
                                        device=device))
         out = dynculled_intersect_reference(tab, ox, oy, oz, dx, dy, dz)
-        keys.append(lanes // warp * max_rays + ordinal[lanes])
-        ordinal[lanes] += 1
+        keys.append(ray_keys)
+        return out
+
+    def drain():
+        out = (torch.cat([torch.zeros(0, dtype=torch.int64, device=device)]
+                         + keys),
+               *(torch.cat([torch.zeros((0, m), dtype=torch.bool,
+                                        device=device)] + parts)
+                 for m, parts in ((sum(n_cols), entered),
+                                  (sum(n_sups), entered_sup))))
+        for parts in (keys, entered, entered_sup):
+            parts.clear()
         return out
 
     module = globals()
@@ -355,23 +367,74 @@ def warp_divergence(tab: DynTables, salts, cam_params, pix, xs, ys, valid,
                   slab_exit=spy_slab_exit,
                   torch=_NonzeroSpy(torch, seen_super))
     try:
+        yield intersect, drain
+    finally:
+        module.update(saved)
+
+
+def _with_supers(tab: DynTables, keys, entered, entered_sup,
+                 warp: int) -> dict:
+    """``divergence_counts`` of the clusters, and of the rolled sweeps'
+    super boxes: ``super_boxes_per_ray`` (every ray tests each super box
+    of a rolled hierarchy), ``supers_per_ray`` (entered) and
+    ``union_supers_per_trip`` (the supers whose children a warp trip
+    walks)."""
+    n_cols, n_sups = _columns(tab)
+    counts = divergence_counts(keys, entered,
+                               [tab.cluster_size] * sum(n_cols), warp)
+    sup = divergence_counts(keys, entered_sup, [1] * sum(n_sups), warp)
+    return {**counts, "super_boxes_per_ray": sum(n_sups),
+            "supers_per_ray": sup["clusters_per_ray"],
+            "union_supers_per_trip": sup["union_clusters_per_trip"]}
+
+
+def warp_divergence(tab: DynTables, salts, cam_params, pix, xs, ys, valid,
+                    soff, *, rr_start: int = 0, rr_floor: float = 0.05,
+                    clamp: float = 0.0, sampler: str = "random",
+                    warp: int = WARP) -> dict:
+    """``baked_kernels.divergence_counts`` of the dynamic culled
+    persistent loop over the given lane planes (a warp is ``warp``
+    consecutive lanes of them), from the plain version:
+    :func:`fused_render_dynculled_reference`'s loop over
+    :func:`_entry_spy`'s intersect, each ray keyed by its lane's warp and
+    its ordinal among its lane's rays; with the super counts of
+    :func:`_with_supers`.  The plain version's results are not
+    changed."""
+    ordinal = torch.zeros(pix.numel(), dtype=torch.int64, device=pix.device)
+    _, _, max_bounces, n_samples = _salts(salts)
+    max_rays = max(max_bounces * n_samples, 1)
+    seen = {}
+    with _entry_spy(tab) as (spied, drain):
+        def intersect(ox, oy, oz, dx, dy, dz):
+            lanes = seen["lanes"]
+            out = spied(lanes // warp * max_rays + ordinal[lanes], ox, oy,
+                        oz, dx, dy, dz)
+            ordinal[lanes] += 1
+            return out
+
         persistent_reference(
             intersect, salts, cam_params, pix, xs, ys, valid, soff,
             rr_start=rr_start, rr_floor=rr_floor, clamp=clamp,
             sampler=sampler, images=tab.images if tab.textured else None,
-            observe=lambda lanes: cur.update(lanes=lanes))
-    finally:
-        module.update(saved)
-    keys = torch.cat([torch.zeros(0, dtype=torch.int64, device=device)]
-                     + keys)
-    cat = [torch.cat([torch.zeros((0, m), dtype=torch.bool, device=device)]
-                     + parts) for m, parts in ((sum(n_cols), entered),
-                                               (sum(n_sups), entered_sup))]
-    counts = divergence_counts(keys, cat[0], sizes, warp)
-    sup = divergence_counts(keys, cat[1], [1] * sum(n_sups), warp)
-    return {**counts, "super_boxes_per_ray": sum(n_sups),
-            "supers_per_ray": sup["clusters_per_ray"],
-            "union_supers_per_trip": sup["union_clusters_per_trip"]}
+            observe=lambda lanes: seen.update(lanes=lanes))
+        recorded = drain()
+    return _with_supers(tab, *recorded, warp)
+
+
+def segment_divergence(tab: DynTables, run, *, warp: int = WARP,
+                       group: int = 8, t_max: int = 12) -> list[dict]:
+    """``baked_kernels.segment_launch_counts`` of the dynamic culled
+    segments: :func:`_with_supers` and ``fold_steps`` (the sweep form
+    ``Sweep<group, t_max>``) of each launch's trips."""
+    sizes = [tab.cluster_size] * sum(_columns(tab)[0])
+
+    def summarize(keys, entered, entered_sup):
+        return {**_with_supers(tab, keys, entered, entered_sup, warp),
+                **fold_steps(keys, entered, sizes, group, t_max, warp)}
+
+    return segment_launch_counts(
+        _entry_spy(tab), run, summarize,
+        images=tab.images if tab.textured else None, warp=warp)
 
 
 def _tables(tab: DynTables) -> dict:
@@ -497,7 +560,7 @@ def fused_segment_dynculled_reference(tab: DynTables, salts, ids, state,
 
 def fused_segment_dynculled(tab: DynTables, salts, ids, state, counts, *,
                             rr_start: int = 0, rr_floor: float = 0.05,
-                            clamp: float = 0.0):
+                            clamp: float = 0.0, sweep: int = SWEEP_COOP):
     """One recluster segment over the dynamic culled tables (the
     reference's ``fused_segment_dynculled``): at most ``k_iters`` bounces
     of every live lane, from and back into ``state`` (SEG_STATE, N)
@@ -508,13 +571,20 @@ def fused_segment_dynculled(tab: DynTables, salts, ids, state, counts, *,
     ``salts`` are [frame, max_bounces, k_iters, 0].  Returns (ids, state,
     counts).
 
+    ``sweep`` picks the kernel's form (:data:`SWEEP_COOP`, the warp's
+    lanes in step with a vote per cluster, or :data:`SWEEP_SERIAL`, each
+    lane on its own thread with the serial fold); both give the same
+    results, row 3's trips included.
+
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/dynculled.cu``'s segment kernel on the current stream; any
     other device raises.  The kernel's results, counters included, are
     bit-identical to the plain version's.
     """
-    global SEGMENT_LAUNCHES
+    global SEGMENT_LAUNCHES, SEGMENT_COOP_LAUNCHES
     device = check_segment(ids, state, counts, _tables(tab))
+    if sweep not in (SWEEP_SERIAL, SWEEP_COOP):
+        raise ValueError(f"unknown sweep form {sweep}")
     if device.type == "cpu":
         return fused_segment_dynculled_reference(
             tab, salts, ids, state, counts, rr_start=rr_start,
@@ -530,11 +600,12 @@ def fused_segment_dynculled(tab: DynTables, salts, ids, state, counts, *,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.wpt_dynculled_segment_launch(
-            *table_args, state.data_ptr(), ids.data_ptr(),
+            *table_args, int(sweep), state.data_ptr(), ids.data_ptr(),
             counts.data_ptr(), state.shape[1], frame, max_bounces, k_iters,
             int(rr_start), float(rr_floor), float(clamp), stream)
     if rc != 0:
-        raise RuntimeError(f"dynculled segment kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"dynculled segment kernel launch failed (sweep "
+                           f"{sweep}): CUDA error {rc}")
     SEGMENT_LAUNCHES += 1
+    SEGMENT_COOP_LAUNCHES += sweep == SWEEP_COOP
     return ids, state, counts

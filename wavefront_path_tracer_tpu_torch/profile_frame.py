@@ -4,7 +4,7 @@
     python -m wavefront_path_tracer_tpu_torch.profile_frame --row NAME \
         [--recluster K]
     python -m wavefront_path_tracer_tpu_torch.profile_frame --row NAME \
-        --divergence LANES [--spp N] [--device cpu]
+        --divergence LANES [--spp N] [--recluster K] [--device cpu]
     python -m wavefront_path_tracer_tpu_torch.profile_frame --cell NAME \
         --trips BLOCKS [--spp N] [--device cpu]
 
@@ -27,7 +27,13 @@ the row's culled sweep diverge over its clusters (``warp_divergence`` of
 the row's kernel module), counted from the plain version over a window of
 LANES lanes (whole 32x32 image blocks) at the middle of the row's lane
 order, at the row's samples a pixel or ``--spp N``, on the card or, with
-``--device cpu``, on the host.
+``--device cpu``, on the host.  With ``--recluster K`` it counts the
+segment kernel's warps instead (``segment_divergence``): LANES / 1024
+blocks spread over the frame rendered through the segmented path, its
+coherence sort included, launch by launch and summed by the launch's
+index in the schedule, with the pair steps of the two sweep forms and the
+model's time ratio (:func:`segment_model`).  ``--row headline`` is book_one_final at
+1920x1080, 32 spp, baked/16, under the CLI's default view.
 
 With ``--trips BLOCKS`` it traces no frame either: it prints the loop
 trips of an unculled cell (one of :data:`LOOP_CELLS`) under the two loop
@@ -68,19 +74,31 @@ def row_renderer(name: str, device="cuda", **config):
     return Renderer(scene, cc, cfg.replace(**config), tris, device=device)
 
 
+# The rows whose warp divergence ``--divergence`` counts: the mesh rows
+# and the headline (book_one_final under the CLI's default view).
+DIVERGENCE_ROWS = {**MESH_ROWS,
+                   "headline": ("book_one_final", 1920, 1080, 32, "baked")}
+
+
 def _row(name: str):
-    """(scene, triangles, camera, RenderConfig) of the mesh row ``name``
-    (:func:`row_renderer`)."""
+    """(scene, triangles, camera, RenderConfig) of the row ``name``
+    (:data:`DIVERGENCE_ROWS`; :func:`row_renderer`)."""
+    from wavefront_path_tracer_tpu_torch.cli import build_camera, build_parser
     from wavefront_path_tracer_tpu_torch.scene import (
         CameraController,
+        get_scene,
         knot_camera,
         knot_scene,
         mesh_terrain_scene,
     )
     from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
 
-    scene_name, width, height, spp, intersector = MESH_ROWS[name]
-    if scene_name == "mesh_terrain":
+    scene_name, width, height, spp, intersector = DIVERGENCE_ROWS[name]
+    tris = None
+    if scene_name == "book_one_final":
+        scene = get_scene(scene_name, seed=42)
+        cc = build_camera(build_parser().parse_args([]))
+    elif scene_name == "mesh_terrain":
         scene, tris = mesh_terrain_scene()
         cc = CameraController.book_one_final()
     else:
@@ -95,7 +113,7 @@ def _row(name: str):
 
 def row_divergence(name: str, lanes: int, device="cuda",
                    spp: int = 0) -> dict:
-    """``warp_divergence`` of the mesh row ``name``'s plain version, at the
+    """``warp_divergence`` of the row ``name``'s plain version, at the
     row's samples a pixel or ``spp``, over a window of ``lanes`` lanes
     (whole 32x32 image blocks) at the middle of the frame's lane order,
     its inputs built as ``models/fused.py`` builds them; with the window's
@@ -104,23 +122,12 @@ def row_divergence(name: str, lanes: int, device="cuda",
     import torch
 
     from wavefront_path_tracer_tpu_torch.models import fused
-    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
-    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
-    from wavefront_path_tracer_tpu_torch.renderer import prepare_scene
 
-    scene, tris, cc, cfg = _row(name)
-    if spp:
-        cfg = cfg.replace(samples_per_pixel=spp, samples_per_frame=spp)
     if lanes <= 0 or lanes % 1024:
         raise ValueError("the window is whole 32x32 blocks of lanes")
-    arrays = prepare_scene(scene, cfg, device, tris)
-    eye = fused._concrete_eye(cc.view_matrix())
-    if cfg.intersector == "baked":
-        module = bk
-        tables = fused._baked_scene(arrays, 16, camera_pos=eye)
-    else:
-        module = dk
-        tables = fused._dyn_tables(arrays, 16, camera_pos=eye)
+    arrays, cc, cfg, tables, module = _row_tables(name, device)
+    if spp:
+        cfg = cfg.replace(samples_per_pixel=spp, samples_per_frame=spp)
     w, h, spp = cfg.width, cfg.height, cfg.samples_per_pixel
     perm, _ = fused._block_perm(w, h, 32)
     planes = fused.lane_planes(
@@ -134,6 +141,159 @@ def row_divergence(name: str, lanes: int, device="cuda",
     counts = module.warp_divergence(tables, (0, 0, cfg.max_bounces, spp),
                                     cam, *window)
     return {**counts, "lanes": [lo, lo + lanes], "spp": spp}
+
+
+def _row_tables(name: str, device):
+    """(scene arrays, camera, RenderConfig, the culled tables, their
+    kernel module) of the row ``name``, built as ``models/fused.py``
+    builds them (clusters of 16, the camera's hint)."""
+    from wavefront_path_tracer_tpu_torch.models import fused
+    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
+    from wavefront_path_tracer_tpu_torch.renderer import prepare_scene
+
+    scene, tris, cc, cfg = _row(name)
+    arrays = prepare_scene(scene, cfg, device, tris)
+    eye = fused._concrete_eye(cc.view_matrix())
+    if cfg.intersector == "baked":
+        return (arrays, cc, cfg,
+                fused._baked_scene(arrays, 16, camera_pos=eye), bk)
+    return arrays, cc, cfg, fused._dyn_tables(arrays, 16, camera_pos=eye), dk
+
+
+# The model's FP32 operations (chip_smoke.py's FLOPS_*, counted from the
+# sources): a pair test by primitive, a box test, and what a ray costs a
+# trip besides its sweep (shade, throughput and miss 120, the shifted ray
+# 19, a slab exit 22).  A cooperative pass adds its ray fetch and shuffle
+# tree, about half a sphere pair's issue.
+_PAIR_OPS = {"sphere": 17.5, "triangle": 46.0}
+_BOX_OPS, _RAY_OPS, _PASS_OPS = 24.0, 161.0, 9.0
+
+
+def segment_model(tables, sums: dict) -> dict:
+    """The count model of the two segment forms' time: the FP32 operations
+    that a warp issues over the counted trips, as the serial form and as
+    the shipped one would (``fold_steps``), everything but the folds the
+    same in both: per trip a ray's fixed work and the globals' pairs, the
+    box tests (a flat sweep tests every cluster box; a rolled dynamic
+    sweep every super box and the 16 children of each super that some lane
+    entered; a two-level bake every super box and, as an upper estimate,
+    the 8 children of a super for each union cluster), and the folds'
+    pair steps at the pair's operations.  Returns the two sums, the pair
+    share of the serial form's and the ratio shipped / serial, which is
+    the predicted time ratio where issue bounds the kernel."""
+    trips = sums["trips"]
+    if hasattr(tables, "items"):
+        n_globals, n_clusters = tables.n_globals, int(
+            tables.cluster_boxes.shape[0] + tables.tri_cluster_boxes.shape[0])
+        n_supers = int(tables.super_boxes.shape[0]
+                       + tables.tri_super_boxes.shape[0])
+        pair = _PAIR_OPS["triangle" if tables.n_triangles else "sphere"]
+        boxes = (trips * n_clusters if not n_supers else
+                 trips * n_supers + 8 * sums["union_pairs"])
+    else:
+        sph = tables.spheres[:tables.n_globals, 0]
+        n_globals = int((sph == sph).sum())
+        pair = _PAIR_OPS["triangle" if tables.n_tri_clusters else "sphere"]
+        if sums.get("super_boxes_per_ray"):
+            boxes = (trips * sums["super_boxes_per_ray"]
+                     + 16 * sums["union_supers"])
+        else:
+            boxes = trips * (tables.n_clusters + tables.n_tri_clusters)
+    fixed = trips * (_RAY_OPS + n_globals * _PAIR_OPS["sphere"]) \
+        + boxes * _BOX_OPS
+    serial = fixed + sums["serial_steps"] * pair
+    coop = fixed + sums["coop_steps"] * pair + sums["coop_passes"] * _PASS_OPS
+    return {"model_serial_ops": serial, "model_coop_ops": coop,
+            "model_pair_share": sums["serial_steps"] * pair / max(serial, 1),
+            "model_coop_over_serial": coop / max(serial, 1)}
+
+
+_SUMMED = ("rays", "trips", "issued_pairs", "useful_pairs", "serial_steps",
+           "coop_steps", "coop_passes", "union_pairs", "reach_pairs",
+           "union_supers")
+
+
+def _sum_launches(launches: list[dict]) -> dict:
+    """The launches' counts summed: their rays, trips, lane-pairs, pair
+    steps and passes, the (trip, cluster) pairs some lane entered
+    (``union_pairs``) and of them those the cooperative fold takes
+    (``reach_pairs``), the union supers of the trips, and the histogram of
+    entering lanes; with the ratios that follow from the sums."""
+    sums = {k: 0 for k in _SUMMED}
+    hist = None
+    for rep in launches:
+        union = rep["union_clusters_per_trip"] * rep["trips"]
+        rep = {**rep, "union_pairs": union,
+               "reach_pairs": rep["reach"] * union,
+               "union_supers": rep.get("union_supers_per_trip", 0.0)
+               * rep["trips"]}
+        for k in _SUMMED:
+            sums[k] += rep[k]
+        hist = rep["entering_lanes"] if hist is None else [
+            a + b for a, b in zip(hist, rep["entering_lanes"])]
+    sums["super_boxes_per_ray"] = launches[0].get("super_boxes_per_ray", 0)
+    trips = max(sums["trips"], 1)
+    return {**sums, "entering_lanes": hist,
+            "warp_fullness": sums["rays"] / (32 * trips),
+            "union_clusters_per_trip": sums["union_pairs"] / trips,
+            "useful_share": sums["useful_pairs"]
+            / max(sums["issued_pairs"], 1),
+            "reach": sums["reach_pairs"] / max(sums["union_pairs"], 1),
+            "fold_steps_coop_over_serial": sums["coop_steps"]
+            / max(sums["serial_steps"], 1)}
+
+
+def row_segment_divergence(name: str, lanes: int, device="cuda",
+                           spp: int = 0, recluster: int = 2) -> dict:
+    """``segment_divergence`` of the row ``name``'s segmented path at
+    recluster ``recluster``: the pixels of ``lanes`` / 1024 32x32 image
+    blocks spread evenly over the frame's block order (as
+    :func:`loop_trips` spreads them; all of them at most), rendered
+    through ``models/fused.py`` ``_recluster`` with the counting plain
+    segment (the coherence sort included), at the row's samples a pixel
+    or ``spp``.  Returns the launches' counts, their sums by the launch's
+    index in the segment schedule (every sample's i-th launch) and over
+    the frame, each with :func:`segment_model`'s ratio."""
+    import numpy as np
+    import torch
+
+    from wavefront_path_tracer_tpu_torch.models import fused
+
+    if lanes <= 0 or lanes % 1024:
+        raise ValueError("the window is whole 32x32 blocks of lanes")
+    arrays, cc, cfg, tables, module = _row_tables(name, device)
+    spp = spp or cfg.samples_per_pixel
+    cfg = cfg.replace(samples_per_pixel=spp, samples_per_frame=spp,
+                      recluster=recluster)
+    w, h = cfg.width, cfg.height
+    perm, _ = fused._block_perm(w, h, 32)
+    n_blocks = -(-w * h // 1024)
+    blocks = min(lanes // 1024, n_blocks)
+    starts = [(2 * k + 1) * n_blocks // (2 * blocks) * 1024
+              for k in range(blocks)]
+    pixel_idx = torch.from_numpy(np.concatenate(
+        [perm[lo:lo + 1024] for lo in starts]).astype(np.int64)).to(device)
+    view, inv_proj = cc.view_matrix(), cc.inverse_projection(w, h)
+
+    def run(segment):
+        fused._recluster(segment, fused.coherence_order, tables, pixel_idx,
+                         arrays, cc.gpu_camera(), view, inv_proj, cfg, 0, 0,
+                         spp, False)
+
+    launches = module.segment_divergence(tables, run)
+    ks = fused._segment_schedule(recluster, cfg.max_bounces)
+    by_index = []
+    for i, k in enumerate(ks):
+        sums = _sum_launches(launches[i::len(ks)])
+        by_index.append({"index": i, "k_iters": k, **sums,
+                         **segment_model(tables, sums)})
+    total = _sum_launches(launches)
+    return {"blocks": starts, "pixels": pixel_idx.numel(), "spp": spp,
+            "recluster": recluster, "schedule": list(ks),
+            "by_index": by_index, "total": {**total,
+                                            **segment_model(tables, total)},
+            "launches": launches}
 
 
 # The unculled cells that time the loop forms (chip_smoke.py phase loop):
@@ -263,17 +423,24 @@ def main(argv=None) -> int:
         import argparse
 
         ap = argparse.ArgumentParser(prog="profile_frame")
-        ap.add_argument("--row", choices=sorted(MESH_ROWS), required=True)
+        ap.add_argument("--row", choices=sorted(DIVERGENCE_ROWS),
+                        required=True)
         ap.add_argument("--divergence", type=int, required=True)
         ap.add_argument("--spp", type=int, default=0)
+        ap.add_argument("--recluster", type=int, default=0)
         ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
         args = ap.parse_args(argv)
         if args.device == "cuda" and not torch.cuda.is_available():
             raise SystemExit("profile_frame needs a CUDA card (or --device "
                              "cpu)")
         t0 = time.perf_counter()
-        rep = row_divergence(args.row, args.divergence, args.device,
-                             args.spp)
+        if args.recluster:
+            rep = row_segment_divergence(args.row, args.divergence,
+                                         args.device, args.spp,
+                                         args.recluster)
+        else:
+            rep = row_divergence(args.row, args.divergence, args.device,
+                                 args.spp)
         print(json.dumps({"row": args.row, "device": args.device, **rep,
                           "seconds": time.perf_counter() - t0}))
         return 0
