@@ -163,7 +163,20 @@ Phases (all by default, in this order), each of which raises on failure
    spin, so that they bracket the kernel alone) and summed by its index in
    the segment schedule, beside the serial runs' spread and the bound.
    The segmented rows of phase 12 and the CLI's ``--recluster`` runs of
-   phases 5 and 11 must launch only the shipped form.
+   phases 5 and 11 must launch only the shipped form;
+17. oracle (``oracle``): the port's megakernel (plain PyTorch, brute force
+   over every sphere and triangle) through ``validate`` at book_one_final
+   400x224@64spp, 50 bounces, against the JAX megakernel's TPU render with
+   the same streams (``golden/oracle_tpu_same_stream.npz``), display RMSE
+   < 2e-3; the eleven same-stream rows of ``golden/GATE_SWEEP.json`` that
+   the port runs (every row but wavefront_matsplit), each fused variant
+   against the port's megakernel at that size under its row's gate (2e-3,
+   3e-3 textured), with the diverged pixel share of each (the parity
+   rule's, at 50 bounces and 64 spp); terrain and the knot cut to 5,000
+   triangles, fused (baked/16 and dynamic/16 on terrain, dynamic/16 on
+   the knot) against the megakernel at 200x112@8spp, read with no gate;
+   and ``validate``'s cached-golden flow (baked/16 at 400x225@1000spp
+   against ``golden/oracle_book_400x225_1000spp.npz``, < 1e-3).
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -2814,9 +2827,176 @@ def phase_segform(device, smi: str) -> dict:
     return out
 
 
+# Phase oracle: the same-stream rows of golden/GATE_SWEEP.json (the
+# flags of exp/gate_sweep.py's SAME_STREAM, the fused variant against the
+# megakernel oracle, both on the card at 400x224@64 spp, 50 bounces) that
+# the port runs; wavefront_matsplit waits for the wavefront engine
+# (ROADMAP.md queue 1 item 8).
+ORACLE_TPU = os.path.join(ROOT, "golden", "oracle_tpu_same_stream.npz")
+ORACLE_GATE = 2e-3
+SS_SIZE = ("--width", "400", "--height", "224", "--spp", "64")
+BAKED16 = ("--intersector", "baked", "--clusters", "16")
+DYN16 = ("--intersector", "bruteforce", "--clusters", "16")
+SAME_STREAM_ROWS = (
+    ("baked_cull16", BAKED16, 2e-3),
+    ("dynculled", DYN16, 2e-3),
+    ("winner_hint", BAKED16 + ("--winner-hint",), 2e-3),
+    ("lane_split2", BAKED16 + ("--lane-split", "2"), 2e-3),
+    ("rotate_cols2", BAKED16 + ("--rotate-cols", "2"), 2e-3),
+    ("recluster2", BAKED16 + ("--recluster", "2"), 2e-3),
+    ("recluster2_dyn", DYN16 + ("--recluster", "2"), 2e-3),
+    ("stratified_ss", BAKED16 + ("--sampler", "stratified"), 2e-3),
+    ("negradius_baked", ("--scene", "book_bubble") + BAKED16, 2e-3),
+    ("textures_baked", ("--scene", "book_checker") + BAKED16, 3e-3),
+    ("textures_dyn", ("--scene", "book_checker") + DYN16, 3e-3),
+)
+# The mesh readings: fused against the megakernel at 200x112@8 spp (the
+# megakernel sweeps every triangle for every ray: 40 blocks of 128 a
+# bounce on terrain and on the cut-down knot).
+MESH_READ = (200, 112, 8)
+MESH_READ_ROWS = (
+    ("terrain_baked", "terrain", {"intersector": "baked",
+                                  "baked_clusters": 16}),
+    ("terrain_dynamic", "terrain", {"intersector": "bruteforce",
+                                    "baked_clusters": 16}),
+    ("knot5k_dynamic", "knot5k", {"intersector": "bruteforce",
+                                  "baked_clusters": 16}),
+)
+
+
+def _agreement(test, oracle_display) -> dict:
+    """The parity rule's metrics of a render against an oracle's display
+    image (squared back to sample-averaged radiance)."""
+    from wavefront_path_tracer_tpu_torch.utils.parity import parity_report
+
+    oracle = np.asarray(oracle_display, np.float64) ** 2
+    return parity_report(test.accumulated / test.samples, oracle)
+
+
+def _validate(argv) -> dict:
+    """``validate.run`` on the card, the row's seconds added."""
+    from wavefront_path_tracer_tpu_torch import validate
+
+    t0 = time.perf_counter()
+    out = validate.run(list(argv) + ["--device", "cuda"])
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_oracle(device, smi: str) -> dict:
+    """Phase 17 (``oracle``): the port's megakernel against the TPU's
+    same-stream oracle, the same-stream rows, the mesh readings and the
+    cached-golden validate flow; every failure is raised at the end."""
+    from wavefront_path_tracer_tpu_torch.renderer import Renderer
+    from wavefront_path_tracer_tpu_torch.scene import knot_camera, knot_scene
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+    from wavefront_path_tracer_tpu_torch.utils.image import rmse
+
+    failures = []
+    out = {"rows": {}, "mesh": {}}
+    # The TPU's readings of the rows, printed beside the card's.
+    with open(os.path.join(ROOT, "golden", "GATE_SWEEP.json")) as f:
+        tpu = {r["name"]: r["rmse"] for r in json.load(f)["rows"]}
+    caches = {}
+    for name in ("book_one_final", "book_one_final_stratified",
+                 "book_bubble", "book_checker"):
+        caches[name] = os.path.join(OUT_DIR, f"oracle_cuda_{name}.npz")
+        if os.path.exists(caches[name]):
+            os.remove(caches[name])
+
+    # The oracle itself, against the JAX megakernel's TPU render.
+    res = _validate(SS_SIZE + ("--engine", "megakernel", "--intersector",
+                               "bruteforce", "--oracle-cache", ORACLE_TPU,
+                               "--gate", repr(ORACLE_GATE)))
+    row, test = res["row"], res["test"]
+    agree = _agreement(test, res["oracle_image"])
+    out["oracle"] = {**row, "seconds": res["seconds"],
+                     "render_seconds": test.wall_time_s,
+                     "rays": test.rays_traced, **agree}
+    log(f"[oracle] megakernel book_one_final 400x224@64spp, 50 bounces: "
+        f"display RMSE {row['rmse']!r} against the TPU megakernel "
+        f"(gate {ORACLE_GATE}); diverged share {agree['diverged_share']!r}, "
+        f"|mean diff| {agree['mean_diff']!r}; render "
+        f"{test.wall_time_s:.3f} s, {test.rays_traced:.0f} rays "
+        f"({test.mrays_per_s:.2f} Mrays/s) [{smi}]")
+    if not row["pass"]:
+        failures.append(f"oracle RMSE {row['rmse']} >= {ORACLE_GATE}")
+    # Its render is the oracle of the rows on the same scene and sampler
+    # (validate's metadata is the TPU artifact's).
+    np.savez_compressed(caches["book_one_final"], image=test.image,
+                        meta=np.load(ORACLE_TPU)["meta"],
+                        platform=np.asarray("cuda"))
+
+    for name, flags, gate in SAME_STREAM_ROWS:
+        scene = flags[1] if flags[0] == "--scene" else "book_one_final"
+        key = scene + ("_stratified" if "stratified" in flags else "")
+        res = _validate(SS_SIZE + flags + (
+            "--engine", "fused", "--gate", repr(gate), "--oracle-spf", "64",
+            "--oracle-cache", caches[key]))
+        row, test = res["row"], res["test"]
+        agree = _agreement(test, res["oracle_image"])
+        out["rows"][name] = {**row, "seconds": res["seconds"], **agree}
+        log(f"[oracle] {name}: {row['engine']} on {row['scene']} "
+            f"{row['config']} against {row['oracle']}: display RMSE "
+            f"{row['rmse']!r} (gate {gate}; TPU "
+            f"{tpu[name]!r}), diverged share "
+            f"{agree['diverged_share']!r}, |mean diff| "
+            f"{agree['mean_diff']!r}; {res['seconds']:.2f} s with the "
+            f"oracle's render where not cached [{smi}]")
+        if not row["pass"]:
+            failures.append(f"{name}: RMSE {row['rmse']} >= {gate}")
+
+    # The mesh rows' scenes, fused against the megakernel: readings.
+    w, h, spp = MESH_READ
+    scenes = {"terrain": _terrain(),
+              "knot5k": knot_scene(5000) + (knot_camera(),)}
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                       samples_per_frame=spp, max_bounces=50)
+    mk = {}
+    for scene_name, (scene, tris, cam) in scenes.items():
+        t0 = time.perf_counter()
+        mk[scene_name] = Renderer(scene, cam, cfg.replace(
+            engine="megakernel", intersector="bruteforce"), tris,
+            device=device).render()
+        log(f"[oracle] megakernel {scene_name} ({len(tris.v0)} triangles) "
+            f"{w}x{h}@{spp}spp: {time.perf_counter() - t0:.2f} s, "
+            f"{mk[scene_name].rays_traced:.0f} rays")
+    for name, scene_name, kw in MESH_READ_ROWS:
+        scene, tris, cam = scenes[scene_name]
+        test = Renderer(scene, cam, cfg.replace(engine="fused", **kw), tris,
+                        device=device).render()
+        oracle = mk[scene_name]
+        agree = _agreement(test, oracle.image)
+        rep = {"display_rmse": rmse(test.image, oracle.image),
+               "rays": test.rays_traced, "oracle_rays": oracle.rays_traced,
+               **agree}
+        out["mesh"][name] = rep
+        log(f"[oracle] mesh reading {name} {w}x{h}@{spp}spp fused against "
+            f"the megakernel: display RMSE {rep['display_rmse']!r}, "
+            f"diverged share {agree['diverged_share']!r}, |mean diff| "
+            f"{agree['mean_diff']!r}, rays {test.rays_traced:.0f} against "
+            f"{oracle.rays_traced:.0f} (no gate) [{smi}]")
+
+    # validate's cached-golden flow.
+    res = _validate(("--spp", "1000", "--engine", "fused", "--intersector",
+                     "baked", "--clusters", "16", "--oracle-cache", GOLDEN))
+    out["golden"] = {**res["row"], "seconds": res["seconds"]}
+    log(f"[oracle] validate cached golden: {json.dumps(res['row'])} in "
+        f"{res['seconds']:.2f} s [{smi}]")
+    if not res["row"]["pass"]:
+        failures.append(f"golden RMSE {res['row']['rmse']} >= 1e-3")
+    shares = [r["diverged_share"] for r in out["rows"].values()]
+    log(f"[oracle] F4: diverged share of the fused rows against the "
+        f"megakernel at 50 bounces, 64 spp: {min(shares)!r} to "
+        f"{max(shares)!r} [{smi}]")
+    if failures:
+        raise AssertionError("phase oracle: " + "; ".join(failures))
+    return out
+
+
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull", "tex",
           "texfull", "seg", "segfull", "probes", "sweep", "loop",
-          "segform")
+          "segform", "oracle")
 
 
 def main(argv=None) -> int:
@@ -2855,7 +3035,8 @@ def main(argv=None) -> int:
              ("probes", "probes", lambda: phase_probes(device, smi)),
              ("sweep", "sweep", lambda: phase_sweep(device, smi)),
              ("loop", "loop", lambda: phase_loop(device, smi)),
-             ("segform", "segform", lambda: phase_segform(device, smi)))
+             ("segform", "segform", lambda: phase_segform(device, smi)),
+             ("oracle", "oracle", lambda: phase_oracle(device, smi)))
     for phase, key, run in steps:
         if phase in phases:
             t0 = time.perf_counter()

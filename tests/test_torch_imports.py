@@ -40,12 +40,18 @@ def test_port_never_imports_jax():
         torch.set_num_threads(1)
         import wavefront_path_tracer_tpu_torch.cli
         import wavefront_path_tracer_tpu_torch.convert
+        import wavefront_path_tracer_tpu_torch.models.megakernel
         import wavefront_path_tracer_tpu_torch.ops._build
         import wavefront_path_tracer_tpu_torch.ops.bake
         import wavefront_path_tracer_tpu_torch.ops.baked_kernels
         import wavefront_path_tracer_tpu_torch.ops.dyn_tables
         import wavefront_path_tracer_tpu_torch.ops.dynculled_kernels
         import wavefront_path_tracer_tpu_torch.ops.fused_kernels
+        import wavefront_path_tracer_tpu_torch.ops.bsdf
+        import wavefront_path_tracer_tpu_torch.ops.hit
+        import wavefront_path_tracer_tpu_torch.ops.intersect
+        import wavefront_path_tracer_tpu_torch.ops.texture
+        import wavefront_path_tracer_tpu_torch.ops.triangle
         import wavefront_path_tracer_tpu_torch.profile_frame
         import wavefront_path_tracer_tpu_torch.probes._slope
         import wavefront_path_tracer_tpu_torch.probes.bf16_issue
@@ -58,6 +64,7 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.probes.tripair
         import wavefront_path_tracer_tpu_torch.utils.image
         import wavefront_path_tracer_tpu_torch.utils.parity
+        import wavefront_path_tracer_tpu_torch.validate
         from wavefront_path_tracer_tpu_torch.renderer import render
         from wavefront_path_tracer_tpu_torch.scene import (
             CameraController, book_cover, mesh_terrain_scene)
@@ -73,6 +80,9 @@ def test_port_never_imports_jax():
                       {"intersector": "baked", "baked_clusters": 2}):
             res = render(scene, cc, cfg.replace(**extra), tris, device="cpu")
             assert res.image.shape == (8, 8, 3)
+        res = render(scene, cc, cfg.replace(engine="megakernel"), tris,
+                     device="cpu")
+        assert res.image.shape == (8, 8, 3)
         from wavefront_path_tracer_tpu_torch.probes import (
             bf16_issue, hbm_bw, matmul_r2, micro_r2, micro_slope,
             pair_ceiling, tripair)

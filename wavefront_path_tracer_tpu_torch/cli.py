@@ -3,7 +3,9 @@
 A subset of ``python -m wavefront_path_tracer_tpu.cli``: the fused engine
 with the brute-force and the baked intersects (``--clusters N|auto``
 culls either: the baked sweep, or the dynamic culled sweep over runtime
-tables for brute force), on sphere scenes, textured scenes
+tables for brute force), or the megakernel oracle (``--engine
+megakernel``, brute force over every sphere and triangle), on sphere
+scenes, textured scenes
 (``--scene book_checker``, ``--scene-file``, ``--tex-lut``) and triangle
 meshes (``--scene mesh_demo|mesh_terrain``, ``--obj``), with the winner
 hint (``--winner-hint``) or the segmented re-clustering path
@@ -35,15 +37,23 @@ _REFUSED = {
 _REFUSED_INTERSECTORS = {
     "bvh": "queue 1 item 8 (BVH traversal on the XLA-style engines)",
 }
+_REFUSED_ENGINES = {
+    "wavefront": "queue 1 item 8 (models/wavefront.py)",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="wavefront_path_tracer_tpu_torch",
-        description="Path tracer, PyTorch/CUDA port (fused engine)")
+        description="Path tracer, PyTorch/CUDA port (fused engine and "
+                    "megakernel oracle)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda; there "
                         "is no fallback to the CPU)")
+    p.add_argument("--engine", default="fused",
+                   choices=["fused", "megakernel", "wavefront"],
+                   help="fused: the hand-written kernels; megakernel: the "
+                        "plain PyTorch oracle (wavefront is not ported)")
     p.add_argument("--scene", default="book_one_final",
                    help="book_cover | book_one_final | book_bubble | "
                         "book_checker | procedural | cornell_spheres | "
@@ -119,6 +129,10 @@ def check_args(args) -> None:
         if getattr(args, dest) is not None:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md {item})")
+    if args.engine in _REFUSED_ENGINES:
+        raise NotImplementedError(
+            f"--engine {args.engine} is not ported yet (ROADMAP.md "
+            f"{_REFUSED_ENGINES[args.engine]}); use fused or megakernel")
     if args.intersector in _REFUSED_INTERSECTORS:
         raise NotImplementedError(
             f"--intersector {args.intersector} is not ported yet (ROADMAP.md "
@@ -127,15 +141,18 @@ def check_args(args) -> None:
 
 
 def resolve_intersector(intersector: str, clusters: int, scene,
-                        triangles=None):
+                        triangles=None, engine: str = "fused"):
     """Resolve ``auto`` and the triangle upgrade as the reference CLI
-    does for the fused engine (its ``resolve_intersector``,
-    cli.py:183-217): baked below 2000 primitives (spheres and
-    triangles), with clusters sized by count when none were asked for;
-    the brute-force path above.  A mesh with no clusters goes to baked,
-    since the plain brute-force kernel is spheres-only.  Returns
-    (intersector, clusters, notes)."""
+    does (its ``resolve_intersector``, cli.py:183-217): for the fused
+    engine, baked below 2000 primitives (spheres and triangles), with
+    clusters sized by count when none were asked for, and the
+    brute-force path above; a mesh with no clusters goes to baked, since
+    the plain brute-force kernel is spheres-only.  The megakernel takes
+    brute force.  Returns (intersector, clusters, notes)."""
     notes = []
+    if intersector == "auto" and engine != "fused":
+        intersector = "bruteforce"
+        notes.append("note: --intersector auto -> bruteforce")
     if intersector == "auto":
         n_prims = len(scene.radii) + (
             len(triangles.v0) if triangles is not None else 0)
@@ -144,7 +161,8 @@ def resolve_intersector(intersector: str, clusters: int, scene,
             clusters = -1
         notes.append(f"note: --intersector auto -> {intersector}"
                      + (" (clusters auto)" if clusters == -1 else ""))
-    if triangles is not None and intersector != "baked" and clusters == 0:
+    if (triangles is not None and engine == "fused"
+            and intersector != "baked" and clusters == 0):
         intersector = "baked"
         notes.append("note: triangle scene with --engine fused and no "
                      "--clusters -> using intersector=baked")
@@ -241,7 +259,7 @@ def run(argv=None):
 
     scene, triangles, file_cam = build_scene(args)
     intersector, clusters, notes = resolve_intersector(
-        args.intersector, args.clusters, scene, triangles)
+        args.intersector, args.clusters, scene, triangles, args.engine)
     if not args.quiet:
         for note in notes:
             print(note, file=sys.stderr)
@@ -252,7 +270,7 @@ def run(argv=None):
         width=args.width, height=args.height,
         samples_per_pixel=args.spp, samples_per_frame=args.spf,
         max_bounces=args.max_bounces, frame=args.frame,
-        engine="fused", intersector=intersector, baked_clusters=clusters,
+        engine=args.engine, intersector=intersector, baked_clusters=clusters,
         block_tiles=args.block_tiles, winner_hint=args.winner_hint,
         recluster=args.recluster, sampler=args.sampler,
         rr_start_bounce=args.rr, rr_floor=args.rr_floor, clamp=args.clamp,

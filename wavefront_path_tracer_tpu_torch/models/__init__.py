@@ -6,7 +6,7 @@ Each engine module exposes::
                    sample_base, n_samples) -> ((num_pixels, 3) radiance sum,
                                                rays traced)
 
-The port carries the fused engine only so far.
+The port carries the fused engine and the megakernel oracle.
 """
 
 
@@ -16,14 +16,13 @@ def get_engine(name: str):
 
         return fused
     if name == "megakernel":
-        raise NotImplementedError(
-            "engine 'megakernel' is not ported yet: it is the port's next "
-            "slice (ROADMAP.md, queue 1 item 4: the megakernel oracle with "
-            "ops/raygen, intersect, hit and bsdf); use engine='fused'")
+        from wavefront_path_tracer_tpu_torch.models import megakernel
+
+        return megakernel
     if name == "wavefront":
         raise NotImplementedError(
             "engine 'wavefront' is not ported yet (ROADMAP.md, queue 1 "
             "item 8: models/wavefront.py with compaction and BVH "
-            "traversal); use engine='fused'")
+            "traversal); use engine='fused' or 'megakernel'")
     raise KeyError(f"unknown engine {name!r}; have ['fused', 'megakernel', "
                    "'wavefront']")

@@ -112,8 +112,8 @@ def check_supported(config: RenderConfig, scene_arrays) -> None:
     if config.intersector not in ("bruteforce", "baked"):
         raise NotImplementedError(
             f"intersector={config.intersector!r} does not exist on the "
-            "fused engine; the BVH runs on the wavefront/megakernel "
-            "engines, not ported yet (ROADMAP.md queue 1 items 4 and 8)")
+            "fused engine; the BVH runs on the wavefront and megakernel "
+            "engines, and is not ported yet (ROADMAP.md queue 1 item 8)")
     if config.num_devices != 1:
         raise NotImplementedError(
             "multi-device rendering is not ported yet (ROADMAP.md queue 1 "

@@ -114,3 +114,58 @@ def sample_unit_disk(state) -> tuple[torch.Tensor, torch.Tensor,
     r = torch.sqrt(u1)
     alpha = TWO_PI * u2
     return state, r * torch.cos(alpha), r * torch.sin(alpha)
+
+
+def advance(state, delta: int) -> torch.Tensor:
+    """Jump the LCG ahead by ``delta`` draws in O(log delta): Brown's
+    power-of-two advance, as the reference's ``advance`` (not the WGSL
+    original's off-by-condition form)."""
+    delta = int(delta) & MASK32
+    acc_mult, acc_plus = 1, 0
+    cur_mult, cur_plus = PCG_MULT, PCG_INC
+    while delta > 0:
+        if delta & 1:
+            acc_mult = (acc_mult * cur_mult) & MASK32
+            acc_plus = (acc_plus * cur_mult + cur_plus) & MASK32
+        cur_plus = ((cur_mult + 1) * cur_plus) & MASK32
+        cur_mult = (cur_mult * cur_mult) & MASK32
+        delta >>= 1
+    return (mul32(as_u32(state), acc_mult) + acc_plus) & MASK32
+
+
+def roulette(pixel_idx, frame, sample, bounce, throughput, alive,
+             start_bounce: int, floor: float = 0.05):
+    """Unbiased Russian roulette at one surface event; (throughput,
+    alive).  From surface event ``start_bounce`` on, a path continues with
+    ``p = clip(max(throughput), floor, 1)`` and a survivor's throughput is
+    divided by ``p``; the draw comes from :func:`rr_state`, so a render
+    where roulette never starts is untouched.  ``bounce`` is an int or a
+    tensor of the lanes' events."""
+    _, u = next_f32(rr_state(pixel_idx, frame, sample, bounce))
+    keep_p = torch.clamp(torch.amax(throughput, dim=-1), floor, 1.0)
+    if isinstance(bounce, torch.Tensor):
+        active = alive & (as_u32(bounce) >= int(start_bounce))
+    else:
+        active = alive & (int(bounce) >= int(start_bounce))
+    survive = ~active | (u < keep_p)
+    throughput = torch.where((active & survive)[:, None],
+                             throughput / keep_p[:, None], throughput)
+    return throughput, alive & survive
+
+
+def sample_unit_sphere(state) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """Uniform point in the unit ball from three draws; (state, x, y,
+    z), the reference's f32 operations in its order."""
+    state, u1 = next_f32(state)
+    state, u2 = next_f32(state)
+    state, u3 = next_f32(state)
+    r = torch.pow(u1, 0.33333)
+    cos_theta = 1.0 - 2.0 * u2
+    sin_theta = torch.sqrt(torch.clamp_min(1.0 - cos_theta * cos_theta,
+                                           0.0))
+    phi = TWO_PI * u3
+    x = r * sin_theta * torch.cos(phi)
+    y = r * sin_theta * torch.sin(phi)
+    z = r * cos_theta
+    return state, x, y, z

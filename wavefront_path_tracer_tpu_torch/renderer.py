@@ -17,6 +17,7 @@ import torch
 
 from wavefront_path_tracer_tpu_torch.convert import scene_arrays_to_torch
 from wavefront_path_tracer_tpu_torch.models import get_engine
+from wavefront_path_tracer_tpu_torch.ops.triangle import triangle_normals
 from wavefront_path_tracer_tpu_torch.scene import CameraController, Scene
 from wavefront_path_tracer_tpu_torch.utils.config import (
     RenderConfig,
@@ -38,12 +39,13 @@ def prepare_scene(scene: Scene, config: RenderConfig, device="cuda",
                   triangles=None) -> dict:
     """Host scene -> sphere tables on ``device``, with the triangle
     tables of a mesh (``triangles``, a :class:`TriangleSoA`) as the
-    seven ``tri_*`` keys of the reference's ``prepare_scene`` and a
-    textured scene's ``tex_kind``, ``tex_albedo2``, ``tex_scale``,
+    eight ``tri_*`` keys of the reference's ``prepare_scene``, the unit
+    geometric normals ``tri_normal`` (its renderer.py:105) among them,
+    and a textured scene's ``tex_kind``, ``tex_albedo2``, ``tex_scale``,
     ``tex_id`` and (with images) ``tex_data`` (its renderer.py:111-119),
     plus what the fused engine derives once per scene
-    (``convert.scene_arrays_to_torch``).  The reference's ``tri_normal``
-    and triangle BVH serve its XLA engines, which are not ported yet."""
+    (``convert.scene_arrays_to_torch``).  The reference's triangle BVH
+    serves its BVH intersector, which is not ported yet."""
     if config.intersector == "bvh":
         raise NotImplementedError(
             "the BVH intersector is not ported yet (ROADMAP.md queue 1 "
@@ -61,6 +63,10 @@ def prepare_scene(scene: Scene, config: RenderConfig, device="cuda",
             "tri_v0": triangles.v0,
             "tri_e1": triangles.e1,
             "tri_e2": triangles.e2,
+            "tri_normal": triangle_normals(
+                torch.from_numpy(np.asarray(triangles.e1, np.float32)),
+                torch.from_numpy(np.asarray(triangles.e2, np.float32)),
+            ).numpy(),
             "tri_albedo": triangles.albedo,
             "tri_fuzz": triangles.fuzz,
             "tri_refract": triangles.refract_idx,
