@@ -168,15 +168,29 @@ Phases (all by default, in this order), each of which raises on failure
    over every sphere and triangle) through ``validate`` at book_one_final
    400x224@64spp, 50 bounces, against the JAX megakernel's TPU render with
    the same streams (``golden/oracle_tpu_same_stream.npz``), display RMSE
-   < 2e-3; the eleven same-stream rows of ``golden/GATE_SWEEP.json`` that
-   the port runs (every row but wavefront_matsplit), each fused variant
-   against the port's megakernel at that size under its row's gate (2e-3,
-   3e-3 textured), with the diverged pixel share of each (the parity
-   rule's, at 50 bounces and 64 spp); terrain and the knot cut to 5,000
+   < 2e-3; the twelve same-stream rows of ``golden/GATE_SWEEP.json``, each
+   fused variant against the port's megakernel at that size under its
+   row's gate (2e-3, 3e-3 textured), with the diverged pixel share of each
+   (the parity rule's, at 50 bounces and 64 spp), and wavefront_matsplit
+   (the wavefront engine with material_split) at display RMSE 0.0 against
+   the port's megakernel and under 2e-3 against the TPU render; terrain
+   and the knot cut to 5,000
    triangles, fused (baked/16 and dynamic/16 on terrain, dynamic/16 on
    the knot) against the megakernel at 200x112@8spp, read with no gate;
    and ``validate``'s cached-golden flow (baked/16 at 400x225@1000spp
-   against ``golden/oracle_book_400x225_1000spp.npz``, < 1e-3).
+   against ``golden/oracle_book_400x225_1000spp.npz``, < 1e-3);
+18. wavefront (``wavefront``): the wavefront engine (plain PyTorch, no
+   kernel of its own) against the megakernel, radiance words and rays bit
+   for bit, on book_one_final (the CLI's view) at 400x224@4spp, 50
+   bounces, with brute force, ``ray_chunk=16384``, ``material_split`` and
+   roulette from bounce 5; the BVH on both engines bit for bit with each
+   other at 200x112@2spp, and wavefront/BVH against wavefront/brute force
+   by the parity rule there and on terrain (the triangle BVH); one BVH
+   traversal of a 400x224 frame's primary rays with the unfinished lanes
+   read back every 1, 8 (shipped) and 64 steps, bit for bit, each timed;
+   one ``--stage-timing`` CLI run of the wavefront engine (400x224@2spp,
+   a frame a sample) with the stage timer's averages; and the engine's
+   Mrays/s with brute force and with the BVH at 400x224@2spp.
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -2828,10 +2842,8 @@ def phase_segform(device, smi: str) -> dict:
 
 
 # Phase oracle: the same-stream rows of golden/GATE_SWEEP.json (the
-# flags of exp/gate_sweep.py's SAME_STREAM, the fused variant against the
-# megakernel oracle, both on the card at 400x224@64 spp, 50 bounces) that
-# the port runs; wavefront_matsplit waits for the wavefront engine
-# (ROADMAP.md queue 1 item 8).
+# flags of exp/gate_sweep.py's SAME_STREAM, the variant against the
+# megakernel oracle, both on the card at 400x224@64 spp, 50 bounces).
 ORACLE_TPU = os.path.join(ROOT, "golden", "oracle_tpu_same_stream.npz")
 ORACLE_GATE = 2e-3
 SS_SIZE = ("--width", "400", "--height", "224", "--spp", "64")
@@ -2850,6 +2862,8 @@ SAME_STREAM_ROWS = (
     ("textures_baked", ("--scene", "book_checker") + BAKED16, 3e-3),
     ("textures_dyn", ("--scene", "book_checker") + DYN16, 3e-3),
 )
+# The twelfth same-stream row, wavefront_matsplit, runs apart from these:
+# it reads 0.0 against the card's megakernel.
 # The mesh readings: fused against the megakernel at 200x112@8 spp (the
 # megakernel sweeps every triangle for every ray: 40 blocks of 128 a
 # bounce on terrain and on the cut-down knot).
@@ -2946,6 +2960,32 @@ def phase_oracle(device, smi: str) -> dict:
         if not row["pass"]:
             failures.append(f"{name}: RMSE {row['rmse']} >= {gate}")
 
+    # wavefront_matsplit: the wavefront engine with material_split holds
+    # the megakernel's streams and arithmetic, so it must read 0.0 against
+    # the card's megakernel, and stay under its row's gate against the TPU
+    # render (which the card's megakernel is held to above).
+    res = _validate(SS_SIZE + (
+        "--engine", "wavefront", "--intersector", "bruteforce",
+        "--material-split", "--gate", repr(ORACLE_GATE), "--oracle-spf",
+        "64", "--oracle-cache", caches["book_one_final"]))
+    row, test = res["row"], res["test"]
+    tpu_rmse = rmse(test.image, np.load(ORACLE_TPU)["image"])
+    out["rows"]["wavefront_matsplit"] = {
+        **row, "seconds": res["seconds"], "rays": test.rays_traced,
+        "tpu_rmse": tpu_rmse, **_agreement(test, res["oracle_image"])}
+    log(f"[oracle] wavefront_matsplit: {row['engine']} on {row['scene']} "
+        f"{row['config']} against {row['oracle']}: display RMSE "
+        f"{row['rmse']!r} (must be 0.0; TPU {tpu['wavefront_matsplit']!r}); "
+        f"against the TPU megakernel {tpu_rmse!r} (gate {ORACLE_GATE}); "
+        f"render {test.wall_time_s:.3f} s, {test.rays_traced:.0f} rays "
+        f"({test.mrays_per_s:.3f} Mrays/s) [{smi}]")
+    if row["rmse"] != 0.0:
+        failures.append(f"wavefront_matsplit: RMSE {row['rmse']} against "
+                        "the card's megakernel, not 0.0")
+    if not tpu_rmse < ORACLE_GATE:
+        failures.append(f"wavefront_matsplit: RMSE {tpu_rmse} >= "
+                        f"{ORACLE_GATE} against the TPU megakernel")
+
     # The mesh rows' scenes, fused against the megakernel: readings.
     w, h, spp = MESH_READ
     scenes = {"terrain": _terrain(),
@@ -2985,7 +3025,8 @@ def phase_oracle(device, smi: str) -> dict:
         f"{res['seconds']:.2f} s [{smi}]")
     if not res["row"]["pass"]:
         failures.append(f"golden RMSE {res['row']['rmse']} >= 1e-3")
-    shares = [r["diverged_share"] for r in out["rows"].values()]
+    shares = [r["diverged_share"] for name, r in out["rows"].items()
+              if name != "wavefront_matsplit"]
     log(f"[oracle] F4: diverged share of the fused rows against the "
         f"megakernel at 50 bounces, 64 spp: {min(shares)!r} to "
         f"{max(shares)!r} [{smi}]")
@@ -2994,9 +3035,205 @@ def phase_oracle(device, smi: str) -> dict:
     return out
 
 
+# Phase wavefront: the wavefront engine and the BVH (plain PyTorch on the
+# card, models/wavefront.py and ops/bvh_traverse.py), held bit for bit to
+# the megakernel.
+WF_SIZE = (400, 224, 4)
+WF_BVH_SIZE = (200, 112, 2)
+WF_RATE_SIZE = (400, 224, 2)
+WF_CASES = (("bruteforce", {}), ("ray_chunk", {"ray_chunk": 16384}),
+            ("material_split", {"material_split": True}),
+            ("roulette", {"rr_start_bounce": 5}))
+
+
+def _renders_identical(a, b) -> bool:
+    """Two renders' radiance words and ray counts are identical."""
+    return (np.array_equal(a.accumulated.view(np.uint32),
+                           b.accumulated.view(np.uint32))
+            and a.rays_traced == b.rays_traced)
+
+
+def _render_timed(scene, tris, cam, cfg, device):
+    from wavefront_path_tracer_tpu_torch.renderer import Renderer
+
+    r = Renderer(scene, cam, cfg, tris, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = r.render()
+    res.seconds = time.perf_counter() - t0
+    return res
+
+
+def _traversal_checks(scene, cam, device, smi) -> dict:
+    """One BVH nearest-hit call on a 400x224 frame's primary rays, with
+    the unfinished lanes read back every step, every CHECK_EVERY steps
+    (the shipped interval) and every 64: the same bits, and the time of
+    each by CUDA events."""
+    from wavefront_path_tracer_tpu_torch.ops import bvh_traverse
+    from wavefront_path_tracer_tpu_torch.ops.raygen import generate_rays
+    from wavefront_path_tracer_tpu_torch.renderer import prepare_scene
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+
+    w, h, _spp = WF_SIZE
+    cfg = RenderConfig(width=w, height=h, intersector="bvh",
+                       engine="wavefront")
+    arrays = prepare_scene(scene, cfg, device)
+    pix = torch.arange(w * h, device=device)
+    view = torch.as_tensor(cam.view_matrix(), device=device)
+    inv_proj = torch.as_tensor(cam.inverse_projection(w, h), device=device)
+    o, d = generate_rays(pix, w, h, 0, 0, cam.gpu_camera(), view, inv_proj)
+    tables = [arrays[k] for k in ("centers", "radii", "bvh_min", "bvh_max",
+                                  "bvh_left_first", "bvh_prim_count")]
+    shipped = bvh_traverse.CHECK_EVERY
+    out, ref = {}, None
+    try:
+        for every in (1, shipped, 64):
+            bvh_traverse.CHECK_EVERY = every
+            bvh_traverse.intersect_bvh(o, d, *tables)            # warm
+            ms, res = _time_ms(lambda: bvh_traverse.intersect_bvh(
+                o, d, *tables, check_depth_first=False), 3)
+            if ref is None:
+                ref = res
+            elif not all(torch.equal(x, y) for x, y in zip(res, ref)):
+                raise AssertionError(f"traversal with CHECK_EVERY={every} "
+                                     "differs from every step")
+            out[every] = ms
+    finally:
+        bvh_traverse.CHECK_EVERY = shipped
+    log(f"[wavefront] BVH traversal of {w}x{h} primary rays "
+        f"(book_one_final, {int(ref[2].sum())} hits): "
+        + ", ".join(f"read back every {k} steps {v:.3f} ms"
+                    for k, v in out.items())
+        + f"; bit-identical [{smi}]")
+    return {str(k): v for k, v in out.items()}
+
+
+def phase_wavefront(device, smi: str) -> dict:
+    """Phase ``wavefront``: the wavefront engine against the megakernel,
+    bit for bit (radiance words and rays) on book_one_final at
+    400x224@4spp, 50 bounces, with brute force, ray_chunk 16384,
+    material_split and roulette from bounce 5; the BVH on both engines,
+    bit for bit with each other, at 200x112@2spp, and against brute force
+    by the parity rule; terrain's triangle BVH against brute force by the
+    parity rule; the traversal's read-back interval; one --stage-timing
+    CLI run; the engine's Mrays/s with brute force and the BVH at
+    400x224."""
+    from wavefront_path_tracer_tpu_torch import cli
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+    from wavefront_path_tracer_tpu_torch.utils.parity import check_parity
+
+    scene, _none, cam = _book()
+    failures, out = [], {"bit": {}, "parity": {}}
+    w, h, spp = WF_SIZE
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                       samples_per_frame=spp, max_bounces=50,
+                       intersector="bruteforce")
+    _render_timed(scene, None, cam, cfg.replace(
+        width=32, height=16, engine="wavefront"), device)       # warm
+    mk = {}
+    for name, kw in WF_CASES:
+        key = "roulette" if "rr_start_bounce" in kw else "default"
+        if key not in mk:
+            mk[key] = _render_timed(scene, None, cam, cfg.replace(
+                engine="megakernel", **kw), device)
+        wf = _render_timed(scene, None, cam, cfg.replace(
+            engine="wavefront", **kw), device)
+        same = _renders_identical(wf, mk[key])
+        out["bit"][name] = {"same": same, "rays": wf.rays_traced,
+                            "seconds": wf.seconds,
+                            "mrays_per_s": wf.mrays_per_s,
+                            "megakernel_seconds": mk[key].seconds}
+        log(f"[wavefront] {name}: wavefront vs megakernel book_one_final "
+            f"{w}x{h}@{spp}spp, 50 bounces: bit-identical {same}, "
+            f"{wf.rays_traced:.0f} rays; wavefront {wf.seconds:.3f} s "
+            f"({wf.mrays_per_s:.3f} Mrays/s), megakernel "
+            f"{mk[key].seconds:.3f} s [{smi}]")
+        if not same:
+            failures.append(f"{name}: wavefront differs from the megakernel")
+
+    # The BVH on both engines, and against brute force.
+    bw, bh, bspp = WF_BVH_SIZE
+    small = cfg.replace(width=bw, height=bh, samples_per_pixel=bspp,
+                        samples_per_frame=bspp)
+    renders = {}
+    for label, scene_, tris, cam_ in (("book_one_final", scene, None, cam),
+                                      ("terrain", *_terrain())):
+        for engine, intersector in (("wavefront", "bvh"),
+                                    ("wavefront", "bruteforce"),
+                                    ("megakernel", "bvh")):
+            if label == "terrain" and engine == "megakernel":
+                continue
+            renders[label, engine, intersector] = _render_timed(
+                scene_, tris, cam_, small.replace(
+                    engine=engine, intersector=intersector), device)
+    same = _renders_identical(renders["book_one_final", "wavefront", "bvh"],
+                      renders["book_one_final", "megakernel", "bvh"])
+    out["bit"]["bvh"] = {"same": same}
+    log(f"[wavefront] bvh: wavefront vs megakernel book_one_final "
+        f"{bw}x{bh}@{bspp}spp: bit-identical {same} [{smi}]")
+    if not same:
+        failures.append("bvh: wavefront differs from the megakernel")
+    for label in ("book_one_final", "terrain"):
+        bvh = renders[label, "wavefront", "bvh"]
+        brute = renders[label, "wavefront", "bruteforce"]
+        try:
+            rep = check_parity(bvh.accumulated / bspp,
+                               brute.accumulated / bspp, bvh.rays_traced,
+                               brute.rays_traced)
+        except AssertionError as exc:
+            rep = {"failed": str(exc)}
+            failures.append(f"{label}: bvh against bruteforce: {exc}")
+        rep.update(bvh_seconds=bvh.seconds, bruteforce_seconds=brute.seconds,
+                   bvh_mrays_per_s=bvh.mrays_per_s,
+                   bruteforce_mrays_per_s=brute.mrays_per_s)
+        out["parity"][label] = rep
+        log(f"[wavefront] {label} {bw}x{bh}@{bspp}spp wavefront bvh vs "
+            f"bruteforce: {rep}; bvh {bvh.seconds:.3f} s, bruteforce "
+            f"{brute.seconds:.3f} s [{smi}]")
+
+    out["traversal_ms"] = _traversal_checks(scene, cam, device, smi)
+
+    # One --stage-timing CLI run of the wavefront engine.
+    argv = ["--device", device.type, "--scene", "book_one_final",
+            "--width", str(w), "--height", str(h), "--spp", "2", "--spf",
+            "1", "--max-bounces", "50", "--engine", "wavefront",
+            "--stage-timing", "--quiet",
+            "--out", os.path.join(OUT_DIR, "smoke_wavefront_staged.png")]
+    renderer, result = cli.run(argv)
+    stages = renderer.stage_timer.averages_us()
+    out["stage_us"] = stages
+    log(f"[wavefront] cli {' '.join(argv[2:-3])}: kernels: "
+        f"{renderer.stage_timer.report()} (running averages per call, us; "
+        f"{result.rays_traced:.0f} rays in the last frame) [{smi}]")
+    if set(stages) != {"generate", "extend", "shade", "miss", "compact"}:
+        failures.append(f"stage timer stages {sorted(stages)}")
+
+    # The engine's rate with brute force and with the BVH.
+    rw, rh, rspp = WF_RATE_SIZE
+    out["rate"] = {}
+    for intersector in ("bruteforce", "bvh"):
+        res = _render_timed(scene, None, cam, cfg.replace(
+            width=rw, height=rh, samples_per_pixel=rspp,
+            samples_per_frame=rspp, engine="wavefront",
+            intersector=intersector), device)
+        out["rate"][intersector] = {"mrays_per_s": res.mrays_per_s,
+                                    "rays": res.rays_traced,
+                                    "render_seconds": res.wall_time_s}
+        log(f"[wavefront] rate: wavefront/{intersector} book_one_final "
+            f"{rw}x{rh}@{rspp}spp, 50 bounces: {res.rays_traced:.0f} rays "
+            f"in {res.wall_time_s:.3f} s = {res.mrays_per_s:.3f} Mrays/s "
+            f"[{smi}]")
+        if not (np.isfinite(res.accumulated).all()
+                and res.accumulated.mean() > 0.01):
+            failures.append(f"rate render {intersector}: bad image")
+    if failures:
+        raise AssertionError("phase wavefront: " + "; ".join(failures))
+    return out
+
+
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull", "tex",
           "texfull", "seg", "segfull", "probes", "sweep", "loop",
-          "segform", "oracle")
+          "segform", "oracle", "wavefront")
 
 
 def main(argv=None) -> int:
@@ -3036,7 +3273,9 @@ def main(argv=None) -> int:
              ("sweep", "sweep", lambda: phase_sweep(device, smi)),
              ("loop", "loop", lambda: phase_loop(device, smi)),
              ("segform", "segform", lambda: phase_segform(device, smi)),
-             ("oracle", "oracle", lambda: phase_oracle(device, smi)))
+             ("oracle", "oracle", lambda: phase_oracle(device, smi)),
+             ("wavefront", "wavefront",
+              lambda: phase_wavefront(device, smi)))
     for phase, key, run in steps:
         if phase in phases:
             t0 = time.perf_counter()

@@ -128,10 +128,11 @@ def test_cli_recluster_writes_png(argv, tmp_path):
 SCENE_JSON = str(Path(__file__).resolve().parents[1] / "examples"
                  / "scene.json")
 # What still refuses: flags of later slices (naming their ROADMAP item),
-# and what the reference refuses itself: textures on the plain
-# brute-force kernel (no clusters) and the winner hint off the baked path
-# (its models/fused.py:322-334), and the hint without clusters (its
-# RenderConfig).
+# and what the reference refuses itself: the BVH on the fused engine (its
+# cli.py:275-279), textures on the plain brute-force kernel (no clusters)
+# and the winner hint off the baked path (its models/fused.py:322-334),
+# and the hint without clusters (its RenderConfig).  A case whose refusal
+# is None was refused once and runs now.
 _HINT = (NotImplementedError, "intersector='baked'")
 _TEX = (NotImplementedError, "carries no texture")
 _LATER = (NotImplementedError, "ROADMAP")
@@ -141,7 +142,13 @@ _LATER = (NotImplementedError, "ROADMAP")
     pytest.param(["--intersector", "auto", "--winner-hint", "--scene",
                   "procedural", "--spheres", "2500"], _HINT,
                  id="intersector_auto_--winner-hint"),
-    pytest.param(["--intersector", "bvh"], _LATER, id="intersector_bvh"),
+    # Ported: the BVH on the wavefront engine runs.
+    pytest.param(["--intersector", "bvh", "--engine", "wavefront"], None,
+                 id="intersector_bvh"),
+    # The reference's own refusal (its cli.py:275-279).
+    pytest.param(["--intersector", "bvh"],
+                 (NotImplementedError, "fused has no bvh"),
+                 id="intersector_bvh_engine_fused"),
     # The reference's own refusal: recluster needs a culling intersector.
     pytest.param(["--recluster", "2", "--intersector", "bruteforce"],
                  (NotImplementedError, "culling intersector"),
@@ -160,10 +167,20 @@ _LATER = (NotImplementedError, "ROADMAP")
     pytest.param(["--scene", "book_checker"], _TEX, id="scene_book_checker"),
 ])
 def test_cli_refusals(argv, refusal, tmp_path):
+    out = tmp_path / "r.png"
+    if refusal is None:
+        # Once refused, now runs: the flag at 8x8@1 spp.
+        renderer, result = cli.run(["--device", "cpu", "--out", str(out),
+                                    "--width", "8", "--height", "8",
+                                    "--spp", "1", "--quiet", *argv])
+        assert read_png(str(out)).shape == (8, 8, 3)
+        assert renderer.config.intersector == "bvh"
+        assert "bvh_min" in renderer.scene_arrays
+        assert result.rays_traced >= 64 and np.isfinite(result.image).all()
+        return
     error, match = refusal
     with pytest.raises(error, match=match):
-        cli.main(["--device", "cpu", "--out", str(tmp_path / "r.png"),
-                  *argv])
+        cli.main(["--device", "cpu", "--out", str(out), *argv])
 
 
 @pytest.mark.parametrize("argv", [

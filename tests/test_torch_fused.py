@@ -115,7 +115,8 @@ HINT_ON_DYNAMIC = {"intersector": "bruteforce", "winner_hint": True,
 @pytest.mark.parametrize("change,match", [
     pytest.param(HINT_ON_DYNAMIC, "reference",
                  id="intersector=baked,winner_hint=True,baked_clusters=16"),
-    pytest.param({"intersector": "bvh"}, "ROADMAP", id="intersector=bvh"),
+    # The reference's own refusal (its models/fused.py:338-343).
+    pytest.param({"intersector": "bvh"}, "reference", id="intersector=bvh"),
     # The reference's own refusal (models/fused.py:359-364): recluster
     # needs a culling intersector.
     pytest.param({"recluster": 1, "intersector": "bruteforce"},
@@ -124,12 +125,24 @@ HINT_ON_DYNAMIC = {"intersector": "bruteforce", "winner_hint": True,
     pytest.param({"winner_hint": True, "baked_clusters": 4}, "reference",
                  id="winner_hint=True,baked_clusters=4"),
     pytest.param({"num_devices": 2}, "ROADMAP", id="num_devices=2"),
-    # The megakernel is ported; what it still refuses is the BVH.
-    pytest.param({"engine": "megakernel", "intersector": "bvh"}, "ROADMAP",
+    # Once refused, now ported: the BVH on the megakernel and the
+    # wavefront engine run (match None), bit-identical to each other.
+    pytest.param({"engine": "megakernel", "intersector": "bvh"}, None,
                  id="engine=megakernel"),
-    pytest.param({"engine": "wavefront"}, "ROADMAP", id="engine=wavefront"),
+    pytest.param({"engine": "wavefront"}, None, id="engine=wavefront"),
 ])
 def test_refusals(cover, change, match):
+    if match is None:
+        cfg = BASE.replace(width=8, height=8, samples_per_pixel=1,
+                           samples_per_frame=1, **change)
+        res = Renderer(cover, _cover_camera(), cfg, device="cpu").render()
+        other = "wavefront" if cfg.engine == "megakernel" else "megakernel"
+        ref = Renderer(cover, _cover_camera(), cfg.replace(engine=other),
+                       device="cpu").render()
+        assert res.image.shape == (8, 8, 3) and res.image.mean() > 0.1
+        np.testing.assert_array_equal(res.accumulated, ref.accumulated)
+        assert res.rays_traced == ref.rays_traced >= 64
+        return
     with pytest.raises(NotImplementedError, match=match):
         Renderer(cover, _cover_camera(), BASE.replace(**change), device="cpu")
 

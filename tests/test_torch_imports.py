@@ -41,6 +41,8 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.cli
         import wavefront_path_tracer_tpu_torch.convert
         import wavefront_path_tracer_tpu_torch.models.megakernel
+        import wavefront_path_tracer_tpu_torch.models.wavefront
+        import wavefront_path_tracer_tpu_torch.native.bvh_native
         import wavefront_path_tracer_tpu_torch.ops._build
         import wavefront_path_tracer_tpu_torch.ops.bake
         import wavefront_path_tracer_tpu_torch.ops.baked_kernels
@@ -48,6 +50,8 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.ops.dynculled_kernels
         import wavefront_path_tracer_tpu_torch.ops.fused_kernels
         import wavefront_path_tracer_tpu_torch.ops.bsdf
+        import wavefront_path_tracer_tpu_torch.ops.bvh_traverse
+        import wavefront_path_tracer_tpu_torch.ops.compact
         import wavefront_path_tracer_tpu_torch.ops.hit
         import wavefront_path_tracer_tpu_torch.ops.intersect
         import wavefront_path_tracer_tpu_torch.ops.texture
@@ -64,6 +68,8 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.probes.tripair
         import wavefront_path_tracer_tpu_torch.utils.image
         import wavefront_path_tracer_tpu_torch.utils.parity
+        import wavefront_path_tracer_tpu_torch.utils.profiling
+        import wavefront_path_tracer_tpu_torch.scene.bvh
         import wavefront_path_tracer_tpu_torch.validate
         from wavefront_path_tracer_tpu_torch.renderer import render
         from wavefront_path_tracer_tpu_torch.scene import (
@@ -83,6 +89,14 @@ def test_port_never_imports_jax():
         res = render(scene, cc, cfg.replace(engine="megakernel"), tris,
                      device="cpu")
         assert res.image.shape == (8, 8, 3)
+        for extra in ({"engine": "wavefront"},
+                      {"engine": "wavefront", "intersector": "bvh"},
+                      {"engine": "megakernel", "intersector": "bvh"}):
+            res = render(scene, cc, cfg.replace(**extra), tris, device="cpu")
+            assert res.image.shape == (8, 8, 3)
+            res = render(book_cover(), cc, cfg.replace(**extra),
+                         device="cpu")
+            assert res.image.shape == (8, 8, 3)
         from wavefront_path_tracer_tpu_torch.probes import (
             bf16_issue, hbm_bw, matmul_r2, micro_r2, micro_slope,
             pair_ceiling, tripair)

@@ -311,10 +311,28 @@ def test_intersect_and_resolve(name):
 
 
 def test_bvh_refused():
-    ta = prepare_scene(get_scene("book_cover"), BASE, "cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        thit.intersect_and_resolve(torch.zeros(1, 3), torch.ones(1, 3), ta,
-                                   BASE.replace(intersector="bvh"))
+    """Once refused, now ported: hit resolution through the BVH on
+    book_one_final's tables (BVH order) picks the brute-force sweep's
+    winners on the same tables, and the JAX package's BVH winners."""
+    cfg = BASE.replace(intersector="bvh")
+    scene = get_scene("book_one_final")
+    ja, ta = jprepare(scene, cfg), prepare_scene(scene, cfg, "cpu")
+    assert "bvh_min" in ta
+    rng = np.random.default_rng(8)
+    o = rng.uniform(-3.0, 3.0, (N, 3)).astype(np.float32)
+    o[:, 1] = np.abs(o[:, 1]) + 0.2
+    d = rng.normal(size=(N, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    bvh = thit.intersect_and_resolve(_t(o), _t(d), ta, cfg)
+    brute = thit.intersect_and_resolve(_t(o), _t(d), ta, BASE)
+    j = [np.asarray(x) for x in jhit.intersect_and_resolve(
+        jnp.asarray(o), jnp.asarray(d), ja, cfg)]
+    hit = bvh[1].numpy()
+    assert 0.5 < hit.mean() < 1.0
+    for k in (1, 3, 4, 5, 6):     # hit and the winner's attributes
+        assert torch.equal(bvh[k], brute[k])
+        np.testing.assert_array_equal(bvh[k].numpy()[hit], j[k][hit])
+    assert torch.equal(bvh[0], brute[0])
 
 
 # --- ops/bsdf.py ---------------------------------------------------------
@@ -440,9 +458,16 @@ def test_rays_count_live_paths():
 
 def test_engine_registry_and_refusals():
     assert get_engine("megakernel") is tmega
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Renderer(get_scene("book_cover"), _camera("book_cover"),
-                 BASE.replace(intersector="bvh"), device="cpu")
+    # Once refused: the BVH runs, at 8x8@1 spp here.
+    cfg = BASE.replace(width=8, height=8, samples_per_pixel=1,
+                       samples_per_frame=1)
+    bvh = Renderer(get_scene("book_cover"), _camera("book_cover"),
+                   cfg.replace(intersector="bvh"), device="cpu").render()
+    brute = Renderer(get_scene("book_cover"), _camera("book_cover"), cfg,
+                     device="cpu").render()
+    check_parity(bvh.accumulated, brute.accumulated, bvh.rays_traced,
+                 brute.rays_traced)
+    assert bvh.image.shape == (8, 8, 3) and bvh.rays_traced >= 64
     with pytest.raises(NotImplementedError, match="item 10"):
         tmega.check_supported(BASE.replace(num_devices=2), {})
     if not torch.cuda.is_available():
@@ -461,5 +486,12 @@ def test_cli_engine(tmp_path):
     assert renderer.config.engine == "megakernel"
     assert renderer.config.intersector == "bruteforce"
     assert res.image.shape == (8, 16, 3) and (tmp_path / "mk.png").exists()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli_run(["--engine", "wavefront", "--device", "cpu"])
+    # Once refused: the wavefront engine, bit-identical to the megakernel.
+    renderer, wf = cli_run(["--engine", "wavefront", "--device", "cpu",
+                            "--scene", "mesh_terrain", "--width", "16",
+                            "--height", "8", "--spp", "1", "--max-bounces",
+                            "3", "--intersector", "auto", "--quiet",
+                            "--out", str(tmp_path / "wf.png")])
+    assert renderer.config.engine == "wavefront"
+    np.testing.assert_array_equal(wf.accumulated, res.accumulated)
+    assert wf.rays_traced == res.rays_traced

@@ -1,6 +1,6 @@
 """The port's ``validate`` on the CPU, at tiny sizes: the three tests of
 the JAX package's ``tests/test_validate.py`` with both sides on the
-port's megakernel, the refusals, the committed golden artifacts read as
+port's megakernel, the wavefront engine's flags, the committed golden artifacts read as
 they are, and the default device."""
 
 import json
@@ -91,14 +91,28 @@ def test_committed_artifacts_load(argv, shape):
                              "--device", "cpu"])
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--engine", "wavefront"], "item 8"),
-    (["--oracle-engine", "wavefront"], "item 8"),
-    (["--material-split"], "item 8"),
+TINY8 = ["--width", "8", "--height", "8", "--spp", "1", "--max-bounces",
+         "8", "--intersector", "bruteforce", "--oracle-intersector",
+         "bruteforce", "--device", "cpu", "--gate", "1e-9"]
+
+
+# The flags once refused (the wavefront engine), now run at 8x8@1 spp:
+# the wavefront engine and the megakernel are bit-identical, so each
+# gate reads 0.0.  The ids are the refusal cases' ids.
+@pytest.mark.parametrize("extra,tag", [
+    pytest.param(["--engine", "wavefront"], "wavefront/bruteforce",
+                 id="extra0-item 8"),
+    pytest.param(["--engine", "megakernel", "--oracle-engine", "wavefront"],
+                 "megakernel/bruteforce", id="extra1-item 8"),
+    pytest.param(["--engine", "wavefront", "--material-split"],
+                 "wavefront/bruteforce/matsplit", id="extra2-item 8"),
 ])
-def test_refusals(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        validate.main(TINY + extra)
+def test_refusals(extra, tag, capsys):
+    rc, row = _run(TINY8 + extra, capsys)
+    assert rc == 0 and row["pass"] and row["rmse"] == 0.0
+    assert row["engine"] == tag and row["config"] == "8x8@1spp"
+    assert row["oracle"].startswith(
+        "wavefront/" if "--oracle-engine" in extra else "megakernel/")
 
 
 def test_platform_flags_are_not_accepted():

@@ -3,15 +3,18 @@
 A subset of ``python -m wavefront_path_tracer_tpu.cli``: the fused engine
 with the brute-force and the baked intersects (``--clusters N|auto``
 culls either: the baked sweep, or the dynamic culled sweep over runtime
-tables for brute force), or the megakernel oracle (``--engine
-megakernel``, brute force over every sphere and triangle), on sphere
-scenes, textured scenes
+tables for brute force), the megakernel oracle (``--engine megakernel``)
+and the wavefront engine (``--engine wavefront``), both of which take
+brute force or the BVH (``--intersector bvh``) over every sphere and
+triangle, on sphere scenes, textured scenes
 (``--scene book_checker``, ``--scene-file``, ``--tex-lut``) and triangle
 meshes (``--scene mesh_demo|mesh_terrain``, ``--obj``), with the winner
 hint (``--winner-hint``) or the segmented re-clustering path
-(``--recluster K``), on a torch device.  Flags of the reference CLI
-that this port does not carry yet are refused with the ROADMAP.md item
-that will bring them.
+(``--recluster K``), on a torch device.  ``--stage-timing`` reports the
+wavefront engine's per-stage times or the fused engine's in-kernel
+counters each frame; ``--profile-dir`` writes a ``torch.profiler`` trace
+of the first frame.  Flags of the reference CLI that this port does not
+carry yet are refused with the ROADMAP.md item that will bring them.
 
 Example (the headline configuration)::
 
@@ -34,26 +37,21 @@ _REFUSED = {
     "--interactive": ("interactive", "queue 1 item 9 (app layer)"),
     "--aov": ("aov", "queue 1 item 9 (aov.py)"),
 }
-_REFUSED_INTERSECTORS = {
-    "bvh": "queue 1 item 8 (BVH traversal on the XLA-style engines)",
-}
-_REFUSED_ENGINES = {
-    "wavefront": "queue 1 item 8 (models/wavefront.py)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="wavefront_path_tracer_tpu_torch",
-        description="Path tracer, PyTorch/CUDA port (fused engine and "
-                    "megakernel oracle)")
+        description="Path tracer, PyTorch/CUDA port (fused engine, "
+                    "megakernel oracle and wavefront engine)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda; there "
                         "is no fallback to the CPU)")
     p.add_argument("--engine", default="fused",
                    choices=["fused", "megakernel", "wavefront"],
                    help="fused: the hand-written kernels; megakernel: the "
-                        "plain PyTorch oracle (wavefront is not ported)")
+                        "plain PyTorch oracle; wavefront: the reference's "
+                        "queue-based architecture in plain PyTorch")
     p.add_argument("--scene", default="book_one_final",
                    help="book_cover | book_one_final | book_bubble | "
                         "book_checker | procedural | cornell_spheres | "
@@ -80,8 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bruteforce sweeps the sphere table (with "
                         "--clusters, the dynamic culled tables); baked "
                         "sweeps the scene baked into visit-ordered tables; "
-                        "auto picks baked below 2000 primitives (bvh is "
-                        "not ported)")
+                        "auto picks baked below 2000 primitives; bvh "
+                        "traverses a BVH (wavefront and megakernel "
+                        "engines)")
     p.add_argument("--clusters", default=0, metavar="N|auto",
                    type=lambda v: -1 if v == "auto" else int(v),
                    help="leaf cluster size for culling (0 = none; auto = "
@@ -115,6 +114,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="thin-lens focus distance, or 'auto'")
     p.add_argument("--out", default="render.png")
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--stage-timing", action="store_true",
+                   help="per-stage observability, as the reference's "
+                        "per-sample us report (path_tracer.rs:364): "
+                        "generate/extend/shade/miss/compact wall us on the "
+                        "wavefront engine (host-stepped), in-kernel "
+                        "iteration/cull counters on the fused engine")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace (CPU and CUDA "
+                        "activity, Chrome format) of the first frame into "
+                        "this directory")
     # Refused: parsed so the refusal can name what will bring them.
     p.add_argument("--serve", default=None, help=argparse.SUPPRESS)
     p.add_argument("--interactive", action="store_true", default=None,
@@ -129,15 +138,12 @@ def check_args(args) -> None:
         if getattr(args, dest) is not None:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md {item})")
-    if args.engine in _REFUSED_ENGINES:
+    if args.engine == "fused" and args.intersector == "bvh":
+        # The reference's own refusal (its cli.py:275-279).
         raise NotImplementedError(
-            f"--engine {args.engine} is not ported yet (ROADMAP.md "
-            f"{_REFUSED_ENGINES[args.engine]}); use fused or megakernel")
-    if args.intersector in _REFUSED_INTERSECTORS:
-        raise NotImplementedError(
-            f"--intersector {args.intersector} is not ported yet (ROADMAP.md "
-            f"{_REFUSED_INTERSECTORS[args.intersector]}); use bruteforce "
-            "or baked")
+            "--engine fused has no bvh intersector, as in the reference; "
+            "use --intersector baked or bruteforce, or --engine wavefront "
+            "or megakernel")
 
 
 def resolve_intersector(intersector: str, clusters: int, scene,
@@ -256,6 +262,10 @@ def run(argv=None):
         display_transform,
         write_png,
     )
+    from wavefront_path_tracer_tpu_torch.utils.profiling import (
+        KernelTimer,
+        trace_to,
+    )
 
     scene, triangles, file_cam = build_scene(args)
     intersector, clusters, notes = resolve_intersector(
@@ -276,14 +286,27 @@ def run(argv=None):
         rr_start_bounce=args.rr, rr_floor=args.rr_floor, clamp=args.clamp,
         **overrides,
     )
+    stage_timer = None
+    if args.stage_timing:
+        if cfg.engine == "megakernel":
+            print("note: --stage-timing reports on the wavefront and fused "
+                  "engines only", file=sys.stderr)
+        else:
+            stage_timer = KernelTimer()
     renderer = Renderer(scene, build_camera(args, file_cam), cfg, triangles,
-                        device=args.device)
+                        device=args.device, stage_timer=stage_timer)
     t_start = time.perf_counter()
     rays = 0.0
     busy = 0.0
     result = None
+    first_frame = True
     while True:
-        r = renderer.render_frame()
+        if first_frame and args.profile_dir:
+            with trace_to(args.profile_dir):
+                r = renderer.render_frame()
+        else:
+            r = renderer.render_frame()
+        first_frame = False
         if r is None:
             break
         result = r
@@ -292,6 +315,12 @@ def run(argv=None):
         if not args.quiet:
             print(f"{r.samples}/{cfg.samples_per_pixel} spp  "
                   f"{r.mrays_per_s:8.1f} Mrays/s", file=sys.stderr)
+            if stage_timer is not None and stage_timer.averages_us():
+                print(f"         kernels: {stage_timer.report()}",
+                      file=sys.stderr)
+            if r.kernel_stats:
+                print(f"         fused: {kernel_counters(r)}",
+                      file=sys.stderr)
     if result is None:
         raise ValueError("nothing to render: --spp must be positive")
     write_png(args.out, display_transform(result.accumulated, result.samples))
@@ -301,7 +330,30 @@ def run(argv=None):
               f"{result.samples} spp in {total:.2f}s on {renderer.device} "
               f"({rays / max(busy, 1e-9) / 1e6:.1f} Mrays/s)",
               file=sys.stderr)
+        if args.profile_dir:
+            print(f"wrote a torch.profiler trace of the first frame to "
+                  f"{args.profile_dir}", file=sys.stderr)
+        if stage_timer is not None and cfg.engine == "fused":
+            # The reference's differential per-stage table of the fused
+            # engine (its cli.py:527-547) is not ported, by decision.
+            print("note: the fused engine's differential stage table is "
+                  "not ported, by decision (ROADMAP.md queue 1 item 11); "
+                  "its in-kernel counters were reported per frame above",
+                  file=sys.stderr)
     return renderer, result
+
+
+def kernel_counters(result) -> str:
+    """The fused engine's in-kernel counters of a frame, per loop trip of
+    a warp (``iterations`` counts the trips of each 32-lane warp)."""
+    ks = result.kernel_stats
+    iters = max(1.0, ks["iterations"])
+    line = (f"{ks['iterations']:.0f} warp-iters  "
+            f"{result.rays_traced / (32.0 * iters):6.1%} lane-occupancy")
+    if ks["clusters_entered"]:
+        line += (f"  {ks['clusters_entered'] / iters:.1f} clusters/iter  "
+                 f"{ks['supers_entered'] / iters:.1f} supers/iter")
+    return line
 
 
 def main(argv=None) -> int:

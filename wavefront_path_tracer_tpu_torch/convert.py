@@ -4,11 +4,13 @@ The path tracer has no weights: its parameters are the scene tables.
 :func:`scene_arrays_to_torch` takes the dict that the reference's
 ``renderer.prepare_scene`` returns (JAX or numpy arrays; anything
 ``np.asarray`` accepts; sphere tables and, for a mesh, the ``tri_*``
-tables, for a textured scene the ``tex_*`` tables) and returns the same keys as torch tensors on a given device,
-with dtypes unchanged, plus what the fused engine derives from them once
-per scene: the packed (S, 16) table the brute-force kernel sweeps
-(``scene_packed``), and the host copy of the sphere, triangle and texture
-tables with one fingerprint of all of them, which the bake and
+tables, for a textured scene the ``tex_*`` tables, and with
+``intersector="bvh"`` the flat trees ``bvh_*`` and ``tri_bvh_*`` with the
+tables in BVH order) and returns the same keys as torch tensors on a
+given device, with dtypes unchanged, plus what the fused engine derives
+from them once per scene: the packed (S, 16) table the brute-force kernel
+sweeps (``scene_packed``), and the host copy of the sphere, triangle and
+texture tables with one fingerprint of all of them, which the bake and
 dynamic-table caches read (``host_scene``, see ``ops/bake.py:host_scene``).
 """
 

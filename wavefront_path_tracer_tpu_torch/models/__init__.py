@@ -6,7 +6,8 @@ Each engine module exposes::
                    sample_base, n_samples) -> ((num_pixels, 3) radiance sum,
                                                rays traced)
 
-The port carries the fused engine and the megakernel oracle.
+The port carries the fused engine, the megakernel oracle and the
+wavefront engine.
 """
 
 
@@ -20,9 +21,8 @@ def get_engine(name: str):
 
         return megakernel
     if name == "wavefront":
-        raise NotImplementedError(
-            "engine 'wavefront' is not ported yet (ROADMAP.md, queue 1 "
-            "item 8: models/wavefront.py with compaction and BVH "
-            "traversal); use engine='fused' or 'megakernel'")
+        from wavefront_path_tracer_tpu_torch.models import wavefront
+
+        return wavefront
     raise KeyError(f"unknown engine {name!r}; have ['fused', 'megakernel', "
                    "'wavefront']")

@@ -113,7 +113,7 @@ def check_supported(config: RenderConfig, scene_arrays) -> None:
         raise NotImplementedError(
             f"intersector={config.intersector!r} does not exist on the "
             "fused engine; the BVH runs on the wavefront and megakernel "
-            "engines, and is not ported yet (ROADMAP.md queue 1 item 8)")
+            "engines, as in the reference (its models/fused.py:338-343)")
     if config.num_devices != 1:
         raise NotImplementedError(
             "multi-device rendering is not ported yet (ROADMAP.md queue 1 "

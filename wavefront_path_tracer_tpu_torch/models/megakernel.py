@@ -2,7 +2,8 @@
 
 Port of ``wavefront_path_tracer_tpu/models/megakernel.py``.  Every pixel
 carries its own ray through the bounce loop: ray generation, the nearest
-hit over every sphere and triangle (``ops/hit.py``), the sky for a miss
+hit over every sphere and triangle (``ops/hit.py``: brute force, or
+the BVH with ``intersector="bvh"``), the sky for a miss
 (the sample's radiance, clamped per sample when ``clamp`` is set),
 scattering for a hit (``ops/bsdf.py``), and Russian roulette when
 ``rr_start_bounce`` is set.  A path still alive at ``max_bounces``
@@ -28,10 +29,7 @@ import torch
 
 from wavefront_path_tracer_tpu_torch.ops import rng
 from wavefront_path_tracer_tpu_torch.ops.bsdf import scatter
-from wavefront_path_tracer_tpu_torch.ops.hit import (
-    check_intersector,
-    intersect_and_resolve,
-)
+from wavefront_path_tracer_tpu_torch.ops.hit import intersect_and_resolve
 from wavefront_path_tracer_tpu_torch.ops.intersect import sky_color
 from wavefront_path_tracer_tpu_torch.ops.raygen import generate_rays
 from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
@@ -42,7 +40,6 @@ MAX_CHUNK = 131072
 def check_supported(config: RenderConfig, scene_arrays) -> None:
     """Refuse what this port does not carry yet, naming the ROADMAP.md
     item that will."""
-    check_intersector(config)
     if config.num_devices != 1:
         raise NotImplementedError(
             "multi-device rendering is not ported yet (ROADMAP.md queue 1 "

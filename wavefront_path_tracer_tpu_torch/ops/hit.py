@@ -1,22 +1,30 @@
 """Nearest hit over every primitive type, with its shading inputs: the
 hit resolution of the XLA-style engines, on tensors.
 
-Port of ``wavefront_path_tracer_tpu/ops/hit.py`` for the brute-force
-sphere sweep.  Normals: a sphere's is (p - c) / |p - c|, negated for a
-negative radius (the hollow-bubble trick: (p - c) / r); a triangle's is
-its geometric normal for a dielectric (the winding defines outside),
-else the one facing the ray (open meshes have no inside).
+Port of ``wavefront_path_tracer_tpu/ops/hit.py``: the spheres by the
+brute-force sweep, or with ``intersector="bvh"`` by the BVH traversal
+(``ops/bvh_traverse.py``), and the triangles likewise by their sweep, or
+by their own BVH when the scene has one (``tri_bvh_*``).  Normals: a
+sphere's is (p - c) / |p - c|, negated for a negative radius (the
+hollow-bubble trick: (p - c) / r); a triangle's is its geometric normal
+for a dielectric (the winding defines outside), else the one facing the
+ray (open meshes have no inside).
 """
 
 from __future__ import annotations
 
 import torch
 
+from wavefront_path_tracer_tpu_torch.ops.bvh_traverse import (
+    intersect_bvh,
+    intersect_bvh_triangles,
+)
 from wavefront_path_tracer_tpu_torch.ops.intersect import (
     intersect_bruteforce,
 )
 from wavefront_path_tracer_tpu_torch.ops.texture import resolve_albedo
 from wavefront_path_tracer_tpu_torch.ops.triangle import intersect_triangles
+from wavefront_path_tracer_tpu_torch.scene.bvh import MAX_LEAF_SIZE
 from wavefront_path_tracer_tpu_torch.scene.scene import DIELECTRIC
 
 
@@ -31,11 +39,30 @@ def normalize(v):
     return v / torch.sqrt(dot3(v, v))[:, None]
 
 
-def check_intersector(config) -> None:
+def _intersect_spheres(origin, direction, scene_arrays, config):
+    centers, radii = scene_arrays["centers"], scene_arrays["radii"]
     if config.intersector == "bvh":
-        raise NotImplementedError(
-            "the BVH intersector is not ported yet (ROADMAP.md queue 1 "
-            "item 8: ops/bvh_traverse.py); use intersector='bruteforce'")
+        # max_leaf_size must match the builder's cap, or the traversal's
+        # fixed-width leaf step would skip primitives; prepare_scene
+        # checked the depth when it built the tree.
+        return intersect_bvh(
+            origin, direction, centers, radii, scene_arrays["bvh_min"],
+            scene_arrays["bvh_max"], scene_arrays["bvh_left_first"],
+            scene_arrays["bvh_prim_count"], max_leaf_size=MAX_LEAF_SIZE,
+            check_depth_first=False)
+    return intersect_bruteforce(
+        origin, direction, centers, radii,
+        sphere_chunk=min(config.sphere_chunk, centers.shape[0]))
+
+
+def _intersect_triangles(origin, direction, scene_arrays):
+    tables = [scene_arrays[k] for k in ("tri_v0", "tri_e1", "tri_e2")]
+    if "tri_bvh_min" in scene_arrays:
+        return intersect_bvh_triangles(
+            origin, direction, *tables, scene_arrays["tri_bvh_min"],
+            scene_arrays["tri_bvh_max"], scene_arrays["tri_bvh_left_first"],
+            scene_arrays["tri_bvh_prim_count"], max_leaf_size=MAX_LEAF_SIZE)
+    return intersect_triangles(origin, direction, *tables)
 
 
 def intersect_and_resolve(origin, direction, scene_arrays, config):
@@ -43,11 +70,8 @@ def intersect_and_resolve(origin, direction, scene_arrays, config):
     triangles, with the winner's shading inputs: (t, hit, normal (N, 3),
     albedo (N, 3), fuzz, refract_idx, mat_type).  Attributes of lanes
     that hit nothing are garbage; callers mask them with ``hit``."""
-    check_intersector(config)
     centers, radii = scene_arrays["centers"], scene_arrays["radii"]
-    t, idx, hit = intersect_bruteforce(
-        origin, direction, centers, radii,
-        sphere_chunk=min(config.sphere_chunk, centers.shape[0]))
+    t, idx, hit = _intersect_spheres(origin, direction, scene_arrays, config)
 
     p = origin + t[:, None] * direction
     nvec = (p - centers[idx]) * torch.sign(radii[idx])[:, None]
@@ -65,9 +89,8 @@ def intersect_and_resolve(origin, direction, scene_arrays, config):
             scene_arrays.get("tex_data"))
 
     if "tri_v0" in scene_arrays:
-        t_t, tri, hit_t = intersect_triangles(
-            origin, direction, scene_arrays["tri_v0"],
-            scene_arrays["tri_e1"], scene_arrays["tri_e2"])
+        t_t, tri, hit_t = _intersect_triangles(origin, direction,
+                                               scene_arrays)
         use_tri = t_t < t
         t = torch.where(use_tri, t_t, t)
         hit = hit | hit_t

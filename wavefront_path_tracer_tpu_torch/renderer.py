@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -17,12 +18,33 @@ import torch
 
 from wavefront_path_tracer_tpu_torch.convert import scene_arrays_to_torch
 from wavefront_path_tracer_tpu_torch.models import get_engine
+from wavefront_path_tracer_tpu_torch.ops.bvh_traverse import STACK_DEPTH
 from wavefront_path_tracer_tpu_torch.ops.triangle import triangle_normals
-from wavefront_path_tracer_tpu_torch.scene import CameraController, Scene
+from wavefront_path_tracer_tpu_torch.scene import (
+    CameraController,
+    Scene,
+    build_bvh,
+    build_flat_bvh_aabb,
+    bvh_depth,
+)
 from wavefront_path_tracer_tpu_torch.utils.config import (
     RenderConfig,
     RenderProgress,
 )
+
+# Warned for intersector='bvh' on the XLA-style engines off the CPU, with
+# the card's rates for that path (chip_smoke.py, phase wavefront, and the
+# fused headline of its phase main).
+BVH_WARNING = (
+    "intersector='bvh' on the {engine} engine runs a lockstep traversal "
+    "of small PyTorch kernels: 0.106 Mrays/s for wavefront/bvh on "
+    "book_one_final at 400x224 on an NVIDIA H100 80GB HBM3 (700.00 W), "
+    "5.5x below intersector='bruteforce' on the same engine (0.587 "
+    "Mrays/s) and some 30,000x below engine='fused' (about 3,000 Mrays/s "
+    "with intersector='baked', baked_clusters=16 at 1920x1080). Use "
+    "engine='fused' (intersector='baked' or 'bruteforce' with "
+    "baked_clusters>0), or intersector='bruteforce' on this engine; the "
+    "BVH path is an oracle.")
 
 
 def resolve_device(device) -> torch.device:
@@ -35,6 +57,11 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def off_cpu(device: torch.device) -> bool:
+    """Whether ``device`` is an accelerator (the BVH warning's test)."""
+    return device.type != "cpu"
+
+
 def prepare_scene(scene: Scene, config: RenderConfig, device="cuda",
                   triangles=None) -> dict:
     """Host scene -> sphere tables on ``device``, with the triangle
@@ -44,21 +71,58 @@ def prepare_scene(scene: Scene, config: RenderConfig, device="cuda",
     and a textured scene's ``tex_kind``, ``tex_albedo2``, ``tex_scale``,
     ``tex_id`` and (with images) ``tex_data`` (its renderer.py:111-119),
     plus what the fused engine derives once per scene
-    (``convert.scene_arrays_to_torch``).  The reference's triangle BVH
-    serves its BVH intersector, which is not ported yet."""
+    (``convert.scene_arrays_to_torch``).
+
+    With ``intersector="bvh"`` (its renderer.py:47-99) the spheres are
+    reordered by the BVH build, as the reference's
+    ``build_bvh_tree(&mut spheres)`` reorders them, and the flat tree
+    goes in as ``bvh_min``, ``bvh_max``, ``bvh_left_first`` and
+    ``bvh_prim_count``; a mesh gets a second tree over its triangles'
+    boxes (``tri_bvh_*``), with the triangle tables in its order.  Both
+    trees' depths are checked against the traversal stack here."""
+    arrays = {}
     if config.intersector == "bvh":
-        raise NotImplementedError(
-            "the BVH intersector is not ported yet (ROADMAP.md queue 1 "
-            "item 8)")
-    arrays = {
+        bvh, scene = build_bvh(scene)
+        depth = bvh_depth(bvh)
+        if depth > STACK_DEPTH:
+            raise ValueError(
+                f"BVH depth {depth} exceeds the traversal stack "
+                f"({STACK_DEPTH}); pushes would be silently dropped. "
+                "Raise ops.bvh_traverse.STACK_DEPTH or rebalance the scene.")
+        arrays.update({
+            "bvh_min": bvh.aabb_min,
+            "bvh_max": bvh.aabb_max,
+            "bvh_left_first": bvh.left_first,
+            "bvh_prim_count": bvh.prim_count,
+        })
+    arrays.update({
         "centers": scene.centers,
         "radii": scene.radii,
         "mat_type": scene.mat_type,
         "albedo": scene.albedo,
         "fuzz": scene.fuzz,
         "refract_idx": scene.refract_idx,
-    }
+    })
     if triangles is not None and triangles.num_triangles > 0:
+        if config.intersector == "bvh":
+            v0 = np.asarray(triangles.v0)
+            verts = np.stack([v0, v0 + np.asarray(triangles.e1),
+                              v0 + np.asarray(triangles.e2)], axis=1)
+            tbvh, tperm = build_flat_bvh_aabb(verts.min(axis=1),
+                                              verts.max(axis=1))
+            tdepth = bvh_depth(tbvh)
+            if tdepth > STACK_DEPTH:
+                raise ValueError(
+                    f"triangle BVH depth {tdepth} exceeds the traversal "
+                    f"stack ({STACK_DEPTH})")
+            triangles = type(triangles)(*[np.asarray(t)[tperm]
+                                          for t in triangles])
+            arrays.update({
+                "tri_bvh_min": tbvh.aabb_min,
+                "tri_bvh_max": tbvh.aabb_max,
+                "tri_bvh_left_first": tbvh.left_first,
+                "tri_bvh_prim_count": tbvh.prim_count,
+            })
         arrays.update({
             "tri_v0": triangles.v0,
             "tri_e1": triangles.e1,
@@ -92,6 +156,9 @@ class RenderResult:
     wall_time_s: float
     mrays_per_s: float
     rays_traced: float = 0.0
+    # The fused engine's in-kernel counters (iterations, supers_entered,
+    # clusters_entered) when a stage timer is on; else None.
+    kernel_stats: Optional[dict] = None
     _accum_np: Optional[np.ndarray] = dataclasses.field(default=None,
                                                         repr=False)
 
@@ -112,13 +179,24 @@ class Renderer:
     """Progressive renderer with accumulation-restart semantics, on the
     CUDA card unless ``device`` names another (``device="cpu"`` runs the
     plain PyTorch versions).  ``triangles`` (a :class:`TriangleSoA`)
-    adds a mesh to the scene, as in the reference."""
+    adds a mesh to the scene, as in the reference.  ``stage_timer`` (a
+    ``utils.profiling.KernelTimer``) turns on stage observability: the
+    wavefront engine's per-stage wall times (its host-stepped loop,
+    ``models/wavefront.render_samples_staged``), or the fused engine's
+    in-kernel counters in ``RenderResult.kernel_stats``."""
 
     def __init__(self, scene: Scene, camera: CameraController,
-                 config: RenderConfig, triangles=None, *, device="cuda"):
+                 config: RenderConfig, triangles=None, *, device="cuda",
+                 stage_timer=None):
         self.device = resolve_device(device)
+        if (config.intersector == "bvh"
+                and config.engine in ("wavefront", "megakernel")
+                and off_cpu(self.device)):
+            warnings.warn(BVH_WARNING.format(engine=config.engine),
+                          RuntimeWarning, stacklevel=2)
         self.config = config
         self.camera = camera
+        self.stage_timer = stage_timer
         self._engine = get_engine(config.engine)
         self.scene_arrays = prepare_scene(scene, config, self.device,
                                           triangles)
@@ -169,14 +247,24 @@ class Renderer:
         # The frame salt stays fixed for a whole accumulation run; batches
         # differ by sample_base, so progressive and batched renders
         # accumulate identical samples.
-        rad, rays = self._engine.render_samples(
-            self.scene_arrays, cam, view, inv_proj, cfg, cfg.frame,
-            self.progress.accumulated_samples, n_samples)
+        args = (self.scene_arrays, cam, view, inv_proj, cfg, cfg.frame,
+                self.progress.accumulated_samples, n_samples)
+        kernel_stats = None
+        if self.stage_timer is not None and cfg.engine == "wavefront":
+            rad, rays = self._engine.render_samples_staged(
+                *args, timer=self.stage_timer)
+        elif self.stage_timer is not None and cfg.engine == "fused":
+            rad, rays, kernel_stats = self._engine.render_samples_with_stats(
+                *args)
+        else:
+            rad, rays = self._engine.render_samples(*args)
         # Not in place: earlier results keep views of their accumulator.
         self._accum = self._accum + rad
         self._sync()
         dt = time.perf_counter() - t0
         rays = float(rays)
+        if kernel_stats is not None:
+            kernel_stats = {k: float(v) for k, v in kernel_stats.items()}
 
         self.progress.accumulated_samples += n_samples
         self.progress.frame += 1
@@ -186,6 +274,7 @@ class Renderer:
             wall_time_s=dt,
             mrays_per_s=rays / dt / 1e6,
             rays_traced=rays,
+            kernel_stats=kernel_stats,
         )
         if cfg.stop_delta > 0.0:
             # Adaptive stop on the mean absolute display-image change per

@@ -4,9 +4,19 @@
 the reference package's modules of the same names (only the imports may
 differ); ``tests/test_torch_host.py``, ``tests/test_torch_mesh.py`` and
 ``tests/test_torch_textures.py`` hold them to byte-identical tables and
-equal camera matrices.
+equal camera matrices.  ``bvh.py`` is the copy of the reference's
+binned-SAH builder; ``tests/test_torch_bvh.py`` holds its tables and
+permutation byte-identical.
 """
 
+from wavefront_path_tracer_tpu_torch.scene.bvh import (  # noqa: F401
+    MAX_LEAF_SIZE,
+    FlatBVH,
+    build_bvh,
+    build_flat_bvh,
+    build_flat_bvh_aabb,
+    bvh_depth,
+)
 from wavefront_path_tracer_tpu_torch.scene.camera import (  # noqa: F401
     CameraController,
 )

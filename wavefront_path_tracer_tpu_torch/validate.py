@@ -31,12 +31,6 @@ import os
 import sys
 import time
 
-# Engines of the reference that this port refuses: name -> ROADMAP item.
-_REFUSED_ENGINES = {
-    "wavefront": "queue 1 item 8 (models/wavefront.py)",
-}
-
-
 def _oracle_meta(args) -> dict:
     meta = {
         "scene": args.scene, "width": args.width, "height": args.height,
@@ -71,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--spp", type=int, default=100)
     p.add_argument("--max-bounces", type=int, default=50)
     p.add_argument("--engine", default="fused",
-                   help="fused | megakernel (wavefront is not ported)")
+                   help="fused | megakernel | wavefront")
     p.add_argument("--intersector", default="baked")
     p.add_argument("--clusters", type=int, default=0)
     p.add_argument("--rr", type=int, default=0,
@@ -88,8 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--recluster", type=int, default=0,
                    help="fused: ray-coherence re-clustering segment length")
     p.add_argument("--material-split", action="store_true",
-                   help="wavefront: partition the shade queue by material "
-                        "(not ported)")
+                   help="wavefront: partition the shade queue by "
+                        "material")
     p.add_argument("--sampler", default="random",
                    help="AA sampler for the engine under test "
                         "(random | stratified)")
@@ -123,26 +117,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_args(args) -> None:
-    """Raise NotImplementedError for what this port does not carry."""
-    for engine in (args.engine, args.oracle_engine):
-        if engine in _REFUSED_ENGINES:
-            raise NotImplementedError(
-                f"engine {engine!r} is not ported yet (ROADMAP.md "
-                f"{_REFUSED_ENGINES[engine]}); use fused or megakernel")
-    if args.material_split:
-        raise NotImplementedError(
-            "--material-split belongs to the wavefront engine, which is "
-            "not ported yet (ROADMAP.md queue 1 item 8)")
-
-
 def run(argv=None) -> dict:
     """Parse and gate; returns {"row": the JSON line's dict, "test": the
     engine's RenderResult (None with --oracle-only), "oracle_image": the
-    oracle's display image}.  Raises NotImplementedError for refused
-    flags and ValueError for a golden artifact rendered otherwise."""
+    oracle's display image}.  Raises NotImplementedError for what the
+    port does not carry and ValueError for a golden artifact rendered
+    otherwise."""
     args = build_parser().parse_args(argv)
-    check_args(args)
 
     import numpy as np
 
@@ -207,7 +188,8 @@ def run(argv=None) -> dict:
         baked_clusters=args.clusters, rr_start_bounce=args.rr,
         rr_floor=args.rr_floor, winner_hint=args.winner_hint,
         lane_split=args.lane_split, lane_rotate_cols=args.rotate_cols,
-        recluster=args.recluster, sampler=args.sampler,
+        recluster=args.recluster, material_split=args.material_split,
+        sampler=args.sampler,
         **({} if args.tex_lut is None else {"tex_lut_max": args.tex_lut}),
         samples_per_frame=min(args.spp, 200)),
         device=resolve_device(args.test_device or args.device))
