@@ -135,8 +135,8 @@ Phases (all by default, in this order), each of which raises on failure
    and the serial runs' spread printed; both dynamic forms bit for bit
    with the plain version at 160x90@4spp on terrain, the knot,
    book_checker and the book with every sphere twice (exact ties); and
-   the warp-divergence count of the headline (16 image blocks of 32x32)
-   and of terrain_dynamic and knot50k_dynamic (4 blocks each, at 8 spp)
+   the warp-divergence count of the headline (8 image blocks of 32x32)
+   and of terrain_dynamic and knot50k_dynamic (4 blocks each, at 4 spp)
    from the plain version at the middle of each lane order, held to the
    kernel's counters over the same lanes;
 15. loop forms (``loop``): the two unculled kernels, the persistent
@@ -176,7 +176,7 @@ Phases (all by default, in this order), each of which raises on failure
    the port's megakernel and under 2e-3 against the TPU render; terrain
    and the knot cut to 5,000
    triangles, fused (baked/16 and dynamic/16 on terrain, dynamic/16 on
-   the knot) against the megakernel at 200x112@8spp, read with no gate;
+   the knot) against the megakernel at 200x112@2spp, read with no gate;
    and ``validate``'s cached-golden flow (baked/16 at 400x225@1000spp
    against ``golden/oracle_book_400x225_1000spp.npz``, < 1e-3);
 18. wavefront (``wavefront``): the wavefront engine (plain PyTorch, no
@@ -185,12 +185,31 @@ Phases (all by default, in this order), each of which raises on failure
    bounces, with brute force, ``ray_chunk=16384``, ``material_split`` and
    roulette from bounce 5; the BVH on both engines bit for bit with each
    other at 200x112@2spp, and wavefront/BVH against wavefront/brute force
-   by the parity rule there and on terrain (the triangle BVH); one BVH
+   by the parity rule there and on terrain (the triangle BVH) at
+   100x56@2spp; one BVH
    traversal of a 400x224 frame's primary rays with the unfinished lanes
    read back every 1, 8 (shipped) and 64 steps, bit for bit, each timed;
    one ``--stage-timing`` CLI run of the wavefront engine (400x224@2spp,
    a frame a sample) with the stage timer's averages; and the engine's
-   Mrays/s with brute force and with the BVH at 400x224@2spp.
+   Mrays/s with brute force and with the BVH at 400x224@2spp;
+19. bench (``bench``): ``python -m wavefront_path_tracer_tpu_torch.bench``
+   as a subprocess at its defaults (the headline, book_one_final
+   1920x1080@1000spp fused/baked/cull16, and the three mesh rows at
+   800x448): exit 0, a positive value and no error, all three mesh rows
+   without error, every row's launches in the shipped form and its
+   kernel launched, nonzero counters, every device_utilization at most
+   1.05; its JSON line is printed; then ``--all`` at 160x90@8spp (every
+   engine and intersector, exit 0, no configuration failed);
+20. app (``app``): an ``InteractiveSession`` on the card (book_one_final,
+   the CLI's view, 400x224, two samples a frame, the brute-force kernel)
+   stepping twice, then with a camera move (accumulation restarts), its
+   final image from the accumulator; the AOVs at 400x224@4spp on the card
+   against the AOVs on the CPU of the same scene by the parity rule; a
+   ``PreviewServer`` on 127.0.0.1 serving a frame rendered on the card
+   (``/frame.png`` decoded equal to the published image, ``/status.json``);
+   and ``--checkpoint`` at 2 spp then ``--resume`` to 4 through the CLI
+   on the headline path at 400x224, bit for bit with one uninterrupted
+   render of 4.
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -755,49 +774,14 @@ def phase_golden(device) -> dict:
     return out
 
 
-def _reset_launches():
-    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
-    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
-    from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
-
-    fk.LAUNCHES = 0
-    fk.WARP_LAUNCHES = 0
-    dk.LAUNCHES = 0
-    dk.COOP_LAUNCHES = 0
-    dk.SEGMENT_LAUNCHES = 0
-    dk.SEGMENT_COOP_LAUNCHES = 0
-    for counts in (bk.LAUNCHES, bk.COOP_LAUNCHES):
-        for key in counts:
-            counts[key] = 0
-
-
-def _read_launches() -> dict:
-    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
-    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
-    from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
-
-    return {"persistent": fk.LAUNCHES, "persistent_warp": fk.WARP_LAUNCHES,
-            **bk.LAUNCHES,
-            **{f"{k}_coop": v for k, v in bk.COOP_LAUNCHES.items()},
-            "dynculled": dk.LAUNCHES, "dynculled_coop": dk.COOP_LAUNCHES,
-            "segment_dynculled": dk.SEGMENT_LAUNCHES,
-            "segment_dynculled_coop": dk.SEGMENT_COOP_LAUNCHES}
-
-
-# The shipped form's launch count of each kernel that has forms.
-SHIPPED = {"persistent": "persistent_warp", "culled": "culled_coop",
-           "unculled": "unculled_coop", "dynculled": "dynculled_coop",
-           "segment_culled": "segment_culled_coop",
-           "segment_unculled": "segment_unculled_coop",
-           "segment_dynculled": "segment_dynculled_coop"}
-
-
-def _require_shipped(label: str, kind: str, launches: dict) -> None:
-    """Every launch of ``kind``'s kernel in the run was its shipped form."""
-    if kind in SHIPPED and launches[SHIPPED[kind]] != launches[kind]:
-        raise AssertionError(f"{label} launched the {kind} kernel in "
-                             f"another form than the shipped one: "
-                             f"{launches}")
+# The launch counts of every kernel wrapper, the shipped form's among
+# them, kept with the bench, which records the forms each row ran.
+from wavefront_path_tracer_tpu_torch.bench import (  # noqa: E402
+    SHIPPED,
+    read_launches as _read_launches,
+    require_shipped as _require_shipped,
+    reset_launches as _reset_launches,
+)
 
 
 def phase_main_paths(device, smi: str) -> dict:
@@ -2366,9 +2350,10 @@ def _ceiling_shares(record: dict) -> list:
 # frame's lane order: (image blocks of 32x32, samples a pixel).  The
 # dynamic rows' plain version (a rolled sweep of many small launches)
 # takes about 3 s a sample on the card whatever the window's width, so
-# terrain is counted at 8 of its 32 samples.
-DIVERGENCE_WINDOWS = {"headline": (16, MAIN_SPP), "terrain_dynamic": (4, 8),
-                      "knot50k_dynamic": (4, 8)}
+# both dynamic rows are counted at 4 samples (terrain runs 32, the knot
+# 8), and the headline over 8 blocks at its own 32.
+DIVERGENCE_WINDOWS = {"headline": (8, MAIN_SPP), "terrain_dynamic": (4, 4),
+                      "knot50k_dynamic": (4, 4)}
 
 
 def _sweep_cells(device) -> dict:
@@ -2867,7 +2852,7 @@ SAME_STREAM_ROWS = (
 # The mesh readings: fused against the megakernel at 200x112@8 spp (the
 # megakernel sweeps every triangle for every ray: 40 blocks of 128 a
 # bounce on terrain and on the cut-down knot).
-MESH_READ = (200, 112, 8)
+MESH_READ = (200, 112, 2)
 MESH_READ_ROWS = (
     ("terrain_baked", "terrain", {"intersector": "baked",
                                   "baked_clusters": 16}),
@@ -3040,6 +3025,7 @@ def phase_oracle(device, smi: str) -> dict:
 # the megakernel.
 WF_SIZE = (400, 224, 4)
 WF_BVH_SIZE = (200, 112, 2)
+WF_BVH_TERRAIN_SIZE = (100, 56, 2)
 WF_RATE_SIZE = (400, 224, 2)
 WF_CASES = (("bruteforce", {}), ("ray_chunk", {"ray_chunk": 16384}),
             ("material_split", {"material_split": True}),
@@ -3153,11 +3139,13 @@ def phase_wavefront(device, smi: str) -> dict:
 
     # The BVH on both engines, and against brute force.
     bw, bh, bspp = WF_BVH_SIZE
-    small = cfg.replace(width=bw, height=bh, samples_per_pixel=bspp,
-                        samples_per_frame=bspp)
+    sizes = {"book_one_final": WF_BVH_SIZE, "terrain": WF_BVH_TERRAIN_SIZE}
     renders = {}
     for label, scene_, tris, cam_ in (("book_one_final", scene, None, cam),
                                       ("terrain", *_terrain())):
+        sw, sh, sspp = sizes[label]
+        small = cfg.replace(width=sw, height=sh, samples_per_pixel=sspp,
+                            samples_per_frame=sspp)
         for engine, intersector in (("wavefront", "bvh"),
                                     ("wavefront", "bruteforce"),
                                     ("megakernel", "bvh")):
@@ -3176,9 +3164,10 @@ def phase_wavefront(device, smi: str) -> dict:
     for label in ("book_one_final", "terrain"):
         bvh = renders[label, "wavefront", "bvh"]
         brute = renders[label, "wavefront", "bruteforce"]
+        sw, sh, sspp = sizes[label]
         try:
-            rep = check_parity(bvh.accumulated / bspp,
-                               brute.accumulated / bspp, bvh.rays_traced,
+            rep = check_parity(bvh.accumulated / sspp,
+                               brute.accumulated / sspp, bvh.rays_traced,
                                brute.rays_traced)
         except AssertionError as exc:
             rep = {"failed": str(exc)}
@@ -3187,7 +3176,7 @@ def phase_wavefront(device, smi: str) -> dict:
                    bvh_mrays_per_s=bvh.mrays_per_s,
                    bruteforce_mrays_per_s=brute.mrays_per_s)
         out["parity"][label] = rep
-        log(f"[wavefront] {label} {bw}x{bh}@{bspp}spp wavefront bvh vs "
+        log(f"[wavefront] {label} {sw}x{sh}@{sspp}spp wavefront bvh vs "
             f"bruteforce: {rep}; bvh {bvh.seconds:.3f} s, bruteforce "
             f"{brute.seconds:.3f} s [{smi}]")
 
@@ -3231,9 +3220,248 @@ def phase_wavefront(device, smi: str) -> dict:
     return out
 
 
+# Phase bench: the port's bench as a user runs it, at its defaults, and
+# its sweep over every engine at a small size.
+BENCH_ALL = ("--all", "--width", "160", "--height", "90", "--spp", "8")
+BENCH_TIMEOUT = 600
+UTILIZATION_MAX = 1.05
+
+
+def _run_bench(argv) -> tuple:
+    """(exit code, the JSON line) of the bench run as a subprocess in its
+    own process group, which is killed whole if it outlasts
+    BENCH_TIMEOUT."""
+    import signal
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "wavefront_path_tracer_tpu_torch.bench",
+         *argv], cwd=ROOT, stdout=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"bench {argv} outlasted {BENCH_TIMEOUT} s")
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"bench {argv} printed no JSON line "
+                             f"(rc {proc.returncode})")
+    return proc.returncode, json.loads(lines[-1])
+
+
+def _bench_row_failures(label: str, row: dict, kind: str) -> list:
+    """What is wrong with one fused row of the bench's line."""
+    bad = []
+    forms = row.get("forms", {})
+    if not forms.get(kind) or forms.get(SHIPPED[kind]) != forms[kind]:
+        bad.append(f"{label}: forms {forms} (want {kind} launches, all "
+                   f"{SHIPPED[kind]})")
+    counters = row.get("counters", {})
+    for key in ("rays", "iterations", "clusters_entered"):
+        if not counters.get(key, 0) > 0:
+            bad.append(f"{label}: counter {key} = {counters.get(key)}")
+    util = row.get("device_utilization")
+    if util is None or not 0 < util <= UTILIZATION_MAX:
+        bad.append(f"{label}: device_utilization {util}")
+    if not (row.get("value") or 0) > 0:
+        bad.append(f"{label}: value {row.get('value')}")
+    return bad
+
+
+def phase_bench(device, smi: str) -> dict:
+    """Phase ``bench``: the bench at its defaults, then ``--all`` small."""
+    from wavefront_path_tracer_tpu_torch.bench import MESH_ROWS
+
+    t0 = time.perf_counter()
+    rc, line = _run_bench([])
+    seconds = time.perf_counter() - t0
+    log(f"[bench] {json.dumps(line)}")
+    log(f"[bench] default run: exit {rc} in {seconds:.1f} s [{smi}]")
+    failures = []
+    if rc != 0 or "error" in line:
+        failures.append(f"exit {rc}, error {line.get('error')}")
+    failures += _bench_row_failures("headline", line, "culled")
+    mesh = line.get("mesh", {})
+    for key, _scene, _w, _h, _spp, intersector in MESH_ROWS:
+        row = mesh.get(key)
+        if row is None or "error" in row:
+            failures.append(f"mesh row {key}: {row}")
+            continue
+        failures += _bench_row_failures(
+            key, row, "culled" if intersector == "baked" else "dynculled")
+    t0 = time.perf_counter()
+    rc_all, line_all = _run_bench(list(BENCH_ALL))
+    all_seconds = time.perf_counter() - t0
+    for row in line_all.get("all", []):
+        log(f"[bench] --all {row.get('config')}: "
+            + (f"FAILED {row['error']}" if "error" in row else
+               f"{row['mrays_per_s']:.3f} Mrays/s, {row['rays']:.0f} rays "
+               f"in {row['seconds']:.3f} s") + f" [{smi}]")
+    log(f"[bench] {' '.join(BENCH_ALL)}: exit {rc_all} in "
+        f"{all_seconds:.1f} s; best {line_all.get('metric')} "
+        f"{line_all.get('value')} [{smi}]")
+    rows = line_all.get("all", [])
+    if rc_all != 0 or len(rows) != 6 or any("error" in r for r in rows):
+        failures.append(f"--all: exit {rc_all}, rows {rows}")
+    if failures:
+        raise AssertionError("phase bench: " + "; ".join(failures))
+    return {"default": line, "seconds": seconds, "all": line_all,
+            "all_seconds": all_seconds}
+
+
+# Phase app: the interactive session, the AOVs, the live window and the
+# checkpoints on the card.
+APP_SIZE = (400, 224)
+
+
+def _http_get(port: int, path: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=10) as r:
+        return r.read()
+
+
+def phase_app(device, smi: str) -> dict:
+    """Phase ``app``: the session, the AOVs against the CPU's, a frame of
+    the card through the preview server, and checkpoint/resume."""
+    from wavefront_path_tracer_tpu_torch import cli
+    from wavefront_path_tracer_tpu_torch.aov import render_aovs
+    from wavefront_path_tracer_tpu_torch.app import (
+        InteractiveSession,
+        final_image,
+    )
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+    from wavefront_path_tracer_tpu_torch.utils.image import (
+        display_transform,
+        read_png,
+        to_u8,
+    )
+    from wavefront_path_tracer_tpu_torch.utils.parity import check_parity
+    from wavefront_path_tracer_tpu_torch.utils.preview_server import (
+        PreviewServer,
+    )
+
+    out, failures = {}, []
+    w, h = APP_SIZE
+    scene, _none, cam = _book()
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=8,
+                       samples_per_frame=2, max_bounces=50, engine="fused",
+                       intersector="bruteforce")
+
+    # The session: two frames, a camera move (accumulation restarts).
+    session = InteractiveSession(scene, cam, cfg, device=device)
+    session.step()                                     # warm-up
+    session.renderer.reset_accumulation()
+    _reset_launches()
+    samples = [session.step().samples, session.step().samples]
+    pos = session.camera.camera.position.copy()
+    session.key_event("w", True)
+    moved = session.step()
+    session.key_event("w", False)
+    launches = _read_launches()
+    samples.append(moved.samples)
+    image = final_image(session)
+    out["session"] = {"samples": samples, "launches": launches,
+                      "mrays_per_s": moved.mrays_per_s}
+    log(f"[app] session book_one_final {w}x{h}, 2 spp a frame: samples "
+        f"{samples} (a camera move restarts at 2), camera moved "
+        f"{not np.allclose(pos, session.camera.camera.position)}, "
+        f"{launches['persistent']} persistent launches, "
+        f"{moved.mrays_per_s:.1f} Mrays/s [{smi}]")
+    if samples != [2, 4, 2] or np.allclose(pos,
+                                           session.camera.camera.position):
+        failures.append(f"session samples {samples}")
+    if launches["persistent"] != 3:
+        failures.append(f"session launches {launches}")
+    _require_shipped("session", "persistent", launches)
+    if image is None or not np.isfinite(image).all() or image.shape != (
+            h, w, 3):
+        failures.append("session final image")
+
+    # The AOVs on the card against the CPU's.
+    aov_cfg = cfg.replace(samples_per_pixel=4, samples_per_frame=4)
+    t0 = time.perf_counter()
+    card = render_aovs(scene, cam, aov_cfg, device=device)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = render_aovs(scene, cam, aov_cfg, device="cpu")
+    host_s = time.perf_counter() - t0
+    out["aov"] = {"seconds": card_s, "cpu_seconds": host_s}
+    planes = {"albedo": (card["albedo"], host["albedo"]),
+              "normal": (card["normal"] * 0.5 + 0.5,
+                         host["normal"] * 0.5 + 0.5),
+              "coverage": (card["coverage"][..., None].repeat(3, -1),
+                           host["coverage"][..., None].repeat(3, -1))}
+    for name, (a, b) in planes.items():
+        try:
+            out["aov"][name] = check_parity(a, b)
+        except AssertionError as exc:
+            out["aov"][name] = {"failed": str(exc)}
+            failures.append(f"aov {name}: {exc}")
+    hit = (card["coverage"] > 0) & (host["coverage"] > 0)
+    depth_rel = float(np.max(np.abs(card["depth"][hit] - host["depth"][hit])
+                             / host["depth"][hit]))
+    out["aov"]["depth_max_rel"] = depth_rel
+    log(f"[app] AOVs book_one_final {w}x{h}@4spp on the card "
+        f"({card_s:.2f} s) against the CPU ({host_s:.2f} s): "
+        f"{json.dumps({k: out['aov'][k] for k in planes})}; depth max "
+        f"relative difference {depth_rel!r} [{smi}]")
+
+    # A frame of the card through the live window.
+    server = PreviewServer(port=0, host="127.0.0.1")
+    try:
+        res = session.renderer.render_frame() or moved
+        frame = display_transform(res.accumulated, res.samples)
+        server.publish(frame, samples=res.samples,
+                       target_spp=cfg.samples_per_pixel,
+                       mrays_per_s=res.mrays_per_s, fps=0.0, frame=1,
+                       done=False)
+        png = os.path.join(OUT_DIR, "smoke_app_served.png")
+        with open(png, "wb") as f:
+            f.write(_http_get(server.port, "/frame.png"))
+        status = json.loads(_http_get(server.port, "/status.json"))
+        served = np.array_equal(read_png(png), to_u8(frame))
+    finally:
+        server.close()
+    out["served"] = {"equal": served, "status": status}
+    log(f"[app] preview server 127.0.0.1:{server.port}: /frame.png of a "
+        f"card frame ({res.samples} spp) equal to the published image "
+        f"{served}; /status.json {json.dumps(status)} [{smi}]")
+    if not served or status["samples"] != res.samples:
+        failures.append("preview server frame or status")
+
+    # Checkpoint at 2 spp, resume to 4, against one render of 4.
+    ck = {n: os.path.join(OUT_DIR, f"smoke_app_{n}.npz")
+          for n in ("half", "resumed", "whole")}
+    base = ["--device", device.type, "--width", str(w), "--height", str(h),
+            "--spf", "1", "--max-bounces", "50", "--intersector", "baked",
+            "--clusters", "16", "--quiet",
+            "--out", os.path.join(OUT_DIR, "smoke_app_ckpt.png")]
+    cli.run(base + ["--spp", "2", "--checkpoint", ck["half"]])
+    _r, resumed = cli.run(base + ["--spp", "4", "--resume", ck["half"],
+                                  "--checkpoint", ck["resumed"]])
+    _r, whole = cli.run(base + ["--spp", "4", "--checkpoint", ck["whole"]])
+    same = (resumed.samples == whole.samples == 4 and np.array_equal(
+        resumed.accumulated.view(np.uint32),
+        whole.accumulated.view(np.uint32)) and np.array_equal(
+        np.load(ck["resumed"])["accumulated"].view(np.uint32),
+        np.load(ck["whole"])["accumulated"].view(np.uint32)))
+    out["checkpoint"] = {"bit_identical": same}
+    log(f"[app] --checkpoint at 2 spp, --resume to 4 (baked/16 "
+        f"{w}x{h}, a frame a sample): bit for bit with one render of 4 "
+        f"{same} [{smi}]")
+    if not same:
+        failures.append("checkpoint/resume differs from one render")
+    if failures:
+        raise AssertionError("phase app: " + "; ".join(failures))
+    return out
+
+
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull", "tex",
           "texfull", "seg", "segfull", "probes", "sweep", "loop",
-          "segform", "oracle", "wavefront")
+          "segform", "oracle", "wavefront", "bench", "app")
 
 
 def main(argv=None) -> int:
@@ -3275,7 +3503,9 @@ def main(argv=None) -> int:
              ("segform", "segform", lambda: phase_segform(device, smi)),
              ("oracle", "oracle", lambda: phase_oracle(device, smi)),
              ("wavefront", "wavefront",
-              lambda: phase_wavefront(device, smi)))
+              lambda: phase_wavefront(device, smi)),
+             ("bench", "bench", lambda: phase_bench(device, smi)),
+             ("app", "app", lambda: phase_app(device, smi)))
     for phase, key, run in steps:
         if phase in phases:
             t0 = time.perf_counter()

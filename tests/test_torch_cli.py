@@ -1,5 +1,7 @@
 """The port's command line on the CPU."""
 
+import io
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -127,15 +129,14 @@ def test_cli_recluster_writes_png(argv, tmp_path):
 
 SCENE_JSON = str(Path(__file__).resolve().parents[1] / "examples"
                  / "scene.json")
-# What still refuses: flags of later slices (naming their ROADMAP item),
-# and what the reference refuses itself: the BVH on the fused engine (its
-# cli.py:275-279), textures on the plain brute-force kernel (no clusters)
-# and the winner hint off the baked path (its models/fused.py:322-334),
-# and the hint without clusters (its RenderConfig).  A case whose refusal
-# is None was refused once and runs now.
+# What still refuses: what the reference refuses itself: the BVH on the
+# fused engine (its cli.py:275-279), textures on the plain brute-force
+# kernel (no clusters) and the winner hint off the baked path (its
+# models/fused.py:322-334), and the hint without clusters (its
+# RenderConfig).  A case whose refusal is None was refused once and runs
+# now.
 _HINT = (NotImplementedError, "intersector='baked'")
 _TEX = (NotImplementedError, "carries no texture")
-_LATER = (NotImplementedError, "ROADMAP")
 
 
 @pytest.mark.parametrize("argv,refusal", [
@@ -161,21 +162,33 @@ _LATER = (NotImplementedError, "ROADMAP")
     pytest.param(["--scene-file", SCENE_JSON], _TEX, id="scene-file_s.json"),
     pytest.param(["--tex-lut", "512", "--scene", "book_checker"], _TEX,
                  id="tex-lut_512"),
-    pytest.param(["--serve", "0"], _LATER, id="serve_0"),
-    pytest.param(["--interactive"], _LATER, id="interactive"),
-    pytest.param(["--aov", "out"], _LATER, id="aov_out"),
+    # Ported: the live window, the interactive session and the AOVs.
+    pytest.param(["--serve", "0"], None, id="serve_0"),
+    pytest.param(["--interactive"], None, id="interactive"),
+    pytest.param(["--aov", "out"], None, id="aov_out"),
     pytest.param(["--scene", "book_checker"], _TEX, id="scene_book_checker"),
 ])
-def test_cli_refusals(argv, refusal, tmp_path):
+def test_cli_refusals(argv, refusal, tmp_path, monkeypatch):
     out = tmp_path / "r.png"
     if refusal is None:
-        # Once refused, now runs: the flag at 8x8@1 spp.
+        # Once refused, now runs: the flag at 8x8@1 spp (the interactive
+        # session with no input renders to its budget and ends).
+        monkeypatch.chdir(tmp_path)
+        monkeypatch.setattr(sys, "stdin", io.StringIO(""))
         renderer, result = cli.run(["--device", "cpu", "--out", str(out),
                                     "--width", "8", "--height", "8",
                                     "--spp", "1", "--quiet", *argv])
         assert read_png(str(out)).shape == (8, 8, 3)
-        assert renderer.config.intersector == "bvh"
-        assert "bvh_min" in renderer.scene_arrays
+        if "--intersector" in argv:
+            assert renderer.config.intersector == "bvh"
+            assert "bvh_min" in renderer.scene_arrays
+        if "--aov" in argv:
+            assert read_png(str(tmp_path / "out.depth.png")).shape == (
+                8, 8, 3)
+        if "--interactive" in argv:
+            assert result is None
+            assert renderer.progress.accumulated_samples == 1
+            return
         assert result.rays_traced >= 64 and np.isfinite(result.image).all()
         return
     error, match = refusal
@@ -231,3 +244,104 @@ def test_default_camera_is_reference_camera():
     cc = cli.build_camera(cli.build_parser().parse_args([]))
     assert cc.vfov_deg == 20.0 and cc.defocus_angle_deg == 0.6
     assert cc.focus_distance == 10.0
+
+
+# --- the app layer's flags, held to the JAX CLI --------------------------
+
+APP = ["--scene", "book_cover", "--width", "16", "--height", "9",
+       "--max-bounces", "4", "--quiet"]
+
+
+@pytest.mark.parametrize("tonemap", ["gamma2", "reinhard", "aces"])
+def test_cli_tonemap_matches_jax(tonemap, tmp_path):
+    from wavefront_path_tracer_tpu.utils.image import (
+        display_transform,
+        to_u8,
+    )
+
+    out = tmp_path / "t.png"
+    renderer, result = cli.run(["--device", "cpu", *APP, "--spp", "2",
+                                "--tonemap", tonemap, "--out", str(out)])
+    expect = to_u8(display_transform(result.accumulated, result.samples,
+                                     tonemap))
+    np.testing.assert_array_equal(read_png(str(out)), expect)
+
+
+def test_cli_until_delta_stops_as_jax(tmp_path):
+    """The same image-change threshold stops both CLIs after the same
+    number of samples (the JAX CLI's count read from its checkpoint)."""
+    argv = [*APP, "--engine", "megakernel", "--spp", "16", "--spf", "1",
+            "--until-delta", "0.01"]
+    _renderer, result = cli.run(["--device", "cpu", *argv,
+                                 "--out", str(tmp_path / "p.png")])
+    ck = tmp_path / "j.npz"
+    assert jcli.main(argv + ["--checkpoint", str(ck), "--out",
+                             str(tmp_path / "j.png")]) == 0
+    assert 1 < result.samples < 16
+    assert result.samples == int(np.load(ck)["samples"])
+
+
+def test_cli_checkpoint_resume_bit_for_bit(tmp_path):
+    """Two samples with a checkpoint, then a resume to four, gives the
+    accumulator of one uninterrupted render of four, bit for bit; a
+    checkpoint of another size is refused, and one whose budget is met
+    renders nothing (exit 1)."""
+    base = ["--device", "cpu", *APP, "--spf", "1"]
+    one, two, whole = (str(tmp_path / f"{n}.npz")
+                       for n in ("one", "two", "whole"))
+    out = str(tmp_path / "o.png")
+    cli.run(base + ["--spp", "2", "--checkpoint", one, "--out", out])
+    renderer, result = cli.run(base + ["--spp", "4", "--resume", one,
+                                       "--checkpoint", two, "--out", out])
+    ref_renderer, ref = cli.run(base + ["--spp", "4", "--checkpoint", whole,
+                                        "--out", out])
+    assert result.samples == ref.samples == 4
+    np.testing.assert_array_equal(result.accumulated.view(np.uint32),
+                                  ref.accumulated.view(np.uint32))
+    a, b = np.load(two), np.load(whole)
+    np.testing.assert_array_equal(a["accumulated"].view(np.uint32),
+                                  b["accumulated"].view(np.uint32))
+    assert int(a["samples"]) == int(b["samples"]) == 4
+    assert int(a["frame"]) == int(b["frame"])
+    with pytest.raises(ValueError, match="refusing to blend"):
+        cli.run(["--device", "cpu", *APP, "--width", "32", "--spp", "4",
+                 "--resume", one, "--out", out])
+    assert cli.main(base + ["--spp", "4", "--resume", whole,
+                            "--out", out]) == 1
+
+
+def test_cli_preview_rewritten_each_frame(tmp_path, monkeypatch, capsys):
+    """--preview rewrites its PNG after every frame batch, beside an
+    auto-refresh page; --preview-term draws each frame in the terminal."""
+    from wavefront_path_tracer_tpu_torch.utils import image
+
+    prev = str(tmp_path / "prev.png")
+    writes = []
+    real = image.write_png
+
+    def spy(path, img):
+        writes.append(path)
+        real(path, img)
+
+    monkeypatch.setattr(image, "write_png", spy)
+    cli.run(["--device", "cpu", *APP, "--spp", "3", "--spf", "1",
+             "--preview", prev, "--preview-term",
+             "--out", str(tmp_path / "o.png")])
+    assert writes.count(prev) == 3
+    assert read_png(prev).shape == (9, 16, 3)
+    assert (tmp_path / "prev.html").exists()
+    assert capsys.readouterr().err.count("\x1b[H\x1b[2J") == 3
+
+
+def test_cli_platform_maps_to_device(tmp_path):
+    renderer, result = cli.run(["--platform", "cpu", "--device", "cuda",
+                                *APP, "--spp", "1",
+                                "--out", str(tmp_path / "o.png")])
+    assert renderer.device.type == "cpu" and result.samples == 1
+    for platform, device in (("gpu", "cuda"), ("cuda", "cuda"),
+                             ("cpu", "cpu")):
+        args = cli.build_parser().parse_args(["--platform", platform])
+        cli.check_args(args)
+        assert args.device == device
+    with pytest.raises(ValueError, match="'tpu' is not a platform"):
+        cli.main(["--platform", "tpu"])

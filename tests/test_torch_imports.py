@@ -38,6 +38,9 @@ def test_port_never_imports_jax():
             sys.modules[name] = None
         import torch
         torch.set_num_threads(1)
+        import wavefront_path_tracer_tpu_torch.aov
+        import wavefront_path_tracer_tpu_torch.app
+        import wavefront_path_tracer_tpu_torch.bench
         import wavefront_path_tracer_tpu_torch.cli
         import wavefront_path_tracer_tpu_torch.convert
         import wavefront_path_tracer_tpu_torch.models.megakernel
@@ -68,6 +71,8 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.probes.tripair
         import wavefront_path_tracer_tpu_torch.utils.image
         import wavefront_path_tracer_tpu_torch.utils.parity
+        import wavefront_path_tracer_tpu_torch.utils.preview
+        import wavefront_path_tracer_tpu_torch.utils.preview_server
         import wavefront_path_tracer_tpu_torch.utils.profiling
         import wavefront_path_tracer_tpu_torch.scene.bvh
         import wavefront_path_tracer_tpu_torch.validate
@@ -97,6 +102,13 @@ def test_port_never_imports_jax():
             res = render(book_cover(), cc, cfg.replace(**extra),
                          device="cpu")
             assert res.image.shape == (8, 8, 3)
+        from wavefront_path_tracer_tpu_torch.aov import render_aovs
+        from wavefront_path_tracer_tpu_torch.app import InteractiveSession
+        aovs = render_aovs(scene, cc, cfg.replace(engine="megakernel"), tris,
+                           spp=1, device="cpu")
+        assert aovs["depth"].shape == (8, 8)
+        session = InteractiveSession(book_cover(), cc, cfg, device="cpu")
+        assert session.step().samples == 1
         from wavefront_path_tracer_tpu_torch.probes import (
             bf16_issue, hbm_bw, matmul_r2, micro_r2, micro_slope,
             pair_ceiling, tripair)

@@ -1,20 +1,26 @@
 """Command-line renderer for the PyTorch port.
 
-A subset of ``python -m wavefront_path_tracer_tpu.cli``: the fused engine
-with the brute-force and the baked intersects (``--clusters N|auto``
-culls either: the baked sweep, or the dynamic culled sweep over runtime
-tables for brute force), the megakernel oracle (``--engine megakernel``)
-and the wavefront engine (``--engine wavefront``), both of which take
-brute force or the BVH (``--intersector bvh``) over every sphere and
-triangle, on sphere scenes, textured scenes
+Port of ``python -m wavefront_path_tracer_tpu.cli``, flag for flag: the
+fused engine with the brute-force and the baked intersects
+(``--clusters N|auto`` culls either: the baked sweep, or the dynamic
+culled sweep over runtime tables for brute force), the megakernel oracle
+(``--engine megakernel``) and the wavefront engine (``--engine
+wavefront``), both of which take brute force or the BVH (``--intersector
+bvh``) over every sphere and triangle, on sphere scenes, textured scenes
 (``--scene book_checker``, ``--scene-file``, ``--tex-lut``) and triangle
 meshes (``--scene mesh_demo|mesh_terrain``, ``--obj``), with the winner
 hint (``--winner-hint``) or the segmented re-clustering path
-(``--recluster K``), on a torch device.  ``--stage-timing`` reports the
-wavefront engine's per-stage times or the fused engine's in-kernel
-counters each frame; ``--profile-dir`` writes a ``torch.profiler`` trace
-of the first frame.  Flags of the reference CLI that this port does not
-carry yet are refused with the ROADMAP.md item that will bring them.
+(``--recluster K``), on a torch device (``--device``, or ``--platform``
+as the reference names it).  ``--stage-timing`` reports the wavefront
+engine's per-stage times or the fused engine's in-kernel counters each
+frame; ``--profile-dir`` writes a ``torch.profiler`` trace of the first
+frame.  The app layer: ``--tonemap``, ``--until-delta``, ``--preview``
+(a PNG rewritten every frame, with an auto-refresh page beside it),
+``--preview-term``, ``--serve PORT`` (a live window over HTTP,
+``utils/preview_server.py``), ``--interactive`` (``app.py``), ``--aov``
+(``aov.py``), ``--checkpoint`` and ``--resume``.  The accumulator stays
+on the device; a frame that is shown, served or saved is copied to the
+host once.
 
 Example (the headline configuration)::
 
@@ -26,17 +32,14 @@ Example (the headline configuration)::
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
 import numpy as np
 
-# Reference-CLI flags this slice refuses: flag -> (dest, ROADMAP item).
-_REFUSED = {
-    "--serve": ("serve", "queue 1 item 9 (preview server)"),
-    "--interactive": ("interactive", "queue 1 item 9 (app layer)"),
-    "--aov": ("aov", "queue 1 item 9 (aov.py)"),
-}
+# --platform (the reference's JAX platform flag) -> torch device type.
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -112,8 +115,46 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--defocus-angle", type=float, default=None)
     p.add_argument("--focus-distance", default=None,
                    help="thin-lens focus distance, or 'auto'")
+    p.add_argument("--tonemap", default="gamma2",
+                   choices=("gamma2", "reinhard", "aces"),
+                   help="display transform of every image written: gamma2 "
+                        "(the reference's display pass), or reinhard/aces "
+                        "(then the same gamma-2 encode)")
     p.add_argument("--out", default="render.png")
+    p.add_argument("--until-delta", type=float, default=0.0, metavar="D",
+                   help="stop early once the display image changes by less "
+                        "than D (mean abs per channel) between frame "
+                        "batches; --spp stays the hard cap")
+    p.add_argument("--aov", default=None, metavar="PREFIX",
+                   help="also write first-hit AOV passes (albedo / normal / "
+                        "depth + raw npz) as PREFIX.*.png, at min(spp, 16) "
+                        "samples")
+    p.add_argument("--preview", default=None, metavar="PNG",
+                   help="rewrite this PNG after every frame batch and write "
+                        "an auto-refresh HTML viewer next to it")
+    p.add_argument("--preview-term", action="store_true",
+                   help="draw the converging image in the terminal (24-bit "
+                        "ANSI half-blocks) after every frame")
+    p.add_argument("--serve", type=int, default=None, metavar="PORT",
+                   help="serve a live render window over HTTP (frames "
+                        "pushed as they converge; 0 picks a free port); "
+                        "with --interactive the page's keyboard steers the "
+                        "camera")
+    p.add_argument("--serve-host", default="127.0.0.1", metavar="ADDR",
+                   help="bind address for --serve (default loopback: the "
+                        "endpoints carry no auth)")
+    p.add_argument("--interactive", action="store_true",
+                   help="live watch-and-steer session: renders "
+                        "continuously, w/a/s/d q/e move and i/k/j/l look "
+                        "between frame batches with accumulation restart")
+    p.add_argument("--checkpoint", default=None,
+                   help="npz accumulation checkpoint to write each frame")
+    p.add_argument("--resume", default=None,
+                   help="npz checkpoint to resume accumulation from")
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--platform", default=None,
+                   help="the reference's platform flag: cpu renders on the "
+                        "CPU, gpu or cuda on the card (overrides --device)")
     p.add_argument("--stage-timing", action="store_true",
                    help="per-stage observability, as the reference's "
                         "per-sample us report (path_tracer.rs:364): "
@@ -124,20 +165,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace (CPU and CUDA "
                         "activity, Chrome format) of the first frame into "
                         "this directory")
-    # Refused: parsed so the refusal can name what will bring them.
-    p.add_argument("--serve", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--interactive", action="store_true", default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--aov", default=None, help=argparse.SUPPRESS)
     return p
 
 
 def check_args(args) -> None:
-    """Raise NotImplementedError for what this slice does not carry."""
-    for flag, (dest, item) in _REFUSED.items():
-        if getattr(args, dest) is not None:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md {item})")
+    """Resolve ``--platform`` into ``args.device``; raise for a platform
+    this port has not and for what the reference itself refuses."""
+    if args.platform is not None:
+        if args.platform not in PLATFORMS:
+            raise ValueError(
+                f"--platform {args.platform!r} is not a platform of this "
+                f"port: {', '.join(PLATFORMS)}")
+        args.device = PLATFORMS[args.platform]
     if args.engine == "fused" and args.intersector == "bvh":
         # The reference's own refusal (its cli.py:275-279).
         raise NotImplementedError(
@@ -252,20 +291,15 @@ def build_scene(args):
 
 def run(argv=None):
     """Parse, render and write the PNG; returns (renderer, last result).
-    Raises NotImplementedError for refused flags."""
+    The result is None when nothing was rendered (a resumed checkpoint
+    that already met the spp budget).  Raises NotImplementedError for
+    what the reference refuses too."""
     args = build_parser().parse_args(argv)
     check_args(args)
 
     from wavefront_path_tracer_tpu_torch.renderer import Renderer
     from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
-    from wavefront_path_tracer_tpu_torch.utils.image import (
-        display_transform,
-        write_png,
-    )
-    from wavefront_path_tracer_tpu_torch.utils.profiling import (
-        KernelTimer,
-        trace_to,
-    )
+    from wavefront_path_tracer_tpu_torch.utils.profiling import KernelTimer
 
     scene, triangles, file_cam = build_scene(args)
     intersector, clusters, notes = resolve_intersector(
@@ -284,17 +318,104 @@ def run(argv=None):
         block_tiles=args.block_tiles, winner_hint=args.winner_hint,
         recluster=args.recluster, sampler=args.sampler,
         rr_start_bounce=args.rr, rr_floor=args.rr_floor, clamp=args.clamp,
-        **overrides,
+        stop_delta=args.until_delta, **overrides,
     )
-    stage_timer = None
-    if args.stage_timing:
-        if cfg.engine == "megakernel":
-            print("note: --stage-timing reports on the wavefront and fused "
-                  "engines only", file=sys.stderr)
-        else:
-            stage_timer = KernelTimer()
-    renderer = Renderer(scene, build_camera(args, file_cam), cfg, triangles,
-                        device=args.device, stage_timer=stage_timer)
+    camera = build_camera(args, file_cam)
+    server = None
+    if args.serve is not None:
+        from wavefront_path_tracer_tpu_torch.utils.preview_server import (
+            PreviewServer,
+        )
+
+        server = PreviewServer(port=args.serve, host=args.serve_host)
+        if not args.quiet:
+            print(f"live render window: http://localhost:{server.port}/",
+                  file=sys.stderr)
+    if args.preview:
+        from wavefront_path_tracer_tpu_torch.utils.preview import (
+            write_preview_html,
+        )
+
+        html = write_preview_html(args.preview)
+        if not args.quiet:
+            print(f"live preview: open {html}", file=sys.stderr)
+    try:
+        if args.interactive:
+            return _run_interactive(args, scene, triangles, camera, cfg,
+                                    server)
+        stage_timer = None
+        if args.stage_timing:
+            if cfg.engine == "megakernel":
+                print("note: --stage-timing reports on the wavefront and "
+                      "fused engines only", file=sys.stderr)
+            else:
+                stage_timer = KernelTimer()
+        renderer = Renderer(scene, camera, cfg, triangles,
+                            device=args.device, stage_timer=stage_timer)
+        result = _render_loop(args, renderer, server)
+        if result is not None and args.aov:
+            from wavefront_path_tracer_tpu_torch.aov import (
+                render_aovs,
+                write_aovs,
+            )
+
+            paths = write_aovs(args.aov, render_aovs(
+                scene, camera, cfg, triangles,
+                spp=min(cfg.samples_per_pixel, 16), frame=cfg.frame,
+                scene_arrays=renderer.scene_arrays))
+            if not args.quiet:
+                print(f"wrote AOVs: {', '.join(paths)}", file=sys.stderr)
+        return renderer, result
+    finally:
+        if server is not None:
+            server.close()
+
+
+def _checkpoint_meta(args, cfg) -> dict:
+    """What a checkpoint must match to be resumed (the reference CLI's
+    metadata guard, its cli.py:395-410): a scene file by absolute path,
+    so that --resume cannot blend checkpoints of another user scene."""
+    return {
+        "width": cfg.width, "height": cfg.height,
+        "scene": (f"file:{os.path.abspath(args.scene_file)}"
+                  if args.scene_file else args.scene),
+        "engine": cfg.engine, "frame": cfg.frame,
+    }
+
+
+def _render_loop(args, renderer, server):
+    """The progressive frame loop: every frame batch goes to the preview
+    PNG, the live window, the terminal and the checkpoint as asked; the
+    final image to ``--out``.  Returns the last result, or None when the
+    budget was already met."""
+    import torch
+
+    from wavefront_path_tracer_tpu_torch.utils.image import (
+        display_transform,
+        load_checkpoint,
+        save_checkpoint,
+        write_png,
+    )
+    from wavefront_path_tracer_tpu_torch.utils.preview import (
+        term_preview_frame,
+    )
+    from wavefront_path_tracer_tpu_torch.utils.profiling import (
+        FramesPerSecond,
+        trace_to,
+    )
+
+    cfg = renderer.config
+    meta = _checkpoint_meta(args, cfg)
+    if args.resume:
+        acc, samples, frame = load_checkpoint(args.resume, expect_meta=meta)
+        renderer._accum = torch.from_numpy(np.ascontiguousarray(
+            acc.reshape(-1, 3), np.float32)).to(renderer.device)
+        renderer.progress.accumulated_samples = samples
+        renderer.progress.frame = frame
+        if not args.quiet:
+            print(f"resumed at {samples} spp", file=sys.stderr)
+    stage_timer = renderer.stage_timer
+    fps = FramesPerSecond()
     t_start = time.perf_counter()
     rays = 0.0
     busy = 0.0
@@ -310,11 +431,30 @@ def run(argv=None):
         if r is None:
             break
         result = r
+        fps.update()
         rays += r.rays_traced
         busy += r.wall_time_s
+        status = (f"{r.samples}/{cfg.samples_per_pixel} spp  "
+                  f"{r.mrays_per_s:8.1f} Mrays/s")
+        if args.preview or server is not None or args.preview_term:
+            # r.accumulated: the frame's one copy to the host.
+            image = display_transform(r.accumulated, r.samples, args.tonemap)
+            if args.preview:
+                write_png(args.preview, image)
+            if server is not None:
+                server.publish(image, samples=r.samples,
+                               target_spp=cfg.samples_per_pixel,
+                               mrays_per_s=r.mrays_per_s,
+                               fps=fps.get_avg_fps(),
+                               frame=renderer.progress.frame, done=False)
+            if args.preview_term:
+                term_preview_frame(image, status)
+        if args.checkpoint:
+            save_checkpoint(args.checkpoint, r.accumulated.reshape(-1, 3),
+                            renderer.progress.accumulated_samples,
+                            renderer.progress.frame, meta=meta)
         if not args.quiet:
-            print(f"{r.samples}/{cfg.samples_per_pixel} spp  "
-                  f"{r.mrays_per_s:8.1f} Mrays/s", file=sys.stderr)
+            print(status, file=sys.stderr)
             if stage_timer is not None and stage_timer.averages_us():
                 print(f"         kernels: {stage_timer.report()}",
                       file=sys.stderr)
@@ -322,8 +462,18 @@ def run(argv=None):
                 print(f"         fused: {kernel_counters(r)}",
                       file=sys.stderr)
     if result is None:
-        raise ValueError("nothing to render: --spp must be positive")
-    write_png(args.out, display_transform(result.accumulated, result.samples))
+        print("nothing to render (SPP budget already met)", file=sys.stderr)
+        return None
+    final = display_transform(result.accumulated, result.samples,
+                              args.tonemap)
+    write_png(args.out, final)
+    if server is not None:
+        # Final present: open viewer tabs show "done" before the exit.
+        server.publish(final, samples=result.samples,
+                       target_spp=cfg.samples_per_pixel,
+                       mrays_per_s=result.mrays_per_s,
+                       fps=fps.get_avg_fps(),
+                       frame=renderer.progress.frame, done=True)
     if not args.quiet:
         total = time.perf_counter() - t_start
         print(f"wrote {args.out}: {cfg.width}x{cfg.height} @ "
@@ -340,7 +490,35 @@ def run(argv=None):
                   "not ported, by decision (ROADMAP.md queue 1 item 11); "
                   "its in-kernel counters were reported per frame above",
                   file=sys.stderr)
-    return renderer, result
+    return result
+
+
+def _run_interactive(args, scene, triangles, camera, cfg, server):
+    """``--interactive``: the live session (``app.interactive_loop``),
+    then the final image from the accumulator to ``--out``."""
+    from wavefront_path_tracer_tpu_torch.app import (
+        InteractiveSession,
+        final_image,
+        interactive_loop,
+    )
+    from wavefront_path_tracer_tpu_torch.utils.image import write_png
+
+    session = InteractiveSession(scene, camera, cfg, triangles,
+                                 device=args.device)
+    interactive_loop(session, out_png=args.preview or args.out,
+                     show_term=args.preview_term or None,
+                     publish=server.publish if server else None,
+                     key_source=server.pop_keys if server else None,
+                     tonemap=args.tonemap)
+    final = final_image(session, args.tonemap)
+    if final is not None:
+        samples = session.renderer.progress.accumulated_samples
+        write_png(args.out, final)
+        if server:
+            server.publish(final, samples=samples, done=True)
+        if not args.quiet:
+            print(f"wrote {args.out} @ {samples} spp", file=sys.stderr)
+    return session.renderer, None
 
 
 def kernel_counters(result) -> str:
@@ -357,8 +535,11 @@ def kernel_counters(result) -> str:
 
 
 def main(argv=None) -> int:
-    run(argv)
-    return 0
+    """Exit code: 0, or 1 when nothing was rendered (a resumed
+    checkpoint that already met the spp budget), as the reference."""
+    args = build_parser().parse_args(argv)
+    renderer, result = run(argv)
+    return 1 if result is None and not args.interactive else 0
 
 
 if __name__ == "__main__":
