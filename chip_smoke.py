@@ -2,8 +2,18 @@
 
     python3 chip_smoke.py [--phases NAME,...]
 
-Phases (all by default, in this order), each of which raises on failure
-(nonzero exit):
+Phases (all by default), each of which raises on failure (nonzero exit).
+They run in this order, but for the phases that time nothing: with more
+than one phase to run, the book's cases of kernels vs plain (3) run
+here, while its mesh cases, meshplain (8), textures (9), segments (11),
+the two halves of oracle (17) and the bench's ``--all`` (19) run beside
+them, each in a process of its own (``--phases NAME [--part PART]``
+with its own ``--record`` and ``--plain-out``, whose plain results the
+later phases reuse), and the timed phases start only when all of them
+have ended, so that no timed phase shares the card.  Every child process dies with
+this script (``PR_SET_PDEATHSIG``); one that outlasts its time is
+killed with the processes below it, and so is whatever is left below
+this script when it ends or receives SIGTERM.
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles the CUDA kernels from ``csrc/`` with nvcc, one process
@@ -51,11 +61,13 @@ Phases (all by default, in this order), each of which raises on failure
    statistical rule; then the rays of a terrain frame at 800x448@1spp
    (the dynamic culled plain version) that are parallel to an axis and
    start on a face plane of one of its boxes, counted;
-8. mesh full size (``meshfull``): the mesh kernels checked bit for bit at
-   the mesh rows' planes (800x448, 1 spp): dynamic culled on terrain and
-   on the knot, baked culled/16 and unculled on terrain, with kernel and
-   plain times and the bound; and each mesh kernel's time at its row's
-   samples per lane beside its bound;
+8. mesh full size (``meshfull``): at the mesh rows' planes (800x448, 1
+   spp), dynamic culled on terrain checked bit for bit with kernel and
+   plain times and the bound, and dynamic culled on the knot, baked
+   culled/16 and unculled on terrain with their kernel times and bounds;
+   and each mesh kernel's time at its row's samples per lane beside its
+   bound.  Phase ``meshplain`` checks those three bit for bit against
+   their plain versions there, untimed;
 9. textures (``tex``): the textured kernels against their plain versions,
    bit for bit, at 160x90@4spp with padding lanes, 50 bounces: book_checker
    (a checker ground and an image sphere on book_one_final's spheres)
@@ -135,8 +147,9 @@ Phases (all by default, in this order), each of which raises on failure
    and the serial runs' spread printed; both dynamic forms bit for bit
    with the plain version at 160x90@4spp on terrain, the knot,
    book_checker and the book with every sphere twice (exact ties); and
-   the warp-divergence count of the headline (8 image blocks of 32x32)
-   and of terrain_dynamic and knot50k_dynamic (4 blocks each, at 4 spp)
+   the warp-divergence count of the headline (4 image blocks of 32x32
+   at 8 spp) and of terrain_dynamic and knot50k_dynamic (4 blocks each,
+   at 2 spp)
    from the plain version at the middle of each lane order, held to the
    kernel's counters over the same lanes;
 15. loop forms (``loop``): the two unculled kernels, the persistent
@@ -209,7 +222,24 @@ Phases (all by default, in this order), each of which raises on failure
    (``/frame.png`` decoded equal to the published image, ``/status.json``);
    and ``--checkpoint`` at 2 spp then ``--resume`` to 4 through the CLI
    on the headline path at 400x224, bit for bit with one uninterrupted
-   render of 4.
+   render of 4;
+21. multi (``multi``): ``parallel/`` on the card.  The headline
+   (1920x1080@32spp, 50 bounces, fused/baked/cull16, block_tiles 32)
+   through ``render_samples_sharded`` over a 4x1 mesh, bit for bit with
+   ``render_samples`` on cuda:0, and over 2x2 within rtol 1e-5, atol 1e-6;
+   terrain_dynamic (800x448@32spp, dynamic/16) over 4x1 and the headline
+   at recluster 2 over 2x1, bit for bit; each with equal rays, its kernel
+   launched in the shipped form (counts read alone), and timed in turns
+   against the one-device render, and without recluster each kernel
+   launch also timed alone by CUDA events (a mesh takes distinct cards
+   where the machine has two or more, else cuda:0 for each entry);
+   ``dryrun_multichip`` over four entries of cuda:0, its five passes
+   against one-device renders, while two ``parallel.dryrun --worker``
+   processes over gloo sharing cuda:0 and one over NCCL in a world of one
+   run beside it, each band and the gathered image bit for bit (every
+   child under a timeout); more NCCL ranks than cards refused; and the
+   bench with ``--mesh 1x1`` at its defaults: exit 0 and the rays of
+   phase bench's headline.
 
 The last two lines of standard output are a JSON object describing the
 kernels and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -221,8 +251,10 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -325,6 +357,86 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# Child processes.  Each starts through _DIE_WITH_PARENT, which asks the
+# kernel to kill it when this script dies (PR_SET_PDEATHSIG) and then
+# runs the command in its place; it stays in this script's process
+# group, and its output goes to a file under OUT_DIR.  A child that
+# outlasts its time is killed with every process below it, and so is
+# whatever is left below this script when it ends or is terminated.
+_DIE_WITH_PARENT = (
+    "import ctypes, os, signal, sys\n"
+    "ctypes.CDLL(None).prctl(1, signal.SIGKILL)\n"
+    "if os.getppid() != int(sys.argv[1]):\n"
+    "    sys.exit('the script that started this process has ended')\n"
+    "os.execv(sys.executable, [sys.executable] + sys.argv[2:])\n")
+
+
+class Child:
+    """``python argv`` started from the checkout as a child process."""
+
+    def __init__(self, argv, label: str):
+        self.label = label
+        self.path = os.path.join(
+            OUT_DIR, "child_" + "".join(c if c.isalnum() else "_"
+                                        for c in label) + ".log")
+        self._out = open(self.path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _DIE_WITH_PARENT, str(os.getpid()),
+             *argv], cwd=ROOT, stdout=self._out, stderr=subprocess.STDOUT)
+        self.ended = None
+        self._reaper = threading.Thread(target=self._reap, daemon=True)
+        self._reaper.start()
+
+    def _reap(self) -> None:
+        self.proc.wait()
+        self.ended = time.perf_counter()
+
+    def wait(self, timeout: float) -> tuple:
+        """(exit code, output, seconds from its start to its end); killed
+        with its descendants if it outlasts ``timeout`` seconds from now."""
+        self._reaper.join(max(1.0, timeout))
+        note = ""
+        if self._reaper.is_alive():
+            _kill_tree(self.proc.pid)
+            self._reaper.join()
+            note = f"\n({self.label}: killed after {timeout:.0f} s)"
+        self._out.close()
+        with open(self.path) as f:
+            text = f.read() + note
+        return self.proc.returncode, text, self.ended - self.t0
+
+
+def _kill_tree(pid: int, spare_root: bool = False) -> None:
+    """SIGKILL every process below ``pid``, and ``pid`` itself unless
+    ``spare_root``."""
+    below = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        below.setdefault(ppid, []).append(int(entry))
+    tree, todo = [], list(below.get(pid, []))
+    while todo:
+        p = todo.pop()
+        tree.append(p)
+        todo += below.get(p, [])
+    for p in tree + ([] if spare_root else [pid]):
+        try:
+            os.kill(p, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+
+
+def _on_sigterm(signum, _frame) -> None:
+    _kill_tree(os.getpid(), spare_root=True)
+    os._exit(128 + signum)
+
+
 def phase_device() -> tuple[str, str]:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -418,9 +530,29 @@ def _time_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
+# The plain versions' results of the cases checked so far, by their
+# inputs (``Case.key``): the sweep and loop phases hold their forms to the
+# result of an earlier phase's plain run of the same inputs instead of
+# running it again (the dynamic plain version takes seconds a sample).
+_PLAIN_OUT: dict = {}
+
+
+def _scene_digest(host: dict) -> str:
+    """A fingerprint of a scene's host tables that is the same in every
+    process (the tables' own ``key`` is Python's salted ``hash``)."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for name in sorted(k for k in host if k != "key"):
+        digest.update(name.encode()
+                      + np.ascontiguousarray(host[name]).tobytes())
+    return digest.hexdigest()
+
+
 class Case:
     """One kernel's inputs at one shape, built as models/fused.py builds
-    them, with the kernel, its plain version and its launch counter."""
+    them, with the kernel, its plain version and its launch counter;
+    ``key`` names every input of the plain version."""
 
     def __init__(self, kind, clusters, scene, cc, width, height, spp, split,
                  kw, device, triangles=None, winner_hint=False,
@@ -451,6 +583,9 @@ class Case:
             cc.inverse_projection(width, height), cfg)).to(device)
         salts = (0, 0, 50, spp // split)
         self.salts, self.cam = salts, cam
+        self.key = (kind, _scene_digest(arrays["host_scene"]), clusters,
+                    winner_hint, lut_max, width, height, spp, split,
+                    tuple(sorted(kw.items())), cam.cpu().numpy().tobytes())
         eye = fused._concrete_eye(cc.view_matrix())
         if kind == "persistent":
             table = arrays["scene_packed"]
@@ -599,13 +734,17 @@ def _check(label, case, reps: int = 0) -> dict:
     torch.cuda.synchronize()
     if case.launches() != before + 1:
         raise AssertionError(f"{label}: the wrapper did not count its launch")
-    textures.EVENTS.update(checker=0, image=0)
-    plain_ms, p = _time_ms(case.plain, 1)
+    if not reps and case.key in _PLAIN_OUT:
+        p = _PLAIN_OUT[case.key]          # untimed: its time is not read
+    else:
+        textures.EVENTS.update(checker=0, image=0)
+        plain_ms, p = _time_ms(case.plain, 1)
+        _PLAIN_OUT[case.key] = p
+        if case.textured:
+            rays = max(p[3].tolist()[0], 1)
+            case.tex_events = (textures.EVENTS["checker"] / rays,
+                               textures.EVENTS["image"] / rays)
     stats_k, stats_p = k[3].tolist(), p[3].tolist()
-    if case.textured:
-        rays = max(stats_p[0], 1)
-        case.tex_events = (textures.EVENTS["checker"] / rays,
-                           textures.EVENTS["image"] / rays)
     bit_exact = stats_k == stats_p and all(
         torch.equal(a.view(torch.int32), b.view(torch.int32))
         for a, b in zip(k[:3], p[:3]))
@@ -635,7 +774,11 @@ def _smoke_scene():
             build_camera(build_parser().parse_args([])))
 
 
-def phase_kernel_vs_plain(device) -> list[dict]:
+def phase_kernel_vs_plain(device, part=None) -> list[dict]:
+    """Phase 3: the book's cases (``part`` "book"), then the mesh cases
+    (``part`` "mesh"); both when ``part`` is None."""
+    if part == "mesh":
+        return phase_mesh_vs_plain(device)
     scene, cc = _smoke_scene()
     opts = {"rr_start": 3, "clamp": 0.5, "sampler": "stratified"}
     cases = [
@@ -660,7 +803,7 @@ def phase_kernel_vs_plain(device) -> list[dict]:
     case = Case("culled", 16, _doubled(scene), cc, 160, 90, 4, 1, {}, device)
     out.append(_check("culled16 book_one_final doubled 160x90@4spp (exact "
                       "ties)", case))
-    return out + phase_mesh_vs_plain(device)
+    return out if part == "book" else out + phase_mesh_vs_plain(device)
 
 
 def _book():
@@ -1017,28 +1160,46 @@ def _face_rays(device, smi: str) -> dict:
     return counts
 
 
+def _mesh_specs() -> list:
+    """(kind, clusters, scene name, (scene, triangles, camera), the row's
+    samples a pixel) of each mesh kernel at the mesh rows' planes; the
+    first is the kernels line's dynamic culled case."""
+    terrain = _terrain()
+    return [("dynculled", 16, "terrain", terrain, 32),
+            ("dynculled", 16, "knot50k", _knot(), 8),
+            ("culled", 16, "terrain", terrain, 32),
+            ("unculled", 0, "terrain", terrain, 32)]
+
+
 def phase_mesh_full_size(device, smi: str) -> dict:
-    """The mesh kernels bit for bit against their plain versions at the
-    mesh rows' planes (1 spp), with times and bounds; then each at its
-    row's samples per lane beside its bound."""
-    terrain, tris, cc = _terrain()
-    knot, knot_tris, knot_cc = _knot()
+    """The kernels line's mesh case (dynamic culled on terrain) bit for
+    bit against its plain version at the mesh rows' planes (1 spp), with
+    times and bound; the other mesh kernels' times and bounds there (their
+    checks: phase meshplain); then each at its row's samples per lane
+    beside its bound."""
     w, h = MESH_SIZE
-    specs = [("dynculled", 16, "terrain", (terrain, tris, cc), 32),
-             ("dynculled", 16, "knot50k", (knot, knot_tris, knot_cc), 8),
-             ("culled", 16, "terrain", (terrain, tris, cc), 32),
-             ("unculled", 0, "terrain", (terrain, tris, cc), 32)]
-    checks, timed = [], []
-    for kind, clusters, scene_name, (scene, t, cam), row_spp in specs:
+    checks, plain_elsewhere, timed = [], [], []
+    for i, (kind, clusters, scene_name, (scene, t, cam), row_spp) in (
+            enumerate(_mesh_specs())):
         case = Case(kind, clusters, scene, cam, w, h, 1, 1, {}, device,
                     triangles=t)
-        rep = _check(f"{kind} {scene_name} {w}x{h}@1spp default", case,
-                     reps=3)
+        label = f"{kind} {scene_name} {w}x{h}@1spp default"
+        if i == 0:
+            rep = _check(label, case, reps=3)
+            plain = f"plain {rep['plain_ms']!r} ms"
+            checks.append(rep)
+        else:
+            case.kernel()                              # warm-up
+            ms, res = _time_ms(case.kernel, 3)
+            stats = res[3].tolist()
+            rep = {"case": label, "kernel": kind, "kernel_ms": ms,
+                   "stats_kernel": stats, **case.bound(stats)}
+            plain = "plain version in phase meshplain, untimed"
+            plain_elsewhere.append(rep)
         rep["scene"] = scene_name
         log(f"[timing] {kind} {w}x{h}@1spp {scene_name}, 50 bounces: kernel "
-            f"{rep['kernel_ms']!r} ms, plain {rep['plain_ms']!r} ms, bound "
+            f"{rep['kernel_ms']!r} ms, {plain}, bound "
             f"{rep['bound_ms']!r} ms ({rep['bound_by']}) [{smi}]")
-        checks.append(rep)
         case = Case(kind, clusters, scene, cam, w, h, row_spp, 1, {}, device,
                     triangles=t)
         ms, res = _time_ms(case.kernel, 1)
@@ -1055,7 +1216,24 @@ def phase_mesh_full_size(device, smi: str) -> dict:
             f"clusters {stats[3]} ({trep['clusters_per_ray']:.4f} per ray), "
             f"{stats[0] / ms / 1e3:.2f} Mrays/s [{smi}]")
         timed.append(trep)
-    return {"checks": checks, "timed": timed}
+    return {"checks": checks, "kernel_1spp": plain_elsewhere, "timed": timed}
+
+
+def phase_mesh_plain(device) -> list[dict]:
+    """The other mesh kernels of phase meshfull (dynamic culled on the
+    knot, baked culled/16 and unculled on terrain) bit for bit against
+    their plain versions at the mesh rows' planes (800x448, 1 spp),
+    untimed."""
+    w, h = MESH_SIZE
+    out = []
+    for kind, clusters, scene_name, (scene, t, cam), _spp in (
+            _mesh_specs()[1:]):
+        case = Case(kind, clusters, scene, cam, w, h, 1, 1, {}, device,
+                    triangles=t)
+        rep = _check(f"{kind} {scene_name} {w}x{h}@1spp default", case)
+        rep["scene"] = scene_name
+        out.append(rep)
+    return out
 
 
 TEX_OPTS = {"rr_start": 3, "clamp": 0.5, "sampler": "stratified"}
@@ -2350,10 +2528,12 @@ def _ceiling_shares(record: dict) -> list:
 # frame's lane order: (image blocks of 32x32, samples a pixel).  The
 # dynamic rows' plain version (a rolled sweep of many small launches)
 # takes about 3 s a sample on the card whatever the window's width, so
-# both dynamic rows are counted at 4 samples (terrain runs 32, the knot
-# 8), and the headline over 8 blocks at its own 32.
-DIVERGENCE_WINDOWS = {"headline": (8, MAIN_SPP), "terrain_dynamic": (4, 4),
-                      "knot50k_dynamic": (4, 4)}
+# both dynamic rows are counted at 2 samples (terrain runs 32, the knot
+# 8), and the headline over 4 blocks at 8 (its plain version's time goes
+# with the samples; cut so that the whole smoke stays inside its time
+# limit).
+DIVERGENCE_WINDOWS = {"headline": (4, 8), "terrain_dynamic": (4, 2),
+                      "knot50k_dynamic": (4, 2)}
 
 
 def _sweep_cells(device) -> dict:
@@ -2499,17 +2679,17 @@ def _divergences(cells: dict, device, smi: str) -> dict:
     out = {}
     for name, (blocks, spp) in DIVERGENCE_WINDOWS.items():
         case = cells[name]
+        w, h = ((MAIN_WIDTH, MAIN_HEIGHT) if name == "headline"
+                else MESH_SIZE)
         if spp != case.spp:
-            scene, tris, cc = {"terrain_dynamic": _terrain,
+            scene, tris, cc = {"headline": _book, "terrain_dynamic": _terrain,
                                "knot50k_dynamic": _knot}[name]()
-            case = Case(case.kind, 16, scene, cc, *MESH_SIZE, spp, 1, {},
-                        device, triangles=tris)
+            case = Case(case.kind, 16, scene, cc, w, h, spp, 1, {}, device,
+                        triangles=tris)
         lanes = blocks * 1024
         lo = case.planes[0].numel() // 2 // 1024 * 1024 - lanes // 2
         window = [p.reshape(-1)[lo:lo + lanes].reshape(-1, 128)
                   for p in case.planes]
-        w, h = ((MAIN_WIDTH, MAIN_HEIGHT) if name == "headline"
-                else MESH_SIZE)
         out[name] = _divergence(
             f"{name} {w}x{h}@{case.spp}spp", case,
             case.tab if case.kind == "dynculled" else case.baked, window,
@@ -2625,7 +2805,9 @@ def _loop_vs_plain(device) -> list[dict]:
     for kind, name, scene, t, cam, w, h, spp in specs:
         case = Case(kind, 0, scene, cam, w, h, spp, 1, {}, device,
                     triangles=t)
-        p = case.plain()
+        p = _PLAIN_OUT.get(case.key)
+        if p is None:
+            p = _PLAIN_OUT[case.key] = case.plain()
         forms = _loop_forms(case)
         same = {f: _same_render(_loop_launch(case, form), p)
                 for f, form in forms.items()}
@@ -2882,28 +3064,62 @@ def _validate(argv) -> dict:
     return out
 
 
-def phase_oracle(device, smi: str) -> dict:
+def phase_oracle(device, smi: str, part=None) -> dict:
     """Phase 17 (``oracle``): the port's megakernel against the TPU's
     same-stream oracle, the same-stream rows, the mesh readings and the
-    cached-golden validate flow; every failure is raised at the end."""
-    from wavefront_path_tracer_tpu_torch.renderer import Renderer
-    from wavefront_path_tracer_tpu_torch.scene import knot_camera, knot_scene
-    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
-    from wavefront_path_tracer_tpu_torch.utils.image import rmse
-
+    cached-golden validate flow; every failure is raised at the end.
+    ``part`` "tpu": the oracle, the rows on its scene and sampler,
+    wavefront_matsplit and the cached-golden flow; "scenes": the rows
+    that have an oracle of their own (stratified, book_bubble,
+    book_checker) and the mesh readings; both when None."""
     failures = []
     out = {"rows": {}, "mesh": {}}
     # The TPU's readings of the rows, printed beside the card's.
     with open(os.path.join(ROOT, "golden", "GATE_SWEEP.json")) as f:
         tpu = {r["name"]: r["rmse"] for r in json.load(f)["rows"]}
+    run_tpu, run_scenes = part in (None, "tpu"), part in (None, "scenes")
     caches = {}
-    for name in ("book_one_final", "book_one_final_stratified",
-                 "book_bubble", "book_checker"):
+    for name in ((("book_one_final",) if run_tpu else ()) + ((
+            "book_one_final_stratified", "book_bubble", "book_checker")
+            if run_scenes else ())):
         caches[name] = os.path.join(OUT_DIR, f"oracle_cuda_{name}.npz")
         if os.path.exists(caches[name]):
             os.remove(caches[name])
+    if run_tpu:
+        _oracle_tpu(out, caches, failures, smi)
+    for name, flags, gate in SAME_STREAM_ROWS:
+        scene = flags[1] if flags[0] == "--scene" else "book_one_final"
+        key = scene + ("_stratified" if "stratified" in flags else "")
+        if key in caches:
+            _oracle_row(out, caches[key], name, flags, gate, tpu, failures,
+                        smi)
+    if run_tpu:
+        _oracle_matsplit(out, caches, tpu, failures, smi)
+    if run_scenes:
+        _oracle_mesh(out, device, smi)
+    if run_tpu:
+        # validate's cached-golden flow.
+        res = _validate(("--spp", "1000", "--engine", "fused",
+                         "--intersector", "baked", "--clusters", "16",
+                         "--oracle-cache", GOLDEN))
+        out["golden"] = {**res["row"], "seconds": res["seconds"]}
+        log(f"[oracle] validate cached golden: {json.dumps(res['row'])} in "
+            f"{res['seconds']:.2f} s [{smi}]")
+        if not res["row"]["pass"]:
+            failures.append(f"golden RMSE {res['row']['rmse']} >= 1e-3")
+    shares = [r["diverged_share"] for name, r in out["rows"].items()
+              if name != "wavefront_matsplit"]
+    log(f"[oracle] F4: diverged share of the fused rows against the "
+        f"megakernel at 50 bounces, 64 spp: {min(shares)!r} to "
+        f"{max(shares)!r} [{smi}]")
+    if failures:
+        raise AssertionError("phase oracle: " + "; ".join(failures))
+    return out
 
-    # The oracle itself, against the JAX megakernel's TPU render.
+
+def _oracle_tpu(out, caches, failures, smi) -> None:
+    """The oracle itself, against the JAX megakernel's TPU render; its
+    render becomes the oracle of the rows on its scene and sampler."""
     res = _validate(SS_SIZE + ("--engine", "megakernel", "--intersector",
                                "bruteforce", "--oracle-cache", ORACLE_TPU,
                                "--gate", repr(ORACLE_GATE)))
@@ -2920,30 +3136,35 @@ def phase_oracle(device, smi: str) -> dict:
         f"({test.mrays_per_s:.2f} Mrays/s) [{smi}]")
     if not row["pass"]:
         failures.append(f"oracle RMSE {row['rmse']} >= {ORACLE_GATE}")
-    # Its render is the oracle of the rows on the same scene and sampler
-    # (validate's metadata is the TPU artifact's).
+    # validate's metadata is the TPU artifact's.
     np.savez_compressed(caches["book_one_final"], image=test.image,
                         meta=np.load(ORACLE_TPU)["meta"],
                         platform=np.asarray("cuda"))
 
-    for name, flags, gate in SAME_STREAM_ROWS:
-        scene = flags[1] if flags[0] == "--scene" else "book_one_final"
-        key = scene + ("_stratified" if "stratified" in flags else "")
-        res = _validate(SS_SIZE + flags + (
-            "--engine", "fused", "--gate", repr(gate), "--oracle-spf", "64",
-            "--oracle-cache", caches[key]))
-        row, test = res["row"], res["test"]
-        agree = _agreement(test, res["oracle_image"])
-        out["rows"][name] = {**row, "seconds": res["seconds"], **agree}
-        log(f"[oracle] {name}: {row['engine']} on {row['scene']} "
-            f"{row['config']} against {row['oracle']}: display RMSE "
-            f"{row['rmse']!r} (gate {gate}; TPU "
-            f"{tpu[name]!r}), diverged share "
-            f"{agree['diverged_share']!r}, |mean diff| "
-            f"{agree['mean_diff']!r}; {res['seconds']:.2f} s with the "
-            f"oracle's render where not cached [{smi}]")
-        if not row["pass"]:
-            failures.append(f"{name}: RMSE {row['rmse']} >= {gate}")
+
+def _oracle_row(out, cache, name, flags, gate, tpu, failures, smi) -> None:
+    """One same-stream row against the card's megakernel (rendered into
+    ``cache`` where it is not there yet)."""
+    res = _validate(SS_SIZE + flags + (
+        "--engine", "fused", "--gate", repr(gate), "--oracle-spf", "64",
+        "--oracle-cache", cache))
+    row, test = res["row"], res["test"]
+    agree = _agreement(test, res["oracle_image"])
+    out["rows"][name] = {**row, "seconds": res["seconds"], **agree}
+    log(f"[oracle] {name}: {row['engine']} on {row['scene']} "
+        f"{row['config']} against {row['oracle']}: display RMSE "
+        f"{row['rmse']!r} (gate {gate}; TPU "
+        f"{tpu[name]!r}), diverged share "
+        f"{agree['diverged_share']!r}, |mean diff| "
+        f"{agree['mean_diff']!r}; {res['seconds']:.2f} s with the "
+        f"oracle's render where not cached [{smi}]")
+    if not row["pass"]:
+        failures.append(f"{name}: RMSE {row['rmse']} >= {gate}")
+
+
+def _oracle_matsplit(out, caches, tpu, failures, smi) -> None:
+    """wavefront_matsplit against the card's megakernel and the TPU's."""
+    from wavefront_path_tracer_tpu_torch.utils.image import rmse
 
     # wavefront_matsplit: the wavefront engine with material_split holds
     # the megakernel's streams and arithmetic, so it must read 0.0 against
@@ -2971,7 +3192,14 @@ def phase_oracle(device, smi: str) -> dict:
         failures.append(f"wavefront_matsplit: RMSE {tpu_rmse} >= "
                         f"{ORACLE_GATE} against the TPU megakernel")
 
-    # The mesh rows' scenes, fused against the megakernel: readings.
+
+def _oracle_mesh(out, device, smi) -> None:
+    """The mesh rows' scenes, fused against the megakernel: readings."""
+    from wavefront_path_tracer_tpu_torch.renderer import Renderer
+    from wavefront_path_tracer_tpu_torch.scene import knot_camera, knot_scene
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+    from wavefront_path_tracer_tpu_torch.utils.image import rmse
+
     w, h, spp = MESH_READ
     scenes = {"terrain": _terrain(),
               "knot5k": knot_scene(5000) + (knot_camera(),)}
@@ -3001,23 +3229,6 @@ def phase_oracle(device, smi: str) -> dict:
             f"diverged share {agree['diverged_share']!r}, |mean diff| "
             f"{agree['mean_diff']!r}, rays {test.rays_traced:.0f} against "
             f"{oracle.rays_traced:.0f} (no gate) [{smi}]")
-
-    # validate's cached-golden flow.
-    res = _validate(("--spp", "1000", "--engine", "fused", "--intersector",
-                     "baked", "--clusters", "16", "--oracle-cache", GOLDEN))
-    out["golden"] = {**res["row"], "seconds": res["seconds"]}
-    log(f"[oracle] validate cached golden: {json.dumps(res['row'])} in "
-        f"{res['seconds']:.2f} s [{smi}]")
-    if not res["row"]["pass"]:
-        failures.append(f"golden RMSE {res['row']['rmse']} >= 1e-3")
-    shares = [r["diverged_share"] for name, r in out["rows"].items()
-              if name != "wavefront_matsplit"]
-    log(f"[oracle] F4: diverged share of the fused rows against the "
-        f"megakernel at 50 bounces, 64 spp: {min(shares)!r} to "
-        f"{max(shares)!r} [{smi}]")
-    if failures:
-        raise AssertionError("phase oracle: " + "; ".join(failures))
-    return out
 
 
 # Phase wavefront: the wavefront engine and the BVH (plain PyTorch on the
@@ -3227,27 +3438,28 @@ BENCH_TIMEOUT = 600
 UTILIZATION_MAX = 1.05
 
 
-def _run_bench(argv) -> tuple:
-    """(exit code, the JSON line) of the bench run as a subprocess in its
-    own process group, which is killed whole if it outlasts
-    BENCH_TIMEOUT."""
-    import signal
+def _start_bench(argv) -> Child:
+    return Child(["-m", "wavefront_path_tracer_tpu_torch.bench", *argv],
+                 "bench " + " ".join(argv))
 
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "wavefront_path_tracer_tpu_torch.bench",
-         *argv], cwd=ROOT, stdout=subprocess.PIPE, text=True,
-        start_new_session=True)
-    try:
-        out, _ = proc.communicate(timeout=BENCH_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise AssertionError(f"bench {argv} outlasted {BENCH_TIMEOUT} s")
-    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+
+def _bench_result(child: Child) -> tuple:
+    """(exit code, the JSON line, seconds) of a bench child, which is
+    killed with its worker if it outlasts BENCH_TIMEOUT; its other lines
+    go to standard error."""
+    rc, text, seconds = child.wait(BENCH_TIMEOUT)
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    sys.stderr.write("".join(ln + "\n" for ln in text.splitlines()
+                             if not ln.startswith("{")))
+    sys.stderr.flush()
     if not lines:
-        raise AssertionError(f"bench {argv} printed no JSON line "
-                             f"(rc {proc.returncode})")
-    return proc.returncode, json.loads(lines[-1])
+        raise AssertionError(f"{child.label} printed no JSON line (rc {rc})")
+    return rc, json.loads(lines[-1]), seconds
+
+
+def _run_bench(argv) -> tuple:
+    """(exit code, the JSON line, seconds) of the bench run as a child."""
+    return _bench_result(_start_bench(argv))
 
 
 def _bench_row_failures(label: str, row: dict, kind: str) -> list:
@@ -3269,13 +3481,12 @@ def _bench_row_failures(label: str, row: dict, kind: str) -> list:
     return bad
 
 
-def phase_bench(device, smi: str) -> dict:
-    """Phase ``bench``: the bench at its defaults, then ``--all`` small."""
+def phase_bench(device, smi: str, all_child: Child | None = None) -> dict:
+    """Phase ``bench``: the bench at its defaults, then ``--all`` small
+    (``all_child``: that run, started beside the first phases)."""
     from wavefront_path_tracer_tpu_torch.bench import MESH_ROWS
 
-    t0 = time.perf_counter()
-    rc, line = _run_bench([])
-    seconds = time.perf_counter() - t0
+    rc, line, seconds = _run_bench([])
     log(f"[bench] {json.dumps(line)}")
     log(f"[bench] default run: exit {rc} in {seconds:.1f} s [{smi}]")
     failures = []
@@ -3290,16 +3501,16 @@ def phase_bench(device, smi: str) -> dict:
             continue
         failures += _bench_row_failures(
             key, row, "culled" if intersector == "baked" else "dynculled")
-    t0 = time.perf_counter()
-    rc_all, line_all = _run_bench(list(BENCH_ALL))
-    all_seconds = time.perf_counter() - t0
+    beside = "" if all_child is None else ", beside the first phases"
+    rc_all, line_all, all_seconds = _bench_result(
+        all_child or _start_bench(list(BENCH_ALL)))
     for row in line_all.get("all", []):
         log(f"[bench] --all {row.get('config')}: "
             + (f"FAILED {row['error']}" if "error" in row else
                f"{row['mrays_per_s']:.3f} Mrays/s, {row['rays']:.0f} rays "
-               f"in {row['seconds']:.3f} s") + f" [{smi}]")
+               f"in {row['seconds']:.3f} s") + f"{beside} [{smi}]")
     log(f"[bench] {' '.join(BENCH_ALL)}: exit {rc_all} in "
-        f"{all_seconds:.1f} s; best {line_all.get('metric')} "
+        f"{all_seconds:.1f} s{beside}; best {line_all.get('metric')} "
         f"{line_all.get('value')} [{smi}]")
     rows = line_all.get("all", [])
     if rc_all != 0 or len(rows) != 6 or any("error" in r for r in rows):
@@ -3459,9 +3670,323 @@ def phase_app(device, smi: str) -> dict:
     return out
 
 
-PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull", "tex",
-          "texfull", "seg", "segfull", "probes", "sweep", "loop",
-          "segform", "oracle", "wavefront", "bench", "app")
+# Phase multi: the sharded and multi-process paths (parallel/) on the card.
+MULTI_TIMEOUT = 300        # seconds a child process may take
+MULTI_TURNS = ("one", "mesh", "mesh", "one")
+
+
+def _multi_mesh_devices(n: int) -> list:
+    """n entries of a mesh: distinct cards where the machine has two or
+    more (card i % count), else cuda:0 n times."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def _sync_cards() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _shard_kernel_ms(arrays, cam, cfg, tiles: int, samples: int) -> tuple:
+    """(ms of the one-device render's kernel launch, ms of the mesh's
+    launches summed) of a fused render without recluster: each launch
+    through ``fused.launch_planes``, the call that ``render_pixels``
+    makes, with its lane split, timed alone by CUDA events on planes and
+    a camera built beforehand, so that no host work falls between the
+    events."""
+    from wavefront_path_tracer_tpu_torch.models import fused
+
+    view = cam.view_matrix()
+    inv_proj = cam.inverse_projection(cfg.width, cfg.height)
+    tables = fused.scene_tables(cfg, arrays, view)
+    device = arrays["centers"].device
+    cam_params = torch.from_numpy(fused.camera_params(
+        cam.gpu_camera(), view, inv_proj, cfg)).to(device)
+    perm, _inv = fused._block_perm(cfg.width, cfg.height, cfg.block_tiles)
+    perm = torch.from_numpy(perm.astype(np.int64)).to(device)
+
+    def timed(idx, base: int, n: int) -> float:
+        split = fused._effective_split(cfg.lane_split, n)
+        planes = fused.lane_planes(idx, cfg.width, cfg.tile_rows, split,
+                                   n // split)
+        return _time_ms(lambda: fused.launch_planes(
+            planes, arrays, cam_params, cfg, 0, base, n // split,
+            **tables), 1)[0]
+
+    spp = cfg.samples_per_pixel
+    per_tile, per_shard = perm.numel() // tiles, spp // samples
+    one = timed(perm, 0, spp)
+    mesh = sum(timed(perm[t * per_tile:(t + 1) * per_tile], s * per_shard,
+                     per_shard)
+               for t in range(tiles) for s in range(samples))
+    return one, mesh
+
+
+def _multi_case(device, label, scene, tris, cam, cfg, tiles, samples,
+                kind, smi) -> dict:
+    """One sharded render against the one-device render on ``device``: a
+    warm-up of each, then both in turns (one, mesh, mesh, one), host
+    clock between synchronisations of every card, the launch counts of
+    the first mesh turn read alone; without recluster, the kernels'
+    launches also timed alone (:func:`_shard_kernel_ms`).  Bit for bit
+    with one sample shard, within rtol 1e-5, atol 1e-6 otherwise; equal
+    rays."""
+    from wavefront_path_tracer_tpu_torch.models import fused
+    from wavefront_path_tracer_tpu_torch.parallel import (
+        make_mesh,
+        render_samples_sharded,
+    )
+    from wavefront_path_tracer_tpu_torch.renderer import prepare_scene
+
+    arrays = prepare_scene(scene, cfg, device, tris)
+    mesh = make_mesh(tiles * samples, sample_axis=samples,
+                     devices=_multi_mesh_devices(tiles * samples))
+    args = (cam.gpu_camera(), cam.view_matrix(),
+            cam.inverse_projection(cfg.width, cfg.height), cfg, 0, 0,
+            cfg.samples_per_pixel)
+    runs = {"one": lambda: fused.render_samples(arrays, *args),
+            "mesh": lambda: render_samples_sharded(mesh, arrays, *args)}
+    out, seconds, launches = {}, {"one": [], "mesh": []}, None
+    for which in ("one", "mesh"):
+        runs[which]()
+    for which in MULTI_TURNS:
+        _sync_cards()
+        if which == "mesh" and launches is None:
+            _reset_launches()
+        t0 = time.perf_counter()
+        rad, rays = runs[which]()
+        _sync_cards()
+        seconds[which].append(time.perf_counter() - t0)
+        if which == "mesh" and launches is None:
+            launches = _read_launches()
+        out[which] = (rad.cpu().numpy(), int(rays))
+    kernel_ms = (None, None) if cfg.recluster else _shard_kernel_ms(
+        arrays, cam, cfg, tiles, samples)
+    (one, one_rays), (sharded, rays) = out["one"], out["mesh"]
+    bits = samples == 1
+    same = (np.array_equal(one.view(np.uint32), sharded.view(np.uint32))
+            if bits else np.allclose(sharded, one, rtol=1e-5, atol=1e-6))
+    rec = {"case": label, "mesh": mesh.shape,
+           "devices": [str(d) for d in mesh.distinct_devices()],
+           "bit_for_bit": bits, "agrees": bool(same), "rays": rays,
+           "one_device_rays": one_rays,
+           "max_abs_err": float(np.abs(sharded - one).max()),
+           "launches": launches[kind], "shipped": launches[SHIPPED[kind]],
+           "seconds": seconds["mesh"], "one_device_seconds": seconds["one"],
+           "kernel_ms": kernel_ms[1], "one_device_kernel_ms": kernel_ms[0]}
+    kernels = ("" if cfg.recluster else
+               f"; kernel launches alone: mesh {kernel_ms[1]!r} ms, one "
+               f"device {kernel_ms[0]!r} ms")
+    log(f"[multi] {label} over {tiles}x{samples} on {rec['devices']}: "
+        f"{'bit for bit' if bits else 'within rtol 1e-5, atol 1e-6'} "
+        f"{same}, max abs err {rec['max_abs_err']!r}, rays {rays} "
+        f"(one device {one_rays}); {kind} launches {launches[kind]} "
+        f"({SHIPPED[kind]} {launches[SHIPPED[kind]]}); seconds mesh "
+        f"{seconds['mesh']!r}, one device {seconds['one']!r}{kernels} "
+        f"[{smi}]")
+    return rec
+
+
+def _wait_children(children) -> dict:
+    """Each child's (exit code, output); every child is waited for, and
+    one that outlasts MULTI_TIMEOUT (counted from now) is killed."""
+    deadline = time.monotonic() + MULTI_TIMEOUT
+    out = {}
+    for child in children:
+        rc, text, _seconds = child.wait(deadline - time.monotonic())
+        out[child.label] = (rc, text)
+    return out
+
+
+def phase_multi(device, smi: str, bench_line: dict | None) -> dict:
+    """Phase ``multi``: the headline, terrain_dynamic and the segmented
+    headline sharded over meshes against one-device renders; the dry
+    run's five passes over four entries of cuda:0; two worker processes
+    over gloo on cuda:0 and a world of one over NCCL; NCCL's refusal of
+    more ranks than cards; and the bench with ``--mesh 1x1``."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from wavefront_path_tracer_tpu_torch.parallel import multihost
+    from wavefront_path_tracer_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+    )
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+
+    failures = []
+    count = torch.cuda.device_count()
+    log(f"[multi] {count} card(s): meshes take "
+        + ("distinct cards, card i % count" if count >= 2 else
+           "cuda:0 for every entry") + f" [{smi}]")
+    head = RenderConfig(width=MAIN_WIDTH, height=MAIN_HEIGHT,
+                        samples_per_pixel=MAIN_SPP,
+                        samples_per_frame=MAIN_SPP, max_bounces=50,
+                        engine="fused", intersector="baked",
+                        baked_clusters=16, block_tiles=32)
+    terrain = head.replace(width=MESH_SIZE[0], height=MESH_SIZE[1],
+                           intersector="bruteforce")
+    book, ter = _book(), _terrain()
+    cases = []
+    for label, (scene, tris, cam), cfg, tiles, samples, kind in (
+            ("headline", book, head, 4, 1, "culled"),
+            ("headline", book, head, 2, 2, "culled"),
+            ("terrain_dynamic", ter, terrain, 4, 1, "dynculled"),
+            ("headline recluster 2", book, head.replace(recluster=2), 2, 1,
+             "segment_culled")):
+        rec = _multi_case(device, label, scene, tris, cam, cfg, tiles,
+                          samples, kind, smi)
+        cases.append(rec)
+        if not (rec["agrees"] and rec["rays"] == rec["one_device_rays"]
+                and rec["launches"] > 0
+                and rec["shipped"] == rec["launches"]):
+            failures.append(f"{label} {tiles}x{samples}: {rec}")
+
+    # Two ranks over gloo sharing the card, and a world of one over NCCL,
+    # as child processes while the dry run runs here.
+    init_dir = tempfile.mkdtemp(prefix="multi_init_", dir=OUT_DIR)
+    worker = ["-m", "wavefront_path_tracer_tpu_torch.parallel.dryrun",
+              "--worker"]
+    t0 = time.perf_counter()
+    started = [Child(
+        worker + [str(r), f"file://{init_dir}/gloo", "--backend", "gloo",
+                  "--device", device.type], f"gloo rank {r}")
+        for r in (0, 1)]
+    started.append(Child(
+        worker + ["0", f"file://{init_dir}/nccl", "--world-size", "1",
+                  "--backend", "nccl", "--device", device.type],
+        "nccl rank 0"))
+    try:
+        passes = dryrun_multichip(4, devices=[device] * 4)
+        dry_seconds = time.perf_counter() - t0
+    finally:
+        children = _wait_children(started)
+    children_seconds = time.perf_counter() - t0
+    log(f"[multi] dryrun_multichip(4, [{device}] x 4): {len(passes)} passes "
+        f"in {dry_seconds:.1f} s, beside the child processes [{smi}]")
+    for label, (rc, text) in children.items():
+        rank = label.split()[-1]
+        for line in text.splitlines():
+            if line.startswith(f"process {rank}:"):
+                log(f"[multi] {label.split()[0]}: {line}")
+        if (rc != 0 or f"process {rank}: OK" not in text
+                or f"process {rank}: default mesh on {device}" not in text):
+            failures.append(f"{label}: exit {rc}\n{text[-4000:]}")
+    log(f"[multi] two gloo ranks on {device} and a world of one over NCCL, "
+        f"at once: {children_seconds:.1f} s (process start included) "
+        f"[{smi}]")
+    # NCCL takes a card a rank: more ranks than cards must raise.
+    ranks = count + 1
+    try:
+        multihost.initialize(f"file://{init_dir}/refused", ranks, 0, "nccl")
+        failures.append(f"{ranks} NCCL ranks on {count} card(s) were not "
+                        "refused")
+        dist.destroy_process_group()
+    except RuntimeError as e:
+        log(f"[multi] {ranks} NCCL ranks on {count} card(s) refused: {e}")
+    finally:
+        shutil.rmtree(init_dir, ignore_errors=True)
+
+    if bench_line is None:
+        _rc, bench_line, _s = _run_bench(["--no-mesh-row"])
+    rc, mesh_line, bench_seconds = _run_bench(["--mesh", "1x1"])
+    head_rays = bench_line.get("counters", {}).get("rays")
+    mesh_rays = mesh_line.get("counters", {}).get("rays")
+    log(f"[multi] bench --mesh 1x1: exit {rc}, {mesh_line.get('metric')} "
+        f"{mesh_line.get('value')} Mrays/s, {mesh_rays} rays, in "
+        f"{bench_seconds:.1f} s; the bench phase's headline "
+        f"{bench_line.get('value')} Mrays/s, {head_rays} rays [{smi}]")
+    if (rc != 0 or "error" in mesh_line or not head_rays
+            or mesh_rays != head_rays
+            or not mesh_line.get("metric", "").endswith(
+                "/mesh1x1, book_one_final)")):
+        failures.append(f"bench --mesh 1x1: exit {rc}, {mesh_line}")
+    if failures:
+        raise AssertionError("phase multi: " + "; ".join(failures))
+    return {"cards": count, "cases": cases, "dryrun": passes,
+            "dryrun_seconds": dry_seconds,
+            "children": {k: {"rc": rc_, "tail": t[-2000:]}
+                         for k, (rc_, t) in children.items()},
+            "children_seconds": children_seconds,
+            "bench_mesh": mesh_line, "bench_mesh_seconds": bench_seconds}
+
+
+PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull",
+          "meshplain", "tex", "texfull", "seg", "segfull", "probes",
+          "sweep", "loop", "segform", "oracle", "wavefront", "bench", "app",
+          "multi")
+# Phases, and parts of phases (PARTS: shares of a phase's cases), that
+# time nothing.  With more than one phase to run, WINDOW runs here first
+# while each of APART runs beside it in a process of its own, and the
+# bench's ``--all`` as a child; the other phases wait until all of them
+# have ended, so that no timed phase shares the card.  A phase apart hands
+# back its record and its plain versions' results (``_PLAIN_OUT``).
+PARTS = {"kernels": ("book", "mesh"), "oracle": ("tpu", "scenes")}
+WINDOW = (("kernels", "book"),)
+APART = (("kernels", "mesh"), ("meshplain", None), ("tex", None),
+         ("seg", None), ("oracle", "tpu"), ("oracle", "scenes"))
+APART_TIMEOUT = 600        # seconds a phase apart may take
+
+
+def _label(phase: str, part) -> str:
+    return phase if part is None else f"{phase}/{part}"
+
+
+def _apart_path(label: str, suffix: str) -> str:
+    return os.path.join(OUT_DIR, f"chip_smoke_{label.replace('/', '_')}."
+                        f"{suffix}")
+
+
+def _merge(old, new):
+    """A phase's record with one more part's added."""
+    if old is None:
+        return new
+    if isinstance(old, list):
+        return old + new
+    out = dict(old)
+    for key, value in new.items():
+        out[key] = ({**out[key], **value} if isinstance(value, dict)
+                    and isinstance(out.get(key), dict) else value)
+    return out
+
+
+def _end_window(children: dict, all_child, keys: dict, record: dict,
+                device, t_window: float) -> None:
+    """Wait for the phases apart and the bench's ``--all``, print their
+    output, and take each one's record into ``record`` and its plain
+    results into ``_PLAIN_OUT``; a phase apart that failed or outlasted
+    APART_TIMEOUT fails the run."""
+    for (phase, part), child in children.items():
+        label = _label(phase, part)
+        rc, text, seconds = child.wait(
+            APART_TIMEOUT - (time.perf_counter() - child.t0))
+        sys.stdout.write(text)
+        sys.stdout.flush()
+        if rc != 0:
+            raise AssertionError(f"phase {label}, in a process of its own: "
+                                 f"exit {rc}")
+        with open(_apart_path(label, "json")) as f:
+            apart = json.load(f)
+        record[keys[phase]] = _merge(record.get(keys[phase]),
+                                     apart[keys[phase]])
+        record["phase_seconds"][label] = apart["phase_seconds"][label]
+        plain = _apart_path(label, "plain")
+        if os.path.exists(plain):
+            _PLAIN_OUT.update(torch.load(plain, map_location=device,
+                                         weights_only=False))
+        log(f"[phase] {label} done in {apart['phase_seconds'][label]:.1f} s "
+            f"in a process of its own, beside "
+            f"{', '.join(_label(*w) for w in WINDOW)} ({seconds:.1f} s with "
+            f"its start)")
+    if all_child is not None:
+        all_child.wait(BENCH_TIMEOUT - (time.perf_counter() - all_child.t0))
+    if children or all_child is not None:
+        beside = ([_label(*c) for c in children]
+                  + (["bench --all"] if all_child else []))
+        log(f"[window] {', '.join(_label(*w) for w in WINDOW)} here and "
+            f"{', '.join(beside)} beside: "
+            f"{time.perf_counter() - t_window:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -3472,10 +3997,31 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ", ".join(PHASES)
                     + " (device and build always run; the closing JSON "
                     "lines need them all)")
+    ap.add_argument("--part", default=None,
+                    help="with one phase of PARTS, run only that share of "
+                    "its cases: " + "; ".join(
+                        f"{k}: {', '.join(v)}" for k, v in PARTS.items()))
+    ap.add_argument("--record", default=os.path.join(OUT_DIR,
+                                                     "chip_smoke.json"),
+                    help="where to write the JSON record of the run")
+    ap.add_argument("--plain-out", default=None,
+                    help="where to save the plain versions' results of the "
+                    "cases checked (torch.save)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(",")) - {""}
     if phases - set(PHASES):
         raise SystemExit(f"unknown phases {sorted(phases - set(PHASES))}")
+    if args.part is not None and (len(phases) != 1 or args.part not in
+                                  PARTS.get(next(iter(phases)), ())):
+        raise SystemExit(f"--part {args.part}: takes one phase of {PARTS}")
+    signal.signal(signal.SIGTERM, _on_sigterm)
+    try:
+        return _smoke(phases, args.part, args.record, args.plain_out)
+    finally:
+        _kill_tree(os.getpid(), spare_root=True)
+
+
+def _smoke(phases: set, part, record_path: str, plain_out) -> int:
     name, smi = phase_device()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -3484,37 +4030,80 @@ def main(argv=None) -> int:
     build = phase_build()
     record = {"card": smi, "device": name, "build_seconds": build["seconds"],
               **{k: v for k, v in build.items() if k.endswith("_ptxas")}}
-    steps = (("kernels", "parity", lambda: phase_kernel_vs_plain(device)),
-             ("golden", "golden", lambda: phase_golden(device)),
-             ("main", "main_paths", lambda: phase_main_paths(device, smi)),
-             ("full", "full_size", lambda: phase_full_size(device, smi)),
-             ("mesh", "mesh_rows", lambda: phase_mesh_rows(device, smi)),
+    # The window (see WINDOW) and the processes beside it.
+    concurrent = len(phases) > 1
+    window = [w for w in WINDOW if concurrent and w[0] in phases]
+    children = {}
+    for phase, share in APART:
+        if concurrent and phase in phases:
+            label = _label(phase, share)
+            children[(phase, share)] = Child(
+                [os.path.abspath(__file__), "--phases", phase,
+                 "--record", _apart_path(label, "json"),
+                 "--plain-out", _apart_path(label, "plain")]
+                + (["--part", share] if share else []), "phase " + label)
+    all_child = (_start_bench(list(BENCH_ALL))
+                 if concurrent and "bench" in phases else None)
+    t_window = time.perf_counter()
+    steps = (("kernels", "parity",
+              lambda part: phase_kernel_vs_plain(device, part)),
+             ("golden", "golden", lambda part: phase_golden(device)),
+             ("main", "main_paths",
+              lambda part: phase_main_paths(device, smi)),
+             ("full", "full_size", lambda part: phase_full_size(device, smi)),
+             ("mesh", "mesh_rows", lambda part: phase_mesh_rows(device, smi)),
              ("meshfull", "mesh_full_size",
-              lambda: phase_mesh_full_size(device, smi)),
-             ("tex", "textures", lambda: phase_textures(device)),
+              lambda part: phase_mesh_full_size(device, smi)),
+             ("meshplain", "mesh_plain",
+              lambda part: phase_mesh_plain(device)),
+             ("tex", "textures", lambda part: phase_textures(device)),
              ("texfull", "textures_full",
-              lambda: phase_textures_full(device, smi)),
-             ("seg", "segments", lambda: phase_segments(device)),
+              lambda part: phase_textures_full(device, smi)),
+             ("seg", "segments", lambda part: phase_segments(device)),
              ("segfull", "segments_full",
-              lambda: phase_segments_full(device, smi)),
-             ("probes", "probes", lambda: phase_probes(device, smi)),
-             ("sweep", "sweep", lambda: phase_sweep(device, smi)),
-             ("loop", "loop", lambda: phase_loop(device, smi)),
-             ("segform", "segform", lambda: phase_segform(device, smi)),
-             ("oracle", "oracle", lambda: phase_oracle(device, smi)),
+              lambda part: phase_segments_full(device, smi)),
+             ("probes", "probes", lambda part: phase_probes(device, smi)),
+             ("sweep", "sweep", lambda part: phase_sweep(device, smi)),
+             ("loop", "loop", lambda part: phase_loop(device, smi)),
+             ("segform", "segform", lambda part: phase_segform(device, smi)),
+             ("oracle", "oracle",
+              lambda part: phase_oracle(device, smi, part)),
              ("wavefront", "wavefront",
-              lambda: phase_wavefront(device, smi)),
-             ("bench", "bench", lambda: phase_bench(device, smi)),
-             ("app", "app", lambda: phase_app(device, smi)))
-    for phase, key, run in steps:
-        if phase in phases:
-            t0 = time.perf_counter()
-            record[key] = run()
-            log(f"[phase] {phase} done in {time.perf_counter() - t0:.1f} s")
+              lambda part: phase_wavefront(device, smi)),
+             ("bench", "bench",
+              lambda part: phase_bench(device, smi, all_child)),
+             ("app", "app", lambda part: phase_app(device, smi)),
+             ("multi", "multi", lambda part: phase_multi(
+                 device, smi, record.get("bench", {}).get("default"))))
+    keys = {phase: key for phase, key, _run in steps}
+    runs = {phase: run for phase, _key, run in steps}
+    record["phase_seconds"] = {}
+
+    def run_step(phase: str, share) -> None:
+        label = _label(phase, share)
+        t0 = time.perf_counter()
+        record[keys[phase]] = _merge(record.get(keys[phase]),
+                                     runs[phase](share))
+        record["phase_seconds"][label] = time.perf_counter() - t0
+        log(f"[phase] {label} done in "
+            f"{record['phase_seconds'][label]:.1f} s")
+
+    for phase, share in window:
+        run_step(phase, share)
+    _end_window(children, all_child, keys, record, device, t_window)
+    done = {w[0] for w in window} | {c[0] for c in children}
+    for phase, _key, _run in steps:
+        if phase in phases and phase not in done:
+            run_step(phase, part)
+    if plain_out is not None:
+        torch.save(dict(_PLAIN_OUT), plain_out)
     record["seconds_total"] = time.perf_counter() - t_start
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+    with open(record_path, "w") as f:
         json.dump(record, f, indent=1)
-    log(f"[total] {record['seconds_total']:.1f} s after the device check")
+    log(f"[total] {record['seconds_total']:.1f} s after the device check "
+        f"(build {build['seconds']:.1f} s); by phase "
+        + json.dumps({k: round(v, 1)
+                      for k, v in record["phase_seconds"].items()}))
     if phases != set(PHASES):
         log(f"[partial] ran {sorted(phases)}; no closing lines")
         return 0
@@ -3530,7 +4119,7 @@ def main(argv=None) -> int:
         f"kernel {brute['persistent']['kernel_ms']!r} ms at that shape; "
         f"1080p@1spp kernel {full['checks']['culled'][0]['kernel_ms']!r} ms "
         f"vs plain {full['checks']['culled'][0]['plain_ms']!r} ms [{smi}]")
-    mesh_checks = record["mesh_full_size"]["checks"]
+    mesh_checks = record["mesh_full_size"]["checks"] + record["mesh_plain"]
     tex, tex_full = record["textures"], record["textures_full"]
     kernels = []
     for kind, spec in KERNELS.items():
@@ -3595,7 +4184,7 @@ def main(argv=None) -> int:
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep.get("library_ms"),
         })
-    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+    with open(record_path, "w") as f:
         json.dump(record, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -218,13 +218,23 @@ def test_one_tile_matches_jax_closure(culled):
     pytest.param({"intersector": "bruteforce", "baked_clusters": 8,
                   "winner_hint": True}, "reference",
                  id="winner_hint=True,baked_clusters=4"),
-    pytest.param({"num_devices": 2}, "ROADMAP", id="num_devices=2"),
+    # Once refused, now ported: num_devices is read only by
+    # parallel.render_sharded, so a render renders on one device, the
+    # same bits as num_devices=1 (match None), as in the reference.
+    pytest.param({"num_devices": 2}, None, id="num_devices=2"),
     pytest.param({"intersector": "bruteforce", "baked_clusters": 16,
                   "winner_hint": True}, "reference",
                  id="intersector=bruteforce,baked_clusters=16,"
                     "winner_hint=True"),
 ])
 def test_baked_refusals(change, match):
+    if match is None:
+        scene, cc = get_scene("book_cover"), _cover_camera()
+        res = Renderer(scene, cc, BASE.replace(**change), device="cpu").render()
+        ref = Renderer(scene, cc, BASE, device="cpu").render()
+        np.testing.assert_array_equal(res.accumulated, ref.accumulated)
+        assert res.rays_traced == ref.rays_traced >= 32 * 16 * 2
+        return
     with pytest.raises(NotImplementedError, match=match):
         Renderer(get_scene("book_cover"), _cover_camera(),
                  BASE.replace(**change), device="cpu")

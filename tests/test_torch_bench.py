@@ -194,6 +194,22 @@ def test_failing_worker_reports_no_value(tmp_path, monkeypatch):
     assert bench._is_headline(bench.build_parser().parse_args([]))
 
 
+def test_worker_of_an_ended_orchestrator_exits():
+    """A worker that names an orchestrator other than its parent (the
+    orchestrator ended before the worker asked to die with it) renders
+    nothing and exits nonzero."""
+    import subprocess
+
+    env = dict(os.environ, **{bench.ORCHESTRATOR_ENV: "0"})
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavefront_path_tracer_tpu_torch.bench",
+         "--worker", *TINY], env=env, capture_output=True, text=True,
+        timeout=120, cwd=bench.ROOT)
+    assert proc.returncode != 0
+    assert "its orchestrator has ended" in proc.stderr
+    assert not proc.stdout.strip()
+
+
 def test_failing_mesh_row_exits_1(monkeypatch):
     monkeypatch.setattr(bench, "MESH_ROWS", [
         ("bad_row", "mesh_knotk", 16, 8, 1, "bruteforce")])
@@ -204,5 +220,11 @@ def test_failing_mesh_row_exits_1(monkeypatch):
 
 
 def test_mesh_flag_refused():
-    with pytest.raises(SystemExit, match="queue 1 item 10"):
+    """Once refused by name: now a mesh larger than the devices present is
+    refused, naming their count (one, under --device cpu), and so is a
+    malformed one; there is no fallback."""
+    with pytest.raises(SystemExit, match="4 devices was asked for, and 1 "
+                                         r"is present \(cpu\)"):
         bench.main(["--mesh", "2x2", *TINY])
+    with pytest.raises(SystemExit, match="TILESxSAMPLES"):
+        bench.main(["--mesh", "2by2", *TINY])

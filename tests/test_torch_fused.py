@@ -110,6 +110,7 @@ def test_block_perm_bit_exact(size, block):
 # the reference itself refuses it (models/fused.py:329-334).
 HINT_ON_DYNAMIC = {"intersector": "bruteforce", "winner_hint": True,
                    "baked_clusters": 16}
+ONE_DEVICE = "renders as num_devices=1"
 
 
 @pytest.mark.parametrize("change,match", [
@@ -124,7 +125,10 @@ HINT_ON_DYNAMIC = {"intersector": "bruteforce", "winner_hint": True,
                  id="recluster=1,intersector=bruteforce"),
     pytest.param({"winner_hint": True, "baked_clusters": 4}, "reference",
                  id="winner_hint=True,baked_clusters=4"),
-    pytest.param({"num_devices": 2}, "ROADMAP", id="num_devices=2"),
+    # Once refused, now ported: num_devices is read only by
+    # parallel.render_sharded, so a render renders on one device, the
+    # same bits as num_devices=1 (ONE_DEVICE), as in the reference.
+    pytest.param({"num_devices": 2}, ONE_DEVICE, id="num_devices=2"),
     # Once refused, now ported: the BVH on the megakernel and the
     # wavefront engine run (match None), bit-identical to each other.
     pytest.param({"engine": "megakernel", "intersector": "bvh"}, None,
@@ -132,6 +136,13 @@ HINT_ON_DYNAMIC = {"intersector": "bruteforce", "winner_hint": True,
     pytest.param({"engine": "wavefront"}, None, id="engine=wavefront"),
 ])
 def test_refusals(cover, change, match):
+    if match == ONE_DEVICE:
+        res = Renderer(cover, _cover_camera(), BASE.replace(**change),
+                       device="cpu").render()
+        ref = Renderer(cover, _cover_camera(), BASE, device="cpu").render()
+        np.testing.assert_array_equal(res.accumulated, ref.accumulated)
+        assert res.rays_traced == ref.rays_traced >= 32 * 16 * 2
+        return
     if match is None:
         cfg = BASE.replace(width=8, height=8, samples_per_pixel=1,
                            samples_per_frame=1, **change)

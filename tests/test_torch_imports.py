@@ -59,6 +59,10 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.ops.intersect
         import wavefront_path_tracer_tpu_torch.ops.texture
         import wavefront_path_tracer_tpu_torch.ops.triangle
+        import wavefront_path_tracer_tpu_torch.parallel
+        import wavefront_path_tracer_tpu_torch.parallel.dryrun
+        import wavefront_path_tracer_tpu_torch.parallel.multihost
+        import wavefront_path_tracer_tpu_torch.parallel.sharding
         import wavefront_path_tracer_tpu_torch.profile_frame
         import wavefront_path_tracer_tpu_torch.probes._slope
         import wavefront_path_tracer_tpu_torch.probes.bf16_issue
@@ -102,6 +106,11 @@ def test_port_never_imports_jax():
             res = render(book_cover(), cc, cfg.replace(**extra),
                          device="cpu")
             assert res.image.shape == (8, 8, 3)
+        from wavefront_path_tracer_tpu_torch.parallel.sharding import (
+            make_mesh, render_sharded)
+        img, spp = render_sharded(book_cover(), cc, cfg,
+                                  make_mesh(4, devices=["cpu"] * 4))
+        assert img.shape == (8, 8, 3) and spp == 1
         from wavefront_path_tracer_tpu_torch.aov import render_aovs
         from wavefront_path_tracer_tpu_torch.app import InteractiveSession
         aovs = render_aovs(scene, cc, cfg.replace(engine="megakernel"), tris,

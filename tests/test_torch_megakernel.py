@@ -468,8 +468,12 @@ def test_engine_registry_and_refusals():
     check_parity(bvh.accumulated, brute.accumulated, bvh.rays_traced,
                  brute.rays_traced)
     assert bvh.image.shape == (8, 8, 3) and bvh.rays_traced >= 64
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmega.check_supported(BASE.replace(num_devices=2), {})
+    # Once refused: num_devices is read only by parallel.render_sharded,
+    # so a render renders on one device, the same bits as num_devices=1.
+    two = Renderer(get_scene("book_cover"), _camera("book_cover"),
+                   cfg.replace(num_devices=2), device="cpu").render()
+    np.testing.assert_array_equal(two.accumulated, brute.accumulated)
+    assert two.rays_traced == brute.rays_traced
     if not torch.cuda.is_available():
         # The default device is the card, with no fallback to the CPU.
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -32,15 +32,23 @@ time.  A fused row also carries:
 
 Failures are never hidden behind a stored number.  The default
 invocation is an orchestrator that runs the bench in a fresh worker
-process (``--worker``), retrying a worker that crashes or hangs; every
+process (``--worker``), retrying a worker that crashes or hangs (on
+Linux a worker dies with its orchestrator); every
 failed attempt is printed to stderr and counted in the line as
 ``failed_attempts``.  When every attempt fails, the line has ``"value":
 null``, an ``error`` and, apart under ``last_good``, the port's last
 good record (``golden/LAST_GOOD_BENCH_TORCH.json``, written only after a
 headline run on a CUDA card), and the bench exits 1.  A mesh row or an
 ``--all`` configuration that fails keeps its ``{"error": ...}`` entry and
-the bench exits 1.  ``--mesh`` (sharding over several cards) is refused:
-multi-device rendering is ROADMAP.md queue 1 item 10.
+the bench exits 1.
+
+``--mesh TILESxSAMPLES`` renders the headline through
+``parallel.render_samples_sharded`` over ``make_mesh(TILES * SAMPLES,
+sample_axis=SAMPLES)`` on the CUDA cards (one device under ``--device
+cpu``); a mesh larger than the devices present is refused, naming their
+count.  As in the reference, the row's config ends in ``/meshTxS``, no
+mesh-scene row runs, and it has no kernel counters and no utilization;
+``device_seconds`` is the first card's CUDA-event time.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ import argparse
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -63,6 +72,9 @@ PAIR_CEILING = {"sphere": 562.55e9, "triangle": 334.07e9}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAST_GOOD_PATH = os.path.join(ROOT, "golden", "LAST_GOOD_BENCH_TORCH.json")
 RETRY_DELAY_S = 5.0
+# The orchestrator's PID, in the environment of each worker it starts.
+ORCHESTRATOR_ENV = "WPT_BENCH_ORCHESTRATOR"
+PR_SET_PDEATHSIG = 1
 TIMED_RUNS = 3
 
 # Driver-tracked mesh rows (key, scene, w, h, spp, intersector), all
@@ -222,6 +234,28 @@ def pair_counts(intersector: str, clusters: int, arrays, camera_pos,
     return pairs
 
 
+def parse_mesh(spec):
+    """(tiles, samples) of a ``--mesh`` value such as ``4x2``; None for
+    None."""
+    if spec is None:
+        return None
+    m = re.fullmatch(r"(\d+)[xX](\d+)", spec)
+    if m is None or min(int(m.group(1)), int(m.group(2))) < 1:
+        raise ValueError(f"--mesh {spec!r}: expected TILESxSAMPLES, e.g. 4x2")
+    return int(m.group(1)), int(m.group(2))
+
+
+def make_bench_mesh(mesh_spec, device):
+    """The mesh of ``--mesh``: over the CUDA cards, or over ``device``
+    alone when it is not a card; raises when it needs more devices than
+    are present."""
+    from wavefront_path_tracer_tpu_torch.parallel.sharding import make_mesh
+
+    tiles, samples = mesh_spec
+    return make_mesh(tiles * samples, sample_axis=samples,
+                     devices=None if device.type == "cuda" else [device])
+
+
 def card_name() -> str:
     """The card's name and power limit as nvidia-smi prints them."""
     return subprocess.run(
@@ -235,9 +269,11 @@ def bench_once(scene_name: str, width: int, height: int, spp: int,
                engine: str, intersector: str, max_bounces: int = 50,
                clusters: int = 0, block_tiles: int = 32, lane_split: int = 1,
                rotate_cols: int = 1, rr_start: int = 0,
-               winner_hint: bool = False, device="cuda") -> dict:
+               winner_hint: bool = False, device="cuda",
+               mesh_spec=None) -> dict:
     """One row: a warm-up render of ``spp`` samples, then ``TIMED_RUNS``
-    timed ones; the row's dict (see the module docstring)."""
+    timed ones, sharded over ``mesh_spec`` (tiles, samples) when given;
+    the row's dict (see the module docstring)."""
     import torch
 
     from wavefront_path_tracer_tpu_torch.models import fused, get_engine
@@ -264,17 +300,28 @@ def bench_once(scene_name: str, width: int, height: int, spp: int,
     cam = cc.gpu_camera()
     eng = get_engine(engine)
     eng.check_supported(cfg, arrays)
+    mesh = make_bench_mesh(mesh_spec, device) if mesh_spec else None
 
     def run():
+        if mesh is not None:
+            from wavefront_path_tracer_tpu_torch.parallel.sharding import (
+                render_samples_sharded,
+            )
+
+            return render_samples_sharded(mesh, arrays, cam, view, inv_proj,
+                                          cfg, 0, 0, spp) + (None,)
         if engine == "fused":
             return fused.render_samples_with_stats(
                 arrays, cam, view, inv_proj, cfg, 0, 0, spp)
         return eng.render_samples(arrays, cam, view, inv_proj, cfg, 0, 0,
                                   spp) + (None,)
 
+    cards = ([d for d in mesh.distinct_devices() if d.type == "cuda"]
+             if mesh is not None else [device] if cuda else [])
+
     def sync():
-        if cuda:
-            torch.cuda.synchronize(device)
+        for card in cards:
+            torch.cuda.synchronize(card)
 
     run()                      # warm-up: bakes, tables, the kernel build
     sync()
@@ -299,7 +346,8 @@ def bench_once(scene_name: str, width: int, height: int, spp: int,
     rays = float(rays)
     dt = min(seconds)
     config = (f"{width}x{height}@{spp}spp/{engine}/{intersector}"
-              + (f"/cull{clusters}" if clusters else ""))
+              + (f"/cull{clusters}" if clusters else "")
+              + (f"/mesh{mesh_spec[0]}x{mesh_spec[1]}" if mesh_spec else ""))
     row = {
         "scene": scene_name, "config": config, "device": str(device),
         "rays": rays, "seconds": dt, "run_seconds": seconds,
@@ -361,8 +409,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--winner-hint", action="store_true",
                    help="fused/baked culled: winner-cluster shortlist")
     p.add_argument("--mesh", default=None, metavar="TILESxSAMPLES",
-                   help="shard over several cards: not ported (ROADMAP.md "
-                        "queue 1 item 10); refused")
+                   help="shard the headline over a tiles x samples mesh of "
+                        "the CUDA cards (one device under --device cpu), "
+                        "e.g. 4x2; no mesh rows, no counters")
     p.add_argument("--all", action="store_true",
                    help="sweep fused/baked, fused/bruteforce, wavefront and "
                         "megakernel (bvh and bruteforce); the plain engines "
@@ -457,7 +506,8 @@ def worker_main(args) -> int:
                             block_tiles=args.block_tiles,
                             lane_split=args.lane_split,
                             rotate_cols=args.rotate_cols, rr_start=args.rr,
-                            winner_hint=args.winner_hint, device=device)
+                            winner_hint=args.winner_hint, device=device,
+                            mesh_spec=parse_mesh(args.mesh))
 
     print(f"timing: {result['rays']/1e6:.0f} Mrays in "
           f"{result['seconds']:.2f}s", file=sys.stderr)
@@ -476,7 +526,7 @@ def worker_main(args) -> int:
             f"HBM3 at 700 W; this run: {card}")
     if args.all:
         out["all"] = rows
-    if (not args.no_mesh_row and not args.all
+    if (not args.no_mesh_row and not args.all and args.mesh is None
             and args.scene == "book_one_final"):
         # The tracked mesh rows (BASELINE measurement config 5: OBJ mesh
         # scenes) catch large-scene regressions the sphere headline cannot
@@ -509,7 +559,7 @@ def _is_headline(args) -> bool:
             and all(getattr(args, k) == getattr(defaults, k) for k in (
                 "scene", "width", "height", "spp", "engine", "intersector",
                 "max_bounces", "clusters", "block_tiles", "lane_split",
-                "rotate_cols", "rr", "winner_hint", "no_mesh_row")))
+                "rotate_cols", "rr", "winner_hint", "no_mesh_row", "mesh")))
 
 
 def _last_good():
@@ -535,8 +585,10 @@ def orchestrate(args, argv) -> int:
                   file=sys.stderr)
             time.sleep(delay)
         try:
-            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=None,
-                                  timeout=args.timeout, text=True, cwd=ROOT)
+            proc = subprocess.run(
+                cmd, stdout=subprocess.PIPE, stderr=None,
+                timeout=args.timeout, text=True, cwd=ROOT,
+                env=dict(os.environ, **{ORCHESTRATOR_ENV: str(os.getpid())}))
         except subprocess.TimeoutExpired:
             failures.append(f"worker hang: no result within {args.timeout}s")
         else:
@@ -579,13 +631,35 @@ def _record_last_good(rec: dict) -> None:
         print(f"last good record not written: {e}", file=sys.stderr)
 
 
+def _die_with_orchestrator() -> None:
+    """In a worker that the orchestrator started (Linux), have the kernel
+    kill this process when the orchestrator dies, so that a killed bench
+    leaves no render running on the card."""
+    parent = os.environ.get(ORCHESTRATOR_ENV)
+    if parent is None or not sys.platform.startswith("linux"):
+        return
+    import ctypes
+
+    ctypes.CDLL(None).prctl(PR_SET_PDEATHSIG, signal.SIGKILL)
+    if os.getppid() != int(parent):
+        raise SystemExit("bench worker: its orchestrator has ended")
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    if args.worker:
+        _die_with_orchestrator()
     if args.mesh is not None:
-        raise SystemExit(
-            "--mesh (sharding over several cards) is not ported yet: "
-            "ROADMAP.md queue 1 item 10")
+        # Refused here, before any worker starts: a mesh that this machine
+        # cannot hold, or a malformed one.
+        from wavefront_path_tracer_tpu_torch.renderer import resolve_device
+
+        try:
+            make_bench_mesh(parse_mesh(args.mesh),
+                            resolve_device(args.device))
+        except (ValueError, RuntimeError) as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}") from e
     if args.worker:
         return worker_main(args)
     return orchestrate(args, argv)

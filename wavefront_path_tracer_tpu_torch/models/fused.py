@@ -103,7 +103,9 @@ def _effective_split(requested: int, n_samples: int) -> int:
 def check_supported(config: RenderConfig, scene_arrays) -> None:
     """Refuse what this port does not carry yet, naming the ROADMAP.md
     item that will, and what the reference itself refuses, naming its
-    refusal."""
+    refusal.  ``config.num_devices`` is read only by
+    ``parallel.render_sharded``, as in the reference: here it renders on
+    one device."""
     if config.intersector == "auto":
         raise ValueError(
             "the fused engine has no 'auto' intersector: the command line "
@@ -114,10 +116,6 @@ def check_supported(config: RenderConfig, scene_arrays) -> None:
             f"intersector={config.intersector!r} does not exist on the "
             "fused engine; the BVH runs on the wavefront and megakernel "
             "engines, as in the reference (its models/fused.py:338-343)")
-    if config.num_devices != 1:
-        raise NotImplementedError(
-            "multi-device rendering is not ported yet (ROADMAP.md queue 1 "
-            "item 10)")
     brute = config.intersector == "bruteforce"
     if (brute and "tex_kind" in scene_arrays
             and _resolve_clusters(config, scene_arrays) <= 0):
@@ -242,6 +240,24 @@ def _dyn_tables(scene_arrays, cluster_size: int, camera_pos=None,
         cluster_size, device=device, scene_arrays=host, lut_max=lut_max))
 
 
+def scene_tables(config: RenderConfig, scene_arrays, view) -> dict:
+    """The bake (``intersector="baked"``) or the dynamic culled tables
+    (brute force with clusters) of the scene on its device, from the
+    caches, as keyword arguments of :func:`render_pixels`; {} for the
+    (S, 16) table."""
+    clusters = _resolve_clusters(config, scene_arrays)
+    if config.intersector == "baked":
+        return {"baked": _baked_scene(scene_arrays, clusters,
+                                      camera_pos=_concrete_eye(view),
+                                      winner_hint=config.winner_hint,
+                                      lut_max=config.tex_lut_max)}
+    if clusters > 0:
+        return {"dyn": _dyn_tables(scene_arrays, clusters,
+                                   camera_pos=_concrete_eye(view),
+                                   lut_max=config.tex_lut_max)}
+    return {}
+
+
 def camera_params(cam, view, inv_proj, config: RenderConfig) -> np.ndarray:
     """The (24,) float32 camera of the kernel's raygen, computed in
     float32 from the same matrices as the reference (render_pixels,
@@ -291,13 +307,38 @@ def lane_planes(pixel_idx: torch.Tensor, width: int, tile_rows: int,
     return pix, xs, ys, valid, soff
 
 
+def launch_planes(planes, scene_arrays, cam_params, config: RenderConfig,
+                  frame, sample_base, n_per_lane: int,
+                  baked: BakedScene | None = None,
+                  dyn: DynTables | None = None):
+    """One launch of the fused kernel over the lane planes of
+    :func:`lane_planes`, through ``baked``, ``dyn`` or the brute-force
+    table; (rad_r, rad_g, rad_b, stats), the wrapper's outputs."""
+    salts = (int(frame), int(sample_base), config.max_bounces, n_per_lane)
+    opts = {"rr_start": config.rr_start_bounce,
+            "rr_floor": config.rr_floor, "clamp": config.clamp,
+            "sampler": config.sampler}
+    if baked is not None:
+        return fused_render_baked(baked, salts, cam_params, *planes, **opts)
+    if dyn is not None:
+        return fused_render_dynculled(dyn, salts, cam_params, *planes,
+                                      **opts)
+    return fused_render_persistent(
+        scene_arrays["scene_packed"], scene_arrays["centers"].shape[0],
+        salts, cam_params, *planes, **opts)
+
+
 def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
                   config: RenderConfig, frame, sample_base, n_samples: int,
                   with_stats: bool = False, lane_split: int = 1,
                   baked: BakedScene | None = None,
-                  dyn: DynTables | None = None):
+                  dyn: DynTables | None = None,
+                  cam_params: torch.Tensor | None = None):
     """Trace a subset of pixel ids (int64 tensor on the scene's device),
     over ``baked`` or ``dyn`` when given, else over the (S, 16) table.
+    ``cam_params``, the camera of :func:`camera_params` already on the
+    device, saves the upload (a copy from pageable host memory, which
+    waits for the device's stream).
 
     Returns ((N, 3) radiance sum, rays traced) and, with ``with_stats``,
     a dict {iterations, supers_entered, clusters_entered} of 0-d tensors;
@@ -310,22 +351,12 @@ def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
     n_per_lane = n_samples // split
     planes = lane_planes(pixel_idx, config.width, config.tile_rows,
                          split, n_per_lane)
-    cam_params = torch.from_numpy(
-        camera_params(cam, view, inv_proj, config)).to(device)
-    salts = (int(frame), int(sample_base), config.max_bounces, n_per_lane)
-    opts = {"rr_start": config.rr_start_bounce,
-            "rr_floor": config.rr_floor, "clamp": config.clamp,
-            "sampler": config.sampler}
-    if baked is not None:
-        rad_r, rad_g, rad_b, stats = fused_render_baked(
-            baked, salts, cam_params, *planes, **opts)
-    elif dyn is not None:
-        rad_r, rad_g, rad_b, stats = fused_render_dynculled(
-            dyn, salts, cam_params, *planes, **opts)
-    else:
-        rad_r, rad_g, rad_b, stats = fused_render_persistent(
-            scene_arrays["scene_packed"], scene_arrays["centers"].shape[0],
-            salts, cam_params, *planes, **opts)
+    if cam_params is None:
+        cam_params = torch.from_numpy(
+            camera_params(cam, view, inv_proj, config)).to(device)
+    rad_r, rad_g, rad_b, stats = launch_planes(
+        planes, scene_arrays, cam_params, config, frame, sample_base,
+        n_per_lane, baked, dyn)
     lanes_total = num_pixels * split
     radiance = torch.stack([rad_r.reshape(-1), rad_g.reshape(-1),
                             rad_b.reshape(-1)], dim=-1)[:lanes_total]
@@ -520,17 +551,7 @@ def _render_samples_impl(scene_arrays, cam, view, inv_proj,
     check_supported(config, scene_arrays)
     device = scene_arrays["centers"].device
     split = _effective_split(config.lane_split, n_samples)
-    clusters = _resolve_clusters(config, scene_arrays)
-    tables = {}
-    if config.intersector == "baked":
-        tables["baked"] = _baked_scene(scene_arrays, clusters,
-                                       camera_pos=_concrete_eye(view),
-                                       winner_hint=config.winner_hint,
-                                       lut_max=config.tex_lut_max)
-    elif clusters > 0:
-        tables["dyn"] = _dyn_tables(scene_arrays, clusters,
-                                    camera_pos=_concrete_eye(view),
-                                    lut_max=config.tex_lut_max)
+    tables = scene_tables(config, scene_arrays, view)
     if config.recluster > 0:
         # The reference's _render_recluster_impl: block order in, natural
         # order out; lane_split has no meaning there.

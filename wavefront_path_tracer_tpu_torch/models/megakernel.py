@@ -38,12 +38,10 @@ MAX_CHUNK = 131072
 
 
 def check_supported(config: RenderConfig, scene_arrays) -> None:
-    """Refuse what this port does not carry yet, naming the ROADMAP.md
-    item that will."""
-    if config.num_devices != 1:
-        raise NotImplementedError(
-            "multi-device rendering is not ported yet (ROADMAP.md queue 1 "
-            "item 10)")
+    """The engines' common refusal hook: the megakernel carries every
+    configuration of the reference's, so it refuses none.
+    ``config.num_devices`` is read only by ``parallel.render_sharded``, as
+    in the reference: here it renders on one device."""
 
 
 def trace_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
@@ -91,25 +89,36 @@ def trace_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
     return radiance, rays
 
 
+def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
+                  config: RenderConfig, frame, sample_base, n_samples: int):
+    """Sum of ``n_samples`` radiance samples of the pixels ``pixel_idx``
+    (int64, on the scene's device), in chunks of ``ray_chunk`` pixels (or
+    all of them, up to 131,072); ((N, 3) float32 tensor on that device,
+    rays traced as a 0-d int64 tensor)."""
+    device = pixel_idx.device
+    n = pixel_idx.shape[0]
+    chunk = config.ray_chunk or min(n, MAX_CHUNK)
+    view = torch.as_tensor(view, dtype=torch.float32, device=device)
+    inv_proj = torch.as_tensor(inv_proj, dtype=torch.float32, device=device)
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    rays = 0
+    for s in range(n_samples):
+        sample = (int(sample_base) + s) & rng.MASK32
+        for start in range(0, n, chunk):
+            stop = min(start + chunk, n)
+            rad, r = trace_pixels(pixel_idx[start:stop], scene_arrays, cam,
+                                  view, inv_proj, config, frame, sample)
+            acc[start:stop] += rad
+            rays += r
+    return acc, torch.tensor(rays, dtype=torch.int64)
+
+
 def render_samples(scene_arrays, cam, view, inv_proj, config: RenderConfig,
                    frame, sample_base, n_samples: int):
     """Sum of ``n_samples`` radiance samples per pixel; ((P, 3) float32
     tensor on the scene's device, rays traced as a 0-d int64 tensor)."""
     check_supported(config, scene_arrays)
-    device = scene_arrays["centers"].device
-    num_pixels = config.num_pixels
-    chunk = config.ray_chunk or min(num_pixels, MAX_CHUNK)
-    view = torch.as_tensor(view, dtype=torch.float32, device=device)
-    inv_proj = torch.as_tensor(inv_proj, dtype=torch.float32, device=device)
-    acc = torch.zeros((num_pixels, 3), dtype=torch.float32, device=device)
-    rays = 0
-    for s in range(n_samples):
-        sample = (int(sample_base) + s) & rng.MASK32
-        for start in range(0, num_pixels, chunk):
-            stop = min(start + chunk, num_pixels)
-            idx = torch.arange(start, stop, dtype=torch.int64, device=device)
-            rad, r = trace_pixels(idx, scene_arrays, cam, view, inv_proj,
-                                  config, frame, sample)
-            acc[start:stop] += rad
-            rays += r
-    return acc, torch.tensor(rays, dtype=torch.int64)
+    pixel_idx = torch.arange(config.num_pixels, dtype=torch.int64,
+                             device=scene_arrays["centers"].device)
+    return render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
+                         config, frame, sample_base, n_samples)

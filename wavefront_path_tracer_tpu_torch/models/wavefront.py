@@ -169,15 +169,17 @@ def trace_wavefront(pixel_idx, scene_arrays, cam, view, inv_proj,
     return radiance, rays
 
 
-def _render(scene_arrays, cam, view, inv_proj, config: RenderConfig, frame,
-            sample_base, n_samples: int, timer):
-    check_supported(config, scene_arrays)
-    device = scene_arrays["centers"].device
+def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
+                  config: RenderConfig, frame, sample_base, n_samples: int,
+                  timer=None):
+    """Sum of ``n_samples`` radiance samples of the pixels ``pixel_idx``
+    (int64, on the scene's device), one :func:`trace_wavefront` a sample;
+    ((N, 3) float32 tensor on that device, rays traced as a 0-d int64
+    tensor).  With a ``timer``, each stage is timed into it."""
+    device = pixel_idx.device
     view = torch.as_tensor(view, dtype=torch.float32, device=device)
     inv_proj = torch.as_tensor(inv_proj, dtype=torch.float32, device=device)
-    pixel_idx = torch.arange(config.num_pixels, dtype=torch.int64,
-                             device=device)
-    acc = torch.zeros((config.num_pixels, 3), dtype=torch.float32,
+    acc = torch.zeros((pixel_idx.shape[0], 3), dtype=torch.float32,
                       device=device)
     rays = 0
     for s in range(n_samples):
@@ -187,6 +189,15 @@ def _render(scene_arrays, cam, view, inv_proj, config: RenderConfig, frame,
         acc += rad
         rays += r
     return acc, torch.tensor(rays, dtype=torch.int64)
+
+
+def _render(scene_arrays, cam, view, inv_proj, config: RenderConfig, frame,
+            sample_base, n_samples: int, timer):
+    check_supported(config, scene_arrays)
+    pixel_idx = torch.arange(config.num_pixels, dtype=torch.int64,
+                             device=scene_arrays["centers"].device)
+    return render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
+                         config, frame, sample_base, n_samples, timer)
 
 
 def render_samples(scene_arrays, cam, view, inv_proj, config: RenderConfig,
