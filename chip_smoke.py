@@ -240,9 +240,30 @@ this script when it ends or receives SIGTERM.
    child under a timeout); more NCCL ranks than cards refused; and the
    bench with ``--mesh 1x1`` at its defaults: exit 0 and the rays of
    phase bench's headline.
+22. stage plain (``stageplain``, untimed, in the window in two
+   processes, ``--part book|terrain``): the plain versions of
+   phase 23's 68 probe cases, each timed, handed back to it;
+23. stage (``stage``): the fused engine's differential stage probes
+   (``ops/stage_probes.py``).  Every probe kernel (culled/16: raygen,
+   shade, accum, loopcond, entry, cond; unculled: the first four;
+   dynamic culled/16: those four and entry, cond, global) at 160x90@4spp,
+   4 bounces, in block lane order with padding lanes, on book_one_final,
+   book_checker, terrain and the textured mesh (the four kinds): radiance
+   words and counters bit for bit with its plain version and with the
+   unprobed kernel (``dbl_accum``: its radiance within 1e-6 relative a
+   sample); each probe kernel's SASS instructions above its unprobed
+   kernel's (``cuobjdump``), ptxas's registers and spills of each; a
+   bitmask with no instantiation refused by the kernel's entry point;
+   the ``--stage-timing`` tables of the headline and the unculled book
+   (1920x1080@32spp) through the CLI and of terrain_dynamic (800x448@32spp)
+   through ``models/fused.py`` ``stage_timing``, each with the launch
+   counts set to 0 just before it and read just after (every probe of
+   the path launched), shares at least 0 that close the budget, those
+   below the between-call drift marked; and ``probes/iterprobe.py`` and
+   ``probes/dynprobe.py`` at their defaults.
 
 The last two lines of standard output are a JSON object describing the
-kernels and ``{"ok": true, "device": {...}}``; they are printed only when
+kernels (the probe kernels too, one entry a kernel and probe) and ``{"ok": true, "device": {...}}``; they are printed only when
 every phase ran.  Larger outputs (the PNGs, a JSON of all measurements)
 go to ``OUT_DIR``.
 """
@@ -322,8 +343,9 @@ KERNELS = {
                           "replaces": REPLACES + "3027"},
 }
 # The port's kernels by the names the profiler gives them.
-KERNEL_NAMES = ("persistent_kernel", "baked_culled_kernel",
-                "baked_unculled_kernel", "dynculled_kernel")
+from wavefront_path_tracer_tpu_torch.utils.sass import (  # noqa: E402
+    RENDER_KERNELS as KERNEL_NAMES,
+)
 MESH_SIZE = (800, 448)
 
 # FP32 operations counted from the sources (adds, multiplies, divides,
@@ -465,10 +487,16 @@ def phase_build() -> dict:
     tag = "[build]"
     log(f"{tag} {path.relative_to(ROOT)} from "
         f"{[p.name for p in _build.sources()]} in {seconds:.2f} s")
+    nvcc = {}
     for line in report.splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if line.startswith("nvcc "):
+            name, sec = line[len("nvcc "):].split(": ")
+            nvcc[name] = float(sec.split()[0])
+            log(f"{tag} {line} (from the build's start)")
+        elif ("Compiling entry" in line or "registers" in line
+              or "spill" in line):
             log(f"{tag} ptxas: {line.strip()}")
-    out = {"seconds": seconds}
+    out = {"seconds": seconds, "nvcc_seconds": nvcc}
     for kind, match in (("persistent", "persistent_kernel"),
                         ("unculled", "baked_unculled_kernel"),
                         ("culled", "baked_culled_kernel"),
@@ -484,38 +512,21 @@ def phase_build() -> dict:
 
 def _ptxas_kernels(report: str, match: str) -> list[dict]:
     """Registers, stack frame and spills of each kernel whose mangled name
-    holds ``match``, from ptxas's -v lines; the name shortened to its
-    template arguments (demangled by c++filt where the machine has it)."""
-    import re
-    import shutil
+    holds ``match``, from ptxas's -v lines (``ops/_build.py``
+    ptxas_kernels); the name shortened to its template arguments where
+    c++filt demangled it."""
+    from wavefront_path_tracer_tpu_torch.ops import _build
 
-    props, cur = {}, None
-    for line in report.splitlines():
-        m = re.search(r"(?:Compiling entry function '|Function properties "
-                      r"for )([^' ]+)", line)
-        if m:
-            cur = m.group(1)
-            props.setdefault(cur, {})
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and cur:
-            props[cur].update(stack=int(m[1]), spill_stores=int(m[2]),
-                              spill_loads=int(m[3]))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur:
-            props[cur]["registers"] = int(m[1])
-    names = [n for n in props if match in n]
-    shown = names
-    tool = shutil.which("c++filt")
-    if tool and names:
-        shown = subprocess.run([tool], input="\n".join(names),
-                               capture_output=True, text=True, check=True,
-                               timeout=60).stdout.splitlines()
-        shown = [d.split(match + "<", 1)[-1].split(">(", 1)[0]
-                 .replace("(anonymous namespace)::", "").replace("wpt::", "")
-                 for d in shown]
-    return [{"kernel": d, **props[n]} for n, d in zip(names, shown)]
+    out = []
+    for rep in _build.ptxas_kernels(report, match):
+        d = rep.pop("kernel")
+        rep.pop("mangled")
+        for ns in ("(anonymous namespace)::", "wpt::baked::", "wpt::dyn::",
+                   "wpt::"):
+            d = d.replace(ns, "")
+        out.append({"kernel": d.split(match + "<", 1)[-1].split(">(", 1)[0],
+                    **rep})
+    return out
 
 
 def _time_ms(fn, reps: int):
@@ -556,7 +567,7 @@ class Case:
 
     def __init__(self, kind, clusters, scene, cc, width, height, spp, split,
                  kw, device, triangles=None, winner_hint=False,
-                 lut_max=8192):
+                 lut_max=8192, bounces=50):
         from wavefront_path_tracer_tpu_torch.models import fused
         from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
         from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
@@ -570,7 +581,7 @@ class Case:
         self.tex_events = None     # per-ray texture event shares
         self.table_passes = 1      # reads of the tables the bound counts
         cfg = RenderConfig(width=width, height=height, samples_per_pixel=spp,
-                           samples_per_frame=spp, max_bounces=50,
+                           samples_per_frame=spp, max_bounces=bounces,
                            engine="fused")
         arrays = prepare_scene(scene, cfg, device, triangles)
         self.arrays, self.cc = arrays, cc
@@ -581,11 +592,12 @@ class Case:
         cam = torch.from_numpy(fused.camera_params(
             cc.gpu_camera(), cc.view_matrix(),
             cc.inverse_projection(width, height), cfg)).to(device)
-        salts = (0, 0, 50, spp // split)
+        salts = (0, 0, bounces, spp // split)
         self.salts, self.cam = salts, cam
         self.key = (kind, _scene_digest(arrays["host_scene"]), clusters,
                     winner_hint, lut_max, width, height, spp, split,
-                    tuple(sorted(kw.items())), cam.cpu().numpy().tobytes())
+                    tuple(sorted(kw.items())), cam.cpu().numpy().tobytes(),
+                    bounces)
         eye = fused._concrete_eye(cc.view_matrix())
         if kind == "persistent":
             table = arrays["scene_packed"]
@@ -671,7 +683,7 @@ class Case:
                 out.append((n, n_sup, items, ops, n / max(n_sup, 1)))
         return [h for h in out if h[0] > 0]
 
-    def bound(self, stats) -> dict:
+    def bound(self, stats, probe=None) -> dict:
         """The least time the card could take for this launch's work: the
         larger of its bytes over the memory rate and its FP32 operations
         over the FP32 rate (each input read once, each output written
@@ -679,7 +691,12 @@ class Case:
         entries are attributed to the one hierarchy that has clusters
         (every scene of this script has at most one).  A textured launch
         adds the texture step for the checker and image events a ray of
-        the plain version's run met (``tex_events``, per ray)."""
+        the plain version's run met (``tex_events``, per ray).  With a
+        stage ``probe`` the work holds its duplicate where the counters
+        give it: the entered clusters' pairs (entry), the boxes (cond),
+        the globals' pairs (dyn global); a duplicated raygen, shade, sky
+        add or trip vote is not counted (so that the bound stays a least
+        time)."""
         rays, _iters, supers, clusters = (float(v) for v in stats)
         n_bytes = (self.lane_bytes() + self.table_passes * sum(
             t.numel() * t.element_size() for t in self.tables))
@@ -711,6 +728,12 @@ class Case:
                 boxes = (rays * n_sup + supers * children if n_sup
                          else rays * n)
                 ops += boxes * FLOPS_BOX
+                if probe in ("dbl_entry", "dyn_dbl_entry"):
+                    ops += clusters * items * pair_ops
+                if probe in ("dbl_cond", "dyn_dbl_cond"):
+                    ops += boxes * FLOPS_BOX
+            if probe == "dyn_dbl_global":
+                ops += rays * n_globals * FLOPS_PAIR[self.kind]
         if self.textured:
             checker, image = self.tex_events or (0.0, 0.0)
             ops += rays * (checker * FLOPS_CHECKER + image * FLOPS_IMAGE)
@@ -1260,13 +1283,14 @@ def _from_scene_file(path: str):
     return scene, tris, build_camera(args, file_cam)
 
 
-def _textured_mesh_file() -> str:
-    """A scene file that this script writes under OUT_DIR: a checker
-    ground, a checker sphere, a glass sphere and an OBJ torus knot (1,000
+def _textured_mesh_file(name: str = "tex_mesh") -> str:
+    """A scene file that this script writes under OUT_DIR/``name`` (one
+    name a process, since phases apart run at once): a checker ground, a
+    checker sphere, a glass sphere and an OBJ torus knot (1,000
     triangles, also written here), with a camera block."""
     from wavefront_path_tracer_tpu_torch.scene import torus_knot
 
-    folder = os.path.join(OUT_DIR, "tex_mesh")
+    folder = os.path.join(OUT_DIR, name)
     os.makedirs(folder, exist_ok=True)
     verts, faces = torus_knot(1000)
     with open(os.path.join(folder, "knot.obj"), "w") as f:
@@ -2173,30 +2197,21 @@ def _same_bits(label: str, k, p, hits: bool = True) -> float:
 
 def _sass_per_pair(smi: str) -> dict:
     """SASS instructions of the pair-ceiling kernels (``cuobjdump -sass``
-    of the built library) over the pairs their sweep loop's body holds
-    (C6 unrolled by 4, A2 by 8); the counts include the kernel's set-up,
-    the rep loop and the square root's slow path, so they bound the pair
-    from above."""
-    import re
-    import shutil
-
+    of the built library, ``utils/sass.py``) over the pairs their sweep
+    loop's body holds (C6 unrolled by 4, A2 by 8); the counts include the
+    kernel's set-up, the rep loop and the square root's slow path, so
+    they bound the pair from above."""
     from wavefront_path_tracer_tpu_torch.ops import _build
+    from wavefront_path_tracer_tpu_torch.utils import sass
 
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(tool):
+    if sass.cuobjdump() is None:
         log("[probe-sass] cuobjdump not found: instructions a pair not "
             "measured")
         return {}
-    lib = _build.build()[0]
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
     out = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.splitlines()[0].strip()
+    for name, n in sass.counts(_build.build()[0]).items():
         if "probe_pair_sweep" not in name:
             continue
-        n = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+\S", part, re.M))
         variant, pairs = ("A2", 8) if "Lb1E" in name else ("C6", 4)
         out[variant] = {"function": name, "instructions": n,
                         "per_pair": n / pairs}
@@ -3912,20 +3927,386 @@ def phase_multi(device, smi: str, bench_line: dict | None) -> dict:
             "bench_mesh": mesh_line, "bench_mesh_seconds": bench_seconds}
 
 
+# The differential stage probes (phases stageplain and stage): every probe
+# instantiation (ops/stage_probes.py KERNEL_PROBES, csrc/baked_probe*.cu and
+# dynculled_probe*.cu) on a scene of each kind at STAGE_SIZE, held to its
+# plain version and to the unprobed kernel; the plain runs are phase
+# stageplain's, in the window (cut to 4 bounces: the plain versions' time
+# goes with the bounces of their slowest ray).
+STAGE_SIZE = (160, 90, 4)
+STAGE_BOUNCES = 4
+STAGE_KERNELS = (("culled", 16), ("unculled", 0), ("dynculled", 16))
+STAGE_PARTS = {"book": ("book", "book_checker", "texmesh"),
+               "terrain": ("terrain",)}
+# dbl_accum adds the sky term as two halves (rounding up to three times a
+# miss, not once): its kernel is held to the unprobed one within this
+# relative error a sample (tests/test_torch_stage_timing.py's).
+ACCUM_RTOL_PER_SAMPLE = 1e-6
+# A kernel's time moves by up to this much between calls (PERF.md): a
+# share below it is not resolved.
+DRIFT = 0.06
+# The reference's probe point of each name (ops/pallas_kernels.py).
+PROBE_POINTS = {"dbl_raygen": 2611, "dbl_shade": 2685, "dbl_accum": 2673,
+                "dbl_loopcond": 2550, "dbl_entry": 1423, "dbl_cond": 1379,
+                "dyn_dbl_entry": 2219, "dyn_dbl_cond": 2128,
+                "dyn_dbl_global": 2074}
+# The --stage-timing tables: (label, scene, size, kernel, CLI flags); the
+# dynamic table through models/fused.py stage_timing (the CLI prints the
+# reference's note for brute force).
+STAGE_TABLES = (
+    ("headline", "book_one_final", (MAIN_WIDTH, MAIN_HEIGHT, MAIN_SPP),
+     "culled", ["--intersector", "baked", "--clusters", "16"]),
+    ("unculled", "book_one_final", (MAIN_WIDTH, MAIN_HEIGHT, MAIN_SPP),
+     "unculled", ["--intersector", "baked", "--clusters", "0"]),
+    ("terrain_dynamic", "terrain", (*MESH_SIZE, 32), "dynculled", None),
+)
+
+
+def _stage_scene(name: str):
+    if name == "texmesh":
+        return _from_scene_file(_textured_mesh_file("tex_mesh_stage"))
+    return {"book": _book, "book_checker": _book_checker,
+            "terrain": _terrain}[name]()
+
+
+def _stage_cases(device, scenes):
+    """(label, scene, kernel, probe, Case) of every probe instantiation on
+    ``scenes`` (the unprobed kernel first of each, probe None)."""
+    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
+    from wavefront_path_tracer_tpu_torch.ops import stage_probes
+
+    w, h, spp = STAGE_SIZE
+    for name in scenes:
+        scene, tris, cam = _stage_scene(name)
+        for kind, clusters in STAGE_KERNELS:
+            for probe in (None, *stage_probes.KERNEL_PROBES[kind]):
+                case = Case(kind, clusters, scene, cam, w, h, spp, 1,
+                            {} if probe is None else {"probe": probe},
+                            device, triangles=tris, bounces=STAGE_BOUNCES)
+                if probe is not None:
+                    counts = (dk.PROBE_LAUNCHES if kind == "dynculled"
+                              else bk.PROBE_LAUNCHES[kind])
+                    case.launches = lambda c=counts, n=probe: c[n]
+                label = (f"{kind}/{clusters} {probe or 'unprobed'} {name} "
+                         f"{w}x{h}@{spp}spp {STAGE_BOUNCES} bounces")
+                yield label, name, kind, probe, case
+
+
+def phase_stage_plain(device, part=None) -> list[dict]:
+    """Phase stageplain: the plain versions of every probe instantiation
+    (phase stage's cases) on the scenes of ``part`` (all without one),
+    each timed; their results go to ``_PLAIN_OUT`` for phase stage."""
+    scenes = (STAGE_PARTS[part] if part is not None
+              else sum(STAGE_PARTS.values(), ()))
+    out = []
+    for label, _name, _kind, probe, case in _stage_cases(device, scenes):
+        if probe is None:
+            continue
+        plain_ms, _PLAIN_OUT[case.key] = _time_ms(case.plain, 1)
+        out.append({"case": label, "plain_ms": plain_ms})
+        log(f"[stage-plain] {label}: plain version {plain_ms:.1f} ms")
+    return out
+
+
+def _stage_check(label, case, probe, base) -> tuple:
+    """A probe kernel against its plain version (bit for bit, radiance
+    words and counters) and against the unprobed kernel's results
+    ``base`` (bit for bit; dbl_accum's radiance within its tolerance)."""
+    before = case.launches()
+    k = case.kernel()
+    torch.cuda.synchronize()
+    if case.launches() != before + 1:
+        raise AssertionError(f"{label}: the wrapper did not count its launch")
+    p = _PLAIN_OUT.get(case.key)
+    if p is None:
+        p = _PLAIN_OUT[case.key] = case.plain()
+    stats_k, stats_p, stats_b = (k[3].tolist(), p[3].tolist(),
+                                 base[3].tolist())
+    plain_bits = stats_k == stats_p and all(
+        torch.equal(_bits(a), _bits(b)) for a, b in zip(k[:3], p[:3]))
+    err_plain = max(float((a.double() - b.double()).abs().max())
+                    for a, b in zip(k[:3], p[:3]))
+    err_base = max(float((a.double() - b.double()).abs().max())
+                   for a, b in zip(k[:3], base[:3]))
+    if probe == "dbl_accum":
+        rtol = ACCUM_RTOL_PER_SAMPLE * STAGE_SIZE[2]
+        base_ok = all(torch.allclose(a, b, rtol=rtol, atol=1e-7)
+                      for a, b in zip(k[:3], base[:3]))
+    else:
+        base_ok = all(torch.equal(_bits(a), _bits(b))
+                      for a, b in zip(k[:3], base[:3]))
+    base_ok = base_ok and stats_k == stats_b
+    rep = {"case": label, "kernel": case.kind, "probe": probe,
+           "stats": stats_k, "bit_exact_plain": plain_bits,
+           "max_abs_err": err_plain, "equal_unprobed": base_ok,
+           "max_abs_err_unprobed": err_base}
+    log(f"[stage-check] {json.dumps(rep)}")
+    if not plain_bits:
+        raise AssertionError(f"{label}: the probe kernel and its plain "
+                             f"version differ")
+    if not base_ok:
+        raise AssertionError(f"{label}: the probe kernel and the unprobed "
+                             f"kernel differ")
+    if (case.kind != "unculled" and case.has_clusters()
+            and not stats_k[3] > 0):
+        raise AssertionError(f"{label}: no cluster was entered")
+    return rep, k
+
+
+def _stage_sass() -> dict:
+    """Each probe kernel's SASS instructions against its unprobed
+    kernel's (utils/sass.py): a duplicate that nvcc merged away would
+    leave them equal.  {} where the machine has no cuobjdump."""
+    from wavefront_path_tracer_tpu_torch.ops import _build, stage_probes
+    from wavefront_path_tracer_tpu_torch.utils import sass
+
+    if sass.cuobjdump() is None:
+        log("[stage-sass] cuobjdump not found: probe SASS not counted "
+            "(each probe's share is printed beside its registers)")
+        return {}
+    counts = sass.counts(_build.build()[0])
+
+    def count(kind, tris, tex, bits):
+        sym = stage_probes.kernel_symbol(kind, tris, tex, bits)
+        found = [n for name, n in counts.items() if sym in name]
+        if len(found) != 1:
+            raise AssertionError(f"{len(found)} SASS functions match {sym}")
+        return found[0]
+
+    out = {}
+    for kind, probes in stage_probes.KERNEL_PROBES.items():
+        for tris in (False, True):
+            for tex in (False, True):
+                base = count(kind, tris, tex, 0)
+                for probe in probes:
+                    n = count(kind, tris, tex, stage_probes.PROBES[probe])
+                    key = f"{kind} tris={int(tris)} tex={int(tex)} {probe}"
+                    out[key] = {"base": base, "probe": n}
+                    log(f"[stage-sass] {key}: {n} SASS instructions, "
+                        f"unprobed {base} (+{n - base})")
+                    if not n > base:
+                        raise AssertionError(f"{key}: the probe kernel is "
+                                             f"no longer than the unprobed "
+                                             f"one ({n} <= {base})")
+    return out
+
+
+def _stage_ptxas() -> dict:
+    """ptxas's registers and spills of every probe kernel and its unprobed
+    kernel, from the build's report (a probe that spills more than its
+    base reads an upper bound of its stage's share)."""
+    from wavefront_path_tracer_tpu_torch.ops import _build, stage_probes
+
+    report = _build.build()[1]
+    out = {}
+    for kind, probes in stage_probes.KERNEL_PROBES.items():
+        for tris in (False, True):
+            for tex in (False, True):
+                for probe in (None, *probes):
+                    bits = 0 if probe is None else stage_probes.PROBES[probe]
+                    sym = stage_probes.kernel_symbol(kind, tris, tex, bits)
+                    reps = _build.ptxas_kernels(report, sym)
+                    if len(reps) != 1:
+                        raise AssertionError(f"ptxas reported {len(reps)} "
+                                             f"kernels for {sym}")
+                    rep = {k: reps[0].get(k) for k in (
+                        "registers", "stack", "spill_stores", "spill_loads")}
+                    key = (f"{kind} tris={int(tris)} tex={int(tex)} "
+                           f"{probe or 'unprobed'}")
+                    out[key] = rep
+                    log(f"[stage-ptxas] {key}: {rep['registers']} "
+                        f"registers, {rep['stack']} bytes stack, "
+                        f"{rep['spill_stores']} / {rep['spill_loads']} bytes "
+                        f"spilled")
+    return out
+
+
+def _probe_launches() -> dict:
+    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
+    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
+
+    return {**{f"culled/{n}": v for n, v in bk.PROBE_LAUNCHES["culled"].items()},
+            **{f"unculled/{n}": v
+               for n, v in bk.PROBE_LAUNCHES["unculled"].items()},
+            **{f"dynculled/{n}": v for n, v in dk.PROBE_LAUNCHES.items()}}
+
+
+def _stage_table(device, smi, label, scene_name, size, kind, argv) -> dict:
+    """One --stage-timing table with the launch counts set to 0 just
+    before it and read just after: every probe of the path's kernel must
+    have launched, the shares must be at least 0 and close the budget."""
+    import contextlib
+    import io
+    import re
+
+    from wavefront_path_tracer_tpu_torch import cli
+    from wavefront_path_tracer_tpu_torch.models import fused
+    from wavefront_path_tracer_tpu_torch.ops import stage_probes
+    from wavefront_path_tracer_tpu_torch.renderer import Renderer
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+
+    w, h, spp = size
+    buf = io.StringIO()
+    _reset_launches()
+    t0 = time.perf_counter()
+    if argv is not None:
+        png = os.path.join(OUT_DIR, f"smoke_stage_{label}.png")
+        with contextlib.redirect_stderr(buf):
+            cli.run(["--device", device.type, "--scene", scene_name,
+                     "--width", str(w), "--height", str(h), "--spp",
+                     str(spp), "--spf", str(spp), "--max-bounces", "50",
+                     *argv, "--stage-timing", "--out", png, "--quiet"])
+    else:
+        scene, tris, cc = _stage_scene(scene_name)
+        cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                           samples_per_frame=spp, max_bounces=50,
+                           engine="fused", intersector="bruteforce",
+                           baked_clusters=16)
+        renderer = Renderer(scene, cc, cfg, tris, device=device)
+        base, rows = fused.stage_timing(
+            renderer.scene_arrays, cc.gpu_camera(), cc.view_matrix(),
+            cc.inverse_projection(w, h), cfg, n_samples=min(spp, 32))
+        cli.print_stage_table(base, rows, min(spp, 32), file=buf)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    probes = _probe_launches()
+    launches = {n: probes[f"{kind}/{n}"]
+                for n in stage_probes.KERNEL_PROBES[kind]}
+    rows = {}
+    for line in buf.getvalue().splitlines():
+        m = re.match(r"  (.+?)\s+(-?[\d.]+) ms(?:\s+(-?[\d.]+)%)?$", line)
+        if m:
+            rows[m[1]] = {"ms": float(m[2]),
+                          "share": None if m[3] is None
+                          else float(m[3]) / 100}
+    for name, row in rows.items():
+        note = ""
+        if row["share"] is not None and row["share"] < DRIFT:
+            note = (f"  (below the {DRIFT:.0%} between-call drift: not "
+                    f"resolved)")
+        log(f"[stage-table] {label} ({scene_name} {w}x{h}@{spp}spp, "
+            f"{kind}): {name:34s} {row['ms']:9.2f} ms"
+            + ("" if row["share"] is None else f"  {row['share']:6.1%}")
+            + f"{note} [{smi}]")
+    shares = [r["share"] for n, r in rows.items() if n != "base render"]
+    expected = len(stage_probes.KERNEL_PROBES[kind]) + 1
+    if len(shares) != expected or "base render" not in rows:
+        raise AssertionError(f"{label}: {len(shares)} stage rows, not "
+                             f"{expected}: {buf.getvalue()}")
+    if min(shares) < 0 or sum(shares) < 1 - 0.005:
+        raise AssertionError(f"{label}: shares {shares} do not close")
+    missing = [n for n, v in launches.items() if v < 1]
+    if missing:
+        raise AssertionError(f"{label}: probes {missing} never launched")
+    log(f"[stage-table] {label}: {seconds:.1f} s; probe launches "
+        f"{launches}; base kernel launches {_read_launches()[kind]}")
+    return {"rows": rows, "launches": launches, "seconds": seconds}
+
+
+def _stage_scripts(smi) -> dict:
+    """probes/iterprobe.py and probes/dynprobe.py once each at their
+    defaults, in this process."""
+    import contextlib
+    import io
+
+    from wavefront_path_tracer_tpu_torch.probes import dynprobe, iterprobe
+
+    out = {}
+    for name, script in (("iterprobe", iterprobe), ("dynprobe", dynprobe)):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = script.main([])
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            if not line.startswith("{"):
+                log(f"[stage-script] {name}: {line}")
+        if rc != 0:
+            raise AssertionError(f"{name} exited {rc}")
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "variants": [json.loads(ln) for ln in lines
+                                  if ln.startswith("{")]}
+    return out
+
+
+def _stage_refusal(device) -> None:
+    """A bitmask with no instantiation (two probes at once), past the
+    wrapper's own check: the C entry point must refuse it and the wrapper
+    raise."""
+    from wavefront_path_tracer_tpu_torch.ops import stage_probes
+
+    probe_bits = stage_probes.probe_bits
+    try:
+        stage_probes.probe_bits = lambda *_a: 3
+        case = next(c for *_r, c in _stage_cases(device, ("book",)))
+        try:
+            case.kernel()
+        except RuntimeError as exc:
+            log(f"[stage-check] two bits at once refused by the kernel: "
+                f"{exc}")
+        else:
+            raise AssertionError("the kernel accepted a probe bitmask that "
+                                 "has no instantiation")
+    finally:
+        stage_probes.probe_bits = probe_bits
+
+
+def phase_stage(device, smi: str) -> dict:
+    """Phase stage: the differential stage probes.  Every probe kernel
+    against its plain version and the unprobed kernel (STAGE_SIZE), its
+    SASS against the unprobed kernel's, ptxas's registers and spills;
+    the --stage-timing tables (STAGE_TABLES) and the two probe scripts."""
+    seconds = {}
+    t0 = time.perf_counter()
+    out = {"sass": _stage_sass(), "ptxas": _stage_ptxas(), "checks": [],
+           "timed": {}, "seconds": seconds}
+    seconds["sass and ptxas"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base = None
+    scenes = sum(STAGE_PARTS.values(), ())
+    for label, name, kind, probe, case in _stage_cases(device, scenes):
+        if probe is None:
+            base = case.kernel()
+            continue
+        rep, k = _stage_check(label, case, probe, base)
+        if name == "book":
+            # The kernels line's entry: this case's kernel time (mean of
+            # 5 calls) beside its bound.
+            rep["kernel_ms"], _ = _time_ms(case.kernel, 5)
+            rep.update(case.bound(k[3].tolist(), probe=probe))
+            out["timed"][f"{kind}/{probe}"] = rep
+        out["checks"].append(rep)
+    _stage_refusal(device)
+    seconds["checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["tables"] = {label: _stage_table(device, smi, label, *spec)
+                     for label, *spec in STAGE_TABLES}
+    seconds["tables"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["scripts"] = _stage_scripts(smi)
+    seconds["scripts"] = time.perf_counter() - t0
+    log(f"[stage] seconds by step: "
+        f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    return out
+
+
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull",
           "meshplain", "tex", "texfull", "seg", "segfull", "probes",
           "sweep", "loop", "segform", "oracle", "wavefront", "bench", "app",
-          "multi")
+          "multi", "stageplain", "stage")
 # Phases, and parts of phases (PARTS: shares of a phase's cases), that
 # time nothing.  With more than one phase to run, WINDOW runs here first
 # while each of APART runs beside it in a process of its own, and the
 # bench's ``--all`` as a child; the other phases wait until all of them
 # have ended, so that no timed phase shares the card.  A phase apart hands
 # back its record and its plain versions' results (``_PLAIN_OUT``).
-PARTS = {"kernels": ("book", "mesh"), "oracle": ("tpu", "scenes")}
+PARTS = {"kernels": ("book", "mesh"), "oracle": ("tpu", "scenes"),
+         "stageplain": tuple(STAGE_PARTS)}
 WINDOW = (("kernels", "book"),)
 APART = (("kernels", "mesh"), ("meshplain", None), ("tex", None),
-         ("seg", None), ("oracle", "tpu"), ("oracle", "scenes"))
+         ("seg", None), ("oracle", "tpu"), ("oracle", "scenes"),
+         *(("stageplain", part) for part in STAGE_PARTS))
 APART_TIMEOUT = 600        # seconds a phase apart may take
 
 
@@ -3975,6 +4356,7 @@ def _end_window(children: dict, all_child, keys: dict, record: dict,
         if os.path.exists(plain):
             _PLAIN_OUT.update(torch.load(plain, map_location=device,
                                          weights_only=False))
+            os.remove(plain)          # a hand-off, not a result
         log(f"[phase] {label} done in {apart['phase_seconds'][label]:.1f} s "
             f"in a process of its own, beside "
             f"{', '.join(_label(*w) for w in WINDOW)} ({seconds:.1f} s with "
@@ -3987,6 +4369,42 @@ def _end_window(children: dict, all_child, keys: dict, record: dict,
         log(f"[window] {', '.join(_label(*w) for w in WINDOW)} here and "
             f"{', '.join(beside)} beside: "
             f"{time.perf_counter() - t_window:.1f} s")
+
+
+def _stage_kernels(record: dict) -> list[dict]:
+    """The kernels line's entries of the stage probes: one a kernel and
+    probe, its numbers from book_one_final at STAGE_SIZE (the kernel's
+    time alone in phase stage, its plain version's in the window), its
+    launches from its --stage-timing table's run."""
+    from wavefront_path_tracer_tpu_torch.ops import stage_probes
+
+    stage = record["stage"]
+    plain = {r["case"]: r["plain_ms"] for r in record["stage_plain"]}
+    paths = {spec[2]: label for label, *spec in STAGE_TABLES}
+    names = {"culled": KERNELS["culled"]["name"],
+             "unculled": "fused_render_baked/baked_intersect",
+             "dynculled": "fused_render_dynculled/"
+                          "make_dynamic_culled_intersect"}
+    out = []
+    for kind, probes in stage_probes.KERNEL_PROBES.items():
+        src = {"culled": "baked_probe.cu",
+               "unculled": "baked_probe_unculled.cu",
+               "dynculled": "dynculled_probe.cu"}[kind]
+        for probe in probes:
+            rep = stage["timed"][f"{kind}/{probe}"]
+            out.append({
+                "name": f"{names[kind]} with the stage probe {probe}",
+                "route": "cuda", "source": SOURCE + src,
+                "replaces": REPLACES + str(PROBE_POINTS[probe]),
+                "launches": stage["tables"][paths[kind]]["launches"][probe],
+                "max_abs_err": max(r["max_abs_err"] for r in stage["checks"]
+                                   if r["kernel"] == kind
+                                   and r["probe"] == probe),
+                "ms": rep["kernel_ms"], "plain_ms": plain[rep["case"]],
+                "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                "library_ms": None,
+            })
+    return out
 
 
 def main(argv=None) -> int:
@@ -4074,7 +4492,10 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
               lambda part: phase_bench(device, smi, all_child)),
              ("app", "app", lambda part: phase_app(device, smi)),
              ("multi", "multi", lambda part: phase_multi(
-                 device, smi, record.get("bench", {}).get("default"))))
+                 device, smi, record.get("bench", {}).get("default"))),
+             ("stageplain", "stage_plain",
+              lambda part: phase_stage_plain(device, part)),
+             ("stage", "stage", lambda part: phase_stage(device, smi)))
     keys = {phase: key for phase, key, _run in steps}
     runs = {phase: run for phase, _key, run in steps}
     record["phase_seconds"] = {}
@@ -4184,6 +4605,7 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep.get("library_ms"),
         })
+    kernels += _stage_kernels(record)
     with open(record_path, "w") as f:
         json.dump(record, f, indent=1)
     log(smi)

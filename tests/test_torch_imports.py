@@ -14,7 +14,11 @@ from wavefront_path_tracer_tpu_torch.ops import _build
 from wavefront_path_tracer_tpu_torch.ops import baked_kernels as tbk
 from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as tdk
 from wavefront_path_tracer_tpu_torch.ops import fused_kernels as tfk
-from wavefront_path_tracer_tpu_torch.renderer import Renderer, render
+from wavefront_path_tracer_tpu_torch.renderer import (
+    Renderer,
+    prepare_scene,
+    render,
+)
 from wavefront_path_tracer_tpu_torch.scene import CameraController, book_cover
 from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
 
@@ -52,6 +56,7 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.ops.dyn_tables
         import wavefront_path_tracer_tpu_torch.ops.dynculled_kernels
         import wavefront_path_tracer_tpu_torch.ops.fused_kernels
+        import wavefront_path_tracer_tpu_torch.ops.stage_probes
         import wavefront_path_tracer_tpu_torch.ops.bsdf
         import wavefront_path_tracer_tpu_torch.ops.bvh_traverse
         import wavefront_path_tracer_tpu_torch.ops.compact
@@ -65,6 +70,9 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.parallel.sharding
         import wavefront_path_tracer_tpu_torch.profile_frame
         import wavefront_path_tracer_tpu_torch.probes._slope
+        import wavefront_path_tracer_tpu_torch.probes._stage
+        import wavefront_path_tracer_tpu_torch.probes.dynprobe
+        import wavefront_path_tracer_tpu_torch.probes.iterprobe
         import wavefront_path_tracer_tpu_torch.probes.bf16_issue
         import wavefront_path_tracer_tpu_torch.probes.hbm_bw
         import wavefront_path_tracer_tpu_torch.probes.matmul_r2
@@ -80,7 +88,8 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.utils.profiling
         import wavefront_path_tracer_tpu_torch.scene.bvh
         import wavefront_path_tracer_tpu_torch.validate
-        from wavefront_path_tracer_tpu_torch.renderer import render
+        from wavefront_path_tracer_tpu_torch.renderer import (
+            prepare_scene, render)
         from wavefront_path_tracer_tpu_torch.scene import (
             CameraController, book_cover, mesh_terrain_scene)
         from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
@@ -126,6 +135,21 @@ def test_port_never_imports_jax():
                       pair_ceiling, tripair):
             with contextlib.redirect_stdout(io.StringIO()):
                 assert probe.main(["--device", "cpu"]) == 0
+        from wavefront_path_tracer_tpu_torch.probes import dynprobe, iterprobe
+        for probe, variant in ((iterprobe, "dbl_cond"),
+                               (dynprobe, "dyn_dbl_cond")):
+            with contextlib.redirect_stdout(io.StringIO()):
+                assert probe.main(["--device", "cpu", "--width", "8",
+                                   "--height", "8", "--spp", "1",
+                                   "--reps", "1", "--variants",
+                                   "full," + variant]) == 0
+        from wavefront_path_tracer_tpu_torch.models.fused import stage_timing
+        cfg_s = cfg.replace(intersector="baked", baked_clusters=16)
+        base, rows = stage_timing(
+            prepare_scene(book_cover(), cfg_s, "cpu"), cc.gpu_camera(),
+            cc.view_matrix(), cc.inverse_projection(8, 8), cfg_s,
+            n_samples=1, reps=1)
+        assert base > 0 and len(rows) == 7
         for name in ("jax", "wavefront_path_tracer_tpu", "examples",
                      "micro_r2", "tripair", "hbm_bw", "pair_ceiling",
                      "bf16_issue", "micro_slope"):
@@ -183,10 +207,21 @@ def test_no_launches_on_cpu():
            CFG.replace(baked_clusters=8, recluster=2), device="cpu")
     render(book_cover(), CameraController.book_one_final(),
            CFG.replace(intersector="baked", recluster=1), device="cpu")
+    from wavefront_path_tracer_tpu_torch.models.fused import stage_timing
+    cc = CameraController.book_one_final()
+    for extra in ({"intersector": "baked", "baked_clusters": 16},
+                  {"baked_clusters": 16}):
+        cfg = CFG.replace(**extra)
+        stage_timing(prepare_scene(book_cover(), cfg, "cpu"),
+                     cc.gpu_camera(), cc.view_matrix(),
+                     cc.inverse_projection(8, 8), cfg, n_samples=1, reps=1)
     assert tfk.LAUNCHES == before == 0
     assert tbk.LAUNCHES == {"culled": 0, "unculled": 0, "segment_culled": 0,
                             "segment_unculled": 0}
     assert tdk.LAUNCHES == tdk.SEGMENT_LAUNCHES == 0
+    assert not any(n for counts in tbk.PROBE_LAUNCHES.values()
+                   for n in counts.values())
+    assert not any(tdk.PROBE_LAUNCHES.values())
 
 
 def test_build_flags(monkeypatch):
@@ -195,10 +230,13 @@ def test_build_flags(monkeypatch):
     assert not any("fast_math" in flag or "fast-math" in flag for flag in cmd)
     assert "-fmad=false" in cmd      # bit-identical to the plain version
     assert [p.name for p in _build.sources()] == [
-        "baked.cu", "dynculled.cu", "persistent.cu", "probe_designs.cu",
-        "probe_issue.cu", "probe_mma.cu", "probe_pairs.cu", "probe_stream.cu",
+        "baked.cu", "baked_probe.cu", "baked_probe_unculled.cu",
+        "dynculled.cu", "dynculled_probe.cu", "dynculled_probe_tris.cu",
+        "persistent.cu", "probe_designs.cu", "probe_issue.cu",
+        "probe_mma.cu", "probe_pairs.cu", "probe_stream.cu",
         "probe_tripair.cu"]
-    assert [p.name for p in _build.headers()] == ["common.cuh"]
+    assert [p.name for p in _build.headers()] == [
+        "baked.cuh", "common.cuh", "dynculled.cuh"]
     for name, fn in (("persistent.cu", "wpt_persistent_launch"),
                      ("baked.cu", "wpt_baked_launch"),
                      ("baked.cu", "wpt_baked_segment_launch"),
@@ -214,9 +252,21 @@ def test_build_flags(monkeypatch):
                      ("probe_mma.cu", "wpt_probe_mma_launch")):
         src = (_build.CSRC / name).read_text()
         assert f'extern "C" int {fn}' in src
+        # The probes stand alone; the render kernels share the bounce step
+        # (baked.cu and dynculled.cu through their headers, which hold the
+        # kernels and return cudaGetLastError()).
+        header = {"baked.cu": "baked.cuh", "dynculled.cu": "dynculled.cuh"}
+        if name in header:
+            assert f'#include "{header[name]}"' in src
+            src = (_build.CSRC / header[name]).read_text()
         assert "cudaGetLastError" in src
-        # The probes stand alone; the render kernels share the bounce step.
         assert ('#include "common.cuh"' in src) != name.startswith("probe_")
+    for name, header in (("baked_probe.cu", "baked.cuh"),
+                         ("baked_probe_unculled.cu", "baked.cuh"),
+                         ("dynculled_probe.cu", "dynculled.cuh"),
+                         ("dynculled_probe_tris.cu", "dynculled.cuh")):
+        src = (_build.CSRC / name).read_text()
+        assert f'#include "{header}"' in src and "bool probe_launch_" in src
     # One nvcc per source, all with the flags; one more links the objects.
     monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
     cmd = _build.compile_command(_build.CSRC / "baked.cu", Path("b.o"))

@@ -4,6 +4,7 @@ inputs, ``trace_to``, and the command line's ``--stage-timing`` and
 
 import json
 import os
+import re
 
 import pytest
 import torch
@@ -115,14 +116,50 @@ def test_cli_stage_timing_wavefront(tmp_path, capsys):
     assert result.kernel_stats is None
 
 
+def _stage_rows(err: str) -> dict:
+    """{label: (ms, share)} of the stage table in ``err``."""
+    rows = {}
+    for line in err.splitlines():
+        m = re.match(r"  (.+?)\s+(-?[\d.]+) ms(?:\s+(-?[\d.]+)%)?$", line)
+        if m:
+            rows[m[1]] = (float(m[2]),
+                          float(m[3]) if m[3] is not None else None)
+    return rows
+
+
 def test_cli_stage_timing_fused(tmp_path, capsys):
+    """The fused engine's per-frame counters, then the differential
+    stage table after the render (the reference CLI's, its cli.py:527-547)."""
     _renderer, result = cli.run(TINY + [
         "--intersector", "baked", "--clusters", "2", "--stage-timing",
         "--out", str(tmp_path / "f.png")])
     err = capsys.readouterr().err
     assert err.count("fused: ") == 2 and "lane-occupancy" in err
-    assert "queue 1 item 11" in err
+    assert "fused stage timing (differential probes, 2 spp):" in err
+    rows = _stage_rows(err)
+    assert list(rows) == [
+        "generate (raygen)", "extend: primitive tests", "extend: cull conds",
+        "shade (BSDF)", "miss (sky accumulate)", "loop bookkeeping",
+        "other (winner selects, unprobed)", "base render"]
+    assert rows["base render"][0] > 0 and rows["base render"][1] is None
+    shares = [share for label, (_ms, share) in rows.items()
+              if label != "base render"]
+    assert all(share >= 0 for share in shares)
+    assert sum(shares) >= 100.0 - 0.5      # the residual closes the budget
     assert result.kernel_stats["iterations"] > 0
+
+
+@pytest.mark.parametrize("argv", [
+    ["--intersector", "bruteforce", "--clusters", "8"],
+    ["--intersector", "bruteforce", "--clusters", "0"]])
+def test_cli_stage_timing_fused_bruteforce_note(tmp_path, capsys, argv):
+    """Without --intersector baked the fused engine prints the
+    reference's note, not the table."""
+    cli.run(TINY + argv + ["--stage-timing", "--out",
+                           str(tmp_path / "b.png")])
+    err = capsys.readouterr().err
+    assert "needs --intersector baked" in err
+    assert "fused stage timing" not in err and "base render" not in err
 
 
 def test_cli_stage_timing_megakernel_notes(tmp_path, capsys):
@@ -130,7 +167,9 @@ def test_cli_stage_timing_megakernel_notes(tmp_path, capsys):
                                   "--stage-timing",
                                   "--out", str(tmp_path / "m.png")])
     assert renderer.stage_timer is None
-    assert "wavefront and fused engines only" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "wavefront and fused engines only" in err
+    assert "fused stage timing" not in err
 
 
 def test_cli_profile_dir(tmp_path, capsys):

@@ -13,8 +13,10 @@ hint (``--winner-hint``) or the segmented re-clustering path
 (``--recluster K``), on a torch device (``--device``, or ``--platform``
 as the reference names it).  ``--stage-timing`` reports the wavefront
 engine's per-stage times or the fused engine's in-kernel counters each
-frame; ``--profile-dir`` writes a ``torch.profiler`` trace of the first
-frame.  The app layer: ``--tonemap``, ``--until-delta``, ``--preview``
+frame, and after the render of the fused engine with ``--intersector
+baked`` its differential per-stage table (``models/fused.py``
+``stage_timing``); ``--profile-dir`` writes a ``torch.profiler`` trace of
+the first frame.  The app layer: ``--tonemap``, ``--until-delta``, ``--preview``
 (a PNG rewritten every frame, with an auto-refresh page beside it),
 ``--preview-term``, ``--serve PORT`` (a live window over HTTP,
 ``utils/preview_server.py``), ``--interactive`` (``app.py``), ``--aov``
@@ -483,14 +485,41 @@ def _render_loop(args, renderer, server):
         if args.profile_dir:
             print(f"wrote a torch.profiler trace of the first frame to "
                   f"{args.profile_dir}", file=sys.stderr)
-        if stage_timer is not None and cfg.engine == "fused":
-            # The reference's differential per-stage table of the fused
-            # engine (its cli.py:527-547) is not ported, by decision.
-            print("note: the fused engine's differential stage table is "
-                  "not ported, by decision (ROADMAP.md queue 1 item 11); "
-                  "its in-kernel counters were reported per frame above",
-                  file=sys.stderr)
+    if (stage_timer is not None and cfg.engine == "fused"
+            and cfg.intersector == "baked"):
+        # The differential per-stage breakdown (the reference's cli.py:
+        # 527-547): each stage duplicated in a probe kernel of its own,
+        # the time it adds its share.  Runs after the render.
+        from wavefront_path_tracer_tpu_torch.models.fused import (
+            stage_timing,
+        )
+
+        camera = renderer.camera
+        n_samples = min(cfg.samples_per_pixel, 32)
+        base, rows = stage_timing(
+            renderer.scene_arrays, camera.gpu_camera(),
+            camera.view_matrix(),
+            camera.inverse_projection(cfg.width, cfg.height), cfg,
+            n_samples=n_samples)
+        print_stage_table(base, rows, n_samples)
+    elif stage_timer is not None and cfg.engine == "fused" and not args.quiet:
+        print("note: the fused differential stage breakdown needs "
+              "--intersector baked; in-kernel iteration/cull counters "
+              "were reported per frame above", file=sys.stderr)
     return result
+
+
+def print_stage_table(base: float, rows: list, n_samples: int,
+                      file=None) -> None:
+    """``stage_timing``'s result as the reference's CLI prints it (its
+    cli.py:536-547), to stderr by default."""
+    file = sys.stderr if file is None else file
+    print(f"fused stage timing (differential probes, {n_samples} spp):",
+          file=file)
+    for label, seconds, share in rows:
+        print(f"  {label:34s} {seconds * 1e3:8.2f} ms  {share:6.1%}",
+              file=file)
+    print(f"  {'base render':34s} {base * 1e3:8.2f} ms", file=file)
 
 
 def _run_interactive(args, scene, triangles, camera, cfg, server):

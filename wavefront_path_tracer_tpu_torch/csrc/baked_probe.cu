@@ -1,0 +1,40 @@
+// The differential stage probes' instantiations of baked.cuh's culled
+// kernel (common.cuh kProbe): one bit each, in the shipped form only (the
+// persistent loop, no winner hint, sweep Coop) and for every kind
+// (triangles, textures): six probes (raygen, shade, accum, loopcond,
+// entry, cond), 24 kernels, in a translation unit of their own so that
+// their build runs beside baked.cu's.  models/fused.py stage_timing times
+// them against the shipped kernel.
+
+#include <cuda_runtime.h>
+
+#include "baked.cuh"
+
+namespace wpt::baked {
+
+namespace {
+
+template <bool kTris, bool kTex>
+bool launch(const wpt::LaneParams& p, int probe, const Tables& t,
+            cudaStream_t s) {
+  return wpt::with_probe_bit<wpt::kDblRaygen, wpt::kDblShade, wpt::kDblAccum,
+                             wpt::kDblLoopcond, wpt::kDblEntry,
+                             wpt::kDblCond>(probe, [&](auto bit) {
+    launch_culled<wpt::LaneParams, kTris, kTex, false, Coop,
+                  decltype(bit)::value>(p, t, s);
+  });
+}
+
+}  // namespace
+
+bool probe_launch_culled(const wpt::LaneParams& p, bool tris, bool tex,
+                         int probe, const Tables& t, cudaStream_t s) {
+  if (tris) {
+    return tex ? launch<true, true>(p, probe, t, s)
+               : launch<true, false>(p, probe, t, s);
+  }
+  return tex ? launch<false, true>(p, probe, t, s)
+             : launch<false, false>(p, probe, t, s);
+}
+
+}  // namespace wpt::baked

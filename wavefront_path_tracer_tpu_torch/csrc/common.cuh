@@ -6,7 +6,9 @@
 // segment body (trace_segment per thread, trace_segment_warp with the
 // warp's lanes in step), which runs the same bounce step from and back
 // into stored lane state.  Each kernel supplies only its nearest-hit
-// function (see bounce_step).
+// function (see bounce_step).  The differential stage probes (kProbe,
+// below) are template arguments of trace_warp and of the culled
+// intersects: a kernel instantiated with 0 is the shipped one.
 //
 // Port of wavefront_path_tracer_tpu/ops/pallas_kernels.py: _jenkins /
 // _pcg_next / _next_f32 (81-103), _raygen_tile (461), _shade_tile (167),
@@ -23,6 +25,7 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace wpt {
@@ -46,6 +49,49 @@ constexpr float kHalfPiF = (float)1.5707963;
 constexpr float kInv2Pi = (float)(1.0 / (2.0 * 3.1415927));
 constexpr float kInvPi = (float)(1.0 / 3.1415927);
 constexpr float kInv1023 = (float)(1.0 / 1023.0);
+
+// The differential stage probes (ops/stage_probes.py PROBES, where each
+// name has the bit below): the port of the reference's PROBE flags
+// (pallas_kernels.py:61), read at compile time as the reference read them
+// at trace time.  A kernel instantiated with one of these bits runs one
+// stage twice, the second time from inputs shifted by an opaque zero
+// (opaque_zero), so that nvcc cannot merge the two, and keeps results
+// equal to the unprobed kernel's (dbl_accum: up to rounding); its time
+// against the unprobed kernel's is the stage's share (models/fused.py
+// stage_timing).  Probe 0 is the shipped kernel: every probe site is an
+// `if constexpr`, so its code is the unprobed code.
+constexpr int kDblRaygen = 1 << 0;     // trace_warp: raygen
+constexpr int kDblShade = 1 << 1;      // bounce_finish: shade
+constexpr int kDblAccum = 1 << 2;      // bounce_finish: the sky add
+constexpr int kDblLoopcond = 1 << 3;   // trace_warp: the trip vote
+constexpr int kDblEntry = 1 << 4;      // baked.cu: an entered cluster
+constexpr int kDblCond = 1 << 5;       // baked.cu: cluster and super conds
+constexpr int kDynDblEntry = 1 << 6;   // dynculled.cu: an entered cluster
+constexpr int kDynDblCond = 1 << 7;    // dynculled.cu: the conds
+constexpr int kDynDblGlobal = 1 << 8;  // dynculled.cu: the globals
+
+// +0.0f from an inline-asm move that nvcc cannot see through: added to
+// the inputs of a probe's duplicate stage, it changes no value (but
+// the sign of a zero, which no compare of the stage reads) and keeps
+// nvcc from merging the duplicate with the original.
+__device__ __forceinline__ uint32_t opaque_zero_bits() {
+  uint32_t z;
+  asm volatile("mov.u32 %0, 0;" : "=r"(z));
+  return z;
+}
+
+__device__ __forceinline__ float opaque_zero() {
+  return __uint_as_float(opaque_zero_bits());
+}
+
+// The host side of a probe launch: f(std::integral_constant<int, bit>)
+// for the one listed bit that equals `probe`; false if none does (the
+// launchers of baked_probe*.cu and dynculled_probe*.cu).
+template <int... kBits, class F>
+bool with_probe_bit(int probe, F f) {
+  return ((probe == kBits
+           && (f(std::integral_constant<int, kBits>{}), true)) || ...);
+}
 
 __device__ __forceinline__ uint32_t jenkins(uint32_t x) {
   x = x + (x << 10);
@@ -370,7 +416,12 @@ struct Path {
 // the path; a hit shades, applies the texture step, scatters, and runs
 // roulette from rr_start.  Returns whether the path goes on.  `P` is
 // LaneParams or SegParams: its max_bounces, rr_start, rr_floor and clamp.
-template <class Isect, class P>
+// Probes (trace_warp's kProbe): kDblAccum adds the sky contribution as two
+// halves, the second plus an opaque zero (pallas_kernels.py:2673-2679;
+// acc + c/2 + c/2 rounds unlike acc + c); kDblShade shades twice, the
+// second time from the origin and the stream base shifted by an opaque
+// zero, and takes the mean of the two equal results (2685-2693).
+template <class Isect, class P, int kProbe = 0>
 __device__ __forceinline__ bool bounce_finish(const P& p, const Isect& isect,
                                               uint32_t base, uint32_t sample,
                                               Path& q, bool hit,
@@ -385,14 +436,38 @@ __device__ __forceinline__ bool bounce_finish(const P& p, const Isect& isect,
       con_g = fminf(con_g, p.clamp);
       con_b = fminf(con_b, p.clamp);
     }
-    q.acc_r += con_r;
-    q.acc_g += con_g;
-    q.acc_b += con_b;
+    if constexpr ((kProbe & kDblAccum) != 0) {
+      const float z = opaque_zero();
+      q.acc_r += con_r * 0.5f;
+      q.acc_g += con_g * 0.5f;
+      q.acc_b += con_b * 0.5f;
+      q.acc_r += con_r * 0.5f + z;
+      q.acc_g += con_g * 0.5f + z;
+      q.acc_b += con_b * 0.5f + z;
+    } else {
+      q.acc_r += con_r;
+      q.acc_g += con_g;
+      q.acc_b += con_b;
+    }
     return false;
   }
   float px, py, pz, ndx, ndy, ndz;
   shade<Isect::kTriangles>(base, sample, q.bounce, q.ox, q.oy, q.oz, q.dx,
                            q.dy, q.dz, h, px, py, pz, ndx, ndy, ndz);
+  if constexpr ((kProbe & kDblShade) != 0) {
+    const uint32_t zi = opaque_zero_bits();
+    const float z = __uint_as_float(zi);
+    float px2, py2, pz2, ndx2, ndy2, ndz2;
+    shade<Isect::kTriangles>(base + zi, sample, q.bounce, q.ox + z, q.oy,
+                             q.oz, q.dx, q.dy, q.dz, h, px2, py2, pz2, ndx2,
+                             ndy2, ndz2);
+    px = 0.5f * (px + px2);
+    py = 0.5f * (py + py2);
+    pz = 0.5f * (pz + pz2);
+    ndx = 0.5f * (ndx + ndx2);
+    ndy = 0.5f * (ndy + ndy2);
+    ndz = 0.5f * (ndz + ndz2);
+  }
   float ar = h.ar, ag = h.ag, ab = h.ab;
   if constexpr (Isect::kTextured) {
     apply_textures(isect.tex, h, px, py, pz, ar, ag, ab);
@@ -495,7 +570,25 @@ __device__ __forceinline__ void trace_lane(const LaneParams& p, int lane,
 // next sample on the trip after its path ends), so its radiance words, its
 // streams and its counters are trace_lane's, and the trips of a warp are
 // still the largest ray count among its lanes.
-template <class Isect>
+//
+// kProbe (the bits above; 0 in the shipped kernels) duplicates a stage of
+// the loop: kDblRaygen runs raygen twice, the second time from xs and the
+// stream base shifted by an opaque zero, and takes the mean of the two
+// equal rays (pallas_kernels.py:2611-2616); kDblLoopcond takes the trip
+// vote twice, the second from `live` against an opaque zero, and ANDs
+// them (2550-2554); kDblShade and kDblAccum are bounce_finish's.  A
+// duplicate's votes stay here, in the warp's loop, where every lane joins
+// them.
+template <int kProbe>
+__device__ __forceinline__ bool trip_vote(bool live) {
+  const bool go = __any_sync(kFullMask, live);
+  if constexpr ((kProbe & kDblLoopcond) != 0) {
+    return go & __any_sync(kFullMask, live != (opaque_zero_bits() != 0u));
+  }
+  return go;
+}
+
+template <int kProbe = 0, class Isect>
 __device__ __forceinline__ void trace_warp(const LaneParams& p, int lane,
                                            const Isect& isect) {
   const bool in = lane < p.n_lanes;
@@ -521,11 +614,23 @@ __device__ __forceinline__ void trace_warp(const LaneParams& p, int lane,
   const bool stratified = p.stratified != 0;
   uint32_t s = 0, sample = 0;
   bool fresh = true;       // the lane's next ray starts a sample
-  while (__any_sync(kFullMask, live)) {
+  while (trip_vote<kProbe>(live)) {
     if (live && fresh) {
       sample = p.sample_base + soff + s;
       raygen(cam, xs, ys, base, sample, stratified, q.ox, q.oy, q.oz, q.dx,
              q.dy, q.dz);
+      if constexpr ((kProbe & kDblRaygen) != 0) {
+        const uint32_t zi = opaque_zero_bits();
+        float ox2, oy2, oz2, dx2, dy2, dz2;
+        raygen(cam, xs + __uint_as_float(zi), ys, base + zi, sample,
+               stratified, ox2, oy2, oz2, dx2, dy2, dz2);
+        q.ox = 0.5f * (q.ox + ox2);
+        q.oy = 0.5f * (q.oy + oy2);
+        q.oz = 0.5f * (q.oz + oz2);
+        q.dx = 0.5f * (q.dx + dx2);
+        q.dy = 0.5f * (q.dy + dy2);
+        q.dz = 0.5f * (q.dz + dz2);
+      }
       q.tr = 1.0f;
       q.tg = 1.0f;
       q.tb = 1.0f;
@@ -537,7 +642,8 @@ __device__ __forceinline__ void trace_warp(const LaneParams& p, int lane,
                            counts, hint);
     if (live) {
       ++counts.rays;
-      if (!bounce_finish(p, isect, base, sample, q, hit, h)) {
+      if (!bounce_finish<Isect, LaneParams, kProbe>(p, isect, base, sample,
+                                                    q, hit, h)) {
         fresh = true;
         live = ++s < p.n_samples;
       }
@@ -826,15 +932,17 @@ __device__ __forceinline__ void trace(const SegParams& p, int lane,
 
 // The body of either launch kind with the warp's lanes in step:
 // trace_warp for the persistent loop, trace_segment_warp for a segment.
-template <class Isect>
+// Only the persistent loop has probes.
+template <int kProbe = 0, class Isect>
 __device__ __forceinline__ void trace_in_step(const LaneParams& p, int lane,
                                               const Isect& isect) {
-  trace_warp(p, lane, isect);
+  trace_warp<kProbe>(p, lane, isect);
 }
 
-template <class Isect>
+template <int kProbe = 0, class Isect>
 __device__ __forceinline__ void trace_in_step(const SegParams& p, int lane,
                                               const Isect& isect) {
+  static_assert(kProbe == 0, "a segment has no probe points");
   trace_segment_warp(p, lane, isect);
 }
 
@@ -888,6 +996,36 @@ __device__ __forceinline__ bool box_enters(const BoxRay& r, float lox,
   box_range(r, lox, loy, loz, hix, hiy, hiz, c_min, c_max);
   if (c_min != c_min) return on_face(r, lox, loy, loz, hix, hiy, hiz);
   return (c_min <= c_max) & (c_max > kTMin) & (nan_max(c_min, 0.0f) < cap);
+}
+
+// The second evaluation of box conds under a cond probe (kDblCond,
+// kDynDblCond): the ray's origin and each cap shifted by an opaque zero,
+// so that nvcc recomputes the whole slab test; `dup` is made once a ray.
+// A zero's sign can differ from the first evaluation's in a slab term,
+// never in a cond.
+struct CondDup {
+  BoxRay r;
+  float z;
+};
+
+__device__ __forceinline__ CondDup cond_dup(const BoxRay& r) {
+  const float z = opaque_zero();
+  return {{r.ox + z, r.oy + z, r.oz + z, r.idx, r.idy, r.idz}, z};
+}
+
+// box_enters, and with kDup its second evaluation from `dup`, ANDed (the
+// two agree, so the cond is box_enters').
+template <bool kDup>
+__device__ __forceinline__ bool box_enters_dup(const BoxRay& r,
+                                               const CondDup& dup, float lox,
+                                               float loy, float loz,
+                                               float hix, float hiy,
+                                               float hiz, float cap) {
+  const bool e = box_enters(r, lox, loy, loz, hix, hiy, hiz, cap);
+  if constexpr (kDup) {
+    return e & box_enters(dup.r, lox, loy, loz, hix, hiy, hiz, cap + dup.z);
+  }
+  return e;
 }
 
 // slab_exit (1261-1267): the exit from the box that holds a hierarchy

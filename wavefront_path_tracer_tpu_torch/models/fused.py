@@ -22,6 +22,10 @@ With ``recluster`` K > 0 the render is segmented, as the reference's
 launch of a segment kernel over lane state, with the lanes re-sorted by
 origin Morton cell and direction octant between segments.
 
+:func:`stage_timing` attributes a render's time to its stages with the
+differential stage probes (``ops/stage_probes.py``), as the reference's
+does.
+
 ``tile_rows``, ``lane_rotate`` and ``lane_rotate_cols`` steer TPU
 scheduling; they are accepted and do not change the image beyond the
 parity rule (``tile_rows`` only pads the planes).  ``lane_split`` splits
@@ -31,6 +35,7 @@ each pixel's samples over several lanes, as in the reference.
 from __future__ import annotations
 
 import functools
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -62,6 +67,7 @@ from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     SEG_STATE,
     fused_render_persistent,
 )
+from wavefront_path_tracer_tpu_torch.ops import stage_probes
 from wavefront_path_tracer_tpu_torch.ops.raygen import generate_rays
 from wavefront_path_tracer_tpu_torch.ops.rng import MASK32
 from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
@@ -310,19 +316,23 @@ def lane_planes(pixel_idx: torch.Tensor, width: int, tile_rows: int,
 def launch_planes(planes, scene_arrays, cam_params, config: RenderConfig,
                   frame, sample_base, n_per_lane: int,
                   baked: BakedScene | None = None,
-                  dyn: DynTables | None = None):
+                  dyn: DynTables | None = None, probe=frozenset()):
     """One launch of the fused kernel over the lane planes of
     :func:`lane_planes`, through ``baked``, ``dyn`` or the brute-force
-    table; (rad_r, rad_g, rad_b, stats), the wrapper's outputs."""
+    table; (rad_r, rad_g, rad_b, stats), the wrapper's outputs.
+    ``probe``: a differential stage probe of the baked or the dynamic
+    kernel (``ops/stage_probes.py``); the brute-force kernel has none."""
     salts = (int(frame), int(sample_base), config.max_bounces, n_per_lane)
     opts = {"rr_start": config.rr_start_bounce,
             "rr_floor": config.rr_floor, "clamp": config.clamp,
             "sampler": config.sampler}
     if baked is not None:
-        return fused_render_baked(baked, salts, cam_params, *planes, **opts)
+        return fused_render_baked(baked, salts, cam_params, *planes,
+                                  probe=probe, **opts)
     if dyn is not None:
         return fused_render_dynculled(dyn, salts, cam_params, *planes,
-                                      **opts)
+                                      probe=probe, **opts)
+    stage_probes.probe_bits(probe, "persistent")
     return fused_render_persistent(
         scene_arrays["scene_packed"], scene_arrays["centers"].shape[0],
         salts, cam_params, *planes, **opts)
@@ -333,9 +343,12 @@ def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
                   with_stats: bool = False, lane_split: int = 1,
                   baked: BakedScene | None = None,
                   dyn: DynTables | None = None,
-                  cam_params: torch.Tensor | None = None):
+                  cam_params: torch.Tensor | None = None,
+                  probe=frozenset()):
     """Trace a subset of pixel ids (int64 tensor on the scene's device),
-    over ``baked`` or ``dyn`` when given, else over the (S, 16) table.
+    over ``baked`` or ``dyn`` when given, else over the (S, 16) table,
+    with the differential stage probe ``probe`` where given
+    (:func:`launch_planes`).
     ``cam_params``, the camera of :func:`camera_params` already on the
     device, saves the upload (a copy from pageable host memory, which
     waits for the device's stream).
@@ -356,7 +369,7 @@ def render_pixels(pixel_idx, scene_arrays, cam, view, inv_proj,
             camera_params(cam, view, inv_proj, config)).to(device)
     rad_r, rad_g, rad_b, stats = launch_planes(
         planes, scene_arrays, cam_params, config, frame, sample_base,
-        n_per_lane, baked, dyn)
+        n_per_lane, baked, dyn, probe=probe)
     lanes_total = num_pixels * split
     radiance = torch.stack([rad_r.reshape(-1), rad_g.reshape(-1),
                             rad_b.reshape(-1)], dim=-1)[:lanes_total]
@@ -595,3 +608,130 @@ def render_samples_with_stats(scene_arrays, cam, view, inv_proj,
     return _render_samples_impl(scene_arrays, cam, view, inv_proj, config,
                                 frame, sample_base, n_samples,
                                 with_stats=True)
+
+
+def stage_stages(config: RenderConfig, scene_arrays) -> list:
+    """The (label, probe) rows of :func:`stage_timing` for ``config``, in
+    the reference's order and with its labels (its
+    ``models/fused.py:455-469``); raises NotImplementedError where it
+    does: an intersector other than baked and brute force, and brute
+    force without clusters (the brute-force kernel has no probe points)."""
+    culled = _resolve_clusters(config, scene_arrays) > 0
+    dynamic = config.intersector != "baked"
+    if dynamic and config.intersector != "bruteforce":
+        raise NotImplementedError(
+            "fused stage timing probes cover intersector='baked' and "
+            "'bruteforce' (the production paths)")
+    if dynamic and not culled:
+        raise NotImplementedError(
+            "the plain dynamic VMEM kernel has no probe points; use "
+            "baked_clusters > 0")
+    stages = [("generate (raygen)", "dbl_raygen")]
+    if dynamic:
+        stages += [("extend: primitive tests", "dyn_dbl_entry"),
+                   ("extend: cull conds", "dyn_dbl_cond"),
+                   ("extend: global sweep", "dyn_dbl_global")]
+    elif culled:
+        stages += [("extend: primitive tests", "dbl_entry"),
+                   ("extend: cull conds", "dbl_cond")]
+    stages += [("shade (BSDF)", "dbl_shade"),
+               ("miss (sky accumulate)", "dbl_accum"),
+               ("loop bookkeeping", "dbl_loopcond")]
+    return stages
+
+
+def time_probes(scene_arrays, cam, view, inv_proj, config: RenderConfig,
+                probes, n_samples: int = 32, reps: int = 3):
+    """The unprobed render and each probed one (``probes``: names of
+    ``ops/stage_probes.py``), timed in turns: (rays, base seconds,
+    [(probe, base seconds of its turns, probe seconds), ...]).
+
+    Each time is wall seconds between ``torch.cuda.synchronize()`` calls
+    (none needed on the CPU): the least of ``reps`` runs of
+    :func:`render_pixels` over every pixel (in block order where
+    ``config.block_tiles`` asks for it) at ``n_samples`` over the
+    render's own tables (:func:`scene_tables`), after one warm run.  The
+    base render runs in turns with each probed one (base, probe, base,
+    probe, ...), since a kernel's time drifts between calls; the base
+    seconds returned first are the least of all its runs.  A probed
+    render that traces other rays than the base raises RuntimeError."""
+    device = scene_arrays["centers"].device
+    tables = scene_tables(config, scene_arrays, view)
+    if config.block_tiles:
+        perm, _ = _block_perm(config.width, config.height,
+                              config.block_tiles)
+        pix = torch.from_numpy(perm.astype(np.int64)).to(device)
+    else:
+        pix = torch.arange(config.num_pixels, dtype=torch.int64,
+                           device=device)
+    cam_params = torch.from_numpy(
+        camera_params(cam, view, inv_proj, config)).to(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def run(probe, frame) -> tuple:
+        sync()
+        t0 = time.perf_counter()
+        _, rays = render_pixels(pix, scene_arrays, cam, view, inv_proj,
+                                config, frame, 0, n_samples,
+                                cam_params=cam_params, probe=probe, **tables)
+        rays = int(rays)     # waits for the launch
+        sync()
+        return time.perf_counter() - t0, rays
+
+    _, base_rays = run((), 0)
+    base = min(run((), 1)[0] for _ in range(reps))
+    turns = []
+    for probe in probes:
+        _, rays = run(probe, 0)
+        if rays != base_rays:
+            raise RuntimeError(f"probe {probe} traced {rays} rays, the "
+                               f"base render {base_rays}")
+        t_base = t_probe = float("inf")
+        for _ in range(reps):
+            t_base = min(t_base, run((), 1)[0])
+            t_probe = min(t_probe, run(probe, 1)[0])
+        base = min(base, t_base)
+        turns.append((probe, t_base, t_probe))
+    return base_rays, base, turns
+
+
+def stage_timing(scene_arrays, cam, view, inv_proj, config: RenderConfig,
+                 n_samples: int = 32, reps: int = 3):
+    """Per-stage wall-time attribution for the fused engine, the port of
+    the reference's ``stage_timing`` (its ``models/fused.py:415-532``).
+
+    The render is one kernel, so stage times are measured
+    differentially: each stage runs twice in a kernel of its own (the
+    differential stage probes, ``ops/stage_probes.py``; results
+    unchanged), and the stage's share of the render's time is
+    (t_probed - t_base) / t_base, at least 0, against the base timed in
+    turns with it (:func:`time_probes`).  Both culled production
+    intersectors are covered: the baked one (culled or unculled) and the
+    dynamic culled one (brute force with clusters); the stages are
+    :func:`stage_stages`'.
+
+    The one departure from the reference: its baked branch bakes spheres
+    only, so that on a mesh or a textured scene it times a kernel other
+    than the one that renders; here the render's own bake (or tables)
+    is timed, triangles and textures included.
+
+    Returns (base_seconds, [(stage, seconds, share), ...]) where the
+    final row is the unprobed residual, "other (winner selects,
+    unprobed)", whose share is 1 less the probed shares, at least 0.
+    """
+    stages = stage_stages(config, scene_arrays)
+    check_supported(config, scene_arrays)
+    _rays, base, turns = time_probes(
+        scene_arrays, cam, view, inv_proj, config,
+        [probe for _label, probe in stages], n_samples, reps)
+    rows = []
+    for (label, _probe), (_p, t_base, t_probe) in zip(stages, turns):
+        share = max(0.0, (t_probe - t_base) / t_base)
+        rows.append((label, base * share, share))
+    probed = sum(r[2] for r in rows)
+    rows.append(("other (winner selects, unprobed)",
+                 base * max(0.0, 1.0 - probed), max(0.0, 1.0 - probed)))
+    return base, rows

@@ -7,7 +7,10 @@ compiled by its own ``nvcc`` process, all started together, and one more
 links the objects.  The library lands in
 ``build/kernels/<hash>/libwpt_kernels.so`` at the repository root, keyed
 by a hash of the sources, the headers and the flags, and is built at
-first use in a process.  Nothing here runs at import time.
+first use in a process; ptxas's report of the build is kept beside it
+(``ptxas.txt``).  This hash-keyed directory is the port's counterpart of
+the reference's ``utils/compile_cache.py``.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libwpt_kernels.so"
+REPORT_NAME = "ptxas.txt"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # Never --use_fast_math: the nearest-hit select needs IEEE NaN compares,
@@ -76,38 +80,100 @@ def _digest() -> str:
     return digest.hexdigest()[:16]
 
 
-def _run_all(commands: list[list[str]]) -> str:
-    """Run the commands in parallel; their stderr, joined.  Raises with
-    the stderr of the first that fails."""
+def _run_all(commands: list[list[str]]) -> tuple[str, list[float]]:
+    """Run the commands in parallel; (their stderr, joined, and each
+    one's seconds from the common start to its end).  Raises with the
+    stderr of the first that fails."""
+    import threading
+
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for cmd in commands]
-    outs = [p.communicate() for p in procs]
+    outs, seconds = [None] * len(procs), [0.0] * len(procs)
+
+    def wait(k):
+        outs[k] = procs[k].communicate()
+        seconds[k] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=wait, args=(k,))
+               for k in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     for cmd, proc, (_out, err) in zip(commands, procs, outs):
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
-    return "".join(err for _out, err in outs)
+    return "".join(err for _out, err in outs), seconds
 
 
 @functools.lru_cache(maxsize=1)
 def build() -> tuple[Path, str, float]:
     """Compile if the hashed library is missing; (path, ptxas report,
-    build seconds).  Raises with nvcc's stderr when the build fails."""
+    build seconds: 0 where the library was there).  The report starts
+    with one line a source, ``nvcc <name>: <seconds> s``, the seconds from
+    the build's start to the end of that source's nvcc.  Raises with
+    nvcc's stderr when the build fails."""
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
-        return lib, "", 0.0
+        report = out_dir / REPORT_NAME
+        return lib, report.read_text() if report.exists() else "", 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
-        report = _run_all([compile_command(src, obj)
-                           for src, obj in zip(sources(), objs)])
+        report, seconds = _run_all([compile_command(src, obj)
+                                    for src, obj in zip(sources(), objs)])
+        report = "".join(f"nvcc {src.name}: {sec:.2f} s\n"
+                         for src, sec in zip(sources(), seconds)) + report
         tmp_lib = Path(tmp) / LIB_NAME
-        report += _run_all([link_command(objs, tmp_lib)])
+        report += _run_all([link_command(objs, tmp_lib)])[0]
+        (out_dir / REPORT_NAME).write_text(report)
         os.replace(tmp_lib, lib)
     return lib, report, time.perf_counter() - t0
+
+
+def ptxas_kernels(report: str, match: str) -> list[dict]:
+    """Registers, stack frame and spill bytes of each kernel whose
+    mangled name holds ``match``, from ptxas's -v lines of ``report``:
+    [{"mangled", "kernel" (the name demangled by c++filt where the
+    machine has it, else the mangled one), "registers", "stack",
+    "spill_stores", "spill_loads"}]."""
+    import re
+
+    props, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            cur = m.group(1)
+            props.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            props[cur].update(stack=int(m[1]), spill_stores=int(m[2]),
+                              spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            props[cur]["registers"] = int(m[1])
+    names = [n for n in props if match in n]
+    return [{"mangled": n, "kernel": d, **props[n]}
+            for n, d in zip(names, demangle(names))]
+
+
+def demangle(names: list[str]) -> list[str]:
+    """``names`` demangled by c++filt, or as they are where the machine
+    has no c++filt."""
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    return subprocess.run([tool], input="\n".join(names),
+                          capture_output=True, text=True, check=True,
+                          timeout=60).stdout.splitlines()
 
 
 @functools.lru_cache(maxsize=1)
@@ -150,7 +216,8 @@ def load_library() -> ctypes.CDLL:
     ]
     fn = lib.wpt_baked_launch
     fn.argtypes = [
-        *baked_tables, i32, i32, i32,  # textured, hint, sweep
+        *baked_tables, i32, i32, i32,  # textured, hint, sweep,
+        i32,                           # probe
         *lane_args, *out_args, *salt_args,
     ]
     fn.restype = ctypes.c_int
@@ -164,7 +231,7 @@ def load_library() -> ctypes.CDLL:
         i32,                           # h, w, textured
     ]
     fn = lib.wpt_dynculled_launch
-    fn.argtypes = [*dyn_tables, i32,  # sweep
+    fn.argtypes = [*dyn_tables, i32, i32,  # sweep, probe
                    *lane_args, *out_args, *salt_args]
     fn.restype = ctypes.c_int
     seg_args = [

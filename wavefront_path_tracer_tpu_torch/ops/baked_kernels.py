@@ -34,6 +34,7 @@ from wavefront_path_tracer_tpu_torch.ops.bake import (
     TRI_COLS,
     BakedScene,
 )
+from wavefront_path_tracer_tpu_torch.ops import stage_probes
 from wavefront_path_tracer_tpu_torch.ops.fused_kernels import (
     T_FAR,
     T_MIN,
@@ -56,6 +57,10 @@ LAUNCHES = {"culled": 0, "unculled": 0, "segment_culled": 0,
             "segment_unculled": 0}
 COOP_LAUNCHES = {"culled": 0, "unculled": 0, "segment_culled": 0,
                  "segment_unculled": 0}
+# Launches of the stage probes' kernels (csrc/baked_probe*.cu) on CUDA
+# tensors, per kernel and probe name; LAUNCHES does not count them.
+PROBE_LAUNCHES = {kind: dict.fromkeys(stage_probes.KERNEL_PROBES[kind], 0)
+                  for kind in ("culled", "unculled")}
 
 _MISS = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
@@ -298,7 +303,7 @@ def _slim_t(items, oxp, oyp, ozp, dd_o, oo2, dx, dy, dz):
 
 
 def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
-                               *, ranges=None, hint=None):
+                               *, ranges=None, hint=None, probe=frozenset()):
     """Nearest hit over a culled bake (``baked_culled_intersect.intersect``,
     pallas_kernels.py:1063-1466): globals first, then the sphere
     clusters and then the triangle clusters (each hierarchy under supers
@@ -314,7 +319,14 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
     counters, each ray's winner cluster (-1 for a global win or a miss).
 
     ``ranges`` is :func:`host_ranges` of the bake; it is read from the
-    tables when not given."""
+    tables when not given.
+
+    ``probe`` (names of ``ops/stage_probes.py``) duplicates a stage as
+    the kernel's probes do (``csrc/baked.cuh`` CulledIntersect):
+    ``dbl_entry`` folds every entered cluster in a second time, from
+    |o'|^2 (spheres) or the origin (triangles) plus 0, which never wins
+    under the strict ``<``; ``dbl_cond`` takes every cluster and super
+    cond a second time from the origin and the cap plus 0, ANDed."""
     if ranges is None:
         ranges = host_ranges(baked)
     items, consts = baked.items, baked.consts
@@ -327,6 +339,8 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
     dd_o = dx * oxp + dy * oyp + dz * ozp
     oo2 = oxp * oxp + oyp * oyp + ozp * ozp
     t_sph = _slim_t(items, oxp, oyp, ozp, dd_o, oo2, dx, dy, dz)
+    dup_entry = "dbl_entry" in probe
+    dup_cond = "dbl_cond" in probe
 
     best_t = torch.full_like(ox, T_FAR)
     best_i = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
@@ -341,9 +355,24 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
     rays = (ox, oy, oz, dx, dy, dz)
     inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
     everyone = torch.ones(ox.shape, dtype=torch.bool, device=ox.device)
+    if dup_entry:
+        t_sph2 = _slim_t(items, oxp, oyp, ozp, dd_o, oo2 + 0.0, dx, dy, dz)
+        rays2 = (ox + 0.0, oy, oz, dx, dy, dz)
 
     def conds(boxes):
         return box_conds(boxes[:, 0:3], boxes[:, 4:7], ox, oy, oz, *inv)
+
+    def conds2(boxes):
+        return box_conds(boxes[:, 0:3], boxes[:, 4:7], ox + 0.0, oy + 0.0,
+                         oz + 0.0, *inv)
+
+    def enters(ok, entry, ok2, entry2, k, cap):
+        """The cond of box ``k`` against ``cap``; with dbl_cond, ANDed
+        with its second evaluation."""
+        enter = ok[:, k] & (entry[:, k] < cap)
+        if dup_cond:
+            enter = enter & ok2[:, k] & (entry2[:, k] < cap + 0.0)
+        return enter
 
     def fold_cluster(cid, fold, first, count, enter):
         """Fold one cluster in for the rays ``enter``; with a hint, a ray
@@ -358,11 +387,12 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
         nonlocal supers, clusters
         t_exit = slab_exit(slab[0:3], slab[3:6], ox, oy, oz, *inv)
         c_ok, c_entry = conds(boxes)
+        c_ok2, c_entry2 = conds2(boxes) if dup_cond else (None, None)
 
         def sweep(c, gate):
             nonlocal clusters
-            enter = gate & c_ok[:, c] & (c_entry[:, c]
-                                         < torch.minimum(best_t, t_exit))
+            enter = gate & enters(c_ok, c_entry, c_ok2, c_entry2, c,
+                                  torch.minimum(best_t, t_exit))
             if hint is not None:
                 enter = enter & (hint != id0 + c)
             clusters = clusters + enter
@@ -370,9 +400,10 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
 
         if sranges:
             s_ok, s_entry = conds(sboxes)
+            s_ok2, s_entry2 = conds2(sboxes) if dup_cond else (None, None)
             for s, (first, count) in enumerate(sranges):
-                enter = s_ok[:, s] & (s_entry[:, s]
-                                      < torch.minimum(best_t, t_exit))
+                enter = enters(s_ok, s_entry, s_ok2, s_entry2, s,
+                               torch.minimum(best_t, t_exit))
                 supers = supers + enter
                 for c in range(first, first + count):
                     sweep(c, enter)
@@ -381,13 +412,22 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
                 sweep(c, everyone)
 
     def fold_spheres(first, count, enter, best_t, best_i):
-        return _take(t_sph[:, first:first + count], first, best_t, best_i,
-                     enter)
+        best_t, best_i = _take(t_sph[:, first:first + count], first, best_t,
+                               best_i, enter)
+        if dup_entry:
+            best_t, best_i = _take(t_sph2[:, first:first + count], first,
+                                   best_t, best_i, enter)
+        return best_t, best_i
 
     def fold_triangles(first, count, enter, best_t, best_i):
-        return take_subset(tri_t, tris[first:first + count],
-                           items.shape[0] + first, best_t, best_i, enter,
-                           rays)
+        best_t, best_i = take_subset(tri_t, tris[first:first + count],
+                                     items.shape[0] + first, best_t, best_i,
+                                     enter, rays)
+        if dup_entry:
+            best_t, best_i = take_subset(tri_t, tris[first:first + count],
+                                         items.shape[0] + first, best_t,
+                                         best_i, enter, rays2)
+        return best_t, best_i
 
     (cranges, sranges), (tcranges, tsranges) = ranges
     n_sph = len(cranges)
@@ -423,19 +463,22 @@ def host_ranges(baked: BakedScene):
 def fused_render_baked_reference(
         baked: BakedScene, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random"):
+        sampler: str = "random", probe=frozenset()):
     """Plain PyTorch version of the baked kernel: the persistent loop of
     ``ops/fused_kernels.py`` over :func:`culled_intersect_reference` (with
     the winner hint where ``baked.winner_hint``) or
     :func:`baked_intersect_reference`, as ``baked.culled`` says, with the
     texture step for a textured bake.  Same arguments and results as
-    :func:`fused_render_baked`."""
+    :func:`fused_render_baked` (``probe``: the loop's probes and the
+    culled intersect's)."""
+    probe = stage_probes.probe_names(probe)
     if baked.culled:
         ranges = host_ranges(baked)
 
         def intersect(ox, oy, oz, dx, dy, dz, hint=None):
             return culled_intersect_reference(baked, ox, oy, oz, dx, dy, dz,
-                                              ranges=ranges, hint=hint)
+                                              ranges=ranges, hint=hint,
+                                              probe=probe)
     else:
         def intersect(ox, oy, oz, dx, dy, dz):
             return baked_intersect_reference(baked, ox, oy, oz, dx, dy, dz)
@@ -444,7 +487,7 @@ def fused_render_baked_reference(
         intersect, salts, cam_params, pix, xs, ys, valid, soff,
         rr_start=rr_start, rr_floor=rr_floor, clamp=clamp, sampler=sampler,
         images=baked.images if baked.textured else None,
-        hinted=baked.culled and baked.winner_hint)
+        hinted=baked.culled and baked.winner_hint, probe=probe)
 
 
 def _lanes_in(keys, entered):
@@ -727,7 +770,7 @@ def _table_args(baked: BakedScene) -> tuple:
 def fused_render_baked(
         baked: BakedScene, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random", sweep: int = SWEEP_COOP):
+        sampler: str = "random", sweep: int = SWEEP_COOP, probe=frozenset()):
     """All samples x all bounces of every lane over a baked scene.
 
     Returns (rad_r, rad_g, rad_b, stats): radiance sums as (R, 128)
@@ -745,6 +788,15 @@ def fused_render_baked(
     one the loop's (the warp's lanes in step, or each on its own thread);
     both give the same results.
 
+    ``probe`` (one name of ``ops/stage_probes.py``, as a name or a
+    collection of one; empty: none) launches that differential stage
+    probe's kernel (``csrc/baked_probe*.cu``): the culled kernel has
+    raygen, shade, accum, loopcond, entry and cond, the unculled one the
+    first four, in the shipped form without the winner hint only.  Its
+    results equal the unprobed kernel's (``dbl_accum``: up to rounding)
+    and its plain version's bit for bit.  Any other name, form or hint
+    raises ValueError.
+
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/baked.cu`` on the current stream; any other device raises.
     The kernel's results, counters included, are bit-identical to the
@@ -756,10 +808,16 @@ def fused_render_baked(
         raise ValueError(f"unknown sampler {sampler!r}")
     if sweep not in (SWEEP_SERIAL, SWEEP_COOP):
         raise ValueError(f"unknown sweep form {sweep}")
+    kind = "culled" if baked.culled else "unculled"
+    probe = stage_probes.probe_names(probe)
+    bits = stage_probes.probe_bits(probe, kind)
+    if bits and (sweep != SWEEP_COOP or (baked.culled and baked.winner_hint)):
+        raise ValueError("a stage probe runs in the shipped form only "
+                         "(sweep SWEEP_COOP, no winner hint)")
     if device.type == "cpu":
         return fused_render_baked_reference(
             baked, salts, cam_params, *planes, rr_start=rr_start,
-            rr_floor=rr_floor, clamp=clamp, sampler=sampler)
+            rr_floor=rr_floor, clamp=clamp, sampler=sampler, probe=probe)
     if device.type != "cuda":
         raise NotImplementedError(
             f"fused_render_baked runs on cpu or cuda, not {device}")
@@ -777,7 +835,8 @@ def fused_render_baked(
         rc = lib.wpt_baked_launch(
             *tables,
             int(baked.textured), int(baked.culled and baked.winner_hint),
-            int(sweep), cam_params.data_ptr(), pix.data_ptr(), xs.data_ptr(),
+            int(sweep), bits, cam_params.data_ptr(), pix.data_ptr(),
+            xs.data_ptr(),
             ys.data_ptr(), valid.data_ptr(), soff.data_ptr(),
             rad_r.data_ptr(), rad_g.data_ptr(), rad_b.data_ptr(),
             counts[0].data_ptr(), counts[1].data_ptr(), counts[2].data_ptr(),
@@ -785,11 +844,13 @@ def fused_render_baked(
             int(rr_start), float(rr_floor), float(clamp),
             int(sampler == "stratified"), stream)
     if rc != 0:
-        raise RuntimeError(f"baked kernel launch failed (sweep {sweep}): "
-                           f"CUDA error {rc}")
-    kind = "culled" if baked.culled else "unculled"
-    LAUNCHES[kind] += 1
-    COOP_LAUNCHES[kind] += sweep == SWEEP_COOP
+        raise RuntimeError(f"baked kernel launch failed (sweep {sweep}, "
+                           f"probe {sorted(probe)}): CUDA error {rc}")
+    if bits:
+        PROBE_LAUNCHES[kind][next(iter(probe))] += 1
+    else:
+        LAUNCHES[kind] += 1
+        COOP_LAUNCHES[kind] += sweep == SWEEP_COOP
     rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
     return rad_r, rad_g, rad_b, torch.stack([rays, warp_trips(counts[0]),
                                              supers, clusters])

@@ -41,6 +41,7 @@ import contextlib
 
 import torch
 
+from wavefront_path_tracer_tpu_torch.ops import stage_probes
 from wavefront_path_tracer_tpu_torch.ops.bake import TRI_COLS
 from wavefront_path_tracer_tpu_torch.ops.baked_kernels import (
     SWEEP_COOP,
@@ -82,6 +83,9 @@ LAUNCHES = 0
 COOP_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 SEGMENT_COOP_LAUNCHES = 0
+# Launches of the stage probes' kernels (csrc/dynculled_probe*.cu) on CUDA
+# tensors, per probe name; LAUNCHES does not count them.
+PROBE_LAUNCHES = dict.fromkeys(stage_probes.KERNEL_PROBES["dynculled"], 0)
 
 
 def _winner(tab: DynTables, best_t, best_i):
@@ -127,11 +131,20 @@ def _winner(tab: DynTables, best_t, best_i):
             is_tri.to(torch.float32), *tex)
 
 
-def dynculled_intersect_reference(tab: DynTables, ox, oy, oz, dx, dy, dz):
+def dynculled_intersect_reference(tab: DynTables, ox, oy, oz, dx, dy, dz,
+                                  *, probe=frozenset()):
     """Nearest hit over the dynamic tables (``make_dynamic_culled_
     intersect.intersect``, pallas_kernels.py:1983-2408; the sweep rules
     are the module docstring's).  Returns the 15-field winner tuple and
-    the per-ray supers and clusters entered (int64)."""
+    the per-ray supers and clusters entered (int64).
+
+    ``probe`` (names of ``ops/stage_probes.py``) duplicates a stage as
+    the kernel's probes do (``csrc/dynculled.cuh`` DynIntersect):
+    ``dyn_dbl_global`` sweeps the globals a second time and
+    ``dyn_dbl_entry`` folds every entered cluster in a second time, from
+    |o'|^2 (spheres) or the origin (triangles) plus 0, which never wins
+    under the strict ``<``; ``dyn_dbl_cond`` takes every cluster and
+    super cond a second time from the origin and the cap plus 0, ANDed."""
     shx, shy, shz = tab.slab[1, 0], tab.slab[1, 1], tab.slab[1, 2]
     oxp = ox - shx
     oyp = oy - shy
@@ -139,6 +152,10 @@ def dynculled_intersect_reference(tab: DynTables, ox, oy, oz, dx, dy, dz):
     quad = (oxp, oyp, ozp, 0.5 * dx, 0.5 * dy, 0.5 * dz,
             dx * oxp + dy * oyp + dz * ozp,
             oxp * oxp + oyp * oyp + ozp * ozp)
+    # The probes' second inputs: |o'|^2 plus 0, the origin plus 0.
+    quad2 = quad[:7] + (quad[7] + 0.0,)
+    dup_entry = "dyn_dbl_entry" in probe
+    dup_cond = "dyn_dbl_cond" in probe
 
     def sphere_t(rows, oxp, oyp, ozp, hdx, hdy, hdz, dd_o, oo2):
         # sphere_block (1854-1864): both roots; NaN from a negative disc
@@ -161,45 +178,70 @@ def dynculled_intersect_reference(tab: DynTables, ox, oy, oz, dx, dy, dz):
     supers, clusters = zeros, zeros
     best_t, best_i = _take(sphere_t(tab.spheres[:tab.n_globals], *quad), 0,
                            best_t, best_i)
+    if "dyn_dbl_global" in probe:
+        best_t, best_i = _take(sphere_t(tab.spheres[:tab.n_globals], *quad2),
+                               0, best_t, best_i)
     if tab.n_clusters == 0 and tab.n_tri_clusters == 0:
         return _winner(tab, best_t, best_i) + (supers, clusters)
 
     rays = (ox, oy, oz, dx, dy, dz)
+    rays2 = (ox + 0.0,) + rays[1:]
     inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
     cs = tab.cluster_size
+
+    def conds(lo, hi, r, cap):
+        """The conds of boxes ``lo``/``hi`` for the rays ``r`` (indices,
+        or a slice) against their caps ``cap``; with dyn_dbl_cond, ANDed
+        with their second evaluation (origin and cap plus 0)."""
+        ok, entry = box_conds(lo, hi, ox[r], oy[r], oz[r], inv[0][r],
+                              inv[1][r], inv[2][r])
+        enter = ok & (entry < _col(cap))
+        if dup_cond:
+            ok2, entry2 = box_conds(lo, hi, ox[r] + 0.0, oy[r] + 0.0,
+                                    oz[r] + 0.0, inv[0][r], inv[1][r],
+                                    inv[2][r])
+            enter = enter & ok2 & (entry2 < _col(cap + 0.0))
+        return enter
 
     def box_cond(box, cap):
         """cluster_cond (2156-2157) of one box for every ray (a ray on a
         face plane of the box enters: ``baked_kernels.box_conds``)."""
+        if dup_cond:
+            return conds(box[0:3], box[3:6], slice(None), cap)[:, 0]
         ok, entry = box_conds(box[0:3], box[3:6], ox, oy, oz, *inv)
         return ok[:, 0] & (entry[:, 0] < cap)
 
     def batch(k0, k1, boxes, table, row0, offset, t_fn, ray_args, cap,
-              rows_of):
+              rows_of, ray_args2):
         """Enter the clusters k0..k1-1 of a hierarchy where their conds
         hold against ``cap`` (per ray, for the rays ``rows_of``) and fold
-        their items in: returns the entered (rays x clusters) mask."""
+        their items in (with dyn_dbl_entry a second time, from
+        ``ray_args2``): returns the entered (rays x clusters) mask."""
         nonlocal best_t, best_i
         r = rows_of
         box = boxes[k0:k1]
-        ok, entry = box_conds(box[:, 0:3], box[:, 3:6], ox[r], oy[r], oz[r],
-                              inv[0][r], inv[1][r], inv[2][r])
-        enter = ok & (entry < _col(cap[r]))
+        if dup_cond:
+            enter = conds(box[:, 0:3], box[:, 3:6], r, cap[r])
+        else:
+            ok, entry = box_conds(box[:, 0:3], box[:, 3:6], ox[r], oy[r],
+                                  oz[r], inv[0][r], inv[1][r], inv[2][r])
+            enter = ok & (entry < _col(cap[r]))
         any_in = enter.any(dim=1)
         rr = r[any_in]
         if rr.numel():
             rows = table[row0 + k0 * cs:row0 + k1 * cs]
-            t = t_fn(rows, *(v[rr] for v in ray_args))
             mask = enter[any_in].repeat_interleave(cs, dim=1)
-            t = torch.where(mask, t, T_FAR)
-            bt, bi = _take(t, offset + row0 + k0 * cs, best_t[rr],
-                           best_i[rr])
-            best_t = best_t.index_put((rr,), bt)
-            best_i = best_i.index_put((rr,), bi)
+            for args in (ray_args, ray_args2) if dup_entry else (ray_args,):
+                t = t_fn(rows, *(v[rr] for v in args))
+                t = torch.where(mask, t, T_FAR)
+                bt, bi = _take(t, offset + row0 + k0 * cs, best_t[rr],
+                               best_i[rr])
+                best_t = best_t.index_put((rr,), bt)
+                best_i = best_i.index_put((rr,), bi)
         return enter
 
     def hierarchy(n, n_sup, boxes, sboxes, slab, table, row0, offset,
-                  t_fn, ray_args):
+                  t_fn, ray_args, ray_args2):
         nonlocal supers, clusters
         t_exit = slab_exit(slab[0:3], slab[3:6], ox, oy, oz, *inv)
         everyone = torch.arange(ox.shape[0], device=ox.device)
@@ -208,7 +250,7 @@ def dynculled_intersect_reference(tab: DynTables, ox, oy, oz, dx, dy, dz):
                 k1 = min(n, k0 + REFRESH)
                 cap = torch.minimum(best_t, t_exit)
                 enter = batch(k0, k1, boxes, table, row0, offset, t_fn,
-                              ray_args, cap, everyone)
+                              ray_args, cap, everyone, ray_args2)
                 clusters = clusters + enter.sum(dim=1)
             return
         for s in range(n_sup):
@@ -219,34 +261,39 @@ def dynculled_intersect_reference(tab: DynTables, ox, oy, oz, dx, dy, dz):
             if r.numel():
                 k0 = s * _DYN_SUPER
                 enter = batch(k0, k0 + _DYN_SUPER, boxes, table, row0,
-                              offset, t_fn, ray_args, cap, r)
+                              offset, t_fn, ray_args, cap, r, ray_args2)
                 clusters = clusters.index_add(0, r, enter.sum(dim=1))
 
     if tab.n_clusters:
         hierarchy(tab.n_clusters, tab.n_supers, tab.boxes, tab.super_boxes,
-                  tab.slab[0], tab.spheres, tab.n_globals, 0, sphere_t, quad)
+                  tab.slab[0], tab.spheres, tab.n_globals, 0, sphere_t, quad,
+                  quad2)
     if tab.n_tri_clusters:
         hierarchy(tab.n_tri_clusters, tab.n_tri_supers, tab.tri_boxes,
                   tab.tri_super_boxes, tab.tri_slab[0], tab.triangles, 0,
-                  tab.spheres.shape[0], tri_t, rays)
+                  tab.spheres.shape[0], tri_t, rays, rays2)
     return _winner(tab, best_t, best_i) + (supers, clusters)
 
 
 def fused_render_dynculled_reference(
         tab: DynTables, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random"):
+        sampler: str = "random", probe=frozenset()):
     """Plain PyTorch version of the dynamic culled kernel: the
     persistent loop of ``ops/fused_kernels.py`` over
     :func:`dynculled_intersect_reference`.  Same arguments and results
-    as :func:`fused_render_dynculled`."""
+    as :func:`fused_render_dynculled` (``probe``: the loop's probes and
+    the intersect's)."""
+    probe = stage_probes.probe_names(probe)
+
     def intersect(ox, oy, oz, dx, dy, dz):
-        return dynculled_intersect_reference(tab, ox, oy, oz, dx, dy, dz)
+        return dynculled_intersect_reference(tab, ox, oy, oz, dx, dy, dz,
+                                             probe=probe)
 
     return persistent_reference(
         intersect, salts, cam_params, pix, xs, ys, valid, soff,
         rr_start=rr_start, rr_floor=rr_floor, clamp=clamp, sampler=sampler,
-        images=tab.images if tab.textured else None)
+        images=tab.images if tab.textured else None, probe=probe)
 
 
 class _NonzeroSpy:
@@ -477,7 +524,7 @@ def _table_args(tab: DynTables) -> tuple:
 def fused_render_dynculled(
         tab: DynTables, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random", sweep: int = SWEEP_COOP):
+        sampler: str = "random", sweep: int = SWEEP_COOP, probe=frozenset()):
     """All samples x all bounces of every lane over the dynamic culled
     tables.
 
@@ -492,6 +539,14 @@ def fused_render_dynculled(
     lanes in step with a vote per cluster, or :data:`SWEEP_SERIAL`, the
     per-thread sweep); both give the same results.
 
+    ``probe`` (one name of ``ops/stage_probes.py``, as a name or a
+    collection of one; empty: none) launches that differential stage
+    probe's kernel (``csrc/dynculled_probe*.cu``: raygen, shade, accum,
+    loopcond, dyn entry, dyn cond and dyn global), in the shipped sweep
+    form only.  Its results equal the unprobed kernel's (``dbl_accum``:
+    up to rounding) and its plain version's bit for bit.  Any other name
+    or form raises ValueError.
+
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/dynculled.cu`` on the current stream; any other device raises.
     The kernel's results, counters included, are bit-identical to the
@@ -504,10 +559,15 @@ def fused_render_dynculled(
         raise ValueError(f"unknown sampler {sampler!r}")
     if sweep not in (SWEEP_SERIAL, SWEEP_COOP):
         raise ValueError(f"unknown sweep form {sweep}")
+    probe = stage_probes.probe_names(probe)
+    bits = stage_probes.probe_bits(probe, "dynculled")
+    if bits and sweep != SWEEP_COOP:
+        raise ValueError("a stage probe runs in the shipped form only "
+                         "(sweep SWEEP_COOP)")
     if device.type == "cpu":
         return fused_render_dynculled_reference(
             tab, salts, cam_params, *planes, rr_start=rr_start,
-            rr_floor=rr_floor, clamp=clamp, sampler=sampler)
+            rr_floor=rr_floor, clamp=clamp, sampler=sampler, probe=probe)
     if device.type != "cuda":
         raise NotImplementedError(
             f"fused_render_dynculled runs on cpu or cuda, not {device}")
@@ -523,7 +583,7 @@ def fused_render_dynculled(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.wpt_dynculled_launch(
-            *table_args, int(sweep),
+            *table_args, int(sweep), bits,
             cam_params.data_ptr(), pix.data_ptr(), xs.data_ptr(),
             ys.data_ptr(), valid.data_ptr(), soff.data_ptr(),
             rad_r.data_ptr(), rad_g.data_ptr(), rad_b.data_ptr(),
@@ -532,10 +592,13 @@ def fused_render_dynculled(
             int(rr_start), float(rr_floor), float(clamp),
             int(sampler == "stratified"), stream)
     if rc != 0:
-        raise RuntimeError(f"dynculled kernel launch failed (sweep {sweep}): "
-                           f"CUDA error {rc}")
-    LAUNCHES += 1
-    COOP_LAUNCHES += sweep == SWEEP_COOP
+        raise RuntimeError(f"dynculled kernel launch failed (sweep {sweep}, "
+                           f"probe {sorted(probe)}): CUDA error {rc}")
+    if bits:
+        PROBE_LAUNCHES[next(iter(probe))] += 1
+    else:
+        LAUNCHES += 1
+        COOP_LAUNCHES += sweep == SWEEP_COOP
     rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
     return rad_r, rad_g, rad_b, torch.stack([rays, warp_trips(counts[0]),
                                              supers, clusters])

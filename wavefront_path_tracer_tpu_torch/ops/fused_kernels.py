@@ -341,7 +341,7 @@ def persistent_reference(
         intersect, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
         sampler: str = "random", images=None, hinted: bool = False,
-        observe=None):
+        observe=None, probe=frozenset()):
     """The plain persistent-lane loop, over any nearest-hit function.
 
     ``intersect(ox, oy, oz, dx, dy, dz)`` returns the
@@ -365,6 +365,15 @@ def persistent_reference(
     rays.  ``observe(lanes)``, where given, is called before each
     intersect call with the lanes (int64 indices into the flat planes)
     whose rays it traces, in the order of its rays.
+
+    ``probe`` (names of ``ops/stage_probes.py``) duplicates the loop's
+    stages as the kernels' probes do (``csrc/common.cuh`` trace_warp and
+    bounce_finish): ``dbl_raygen`` and ``dbl_shade`` run raygen or shade
+    a second time from xs or the origin plus 0 and take the mean of the
+    two equal results, ``dbl_accum`` adds the sky contribution as two
+    halves, the second plus 0 (rounding unlike one add), and
+    ``dbl_loopcond`` takes the loop's condition twice.  The intersect's
+    own probes are the intersect's.
     """
     frame, sample_base, max_bounces, n_samples = _salts(salts)
     shape = pix.shape
@@ -385,13 +394,17 @@ def persistent_reference(
             live = lanes
             p = pix_f[live]
             sample = (sample_base + soff_f[live] + s) & MASK32
-            ox, oy, oz, dx, dy, dz = raygen_tile(
-                xs_f[live], ys_f[live], p, frame, sample, cam_params,
-                sampler=sampler)
+            ray = raygen_tile(xs_f[live], ys_f[live], p, frame, sample,
+                              cam_params, sampler=sampler)
+            if "dbl_raygen" in probe:
+                ray2 = raygen_tile(xs_f[live] + 0.0, ys_f[live], p, frame,
+                                   sample, cam_params, sampler=sampler)
+                ray = tuple(0.5 * (a + b) for a, b in zip(ray, ray2))
+            ox, oy, oz, dx, dy, dz = ray
             thr = torch.ones((live.shape[0], 3), dtype=torch.float32,
                              device=device)
             bounce = 0
-            while live.numel():
+            while _trip(live, probe):
                 counts[0] += live.numel()
                 lane_rays.index_add_(0, live, torch.ones_like(live))
                 if observe is not None:
@@ -422,16 +435,26 @@ def persistent_reference(
                 # Gather, add, scatter rather than index_add_: CUDA's float
                 # atomics flush subnormals to zero.  Lanes are unique here.
                 idx = live[miss]
-                acc[idx] = acc[idx] + con
+                if "dbl_accum" in probe:
+                    acc[idx] = acc[idx] + con * 0.5
+                    acc[idx] = acc[idx] + (con * 0.5 + 0.0)
+                else:
+                    acc[idx] = acc[idx] + con
 
                 keep = torch.nonzero(hit)[:, 0]
                 sel = lambda v: v[keep]  # noqa: E731
                 live, p, sample, thr = sel(live), sel(p), sel(sample), sel(thr)
                 ox, oy, oz, dx, dy, dz = map(sel, (ox, oy, oz, dx, dy, dz))
-                ox, oy, oz, dx, dy, dz = shade_tile(
-                    p, frame, sample, bounce, ox, oy, oz, dx, dy, dz,
-                    *map(sel, (best_t, b_cx, b_cy, b_cz, b_inv_r, b_fuzz,
-                               b_ior, b_mt, *tri_fields)))
+                winner = tuple(map(sel, (best_t, b_cx, b_cy, b_cz, b_inv_r,
+                                         b_fuzz, b_ior, b_mt, *tri_fields)))
+                shaded = shade_tile(p, frame, sample, bounce, ox, oy, oz, dx,
+                                    dy, dz, *winner)
+                if "dbl_shade" in probe:
+                    shaded2 = shade_tile(p, frame, sample, bounce, ox + 0.0,
+                                         oy, oz, dx, dy, dz, *winner)
+                    shaded = tuple(0.5 * (a + b)
+                                   for a, b in zip(shaded, shaded2))
+                ox, oy, oz, dx, dy, dz = shaded
                 albedo = tuple(map(sel, (b_ar, b_ag, b_ab)))
                 if images is not None:
                     # ox, oy, oz now hold the hit points.
@@ -463,6 +486,17 @@ def persistent_reference(
     stats = torch.stack([counts[0], warp_trips(lane_rays), counts[1],
                          counts[2]])
     return rad[..., 0], rad[..., 1], rad[..., 2], stats
+
+
+def _trip(live: torch.Tensor, probe) -> bool:
+    """Whether the loop goes on: some path is live.  Under the
+    ``dbl_loopcond`` probe the condition is taken a second time, as the
+    kernels take the trip vote twice (the plain loop is not a warp's, so
+    this only keeps the stage's work)."""
+    go = live.numel() > 0
+    if "dbl_loopcond" in probe:
+        go = go & (live.numel() + 0 > 0)
+    return go
 
 
 # The state of the segment path (the reference's _SEG_STATE planes, with

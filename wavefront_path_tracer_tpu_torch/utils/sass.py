@@ -1,0 +1,100 @@
+"""SASS instruction counts of the built kernels, from ``cuobjdump -sass``.
+
+    python -m wavefront_path_tracer_tpu_torch.utils.sass [LIB [OTHER_LIB]]
+
+With one library (by default the one ``ops/_build.py`` builds), prints
+each render kernel's instruction count.  With two, prints the render
+kernels that both hold side by side, matched by their demangled names
+with the namespaces and a trailing probe argument of 0 taken out (so a
+build whose kernels carry the stage probes' template argument matches
+one whose kernels do not), and exits 1 where a count differs.  The
+counts include every instruction of the kernel's listing (set-up, loops,
+slow paths).  Needs ``cuobjdump`` (the CUDA toolkit's) and, to match two
+builds, ``c++filt``.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+from wavefront_path_tracer_tpu_torch.ops import _build
+
+# The render kernels, by the names their sources give them.
+RENDER_KERNELS = ("persistent_kernel", "baked_culled_kernel",
+                  "baked_unculled_kernel", "dynculled_kernel")
+
+
+def cuobjdump() -> str | None:
+    """The toolkit's cuobjdump, or None where the machine has none."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    return tool if os.path.exists(tool) else None
+
+
+@functools.lru_cache(maxsize=4)
+def counts(lib) -> dict:
+    """{mangled name: SASS instructions} of every function in ``lib``
+    (one ``cuobjdump`` a library a process: it takes tens of seconds)."""
+    tool = cuobjdump()
+    if tool is None:
+        raise RuntimeError("cuobjdump not found: no SASS to count")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.splitlines()[0].strip()
+        out[name] = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+\S", part,
+                                   re.M))
+    return out
+
+
+def normalized(demangled: str) -> str:
+    """A demangled kernel name without namespaces, spaces or a trailing
+    template argument of 0 (the unprobed kernels' kProbe)."""
+    name = demangled
+    for ns in ("(anonymous namespace)::", "wpt::baked::", "wpt::dyn::",
+               "wpt::"):
+        name = name.replace(ns, "")
+    name = name.split("(", 1)[0]
+    name = name.replace(" ", "").removeprefix("void")
+    return re.sub(r",0>$", ">", name)
+
+
+def render_counts(lib) -> dict:
+    """{normalized name: instructions} of the render kernels of ``lib``."""
+    found = {n: c for n, c in counts(lib).items()
+             if any(k in n for k in RENDER_KERNELS)}
+    names = list(found)
+    return {normalized(d): found[n]
+            for n, d in zip(names, _build.demangle(names))}
+
+
+def main(argv=None) -> int:
+    libs = list(sys.argv[1:] if argv is None else argv)
+    if not libs:
+        libs = [_build.build()[0]]
+    tables = [render_counts(lib) for lib in libs]
+    if len(tables) == 1:
+        for name, n in sorted(tables[0].items()):
+            print(f"{n:7d}  {name}")
+        return 0
+    a, b = tables[:2]
+    differ = 0
+    for name in sorted(set(a) & set(b)):
+        same = a[name] == b[name]
+        differ += not same
+        print(f"{a[name]:7d} {b[name]:7d}  {'same' if same else 'DIFFER'}  "
+              f"{name}")
+    print(f"{len(set(a) & set(b))} kernels in both, {differ} differ; "
+          f"{len(set(a) - set(b))} only in the first, "
+          f"{len(set(b) - set(a))} only in the second")
+    return 1 if differ else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
