@@ -3938,13 +3938,6 @@ STAGE_BOUNCES = 4
 STAGE_KERNELS = (("culled", 16), ("unculled", 0), ("dynculled", 16))
 STAGE_PARTS = {"book": ("book", "book_checker", "texmesh"),
                "terrain": ("terrain",)}
-# dbl_accum adds the sky term as two halves (rounding up to three times a
-# miss, not once): its kernel is held to the unprobed one within this
-# relative error a sample (tests/test_torch_stage_timing.py's).
-ACCUM_RTOL_PER_SAMPLE = 1e-6
-# A kernel's time moves by up to this much between calls (PERF.md): a
-# share below it is not resolved.
-DRIFT = 0.06
 # The reference's probe point of each name (ops/pallas_kernels.py).
 PROBE_POINTS = {"dbl_raygen": 2611, "dbl_shade": 2685, "dbl_accum": 2673,
                 "dbl_loopcond": 2550, "dbl_entry": 1423, "dbl_cond": 1379,
@@ -3972,8 +3965,6 @@ def _stage_scene(name: str):
 def _stage_cases(device, scenes):
     """(label, scene, kernel, probe, Case) of every probe instantiation on
     ``scenes`` (the unprobed kernel first of each, probe None)."""
-    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
-    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
     from wavefront_path_tracer_tpu_torch.ops import stage_probes
 
     w, h, spp = STAGE_SIZE
@@ -3985,9 +3976,8 @@ def _stage_cases(device, scenes):
                             {} if probe is None else {"probe": probe},
                             device, triangles=tris, bounces=STAGE_BOUNCES)
                 if probe is not None:
-                    counts = (dk.PROBE_LAUNCHES if kind == "dynculled"
-                              else bk.PROBE_LAUNCHES[kind])
-                    case.launches = lambda c=counts, n=probe: c[n]
+                    case.launches = (lambda key=f"{kind}/{probe}":
+                                     _read_launches()[key])
                 label = (f"{kind}/{clusters} {probe or 'unprobed'} {name} "
                          f"{w}x{h}@{spp}spp {STAGE_BOUNCES} bounces")
                 yield label, name, kind, probe, case
@@ -4013,6 +4003,8 @@ def _stage_check(label, case, probe, base) -> tuple:
     """A probe kernel against its plain version (bit for bit, radiance
     words and counters) and against the unprobed kernel's results
     ``base`` (bit for bit; dbl_accum's radiance within its tolerance)."""
+    from wavefront_path_tracer_tpu_torch.ops import stage_probes
+
     before = case.launches()
     k = case.kernel()
     torch.cuda.synchronize()
@@ -4030,8 +4022,9 @@ def _stage_check(label, case, probe, base) -> tuple:
     err_base = max(float((a.double() - b.double()).abs().max())
                    for a, b in zip(k[:3], base[:3]))
     if probe == "dbl_accum":
-        rtol = ACCUM_RTOL_PER_SAMPLE * STAGE_SIZE[2]
-        base_ok = all(torch.allclose(a, b, rtol=rtol, atol=1e-7)
+        rtol = stage_probes.ACCUM_RTOL_PER_SAMPLE * STAGE_SIZE[2]
+        base_ok = all(torch.allclose(a, b, rtol=rtol,
+                                     atol=stage_probes.ACCUM_ATOL)
                       for a, b in zip(k[:3], base[:3]))
     else:
         base_ok = all(torch.equal(_bits(a), _bits(b))
@@ -4122,20 +4115,13 @@ def _stage_ptxas() -> dict:
     return out
 
 
-def _probe_launches() -> dict:
-    from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
-    from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
-
-    return {**{f"culled/{n}": v for n, v in bk.PROBE_LAUNCHES["culled"].items()},
-            **{f"unculled/{n}": v
-               for n, v in bk.PROBE_LAUNCHES["unculled"].items()},
-            **{f"dynculled/{n}": v for n, v in dk.PROBE_LAUNCHES.items()}}
-
-
 def _stage_table(device, smi, label, scene_name, size, kind, argv) -> dict:
     """One --stage-timing table with the launch counts set to 0 just
     before it and read just after: every probe of the path's kernel must
-    have launched, the shares must be at least 0 and close the budget."""
+    have launched as often as models/fused.py time_probes launches it
+    (its check run and STAGE_REPS timed runs), the shares must be at least
+    0, those below the drift marked, and the residual must close the
+    budget."""
     import contextlib
     import io
     import re
@@ -4170,21 +4156,23 @@ def _stage_table(device, smi, label, scene_name, size, kind, argv) -> dict:
         cli.print_stage_table(base, rows, min(spp, 32), file=buf)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    probes = _probe_launches()
-    launches = {n: probes[f"{kind}/{n}"]
+    all_launches = _read_launches()
+    launches = {n: all_launches[f"{kind}/{n}"]
                 for n in stage_probes.KERNEL_PROBES[kind]}
     rows = {}
     for line in buf.getvalue().splitlines():
-        m = re.match(r"  (.+?)\s+(-?[\d.]+) ms(?:\s+(-?[\d.]+)%)?$", line)
+        m = re.match(r"  (.+?)\s+(-?[\d.]+) ms(?:\s+(-?[\d.]+)%( \*)?)?$",
+                     line)
         if m:
             rows[m[1]] = {"ms": float(m[2]),
                           "share": None if m[3] is None
-                          else float(m[3]) / 100}
+                          else float(m[3]) / 100,
+                          "unresolved": m[4] is not None}
     for name, row in rows.items():
         note = ""
-        if row["share"] is not None and row["share"] < DRIFT:
-            note = (f"  (below the {DRIFT:.0%} between-call drift: not "
-                    f"resolved)")
+        if row["unresolved"]:
+            note = (f"  (below the {fused.STAGE_DRIFT:.0%} between-call "
+                    f"drift: not resolved)")
         log(f"[stage-table] {label} ({scene_name} {w}x{h}@{spp}spp, "
             f"{kind}): {name:34s} {row['ms']:9.2f} ms"
             + ("" if row["share"] is None else f"  {row['share']:6.1%}")
@@ -4194,13 +4182,27 @@ def _stage_table(device, smi, label, scene_name, size, kind, argv) -> dict:
     if len(shares) != expected or "base render" not in rows:
         raise AssertionError(f"{label}: {len(shares)} stage rows, not "
                              f"{expected}: {buf.getvalue()}")
-    if min(shares) < 0 or sum(shares) < 1 - 0.005:
-        raise AssertionError(f"{label}: shares {shares} do not close")
-    missing = [n for n, v in launches.items() if v < 1]
-    if missing:
-        raise AssertionError(f"{label}: probes {missing} never launched")
+    *probed, residual = shares
+    # Each share is printed to 0.05%.
+    if (min(shares) < 0
+            or abs(residual - max(0.0, 1.0 - sum(probed)))
+            > 0.0005 * len(shares)):
+        raise AssertionError(f"{label}: shares {shares}: the residual "
+                             f"does not close the budget")
+    *marks, residual_marked = [r["unresolved"] for n, r in rows.items()
+                               if n != "base render"]
+    if residual_marked or any(
+            s > fused.STAGE_DRIFT + 0.0005 if m
+            else s < fused.STAGE_DRIFT - 0.0005
+            for s, m in zip(probed, marks)):
+        raise AssertionError(f"{label}: the drift marks {marks} do not "
+                             f"match the shares {probed}")
+    wrong = {n: v for n, v in launches.items() if v != 1 + fused.STAGE_REPS}
+    if wrong:
+        raise AssertionError(f"{label}: probes launched {wrong} times, not "
+                             f"{1 + fused.STAGE_REPS} each")
     log(f"[stage-table] {label}: {seconds:.1f} s; probe launches "
-        f"{launches}; base kernel launches {_read_launches()[kind]}")
+        f"{launches}; base kernel launches {all_launches[kind]}")
     return {"rows": rows, "launches": launches, "seconds": seconds}
 
 

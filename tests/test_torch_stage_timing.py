@@ -320,3 +320,60 @@ def test_probe_scripts_run_on_the_cpu():
     assert [ln.split(":")[0].strip() for ln in lines] == [
         "full", "dyn_dbl_global", "full", "dbl_cond"]
     assert all("plain versions" in ln for ln in lines)
+
+
+@pytest.mark.parametrize("change,match", [
+    ("radiance", "changed the render's radiance"),
+    ("counters", "counted"),
+    ("accum_within", None),
+    ("accum_beyond", "changed the render's radiance")])
+def test_time_probes_refuse_a_changed_render(monkeypatch, change, match):
+    """time_probes holds each probed render to the base's: radiance words
+    and counters bit for bit, dbl_accum's radiance within its tolerance;
+    a probe that changes either raises."""
+    render = tfused.render_pixels
+
+    def altered(*args, probe=frozenset(), **kwargs):
+        radiance, rays, stats = render(*args, probe=probe, **kwargs)
+        if not stage_probes.probe_names(probe):
+            return radiance, rays, stats
+        if change == "counters":
+            return radiance, rays, {**stats, "iterations":
+                                    stats["iterations"] + 1}
+        scale = {"radiance": 1.0 + 2 ** -20, "accum_within": 1.0 + 2 ** -22,
+                 "accum_beyond": 1.0 + 1e-4}[change]
+        return radiance * scale, rays, stats
+
+    monkeypatch.setattr(tfused, "render_pixels", altered)
+    cfg = TINY.replace(samples_per_pixel=1, samples_per_frame=1,
+                       **KERNELS["culled"])
+    probe = "dbl_accum" if change.startswith("accum") else "dbl_cond"
+    cc = _cover_camera()
+    args = (prepare_scene(get_scene("book_cover"), cfg, "cpu"),
+            cc.gpu_camera(), cc.view_matrix(),
+            cc.inverse_projection(cfg.width, cfg.height), cfg, [probe])
+    if match is None:
+        rays, _base, turns = tfused.time_probes(*args, n_samples=1, reps=1)
+        assert rays > 0 and [t[0] for t in turns] == [probe]
+    else:
+        with pytest.raises(RuntimeError, match=match):
+            tfused.time_probes(*args, n_samples=1, reps=1)
+
+
+def test_launch_counts_cover_the_probe_kernels():
+    """bench.reset_launches and read_launches cover every probe kernel's
+    count, as "kernel/probe"."""
+    from wavefront_path_tracer_tpu_torch import bench
+
+    tbk.PROBE_LAUNCHES["culled"]["dbl_entry"] = 3
+    tdk.PROBE_LAUNCHES["dyn_dbl_global"] = 2
+    launches = bench.read_launches()
+    assert launches["culled/dbl_entry"] == 3
+    assert launches["dynculled/dyn_dbl_global"] == 2
+    bench.reset_launches()
+    launches = bench.read_launches()
+    probe_keys = {f"{kind}/{name}"
+                  for kind, names in stage_probes.KERNEL_PROBES.items()
+                  for name in names}
+    assert len(probe_keys) == 17 and probe_keys <= set(launches)
+    assert not any(launches[k] for k in probe_keys)

@@ -109,14 +109,16 @@ def reset_launches() -> None:
     dk.COOP_LAUNCHES = 0
     dk.SEGMENT_LAUNCHES = 0
     dk.SEGMENT_COOP_LAUNCHES = 0
-    for counts in (bk.LAUNCHES, bk.COOP_LAUNCHES):
+    for counts in (bk.LAUNCHES, bk.COOP_LAUNCHES, *bk.PROBE_LAUNCHES.values(),
+                   dk.PROBE_LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
 def read_launches() -> dict:
-    """Every kernel wrapper's launch counts, and those of its shipped
-    form under the ``SHIPPED`` names."""
+    """Every kernel wrapper's launch counts, those of its shipped form
+    under the ``SHIPPED`` names, and those of its stage probes' kernels
+    (``ops/stage_probes.py``) as "kernel/probe"."""
     from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
     from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
     from wavefront_path_tracer_tpu_torch.ops import fused_kernels as fk
@@ -126,7 +128,12 @@ def read_launches() -> dict:
             **{f"{k}_coop": v for k, v in bk.COOP_LAUNCHES.items()},
             "dynculled": dk.LAUNCHES, "dynculled_coop": dk.COOP_LAUNCHES,
             "segment_dynculled": dk.SEGMENT_LAUNCHES,
-            "segment_dynculled_coop": dk.SEGMENT_COOP_LAUNCHES}
+            "segment_dynculled_coop": dk.SEGMENT_COOP_LAUNCHES,
+            **{f"{kind}/{probe}": n
+               for kind, counts in bk.PROBE_LAUNCHES.items()
+               for probe, n in counts.items()},
+            **{f"dynculled/{probe}": n
+               for probe, n in dk.PROBE_LAUNCHES.items()}}
 
 
 def require_shipped(label: str, kind: str, launches: dict) -> None:

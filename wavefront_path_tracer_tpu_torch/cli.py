@@ -512,14 +512,28 @@ def _render_loop(args, renderer, server):
 def print_stage_table(base: float, rows: list, n_samples: int,
                       file=None) -> None:
     """``stage_timing``'s result as the reference's CLI prints it (its
-    cli.py:536-547), to stderr by default."""
+    cli.py:536-547), to stderr by default, with two notes it lacks: a
+    probed share below the between-call drift (``STAGE_DRIFT``) is marked
+    "*" as not resolved, and a sum of probed shares above 100% is named
+    (each share is the stage's marginal cost, and those overlap)."""
+    from wavefront_path_tracer_tpu_torch.models.fused import STAGE_DRIFT
+
     file = sys.stderr if file is None else file
     print(f"fused stage timing (differential probes, {n_samples} spp):",
           file=file)
-    for label, seconds, share in rows:
-        print(f"  {label:34s} {seconds * 1e3:8.2f} ms  {share:6.1%}",
+    probed = rows[:-1]           # the last row is the unprobed residual
+    for i, (label, seconds, share) in enumerate(rows):
+        mark = " *" if i < len(probed) and share < STAGE_DRIFT else ""
+        print(f"  {label:34s} {seconds * 1e3:8.2f} ms  {share:6.1%}{mark}",
               file=file)
     print(f"  {'base render':34s} {base * 1e3:8.2f} ms", file=file)
+    if any(share < STAGE_DRIFT for _l, _s, share in probed):
+        print(f"  * below the {STAGE_DRIFT:.0%} between-call drift of a "
+              f"kernel's time: not resolved", file=file)
+    total = sum(share for _l, _s, share in probed)
+    if total > 1.0:
+        print(f"  the probed shares sum to {total:.1%}: each is its "
+              f"stage's marginal cost, and they overlap", file=file)
 
 
 def _run_interactive(args, scene, triangles, camera, cfg, server):

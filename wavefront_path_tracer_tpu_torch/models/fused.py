@@ -79,6 +79,11 @@ from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
 _BAKED_CACHE_MAX = 8
 _BAKED_CACHE: OrderedDict = OrderedDict()
 _DYN_CACHE: OrderedDict = OrderedDict()
+# Timed runs of each render in stage_timing and time_probes, and the
+# between-call drift of a kernel's time (ROADMAP.md "Build flags"): a
+# stage share below it is not resolved.
+STAGE_REPS = 3
+STAGE_DRIFT = 0.06
 
 
 @functools.lru_cache(maxsize=32)
@@ -640,8 +645,30 @@ def stage_stages(config: RenderConfig, scene_arrays) -> list:
     return stages
 
 
+def _check_probe_render(probe, radiance, stats, base_radiance, base_stats,
+                        n_samples: int) -> None:
+    """Raise RuntimeError unless a probed render's radiance words and
+    counters equal the unprobed render's: bit for bit, ``dbl_accum``'s
+    radiance within ``stage_probes``' tolerance."""
+    if stats != base_stats:
+        raise RuntimeError(f"probe {probe} counted {stats}, the base render "
+                           f"{base_stats} (rays, iterations, supers, "
+                           f"clusters)")
+    if stage_probes.probe_names(probe) == {"dbl_accum"}:
+        same = torch.allclose(
+            radiance, base_radiance, atol=stage_probes.ACCUM_ATOL,
+            rtol=stage_probes.ACCUM_RTOL_PER_SAMPLE * n_samples)
+    else:
+        same = torch.equal(radiance.view(torch.int32),
+                           base_radiance.view(torch.int32))
+    if not same:
+        err = float((radiance.double() - base_radiance.double()).abs().max())
+        raise RuntimeError(f"probe {probe} changed the render's radiance "
+                           f"(max abs error {err})")
+
+
 def time_probes(scene_arrays, cam, view, inv_proj, config: RenderConfig,
-                probes, n_samples: int = 32, reps: int = 3):
+                probes, n_samples: int = 32, reps: int = STAGE_REPS):
     """The unprobed render and each probed one (``probes``: names of
     ``ops/stage_probes.py``), timed in turns: (rays, base seconds,
     [(probe, base seconds of its turns, probe seconds), ...]).
@@ -653,8 +680,10 @@ def time_probes(scene_arrays, cam, view, inv_proj, config: RenderConfig,
     render's own tables (:func:`scene_tables`), after one warm run.  The
     base render runs in turns with each probed one (base, probe, base,
     probe, ...), since a kernel's time drifts between calls; the base
-    seconds returned first are the least of all its runs.  A probed
-    render that traces other rays than the base raises RuntimeError."""
+    seconds returned first are the least of all its runs.  So each probe
+    launches 1 + ``reps`` times.  The warm runs check the probe: a probed
+    render whose radiance words or counters differ from the base's
+    (``dbl_accum``'s radiance: beyond its tolerance) raises RuntimeError."""
     device = scene_arrays["centers"].device
     tables = scene_tables(config, scene_arrays, view)
     if config.block_tiles:
@@ -674,32 +703,33 @@ def time_probes(scene_arrays, cam, view, inv_proj, config: RenderConfig,
     def run(probe, frame) -> tuple:
         sync()
         t0 = time.perf_counter()
-        _, rays = render_pixels(pix, scene_arrays, cam, view, inv_proj,
-                                config, frame, 0, n_samples,
-                                cam_params=cam_params, probe=probe, **tables)
+        radiance, rays, stats = render_pixels(
+            pix, scene_arrays, cam, view, inv_proj, config, frame, 0,
+            n_samples, with_stats=True, cam_params=cam_params, probe=probe,
+            **tables)
         rays = int(rays)     # waits for the launch
         sync()
-        return time.perf_counter() - t0, rays
+        seconds = time.perf_counter() - t0
+        return seconds, radiance, [rays, *(int(v) for v in stats.values())]
 
-    _, base_rays = run((), 0)
+    _, base_radiance, base_stats = run((), 0)
     base = min(run((), 1)[0] for _ in range(reps))
     turns = []
     for probe in probes:
-        _, rays = run(probe, 0)
-        if rays != base_rays:
-            raise RuntimeError(f"probe {probe} traced {rays} rays, the "
-                               f"base render {base_rays}")
+        _, radiance, stats = run(probe, 0)
+        _check_probe_render(probe, radiance, stats, base_radiance,
+                            base_stats, n_samples)
         t_base = t_probe = float("inf")
         for _ in range(reps):
             t_base = min(t_base, run((), 1)[0])
             t_probe = min(t_probe, run(probe, 1)[0])
         base = min(base, t_base)
         turns.append((probe, t_base, t_probe))
-    return base_rays, base, turns
+    return base_stats[0], base, turns
 
 
 def stage_timing(scene_arrays, cam, view, inv_proj, config: RenderConfig,
-                 n_samples: int = 32, reps: int = 3):
+                 n_samples: int = 32, reps: int = STAGE_REPS):
     """Per-stage wall-time attribution for the fused engine, the port of
     the reference's ``stage_timing`` (its ``models/fused.py:415-532``).
 

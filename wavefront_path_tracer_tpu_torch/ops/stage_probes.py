@@ -43,6 +43,14 @@ KERNEL_PROBES = {
     "dynculled": LOOP + ("dyn_dbl_entry", "dyn_dbl_cond", "dyn_dbl_global"),
 }
 
+# dbl_accum adds the sky term as two halves: each miss rounds up to three
+# times instead of once, at most 1.5 ulp of the sum a sample; its render
+# is held to the unprobed one within this relative error a sample (the
+# bound with a margin of five) and this absolute error.  Every other probe
+# keeps the unprobed render's bits.
+ACCUM_RTOL_PER_SAMPLE = 1e-6
+ACCUM_ATOL = 1e-7
+
 # The reference's other PROBE names, which the port does not have, and
 # why.
 NOT_PORTED = {
