@@ -172,8 +172,9 @@ this script when it ends or receives SIGTERM.
    terrain_baked 800x448@32spp on the baked culled one, book_one_final
    1920x1080@1spp and terrain 800x448@1spp on the unculled one): both
    forms' frames bit for bit, then one frame of segment launches in each
-   form in turns, each launch timed by CUDA events (behind a device-side
-   spin, so that they bracket the kernel alone) and summed by its index in
+   form in turns, each launch timed by CUDA events (``probes/_stage.py``
+   ``segment_frame``: behind a device-side spin, so that they bracket the
+   kernel alone) and summed by its index in
    the segment schedule, beside the serial runs' spread and the bound.
    The segmented rows of phase 12 and the CLI's ``--recluster`` runs of
    phases 5 and 11 must launch only the shipped form;
@@ -240,27 +241,45 @@ this script when it ends or receives SIGTERM.
    child under a timeout); more NCCL ranks than cards refused; and the
    bench with ``--mesh 1x1`` at its defaults: exit 0 and the rays of
    phase bench's headline.
-22. stage plain (``stageplain``, untimed, in the window in two
-   processes, ``--part book|terrain``): the plain versions of
-   phase 23's 68 probe cases, each timed, handed back to it;
+22. stage plain (``stageplain``, untimed, in the window in three
+   processes, ``--part book|terrain|seg``): the plain versions of phase
+   23's 108 probe cases, each timed, handed back to it;
 23. stage (``stage``): the fused engine's differential stage probes
    (``ops/stage_probes.py``).  Every probe kernel (culled/16: raygen,
-   shade, accum, loopcond, entry, cond; unculled: the first four;
-   dynamic culled/16: those four and entry, cond, global) at 160x90@4spp,
-   4 bounces, in block lane order with padding lanes, on book_one_final,
-   book_checker, terrain and the textured mesh (the four kinds): radiance
-   words and counters bit for bit with its plain version and with the
-   unprobed kernel (``dbl_accum``: its radiance within 1e-6 relative a
-   sample); each probe kernel's SASS instructions above its unprobed
-   kernel's (``cuobjdump``), ptxas's registers and spills of each; a
-   bitmask with no instantiation refused by the kernel's entry point;
-   the ``--stage-timing`` tables of the headline and the unculled book
-   (1920x1080@32spp) through the CLI and of terrain_dynamic (800x448@32spp)
-   through ``models/fused.py`` ``stage_timing``, each with the launch
-   counts set to 0 just before it and read just after (every probe of
-   the path launched), shares at least 0 that close the budget, those
-   below the between-call drift marked; and ``probes/iterprobe.py`` and
-   ``probes/dynprobe.py`` at their defaults.
+   shade, accum, loopcond, entry, cond, entry2, cond2; culled with the
+   winner hint: hint_count; unculled: the first four; dynamic
+   culled/16: those four and entry, cond, global; the culled segment:
+   entry, cond, entry2, cond2; the dynamic segment: entry, cond, global)
+   at 160x90@4spp, 4 bounces (the segments through a segmented render at
+   recluster 2), in block lane order with padding lanes, on
+   book_one_final, book_checker, terrain and the textured mesh (the four
+   kinds): radiance words and counters bit for bit with its plain version
+   and with the unprobed kernel (``dbl_accum``: its radiance within 1e-6
+   relative a sample; ``hint_count``: its supers higher by its prepass
+   entries, at least one and at most its clusters entered); each probe
+   kernel's SASS instructions above its unprobed kernel's
+   (``cuobjdump``), ptxas's registers and spills of each; a bitmask with
+   no instantiation, and a probe of the unculled segment, refused by the
+   kernels' entry points; the ``--stage-timing`` tables of the headline
+   and the unculled book (1920x1080@32spp) through the CLI and of
+   terrain_dynamic (800x448@32spp) through ``models/fused.py``
+   ``stage_timing``, each with the launch counts set to 0 just before it
+   and read just after (every probe of the table launched), shares at
+   least 0 that close the budget, those below the between-call drift
+   marked; and ``probes/iterprobe.py`` and ``probes/dynprobe.py`` at
+   their defaults, then iterprobe with ``dbl_entry2`` and ``dbl_cond2``
+   with its launch counts read alone;
+24. segment stage (``segstage``): the segment kernels' probes at K=2
+   (recluster 2, 50 bounces), on the headline (the culled segment,
+   1920x1080@32spp) and knot50k_dynamic (the dynamic segment,
+   800x448@8spp): each probe's share of a frame's segment-kernel time
+   (``probes/_stage.py`` ``segment_shares``: the frame's launches timed
+   one by one by CUDA events and summed, base and probe in turns, least
+   of 3, every probed frame bit for bit with the base's), with the launch
+   counts set to 0 just before each cell and read just after; and
+   ``hint_count`` on book_checker with the winner hint at
+   1920x1080@32spp: the prepass entries a ray, beside the clusters
+   entered a ray with and without the hint.
 
 The last two lines of standard output are a JSON object describing the
 kernels (the probe kernels too, one entry a kernel and probe) and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -277,6 +296,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -474,19 +494,20 @@ def phase_device() -> tuple[str, str]:
     return name, smi
 
 
-def phase_build() -> dict:
-    """Build the library and print ptxas's lines, then each persistent,
-    baked unculled, baked culled and dynamic culled kernel's registers and
-    spills."""
+def phase_build(lib: str | None = None) -> dict:
+    """Build ``lib`` (ops/_build.py: the shipped kernels' library, or the
+    stage probes') and print ptxas's lines; for the shipped one, then
+    each persistent, baked unculled, baked culled and dynamic culled
+    kernel's registers and spills."""
     from wavefront_path_tracer_tpu_torch.ops import _build
 
+    lib = lib or _build.LIB_NAME
     t0 = time.perf_counter()
-    path, report, _ = _build.build()
-    _build.load_library()
+    path, report, _ = _build.build(lib)
     seconds = time.perf_counter() - t0
-    tag = "[build]"
+    tag = "[build]" if lib == _build.LIB_NAME else "[probe-build]"
     log(f"{tag} {path.relative_to(ROOT)} from "
-        f"{[p.name for p in _build.sources()]} in {seconds:.2f} s")
+        f"{[p.name for p in _build.sources(lib)]} in {seconds:.2f} s")
     nvcc = {}
     for line in report.splitlines():
         if line.startswith("nvcc "):
@@ -497,6 +518,9 @@ def phase_build() -> dict:
               or "spill" in line):
             log(f"{tag} ptxas: {line.strip()}")
     out = {"seconds": seconds, "nvcc_seconds": nvcc}
+    if lib != _build.LIB_NAME:
+        return out
+    _build.load_library()
     for kind, match in (("persistent", "persistent_kernel"),
                         ("unculled", "baked_unculled_kernel"),
                         ("culled", "baked_culled_kernel"),
@@ -577,6 +601,7 @@ class Case:
 
         self.kind, self.spp, self.split = kind, spp, split
         self.n_pixels = width * height
+        self.launches_a_run = 1    # kernel launches of one run
         self.textured = False
         self.tex_events = None     # per-ray texture event shares
         self.table_passes = 1      # reads of the tables the bound counts
@@ -643,6 +668,11 @@ class Case:
                 baked, salts, cam, *self.planes, **kw)
             self.launches = lambda: bk.LAUNCHES[kind]
 
+    def results(self, out):
+        """(radiance tensors, [rays, iterations, supers, clusters]) of a
+        run's output."""
+        return out[:3], out[3].tolist()
+
     def image(self, out):
         """(P, 3) sample-averaged radiance in natural pixel order."""
         lanes = torch.stack([r.reshape(-1) for r in out[:3]], dim=-1)
@@ -694,9 +724,10 @@ class Case:
         the plain version's run met (``tex_events``, per ray).  With a
         stage ``probe`` the work holds its duplicate where the counters
         give it: the entered clusters' pairs (entry), the boxes (cond),
-        the globals' pairs (dyn global); a duplicated raygen, shade, sky
-        add or trip vote is not counted (so that the bound stays a least
-        time)."""
+        the globals' pairs (dyn global), the entered sphere clusters'
+        pairs (entry2), the cluster boxes (cond2); a duplicated raygen,
+        shade, sky add or trip vote, and the prepass count (hint_count),
+        are not counted (so that the bound stays a least time)."""
         rays, _iters, supers, clusters = (float(v) for v in stats)
         n_bytes = (self.lane_bytes() + self.table_passes * sum(
             t.numel() * t.element_size() for t in self.tables))
@@ -728,10 +759,14 @@ class Case:
                 boxes = (rays * n_sup + supers * children if n_sup
                          else rays * n)
                 ops += boxes * FLOPS_BOX
-                if probe in ("dbl_entry", "dyn_dbl_entry"):
+                if probe in ("dbl_entry", "dyn_dbl_entry") or (
+                        probe == "dbl_entry2" and pair_ops != FLOPS_TRI):
                     ops += clusters * items * pair_ops
                 if probe in ("dbl_cond", "dyn_dbl_cond"):
                     ops += boxes * FLOPS_BOX
+                if probe == "dbl_cond2":
+                    ops += (supers * children if n_sup else rays * n) \
+                        * FLOPS_BOX
             if probe == "dyn_dbl_global":
                 ops += rays * n_globals * FLOPS_PAIR[self.kind]
         if self.textured:
@@ -1524,21 +1559,28 @@ class SegCase(Case):
     CUDA tensors."""
 
     def __init__(self, kind, clusters, scene, cc, width, height, spp, kw,
-                 device, triangles=None, recluster=2):
+                 device, triangles=None, recluster=2, bounces=50,
+                 probe=None):
         from wavefront_path_tracer_tpu_torch.models import fused
         from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
         from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
         from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
 
         super().__init__(kind, clusters, scene, cc, width, height, spp, 1,
-                         {}, device, triangles=triangles)
+                         {} if probe is None else {"probe": probe}, device,
+                         triangles=triangles, bounces=bounces)
+        self.key = ("segment", recluster) + self.key
+        # The segment kernel's stage probe (phase stage), passed to every
+        # launch of the kernel and of its plain version.
+        self.probe = probe or ()
         self.cfg = RenderConfig(
             width=width, height=height, samples_per_pixel=spp,
-            samples_per_frame=spp, max_bounces=50, engine="fused",
+            samples_per_frame=spp, max_bounces=bounces, engine="fused",
             recluster=recluster, rr_start_bounce=kw.get("rr_start", 0),
             clamp=kw.get("clamp", 0.0),
             sampler=kw.get("sampler", "random"))
-        self.segments = len(fused._segment_schedule(recluster, 50))
+        self.segments = len(fused._segment_schedule(recluster, bounces))
+        self.launches_a_run = spp * self.segments
         self.view = cc.view_matrix()
         self.inv_proj = cc.inverse_projection(width, height)
         if kind == "dynculled":
@@ -1563,19 +1605,41 @@ class SegCase(Case):
         self.kernel = lambda: fused.render_pixels_recluster(
             self.perm_t, self.arrays, self.cc.gpu_camera(), self.view,
             self.inv_proj, self.cfg, 0, 0, self.spp, with_stats=True,
-            **self.table_kw)
+            probe=self.probe, **self.table_kw)
         self.plain = lambda: self.render(segment=self.segment_plain)
 
     def render(self, cfg=None, segment=None, order=None):
         """The segmented render through ``segment`` (the kernel's wrapper
         by default) with the lanes ordered by ``order`` (the coherence
-        sort by default)."""
+        sort by default), with the case's probe."""
         from wavefront_path_tracer_tpu_torch.models import fused
 
         return fused._recluster(
             segment or self.segment, order or fused.coherence_order,
             self.seg_tables, self.perm_t, self.arrays, self.cc.gpu_camera(),
-            self.view, self.inv_proj, cfg or self.cfg, 0, 0, self.spp, True)
+            self.view, self.inv_proj, cfg or self.cfg, 0, 0, self.spp, True,
+            probe=self.probe)
+
+    def results(self, out):
+        return out[:1], _seg_stats(out)
+
+    def timed_frame(self, form: str = "coop"):
+        """One segmented render with the segment kernel in form ``form``
+        and the case's probe, each launch timed (probes/_stage.py
+        segment_frame: CUDA events a launch, behind a spin): (radiance,
+        [rays, iterations, supers, clusters], each launch's ms in issue
+        order)."""
+        from wavefront_path_tracer_tpu_torch.probes import _stage
+
+        return _stage.segment_frame(
+            self.table_kw, self.perm_t, self.arrays, self.cc.gpu_camera(),
+            self.view, self.inv_proj, self.cfg, self.spp, self.probe,
+            segment=self.form(form))
+
+    def segment_ms(self, runs: int = 3) -> float:
+        """The mean over ``runs`` frames of the sum of a frame's segment
+        launch times (:meth:`timed_frame`, the shipped form)."""
+        return sum(sum(self.timed_frame()[2]) for _ in range(runs)) / runs
 
     def form(self, name: str):
         """The segment kernel's wrapper in form ``name`` (``forms``)."""
@@ -2930,35 +2994,6 @@ SEGFORM_CELLS = (
     ("unculled_book", "unculled", 0, "book", (MAIN_WIDTH, MAIN_HEIGHT), 1),
     ("unculled_terrain", "unculled", 0, "terrain", MESH_SIZE, 1),
 )
-# Device cycles of the spin queued ahead of each timed segment launch
-# (about 0.5 ms at 1.98 GHz).
-SEGFORM_SPIN = 1_000_000
-
-
-def _timed_segments(case, form: str):
-    """One segmented frame of ``case`` with its segment kernel in form
-    ``form``: (the render, each launch's CUDA-event ms in issue order).
-    Ahead of each launch the device spins for SEGFORM_SPIN cycles, so that
-    the host has queued the launch and its end event before the start
-    event runs: the events then bracket the kernel alone, where the
-    segmented loop's host work would otherwise leave the device waiting
-    inside the interval."""
-    events = []
-    segment = case.form(form)
-
-    def timed(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SEGFORM_SPIN)
-        start.record()
-        out = segment(*args, **kw)
-        end.record()
-        events.append((start, end))
-        return out
-
-    out = case.render(segment=timed)
-    torch.cuda.synchronize()
-    return out, [a.elapsed_time(b) for a, b in events]
 
 
 def phase_segform(device, smi: str) -> dict:
@@ -2976,14 +3011,16 @@ def phase_segform(device, smi: str) -> dict:
         scene, tris, cam = scenes[scene_name]()
         case = SegCase(kind, clusters, scene, cam, w, h, spp, {}, device,
                        triangles=tris)
-        ref, _ = _timed_segments(case, "serial")        # warm-up, both
-        if not _same_seg(_timed_segments(case, "coop")[0], ref):
+        ref = case.timed_frame("serial")                # warm-up, both
+        coop = case.timed_frame("coop")
+        if coop[1] != ref[1] or not torch.equal(
+                coop[0].view(torch.int32), ref[0].view(torch.int32)):
             raise AssertionError(f"segform {cell}: the forms differ")
         runs = {name: [] for name in case.forms}
         by_index = {name: [] for name in case.forms}
         n_seg = case.segments
         for name in order:
-            _, ms = _timed_segments(case, name)
+            ms = case.timed_frame(name)[2]
             runs[name].append(sum(ms))
             by_index[name].append([sum(ms[i::n_seg]) for i in range(n_seg)])
         mean = {n: sum(v) / len(v) for n, v in runs.items()}
@@ -2991,7 +3028,7 @@ def phase_segform(device, smi: str) -> dict:
                       for n, v in by_index.items()}
         serial = runs["serial"]
         spread = max(serial) - min(serial)
-        stats = _seg_stats(ref)
+        stats = ref[1]
         bound = case.bound(stats)
         rep = {"kind": kind, "spp": spp, "size": [w, h], "runs": runs,
                "order": order, "mean_ms": mean, "serial_spread_ms": spread,
@@ -3927,22 +3964,38 @@ def phase_multi(device, smi: str, bench_line: dict | None) -> dict:
             "bench_mesh": mesh_line, "bench_mesh_seconds": bench_seconds}
 
 
-# The differential stage probes (phases stageplain and stage): every probe
-# instantiation (ops/stage_probes.py KERNEL_PROBES, csrc/baked_probe*.cu and
-# dynculled_probe*.cu) on a scene of each kind at STAGE_SIZE, held to its
-# plain version and to the unprobed kernel; the plain runs are phase
-# stageplain's, in the window (cut to 4 bounces: the plain versions' time
-# goes with the bounces of their slowest ray).
+# The differential stage probes (phases stageplain, stage and segstage):
+# every probe instantiation (ops/stage_probes.py KERNEL_PROBES,
+# csrc/baked_probe*.cu and dynculled_probe*.cu) on a scene of each kind at
+# STAGE_SIZE, held to its plain version and to the unprobed kernel; the
+# plain runs are phase stageplain's, in the window (cut to 4 bounces: the
+# plain versions' time goes with the bounces of their slowest ray).  A
+# segment kernel's case is a segmented render (recluster 2) at that size.
 STAGE_SIZE = (160, 90, 4)
 STAGE_BOUNCES = 4
-STAGE_KERNELS = (("culled", 16), ("unculled", 0), ("dynculled", 16))
-STAGE_PARTS = {"book": ("book", "book_checker", "texmesh"),
-               "terrain": ("terrain",)}
+# The kernels (KERNEL_PROBES keys) with their cluster size.  The winner
+# hint is off above 64 estimated clusters (ops/bake.py HINT_MAX_CLUSTERS),
+# so the hinted kernel takes the textured mesh's 1,012 triangles in
+# clusters of 32 and terrain's 5,000 in clusters of 128.
+STAGE_KERNELS = (("culled", 16), ("culled_hint", 16), ("unculled", 0),
+                 ("dynculled", 16), ("segment_culled", 16),
+                 ("segment_dynculled", 16))
+HINT_CLUSTERS = {"texmesh": 32, "terrain": 128}
+PERSISTENT_KERNELS = ("culled", "culled_hint", "unculled", "dynculled")
+SEGMENT_KERNELS = ("segment_culled", "segment_dynculled")
+# The shares of phase stageplain, a process each in the window: (scenes,
+# kernels).
+STAGE_PARTS = {
+    "book": (("book", "book_checker", "texmesh"), PERSISTENT_KERNELS),
+    "terrain": (("terrain",), PERSISTENT_KERNELS),
+    "seg": (("book", "book_checker", "texmesh", "terrain"), SEGMENT_KERNELS),
+}
 # The reference's probe point of each name (ops/pallas_kernels.py).
 PROBE_POINTS = {"dbl_raygen": 2611, "dbl_shade": 2685, "dbl_accum": 2673,
                 "dbl_loopcond": 2550, "dbl_entry": 1423, "dbl_cond": 1379,
                 "dyn_dbl_entry": 2219, "dyn_dbl_cond": 2128,
-                "dyn_dbl_global": 2074}
+                "dyn_dbl_global": 2074, "dbl_entry2": 1426,
+                "dbl_cond2": 1385, "hint_count": 1353}
 # The --stage-timing tables: (label, scene, size, kernel, CLI flags); the
 # dynamic table through models/fused.py stage_timing (the CLI prints the
 # reference's note for brute force).
@@ -3953,44 +4006,75 @@ STAGE_TABLES = (
      "unculled", ["--intersector", "baked", "--clusters", "0"]),
     ("terrain_dynamic", "terrain", (*MESH_SIZE, 32), "dynculled", None),
 )
+# The probe variants of probes/iterprobe.py that are not in its defaults
+# (the reference's exp/iterprobe.py takes any PROBE name), run at its
+# defaults in phase stage.
+ITERPROBE_NEW = "full,dbl_entry2,dbl_cond2"
 
 
-def _stage_scene(name: str):
+def _stage_scene(name: str, part: str = ""):
     if name == "texmesh":
-        return _from_scene_file(_textured_mesh_file("tex_mesh_stage"))
+        return _from_scene_file(_textured_mesh_file(f"tex_mesh_stage{part}"))
     return {"book": _book, "book_checker": _book_checker,
             "terrain": _terrain}[name]()
 
 
-def _stage_cases(device, scenes):
-    """(label, scene, kernel, probe, Case) of every probe instantiation on
-    ``scenes`` (the unprobed kernel first of each, probe None)."""
+def _stage_case(kernel, clusters, scene, tris, cam, probe, device):
+    """The Case (SegCase for a segment kernel) of ``kernel`` (a
+    KERNEL_PROBES key) with ``probe`` (None: unprobed) at STAGE_SIZE, its
+    launches read from the probe's own count."""
+    w, h, spp = STAGE_SIZE
+    if kernel in SEGMENT_KERNELS:
+        case = SegCase(kernel[len("segment_"):], clusters, scene, cam, w, h,
+                       spp, {}, device, triangles=tris,
+                       bounces=STAGE_BOUNCES, probe=probe)
+    else:
+        hint = kernel == "culled_hint"
+        case = Case("culled" if hint else kernel, clusters, scene, cam, w, h,
+                    spp, 1, {} if probe is None else {"probe": probe},
+                    device, triangles=tris, winner_hint=hint,
+                    bounces=STAGE_BOUNCES)
+        if hint and not case.baked.winner_hint:
+            raise AssertionError(f"the bake in clusters of {clusters} has "
+                                 f"no winner hint")
+    if probe is not None:
+        case.launches = (lambda key=f"{kernel}/{probe}":
+                         _read_launches()[key])
+    return case
+
+
+def _stage_cases(device, parts):
+    """(label, scene, kernel, probe, Case) of every probe instantiation of
+    the STAGE_PARTS ``parts`` (the unprobed kernel first of each, probe
+    None)."""
     from wavefront_path_tracer_tpu_torch.ops import stage_probes
 
     w, h, spp = STAGE_SIZE
-    for name in scenes:
-        scene, tris, cam = _stage_scene(name)
-        for kind, clusters in STAGE_KERNELS:
-            for probe in (None, *stage_probes.KERNEL_PROBES[kind]):
-                case = Case(kind, clusters, scene, cam, w, h, spp, 1,
-                            {} if probe is None else {"probe": probe},
-                            device, triangles=tris, bounces=STAGE_BOUNCES)
-                if probe is not None:
-                    case.launches = (lambda key=f"{kind}/{probe}":
-                                     _read_launches()[key])
-                label = (f"{kind}/{clusters} {probe or 'unprobed'} {name} "
-                         f"{w}x{h}@{spp}spp {STAGE_BOUNCES} bounces")
-                yield label, name, kind, probe, case
+    for part in parts:
+        scenes, kernels = STAGE_PARTS[part]
+        for name in scenes:
+            scene, tris, cam = _stage_scene(name, part)
+            for kernel, clusters in STAGE_KERNELS:
+                if kernel not in kernels:
+                    continue
+                if kernel == "culled_hint":
+                    clusters = HINT_CLUSTERS.get(name, clusters)
+                for probe in (None, *stage_probes.KERNEL_PROBES[kernel]):
+                    case = _stage_case(kernel, clusters, scene, tris, cam,
+                                       probe, device)
+                    label = (f"{kernel}/{clusters} {probe or 'unprobed'} "
+                             f"{name} {w}x{h}@{spp}spp {STAGE_BOUNCES} "
+                             f"bounces")
+                    yield label, name, kernel, probe, case
 
 
 def phase_stage_plain(device, part=None) -> list[dict]:
     """Phase stageplain: the plain versions of every probe instantiation
-    (phase stage's cases) on the scenes of ``part`` (all without one),
-    each timed; their results go to ``_PLAIN_OUT`` for phase stage."""
-    scenes = (STAGE_PARTS[part] if part is not None
-              else sum(STAGE_PARTS.values(), ()))
+    (phase stage's cases) of ``part`` (all without one), each timed; their
+    results go to ``_PLAIN_OUT`` for phase stage."""
+    parts = (part,) if part is not None else tuple(STAGE_PARTS)
     out = []
-    for label, _name, _kind, probe, case in _stage_cases(device, scenes):
+    for label, _name, _kernel, probe, case in _stage_cases(device, parts):
         if probe is None:
             continue
         plain_ms, _PLAIN_OUT[case.key] = _time_ms(case.plain, 1)
@@ -4002,38 +4086,49 @@ def phase_stage_plain(device, part=None) -> list[dict]:
 def _stage_check(label, case, probe, base) -> tuple:
     """A probe kernel against its plain version (bit for bit, radiance
     words and counters) and against the unprobed kernel's results
-    ``base`` (bit for bit; dbl_accum's radiance within its tolerance)."""
+    ``base`` (bit for bit; dbl_accum's radiance within its tolerance;
+    hint_count's supers higher by its prepass entries, at least one and
+    at most its clusters entered)."""
     from wavefront_path_tracer_tpu_torch.ops import stage_probes
 
     before = case.launches()
     k = case.kernel()
     torch.cuda.synchronize()
-    if case.launches() != before + 1:
-        raise AssertionError(f"{label}: the wrapper did not count its launch")
+    if case.launches() != before + case.launches_a_run:
+        raise AssertionError(f"{label}: the wrapper counted "
+                             f"{case.launches() - before} launches, not "
+                             f"{case.launches_a_run}")
     p = _PLAIN_OUT.get(case.key)
     if p is None:
         p = _PLAIN_OUT[case.key] = case.plain()
-    stats_k, stats_p, stats_b = (k[3].tolist(), p[3].tolist(),
-                                 base[3].tolist())
+    (rad_k, stats_k), (rad_p, stats_p), (rad_b, stats_b) = (
+        case.results(k), case.results(p), case.results(base))
     plain_bits = stats_k == stats_p and all(
-        torch.equal(_bits(a), _bits(b)) for a, b in zip(k[:3], p[:3]))
+        torch.equal(_bits(a), _bits(b)) for a, b in zip(rad_k, rad_p))
     err_plain = max(float((a.double() - b.double()).abs().max())
-                    for a, b in zip(k[:3], p[:3]))
+                    for a, b in zip(rad_k, rad_p))
     err_base = max(float((a.double() - b.double()).abs().max())
-                   for a, b in zip(k[:3], base[:3]))
+                   for a, b in zip(rad_k, rad_b))
     if probe == "dbl_accum":
         rtol = stage_probes.ACCUM_RTOL_PER_SAMPLE * STAGE_SIZE[2]
         base_ok = all(torch.allclose(a, b, rtol=rtol,
                                      atol=stage_probes.ACCUM_ATOL)
-                      for a, b in zip(k[:3], base[:3]))
+                      for a, b in zip(rad_k, rad_b))
     else:
         base_ok = all(torch.equal(_bits(a), _bits(b))
-                      for a, b in zip(k[:3], base[:3]))
-    base_ok = base_ok and stats_k == stats_b
+                      for a, b in zip(rad_k, rad_b))
+    prepass = stats_k[2] - stats_b[2]
+    if probe == "hint_count":
+        base_ok = (base_ok and 0 < prepass <= stats_k[3]
+                   and stats_k[:2] + stats_k[3:] == stats_b[:2] + stats_b[3:])
+    else:
+        base_ok = base_ok and stats_k == stats_b
     rep = {"case": label, "kernel": case.kind, "probe": probe,
            "stats": stats_k, "bit_exact_plain": plain_bits,
            "max_abs_err": err_plain, "equal_unprobed": base_ok,
            "max_abs_err_unprobed": err_base}
+    if probe == "hint_count":
+        rep["prepass_entries"] = prepass
     log(f"[stage-check] {json.dumps(rep)}")
     if not plain_bits:
         raise AssertionError(f"{label}: the probe kernel and its plain "
@@ -4047,80 +4142,109 @@ def _stage_check(label, case, probe, base) -> tuple:
     return rep, k
 
 
+def _stage_symbols():
+    """(kernel, probe or None, key, mangled symbol) of every probe kernel
+    and of its kernel's unprobed instantiation, for every kind."""
+    from wavefront_path_tracer_tpu_torch.ops import stage_probes
+
+    for kernel, probes in stage_probes.KERNEL_PROBES.items():
+        if not probes:
+            continue
+        for tris in (False, True):
+            for tex in (False, True):
+                for probe in (None, *probes):
+                    bits = 0 if probe is None else stage_probes.PROBES[probe]
+                    yield (kernel, probe,
+                           f"{kernel} tris={int(tris)} tex={int(tex)}",
+                           stage_probes.kernel_symbol(kernel, tris, tex,
+                                                      bits))
+
+
 def _stage_sass() -> dict:
     """Each probe kernel's SASS instructions against its unprobed
-    kernel's (utils/sass.py): a duplicate that nvcc merged away would
-    leave them equal.  {} where the machine has no cuobjdump."""
-    from wavefront_path_tracer_tpu_torch.ops import _build, stage_probes
+    kernel's (utils/sass.py), without the NOPs that pad a kernel's end (a
+    counting probe adds one add, which the padding can hide): a duplicate
+    that nvcc merged away would leave them equal.  {} where the machine
+    has no cuobjdump."""
+    from wavefront_path_tracer_tpu_torch.ops import _build
     from wavefront_path_tracer_tpu_torch.utils import sass
 
     if sass.cuobjdump() is None:
         log("[stage-sass] cuobjdump not found: probe SASS not counted "
             "(each probe's share is printed beside its registers)")
         return {}
-    counts = sass.counts(_build.build()[0])
-
-    def count(kind, tris, tex, bits):
-        sym = stage_probes.kernel_symbol(kind, tris, tex, bits)
-        found = [n for name, n in counts.items() if sym in name]
+    # The unprobed kernels are the shipped library's, the probe kernels the
+    # stage probes' library's.
+    libs = [_build.build(lib)[0]
+            for lib in (_build.LIB_NAME, _build.PROBE_LIB_NAME)]
+    counts = {k: v for lib in libs for k, v in sass.counts(lib).items()}
+    work = {k: v for lib in libs for k, v in sass.work_counts(lib).items()}
+    out, base = {}, None
+    for _kernel, probe, key, sym in _stage_symbols():
+        found = [name for name in counts if sym in name]
         if len(found) != 1:
             raise AssertionError(f"{len(found)} SASS functions match {sym}")
-        return found[0]
-
-    out = {}
-    for kind, probes in stage_probes.KERNEL_PROBES.items():
-        for tris in (False, True):
-            for tex in (False, True):
-                base = count(kind, tris, tex, 0)
-                for probe in probes:
-                    n = count(kind, tris, tex, stage_probes.PROBES[probe])
-                    key = f"{kind} tris={int(tris)} tex={int(tex)} {probe}"
-                    out[key] = {"base": base, "probe": n}
-                    log(f"[stage-sass] {key}: {n} SASS instructions, "
-                        f"unprobed {base} (+{n - base})")
-                    if not n > base:
-                        raise AssertionError(f"{key}: the probe kernel is "
-                                             f"no longer than the unprobed "
-                                             f"one ({n} <= {base})")
+        n, w = counts[found[0]], work[found[0]]
+        if probe is None:
+            base = (n, w)
+            continue
+        out[f"{key} {probe}"] = {"base": base[0], "probe": n,
+                                 "base_without_nops": base[1],
+                                 "probe_without_nops": w}
+        log(f"[stage-sass] {key} {probe}: {n} SASS instructions, unprobed "
+            f"{base[0]} (+{n - base[0]}); without NOPs {w}, unprobed "
+            f"{base[1]} (+{w - base[1]})")
+        if not w > base[1]:
+            raise AssertionError(f"{key} {probe}: the probe kernel is no "
+                                 f"longer than the unprobed one ({w} <= "
+                                 f"{base[1]} without NOPs)")
     return out
 
 
 def _stage_ptxas() -> dict:
     """ptxas's registers and spills of every probe kernel and its unprobed
-    kernel, from the build's report (a probe that spills more than its
+    kernel, from the builds' reports (a probe that spills more than its
     base reads an upper bound of its stage's share)."""
-    from wavefront_path_tracer_tpu_torch.ops import _build, stage_probes
+    from wavefront_path_tracer_tpu_torch.ops import _build
 
-    report = _build.build()[1]
+    report = _build.build()[1] + _build.build(_build.PROBE_LIB_NAME)[1]
     out = {}
-    for kind, probes in stage_probes.KERNEL_PROBES.items():
-        for tris in (False, True):
-            for tex in (False, True):
-                for probe in (None, *probes):
-                    bits = 0 if probe is None else stage_probes.PROBES[probe]
-                    sym = stage_probes.kernel_symbol(kind, tris, tex, bits)
-                    reps = _build.ptxas_kernels(report, sym)
-                    if len(reps) != 1:
-                        raise AssertionError(f"ptxas reported {len(reps)} "
-                                             f"kernels for {sym}")
-                    rep = {k: reps[0].get(k) for k in (
-                        "registers", "stack", "spill_stores", "spill_loads")}
-                    key = (f"{kind} tris={int(tris)} tex={int(tex)} "
-                           f"{probe or 'unprobed'}")
-                    out[key] = rep
-                    log(f"[stage-ptxas] {key}: {rep['registers']} "
-                        f"registers, {rep['stack']} bytes stack, "
-                        f"{rep['spill_stores']} / {rep['spill_loads']} bytes "
-                        f"spilled")
+    for _kernel, probe, key, sym in _stage_symbols():
+        reps = _build.ptxas_kernels(report, sym)
+        if len(reps) != 1:
+            raise AssertionError(f"ptxas reported {len(reps)} kernels for "
+                                 f"{sym}")
+        rep = {k: reps[0].get(k) for k in (
+            "registers", "stack", "spill_stores", "spill_loads")}
+        key = f"{key} {probe or 'unprobed'}"
+        out[key] = rep
+        log(f"[stage-ptxas] {key}: {rep['registers']} registers, "
+            f"{rep['stack']} bytes stack, {rep['spill_stores']} / "
+            f"{rep['spill_loads']} bytes spilled")
     return out
+
+
+def _table_probes(kind: str) -> list:
+    """The probes of the --stage-timing table of ``kind``'s path
+    (models/fused.py stage_stages: the reference's stages, which
+    dbl_entry2 and dbl_cond2 are not)."""
+    from wavefront_path_tracer_tpu_torch.models import fused
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+
+    cfg = RenderConfig(engine="fused", **{
+        "culled": {"intersector": "baked", "baked_clusters": 16},
+        "unculled": {"intersector": "baked", "baked_clusters": 0},
+        "dynculled": {"intersector": "bruteforce", "baked_clusters": 16},
+    }[kind])
+    return [probe for _label, probe in fused.stage_stages(cfg, {})]
 
 
 def _stage_table(device, smi, label, scene_name, size, kind, argv) -> dict:
     """One --stage-timing table with the launch counts set to 0 just
-    before it and read just after: every probe of the path's kernel must
-    have launched as often as models/fused.py time_probes launches it
-    (its check run and STAGE_REPS timed runs), the shares must be at least
-    0, those below the drift marked, and the residual must close the
+    before it and read just after: every probe of the table must have
+    launched as often as models/fused.py time_probes launches it (its
+    check run and STAGE_REPS timed runs), the shares must be at least 0,
+    those below the drift marked, and the residual must close the
     budget."""
     import contextlib
     import io
@@ -4128,7 +4252,6 @@ def _stage_table(device, smi, label, scene_name, size, kind, argv) -> dict:
 
     from wavefront_path_tracer_tpu_torch import cli
     from wavefront_path_tracer_tpu_torch.models import fused
-    from wavefront_path_tracer_tpu_torch.ops import stage_probes
     from wavefront_path_tracer_tpu_torch.renderer import Renderer
     from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
 
@@ -4157,8 +4280,8 @@ def _stage_table(device, smi, label, scene_name, size, kind, argv) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     all_launches = _read_launches()
-    launches = {n: all_launches[f"{kind}/{n}"]
-                for n in stage_probes.KERNEL_PROBES[kind]}
+    probes = _table_probes(kind)
+    launches = {n: all_launches[f"{kind}/{n}"] for n in probes}
     rows = {}
     for line in buf.getvalue().splitlines():
         m = re.match(r"  (.+?)\s+(-?[\d.]+) ms(?:\s+(-?[\d.]+)%( \*)?)?$",
@@ -4178,7 +4301,7 @@ def _stage_table(device, smi, label, scene_name, size, kind, argv) -> dict:
             + ("" if row["share"] is None else f"  {row['share']:6.1%}")
             + f"{note} [{smi}]")
     shares = [r["share"] for n, r in rows.items() if n != "base render"]
-    expected = len(stage_probes.KERNEL_PROBES[kind]) + 1
+    expected = len(probes) + 1
     if len(shares) != expected or "base render" not in rows:
         raise AssertionError(f"{label}: {len(shares)} stage rows, not "
                              f"{expected}: {buf.getvalue()}")
@@ -4208,18 +4331,26 @@ def _stage_table(device, smi, label, scene_name, size, kind, argv) -> dict:
 
 def _stage_scripts(smi) -> dict:
     """probes/iterprobe.py and probes/dynprobe.py once each at their
-    defaults, in this process."""
+    defaults, in this process, then iterprobe with the culled probes
+    that its defaults leave out (ITERPROBE_NEW), with the launch counts
+    set to 0 just before it and read just after."""
     import contextlib
     import io
 
+    from wavefront_path_tracer_tpu_torch.models import fused
     from wavefront_path_tracer_tpu_torch.probes import dynprobe, iterprobe
 
     out = {}
-    for name, script in (("iterprobe", iterprobe), ("dynprobe", dynprobe)):
+    for name, script, argv in (
+            ("iterprobe", iterprobe, []), ("dynprobe", dynprobe, []),
+            ("iterprobe_new", iterprobe, ["--variants", ITERPROBE_NEW])):
         buf = io.StringIO()
+        _reset_launches()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            rc = script.main([])
+            rc = script.main(argv)
+        launches = {k: v for k, v in _read_launches().items()
+                    if "/" in k and v}
         lines = buf.getvalue().splitlines()
         for line in lines:
             if not line.startswith("{"):
@@ -4227,38 +4358,55 @@ def _stage_scripts(smi) -> dict:
         if rc != 0:
             raise AssertionError(f"{name} exited {rc}")
         out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": launches,
                      "variants": [json.loads(ln) for ln in lines
                                   if ln.startswith("{")]}
+        log(f"[stage-script] {name}: probe launches {launches}")
+    want = {f"culled/{v}": 1 + fused.STAGE_REPS
+            for v in ITERPROBE_NEW.split(",")[1:]}
+    if out["iterprobe_new"]["launches"] != want:
+        raise AssertionError(f"iterprobe {ITERPROBE_NEW}: probe launches "
+                             f"{out['iterprobe_new']['launches']}, not "
+                             f"{want}")
     return out
 
 
 def _stage_refusal(device) -> None:
     """A bitmask with no instantiation (two probes at once), past the
     wrapper's own check: the C entry point must refuse it and the wrapper
-    raise."""
+    raise; so must the unculled segment's entry point refuse any probe."""
     from wavefront_path_tracer_tpu_torch.ops import stage_probes
 
     probe_bits = stage_probes.probe_bits
-    try:
-        stage_probes.probe_bits = lambda *_a: 3
-        case = next(c for *_r, c in _stage_cases(device, ("book",)))
+    w, h, spp = STAGE_SIZE
+    scene, tris, cam = _book()
+    cases = {
+        "two bits at once": next(c for *_r, c in _stage_cases(device,
+                                                              ("book",))),
+        "a probe of the unculled segment": SegCase(
+            "unculled", 0, scene, cam, w, h, spp, {}, device,
+            bounces=STAGE_BOUNCES, probe="dbl_entry"),
+    }
+    for what, case in cases.items():
         try:
-            case.kernel()
-        except RuntimeError as exc:
-            log(f"[stage-check] two bits at once refused by the kernel: "
-                f"{exc}")
-        else:
-            raise AssertionError("the kernel accepted a probe bitmask that "
-                                 "has no instantiation")
-    finally:
-        stage_probes.probe_bits = probe_bits
+            stage_probes.probe_bits = lambda *_a: (
+                3 if what.startswith("two") else stage_probes.PROBES[
+                    "dbl_entry"])
+            try:
+                case.kernel()
+            except RuntimeError as exc:
+                log(f"[stage-check] {what} refused by the kernel: {exc}")
+            else:
+                raise AssertionError(f"the kernel accepted {what}")
+        finally:
+            stage_probes.probe_bits = probe_bits
 
 
 def phase_stage(device, smi: str) -> dict:
     """Phase stage: the differential stage probes.  Every probe kernel
     against its plain version and the unprobed kernel (STAGE_SIZE), its
     SASS against the unprobed kernel's, ptxas's registers and spills;
-    the --stage-timing tables (STAGE_TABLES) and the two probe scripts."""
+    the --stage-timing tables (STAGE_TABLES) and the probe scripts."""
     seconds = {}
     t0 = time.perf_counter()
     out = {"sass": _stage_sass(), "ptxas": _stage_ptxas(), "checks": [],
@@ -4266,18 +4414,22 @@ def phase_stage(device, smi: str) -> dict:
     seconds["sass and ptxas"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     base = None
-    scenes = sum(STAGE_PARTS.values(), ())
-    for label, name, kind, probe, case in _stage_cases(device, scenes):
+    for label, name, kernel, probe, case in _stage_cases(
+            device, tuple(STAGE_PARTS)):
         if probe is None:
             base = case.kernel()
             continue
         rep, k = _stage_check(label, case, probe, base)
         if name == "book":
-            # The kernels line's entry: this case's kernel time (mean of
-            # 5 calls) beside its bound.
-            rep["kernel_ms"], _ = _time_ms(case.kernel, 5)
-            rep.update(case.bound(k[3].tolist(), probe=probe))
-            out["timed"][f"{kind}/{probe}"] = rep
+            # The kernels line's entry: this case's kernel time (mean of 5
+            # calls; a segment kernel's: the mean of 3 frames' sums of its
+            # launches) beside its bound.
+            if kernel in SEGMENT_KERNELS:
+                rep["kernel_ms"] = case.segment_ms()
+            else:
+                rep["kernel_ms"], _ = _time_ms(case.kernel, 5)
+            rep.update(case.bound(case.results(k)[1], probe=probe))
+            out["timed"][f"{kernel}/{probe}"] = rep
         out["checks"].append(rep)
     _stage_refusal(device)
     seconds["checks"] = time.perf_counter() - t0
@@ -4293,10 +4445,139 @@ def phase_stage(device, smi: str) -> dict:
     return out
 
 
+# Phase segstage: the segment kernels' probes at K=2 (recluster 2, 50
+# bounces) on the rows that run them: (cell, kernel, clusters, scene,
+# size, spp).
+SEGSTAGE_CELLS = (
+    ("headline", "segment_culled", 16, "book", (MAIN_WIDTH, MAIN_HEIGHT),
+     MAIN_SPP),
+    ("knot50k_dynamic", "segment_dynculled", 16, "knot", MESH_SIZE, 8),
+)
+
+
+def phase_segstage(device, smi: str) -> dict:
+    """Phase segstage: each segment probe's share of a segmented frame's
+    segment-kernel time (probes/_stage.py segment_shares: the summed CUDA
+    event time of the frame's launches, base and probe in turns, least of
+    STAGE_REPS, every probed frame bit for bit with the base's) at
+    SEGSTAGE_CELLS, with the launch counts set to 0 just before each cell
+    and read just after; then hint_count on book_checker with the winner
+    hint (1920x1080@32spp): the prepass entries per ray, as
+    supers(probed) - supers(base), beside the clusters entered per ray
+    with and without the hint."""
+    from wavefront_path_tracer_tpu_torch.models import fused
+    from wavefront_path_tracer_tpu_torch.ops import stage_probes
+    from wavefront_path_tracer_tpu_torch.probes import _stage
+    from wavefront_path_tracer_tpu_torch.renderer import prepare_scene
+    from wavefront_path_tracer_tpu_torch.utils.config import RenderConfig
+
+    scenes = {"book": _book, "knot": _knot, "book_checker": _book_checker}
+    out = {}
+    for cell, kernel, clusters, scene_name, (w, h), spp in SEGSTAGE_CELLS:
+        scene, tris, cc = scenes[scene_name]()
+        cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                           samples_per_frame=spp, max_bounces=50,
+                           engine="fused", intersector=(
+                               "baked" if kernel == "segment_culled"
+                               else "bruteforce"),
+                           baked_clusters=clusters, recluster=2,
+                           block_tiles=32)
+        arrays = prepare_scene(scene, cfg, device, tris)
+        probes = stage_probes.KERNEL_PROBES[kernel]
+        _reset_launches()
+        t0 = time.perf_counter()
+        stats, base, turns = _stage.segment_shares(
+            arrays, cc.gpu_camera(), cc.view_matrix(),
+            cc.inverse_projection(w, h), cfg, probes, spp,
+            reps=fused.STAGE_REPS)
+        seconds = time.perf_counter() - t0
+        all_launches = _read_launches()
+        launches = {p: all_launches[f"{kernel}/{p}"] for p in probes}
+        frame = spp * len(fused._segment_schedule(2, 50))
+        want = (1 + fused.STAGE_REPS) * frame
+        if any(n != want for n in launches.values()):
+            raise AssertionError(f"segstage {cell}: probe launches "
+                                 f"{launches}, not {want} each")
+        rows = {p: {"base_ms": tb, "probe_ms": tp,
+                    "share": (tp - tb) / tb} for p, tb, tp in turns}
+        for p, row in rows.items():
+            mark = ("" if row["share"] >= fused.STAGE_DRIFT
+                    else f"  (below the {fused.STAGE_DRIFT:.0%} drift: not "
+                         f"resolved)")
+            log(f"[segstage] {cell} {w}x{h}@{spp}spp {kernel}/{clusters} "
+                f"K=2: {p:16s} {row['probe_ms']!r} ms against "
+                f"{row['base_ms']!r} ms in its turns: share "
+                f"{row['share']:.2%}{mark} [{smi}]")
+        log(f"[segstage] {cell}: segment launches a frame {frame}, base "
+            f"{base!r} ms (least of every turn), stats {stats}, probe "
+            f"launches {launches}, {seconds:.1f} s; every probed frame bit "
+            f"for bit with the base's [{smi}]")
+        out[cell] = {"kernel": kernel, "size": [w, h], "spp": spp,
+                     "stats": stats, "base_ms": base, "rows": rows,
+                     "launches": launches, "launches_a_frame": frame,
+                     "seconds": seconds}
+
+    # hint_count: one base and one probed render of book_checker with the
+    # winner hint, and one without the hint, through render_pixels.
+    scene, tris, cc = _book_checker()
+    w, h, spp = MAIN_WIDTH, MAIN_HEIGHT, MAIN_SPP
+    cfg = RenderConfig(width=w, height=h, samples_per_pixel=spp,
+                       samples_per_frame=spp, max_bounces=50,
+                       engine="fused", intersector="baked",
+                       baked_clusters=16, block_tiles=32)
+    arrays = prepare_scene(scene, cfg, device, tris)
+    perm, _ = fused._block_perm(w, h, 32)
+    pix = torch.from_numpy(perm.astype(np.int64)).to(device)
+    view = cc.view_matrix()
+
+    def render(config, probe=()):
+        tables = fused.scene_tables(config, arrays, view)
+        rad, rays, st = fused.render_pixels(
+            pix, arrays, cc.gpu_camera(), view,
+            cc.inverse_projection(w, h), config, 0, 0, spp,
+            with_stats=True, probe=probe, **tables)
+        return rad, [int(rays)] + [int(st[k]) for k in (
+            "iterations", "supers_entered", "clusters_entered")]
+
+    hinted = cfg.replace(winner_hint=True)
+    if not fused.scene_tables(hinted, arrays, view)["baked"].winner_hint:
+        raise AssertionError("book_checker's bake has no winner hint")
+    _reset_launches()
+    rad_b, stats_b = render(hinted)
+    rad_p, stats_p = render(hinted, "hint_count")
+    torch.cuda.synchronize()
+    launches = _read_launches()["culled_hint/hint_count"]
+    fused._check_probe_render("hint_count", rad_p, stats_p, rad_b, stats_b,
+                              spp)
+    _rad_u, stats_u = render(cfg)
+    rays = stats_b[0]
+    prepass = stats_p[2] - stats_b[2]
+    hint = {"stats_base": stats_b, "stats_probed": stats_p,
+            "stats_unhinted": stats_u, "prepass_entries": prepass,
+            "prepass_per_ray": prepass / rays,
+            "clusters_per_ray": stats_b[3] / rays,
+            "clusters_per_ray_unhinted": stats_u[3] / stats_u[0],
+            "prepass_share_of_clusters": prepass / max(stats_b[3], 1),
+            "launches": launches}
+    log(f"[segstage] hint_count book_checker {w}x{h}@{spp}spp baked/16 "
+        f"--winner-hint: {prepass} prepass entries over {rays} rays "
+        f"({hint['prepass_per_ray']:.4f} a ray, "
+        f"{hint['prepass_share_of_clusters']:.2%} of the "
+        f"{hint['clusters_per_ray']:.4f} clusters entered a ray; without "
+        f"the hint {hint['clusters_per_ray_unhinted']:.4f}); the probed "
+        f"render's radiance words, rays, iterations and clusters equal the "
+        f"base's; probe launches {launches} [{smi}]")
+    if launches != 1 or prepass <= 0:
+        raise AssertionError(f"segstage hint_count: {launches} launches, "
+                             f"{prepass} prepass entries")
+    out["hint_count"] = hint
+    return out
+
+
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull",
           "meshplain", "tex", "texfull", "seg", "segfull", "probes",
           "sweep", "loop", "segform", "oracle", "wavefront", "bench", "app",
-          "multi", "stageplain", "stage")
+          "multi", "stageplain", "stage", "segstage")
 # Phases, and parts of phases (PARTS: shares of a phase's cases), that
 # time nothing.  With more than one phase to run, WINDOW runs here first
 # while each of APART runs beside it in a process of its own, and the
@@ -4377,31 +4658,54 @@ def _stage_kernels(record: dict) -> list[dict]:
     """The kernels line's entries of the stage probes: one a kernel and
     probe, its numbers from book_one_final at STAGE_SIZE (the kernel's
     time alone in phase stage, its plain version's in the window), its
-    launches from its --stage-timing table's run."""
+    launches from its main path's run: its --stage-timing table's, the
+    iterprobe run of dbl_entry2 and dbl_cond2, or phase segstage's."""
     from wavefront_path_tracer_tpu_torch.ops import stage_probes
 
-    stage = record["stage"]
+    stage, segstage = record["stage"], record["segstage"]
     plain = {r["case"]: r["plain_ms"] for r in record["stage_plain"]}
-    paths = {spec[2]: label for label, *spec in STAGE_TABLES}
+    tables = {spec[2]: stage["tables"][label]["launches"]
+              for label, *spec in STAGE_TABLES}
+    iter_new = stage["scripts"]["iterprobe_new"]["launches"]
+    cells = {c[1]: segstage[c[0]]["launches"] for c in SEGSTAGE_CELLS}
     names = {"culled": KERNELS["culled"]["name"],
+             "culled_hint": "fused_render_baked/baked_culled_intersect "
+                            "with the winner hint",
              "unculled": "fused_render_baked/baked_intersect",
              "dynculled": "fused_render_dynculled/"
-                          "make_dynamic_culled_intersect"}
+                          "make_dynamic_culled_intersect",
+             "segment_culled": "fused_segment_baked/_segment_impl over "
+                               "baked_culled_intersect",
+             "segment_dynculled": "fused_segment_dynculled/_segment_impl"}
+    second = ("dbl_entry2", "dbl_cond2")
     out = []
     for kind, probes in stage_probes.KERNEL_PROBES.items():
-        src = {"culled": "baked_probe.cu",
-               "unculled": "baked_probe_unculled.cu",
-               "dynculled": "dynculled_probe.cu"}[kind]
         for probe in probes:
+            src = {"culled": "baked_probe2.cu" if probe in second
+                   else "baked_probe.cu",
+                   "culled_hint": "baked_probe2.cu",
+                   "unculled": "baked_probe_unculled.cu",
+                   "dynculled": "dynculled_probe.cu",
+                   "segment_culled": "baked_probe_seg2.cu"
+                   if probe in second else "baked_probe_seg.cu",
+                   "segment_dynculled": "dynculled_probe_seg.cu"}[kind]
+            if kind in cells:
+                launches = cells[kind][probe]
+            elif kind == "culled_hint":
+                launches = segstage["hint_count"]["launches"]
+            elif probe in second:
+                launches = iter_new[f"{kind}/{probe}"]
+            else:
+                launches = tables[kind][probe]
             rep = stage["timed"][f"{kind}/{probe}"]
             out.append({
                 "name": f"{names[kind]} with the stage probe {probe}",
                 "route": "cuda", "source": SOURCE + src,
                 "replaces": REPLACES + str(PROBE_POINTS[probe]),
-                "launches": stage["tables"][paths[kind]]["launches"][probe],
+                "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in stage["checks"]
-                                   if r["kernel"] == kind
-                                   and r["probe"] == probe),
+                                   if r["case"].startswith(
+                                       f"{kind}/") and r["probe"] == probe),
                 "ms": rep["kernel_ms"], "plain_ms": plain[rep["case"]],
                 "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                 "library_ms": None,
@@ -4450,6 +4754,15 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
     build = phase_build()
     record = {"card": smi, "device": name, "build_seconds": build["seconds"],
               **{k: v for k, v in build.items() if k.endswith("_ptxas")}}
+    # The stage probes' library, built in a thread beside the window (it
+    # times nothing) and waited for at its end.
+    probe_build = None
+    if phases & {"stage", "segstage"}:
+        from wavefront_path_tracer_tpu_torch.ops import _build
+
+        pool = ThreadPoolExecutor(1)
+        probe_build = pool.submit(phase_build, _build.PROBE_LIB_NAME)
+        pool.shutdown(wait=False)
     # The window (see WINDOW) and the processes beside it.
     concurrent = len(phases) > 1
     window = [w for w in WINDOW if concurrent and w[0] in phases]
@@ -4497,7 +4810,9 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
                  device, smi, record.get("bench", {}).get("default"))),
              ("stageplain", "stage_plain",
               lambda part: phase_stage_plain(device, part)),
-             ("stage", "stage", lambda part: phase_stage(device, smi)))
+             ("stage", "stage", lambda part: phase_stage(device, smi)),
+             ("segstage", "segstage",
+              lambda part: phase_segstage(device, smi)))
     keys = {phase: key for phase, key, _run in steps}
     runs = {phase: run for phase, _key, run in steps}
     record["phase_seconds"] = {}
@@ -4514,6 +4829,8 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
     for phase, share in window:
         run_step(phase, share)
     _end_window(children, all_child, keys, record, device, t_window)
+    if probe_build is not None:
+        record["probe_build"] = probe_build.result()
     done = {w[0] for w in window} | {c[0] for c in children}
     for phase, _key, _run in steps:
         if phase in phases and phase not in done:

@@ -230,11 +230,20 @@ def test_build_flags(monkeypatch):
     assert not any("fast_math" in flag or "fast-math" in flag for flag in cmd)
     assert "-fmad=false" in cmd      # bit-identical to the plain version
     assert [p.name for p in _build.sources()] == [
-        "baked.cu", "baked_probe.cu", "baked_probe_unculled.cu",
-        "dynculled.cu", "dynculled_probe.cu", "dynculled_probe_tris.cu",
-        "persistent.cu", "probe_designs.cu", "probe_issue.cu",
-        "probe_mma.cu", "probe_pairs.cu", "probe_stream.cu",
-        "probe_tripair.cu"]
+        "baked.cu", "dynculled.cu", "persistent.cu", "probe_designs.cu",
+        "probe_issue.cu", "probe_mma.cu", "probe_pairs.cu",
+        "probe_stream.cu", "probe_tripair.cu"]
+    # The stage probes' kernels are a library of their own, built only
+    # where a probe is launched.
+    assert [p.name for p in _build.sources(_build.PROBE_LIB_NAME)] == [
+        "baked_probe.cu", "baked_probe2.cu", "baked_probe_seg.cu",
+        "baked_probe_seg2.cu", "baked_probe_unculled.cu",
+        "dynculled_probe.cu", "dynculled_probe_seg.cu",
+        "dynculled_probe_seg_tris.cu", "dynculled_probe_tris.cu"]
+    assert _build._digest(_build.LIB_NAME) != _build._digest(
+        _build.PROBE_LIB_NAME)
+    with pytest.raises(ValueError, match="unknown library"):
+        _build.sources("libother.so")
     assert [p.name for p in _build.headers()] == [
         "baked.cuh", "common.cuh", "dynculled.cuh"]
     for name, fn in (("persistent.cu", "wpt_persistent_launch"),
@@ -262,11 +271,25 @@ def test_build_flags(monkeypatch):
         assert "cudaGetLastError" in src
         assert ('#include "common.cuh"' in src) != name.startswith("probe_")
     for name, header in (("baked_probe.cu", "baked.cuh"),
+                         ("baked_probe2.cu", "baked.cuh"),
+                         ("baked_probe_seg.cu", "baked.cuh"),
+                         ("baked_probe_seg2.cu", "baked.cuh"),
                          ("baked_probe_unculled.cu", "baked.cuh"),
                          ("dynculled_probe.cu", "dynculled.cuh"),
+                         ("dynculled_probe_seg.cu", "dynculled.cuh"),
+                         ("dynculled_probe_seg_tris.cu", "dynculled.cuh"),
                          ("dynculled_probe_tris.cu", "dynculled.cuh")):
         src = (_build.CSRC / name).read_text()
-        assert f'#include "{header}"' in src and "bool probe_launch_" in src
+        assert f'#include "{header}"' in src and "probe_launch_" in src
+    # The shipped entry points reach the probe kernels through the
+    # dispatch functions that the probes' library hands them.
+    for kind in ("baked", "dynculled"):
+        src = (_build.CSRC / f"{kind}.cu").read_text()
+        assert f'extern "C" void wpt_{kind}_set_probes' in src
+        assert "probe_launch_" not in src
+        src = (_build.CSRC / f"{kind}_probe.cu").read_text()
+        for fn in ("probe_dispatch", "segment_probe_dispatch"):
+            assert f'extern "C" int wpt_{kind}_{fn}' in src
     # One nvcc per source, all with the flags; one more links the objects.
     monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
     cmd = _build.compile_command(_build.CSRC / "baked.cu", Path("b.o"))

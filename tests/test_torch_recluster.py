@@ -64,6 +64,19 @@ def _clustered_scene():
     return b.build()
 
 
+def _small_clustered_scene():
+    """A ground and 32 small spheres in a grid before the cover camera's
+    target: clusters of 4 and 8 with a quicker trace than the 97-sphere
+    scene's."""
+    b = MeshSceneBuilder()
+    b.sphere([0.0, -1000.0, 0.0], 1000.0, b.lambertian([0.5, 0.5, 0.5]))
+    rs = np.random.RandomState(3)
+    for i in range(32):
+        m = b.lambertian(rs.uniform(0.2, 0.9, 3).tolist())
+        b.sphere([0.5 * (i % 8) - 1.75, 0.2, 0.5 * (i // 8) - 2.5], 0.2, m)
+    return b.build()
+
+
 def _arrays(scene, tris=None):
     a = {k: np.asarray(getattr(scene, k)) for k in KEYS}
     if tris is not None:
@@ -226,34 +239,66 @@ def test_one_segment_matches_jax(kind):
     1e-3 on all: XLA:CPU contracts multiply-adds and the port does not,
     and the hit distance's cancellation magnifies that rounding (as for
     the intersects' own tiles, test_torch_baked.py)."""
-    scene = _clustered_scene()
+    _segment_vs_jax(kind, _clustered_scene())
+
+
+@pytest.mark.parametrize("kind,probe", [
+    ("culled", "dbl_entry"), ("culled", "dbl_cond"),
+    ("culled", "dbl_entry2"), ("culled", "dbl_cond2"),
+    ("dynculled", "dyn_dbl_entry"), ("dynculled", "dyn_dbl_cond"),
+    ("dynculled", "dyn_dbl_global")])
+def test_one_probed_segment_matches_jax(kind, probe):
+    """The same segment with a stage probe of the segment kernel's
+    intersect: the JAX segment kernel traced with PROBE = {probe} (the
+    baked closure reads it when traced; the dynamic kernel also takes it
+    as its static ``probe``) against the port's plain segment with
+    ``probe=``, by the rule of test_one_segment_matches_jax, on 33
+    spheres (clusters of 4 baked, 8 dynamic) to keep the trace short."""
+    jpk.PROBE = frozenset({probe})
+    try:
+        _segment_vs_jax(kind, _small_clustered_scene(), probe=probe,
+                        cluster_size=4)
+    finally:
+        jpk.PROBE = frozenset()
+
+
+def _segment_vs_jax(kind, scene, probe=None, cluster_size=16):
+    """test_one_segment_matches_jax's comparison on ``scene``: the baked
+    culled kernels with clusters of ``cluster_size``, the dynamic one with
+    clusters of 8; ``probe`` goes to the port's plain segment and to the
+    JAX dynamic kernel's static argument (the caller sets PROBE)."""
     a = _arrays(scene)
     ids, state = _state_tile()
     pix, samp, seg = _jax_state(ids, state)
     opts = {"rr_start": 2, "clamp": 0.5}
+    probes = {"probe": probe} if probe else {}
     salts = (0, 8, 2, 0)
     counts = torch.zeros((tfk.SEG_COUNTS, 1024), dtype=torch.int32)
     hint = np.array([-2.0, 2.0, 1.0])
     if kind == "dynculled":
-        packed = dt.pack_culled_scene(a, cluster_size=8, camera_hint=hint)
-        tab = dt.device_tables(packed, 8)
-        tdk.fused_segment_dynculled(tab, salts, ids, state, counts, **opts)
+        cs = 8
+        packed = dt.pack_culled_scene(a, cluster_size=cs, camera_hint=hint)
+        tab = dt.device_tables(packed, cs)
+        tdk.fused_segment_dynculled(tab, salts, ids, state, counts, **opts,
+                                    **probes)
         (*tables, ngb, ncl, nsup, ntc, ntsup, pkd) = packed
         out, aux = jpk.fused_segment_dynculled(
             *[jnp.asarray(t) for t in tables], jnp.asarray(salts), pix,
             samp, seg, n_global_blocks=ngb, n_clusters=ncl, n_supers=nsup,
-            n_tri_clusters=ntc, n_tri_supers=ntsup, cluster_size=8,
-            interpret=True, packed_attrs=pkd, **opts)
+            n_tri_clusters=ntc, n_tri_supers=ntsup, cluster_size=cs,
+            interpret=True, packed_attrs=pkd,
+            probe=frozenset(probes.values()), **opts)
     else:
         if kind == "culled":
-            baked = bake.bake_culled(a, 16, camera_hint=hint)
+            baked = bake.bake_culled(a, cluster_size, camera_hint=hint)
             fn = jpk.baked_culled_intersect(*(a[k] for k in KEYS),
-                                            cluster_size=16,
+                                            cluster_size=cluster_size,
                                             camera_hint=hint)
         else:
             baked = bake.bake_unculled(a)
             fn = jpk.baked_intersect(*(a[k] for k in KEYS))
-        tbk.fused_segment_baked(baked, salts, ids, state, counts, **opts)
+        tbk.fused_segment_baked(baked, salts, ids, state, counts, **opts,
+                                **probes)
         out, aux = jpk.fused_segment_baked(fn, jnp.asarray(salts), pix, samp,
                                            seg, interpret=True, **opts)
     ref = [np.asarray(p).reshape(-1) for p in out]
@@ -269,7 +314,7 @@ def test_one_segment_matches_jax(kind):
         err = np.abs(port - want) / np.maximum(np.abs(want), 1.0)
         assert np.quantile(err, 0.99) < 1e-4, (k, np.quantile(err, 0.99))
     assert int(counts[0].sum()) == int(np.asarray(aux)[:, 0].sum())
-    if kind == "culled":
+    if kind != "unculled":
         assert int(counts[2].sum()) > 0
     # Loop trips: each warp's entry of row 3 is the largest ray count of
     # its 32 lanes (a numpy reduction of the per-lane rays); grouped as

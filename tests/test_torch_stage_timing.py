@@ -275,7 +275,8 @@ def test_probes_run_in_the_shipped_form_only():
     hinted = tfused._baked_scene(arrays, 16, cc.view_matrix()[:3, 3],
                                  winner_hint=True)
     assert hinted.winner_hint
-    with pytest.raises(ValueError, match="shipped form"):
+    with pytest.raises(ValueError, match="culled_hint kernel has no probe "
+                                         "point for .'dbl_entry'"):
         tbk.fused_render_baked(hinted, (0, 0, 4, 1), cam, *planes,
                                probe="dbl_entry")
     cfg = cfg.replace(**KERNELS["dynculled"])
@@ -291,11 +292,11 @@ def test_probe_bits_equal_the_kernels():
     src = (ROOT / "wavefront_path_tracer_tpu_torch/csrc/common.cuh"
            ).read_text()
     bits = {m[1]: 1 << int(m[2]) for m in re.finditer(
-        r"constexpr int (kD(?:bl|yn)\w+) = 1 << (\d+);", src)}
+        r"constexpr int (k(?:D(?:bl|yn)|Hint)\w+) = 1 << (\d+);", src)}
     camel = {name: "k" + "".join(p.capitalize() for p in name.split("_"))
              for name in stage_probes.PROBES}
     assert {camel[n]: b for n, b in stage_probes.PROBES.items()} == bits
-    assert len(set(stage_probes.PROBES.values())) == 9
+    assert len(set(stage_probes.PROBES.values())) == 12
 
 
 @pytest.mark.parametrize("script", [iterprobe, dynprobe])
@@ -360,6 +361,35 @@ def test_time_probes_refuse_a_changed_render(monkeypatch, change, match):
             tfused.time_probes(*args, n_samples=1, reps=1)
 
 
+@pytest.mark.parametrize("change,ok", [
+    ("none", False), ("supers_by_prepass", True), ("supers_beyond", False),
+    ("supers_below", False), ("clusters", False), ("radiance", False)])
+def test_check_probe_render_takes_hint_counts_difference(change, ok):
+    """hint_count's render must count more supers than the base's, by at
+    least one and at most its clusters entered (each prepass entry is
+    one), and nothing else may differ; the same supers difference fails
+    any other probe, and equal counts pass it."""
+    rad = torch.ones(8, 3)
+    base = [100, 10, 5, 40]
+    stats = {"none": base, "supers_by_prepass": [100, 10, 30, 40],
+             "supers_beyond": [100, 10, 46, 40],
+             "supers_below": [100, 10, 4, 40],
+             "clusters": [100, 10, 30, 41], "radiance": base}[change]
+    probed = rad * (1.0 + 2 ** -20) if change == "radiance" else rad
+    check = lambda probe: tfused._check_probe_render(  # noqa: E731
+        probe, probed, stats, rad, base, 1)
+    if ok:
+        check("hint_count")
+    else:
+        with pytest.raises(RuntimeError):
+            check("hint_count")
+    if change == "supers_by_prepass":
+        with pytest.raises(RuntimeError, match="counted"):
+            check("dbl_cond2")
+    if change == "none":
+        check("dbl_cond2")
+
+
 def test_launch_counts_cover_the_probe_kernels():
     """bench.reset_launches and read_launches cover every probe kernel's
     count, as "kernel/probe"."""
@@ -375,5 +405,5 @@ def test_launch_counts_cover_the_probe_kernels():
     probe_keys = {f"{kind}/{name}"
                   for kind, names in stage_probes.KERNEL_PROBES.items()
                   for name in names}
-    assert len(probe_keys) == 17 and probe_keys <= set(launches)
+    assert len(probe_keys) == 27 and probe_keys <= set(launches)
     assert not any(launches[k] for k in probe_keys)

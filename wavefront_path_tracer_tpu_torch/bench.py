@@ -110,7 +110,7 @@ def reset_launches() -> None:
     dk.SEGMENT_LAUNCHES = 0
     dk.SEGMENT_COOP_LAUNCHES = 0
     for counts in (bk.LAUNCHES, bk.COOP_LAUNCHES, *bk.PROBE_LAUNCHES.values(),
-                   dk.PROBE_LAUNCHES):
+                   dk.PROBE_LAUNCHES, dk.SEGMENT_PROBE_LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -133,7 +133,9 @@ def read_launches() -> dict:
                for kind, counts in bk.PROBE_LAUNCHES.items()
                for probe, n in counts.items()},
             **{f"dynculled/{probe}": n
-               for probe, n in dk.PROBE_LAUNCHES.items()}}
+               for probe, n in dk.PROBE_LAUNCHES.items()},
+            **{f"segment_dynculled/{probe}": n
+               for probe, n in dk.SEGMENT_PROBE_LAUNCHES.items()}}
 
 
 def require_shipped(label: str, kind: str, launches: dict) -> None:

@@ -1,8 +1,8 @@
 // Persistent-lane path tracing over a baked scene, for Hopper (sm_90a):
 // the C entry points.  The kernels, what they replace and their design
 // are baked.cuh's; this file instantiates the shipped ones (and the
-// comparators of their forms), baked_probe.cu and baked_probe_unculled.cu
-// the stage probes'.
+// comparators of their forms), baked_probe*.cu the stage probes' (a
+// library of their own, ops/_build.py).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -13,26 +13,20 @@ using namespace wpt::baked;
 
 namespace {
 
-// A stage probe's kernel (baked_probe.cu, baked_probe_unculled.cu): one
-// bit of common.cuh's probes, in the shipped forms only (the persistent
-// loop, no winner hint; culled: Coop; unculled: in step).  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a probe, a form or a
-// hint that has no instantiation.
-int probe_dispatch(const wpt::LaneParams& p, int n_tris, int culled,
-                   int textured, int hint, int sweep, int probe,
-                   const Tables& t, void* stream) {
-  if (hint != 0 || sweep != 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool ok = culled
-      ? probe_launch_culled(p, n_tris > 0, textured != 0, probe, t, s)
-      : probe_launch_unculled(p, n_tris > 0, textured != 0, probe, t, s);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
+// The stage probes' dispatch (baked_probe.cu), in a library of its own
+// (ops/_build.py); null until that library is loaded and hands it over
+// through wpt_baked_set_probes.
+ProbeDispatch probes = nullptr;
+SegmentProbeDispatch segment_probes = nullptr;
 
 }  // namespace
+
+// Called once, where the stage probes' library is loaded, with its
+// wpt_baked_probe_dispatch and wpt_baked_segment_probe_dispatch.
+extern "C" void wpt_baked_set_probes(void* lane, void* segment) {
+  probes = reinterpret_cast<ProbeDispatch>(lane);
+  segment_probes = reinterpret_cast<SegmentProbeDispatch>(segment);
+}
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  With
 // culled == 0 the item and triangle tables are swept in full (n_globals =
@@ -44,10 +38,11 @@ int probe_dispatch(const wpt::LaneParams& p, int n_tris, int culled,
 // 1 the shipped per-cluster choice), or the unculled kernel's loop form
 // (0 per thread, 1 the shipped form: the warp's lanes in step, the
 // triangles staged).  `probe` 0 launches the shipped kernels; one bit of
-// common.cuh's probes launches that probe's kernel (probe_dispatch: the
-// shipped forms without the hint; any other bitmask or form returns
-// cudaErrorInvalidValue).  The wrapper (ops/baked_kernels.py) checks
-// shapes, types, alignment and the probe's names.
+// common.cuh's probes launches that probe's kernel (`probes`: the shipped
+// forms, with the hint hint_count only; any other bitmask or form, or no
+// probes' library loaded, returns cudaErrorInvalidValue).  The wrapper
+// (ops/baked_kernels.py) checks shapes, types, alignment and the probe's
+// names.
 extern "C" int wpt_baked_launch(
     const float* items, int n_globals,
     const float* cboxes, const int* cranges, int n_clusters,
@@ -80,8 +75,9 @@ extern "C" int wpt_baked_launch(
       {reinterpret_cast<const float4*>(img_centres), img_words, img_h,
        img_w}};
   if (probe != 0) {
-    return probe_dispatch(p, n_tris, culled, textured, hint, sweep, probe, t,
-                          stream);
+    return probes == nullptr
+        ? static_cast<int>(cudaErrorInvalidValue)
+        : probes(p, n_tris, culled, textured, hint, sweep, probe, t, stream);
   }
   return dispatch(p, n_tris, culled, textured, hint, sweep, t, stream);
 }
@@ -91,8 +87,12 @@ extern "C" int wpt_baked_launch(
 // most k_iters bounces of every live lane of the state planes, updated in
 // place (common.cuh's SegParams).  `sweep` picks the form as for
 // wpt_baked_launch: 0 each lane on its own thread (trace_segment), 1 the
-// shipped form, the warp's lanes in step (trace_segment_warp).  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for an unknown form.
+// shipped form, the warp's lanes in step (trace_segment_warp).  `probe`
+// 0 launches the shipped kernels; one bit of the culled intersect's probes
+// launches that probe's segment kernel (`segment_probes`: culled, the
+// shipped form).  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an unknown form or a probe with no
+// instantiation.
 extern "C" int wpt_baked_segment_launch(
     const float* items, int n_globals,
     const float* cboxes, const int* cranges, int n_clusters,
@@ -102,7 +102,7 @@ extern "C" int wpt_baked_segment_launch(
     const float* tsboxes, const int* tsranges, int n_tri_supers,
     const float* consts, int culled,
     const float* tex_items, const float* img_centres, const int* img_words,
-    int img_h, int img_w, int textured, int sweep,
+    int img_h, int img_w, int textured, int sweep, int probe,
     float* state, uint32_t* ids, int* counts, int n_lanes,
     uint32_t frame, uint32_t max_bounces, uint32_t k_iters,
     uint32_t rr_start, float rr_floor, float clamp, void* stream) {
@@ -118,5 +118,11 @@ extern "C" int wpt_baked_segment_launch(
       consts, reinterpret_cast<const float4*>(tex_items),
       {reinterpret_cast<const float4*>(img_centres), img_words, img_h,
        img_w}};
+  if (probe != 0) {
+    return segment_probes == nullptr
+        ? static_cast<int>(cudaErrorInvalidValue)
+        : segment_probes(p, n_tris, culled, textured, sweep, probe, t,
+                         stream);
+  }
   return dispatch(p, n_tris, culled, textured, 0, sweep, t, stream);
 }

@@ -1,9 +1,10 @@
 // Persistent-lane path tracing over a baked scene, for Hopper (sm_90a):
 // the kernels, their intersects and their launch helpers.  Their entry
 // points are in baked.cu; the differential stage probes' instantiations
-// (common.cuh kProbe) in baked_probe.cu (culled) and
-// baked_probe_unculled.cu, translation units of their own, so that their
-// builds run beside baked.cu's.
+// (common.cuh kProbe) in baked_probe.cu and baked_probe2.cu (culled, the
+// persistent loop), baked_probe_unculled.cu, and baked_probe_seg.cu and
+// baked_probe_seg2.cu (the culled segment), translation units of their
+// own, built into the stage probes' library (ops/_build.py).
 //
 // Replaces wavefront_path_tracer_tpu/ops/pallas_kernels.py:
 // fused_render_baked (3157) with either of its intersects,
@@ -337,15 +338,25 @@ struct Hierarchy {
   float lo[3], hi[3];
 
   // The cond of box k; with kDup (the dbl_cond probe) evaluated twice,
-  // the second time from `dup` (common.cuh box_enters_dup).
-  template <bool kDup>
+  // the second time from `dup` (common.cuh box_enters_dup); with kShift
+  // (dbl_cond2) a second time from the box's corners plus an opaque zero,
+  // which recomputes the whole slab test (pallas_kernels.py:1385-1392).
+  // The second evaluations agree with the first, so the cond is
+  // box_enters'.
+  template <bool kDup, bool kShift = false>
   __device__ __forceinline__ bool enters(const BoxRay& r, const CondDup& dup,
                                          const float4* b, int k,
                                          float cap) const {
     const float4 lo4 = __ldg(b + 2 * k);
     const float4 hi4 = __ldg(b + 2 * k + 1);
-    return wpt::box_enters_dup<kDup>(r, dup, lo4.x, lo4.y, lo4.z, hi4.x,
-                                     hi4.y, hi4.z, cap);
+    const bool e = wpt::box_enters_dup<kDup>(r, dup, lo4.x, lo4.y, lo4.z,
+                                             hi4.x, hi4.y, hi4.z, cap);
+    if constexpr (kShift) {
+      const float z = wpt::opaque_zero();
+      return e & wpt::box_enters(r, lo4.x + z, lo4.y + z, lo4.z + z,
+                                 hi4.x + z, hi4.y + z, hi4.z + z, cap);
+    }
+    return e;
   }
 
   // The sweep (pallas_kernels.py:1362-1455) with per-thread conds:
@@ -358,8 +369,9 @@ struct Hierarchy {
   // lane of the warp runs the sweep together: the clusters of a super are
   // walked when any lane entered it, and a lane that did not has enter =
   // false for them.  Without it a thread walks only its own supers.  With
-  // kDup every cond is evaluated twice (enters).
-  template <bool kSkip, bool kWarp, bool kDup, class Visit>
+  // kDup every cond is evaluated twice (enters), with kShift every cluster
+  // cond (not the supers').
+  template <bool kSkip, bool kWarp, bool kDup, bool kShift, class Visit>
   __device__ __forceinline__ void sweep(bool live, const BoxRay& r,
                                         const CondDup& dup,
                                         const float& best_t, Counts& counts,
@@ -375,15 +387,15 @@ struct Hierarchy {
         const int2 range = __ldg(sranges + s);
         for (int c = range.x; c < range.x + range.y; ++c) {
           visit(c, es && (!kSkip || c != skip)
-                       && enters<kDup>(r, dup, boxes, c,
-                                       nan_min(best_t, t_exit)));
+                       && enters<kDup, kShift>(r, dup, boxes, c,
+                                               nan_min(best_t, t_exit)));
         }
       }
     } else {
       for (int c = 0; c < n_clusters; ++c) {
         visit(c, live && (!kSkip || c != skip)
-                     && enters<kDup>(r, dup, boxes, c,
-                                     nan_min(best_t, t_exit)));
+                     && enters<kDup, kShift>(r, dup, boxes, c,
+                                             nan_min(best_t, t_exit)));
       }
     }
   }
@@ -395,15 +407,28 @@ struct Hierarchy {
 // from the ray's |o'|^2 (spheres) or origin (triangles) plus an opaque
 // zero, in the same fold (serial or cooperative); the second test gives
 // the same t, which never wins under the strict `<`
-// (pallas_kernels.py:1423-1425); or kDblCond: every cluster and super
-// cond is evaluated twice (Hierarchy::enters; 1379-1383).  The counters
-// count the first evaluation only.
+// (pallas_kernels.py:1423-1425); kDblEntry2: every entered sphere cluster
+// is tested a second time from the ray's origin plus an opaque zero, from
+// which o', d.o' and |o'|^2 are recomputed, so that nvcc shares nothing of
+// the quadratic with the first test (1426-1434; triangle clusters are not
+// re-tested); kDblCond: every cluster and super cond is evaluated twice
+// (Hierarchy::enters; 1379-1383); kDblCond2: every cluster cond a second
+// time from the box's corners plus an opaque zero (1385-1392; the super
+// conds once); or, with the winner hint, kHintCount: each prepass entry
+// is also added to the supers counter (1353-1354), so that a hinted
+// render reads its prepass entries as supers(probed) - supers(base).
+// The counters count the first evaluation only.
 template <bool kTris, bool kTex, bool kHint, class S, int kProbe = 0>
 struct CulledIntersect {
   static constexpr bool kTriangles = kTris;
   static constexpr bool kTextured = kTex;
   static constexpr bool kDupEntry = (kProbe & wpt::kDblEntry) != 0;
   static constexpr bool kDupCond = (kProbe & wpt::kDblCond) != 0;
+  static constexpr bool kDupEntry2 = (kProbe & wpt::kDblEntry2) != 0;
+  static constexpr bool kDupCond2 = (kProbe & wpt::kDblCond2) != 0;
+  static constexpr bool kCountHint = (kProbe & wpt::kHintCount) != 0;
+  static_assert(kHint || !kCountHint,
+                "hint_count counts the winner hint's prepass");
   const float4* items;
   int n_globals;
   Hierarchy spheres;
@@ -417,6 +442,19 @@ struct CulledIntersect {
     float oxp, oyp, ozp, dd_o, oo2;
     float dx, dy, dz;
   };
+
+  // The ray in the shifted frame (sphere_tests' per-ray terms, 1087-1091).
+  __device__ __forceinline__ Ray ray(float ox, float oy, float oz, float dx,
+                                     float dy, float dz) const {
+    Ray r;
+    r.dx = dx; r.dy = dy; r.dz = dz;
+    r.oxp = ox - shx;
+    r.oyp = oy - shy;
+    r.ozp = oz - shz;
+    r.dd_o = dx * r.oxp + dy * r.oyp + dz * r.ozp;
+    r.oo2 = r.oxp * r.oxp + r.oyp * r.oyp + r.ozp * r.ozp;
+    return r;
+  }
 
   // The slimmed quadratic of sphere_tests (1090-1130), in its order of
   // operations: unit directions, NaN from sqrt of a negative disc falls
@@ -477,13 +515,7 @@ struct CulledIntersect {
   __device__ __forceinline__ bool nearest(
       bool live, float ox, float oy, float oz, float dx, float dy, float dz,
       Hit& h, Counts& counts, int& hint) const {
-    Ray r;
-    r.dx = dx; r.dy = dy; r.dz = dz;
-    r.oxp = ox - shx;
-    r.oyp = oy - shy;
-    r.ozp = oz - shz;
-    r.dd_o = dx * r.oxp + dy * r.oyp + dz * r.ozp;
-    r.oo2 = r.oxp * r.oxp + r.oyp * r.oyp + r.ozp * r.ozp;
+    const Ray r = ray(ox, oy, oz, dx, dy, dz);
     int best = -1;
     float best_t = kTFar;
     if (live) {
@@ -506,6 +538,12 @@ struct CulledIntersect {
         if constexpr (kDupEntry) {
           for (int i = first; i < first + count; ++i)
             test(rz, i, best_t, best);
+        }
+        if constexpr (kDupEntry2) {
+          const float z = wpt::opaque_zero();
+          const Ray r2 = ray(ox + z, oy + z, oz + z, dx, dy, dz);
+          for (int i = first; i < first + count; ++i)
+            test(r2, i, best_t, best);
         }
         if (kHint && best != before) best_c = c;
       };
@@ -539,6 +577,18 @@ struct CulledIntersect {
         return wpt::tri_test(tris + kTri * i, v[0], v[1], v[2], v[3], v[4],
                              v[5]);
       };
+      // dbl_entry2's fetch: the owner's origin and direction, and from
+      // the origin plus an opaque zero the shifted frame, recomputed.
+      const auto fetch_sph2 = [&](int owner, float (&v)[8]) {
+        float o[6];
+        fetch_tri(owner, o);
+        const float z = wpt::opaque_zero();
+        const Ray r2 = ray(o[0] + z, o[1] + z, o[2] + z, o[3], o[4], o[5]);
+        const float mine[8] = {r2.oxp, r2.oyp, r2.ozp, r2.dd_o, r2.oo2,
+                               r2.dx, r2.dy, r2.dz};
+#pragma unroll
+        for (int f = 0; f < 8; ++f) v[f] = mine[f];
+      };
       // The entry probe's second tests (v[4] is |o'|^2, v[0] the origin's
       // x).
       const auto sph_tz = [&](const float (&v)[8], int i) {
@@ -563,6 +613,10 @@ struct CulledIntersect {
                 m, range.x, range.y, 0, fetch_sph, sph_t, best_t, best);
             if constexpr (kDupEntry) {
               coop_fold<S::kG, 8>(m, range.x, range.y, 0, fetch_sph, sph_tz,
+                                  best_t, best);
+            }
+            if constexpr (kDupEntry2) {
+              coop_fold<S::kG, 8>(m, range.x, range.y, 0, fetch_sph2, sph_t,
                                   best_t, best);
             }
             if (kHint && took) best_c = c;
@@ -598,6 +652,7 @@ struct CulledIntersect {
       if (kHint && live && hint >= 0) {
         // The prepass: the previous winner's cluster, unconditionally.
         ++counts.clusters;
+        if constexpr (kCountHint) ++counts.supers;
         if (hint < n_sph) {
           const int2 range = __ldg(spheres.ranges + hint);
           fold_spheres(hint, range.x, range.y);
@@ -608,12 +663,12 @@ struct CulledIntersect {
       }
       const int skip = kHint ? hint : -1;
       if (n_sph > 0) {
-        spheres.sweep<kHint, kW, kDupCond>(live, br, dup, best_t, counts,
-                                           skip, visit_spheres);
+        spheres.sweep<kHint, kW, kDupCond, kDupCond2>(
+            live, br, dup, best_t, counts, skip, visit_spheres);
       }
       if (kTris && triangles.n_clusters > 0) {
-        triangles.sweep<kHint, kW, kDupCond>(live, br, dup, best_t, counts,
-                                             skip - n_sph, visit_triangles);
+        triangles.sweep<kHint, kW, kDupCond, kDupCond2>(
+            live, br, dup, best_t, counts, skip - n_sph, visit_triangles);
       }
     }
     if (kHint && live) hint = best_c;
@@ -633,6 +688,8 @@ struct CulledIntersect {
 template <class P, bool kTris, bool kTex, bool kWarp, int kProbe = 0>
 __global__ void __launch_bounds__(kThreads, 8)
 baked_unculled_kernel(const P p, const UnculledIntersect<kTris, kTex> isect) {
+  static_assert((kProbe & ~wpt::kLoopProbes) == 0,
+                "the unculled intersect has no probe points");
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if constexpr (kWarp) {
     wpt::trace_in_step<kProbe>(p, lane, isect);
@@ -773,13 +830,69 @@ int dispatch(const P& p, int n_tris, int culled, int textured, int hint,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The culled kernel's probe kernel of the listed bit that equals
+// `probe`, in sweep form Coop, for the scene's kinds (triangles,
+// textures): the launchers of baked_probe.cu, baked_probe2.cu and
+// baked_probe_seg*.cu.  False for a bitmask with no instantiation.
+template <class P, bool kTris, bool kTex, bool kHint, int... kBits>
+bool launch_culled_probe(const P& p, int probe, const Tables& t,
+                         cudaStream_t s) {
+  return wpt::with_probe_bit<kBits...>(probe, [&](auto bit) {
+    launch_culled<P, kTris, kTex, kHint, Coop, decltype(bit)::value>(p, t,
+                                                                     s);
+  });
+}
+
+template <class P, bool kHint, int... kBits>
+bool culled_probe(const P& p, bool tris, bool tex, int probe,
+                  const Tables& t, cudaStream_t s) {
+  if (tris) {
+    return tex ? launch_culled_probe<P, true, true, kHint, kBits...>(
+                     p, probe, t, s)
+               : launch_culled_probe<P, true, false, kHint, kBits...>(
+                     p, probe, t, s);
+  }
+  return tex ? launch_culled_probe<P, false, true, kHint, kBits...>(
+                   p, probe, t, s)
+             : launch_culled_probe<P, false, false, kHint, kBits...>(
+                   p, probe, t, s);
+}
+
 // The probe kernels' launchers: one bit of common.cuh's probes for the
-// scene's kinds, in the shipped form (the persistent loop, no winner
-// hint; culled: Coop, baked_probe.cu; unculled: in step,
-// baked_probe_unculled.cu).  False for a bitmask with no instantiation.
+// scene's kinds, in the shipped forms (culled: Coop; unculled: in step).
+// The persistent loop without the winner hint: the loop's probes, entry
+// and cond (baked_probe.cu), entry2 and cond2 (baked_probe2.cu, with
+// hint_count on the hinted kernel); unculled, the loop's probes
+// (baked_probe_unculled.cu).  One culled segment: entry and cond
+// (baked_probe_seg.cu), entry2 and cond2 (baked_probe_seg2.cu); a segment
+// has no loop probes and never the hint.  False for a bitmask with no
+// instantiation.
 bool probe_launch_culled(const wpt::LaneParams& p, bool tris, bool tex,
+                         int probe, const Tables& t, cudaStream_t s);
+bool probe_launch_culled2(const wpt::LaneParams& p, bool tris, bool tex,
+                          int probe, const Tables& t, cudaStream_t s);
+bool probe_launch_hinted(const wpt::LaneParams& p, bool tris, bool tex,
                          int probe, const Tables& t, cudaStream_t s);
 bool probe_launch_unculled(const wpt::LaneParams& p, bool tris, bool tex,
                            int probe, const Tables& t, cudaStream_t s);
+bool probe_launch_segment(const wpt::SegParams& p, bool tris, bool tex,
+                          int probe, const Tables& t, cudaStream_t s);
+bool probe_launch_segment2(const wpt::SegParams& p, bool tris, bool tex,
+                           int probe, const Tables& t, cudaStream_t s);
+
+// The stage probes' dispatch (baked_probe.cu's wpt_baked_probe_dispatch
+// and wpt_baked_segment_probe_dispatch), which baked.cu's entry points
+// call for a non-zero `probe`: the probe kernels are built into a library
+// of their own (ops/_build.py), so that the shipped library's build does
+// not carry them.  Each returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a probe, a form or a hint that has no
+// instantiation.
+using ProbeDispatch = int (*)(const wpt::LaneParams& p, int n_tris,
+                              int culled, int textured, int hint, int sweep,
+                              int probe, const Tables& t, void* stream);
+using SegmentProbeDispatch = int (*)(const wpt::SegParams& p, int n_tris,
+                                     int culled, int textured, int sweep,
+                                     int probe, const Tables& t,
+                                     void* stream);
 
 }  // namespace wpt::baked

@@ -8,7 +8,8 @@
 // into stored lane state.  Each kernel supplies only its nearest-hit
 // function (see bounce_step).  The differential stage probes (kProbe,
 // below) are template arguments of trace_warp and of the culled
-// intersects: a kernel instantiated with 0 is the shipped one.
+// intersects (which a segment runs too): a kernel instantiated with 0 is
+// the shipped one.
 //
 // Port of wavefront_path_tracer_tpu/ops/pallas_kernels.py: _jenkins /
 // _pcg_next / _next_f32 (81-103), _raygen_tile (461), _shade_tile (167),
@@ -69,6 +70,13 @@ constexpr int kDblCond = 1 << 5;       // baked.cu: cluster and super conds
 constexpr int kDynDblEntry = 1 << 6;   // dynculled.cu: an entered cluster
 constexpr int kDynDblCond = 1 << 7;    // dynculled.cu: the conds
 constexpr int kDynDblGlobal = 1 << 8;  // dynculled.cu: the globals
+constexpr int kDblEntry2 = 1 << 9;     // baked.cu: an entered sphere cluster
+                                       //   from a shifted origin
+constexpr int kDblCond2 = 1 << 10;     // baked.cu: cluster conds, shifted box
+constexpr int kHintCount = 1 << 11;    // baked.cu: the hint's prepass counted
+// The probes of the warp's loop (trace_warp, bounce_finish): a segment has
+// none, as _segment_impl has none; the others are the intersects'.
+constexpr int kLoopProbes = kDblRaygen | kDblShade | kDblAccum | kDblLoopcond;
 
 // +0.0f from an inline-asm move that nvcc cannot see through: added to
 // the inputs of a probe's duplicate stage, it changes no value (but
@@ -932,7 +940,10 @@ __device__ __forceinline__ void trace(const SegParams& p, int lane,
 
 // The body of either launch kind with the warp's lanes in step:
 // trace_warp for the persistent loop, trace_segment_warp for a segment.
-// Only the persistent loop has probes.
+// kProbe's loop bits (kLoopProbes) are the persistent loop's; its
+// intersect bits are the intersect's own template argument, so a segment
+// reaches them through `isect` alone (fused_segment_* pass the
+// reference's PROBE to their intersect only, pallas_kernels.py:3043-3051).
 template <int kProbe = 0, class Isect>
 __device__ __forceinline__ void trace_in_step(const LaneParams& p, int lane,
                                               const Isect& isect) {
@@ -942,7 +953,8 @@ __device__ __forceinline__ void trace_in_step(const LaneParams& p, int lane,
 template <int kProbe = 0, class Isect>
 __device__ __forceinline__ void trace_in_step(const SegParams& p, int lane,
                                               const Isect& isect) {
-  static_assert(kProbe == 0, "a segment has no probe points");
+  static_assert((kProbe & kLoopProbes) == 0,
+                "a segment has no loop probe points (_segment_impl)");
   trace_segment_warp(p, lane, isect);
 }
 

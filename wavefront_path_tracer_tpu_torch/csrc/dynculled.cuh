@@ -2,7 +2,10 @@
 // (sm_90a): the kernel, its intersect and its launch helpers.  Its entry
 // points are in dynculled.cu; the differential stage probes'
 // instantiations (common.cuh kProbe) in dynculled_probe.cu (spheres) and
-// dynculled_probe_tris.cu (triangles), translation units of their own.
+// dynculled_probe_tris.cu (triangles), and for the segment in
+// dynculled_probe_seg.cu and dynculled_probe_seg_tris.cu, translation
+// units of their own, built into the stage probes' library
+// (ops/_build.py).
 //
 // Replaces wavefront_path_tracer_tpu/ops/pallas_kernels.py:
 // fused_render_dynculled (3211) with make_dynamic_culled_intersect (1772)
@@ -520,25 +523,63 @@ int dispatch(const P& p, int sweep, const Tables& t, int textured,
 }
 
 // The probe kernels' launchers: one bit of common.cuh's probes for the
-// tables' kinds, in the shipped form (the persistent loop, sweep Coop):
+// tables' kinds, in the shipped form (sweep Coop).  The persistent loop:
 // without triangles dynculled_probe.cu's, with them
-// dynculled_probe_tris.cu's.  False for a bitmask with no instantiation.
+// dynculled_probe_tris.cu's.  One segment (the intersect's probes only:
+// _segment_impl has none of its own): dynculled_probe_seg.cu's and
+// dynculled_probe_seg_tris.cu's.  False for a bitmask with no
+// instantiation.
 bool probe_launch_spheres(const wpt::LaneParams& p, bool tex, int probe,
                           const Tables& t, cudaStream_t s);
 bool probe_launch_triangles(const wpt::LaneParams& p, bool tex, int probe,
                             const Tables& t, cudaStream_t s);
+bool segment_probe_launch_spheres(const wpt::SegParams& p, bool tex,
+                                  int probe, const Tables& t,
+                                  cudaStream_t s);
+bool segment_probe_launch_triangles(const wpt::SegParams& p, bool tex,
+                                    int probe, const Tables& t,
+                                    cudaStream_t s);
 
-// The probes of the kernel, for the launchers.
+// The stage probes' dispatch (dynculled_probe.cu's
+// wpt_dynculled_probe_dispatch and wpt_dynculled_segment_probe_dispatch),
+// which dynculled.cu's entry points call for a non-zero `probe`: the probe
+// kernels are built into a library of their own (ops/_build.py), so that
+// the shipped library's build does not carry them.  Each returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a probe or a form that
+// has no instantiation.
+using ProbeDispatch = int (*)(const wpt::LaneParams& p, int sweep,
+                              int probe, const Tables& t, int textured,
+                              void* stream);
+using SegmentProbeDispatch = int (*)(const wpt::SegParams& p, int sweep,
+                                     int probe, const Tables& t,
+                                     int textured, void* stream);
+
+// The kernel of the listed bit that equals `probe`, for the launchers.
+template <class P, bool kTris, bool kTex, int... kBits>
+bool launch_probe_of(const P& p, int probe, const Tables& t,
+                     cudaStream_t s) {
+  return wpt::with_probe_bit<kBits...>(probe, [&](auto bit) {
+    launch<P, kTris, kTex, Coop, decltype(bit)::value>(p, t, s);
+  });
+}
+
+// The persistent kernel's probes.
 template <bool kTris, bool kTex>
 bool launch_probe(const wpt::LaneParams& p, int probe, const Tables& t,
                   cudaStream_t s) {
-  return wpt::with_probe_bit<wpt::kDblRaygen, wpt::kDblShade, wpt::kDblAccum,
-                             wpt::kDblLoopcond, wpt::kDynDblEntry,
-                             wpt::kDynDblCond, wpt::kDynDblGlobal>(
-      probe, [&](auto bit) {
-        launch<wpt::LaneParams, kTris, kTex, Coop, decltype(bit)::value>(
-            p, t, s);
-      });
+  return launch_probe_of<wpt::LaneParams, kTris, kTex, wpt::kDblRaygen,
+                         wpt::kDblShade, wpt::kDblAccum, wpt::kDblLoopcond,
+                         wpt::kDynDblEntry, wpt::kDynDblCond,
+                         wpt::kDynDblGlobal>(p, probe, t, s);
+}
+
+// The segment kernel's probes: its intersect's.
+template <bool kTris, bool kTex>
+bool launch_segment_probe(const wpt::SegParams& p, int probe,
+                          const Tables& t, cudaStream_t s) {
+  return launch_probe_of<wpt::SegParams, kTris, kTex, wpt::kDynDblEntry,
+                         wpt::kDynDblCond, wpt::kDynDblGlobal>(p, probe, t,
+                                                               s);
 }
 
 }  // namespace wpt::dyn

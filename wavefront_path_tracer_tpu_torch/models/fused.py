@@ -488,7 +488,8 @@ def render_pixels_recluster(pixel_idx, scene_arrays, cam, view, inv_proj,
                             config: RenderConfig, frame, sample_base,
                             n_samples: int, with_stats: bool = False,
                             baked: BakedScene | None = None,
-                            dyn: DynTables | None = None):
+                            dyn: DynTables | None = None,
+                            probe=frozenset()):
     """The segmented re-clustering render (``config.recluster`` > 0) of
     a subset of pixel ids (int64 tensor on the scene's device), over
     ``baked`` or ``dyn``; radiance comes back in ``pixel_idx`` order.
@@ -507,22 +508,29 @@ def render_pixels_recluster(pixel_idx, scene_arrays, cam, view, inv_proj,
     {iterations, supers_entered, clusters_entered}, like
     :func:`render_pixels`; iterations sums each launch's loop trips per
     warp of 32 lanes (a TPU tile held 1024), so it also shows how full
-    the sort keeps the warps."""
+    the sort keeps the warps.
+
+    ``probe``: a differential stage probe of the segment kernel's
+    intersect (``ops/stage_probes.py`` KERNEL_PROBES "segment_culled" or
+    "segment_dynculled"), passed to every segment launch, as the
+    reference's ``PROBE`` reaches its ``fused_segment_*`` kernels; the
+    render is the unprobed one's, bit for bit."""
     if baked is not None:
         tables, segment = baked, fused_segment_baked
     else:
         tables, segment = dyn, fused_segment_dynculled
     return _recluster(segment, coherence_order, tables, pixel_idx,
                       scene_arrays, cam, view, inv_proj, config, frame,
-                      sample_base, n_samples, with_stats)
+                      sample_base, n_samples, with_stats, probe=probe)
 
 
 def _recluster(segment, order, tables, pixel_idx, scene_arrays, cam, view,
                inv_proj, config: RenderConfig, frame, sample_base,
-               n_samples: int, with_stats: bool):
+               n_samples: int, with_stats: bool, probe=frozenset()):
     """The loop of :func:`render_pixels_recluster` over the segment
     function ``segment`` (a segment wrapper, or its plain version) and
-    the lane order ``order`` (:func:`coherence_order`'s signature).
+    the lane order ``order`` (:func:`coherence_order`'s signature); a
+    ``probe`` goes to every call of ``segment``.
 
     Nothing in the loop waits for the device: the matrices go to it once,
     and the scatter indexes an (n + 1, 3) accumulator by slot, whose row
@@ -536,6 +544,10 @@ def _recluster(segment, order, tables, pixel_idx, scene_arrays, cam, view,
     inv_proj = torch.as_tensor(inv_proj, dtype=torch.float32, device=device)
     opts = {"rr_start": config.rr_start_bounce,
             "rr_floor": config.rr_floor, "clamp": config.clamp}
+    # Passed only when set, so that a segment function without a probe
+    # argument (a counting spy's) still runs the unprobed loop.
+    if stage_probes.probe_names(probe):
+        opts["probe"] = probe
     acc = torch.zeros((n + 1, 3), dtype=torch.float32, device=device)
     counts = torch.zeros((SEG_COUNTS, n_pad), dtype=torch.int32,
                          device=device)
@@ -648,9 +660,19 @@ def stage_stages(config: RenderConfig, scene_arrays) -> list:
 def _check_probe_render(probe, radiance, stats, base_radiance, base_stats,
                         n_samples: int) -> None:
     """Raise RuntimeError unless a probed render's radiance words and
-    counters equal the unprobed render's: bit for bit, ``dbl_accum``'s
-    radiance within ``stage_probes``' tolerance."""
-    if stats != base_stats:
+    counters [rays, iterations, supers, clusters] equal the unprobed
+    render's: bit for bit, ``dbl_accum``'s radiance within
+    ``stage_probes``' tolerance; ``hint_count``'s supers higher by the
+    prepass entries, which are some of the clusters entered, and at least
+    one (a render with the winner hint whose rays hit anything enters the
+    previous winner's cluster; the plain version counts the entries on
+    its own, and the kernel is held to that count exactly there)."""
+    same = stats == base_stats
+    if stage_probes.probe_names(probe) == {"hint_count"}:
+        extra = stats[2] - base_stats[2]
+        same = (stats[:2] + stats[3:] == base_stats[:2] + base_stats[3:]
+                and 0 < extra <= stats[3])
+    if not same:
         raise RuntimeError(f"probe {probe} counted {stats}, the base render "
                            f"{base_stats} (rays, iterations, supers, "
                            f"clusters)")

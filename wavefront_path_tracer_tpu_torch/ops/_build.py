@@ -6,11 +6,17 @@ compiles PyTorch's headers and takes minutes).  Each ``.cu`` file is
 compiled by its own ``nvcc`` process, all started together, and one more
 links the objects.  The library lands in
 ``build/kernels/<hash>/libwpt_kernels.so`` at the repository root, keyed
-by a hash of the sources, the headers and the flags, and is built at
+by a hash of its sources, the headers and the flags, and is built at
 first use in a process; ptxas's report of the build is kept beside it
 (``ptxas.txt``).  This hash-keyed directory is the port's counterpart of
 the reference's ``utils/compile_cache.py``.  Nothing here runs at import
 time.
+
+The stage probes' kernels (``baked_probe*.cu``, ``dynculled_probe*.cu``:
+the shipped kernels with one stage duplicated, which no render path
+launches) make a second library, ``libwpt_stage_probes.so``, built the
+same way but only where a probe is launched (:func:`load_probe_library`),
+so that the shipped library's build does not carry them.
 """
 
 from __future__ import annotations
@@ -22,12 +28,16 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "libwpt_kernels.so"
+PROBE_LIB_NAME = "libwpt_stage_probes.so"
+# The translation units of PROBE_LIB_NAME; every other .cu is LIB_NAME's.
+PROBE_UNITS = ("baked_probe*.cu", "dynculled_probe*.cu")
 REPORT_NAME = "ptxas.txt"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -53,9 +63,15 @@ def _nvcc() -> str:
                        "CUDA kernels cannot be built")
 
 
-def sources() -> list[Path]:
-    """The translation units, one ``nvcc -c`` each."""
-    return sorted(CSRC.glob("*.cu"))
+def sources(lib: str = LIB_NAME) -> list[Path]:
+    """The translation units of ``lib`` (:data:`LIB_NAME` or
+    :data:`PROBE_LIB_NAME`), one ``nvcc -c`` each."""
+    probes = {p for pattern in PROBE_UNITS for p in CSRC.glob(pattern)}
+    if lib == PROBE_LIB_NAME:
+        return sorted(probes)
+    if lib != LIB_NAME:
+        raise ValueError(f"unknown library {lib!r}")
+    return sorted(set(CSRC.glob("*.cu")) - probes)
 
 
 def headers() -> list[Path]:
@@ -71,9 +87,9 @@ def link_command(objs: list[Path], out: Path) -> list[str]:
             *(str(o) for o in objs)]
 
 
-def _digest() -> str:
-    digest = hashlib.sha256()
-    for path in sources() + headers():
+def _digest(lib: str) -> str:
+    digest = hashlib.sha256(lib.encode())
+    for path in sources(lib) + headers():
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -84,8 +100,6 @@ def _run_all(commands: list[list[str]]) -> tuple[str, list[float]]:
     """Run the commands in parallel; (their stderr, joined, and each
     one's seconds from the common start to its end).  Raises with the
     stderr of the first that fails."""
-    import threading
-
     t0 = time.perf_counter()
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
@@ -109,27 +123,38 @@ def _run_all(commands: list[list[str]]) -> tuple[str, list[float]]:
     return "".join(err for _out, err in outs), seconds
 
 
-@functools.lru_cache(maxsize=1)
-def build() -> tuple[Path, str, float]:
-    """Compile if the hashed library is missing; (path, ptxas report,
-    build seconds: 0 where the library was there).  The report starts
-    with one line a source, ``nvcc <name>: <seconds> s``, the seconds from
-    the build's start to the end of that source's nvcc.  Raises with
-    nvcc's stderr when the build fails."""
-    out_dir = BUILD_ROOT / _digest()
-    lib = out_dir / LIB_NAME
+_LOCKS = {LIB_NAME: threading.Lock(), PROBE_LIB_NAME: threading.Lock()}
+
+
+def build(lib: str = LIB_NAME) -> tuple[Path, str, float]:
+    """Compile ``lib`` (:data:`LIB_NAME` or :data:`PROBE_LIB_NAME`) if
+    its hashed file is missing; (path, ptxas report, build seconds: 0
+    where the library was there).  The report starts with one line a
+    source, ``nvcc <name>: <seconds> s``, the seconds from the build's
+    start to the end of that source's nvcc.  Raises with nvcc's stderr
+    when the build fails.  A second thread asking for the same library
+    waits for the first's build."""
+    with _LOCKS[lib]:
+        return _build(lib)
+
+
+@functools.lru_cache(maxsize=None)
+def _build(name: str) -> tuple[Path, str, float]:
+    out_dir = BUILD_ROOT / _digest(name)
+    lib = out_dir / name
     if lib.exists():
         report = out_dir / REPORT_NAME
         return lib, report.read_text() if report.exists() else "", 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    srcs = sources(name)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
         report, seconds = _run_all([compile_command(src, obj)
-                                    for src, obj in zip(sources(), objs)])
+                                    for src, obj in zip(srcs, objs)])
         report = "".join(f"nvcc {src.name}: {sec:.2f} s\n"
-                         for src, sec in zip(sources(), seconds)) + report
-        tmp_lib = Path(tmp) / LIB_NAME
+                         for src, sec in zip(srcs, seconds)) + report
+        tmp_lib = Path(tmp) / name
         report += _run_all([link_command(objs, tmp_lib)])[0]
         (out_dir / REPORT_NAME).write_text(report)
         os.replace(tmp_lib, lib)
@@ -241,12 +266,17 @@ def load_library() -> ctypes.CDLL:
         ptr,                           # stream
     ]
     fn = lib.wpt_baked_segment_launch
-    fn.argtypes = [*baked_tables, i32, i32,         # textured, sweep
+    fn.argtypes = [*baked_tables, i32, i32, i32,    # textured, sweep, probe
                    *seg_args]
     fn.restype = ctypes.c_int
     fn = lib.wpt_dynculled_segment_launch
-    fn.argtypes = [*dyn_tables, i32, *seg_args]     # sweep
+    fn.argtypes = [*dyn_tables, i32, i32,           # sweep, probe
+                   *seg_args]
     fn.restype = ctypes.c_int
+    # Where the stage probes' library is loaded (load_probe_library).
+    for fn in (lib.wpt_baked_set_probes, lib.wpt_dynculled_set_probes):
+        fn.argtypes = [ptr, ptr]       # persistent loop's, segment's
+        fn.restype = None
     # The probes (probes/): csrc/probe_pairs.cu, probe_tripair.cu and
     # probe_stream.cu.
     fn = lib.wpt_probe_pair_launch
@@ -286,3 +316,20 @@ def load_library() -> ctypes.CDLL:
                    ptr, ptr]                  # out, stream
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=1)
+def load_probe_library() -> ctypes.CDLL:
+    """The stage probes' library (:data:`PROBE_LIB_NAME`), built if it is
+    missing, its dispatch functions handed to the shipped library: from
+    then on the shipped entry points launch a probe's kernel for a
+    non-zero ``probe`` (``csrc/baked.cu``, ``csrc/dynculled.cu``); before,
+    they return cudaErrorInvalidValue for it."""
+    path, _report, _seconds = build(PROBE_LIB_NAME)
+    probes = ctypes.CDLL(str(path))
+    lib = load_library()
+    for kind in ("baked", "dynculled"):
+        getattr(lib, f"wpt_{kind}_set_probes")(*(
+            ctypes.cast(getattr(probes, f"wpt_{kind}_{fn}"), ctypes.c_void_p)
+            for fn in ("probe_dispatch", "segment_probe_dispatch")))
+    return probes

@@ -58,9 +58,11 @@ LAUNCHES = {"culled": 0, "unculled": 0, "segment_culled": 0,
 COOP_LAUNCHES = {"culled": 0, "unculled": 0, "segment_culled": 0,
                  "segment_unculled": 0}
 # Launches of the stage probes' kernels (csrc/baked_probe*.cu) on CUDA
-# tensors, per kernel and probe name; LAUNCHES does not count them.
+# tensors, per kernel and probe name (the segment kernels' one a
+# segment); LAUNCHES does not count them.
 PROBE_LAUNCHES = {kind: dict.fromkeys(stage_probes.KERNEL_PROBES[kind], 0)
-                  for kind in ("culled", "unculled")}
+                  for kind in ("culled", "culled_hint", "unculled",
+                               "segment_culled")}
 
 _MISS = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0)
 
@@ -325,8 +327,13 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
     the kernel's probes do (``csrc/baked.cuh`` CulledIntersect):
     ``dbl_entry`` folds every entered cluster in a second time, from
     |o'|^2 (spheres) or the origin (triangles) plus 0, which never wins
-    under the strict ``<``; ``dbl_cond`` takes every cluster and super
-    cond a second time from the origin and the cap plus 0, ANDed."""
+    under the strict ``<``; ``dbl_entry2`` folds every entered sphere
+    cluster in a second time from the origin plus 0, its shifted frame
+    recomputed (triangle clusters once); ``dbl_cond`` takes every cluster
+    and super cond a second time from the origin and the cap plus 0,
+    ANDed; ``dbl_cond2`` every cluster cond a second time from the box's
+    corners plus 0, ANDed; ``hint_count`` (with ``hint``) adds each
+    prepass entry to the supers count too."""
     if ranges is None:
         ranges = host_ranges(baked)
     items, consts = baked.items, baked.consts
@@ -340,7 +347,9 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
     oo2 = oxp * oxp + oyp * oyp + ozp * ozp
     t_sph = _slim_t(items, oxp, oyp, ozp, dd_o, oo2, dx, dy, dz)
     dup_entry = "dbl_entry" in probe
+    dup_entry2 = "dbl_entry2" in probe
     dup_cond = "dbl_cond" in probe
+    dup_cond2 = "dbl_cond2" in probe
 
     best_t = torch.full_like(ox, T_FAR)
     best_i = torch.full(ox.shape, -1, dtype=torch.int64, device=ox.device)
@@ -358,6 +367,15 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
     if dup_entry:
         t_sph2 = _slim_t(items, oxp, oyp, ozp, dd_o, oo2 + 0.0, dx, dy, dz)
         rays2 = (ox + 0.0, oy, oz, dx, dy, dz)
+    if dup_entry2:
+        # The shifted frame from the origin plus 0 (sphere_tests' per-ray
+        # terms, recomputed).
+        oxp2 = (ox + 0.0) - consts[0]
+        oyp2 = (oy + 0.0) - consts[1]
+        ozp2 = (oz + 0.0) - consts[2]
+        t_sph3 = _slim_t(items, oxp2, oyp2, ozp2,
+                         dx * oxp2 + dy * oyp2 + dz * ozp2,
+                         oxp2 * oxp2 + oyp2 * oyp2 + ozp2 * ozp2, dx, dy, dz)
 
     def conds(boxes):
         return box_conds(boxes[:, 0:3], boxes[:, 4:7], ox, oy, oz, *inv)
@@ -366,12 +384,19 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
         return box_conds(boxes[:, 0:3], boxes[:, 4:7], ox + 0.0, oy + 0.0,
                          oz + 0.0, *inv)
 
-    def enters(ok, entry, ok2, entry2, k, cap):
+    def conds3(boxes):
+        return box_conds(boxes[:, 0:3] + 0.0, boxes[:, 4:7] + 0.0, ox, oy,
+                         oz, *inv)
+
+    def enters(ok, entry, ok2, entry2, k, cap, shifted=None):
         """The cond of box ``k`` against ``cap``; with dbl_cond, ANDed
-        with its second evaluation."""
+        with its second evaluation; with ``shifted`` (dbl_cond2's (ok,
+        entry) of the shifted boxes), ANDed with that too."""
         enter = ok[:, k] & (entry[:, k] < cap)
         if dup_cond:
             enter = enter & ok2[:, k] & (entry2[:, k] < cap + 0.0)
+        if shifted is not None:
+            enter = enter & shifted[0][:, k] & (shifted[1][:, k] < cap)
         return enter
 
     def fold_cluster(cid, fold, first, count, enter):
@@ -388,11 +413,12 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
         t_exit = slab_exit(slab[0:3], slab[3:6], ox, oy, oz, *inv)
         c_ok, c_entry = conds(boxes)
         c_ok2, c_entry2 = conds2(boxes) if dup_cond else (None, None)
+        c_shifted = conds3(boxes) if dup_cond2 else None
 
         def sweep(c, gate):
             nonlocal clusters
             enter = gate & enters(c_ok, c_entry, c_ok2, c_entry2, c,
-                                  torch.minimum(best_t, t_exit))
+                                  torch.minimum(best_t, t_exit), c_shifted)
             if hint is not None:
                 enter = enter & (hint != id0 + c)
             clusters = clusters + enter
@@ -417,6 +443,9 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
         if dup_entry:
             best_t, best_i = _take(t_sph2[:, first:first + count], first,
                                    best_t, best_i, enter)
+        if dup_entry2:
+            best_t, best_i = _take(t_sph3[:, first:first + count], first,
+                                   best_t, best_i, enter)
         return best_t, best_i
 
     def fold_triangles(first, count, enter, best_t, best_i):
@@ -436,6 +465,8 @@ def culled_intersect_reference(baked: BakedScene, ox, oy, oz, dx, dy, dz,
         for cid in torch.unique(hint[hint >= 0]).tolist():
             m = hint == cid
             clusters = clusters + m
+            if "hint_count" in probe:
+                supers = supers + m
             if cid < n_sph:
                 fold_cluster(cid, fold_spheres, *cranges[cid], m)
             else:
@@ -791,11 +822,12 @@ def fused_render_baked(
     ``probe`` (one name of ``ops/stage_probes.py``, as a name or a
     collection of one; empty: none) launches that differential stage
     probe's kernel (``csrc/baked_probe*.cu``): the culled kernel has
-    raygen, shade, accum, loopcond, entry and cond, the unculled one the
-    first four, in the shipped form without the winner hint only.  Its
-    results equal the unprobed kernel's (``dbl_accum``: up to rounding)
-    and its plain version's bit for bit.  Any other name, form or hint
-    raises ValueError.
+    raygen, shade, accum, loopcond, entry, cond, entry2 and cond2, the
+    unculled one the first four, in the shipped form only; a culled bake
+    with the winner hint has ``hint_count`` alone.  Its results equal the
+    unprobed kernel's (``dbl_accum``: up to rounding; ``hint_count``:
+    supers higher by the prepass entries) and its plain version's bit for
+    bit.  Any other name, form or hint raises ValueError.
 
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/baked.cu`` on the current stream; any other device raises.
@@ -810,10 +842,12 @@ def fused_render_baked(
         raise ValueError(f"unknown sweep form {sweep}")
     kind = "culled" if baked.culled else "unculled"
     probe = stage_probes.probe_names(probe)
-    bits = stage_probes.probe_bits(probe, kind)
-    if bits and (sweep != SWEEP_COOP or (baked.culled and baked.winner_hint)):
+    probe_kind = ("culled_hint" if baked.culled and baked.winner_hint
+                  else kind)
+    bits = stage_probes.probe_bits(probe, probe_kind)
+    if bits and sweep != SWEEP_COOP:
         raise ValueError("a stage probe runs in the shipped form only "
-                         "(sweep SWEEP_COOP, no winner hint)")
+                         "(sweep SWEEP_COOP)")
     if device.type == "cpu":
         return fused_render_baked_reference(
             baked, salts, cam_params, *planes, rr_start=rr_start,
@@ -821,11 +855,14 @@ def fused_render_baked(
     if device.type != "cuda":
         raise NotImplementedError(
             f"fused_render_baked runs on cpu or cuda, not {device}")
-    from wavefront_path_tracer_tpu_torch.ops._build import load_library
+    from wavefront_path_tracer_tpu_torch.ops._build import (
+        load_library, load_probe_library)
 
     frame, sample_base, max_bounces, n_samples = _salts(salts)
     tables = _table_args(baked)
     lib = load_library()
+    if bits:
+        load_probe_library()
     rad_r = torch.empty_like(xs)
     rad_g = torch.empty_like(xs)
     rad_b = torch.empty_like(xs)
@@ -847,7 +884,7 @@ def fused_render_baked(
         raise RuntimeError(f"baked kernel launch failed (sweep {sweep}, "
                            f"probe {sorted(probe)}): CUDA error {rc}")
     if bits:
-        PROBE_LAUNCHES[kind][next(iter(probe))] += 1
+        PROBE_LAUNCHES[probe_kind][next(iter(probe))] += 1
     else:
         LAUNCHES[kind] += 1
         COOP_LAUNCHES[kind] += sweep == SWEEP_COOP
@@ -858,18 +895,20 @@ def fused_render_baked(
 
 def fused_segment_baked_reference(baked: BakedScene, salts, ids, state,
                                   counts, *, rr_start: int = 0,
-                                  rr_floor: float = 0.05, clamp: float = 0.0):
+                                  rr_floor: float = 0.05, clamp: float = 0.0,
+                                  probe=frozenset()):
     """Plain PyTorch version of the baked segment kernel: the
     :func:`segment_reference` loop over :func:`culled_intersect_reference`
-    or :func:`baked_intersect_reference`, as ``baked.culled`` says, with
-    the texture step for a textured bake.  Same arguments and results as
-    :func:`fused_segment_baked`."""
+    (with the intersect's ``probe``) or :func:`baked_intersect_reference`,
+    as ``baked.culled`` says, with the texture step for a textured bake.
+    Same arguments and results as :func:`fused_segment_baked`."""
+    probe = stage_probes.probe_names(probe)
     if baked.culled:
         ranges = host_ranges(baked)
 
         def intersect(ox, oy, oz, dx, dy, dz):
             return culled_intersect_reference(baked, ox, oy, oz, dx, dy, dz,
-                                              ranges=ranges)
+                                              ranges=ranges, probe=probe)
     else:
         def intersect(ox, oy, oz, dx, dy, dz):
             return baked_intersect_reference(baked, ox, oy, oz, dx, dy, dz)
@@ -882,7 +921,8 @@ def fused_segment_baked_reference(baked: BakedScene, salts, ids, state,
 
 def fused_segment_baked(baked: BakedScene, salts, ids, state, counts, *,
                         rr_start: int = 0, rr_floor: float = 0.05,
-                        clamp: float = 0.0, sweep: int = SWEEP_COOP):
+                        clamp: float = 0.0, sweep: int = SWEEP_COOP,
+                        probe=frozenset()):
     """One recluster segment over a baked scene (the reference's
     ``fused_segment_baked``): at most ``k_iters`` bounces of every live
     lane, from and back into ``state`` (SEG_STATE, N) float32 and ``ids``
@@ -897,6 +937,13 @@ def fused_segment_baked(baked: BakedScene, salts, ids, state, counts, *,
     lanes in step, or :data:`SWEEP_SERIAL`, each lane on its own thread);
     both give the same results, row 3's trips included.
 
+    ``probe`` (one name of ``ops/stage_probes.py``; empty: none) launches
+    that stage probe's segment kernel (``csrc/baked_probe_seg*.cu``): the
+    culled intersect's entry, cond, entry2 and cond2, in the shipped form;
+    the loop's probes and any probe of the unculled segment raise
+    ValueError.  Its results equal the unprobed kernel's and its plain
+    version's bit for bit.
+
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/baked.cu``'s segment kernel on the current stream; any other
     device raises.  The kernel's results, counters included, are
@@ -908,29 +955,42 @@ def fused_segment_baked(baked: BakedScene, salts, ids, state, counts, *,
                          "winner_hint exclude each other)")
     if sweep not in (SWEEP_SERIAL, SWEEP_COOP):
         raise ValueError(f"unknown sweep form {sweep}")
+    kind = "segment_culled" if baked.culled else "segment_unculled"
+    probe = stage_probes.probe_names(probe)
+    bits = stage_probes.probe_bits(probe, kind)
+    if bits and sweep != SWEEP_COOP:
+        raise ValueError("a stage probe runs in the shipped form only "
+                         "(sweep SWEEP_COOP)")
     if device.type == "cpu":
         return fused_segment_baked_reference(
             baked, salts, ids, state, counts, rr_start=rr_start,
-            rr_floor=rr_floor, clamp=clamp)
+            rr_floor=rr_floor, clamp=clamp, probe=probe)
     if device.type != "cuda":
         raise NotImplementedError(
             f"fused_segment_baked runs on cpu or cuda, not {device}")
-    from wavefront_path_tracer_tpu_torch.ops._build import load_library
+    from wavefront_path_tracer_tpu_torch.ops._build import (
+        load_library, load_probe_library)
 
     frame, max_bounces, k_iters, _ = _salts(salts)
     table_args = _table_args(baked)
     lib = load_library()
+    if bits:
+        load_probe_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.wpt_baked_segment_launch(
-            *table_args, int(baked.textured), int(sweep), state.data_ptr(),
+            *table_args, int(baked.textured), int(sweep), bits,
+            state.data_ptr(),
             ids.data_ptr(), counts.data_ptr(), state.shape[1], frame,
             max_bounces, k_iters, int(rr_start), float(rr_floor),
             float(clamp), stream)
     if rc != 0:
         raise RuntimeError(f"baked segment kernel launch failed (sweep "
-                           f"{sweep}): CUDA error {rc}")
-    kind = "segment_culled" if baked.culled else "segment_unculled"
-    LAUNCHES[kind] += 1
-    COOP_LAUNCHES[kind] += sweep == SWEEP_COOP
+                           f"{sweep}, probe {sorted(probe)}): CUDA error "
+                           f"{rc}")
+    if bits:
+        PROBE_LAUNCHES[kind][next(iter(probe))] += 1
+    else:
+        LAUNCHES[kind] += 1
+        COOP_LAUNCHES[kind] += sweep == SWEEP_COOP
     return ids, state, counts

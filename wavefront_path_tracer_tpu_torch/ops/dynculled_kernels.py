@@ -84,8 +84,12 @@ COOP_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
 SEGMENT_COOP_LAUNCHES = 0
 # Launches of the stage probes' kernels (csrc/dynculled_probe*.cu) on CUDA
-# tensors, per probe name; LAUNCHES does not count them.
+# tensors, per probe name: the persistent kernel's and the segment
+# kernel's (one a segment); LAUNCHES and SEGMENT_LAUNCHES do not count
+# them.
 PROBE_LAUNCHES = dict.fromkeys(stage_probes.KERNEL_PROBES["dynculled"], 0)
+SEGMENT_PROBE_LAUNCHES = dict.fromkeys(
+    stage_probes.KERNEL_PROBES["segment_dynculled"], 0)
 
 
 def _winner(tab: DynTables, best_t, best_i):
@@ -571,11 +575,14 @@ def fused_render_dynculled(
     if device.type != "cuda":
         raise NotImplementedError(
             f"fused_render_dynculled runs on cpu or cuda, not {device}")
-    from wavefront_path_tracer_tpu_torch.ops._build import load_library
+    from wavefront_path_tracer_tpu_torch.ops._build import (
+        load_library, load_probe_library)
 
     frame, sample_base, max_bounces, n_samples = _salts(salts)
     table_args = _table_args(tab)
     lib = load_library()
+    if bits:
+        load_probe_library()
     rad_r = torch.empty_like(xs)
     rad_g = torch.empty_like(xs)
     rad_b = torch.empty_like(xs)
@@ -607,13 +614,17 @@ def fused_render_dynculled(
 def fused_segment_dynculled_reference(tab: DynTables, salts, ids, state,
                                       counts, *, rr_start: int = 0,
                                       rr_floor: float = 0.05,
-                                      clamp: float = 0.0):
+                                      clamp: float = 0.0, probe=frozenset()):
     """Plain PyTorch version of the dynamic culled segment kernel: the
     :func:`segment_reference` loop over
-    :func:`dynculled_intersect_reference`.  Same arguments and results as
+    :func:`dynculled_intersect_reference` (with the intersect's
+    ``probe``).  Same arguments and results as
     :func:`fused_segment_dynculled`."""
+    probe = stage_probes.probe_names(probe)
+
     def intersect(ox, oy, oz, dx, dy, dz):
-        return dynculled_intersect_reference(tab, ox, oy, oz, dx, dy, dz)
+        return dynculled_intersect_reference(tab, ox, oy, oz, dx, dy, dz,
+                                             probe=probe)
 
     return segment_reference(
         intersect, salts, ids, state, counts, rr_start=rr_start,
@@ -623,7 +634,8 @@ def fused_segment_dynculled_reference(tab: DynTables, salts, ids, state,
 
 def fused_segment_dynculled(tab: DynTables, salts, ids, state, counts, *,
                             rr_start: int = 0, rr_floor: float = 0.05,
-                            clamp: float = 0.0, sweep: int = SWEEP_COOP):
+                            clamp: float = 0.0, sweep: int = SWEEP_COOP,
+                            probe=frozenset()):
     """One recluster segment over the dynamic culled tables (the
     reference's ``fused_segment_dynculled``): at most ``k_iters`` bounces
     of every live lane, from and back into ``state`` (SEG_STATE, N)
@@ -639,6 +651,12 @@ def fused_segment_dynculled(tab: DynTables, salts, ids, state, counts, *,
     lane on its own thread with the serial fold); both give the same
     results, row 3's trips included.
 
+    ``probe`` (one name of ``ops/stage_probes.py``; empty: none) launches
+    that stage probe's segment kernel (``csrc/dynculled_probe_seg*.cu``:
+    the intersect's dyn entry, dyn cond and dyn global), in the shipped
+    form; the loop's probes raise ValueError.  Its results equal the
+    unprobed kernel's and its plain version's bit for bit.
+
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/dynculled.cu``'s segment kernel on the current stream; any
     other device raises.  The kernel's results, counters included, are
@@ -648,27 +666,39 @@ def fused_segment_dynculled(tab: DynTables, salts, ids, state, counts, *,
     device = check_segment(ids, state, counts, _tables(tab))
     if sweep not in (SWEEP_SERIAL, SWEEP_COOP):
         raise ValueError(f"unknown sweep form {sweep}")
+    probe = stage_probes.probe_names(probe)
+    bits = stage_probes.probe_bits(probe, "segment_dynculled")
+    if bits and sweep != SWEEP_COOP:
+        raise ValueError("a stage probe runs in the shipped form only "
+                         "(sweep SWEEP_COOP)")
     if device.type == "cpu":
         return fused_segment_dynculled_reference(
             tab, salts, ids, state, counts, rr_start=rr_start,
-            rr_floor=rr_floor, clamp=clamp)
+            rr_floor=rr_floor, clamp=clamp, probe=probe)
     if device.type != "cuda":
         raise NotImplementedError(
             f"fused_segment_dynculled runs on cpu or cuda, not {device}")
-    from wavefront_path_tracer_tpu_torch.ops._build import load_library
+    from wavefront_path_tracer_tpu_torch.ops._build import (
+        load_library, load_probe_library)
 
     frame, max_bounces, k_iters, _ = _salts(salts)
     table_args = _table_args(tab)
     lib = load_library()
+    if bits:
+        load_probe_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.wpt_dynculled_segment_launch(
-            *table_args, int(sweep), state.data_ptr(), ids.data_ptr(),
+            *table_args, int(sweep), bits, state.data_ptr(), ids.data_ptr(),
             counts.data_ptr(), state.shape[1], frame, max_bounces, k_iters,
             int(rr_start), float(rr_floor), float(clamp), stream)
     if rc != 0:
         raise RuntimeError(f"dynculled segment kernel launch failed (sweep "
-                           f"{sweep}): CUDA error {rc}")
-    SEGMENT_LAUNCHES += 1
-    SEGMENT_COOP_LAUNCHES += sweep == SWEEP_COOP
+                           f"{sweep}, probe {sorted(probe)}): CUDA error "
+                           f"{rc}")
+    if bits:
+        SEGMENT_PROBE_LAUNCHES[next(iter(probe))] += 1
+    else:
+        SEGMENT_LAUNCHES += 1
+        SEGMENT_COOP_LAUNCHES += sweep == SWEEP_COOP
     return ids, state, counts

@@ -11,9 +11,15 @@ probe of ``ops/stage_probes.py`` (``full``: none), whose share of the
 time is (t_probe - t_full) / t_full, the two timed in turns; printed
 with Mrays/s, ptxas's registers and spill bytes of the probe's kernel
 (a probe that spills more reads an upper bound) and the card's name and
-power limit.  The reference's ``dbl_scope`` re-stages a TPU scratch
-scope that the port does not have and is refused by name, as are its
-other names that the port lacks (``ops/stage_probes.py`` NOT_PORTED).
+power limit.  ``--variants`` takes any probe of the culled kernel, as
+the reference's takes any ``PROBE`` name: ``dbl_entry2`` (an entered
+sphere cluster's whole quadratic again) and ``dbl_cond2`` (the cluster
+conds from shifted box corners) too; ``hint_count`` counts the winner
+hint's prepass, which this unhinted render does not run, and is refused
+with ``ops/stage_probes.py`` probe_bits' message.  The reference's
+``dbl_scope`` re-stages a TPU scratch scope that the port does not have
+and is refused by name, as are its other names that the port lacks
+(``ops/stage_probes.py`` NOT_PORTED).
 """
 
 from __future__ import annotations

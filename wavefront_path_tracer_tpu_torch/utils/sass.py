@@ -9,7 +9,8 @@ with the namespaces and a trailing probe argument of 0 taken out (so a
 build whose kernels carry the stage probes' template argument matches
 one whose kernels do not), and exits 1 where a count differs.  The
 counts include every instruction of the kernel's listing (set-up, loops,
-slow paths).  Needs ``cuobjdump`` (the CUDA toolkit's) and, to match two
+slow paths, and the NOPs that pad its end: :func:`work_counts` leaves
+those out).  Needs ``cuobjdump`` (the CUDA toolkit's) and, to match two
 builds, ``c++filt``.
 """
 
@@ -37,20 +38,31 @@ def cuobjdump() -> str | None:
 
 
 @functools.lru_cache(maxsize=4)
-def counts(lib) -> dict:
-    """{mangled name: SASS instructions} of every function in ``lib``
-    (one ``cuobjdump`` a library a process: it takes tens of seconds)."""
+def listings(lib) -> dict:
+    """{mangled name: SASS listing} of every function in ``lib`` (one
+    ``cuobjdump`` a library a process: it takes tens of seconds)."""
     tool = cuobjdump()
     if tool is None:
         raise RuntimeError("cuobjdump not found: no SASS to count")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=600).stdout
-    out = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.splitlines()[0].strip()
-        out[name] = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+\S", part,
-                                   re.M))
-    return out
+    return {part.splitlines()[0].strip(): part
+            for part in sass.split("Function : ")[1:]}
+
+
+def counts(lib) -> dict:
+    """{mangled name: SASS instructions} of every function in ``lib``."""
+    return {name: len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+\S", part,
+                                 re.M))
+            for name, part in listings(lib).items()}
+
+
+def work_counts(lib) -> dict:
+    """:func:`counts` without the NOPs, which pad a function's end to its
+    alignment and so may hide an instruction that a variant adds."""
+    return {name: n - len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+NOP\b",
+                                     listings(lib)[name], re.M))
+            for name, n in counts(lib).items()}
 
 
 def normalized(demangled: str) -> str:
