@@ -7,7 +7,8 @@ They run in this order, but for the phases that time nothing: with more
 than one phase to run, the book's cases of kernels vs plain (3) run
 here, while its mesh cases, meshplain (8), textures (9), segments (11),
 the two halves of oracle (17) and the bench's ``--all`` (19) run beside
-them, each in a process of its own (``--phases NAME [--part PART]``
+them, with the plain versions of stageplain (22) and hier (25), each
+in a process of its own (``--phases NAME [--part PART]``
 with its own ``--record`` and ``--plain-out``, whose plain results the
 later phases reuse), and the timed phases start only when all of them
 have ended, so that no timed phase shares the card.  Every child process dies with
@@ -279,7 +280,29 @@ this script when it ends or receives SIGTERM.
    counts set to 0 just before each cell and read just after; and
    ``hint_count`` on book_checker with the winner hint at
    1920x1080@32spp: the prepass entries a ray, beside the clusters
-   entered a ray with and without the hint.
+   entered a ray with and without the hint;
+25. hierarchy (``hier``): ``ops/bake.py`` ``bake_culled``'s hierarchy
+   parameters and the dynamic tables' cluster sizes, and the sweeps of
+   ``probes/`` that choose them.  Part ``plain`` (untimed, in the window
+   in a process of its own): the plain version of each case at
+   160x90@4spp, 4 bounces, handed back; part ``kernels``: the baked
+   culled kernel on book_one_final in clusters of 16 at super gate 0
+   with supers of 8, 4 and 16 (the two-level sweep on 31 clusters), at
+   global radius factors 3 and 0 (every sphere a global, no cluster), on
+   procedural 10,000 spheres at clusters x supers 16x8, 32x8, 64x8 and
+   32x16, with each lane's counters (``lane_counts``), and with roulette
+   from bounce 3 at floor 0.25; the dynamic culled kernel on the book in
+   clusters of 8, 32 and 64, with every sphere a global (``n_clusters``
+   0), on procedural in clusters of 8 (rolled) with each lane's counters,
+   and on the torus knot of 2,000 and 8,000 triangles: radiance words,
+   the four counters and the lanes' counters bit for bit with the plain
+   version, each two-level bake entering supers, each kernel timed beside
+   its bound; then each sweep (super_gate, sweep10k, dynsweep, dynnocull,
+   cullstats on both kernels, meshscale, knotbench with and without
+   ``recluster=2``, rr_floor_sweep) at a cut size in this process, with
+   the launch counts set to 0 just before and read just after: its
+   kernel launched (knotbench's segmented run the dynamic segment
+   kernel).
 
 The last two lines of standard output are a JSON object describing the
 kernels (the probe kernels too, one entry a kernel and probe) and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -587,11 +610,15 @@ def _scene_digest(host: dict) -> str:
 class Case:
     """One kernel's inputs at one shape, built as models/fused.py builds
     them, with the kernel, its plain version and its launch counter;
-    ``key`` names every input of the plain version."""
+    ``key`` names every input of the plain version.  ``hier`` (culled
+    and dynamic culled kinds) holds hierarchy parameters of
+    ``ops/bake.py`` ``bake_culled`` (or ``global_radius_factor`` of
+    ``ops/dyn_tables.py`` ``pack_culled_scene``), passed to the render
+    path's caches as the sweeps of ``probes/`` pass theirs."""
 
     def __init__(self, kind, clusters, scene, cc, width, height, spp, split,
                  kw, device, triangles=None, winner_hint=False,
-                 lut_max=8192, bounces=50):
+                 lut_max=8192, bounces=50, hier=None):
         from wavefront_path_tracer_tpu_torch.models import fused
         from wavefront_path_tracer_tpu_torch.ops import baked_kernels as bk
         from wavefront_path_tracer_tpu_torch.ops import dynculled_kernels as dk
@@ -622,8 +649,9 @@ class Case:
         self.key = (kind, _scene_digest(arrays["host_scene"]), clusters,
                     winner_hint, lut_max, width, height, spp, split,
                     tuple(sorted(kw.items())), cam.cpu().numpy().tobytes(),
-                    bounces)
+                    bounces, tuple(sorted((hier or {}).items())))
         eye = fused._concrete_eye(cc.view_matrix())
+        hier = hier or {}
         if kind == "persistent":
             table = arrays["scene_packed"]
             n = len(scene.radii)
@@ -637,7 +665,7 @@ class Case:
             self.launches = lambda: fk.LAUNCHES
         elif kind == "dynculled":
             tab = fused._dyn_tables(arrays, clusters, camera_pos=eye,
-                                    lut_max=lut_max)
+                                    lut_max=lut_max, **hier)
             self.tab = tab
             self.textured = tab.textured
             self.tables = (tab.spheres, tab.boxes, tab.super_boxes, tab.slab,
@@ -652,7 +680,7 @@ class Case:
         else:
             baked = fused._baked_scene(arrays, clusters, camera_pos=eye,
                                        winner_hint=winner_hint,
-                                       lut_max=lut_max)
+                                       lut_max=lut_max, **hier)
             self.baked = baked
             self.textured = baked.textured
             self.tables = (baked.items, baked.cluster_boxes,
@@ -4573,11 +4601,238 @@ def phase_segstage(device, smi: str) -> dict:
     out["hint_count"] = hint
     return out
 
+# Phase hier: the hierarchy parameters of ops/bake.py bake_culled and the
+# dynamic tables' cluster sizes (rows 2 and 3 at table shapes the other
+# phases do not give them), and the sweeps of probes/ that choose them.
+HIER_SIZE = (160, 90, 4)
+HIER_BOUNCES = 4
+HIER_REPS = 10             # calls of a kernel's timed run
+# (label, sweep, kernel kind, scene, cluster size, the bake's or the
+# table's parameters ({}: the render path's own tables), the wrapper's
+# options)
+HIER_CASES = (
+    ("super_gate gate 0 x super 8", "super_gate", "culled", "book", 16,
+     {"super_gate": 0, "super_factor": 8}, {}),
+    ("super_gate gate 0 x super 4", "super_gate", "culled", "book", 16,
+     {"super_gate": 0, "super_factor": 4}, {}),
+    ("super_gate gate 0 x super 16", "super_gate", "culled", "book", 16,
+     {"super_gate": 0, "super_factor": 16}, {}),
+    ("super_gate global factor 3", "super_gate", "culled", "book", 16,
+     {"global_radius_factor": 3.0}, {}),
+    ("super_gate global factor 0 (all globals)", "super_gate", "culled",
+     "book", 16, {"global_radius_factor": 0.0}, {}),
+    ("sweep10k 16x8", "sweep10k", "culled", "procedural", 16, {}, {}),
+    ("sweep10k 32x8", "sweep10k", "culled", "procedural", 32, {}, {}),
+    ("sweep10k 64x8", "sweep10k", "culled", "procedural", 64, {}, {}),
+    ("sweep10k 32x16", "sweep10k", "culled", "procedural", 32,
+     {"super_factor": 16}, {}),
+    ("cullstats baked lanes", "cullstats", "culled", "book", 16, {},
+     {"lane_counts": True}),
+    ("rr_floor_sweep rr 3 floor 0.25", "rr_floor_sweep", "culled", "book",
+     16, {}, {"rr_start": 3, "rr_floor": 0.25}),
+    ("dynsweep clusters 8", "dynsweep", "dynculled", "book", 8, {}, {}),
+    ("dynsweep clusters 32", "dynsweep", "dynculled", "book", 32, {}, {}),
+    ("dynsweep clusters 64", "dynsweep", "dynculled", "book", 64, {}, {}),
+    ("dynnocull all globals", "dynnocull", "dynculled", "book", 16,
+     {"global_radius_factor": 0.0}, {}),
+    ("cullstats dynamic lanes procedural/8", "cullstats_dyn", "dynculled",
+     "procedural", 8, {}, {"lane_counts": True}),
+    ("meshscale knot 2000", "meshscale", "dynculled", "knot2000", 16, {},
+     {}),
+    ("meshscale knot 8000", "meshscale", "dynculled", "knot8000", 16, {},
+     {}),
+)
+_CUT = ["--width", str(HIER_SIZE[0]), "--height", str(HIER_SIZE[1]),
+        "--spp", str(HIER_SIZE[2])]
+# Each sweep: its kernel, the case whose kernel time stands for it on the
+# kernels line, the cases it runs, and its command lines at a cut size.
+# The sweeps' bakes and tables come from the render path's caches, which
+# the cases filled: sweep10k runs first, while its four bakes of 10,001
+# spheres are still there.
+HIER_SWEEPS = {
+    "sweep10k": ("culled", "sweep10k 32x16", "sweep10k",
+                 [["sweep10k", *_CUT, "--reps", "1"]]),
+    "super_gate": ("culled", "super_gate gate 0 x super 4", "super_gate", [
+        ["super_gate", "--configs", "48x8,0x8,0x4,0x16",
+         "--global-radius-factor", "10,3,0", *_CUT, "--reps", "1"]]),
+    "dynsweep": ("dynculled", "dynsweep clusters 8", "dynsweep",
+                 [["dynsweep", *_CUT, "--reps", "1"]]),
+    "dynnocull": ("dynculled", "dynnocull all globals", "dynnocull",
+                  [["dynnocull", *_CUT, "--reps", "1"]]),
+    "cullstats": ("culled", "cullstats baked lanes", "cullstats",
+                  [["cullstats", *_CUT]]),
+    "cullstats bruteforce": ("dynculled",
+                             "cullstats dynamic lanes procedural/8",
+                             "cullstats_dyn",
+                             [["cullstats", *_CUT, "--intersector",
+                               "bruteforce", "--scene", "procedural",
+                               "--clusters", "8"]]),
+    "meshscale": ("dynculled", "meshscale knot 8000", "meshscale",
+                  [["meshscale", "2000", "8000", "--reps", "1"]]),
+    "knotbench": ("dynculled", "meshscale knot 8000", "meshscale",
+                  [["knotbench", "8000", "160x90", "4", "--reps", "1"],
+                   ["knotbench", "8000", "160x90", "4", "recluster=2",
+                    "--reps", "1"]]),
+    "rr_floor_sweep": ("culled", "rr_floor_sweep rr 3 floor 0.25",
+                       "rr_floor_sweep",
+                       [["rr_floor_sweep", "--gate-spp", "8", "--gate-spf",
+                         "8", "--time-size", "160x90", "--time-spp", "4",
+                         "--reps", "1"]]),
+}
+
+
+def _hier_scene(name: str, scenes: dict):
+    """(scene, triangles, camera) of a HIER_CASES scene name, made once."""
+    from wavefront_path_tracer_tpu_torch.scene import (
+        CameraController,
+        get_scene,
+        knot_camera,
+        knot_scene,
+    )
+
+    if name not in scenes:
+        if name.startswith("knot"):
+            scene, tris = knot_scene(int(name[len("knot"):]))
+            scenes[name] = (scene, tris, knot_camera())
+        else:
+            scenes[name] = (get_scene({"book": "book_one_final"}.get(
+                name, name)), None, CameraController.book_one_final())
+    return scenes[name]
+
+
+def _hier_cases(device):
+    """(label, sweep, Case) of every HIER_CASES entry at HIER_SIZE."""
+    w, h, spp = HIER_SIZE
+    scenes = {}
+    for label, sweep, kind, name, clusters, hier, kw in HIER_CASES:
+        scene, tris, cam = _hier_scene(name, scenes)
+        yield label, sweep, Case(kind, clusters, scene, cam, w, h, spp, 1,
+                                  kw, device, triangles=tris,
+                                  bounces=HIER_BOUNCES, hier=hier)
+
+
+def _hier_check(label, case) -> dict:
+    """The kernel against its plain version's result (phase hier's plain
+    part, or run here): radiance words, the four counters and, with
+    ``lane_counts``, each lane's counters bit for bit; then the kernel's
+    time (CUDA events, the mean of HIER_REPS calls) beside its bound."""
+    from wavefront_path_tracer_tpu_torch.utils.parity import parity_report
+
+    before = case.launches()
+    k = case.kernel()
+    torch.cuda.synchronize()
+    if case.launches() != before + 1:
+        raise AssertionError(f"{label}: the wrapper did not count its launch")
+    p = _PLAIN_OUT.get(case.key)
+    if p is None:
+        p = _PLAIN_OUT[case.key] = case.plain()
+    stats_k, stats_p = k[3].tolist(), p[3].tolist()
+    bit_exact = stats_k == stats_p and all(
+        torch.equal(_bits(a), _bits(b)) for a, b in zip(k[:3], p[:3]))
+    lanes_exact = len(k) < 5 or torch.equal(k[4], p[4])
+    rep = parity_report(case.image(k), case.image(p))
+    rep.update(case=label, kernel=case.kind, stats_kernel=stats_k,
+               stats_plain=stats_p, bit_exact=bit_exact,
+               lanes_exact=lanes_exact)
+    rep["kernel_ms"], _ = _time_ms(case.kernel, HIER_REPS)
+    rep.update(case.bound(stats_k))
+    log(f"[hier-check] {json.dumps(rep)}")
+    if not (bit_exact and lanes_exact):
+        raise AssertionError(f"{label}: kernel and plain version differ")
+    if case.has_clusters() and not stats_k[3] > 0:
+        raise AssertionError(f"{label}: no cluster was entered")
+    return rep
+
+
+def _hier_sweep(argvs, kind: str, device) -> dict:
+    """Run a sweep's command lines in this process, with the launch
+    counts set to 0 just before and read just after: {launches of its
+    kernel, of the dynamic segment kernel, seconds, records}."""
+    import importlib
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    records = []
+    for module, *argv in argvs:
+        mod = importlib.import_module(
+            f"wavefront_path_tracer_tpu_torch.probes.{module}")
+        records.append(mod.run(mod.build_parser().parse_args(
+            [*argv, "--device", device.type])))
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    return {"launches": launches[kind],
+            "segment_launches": launches["segment_dynculled"],
+            "seconds": time.perf_counter() - t0, "records": records}
+
+
+def phase_hier(device, smi: str, part=None) -> dict:
+    """Phase hier.  Part "plain" (untimed, in the window): the plain
+    version of every HIER_CASES case, each timed once, its result handed
+    back.  Part "kernels": each case's kernel bit for bit against it and
+    timed, then every sweep of HIER_SWEEPS at a cut size with its
+    kernel's launches read alone; each must launch its kernel, the
+    two-level bakes must enter supers, and knotbench's recluster=2 must
+    run the dynamic segment kernel."""
+    out = {}
+    if part in (None, "plain"):
+        out["plain"] = []
+        for label, _sweep, case in _hier_cases(device):
+            plain_ms, _PLAIN_OUT[case.key] = _time_ms(case.plain, 1)
+            out["plain"].append({"case": label, "plain_ms": plain_ms})
+            log(f"[hier-plain] {label}: plain version {plain_ms:.1f} ms")
+    if part in (None, "kernels"):
+        out["checks"] = []
+        for label, sweep, case in _hier_cases(device):
+            rep = _hier_check(label, case)
+            rep["sweep"] = sweep
+            two_level = case.kind == "culled" and bool(
+                case.baked.super_ranges.shape[0])
+            if two_level and not rep["stats_kernel"][2] > 0:
+                raise AssertionError(f"{label}: no super was entered")
+            out["checks"].append(rep)
+        out["sweeps"] = {}
+        for name, (kind, _case, _cases, argvs) in HIER_SWEEPS.items():
+            run = _hier_sweep(argvs, kind, device)
+            log(f"[hier-sweep] {name}: {run['launches']} launches of the "
+                f"{kind} kernel, {run['seconds']:.1f} s [{smi}]")
+            if not run["launches"] > 0:
+                raise AssertionError(f"{name}: its kernel was not launched")
+            out["sweeps"][name] = run
+        if not out["sweeps"]["knotbench"]["segment_launches"] > 0:
+            raise AssertionError("knotbench recluster=2: no segment launch")
+    return out
+
+
+def _hier_kernels(record: dict) -> list[dict]:
+    """The kernels line's entries of phase hier: one a sweep, its kernel
+    (row 2 or 3) at the configuration that stands for it: its time alone
+    and its bound at HIER_SIZE, its plain version's (in the window), the
+    largest error over the sweep's cases, its launches from the sweep's
+    own run at a cut size."""
+    hier = record["hier"]
+    plain = {r["case"]: r["plain_ms"] for r in hier["plain"]}
+    checks = {r["case"]: r for r in hier["checks"]}
+    out = []
+    for name, (kind, case, cases, _argvs) in HIER_SWEEPS.items():
+        rep = checks[case]
+        out.append({
+            "name": f"{KERNELS[kind]['name']} in probes.{name} ({case})",
+            "route": "cuda", "source": KERNELS[kind]["source"],
+            "replaces": KERNELS[kind]["replaces"],
+            "launches": hier["sweeps"][name]["launches"],
+            "max_abs_err": max(r["max_abs_err"] for r in hier["checks"]
+                               if r["sweep"] == cases),
+            "ms": rep["kernel_ms"], "plain_ms": plain[case],
+            "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+            "library_ms": None,
+        })
+    return out
+
 
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull",
           "meshplain", "tex", "texfull", "seg", "segfull", "probes",
           "sweep", "loop", "segform", "oracle", "wavefront", "bench", "app",
-          "multi", "stageplain", "stage", "segstage")
+          "multi", "stageplain", "stage", "segstage", "hier")
 # Phases, and parts of phases (PARTS: shares of a phase's cases), that
 # time nothing.  With more than one phase to run, WINDOW runs here first
 # while each of APART runs beside it in a process of its own, and the
@@ -4585,11 +4840,11 @@ PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull",
 # have ended, so that no timed phase shares the card.  A phase apart hands
 # back its record and its plain versions' results (``_PLAIN_OUT``).
 PARTS = {"kernels": ("book", "mesh"), "oracle": ("tpu", "scenes"),
-         "stageplain": tuple(STAGE_PARTS)}
+         "stageplain": tuple(STAGE_PARTS), "hier": ("plain", "kernels")}
 WINDOW = (("kernels", "book"),)
 APART = (("kernels", "mesh"), ("meshplain", None), ("tex", None),
          ("seg", None), ("oracle", "tpu"), ("oracle", "scenes"),
-         *(("stageplain", part) for part in STAGE_PARTS))
+         *(("stageplain", part) for part in STAGE_PARTS), ("hier", "plain"))
 APART_TIMEOUT = 600        # seconds a phase apart may take
 
 
@@ -4812,7 +5067,8 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
               lambda part: phase_stage_plain(device, part)),
              ("stage", "stage", lambda part: phase_stage(device, smi)),
              ("segstage", "segstage",
-              lambda part: phase_segstage(device, smi)))
+              lambda part: phase_segstage(device, smi)),
+             ("hier", "hier", lambda part: phase_hier(device, smi, part)))
     keys = {phase: key for phase, key, _run in steps}
     runs = {phase: run for phase, _key, run in steps}
     record["phase_seconds"] = {}
@@ -4831,10 +5087,18 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
     _end_window(children, all_child, keys, record, device, t_window)
     if probe_build is not None:
         record["probe_build"] = probe_build.result()
-    done = {w[0] for w in window} | {c[0] for c in children}
+    # A phase runs here unless the window and the processes apart ran it;
+    # where they ran some of its parts, the others run here.
+    covered = set(window) | set(children)
     for phase, _key, _run in steps:
-        if phase in phases and phase not in done:
+        if phase not in phases:
+            continue
+        if not any(c[0] == phase for c in covered):
             run_step(phase, part)
+            continue
+        for share in PARTS.get(phase, ()):
+            if (phase, share) not in covered:
+                run_step(phase, share)
     if plain_out is not None:
         torch.save(dict(_PLAIN_OUT), plain_out)
     record["seconds_total"] = time.perf_counter() - t_start
@@ -4925,6 +5189,7 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
             "library_ms": rep.get("library_ms"),
         })
     kernels += _stage_kernels(record)
+    kernels += _hier_kernels(record)
     with open(record_path, "w") as f:
         json.dump(record, f, indent=1)
     log(smi)

@@ -42,6 +42,8 @@ import numpy as np
 import torch
 
 from wavefront_path_tracer_tpu_torch.ops.bake import (
+    GLOBAL_RADIUS_FACTOR,
+    HIERARCHY_DEFAULTS,
     TEX_LUT_MAX,
     BakedScene,
     bake_culled,
@@ -211,42 +213,58 @@ def _cached(cache, key, make):
 
 def _baked_scene(scene_arrays, clusters: int = 0, camera_pos=None,
                  winner_hint: bool = False,
-                 lut_max: int = TEX_LUT_MAX) -> BakedScene:
+                 lut_max: int = TEX_LUT_MAX, **hierarchy) -> BakedScene:
     """The bake for a scene, cluster size, camera hint, winner hint and
     image-LUT budget, from a bounded LRU keyed as the reference's
     ``_baked_fn`` keys its cache.  The host copy of the scene's tables and
     its fingerprint (textures included) are ``scene_arrays["host_scene"]``,
     made once with the scene (``convert.scene_arrays_to_torch``).  The
     winner hint applies to a culled bake only; the reference's unculled
-    bake takes the flag and ignores it (models/fused.py:247-255)."""
+    bake takes the flag and ignores it (models/fused.py:247-255).
+    ``hierarchy`` holds keyword parameters of ``bake_culled``
+    (``super_factor``, ``super_gate``, ...; the hierarchy sweeps of
+    ``probes/`` set them, the render path never does); those that differ
+    from the defaults are part of the key, so that no bake is read for
+    another's parameters."""
     host = scene_arrays["host_scene"]
     hint_key, camera_pos = (_quantized_hint(host["centers"], camera_pos)
                             if clusters > 0 else (None, None))
     winner_hint = bool(winner_hint) and clusters > 0
     device = scene_arrays["centers"].device
     key = (host["centers"].shape[0], host["key"], clusters, hint_key,
-           winner_hint, lut_max, str(device))
+           winner_hint, lut_max, str(device),
+           tuple(sorted((k, v) for k, v in hierarchy.items()
+                        if v != HIERARCHY_DEFAULTS.get(k))))
     if clusters > 0:
         return _cached(_BAKED_CACHE, key, lambda: bake_culled(
             host, cluster_size=clusters, camera_hint=camera_pos,
-            winner_hint=winner_hint, lut_max=lut_max, device=device))
+            winner_hint=winner_hint, lut_max=lut_max, device=device,
+            **hierarchy))
+    if hierarchy:
+        raise ValueError(f"{sorted(hierarchy)}: hierarchy parameters of a "
+                         f"culled bake, not of an unculled one")
     return _cached(_BAKED_CACHE, key, lambda: bake_unculled(
         host, lut_max=lut_max, device=device))
 
 
 def _dyn_tables(scene_arrays, cluster_size: int, camera_pos=None,
-                lut_max: int = TEX_LUT_MAX) -> DynTables:
-    """The dynamic culled tables for a scene, cluster size, camera hint
-    and image-LUT budget (the reference's ``_dyn_tables`` and
-    ``_static_image_luts``), from a bounded LRU.  The visit order lives
-    in the tables, so the hint is quantized only to keep the cache from
-    thrashing on small moves."""
+                lut_max: int = TEX_LUT_MAX,
+                global_radius_factor: float = GLOBAL_RADIUS_FACTOR
+                ) -> DynTables:
+    """The dynamic culled tables for a scene, cluster size, camera hint,
+    image-LUT budget and global radius factor (the reference's
+    ``_dyn_tables`` and ``_static_image_luts``; the factor is set by the
+    hierarchy sweeps of ``probes/`` only), from a bounded LRU.  The visit
+    order lives in the tables, so the hint is quantized only to keep the
+    cache from thrashing on small moves."""
     host = scene_arrays["host_scene"]
     hint_key, camera_pos = _quantized_hint(host["centers"], camera_pos)
     device = scene_arrays["centers"].device
-    key = (host["key"], cluster_size, hint_key, lut_max, str(device))
+    key = (host["key"], cluster_size, hint_key, lut_max, str(device),
+           global_radius_factor)
     return _cached(_DYN_CACHE, key, lambda: device_tables(
         pack_culled_scene(host, cluster_size=cluster_size,
+                          global_radius_factor=global_radius_factor,
                           camera_hint=camera_pos),
         cluster_size, device=device, scene_arrays=host, lut_max=lut_max))
 

@@ -52,9 +52,16 @@ from wavefront_path_tracer_tpu_torch.ops.textures import ImageLuts, image_luts
 from wavefront_path_tracer_tpu_torch.scene.mesh import TriangleSoA
 
 T_MIN = 0.001
+# bake_culled's hierarchy parameters' defaults, the reference's
+# (baked_culled_intersect, pallas_kernels.py:831-841).
 SUPER_FACTOR = 8
 SUPER_GATE = 48
 GLOBAL_RADIUS_FACTOR = 10.0
+REFRESH = 16
+HIERARCHY_DEFAULTS = {"super_factor": SUPER_FACTOR,
+                      "global_radius_factor": GLOBAL_RADIUS_FACTOR,
+                      "super_gate": SUPER_GATE, "refresh": REFRESH,
+                      "pack_attrs": True}
 TEX_LUT_MAX = 8192        # RenderConfig.tex_lut_max's default
 HINT_MAX_CLUSTERS = 64    # the winner hint is off above this estimate
 
@@ -72,20 +79,33 @@ def _signed32(word):
     return word - (1 << 32) if word >= (1 << 31) else word
 
 
-def _pack_albedo_mat(ar, ag, ab, mt):
-    """Bake-time pack of a winner's (albedo rgb, material id) into two
-    int32 words, (r:16|g:16) and (b:16|mat) on a 1/65535 grid: the
-    reference's default ("16") rule, bit for bit."""
+def _pack_albedo_mat(ar, ag, ab, mt, width: str = "16"):
+    """Bake-time pack of a winner's (albedo rgb, material id) into int32
+    words, the reference's rule bit for bit: "16", the default, gives
+    (r:16|g:16) and (b:16|mat) on a 1/65535 grid; "10" gives one word,
+    r:g:b on a 1/1023 grid and the material in bits 30-31."""
+    if width == "10":
+        q = [int(round(min(max(float(v), 0.0), 1.0) * 1023.0))
+             for v in (ar, ag, ab)]
+        return (_signed32((q[0] << 20) | (q[1] << 10) | q[2]
+                          | (int(mt) << 30)),)
     q = [int(round(min(max(float(v), 0.0), 1.0) * 65535.0))
          for v in (ar, ag, ab)]
     return (_signed32((q[0] << 16) | q[1]),
             _signed32((q[2] << 16) | int(mt)))
 
 
-def _unpack_albedo_mat(pk1, pk2):
+def _unpack_albedo_mat(pk1, pk2=None):
     """The kernel-side decode of :func:`_pack_albedo_mat`, on int32
-    numpy arrays: (ar, ag, ab, mt) as float32."""
+    numpy arrays: (ar, ag, ab, mt) as float32; a lone word is the "10"
+    pack."""
     f32 = np.float32
+    if pk2 is None:
+        inv = f32(1.0 / 1023.0)
+        return (((pk1 >> 20) & 1023).astype(f32) * inv,
+                ((pk1 >> 10) & 1023).astype(f32) * inv,
+                (pk1 & 1023).astype(f32) * inv,
+                ((pk1 >> 30) & 3).astype(f32))
     inv = f32(1.0 / 65535.0)
     return (((pk1 >> 16) & 65535).astype(f32) * inv,
             (pk1 & 65535).astype(f32) * inv,
@@ -105,23 +125,36 @@ def _pack_albedo_ok(albedo, triangles=None):
     return ok
 
 
-def _resolve_pack(albedo, triangles=None):
-    """The pack width the reference's bake uses by default: "16", or
-    None (exact floats) when some albedo leaves [0, 1]."""
-    return "16" if _pack_albedo_ok(albedo, triangles) else None
+def _resolve_pack(albedo, triangles=None, pack_attrs=True):
+    """The pack width of a bake, as the reference's ``_resolve_pack``
+    resolves the ``pack_attrs`` of its intersects: True means "16";
+    "10" and "16" are kept; a falsy value, or an albedo outside [0, 1],
+    gives None (exact floats)."""
+    if pack_attrs is True:
+        pack_attrs = "16"
+    if not pack_attrs or not _pack_albedo_ok(albedo, triangles):
+        return None
+    if pack_attrs not in ("10", "16"):
+        raise ValueError(f"pack_attrs must be '10', '16' or falsy, "
+                         f"got {pack_attrs!r}")
+    return pack_attrs
 
 
-def decoded_attributes(albedo, mat_type, packed: bool):
+def decoded_attributes(albedo, mat_type, packed):
     """(N, 4) float32 [ar, ag, ab, mt] as the kernel sees a winner's:
-    packed and decoded when ``packed``, exact otherwise."""
+    packed at width ``packed`` ("16" or "10"; True is "16") and decoded,
+    exact where it is falsy."""
     albedo = np.asarray(albedo, np.float32)
     mat_type = np.asarray(mat_type, np.float32)
     if not packed:
         return np.concatenate([albedo, mat_type[:, None]], axis=1)
-    words = np.array([_pack_albedo_mat(*albedo[i], mat_type[i])
-                      for i in range(albedo.shape[0])], np.int64)
-    return np.stack(_unpack_albedo_mat(words[:, 0].astype(np.int32),
-                                       words[:, 1].astype(np.int32)), axis=1)
+    width = "10" if packed == "10" else "16"
+    words = np.array([_pack_albedo_mat(*albedo[i], mat_type[i], width)
+                      for i in range(albedo.shape[0])],
+                     np.int64).reshape(albedo.shape[0], -1)
+    return np.stack(_unpack_albedo_mat(
+        *(words[:, k].astype(np.int32) for k in range(words.shape[1]))),
+        axis=1)
 
 
 def _t2_elidable(centers, radii, mat_type, fuzz, triangles=None):
@@ -192,8 +225,8 @@ class BakedScene:
     cluster by cluster in sweep order; for an unculled bake every sphere
     in scene order.  ``cluster_boxes``/``cluster_ranges`` hold one row
     per sphere cluster in sweep order; ``super_boxes``/``super_ranges``
-    are empty unless that sweep is two-level (more than ``SUPER_GATE``
-    clusters).  The ``tri_*`` tables are the same for the triangles
+    are empty unless that sweep is two-level (more than the bake's
+    ``super_gate`` clusters).  The ``tri_*`` tables are the same for the triangles
     (``tri_items`` in scene order for an unculled bake; all empty without
     triangles).  ``consts`` is (16,) float32: shift xyz, sphere slab lo
     xyz, hi xyz, triangle slab lo xyz, hi xyz, 0.  The metadata match
@@ -327,10 +360,10 @@ def _textures(a, lut_max):
     return slot, checker, luts
 
 
-def tri_rows(tris: TriangleSoA, nrm, packed: bool) -> np.ndarray:
+def tri_rows(tris: TriangleSoA, nrm, packed) -> np.ndarray:
     """(T, TRI_COLS) float32 rows of the triangles in scene order, with
-    the unit normals ``nrm`` and the attributes decoded from the pack
-    when ``packed``."""
+    the unit normals ``nrm`` and the attributes decoded from the pack of
+    width ``packed`` (:func:`decoded_attributes`)."""
     rows = np.zeros((tris.num_triangles, TRI_COLS), np.float32)
     rows[:, 0:3] = tris.v0
     rows[:, 3:6] = tris.e1
@@ -344,9 +377,10 @@ def tri_rows(tris: TriangleSoA, nrm, packed: bool) -> np.ndarray:
     return rows
 
 
-def _hierarchy(aabb_lo, aabb_hi, members, cluster_size, camera_hint):
+def _hierarchy(aabb_lo, aabb_hi, members, cluster_size, camera_hint,
+               super_factor: int = SUPER_FACTOR):
     """Clusters of ``cluster_size`` consecutive members, supers of
-    ``SUPER_FACTOR`` clusters and the slab over per-member boxes (the
+    ``super_factor`` clusters and the slab over per-member boxes (the
     reference's ``build_hierarchy``, pallas_kernels.py:991-1024).
     Membership follows the given (Morton) order, so boxes stay tight;
     with a camera hint the visit order is nearest box first at both
@@ -369,8 +403,8 @@ def _hierarchy(aabb_lo, aabb_hi, members, cluster_size, camera_hint):
         clusters.append((lo.tolist(), hi.tolist(), members[sl],
                          key(lo, hi, start)))
     supers = []
-    for start in range(0, len(clusters), SUPER_FACTOR):
-        grp = sorted(clusters[start:start + SUPER_FACTOR],
+    for start in range(0, len(clusters), super_factor):
+        grp = sorted(clusters[start:start + super_factor],
                      key=lambda c: c[3])
         lo = np.min([c[0] for c in grp], axis=0)
         hi = np.max([c[1] for c in grp], axis=0)
@@ -380,12 +414,14 @@ def _hierarchy(aabb_lo, aabb_hi, members, cluster_size, camera_hint):
     return clusters, supers, (aabb_lo.min(axis=0), aabb_hi.max(axis=0))
 
 
-def _sweep(clusters, supers, first):
+def _sweep(clusters, supers, first, super_gate: int = SUPER_GATE):
     """A hierarchy's sweep: the flat sorted clusters, or super by super
-    above ``SUPER_GATE`` (clusters sorted within their super).  Returns
-    (members in sweep order, cluster rows, super rows); a row is (lo, hi,
-    (first, count)), cluster item ranges counted from ``first``."""
-    two_level = len(clusters) > SUPER_GATE
+    above ``super_gate`` clusters (clusters sorted within their super),
+    as the reference gates each hierarchy (pallas_kernels.py:1442).
+    Returns (members in sweep order, cluster rows, super rows); a row is
+    (lo, hi, (first, count)), cluster item ranges counted from
+    ``first``."""
+    two_level = len(clusters) > super_gate
     sweep = [c for s in supers for c in s[2]] if two_level else clusters
     members, cluster_rows = [], []
     for lo, hi, mem, _ in sweep:
@@ -442,7 +478,7 @@ def bake_unculled(scene_arrays, *, lut_max: int = TEX_LUT_MAX,
     pack_w = _resolve_pack(a["albedo"], tris)
     elide = _t2_elidable(a["centers"], a["radii"], a["mat_type"], a["fuzz"],
                          tris)
-    attrs = decoded_attributes(a["albedo"], a["mat_type"], pack_w is not None)
+    attrs = decoded_attributes(a["albedo"], a["mat_type"], pack_w)
     slot, checker, luts = _textures(a, lut_max)
     r64 = a["radii"].astype(np.float64)
     q0 = np.concatenate([a["centers"],
@@ -454,7 +490,7 @@ def bake_unculled(scene_arrays, *, lut_max: int = TEX_LUT_MAX,
     if tris is not None:
         nrm = np.cross(tris.e1, tris.e2)
         nrm = nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)
-        t_rows = tri_rows(tris, nrm, pack_w is not None)
+        t_rows = tri_rows(tris, nrm, pack_w)
     return _tables(False, items, checker[idx] if slot is not None else [],
                    [], [], t_rows, [], [], np.zeros(16, np.float32),
                    images=luts, n_globals=n, n_clusters=0, n_supers=0,
@@ -463,39 +499,63 @@ def bake_unculled(scene_arrays, *, lut_max: int = TEX_LUT_MAX,
 
 
 def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
-                winner_hint: bool = False, lut_max: int = TEX_LUT_MAX,
-                device="cpu") -> BakedScene:
-    """The bake of ``baked_culled_intersect`` (pallas_kernels.py:906-1061,
-    1468-1486).
+                super_factor: int = SUPER_FACTOR,
+                global_radius_factor: float = GLOBAL_RADIUS_FACTOR,
+                super_gate: int = SUPER_GATE, refresh: int = REFRESH,
+                winner_hint: bool = False, pack_attrs=True,
+                lut_max: int = TEX_LUT_MAX, device="cpu") -> BakedScene:
+    """The bake of ``baked_culled_intersect`` (pallas_kernels.py:831-1061,
+    1468-1486), with its hierarchy parameters under its names and
+    defaults.
 
-    Giant spheres (radius above ``GLOBAL_RADIUS_FACTOR`` x the median)
-    are globals, swept first; the rest go into Morton clusters of
-    ``cluster_size`` and supers of ``SUPER_FACTOR`` clusters, visited
-    nearest box first from ``camera_hint`` (a world-space point), or in
-    Morton order without one.  A scene with at most ``2 * cluster_size``
-    non-global spheres is all globals.  The slimmed quadratic runs in a
-    frame shifted to the per-axis median of the clustered centres.
-    Triangles get a hierarchy of their own, built the same way over the
-    Morton order of their centroids, swept after the spheres.  A textured
-    scene gets its checker rows and image LUTs (``lut_max`` texels);
+    Giant spheres (radius above ``global_radius_factor`` x the median;
+    0 makes every sphere of positive radius one) are globals, swept
+    first; the rest go into Morton clusters of ``cluster_size`` and
+    supers of ``super_factor`` clusters, visited nearest box first from
+    ``camera_hint`` (a world-space point), or in Morton order without
+    one.  A hierarchy of more than ``super_gate`` clusters is swept
+    super by super (the two-level sweep of ``csrc/baked.cuh``), else
+    flat; the supers are built and counted either way, as in the
+    reference.  A scene with at most ``2 * cluster_size`` non-global
+    spheres is all globals.  The slimmed quadratic runs in a frame
+    shifted to the per-axis median of the clustered centres.  Triangles
+    get a hierarchy of their own, built the same way over the Morton
+    order of their centroids, swept after the spheres.  A textured scene
+    gets its checker rows and image LUTs (``lut_max`` texels);
     ``winner_hint`` asks for the winner-hint prepass, which stays off
     above ``HINT_MAX_CLUSTERS`` estimated clusters (pallas_kernels.py:
-    921-928).
+    921-928).  ``pack_attrs`` is the reference's: True ("16"), "10" or
+    False (exact albedos); the item table holds the decoded values.  The
+    reference's ``full_inv_r`` is derived, as its ``models/fused.py``
+    derives it: the true 1/r where the scene has an image texture.
+
+    ``refresh`` is accepted and changes nothing: in the reference it
+    batches the TPU's consensus cap, refreshed from the running nearest
+    hit every ``refresh`` clusters because each refresh stalls the
+    scalar pipeline (pallas_kernels.py:1368-1407).  The CUDA sweep culls
+    each ray against its own running nearest hit at every cluster, so it
+    has no stale cap to batch; like ``lane_rotate``, it is a TPU
+    scheduling parameter, taken so that the reference's calls run.
     """
+    if int(super_factor) < 1:
+        raise ValueError(f"super_factor must be at least 1, not "
+                         f"{super_factor}")
+    if int(refresh) < 1:
+        raise ValueError(f"refresh must be at least 1, not {refresh}")
     a = _host(scene_arrays)
     tris = host_triangles(a)
     centers, radii = a["centers"], a["radii"]
     n = centers.shape[0]
-    pack_w = _resolve_pack(a["albedo"], tris)
+    pack_w = _resolve_pack(a["albedo"], tris, pack_attrs)
     elide = _t2_elidable(centers, radii, a["mat_type"], a["fuzz"], tris)
     any_neg = bool((radii < 0).any())
-    attrs = decoded_attributes(a["albedo"], a["mat_type"], pack_w is not None)
+    attrs = decoded_attributes(a["albedo"], a["mat_type"], pack_w)
     slot, checker, luts = _textures(a, lut_max)
     n_tris = tris.num_triangles if tris is not None else 0
     est_clusters = -(-n // cluster_size) + -(-n_tris // cluster_size)
 
     med_r = float(np.median(radii))
-    is_global = radii > GLOBAL_RADIUS_FACTOR * med_r
+    is_global = radii > global_radius_factor * med_r
     global_idx = np.nonzero(is_global)[0]
     rest = np.nonzero(~is_global)[0]
     if rest.size <= 2 * cluster_size:
@@ -519,10 +579,10 @@ def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
         clusters, supers, slab = _hierarchy(
             centers[order] - np.abs(radii[order, None]),
             centers[order] + np.abs(radii[order, None]), order,
-            cluster_size, camera_hint)
+            cluster_size, camera_hint, super_factor)
         consts[3:6], consts[6:9] = slab
     members, cluster_rows, super_rows = _sweep(clusters, supers,
-                                               len(global_idx))
+                                               len(global_idx), super_gate)
     idx = np.concatenate([global_idx] + members).astype(np.int64)
 
     q0 = np.zeros((len(idx), 4), np.float32)
@@ -552,11 +612,11 @@ def bake_culled(scene_arrays, cluster_size: int = 16, camera_hint=None, *,
         verts = np.stack([v0, v0 + e1, v0 + e2], axis=1)[t_order]
         t_clusters, t_supers, t_slab = _hierarchy(
             verts.min(axis=1), verts.max(axis=1), t_order, cluster_size,
-            camera_hint)
+            camera_hint, super_factor)
         consts[9:12], consts[12:15] = t_slab
-        t_members, t_cluster_rows, t_super_rows = _sweep(t_clusters,
-                                                         t_supers, 0)
-        t_items = tri_rows(tris, nrm, pack_w is not None)[
+        t_members, t_cluster_rows, t_super_rows = _sweep(
+            t_clusters, t_supers, 0, super_gate)
+        t_items = tri_rows(tris, nrm, pack_w)[
             np.concatenate(t_members)]
 
     all_clusters = clusters + t_clusters

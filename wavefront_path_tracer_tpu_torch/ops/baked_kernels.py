@@ -494,7 +494,8 @@ def host_ranges(baked: BakedScene):
 def fused_render_baked_reference(
         baked: BakedScene, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random", probe=frozenset()):
+        sampler: str = "random", probe=frozenset(),
+        lane_counts: bool = False):
     """Plain PyTorch version of the baked kernel: the persistent loop of
     ``ops/fused_kernels.py`` over :func:`culled_intersect_reference` (with
     the winner hint where ``baked.winner_hint``) or
@@ -518,7 +519,8 @@ def fused_render_baked_reference(
         intersect, salts, cam_params, pix, xs, ys, valid, soff,
         rr_start=rr_start, rr_floor=rr_floor, clamp=clamp, sampler=sampler,
         images=baked.images if baked.textured else None,
-        hinted=baked.culled and baked.winner_hint, probe=probe)
+        hinted=baked.culled and baked.winner_hint, probe=probe,
+        lane_counts=lane_counts)
 
 
 def _lanes_in(keys, entered):
@@ -801,7 +803,8 @@ def _table_args(baked: BakedScene) -> tuple:
 def fused_render_baked(
         baked: BakedScene, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random", sweep: int = SWEEP_COOP, probe=frozenset()):
+        sampler: str = "random", sweep: int = SWEEP_COOP, probe=frozenset(),
+        lane_counts: bool = False):
     """All samples x all bounces of every lane over a baked scene.
 
     Returns (rad_r, rad_g, rad_b, stats): radiance sums as (R, 128)
@@ -829,6 +832,10 @@ def fused_render_baked(
     supers higher by the prepass entries) and its plain version's bit for
     bit.  Any other name, form or hint raises ValueError.
 
+    With ``lane_counts`` a fifth value follows: the counters the kernel
+    keeps a lane, [rays, supers, clusters] as a (3, R, 128) int64 tensor
+    (``probes/cullstats.py`` reads them a warp at a time).
+
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/baked.cu`` on the current stream; any other device raises.
     The kernel's results, counters included, are bit-identical to the
@@ -851,7 +858,8 @@ def fused_render_baked(
     if device.type == "cpu":
         return fused_render_baked_reference(
             baked, salts, cam_params, *planes, rr_start=rr_start,
-            rr_floor=rr_floor, clamp=clamp, sampler=sampler, probe=probe)
+            rr_floor=rr_floor, clamp=clamp, sampler=sampler, probe=probe,
+            lane_counts=lane_counts)
     if device.type != "cuda":
         raise NotImplementedError(
             f"fused_render_baked runs on cpu or cuda, not {device}")
@@ -889,8 +897,10 @@ def fused_render_baked(
         LAUNCHES[kind] += 1
         COOP_LAUNCHES[kind] += sweep == SWEEP_COOP
     rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
-    return rad_r, rad_g, rad_b, torch.stack([rays, warp_trips(counts[0]),
-                                             supers, clusters])
+    stats = torch.stack([rays, warp_trips(counts[0]), supers, clusters])
+    if lane_counts:
+        return rad_r, rad_g, rad_b, stats, counts.to(torch.int64)
+    return rad_r, rad_g, rad_b, stats
 
 
 def fused_segment_baked_reference(baked: BakedScene, salts, ids, state,

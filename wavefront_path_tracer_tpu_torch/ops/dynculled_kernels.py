@@ -282,7 +282,8 @@ def dynculled_intersect_reference(tab: DynTables, ox, oy, oz, dx, dy, dz,
 def fused_render_dynculled_reference(
         tab: DynTables, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random", probe=frozenset()):
+        sampler: str = "random", probe=frozenset(),
+        lane_counts: bool = False):
     """Plain PyTorch version of the dynamic culled kernel: the
     persistent loop of ``ops/fused_kernels.py`` over
     :func:`dynculled_intersect_reference`.  Same arguments and results
@@ -297,7 +298,8 @@ def fused_render_dynculled_reference(
     return persistent_reference(
         intersect, salts, cam_params, pix, xs, ys, valid, soff,
         rr_start=rr_start, rr_floor=rr_floor, clamp=clamp, sampler=sampler,
-        images=tab.images if tab.textured else None, probe=probe)
+        images=tab.images if tab.textured else None, probe=probe,
+        lane_counts=lane_counts)
 
 
 class _NonzeroSpy:
@@ -528,7 +530,8 @@ def _table_args(tab: DynTables) -> tuple:
 def fused_render_dynculled(
         tab: DynTables, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
-        sampler: str = "random", sweep: int = SWEEP_COOP, probe=frozenset()):
+        sampler: str = "random", sweep: int = SWEEP_COOP, probe=frozenset(),
+        lane_counts: bool = False):
     """All samples x all bounces of every lane over the dynamic culled
     tables.
 
@@ -551,6 +554,9 @@ def fused_render_dynculled(
     up to rounding) and its plain version's bit for bit.  Any other name
     or form raises ValueError.
 
+    With ``lane_counts`` a fifth value follows: the counters the kernel
+    keeps a lane, [rays, supers, clusters] as a (3, R, 128) int64 tensor.
+
     On CPU tensors this is the plain version; on CUDA tensors it launches
     ``csrc/dynculled.cu`` on the current stream; any other device raises.
     The kernel's results, counters included, are bit-identical to the
@@ -571,7 +577,8 @@ def fused_render_dynculled(
     if device.type == "cpu":
         return fused_render_dynculled_reference(
             tab, salts, cam_params, *planes, rr_start=rr_start,
-            rr_floor=rr_floor, clamp=clamp, sampler=sampler, probe=probe)
+            rr_floor=rr_floor, clamp=clamp, sampler=sampler, probe=probe,
+            lane_counts=lane_counts)
     if device.type != "cuda":
         raise NotImplementedError(
             f"fused_render_dynculled runs on cpu or cuda, not {device}")
@@ -607,8 +614,10 @@ def fused_render_dynculled(
         LAUNCHES += 1
         COOP_LAUNCHES += sweep == SWEEP_COOP
     rays, supers, clusters = counts.sum(dim=(1, 2), dtype=torch.int64)
-    return rad_r, rad_g, rad_b, torch.stack([rays, warp_trips(counts[0]),
-                                             supers, clusters])
+    stats = torch.stack([rays, warp_trips(counts[0]), supers, clusters])
+    if lane_counts:
+        return rad_r, rad_g, rad_b, stats, counts.to(torch.int64)
+    return rad_r, rad_g, rad_b, stats
 
 
 def fused_segment_dynculled_reference(tab: DynTables, salts, ids, state,

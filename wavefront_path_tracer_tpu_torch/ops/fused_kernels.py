@@ -341,7 +341,7 @@ def persistent_reference(
         intersect, salts, cam_params, pix, xs, ys, valid, soff, *,
         rr_start: int = 0, rr_floor: float = 0.05, clamp: float = 0.0,
         sampler: str = "random", images=None, hinted: bool = False,
-        observe=None, probe=frozenset()):
+        observe=None, probe=frozenset(), lane_counts: bool = False):
     """The plain persistent-lane loop, over any nearest-hit function.
 
     ``intersect(ox, oy, oz, dx, dy, dz)`` returns the
@@ -364,7 +364,10 @@ def persistent_reference(
     clusters] as int64, iterations by :func:`warp_trips` of each lane's
     rays.  ``observe(lanes)``, where given, is called before each
     intersect call with the lanes (int64 indices into the flat planes)
-    whose rays it traces, in the order of its rays.
+    whose rays it traces, in the order of its rays.  With
+    ``lane_counts`` a fifth value follows: each lane's [rays, supers,
+    clusters] as a (3, *pix.shape) int64 tensor, the counters the
+    kernels keep a lane.
 
     ``probe`` (names of ``ops/stage_probes.py``) duplicates the loop's
     stages as the kernels' probes do (``csrc/common.cuh`` trace_warp and
@@ -386,6 +389,7 @@ def persistent_reference(
     acc = torch.zeros((n_lanes, 3), dtype=torch.float32, device=device)
     counts = torch.zeros(3, dtype=torch.int64, device=device)
     lane_rays = torch.zeros(n_lanes, dtype=torch.int64, device=device)
+    lane_cull = torch.zeros((2, n_lanes), dtype=torch.int64, device=device)
     hints = torch.full((n_lanes,), -1, dtype=torch.int64, device=device)
 
     for lo in range(0, n_lanes, _LANE_CHUNK):
@@ -423,6 +427,9 @@ def persistent_reference(
                 if supers is not None:
                     counts[1] += supers.sum()
                     counts[2] += clusters.sum()
+                    if lane_counts:
+                        lane_cull[0].index_add_(0, live, supers)
+                        lane_cull[1].index_add_(0, live, clusters)
                 hit = best_t < T_FAR
                 miss = ~hit
                 sky_a = 0.5 * (dy[miss] + 1.0)
@@ -485,6 +492,9 @@ def persistent_reference(
     rad = acc.reshape(*shape, 3)
     stats = torch.stack([counts[0], warp_trips(lane_rays), counts[1],
                          counts[2]])
+    if lane_counts:
+        lanes = torch.cat([lane_rays[None], lane_cull]).reshape(3, *shape)
+        return rad[..., 0], rad[..., 1], rad[..., 2], stats, lanes
     return rad[..., 0], rad[..., 1], rad[..., 2], stats
 
 

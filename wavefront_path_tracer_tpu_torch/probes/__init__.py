@@ -18,6 +18,15 @@ Each module follows its ``exp/`` namesake and runs as
   unfused and fused);
 - :mod:`.matmul_r2`: ``matmul_bench``'s dependent in-kernel products.
 
+The hierarchy sweeps (:mod:`._hier`) run the render kernels with bakes
+and tables of their own: :mod:`.super_gate` (the two-level sweep at the
+headline), :mod:`.sweep10k` (cluster size and super factor on 10,000
+spheres), :mod:`.dynsweep` (the dynamic kernel's cluster size),
+:mod:`.dynnocull` (every sphere a global), :mod:`.cullstats` (supers and
+clusters entered, a warp at a time), :mod:`.meshscale` and
+:mod:`.knotbench` (the torus knot by triangle count) and
+:mod:`.rr_floor_sweep` (the roulette's start and floor).
+
 The kernels are ``csrc/probe_pairs.cu``, ``probe_tripair.cu``,
 ``probe_stream.cu``, ``probe_designs.cu``, ``probe_issue.cu`` and
 ``probe_mma.cu``; :mod:`._slope` times them.
