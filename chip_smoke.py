@@ -302,7 +302,24 @@ this script when it ends or receives SIGTERM.
    ``recluster=2``, rr_floor_sweep) at a cut size in this process, with
    the launch counts set to 0 just before and read just after: its
    kernel launched (knotbench's segmented run the dynamic segment
-   kernel).
+   kernel);
+26. drivers (``drivers``, untimed, in the window in a process of its
+   own): the nine drivers of ``probes/`` and ``examples/`` that time or
+   check a configuration without a probe kernel of their own, each at a
+   cut size with the launch counts set to 0 just before it and read just
+   after, its output in ``OUT_DIR/drivers/``: ``gate_sweep --only`` a
+   same-stream row (baked_cull16 at 400x224@64spp against the card's
+   megakernel) and a golden row (baked/16 at 400x225@1000spp against the
+   committed golden), each under its gate; ``make_golden`` at 6 spp in
+   batches of 2, interrupted after one batch and resumed, bit for bit
+   with an uninterrupted run; ``matsplit_ab`` at RMSE 0.0 on both scenes;
+   ``clamp_bias`` and ``variance10`` (one process beside) to their end;
+   ``texlut`` (the unculled kernel with the texture step), ``bounce0``
+   (the culled kernel with each lane's counters), ``knotprobe`` (the
+   dynamic culled kernel's triangle probes, each probed render equal to
+   the base's) and ``turntable`` (the unculled kernel; the GIF's frames
+   counted from the file) each launching its kernel; and every file under
+   ``golden/`` hashing as it did before the phase.
 
 The last two lines of standard output are a JSON object describing the
 kernels (the probe kernels too, one entry a kernel and probe) and ``{"ok": true, "device": {...}}``; they are printed only when
@@ -4829,10 +4846,216 @@ def _hier_kernels(record: dict) -> list[dict]:
     return out
 
 
+# Phase drivers: the last nine drivers of probes/ and examples/, each at
+# a cut size and held to its own invariant.  Every output goes under
+# DRIVERS_DIR; golden/ is only read.
+DRIVERS_DIR = os.path.join(OUT_DIR, "drivers")
+GATE_ROWS = "baked_cull16,golden_baked_cull16"
+GATE_TIMEOUT = 400         # seconds a gate row's process may take
+GOLDEN_CUT = (6, 2)        # make_golden's samples and batch
+# Set where this script builds the stage probes' library beside the
+# window: a process apart then waits for that build instead of its own.
+PROBE_BUILD_ENV = "WPT_SMOKE_PROBE_BUILD"
+
+
+def _golden_hashes() -> dict:
+    import hashlib
+    from pathlib import Path
+
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(Path(ROOT, "golden").iterdir())}
+
+
+def _await_probe_library() -> None:
+    """Wait up to APART_TIMEOUT for the stage probes' library that the
+    script which started this process builds beside the window; without
+    that build (``--phases drivers`` alone) nothing is waited for."""
+    from wavefront_path_tracer_tpu_torch.ops import _build
+
+    if os.environ.get(PROBE_BUILD_ENV) != "1":
+        return
+    path = (_build.BUILD_ROOT / _build._digest(_build.PROBE_LIB_NAME)
+            / _build.PROBE_LIB_NAME)
+    t0 = time.perf_counter()
+    while not path.exists() and time.perf_counter() - t0 < APART_TIMEOUT:
+        time.sleep(1.0)
+    log(f"[drivers] the probes' library there after "
+        f"{time.perf_counter() - t0:.1f} s of waiting")
+
+
+class _Interrupt(Exception):
+    """Stands for a kill of make_golden after its first batch."""
+
+
+def _make_golden_resume(dev: str) -> dict:
+    """make_golden at GOLDEN_CUT on the card, once whole, once stopped
+    after its first batch and resumed from its checkpoint: the two
+    artifacts' images bit for bit, the checkpoint gone."""
+    from wavefront_path_tracer_tpu_torch import renderer
+    from wavefront_path_tracer_tpu_torch.probes import make_golden as mg
+
+    saved = (mg.SPP, mg.BATCH, mg.CKPT_DIR, renderer.Renderer)
+    mg.SPP, mg.BATCH = GOLDEN_CUT
+    mg.CKPT_DIR = os.path.join(DRIVERS_DIR, "make_golden_ckpt")
+    whole = os.path.join(DRIVERS_DIR, "golden_whole.npz")
+    parted = os.path.join(DRIVERS_DIR, "golden_resumed.npz")
+    ckpt = mg.checkpoint_path(parted)
+    for path in (whole, parted, ckpt, mg.checkpoint_path(whole)):
+        if os.path.exists(path):
+            os.remove(path)
+
+    class Stopped(renderer.Renderer):
+        def render_frame(self):
+            if self.progress.frame == 1:
+                raise _Interrupt
+            return super().render_frame()
+
+    try:
+        first = mg.run(mg.build_parser().parse_args(
+            [whole, "--device", dev]))
+        renderer.Renderer = Stopped
+        try:
+            mg.run(mg.build_parser().parse_args(
+                [parted, "--device", dev]))
+            raise AssertionError("make_golden: the interruption never came")
+        except _Interrupt:
+            pass
+        renderer.Renderer = saved[3]
+        if not os.path.exists(ckpt) or os.path.exists(parted):
+            raise AssertionError("make_golden: no checkpoint after one batch")
+        resumed = mg.run(mg.build_parser().parse_args(
+            [parted, "--device", dev]))
+    finally:
+        mg.SPP, mg.BATCH, mg.CKPT_DIR, renderer.Renderer = saved
+    a, b = np.load(whole), np.load(parted)
+    same = bool(np.array_equal(a["image"], b["image"])
+                and str(a["meta"]) == str(b["meta"]))
+    if resumed["resumed_at"] != GOLDEN_CUT[1] or not same \
+            or os.path.exists(ckpt):
+        raise AssertionError(f"make_golden: resumed at "
+                             f"{resumed['resumed_at']}, images equal {same}")
+    return {"whole_seconds": first["seconds"],
+            "resumed_at": resumed["resumed_at"], "bit_exact": same,
+            "platform": str(b["platform"])}
+
+
+def _drivers_steps(device) -> list:
+    """(name, kernel kinds it must launch, run) of each driver; run
+    returns its record and raises where its invariant fails."""
+    import importlib
+
+    dev = device.type
+
+    def mod(name):
+        pkg = "examples" if name == "turntable" else "probes"
+        return importlib.import_module(
+            f"wavefront_path_tracer_tpu_torch.{pkg}.{name}")
+
+    def run(name, argv):
+        m = mod(name)
+        return m.run(m.build_parser().parse_args([*argv, "--device", dev]))
+
+    def gate_sweep():
+        out = os.path.join(DRIVERS_DIR, "GATE_SWEEP.json")
+        rc = mod("gate_sweep").main([
+            "--only", GATE_ROWS, "--out", out, "--cache-dir",
+            os.path.join(DRIVERS_DIR, "gate_cache"), "--timeout",
+            str(GATE_TIMEOUT), "--device", dev])
+        with open(out) as f:
+            rows = json.load(f)["rows"]
+        kinds = {r["name"].startswith("golden_") for r in rows}
+        if rc != 0 or kinds != {True, False} or not all(
+                r.get("ok") and r.get("pass") for r in rows):
+            raise AssertionError(f"gate_sweep: exit {rc}, rows {rows}")
+        return {"rows": [{k: r.get(k) for k in ("name", "config", "engine",
+                                                "rmse", "gate", "pass",
+                                                "wall_s")} for r in rows]}
+
+    def matsplit():
+        rows = run("matsplit_ab", ["64", "32", "2", "1"])
+        if any(r["rmse"] != 0.0 for r in rows):
+            raise AssertionError(f"matsplit_ab: {rows}")
+        return {"rows": rows}
+
+    def knotprobe():
+        _await_probe_library()
+        return run("knotprobe", ["2000", "64x32", "2"])
+
+    def turntable():
+        from wavefront_path_tracer_tpu_torch.utils.image import read_gif_info
+
+        gif = os.path.join(DRIVERS_DIR, "turntable.gif")
+        rec = run("turntable", ["--frames", "3", "--width", "64",
+                                "--height", "36", "--spp", "4", "--out",
+                                gif])
+        info = read_gif_info(gif)
+        if info["frames"] != 3 or (info["width"], info["height"]) != (64, 36):
+            raise AssertionError(f"turntable: the GIF holds {info}")
+        return {"seconds": rec["seconds"], "gif": info}
+
+    return [
+        ("gate_sweep", (), gate_sweep),
+        ("make_golden", (), lambda: _make_golden_resume(dev)),
+        ("matsplit_ab", (), matsplit),
+        ("clamp_bias", (), lambda: {"rows": run(
+            "clamp_bias", ["--spp", "16", "--width", "32", "--height",
+                           "18"])}),
+        ("variance10", ("culled",), lambda: run(
+            "variance10", ["--runs", "3", "--procs", "1", "--width", "64",
+                           "--height", "32", "--spp", "4"])),
+        ("texlut", ("unculled",), lambda: run(
+            "texlut", ["512", "8192", "--width", "64", "--height", "32",
+                       "--spp", "4"])),
+        ("bounce0", ("culled",), lambda: run(
+            "bounce0", ["--width", "64", "--height", "64", "--spp", "2"])),
+        ("turntable", ("unculled",), turntable),
+        ("knotprobe", tuple(f"dynculled/{p}" for p in (
+            "dbl_raygen", "dyn_dbl_entry", "dyn_dbl_cond", "dyn_dbl_global",
+            "dbl_shade", "dbl_accum", "dbl_loopcond")), knotprobe),
+    ]
+
+
+def phase_drivers(device, smi: str) -> dict:
+    """Each driver of ``_drivers_steps`` in this process, its output in
+    DRIVERS_DIR, the launch counts set to 0 just before it and read just
+    after (each must launch its kernels); then golden/ must hash as it
+    did before."""
+    import contextlib
+
+    os.makedirs(DRIVERS_DIR, exist_ok=True)
+    before = _golden_hashes()
+    out = {}
+    for name, kinds, step in _drivers_steps(device):
+        path = os.path.join(DRIVERS_DIR, f"{name}.log")
+        _reset_launches()
+        t0 = time.perf_counter()
+        with open(path, "w") as f, contextlib.redirect_stdout(f):
+            rec = step()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+        rec.update(seconds=time.perf_counter() - t0,
+                   launches={k: launches[k] for k in kinds})
+        log(f"[drivers] {name}: {rec['seconds']:.1f} s, launches "
+            f"{rec['launches']} [{smi}]")
+        missing = [k for k in kinds if not launches[k] > 0]
+        if missing:
+            raise AssertionError(f"{name}: no launch of {missing}")
+        out[name] = rec
+    after = _golden_hashes()
+    if after != before:
+        raise AssertionError(f"drivers: golden/ changed: {before} -> {after}")
+    out["golden_unchanged"] = sorted(after)
+    log(f"[drivers] golden/ unchanged ({len(after)} files); gate rows "
+        f"{json.dumps(out['gate_sweep']['rows'])}; matsplit rmse "
+        f"{[r['rmse'] for r in out['matsplit_ab']['rows']]}; make_golden "
+        f"resumed at {out['make_golden']['resumed_at']} bit for bit")
+    return out
+
+
 PHASES = ("kernels", "golden", "main", "full", "mesh", "meshfull",
           "meshplain", "tex", "texfull", "seg", "segfull", "probes",
           "sweep", "loop", "segform", "oracle", "wavefront", "bench", "app",
-          "multi", "stageplain", "stage", "segstage", "hier")
+          "multi", "stageplain", "stage", "segstage", "hier", "drivers")
 # Phases, and parts of phases (PARTS: shares of a phase's cases), that
 # time nothing.  With more than one phase to run, WINDOW runs here first
 # while each of APART runs beside it in a process of its own, and the
@@ -4844,7 +5067,8 @@ PARTS = {"kernels": ("book", "mesh"), "oracle": ("tpu", "scenes"),
 WINDOW = (("kernels", "book"),)
 APART = (("kernels", "mesh"), ("meshplain", None), ("tex", None),
          ("seg", None), ("oracle", "tpu"), ("oracle", "scenes"),
-         *(("stageplain", part) for part in STAGE_PARTS), ("hier", "plain"))
+         *(("stageplain", part) for part in STAGE_PARTS), ("hier", "plain"),
+         ("drivers", None))
 APART_TIMEOUT = 600        # seconds a phase apart may take
 
 
@@ -5018,6 +5242,7 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
         pool = ThreadPoolExecutor(1)
         probe_build = pool.submit(phase_build, _build.PROBE_LIB_NAME)
         pool.shutdown(wait=False)
+        os.environ[PROBE_BUILD_ENV] = "1"     # for the processes apart
     # The window (see WINDOW) and the processes beside it.
     concurrent = len(phases) > 1
     window = [w for w in WINDOW if concurrent and w[0] in phases]
@@ -5068,7 +5293,8 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
              ("stage", "stage", lambda part: phase_stage(device, smi)),
              ("segstage", "segstage",
               lambda part: phase_segstage(device, smi)),
-             ("hier", "hier", lambda part: phase_hier(device, smi, part)))
+             ("hier", "hier", lambda part: phase_hier(device, smi, part)),
+             ("drivers", "drivers", lambda part: phase_drivers(device, smi)))
     keys = {phase: key for phase, key, _run in steps}
     runs = {phase: run for phase, _key, run in steps}
     record["phase_seconds"] = {}

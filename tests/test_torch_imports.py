@@ -36,6 +36,8 @@ def test_port_never_imports_jax():
         sys.modules["jax"] = None
         sys.modules["wavefront_path_tracer_tpu"] = None
         sys.modules["examples"] = None
+        # Nor Pillow, which the card's Python does not have.
+        sys.modules["PIL"] = None
         # Nor any module of exp/ (its scripts import each other by name).
         for name in ("exp", "micro_r2", "tripair", "hbm_bw", "pair_ceiling",
                      "bf16_issue", "micro_slope"):
@@ -81,6 +83,16 @@ def test_port_never_imports_jax():
         import wavefront_path_tracer_tpu_torch.probes.pair_ceiling
         import wavefront_path_tracer_tpu_torch.probes.run_pairs
         import wavefront_path_tracer_tpu_torch.probes.tripair
+        import wavefront_path_tracer_tpu_torch.probes.gate_sweep
+        import wavefront_path_tracer_tpu_torch.probes.make_golden
+        import wavefront_path_tracer_tpu_torch.probes.matsplit_ab
+        import wavefront_path_tracer_tpu_torch.probes.clamp_bias
+        import wavefront_path_tracer_tpu_torch.probes.variance10
+        import wavefront_path_tracer_tpu_torch.probes.texlut
+        import wavefront_path_tracer_tpu_torch.probes.bounce0
+        import wavefront_path_tracer_tpu_torch.probes.knotprobe
+        import wavefront_path_tracer_tpu_torch.examples.turntable
+        import wavefront_path_tracer_tpu_torch.utils.child
         import wavefront_path_tracer_tpu_torch.utils.image
         import wavefront_path_tracer_tpu_torch.utils.parity
         import wavefront_path_tracer_tpu_torch.utils.preview
@@ -150,7 +162,12 @@ def test_port_never_imports_jax():
             cc.view_matrix(), cc.inverse_projection(8, 8), cfg_s,
             n_samples=1, reps=1)
         assert base > 0 and len(rows) == 7
-        for name in ("jax", "wavefront_path_tracer_tpu", "examples",
+        from wavefront_path_tracer_tpu_torch.utils.image import (
+            encode_gif, read_gif_info)
+        import numpy as np
+        data, _q = encode_gif([np.zeros((4, 4, 3), np.uint8)] * 2)
+        assert data.startswith(b"GIF89a") and data.endswith(b";")
+        for name in ("jax", "wavefront_path_tracer_tpu", "examples", "PIL",
                      "micro_r2", "tripair", "hbm_bw", "pair_ceiling",
                      "bf16_issue", "micro_slope"):
             assert sys.modules[name] is None
@@ -181,7 +198,8 @@ def test_no_file_imports_the_jax_package():
                  for f in files
                  for n, line in enumerate(f.read_text().splitlines(), 1)
                  if _JAX_PACKAGE_IMPORT.search(line)
-                 or re.search(r"^\s*(import|from) (jax|examples|exp)\b", line)
+                 or re.search(r"^\s*(import|from) (jax|examples|exp|PIL)\b",
+                              line)
                  or re.search(r"^\s*import (micro_r2|tripair|hbm_bw|"
                               r"pair_ceiling|bf16_issue|micro_slope)\b",
                               line)

@@ -27,6 +27,22 @@ clusters entered, a warp at a time), :mod:`.meshscale` and
 :mod:`.knotbench` (the torus knot by triangle count) and
 :mod:`.rr_floor_sweep` (the roulette's start and floor).
 
+The last nine drivers check or time a configuration through the render
+paths, with no kernel of their own: :mod:`.gate_sweep` (the sixteen
+gate rows, each the port's ``validate`` in a process of its own),
+:mod:`.make_golden` (the golden oracle in batches, with resume),
+:mod:`.matsplit_ab` (the wavefront engine's material split),
+:mod:`.clamp_bias` (the clamp's bias), :mod:`.variance10` (the spread
+of one render within and across processes), :mod:`.texlut` (image
+textures against the LUT budget), :mod:`.bounce0` (the bounce-0
+shortlist against the lanes' own cluster entries) and :mod:`.knotprobe`
+(the dynamic stage table on the knot); the orbit GIF is
+``examples/turntable.py``.  Each runs on the card by default; on the
+CPU with ``--device cpu`` at a small size (``gate_sweep``'s rows take
+``--device`` through to ``validate``; ``make_golden`` takes its samples
+from ``GOLDEN_SPP`` and ``GOLDEN_BATCH``).  None writes under
+``golden/``.
+
 The kernels are ``csrc/probe_pairs.cu``, ``probe_tripair.cu``,
 ``probe_stream.cu``, ``probe_designs.cu``, ``probe_issue.cu`` and
 ``probe_mma.cu``; :mod:`._slope` times them.
