@@ -129,7 +129,9 @@ this script when it ends or receives SIGTERM.
    bound of the float64 sums), one timed full-width call of each
    kernels-line entry beside its plain version and bound (torch.sum
    beside the stream, the torch.matmul loop beside the matmul row), the
-   SASS instructions a pair of the ceiling's kernels, and each probe's
+   SASS instructions a pair of the ceiling's kernels and of every
+   probe_designs.cu form (each kernel's sweep loop's, with ptxas's
+   registers and spills: a kernel that spills fails), and each probe's
    command line (micro_r2 with every design's name, and micro_slope, at
    reduced rep points) with the launch counts set to 0 just before it
    and read just after; a reading above the card's spec fails.  After
@@ -2304,29 +2306,109 @@ def _same_bits(label: str, k, p, hits: bool = True) -> float:
     return err
 
 
-def _sass_per_pair(smi: str) -> dict:
-    """SASS instructions of the pair-ceiling kernels (``cuobjdump -sass``
-    of the built library, ``utils/sass.py``) over the pairs their sweep
-    loop's body holds (C6 unrolled by 4, A2 by 8); the counts include the
-    kernel's set-up, the rep loop and the square root's slow path, so
-    they bound the pair from above."""
+def _design_forms(mangled: str) -> tuple:
+    """(group, the run_pairs forms [(design, place, lanes)] that the
+    probe_designs.cu kernel ``mangled`` runs), read from its template
+    arguments; (None, []) for another function."""
+    import re
+
+    _pc, _tp, _hb, _m, rp, _bi, _mr = _probe_modules()
+    m = re.search(r"design_(ray_major|sphere_major|tile_gated)"
+                  r"I((?:Li-?\d+E)+)E", mangled)
+    if not m:
+        return None, []
+    args = [int(a) for a in re.findall(r"Li(-?\d+)E", m[2])]
+    names = {k: d for d, k in rp.KERNEL_IDS.items() if d != "A2d"}
+    place = {k: p for p, k in rp.PLACE_IDS.items()}[args[1]]
+    lanes = args[2] if m[1] == "sphere_major" else 1
+    forms = [(names[args[0]], place, lanes)]
+    if forms[0] == ("C6d", "const", 8):
+        forms.append(("A2d", "const", 8))     # the same kernel
+    return m[1], [f for f in forms if (f[1], f[2]) in rp.forms(f[0])]
+
+
+def _sass_per_pair(smi: str, n_rays: int) -> dict:
+    """SASS instructions a pair of the pair ceiling's kernels (C6, A2:
+    csrc/probe_pairs.cu ``probe_pair_sweep``) and of every run_pairs form
+    of csrc/probe_designs.cu, all read alike from the built library
+    (``cuobjdump -sass``, ``utils/sass.py``): the kernel's sweep loop (the
+    innermost loop that holds a square root, ``inner_loop``; Q2's, which
+    has none, the innermost loop, whose pairs are Q's: the same kernel
+    template, unroll and rays a thread), the pairs it holds (its square
+    roots), the instructions a pair there, the uniform datapath's
+    instructions and the table loads (LDC, ULDC, LDG, LDS) among them,
+    and ptxas's registers, stack and spills; beside them the time the
+    kernels line's call (``n_rays`` rays, PROBE_REPS reps) would take at
+    full issue of those instructions a pair (ungated forms).  Keyed "C6",
+    "A2" and "design place lanes"; {} without cuobjdump.  Each kernel's
+    listing goes to ``OUT_DIR/probe_sass/``."""
     from wavefront_path_tracer_tpu_torch.ops import _build
+    from wavefront_path_tracer_tpu_torch.probes import _slope
     from wavefront_path_tracer_tpu_torch.utils import sass
 
     if sass.cuobjdump() is None:
         log("[probe-sass] cuobjdump not found: instructions a pair not "
             "measured")
         return {}
-    out = {}
-    for name, n in sass.counts(_build.build()[0]).items():
-        if "probe_pair_sweep" not in name:
+    _pc, _tp, _hb, m, rp, _bi, _mr = _probe_modules()
+    lib, report, _ = _build.build()
+    ptx = {r["mangled"]: r for match in ("probe_pair_sweep", "design_")
+           for r in _build.ptxas_kernels(report, match)}
+    rate = _slope.issue_rate(_slope.card())
+    dump = os.path.join(OUT_DIR, "probe_sass")
+    os.makedirs(dump, exist_ok=True)
+    reps, q2 = {}, None
+    for name, n in sass.counts(lib).items():
+        if "probe_pair_sweep" in name:
+            group = "pair_ceiling"
+            forms = [("A2",) if "Lb1E" in name else ("C6",)]
+        else:
+            group, forms = _design_forms(name)
+        if not forms:
             continue
-        variant, pairs = ("A2", 8) if "Lb1E" in name else ("C6", 4)
-        out[variant] = {"function": name, "instructions": n,
-                        "per_pair": n / pairs}
-        log(f"[probe-sass] {variant} {name}: {n} SASS instructions, "
-            f"{n / pairs:.1f} a pair at most [{smi}]")
-    return out
+        listing = sass.listings(lib)[name]
+        with open(os.path.join(dump, "_".join(map(str, forms[0]))
+                               + ".sass"), "w") as f:
+            f.write(listing)
+        body = sass.inner_loop(listing, "MUFU.RSQ")
+        if forms[0][0] == "Q2":
+            body, q2 = sass.inner_loop(listing), forms
+        ops = [sass.opcode(t) for t in body]
+        rep = {"function": name, "group": group,
+               "instructions": n,
+               "body": len(ops), "pairs_in_body": ops.count("MUFU.RSQ"),
+               "uniform": sum(o.startswith("U") for o in ops),
+               "loads": {k: sum(o.split(".")[0] == k for o in ops)
+                         for k in ("LDC", "ULDC", "LDG", "LDS")},
+               **{k: ptx.get(name, {}).get(k) for k in (
+                   "registers", "stack", "spill_stores", "spill_loads")}}
+        for form in forms:
+            reps[" ".join(map(str, form))] = rep
+    if q2 is not None:
+        reps[" ".join(map(str, q2[0]))]["pairs_in_body"] = (
+            reps.get("Q const 1", {}).get("pairs_in_body", 0))
+    for key, rep in reps.items():
+        pairs = rep["pairs_in_body"]
+        rep["per_pair"] = rep["body"] / pairs if pairs else None
+        ungated = key.split()[0] not in rp.TILE_GATED or key == "W0 const 1"
+        rep["issue_bound_ms"] = (rep["per_pair"] * m.S * n_rays * PROBE_REPS
+                                 / rate * 1e3
+                                 if rep["per_pair"] and ungated else None)
+        per = f"{rep['per_pair']:.2f}" if rep["per_pair"] else "-"
+        log(f"[probe-sass] {key}: {rep['instructions']} SASS instructions, "
+            f"sweep loop {rep['body']} for {pairs} pairs ({per} a pair; "
+            f"{rep['uniform']} on the uniform datapath; loads "
+            f"{json.dumps(rep['loads'])}); issue-bound "
+            f"{rep['issue_bound_ms']!r} ms at {PROBE_REPS} reps x {n_rays} "
+            f"rays; ptxas {rep['registers']} registers, {rep['stack']} "
+            f"bytes stack, {rep['spill_stores']} / {rep['spill_loads']} "
+            f"bytes spilled [{smi}]")
+    missing = [k for k in ("C6", "A2") if k not in reps] + [
+        f"{d} {p} {n}" for d in rp.DESIGNS if d not in ("C6", "A2")
+        for p, n in rp.forms(d) if f"{d} {p} {n}" not in reps]
+    if missing:
+        raise AssertionError(f"no kernel found for {missing}")
+    return reps
 
 
 def _probe_timed(label, kernel, plain, bound) -> dict:
@@ -2362,15 +2444,25 @@ def _bits(t):
 
 def _check_new_probes(device, rays1, rays, errs: dict) -> None:
     """Queue 2 items 8 (C45/C7), 9, 11 and 12 against their plain versions
-    on the card: every run_pairs design in each of its forms bit for bit
-    over the full-width rays at 2 reps, and its output over the
-    reference's 1024 rays alone equal to copy 0; bf16_issue's chains over
+    on the card: the designs' branchless square root equal to sqrtf on
+    every float; every run_pairs design in each of its forms bit for bit
+    at 2 reps over the full-width rays and over the reference's 1024 rays
+    alone (the plain version's copy 0: a ray's output depends on its
+    tile alone); bf16_issue's chains over
     the full copies at 2 reps bit for bit (the fused forms against their
     own plain version, one rounding a multiply-add), the (256, 128) block
     alone equal to copy 0; matmul_bench's rows at 8
     products, every cluster copy equal and within the stated bound of the
     plain version.  ``errs`` takes each kernel's largest difference."""
+    from wavefront_path_tracer_tpu_torch.probes import _slope
+
     _pc, _tp, _hb, _m, rp, bi, mr = _probe_modules()
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    _slope.launch("wpt_probe_sqrt_mismatches", count.data_ptr())
+    log(f"[probe-vs-plain] probe_designs.cu sqrt_rn against sqrtf over all "
+        f"2^32 floats: {int(count.item())} differ")
+    if int(count.item()):
+        raise AssertionError("sqrt_rn is not sqrtf")
     for design in rp.DESIGNS:
         if design in ("C6", "A2"):           # the pair ceiling's kernels
             continue
@@ -2384,9 +2476,10 @@ def _check_new_probes(device, rays1, rays, errs: dict) -> None:
             errs[key] = max(errs[key], _same_bits(label, k, plain,
                                                   hits=design != "W2"))
             one = rp.design_sweep(tab, rays1, 2, design, place, lanes)
-            if not torch.equal(_bits(one), _bits(k[:rays1.shape[1]])):
-                raise AssertionError(f"{label}: copy 0 differs from the "
-                                     f"1024 rays alone")
+            errs[key] = max(errs[key], _same_bits(
+                f"run_pairs {design} {place} {lanes} lane(s) "
+                f"{rays1.shape[1]} rays 2 reps", one,
+                plain[:rays1.shape[1]], hits=design != "W2"))
     for form in bi.FORMS:
         x = bi.make_x(form, bi.COPIES[form], device)
         k = bi.chains(x, 2, form)
@@ -2567,7 +2660,11 @@ def phase_probes(device, smi: str) -> dict:
             f"plain {rep['plain_ms']!r} ms, bound {rep['bound_ms']!r} ms "
             f"({rep['bound_by']}), library "
             f"{rep.get('library_ms')!r} ms [{smi}]")
-    sass = _sass_per_pair(smi)
+    sass = _sass_per_pair(smi, n)
+    spilled = [k for k, r in sass.items()
+               if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"probe kernels that spill: {spilled}")
 
     # The probes' command lines: the main path, each with the launch
     # counts set to 0 just before it and read just after it.

@@ -652,6 +652,17 @@ def test_design_kernels_match_plain(device, case):
             assert torch.equal(k[:1024], k[1024:])
 
 
+def test_design_sqrt_matches_sqrtf(device):
+    """probe_designs.cu's branchless square root against sqrtf on every
+    one of the 2^32 floats (NaN against NaN)."""
+    from wavefront_path_tracer_tpu_torch.probes import _slope
+
+    count = torch.zeros(1, dtype=torch.int64, device=device)
+    _slope.launch("wpt_probe_sqrt_mismatches", count.data_ptr())
+    torch.cuda.synchronize()
+    assert int(count.item()) == 0
+
+
 @pytest.mark.parametrize("form", ["f32", "f32_fma", "bf16x2", "bf16",
                                   "bf16x2_fma", "i16", "i8"])
 def test_issue_kernels_match_plain(device, form):

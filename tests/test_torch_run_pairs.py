@@ -212,3 +212,20 @@ def test_command_lines_take_the_reference_names(capsys, monkeypatch):
     for main in (tm.main, micro_slope.main):
         with pytest.raises(RuntimeError, match="needs CUDA"):
             main([])
+
+
+@pytest.mark.parametrize("design", trp.DESIGNS)
+def test_design_output_follows_its_ray(design):
+    """A ray's output does not depend on where it stands among the rays:
+    the 1024 rays of one tile permuted give the output permuted, bit for
+    bit, at 2 reps over the full table (the kernels carry several rays a
+    thread and may group them in any order; a tile-gated design's gates
+    see the same tile)."""
+    rays = tm.ray_planes()
+    perm = torch.from_numpy(np.random.default_rng(21).permutation(
+        rays.shape[1]))
+    tab = trp.table_for(design)
+    out = trp.design_reference(tab, rays, 2, design)
+    moved = trp.design_reference(tab, rays[:, perm].contiguous(), 2, design)
+    assert torch.equal(moved.view(torch.int32), out[perm].view(torch.int32))
+    assert design == "W2" or bool((out < 1e29).any())

@@ -1,0 +1,211 @@
+"""The SASS reading of ``utils/sass.py`` (the innermost loop of a listing)
+and the probes phase's reading of the pair ceiling's kernels and of
+``csrc/probe_designs.cu``'s (``chip_smoke.py`` ``_design_forms``,
+``_sass_per_pair``) on synthetic listings in ``cuobjdump -sass``'s
+layout, on the CPU: the card's listings come only from a build there."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+from wavefront_path_tracer_tpu_torch.probes import run_pairs as rp
+from wavefront_path_tracer_tpu_torch.utils import sass
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_sass",
+                                                  ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+cs = _smoke()
+
+
+def _listing(name, body, pairs, labels=True, tail=("EXIT",)):
+    """A kernel's listing: set-up, a rep loop around a sweep loop of
+    ``body`` instructions of which ``pairs`` are square roots, the rep
+    loop's end, ``tail``, then a slow path that branches back into the
+    sweep and the closing self-branch."""
+    lines, addr = [f"{name}\n"], 0
+
+    def put(text, label=None):
+        nonlocal addr
+        if label is not None and labels:
+            lines.append(f".L_x_{label}:\n")
+        lines.append(f"        /*{addr:04x}*/                   {text} ;"
+                     f"                 /* 0x000fe20000000800 */\n"
+                     f"                                            "
+                     f"/* 0x000fe20000000800 */\n")
+        addr += 16
+        return addr - 16
+
+    def target(label, at):
+        return f"`(.L_x_{label})" if labels else hex(at)
+
+    put("LDC R1, c[0x0][0x28]")
+    put("S2R R0, SR_TID.X")
+    rep = put("MOV R2, RZ", label=0)
+    sweep = put("ULDC UR4, c[0x3][0x0]", label=1)
+    for k in range(body - 3):
+        put("MUFU.RSQ R5, R4" if k < pairs else "FADD R6, R6, R7")
+    put("UIADD3 UR5, UR5, 0x40, URZ")
+    put(f"@P0 BRA {target(1, sweep)}")
+    put("FADD R3, R3, R2")
+    put(f"@!P1 BRA {target(0, rep)}")
+    for text in tail:
+        put(text)
+    slow = put("MUFU.RSQ R9, R8", label=2)
+    put(f"BRA {target(1, sweep)}")
+    put(f"BRA {target(3, slow + 32)}", label=3)
+    return "".join(lines)
+
+
+@pytest.mark.parametrize("labels", [True, False])
+def test_inner_loop_is_the_sweep(labels):
+    """The sweep loop (7 instructions, 4 of them square roots) in both
+    branch forms (labels, addresses); the slow path's branch back and the
+    self-branch after EXIT are not loops; without a marker too."""
+    text = _listing("f", 7, 4, labels=labels)
+    loop = sass.inner_loop(text, "MUFU.RSQ")
+    assert len(loop) == 7
+    assert [sass.opcode(t) for t in loop].count("MUFU.RSQ") == 4
+    assert loop[0].startswith("ULDC") and loop[-1].startswith("@P0 BRA")
+    assert sass.inner_loop(text) == loop
+    assert sass.inner_loop(text, "HMMA.16816") == []
+    assert sass.inner_loop(_listing("g", 7, 4, tail=())) == []
+
+
+def test_opcode_drops_the_predicate():
+    assert sass.opcode("@!P0 LDG.E.CONSTANT R4, desc[UR4][R2.64]") == (
+        "LDG.E.CONSTANT")
+    assert sass.opcode("MUFU.RSQ R5, R4") == "MUFU.RSQ"
+    assert sass.opcode("") == ""
+
+
+def _mangled(group, *args):
+    name = f"design_{group}"
+    targs = "".join(f"Li{a}E" for a in args)
+    return f"_ZN12_GLOBAL__N_1{len(name)}{name}I{targs}EEvPKfS2_iiPf"
+
+
+def _instantiations():
+    """The mangled names of the kernels ``wpt_probe_design_launch``
+    instantiates (its dispatch, by hand)."""
+    ids, place = rp.KERNEL_IDS, rp.PLACE_IDS
+    names = [_mangled("ray_major", ids[d], place[p], 1 if d == "C5" else 8)
+             for d in rp.RAY_MAJOR for p in rp.PLACES[d]]
+    names += [_mangled("sphere_major", ids[d], place[p], n)
+              for d in ("C6d", "C7") for p in rp.PLACES[d]
+              for n in rp.LANES[d]]
+    names.append(_mangled("sphere_major", ids["C"], place["global"], 8))
+    names += [_mangled("tile_gated", ids[d], place[rp.PLACES[d][0]])
+              for d in rp.TILE_GATED]
+    return names
+
+
+def test_design_forms_cover_every_form():
+    """Each instantiation maps to its run_pairs forms (A2d onto C6d's
+    constant-bank 8-lane kernel), together every form of the 21 designs
+    once; other functions map to none."""
+    got = []
+    for name in _instantiations():
+        group, forms = cs._design_forms(name)
+        assert forms and group in ("ray_major", "sphere_major",
+                                   "tile_gated")
+        got += forms
+    want = [(d, p, n) for d in rp.DESIGNS if d not in ("C6", "A2")
+            for p, n in rp.forms(d)]
+    assert sorted(got) == sorted(want)
+    assert cs._design_forms("_Z16probe_pair_sweepPKfS0_iiPf") == (None, [])
+
+
+C6 = ("_ZN47_GLOBAL__N__0194f6e1_14_probe_pairs_cu_e5058c8e16"
+      "probe_pair_sweepILb0EEEvPKfS2_iiPf")
+A2 = C6.replace("ILb0EE", "ILb1EE")
+
+
+def _read(monkeypatch, tmp_path, listings):
+    """``_sass_per_pair`` over the synthetic ``listings``, each kernel's
+    ptxas report at 64 registers and no spill, on a card issuing 33.45 T
+    thread instructions a second."""
+    from wavefront_path_tracer_tpu_torch.ops import _build
+    from wavefront_path_tracer_tpu_torch.probes import _slope
+
+    report = "".join(
+        f"ptxas info    : Compiling entry function '{n}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {n}\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        f"loads\nptxas info    : Used 64 registers\n" for n in listings)
+    monkeypatch.setattr(_build, "build", lambda: ("lib", report, None))
+    monkeypatch.setattr(sass, "cuobjdump", lambda: "cuobjdump")
+    monkeypatch.setattr(sass, "listings", lambda lib: listings)
+    monkeypatch.setattr(cs, "log", lambda *a: None)
+    monkeypatch.setattr(cs, "OUT_DIR", str(tmp_path))
+    monkeypatch.setattr(_slope, "card", lambda: "H100, 700.00 W, 1980 MHz")
+    monkeypatch.setattr(_slope, "issue_rate", lambda card: 33.45e12)
+    return cs._sass_per_pair("smi", 1024)
+
+
+def _every_kernel():
+    """Synthetic listings of the two ceiling kernels (C6 unrolled by 4,
+    A2 by 8) and of every probe_designs.cu instantiation (Q's loop 32
+    pairs, as at 4 rays a thread and unroll 8; Q2's none)."""
+    q = _mangled("ray_major", rp.KERNEL_IDS["Q"], rp.PLACE_IDS["const"], 8)
+    q2 = _mangled("ray_major", rp.KERNEL_IDS["Q2"], rp.PLACE_IDS["const"], 8)
+    pairs = {n: 32 if n == q else 0 if n == q2 else 8
+             for n in _instantiations()}
+    pairs.update({C6: 4, A2: 8})
+    return {n: _listing(n, 40, p) for n, p in pairs.items()}
+
+
+def test_sass_per_pair_reads_every_design_form(monkeypatch, tmp_path):
+    """Every probe_designs.cu form's sweep loop, pairs and instructions a
+    pair, ptxas's registers and spills from a -v report, the issue-bound
+    time of the kernels line's call for the ungated forms only; Q2's loop
+    has no square root and holds Q's pairs; a form without a kernel
+    fails."""
+    listings = _every_kernel()
+    out = _read(monkeypatch, tmp_path, listings)
+    assert len(out) == 2 + sum(len(rp.forms(d)) for d in rp.DESIGNS
+                               if d not in ("C6", "A2"))
+    for key, rep in out.items():
+        if key in ("C6", "A2"):
+            continue
+        design = key.split()[0]
+        assert rep["body"] == 40 and rep["registers"] == 64
+        assert rep["spill_stores"] == 0 and rep["uniform"] == 2
+        assert rep["loads"] == {"LDC": 0, "ULDC": 1, "LDG": 0, "LDS": 0}
+        pairs = 32 if design in ("Q", "Q2") else 8
+        assert rep["pairs_in_body"] == pairs
+        assert rep["per_pair"] == 40 / pairs
+        gated = design in rp.TILE_GATED and design != "W0"
+        assert (rep["issue_bound_ms"] is None) == gated
+    assert out["A const 1"]["issue_bound_ms"] == pytest.approx(
+        5.0 * 400 * 1024 * cs.PROBE_REPS / 33.45e12 * 1e3)
+    del listings[_instantiations()[0]]
+    with pytest.raises(AssertionError, match="no kernel found"):
+        _read(monkeypatch, tmp_path, listings)
+
+
+def test_sass_per_pair_reads_the_ceiling_kernels(monkeypatch, tmp_path):
+    """C6 and A2 (csrc/probe_pairs.cu) by the same yardstick as the
+    designs: the sweep loop's instructions over its square roots (4 and
+    8), their ptxas figures, their issue-bound times; their listings
+    kept beside the designs'; a build without them fails."""
+    listings = _every_kernel()
+    out = _read(monkeypatch, tmp_path, listings)
+    assert out["C6"]["pairs_in_body"] == 4 and out["C6"]["per_pair"] == 10.0
+    assert out["A2"]["pairs_in_body"] == 8 and out["A2"]["per_pair"] == 5.0
+    assert out["C6"]["group"] == "pair_ceiling"
+    assert out["C6"]["registers"] == 64 and out["A2"]["spill_loads"] == 0
+    assert out["C6"]["issue_bound_ms"] == pytest.approx(
+        10.0 * 400 * 1024 * cs.PROBE_REPS / 33.45e12 * 1e3)
+    assert (tmp_path / "probe_sass" / "C6.sass").read_text() == listings[C6]
+    del listings[A2]
+    with pytest.raises(AssertionError, match=r"\['A2'\]"):
+        _read(monkeypatch, tmp_path, listings)

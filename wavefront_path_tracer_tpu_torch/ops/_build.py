@@ -304,6 +304,9 @@ def load_library() -> ctypes.CDLL:
     fn.argtypes = [ptr, i32, ptr, i32, i32,   # tab, cols, rays, n, reps
                    i32, i32, i32, ptr, ptr]   # design, place, lanes, out,
     fn.restype = ctypes.c_int                 # stream
+    fn = lib.wpt_probe_sqrt_mismatches
+    fn.argtypes = [ptr, ptr]                  # count, stream
+    fn.restype = ctypes.c_int
     fn = lib.wpt_probe_issue_launch
     fn.argtypes = [i32, ptr, i32, i32,        # form, x, n_elems, reps
                    f32, f32, ptr, ptr]        # one, half, out, stream

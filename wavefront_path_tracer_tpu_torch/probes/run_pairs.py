@@ -30,10 +30,12 @@ groups, each computing its reference kernel's function:
   ``W7`` (W5's form over x/y boxes offset by c * 0.5, the device table).
 
 A sphere-major design runs 8 lanes to a ray (the TPU's 8 spheres on
-sublanes) or, for C6d and C7, also one ray a thread; C45, C6d and C7 read
+sublanes) or, for C6d and C7, also one lane a ray; C45, C6d and C7 read
 their table from device memory through L1, from shared memory or from the
 constant bank (``PLACES``).  Gpairs/s counts reps x 400 x rays, as
-``run_pairs`` does, gated designs included.
+``run_pairs`` does, gated designs included.  The kernels carry 4 rays a
+thread (a tile-gated block: 256 threads for the 1024-ray tile); a ray's
+output depends on its own ray (and its tile's gates) alone.
 """
 
 from __future__ import annotations

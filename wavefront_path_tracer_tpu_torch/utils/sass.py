@@ -65,6 +65,59 @@ def work_counts(lib) -> dict:
             for name, n in counts(lib).items()}
 
 
+# A listing's instruction lines (address, text before the ``;``), its
+# labels, and a branch to a label or an address.
+_LINE = re.compile(r"^\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", re.M)
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):", re.M)
+_BRA = re.compile(r"^(?:@!?U?P\w+\s+)?BRA(?:\.\S+)?\s+(?:`\((\.L_x_\d+)\)|"
+                  r"(0x[0-9a-f]+))")
+
+
+def inner_loop(listing: str, marker: str | None = None) -> list[str]:
+    """The instructions of the function's innermost loop: the shortest
+    span from a backward branch's target to the branch, among the
+    branches before the function's last ``EXIT`` (after it lie the slow
+    paths and the closing self-branch) whose span holds ``marker`` (an
+    opcode, e.g. ``MUFU.RSQ``) where one is given; [] where there is
+    none."""
+    labels, pending, addrs = {}, [], []
+    for m in re.finditer(f"{_LABEL.pattern}|{_LINE.pattern}", listing,
+                         re.M):
+        if m[1]:
+            pending.append(m[1])
+            continue
+        addr = int(m[2], 16)
+        addrs.append((addr, m[3]))
+        for name in pending:
+            labels[name] = addr
+        pending = []
+    exits = [k for k, (_a, t) in enumerate(addrs) if opcode(t) == "EXIT"]
+    best = None
+    for k, (addr, text) in enumerate(addrs[:exits[-1] if exits else 0]):
+        m = _BRA.match(text)
+        if not m:
+            continue
+        target = labels.get(m[1]) if m[1] else int(m[2], 16)
+        if target is None or target >= addr:
+            continue
+        body = [t for a, t in addrs[:k + 1] if a >= target]
+        if marker is not None and not any(opcode(t) == marker
+                                          for t in body):
+            continue
+        if best is None or len(body) < len(best):
+            best = body
+    return best or []
+
+
+def opcode(text: str) -> str:
+    """An instruction's opcode with its modifiers (``MUFU.RSQ``,
+    ``LDG.E.CONSTANT``), its predicate taken off."""
+    words = text.split()
+    if words and words[0].startswith("@"):
+        words = words[1:]
+    return words[0] if words else ""
+
+
 def normalized(demangled: str) -> str:
     """A demangled kernel name without namespaces, spaces or a trailing
     template argument of 0 (the unprobed kernels' kProbe)."""
