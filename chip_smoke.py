@@ -119,24 +119,27 @@ this script when it ends or receives SIGTERM.
 13. probes (``probes``): the probe kernels of ``probes/`` against their
    plain versions on the card (the pair ceiling's C6 and A2, the gated
    sweeps' W8 and C8 patterns under per-thread, warp-vote and worklist
-   gating, the four triangle-pair forms, and run_pairs's 21 other
-   designs in each of their forms (table place, lanes a ray) over the
-   full-width rays, copy 0 against the 1024 rays alone, bit for bit at 2
-   reps; bf16_issue's seven chain forms bit for bit (the fused ones
-   rounding each multiply-add once); matmul_bench's seven rows within
-   their stated bound, every cluster copy equal; the stream's plain and
-   cp.async kernels at 8-64 KB chunks within the float32 summation
-   bound of the float64 sums), one timed full-width call of each
-   kernels-line entry beside its plain version and bound (torch.sum
-   beside the stream, the torch.matmul loop beside the matmul row), the
-   SASS instructions a pair of the ceiling's kernels and of every
-   probe_designs.cu form (each kernel's sweep loop's, with ptxas's
-   registers and spills: a kernel that spills fails), and each probe's
+   gating, the four triangle-pair forms at the reference's 1024 rays and
+   at the full width, and run_pairs's 21 other designs in each of their
+   forms (table place, lanes a ray) over the full-width rays, copy 0
+   against the 1024 rays alone, bit for bit at 2 reps; bf16_issue's
+   seven chain forms bit for bit (the fused ones rounding each
+   multiply-add once); matmul_bench's seven rows within their stated
+   bound, every copy equal; the stream's plain and cp.async kernels at
+   8-64 KB chunks within the float32 summation bound of the float64
+   sums), one timed full-width call of each kernels-line entry beside
+   its plain version and bound (torch.sum beside the stream, the
+   torch.matmul loop over all copies beside the matmul row), the SASS
+   instructions a pair of the ceiling's kernels, of every
+   probe_designs.cu form and of the four triangle forms (each kernel's
+   sweep loop's) and the matmul rows' mma instructions, with ptxas's
+   registers and spills (a kernel that spills fails), and each probe's
    command line (micro_r2 with every design's name, and micro_slope, at
    reduced rep points) with the launch counts set to 0 just before it
    and read just after; a reading above the card's spec fails.  After
    it, each culled and mesh kernel's time beside the time of its pairs
-   at the measured ceiling;
+   at the measured ceiling (the mesh rows also at the bench's triangle
+   ceiling);
 14. sweep forms (``sweep``): the serial sweep (T = 0, every entered
    cluster on its own thread) and the shipped form (a vote per cluster,
    the cooperative fold where at most T lanes enter) of the baked culled
@@ -2327,21 +2330,47 @@ def _design_forms(mangled: str) -> tuple:
     return m[1], [f for f in forms if (f[1], f[2]) in rp.forms(f[0])]
 
 
+def _mma_row(mangled: str):
+    """The matmul_bench row (index of ``matmul_r2.ROWS``) whose
+    csrc/probe_mma.cu kernel ``mangled`` is, read from its ``Row``
+    template arguments (shape and precision); None for another
+    function."""
+    import re
+
+    _pc, _tp, _hb, _m, _rp, _bi, mr = _probe_modules()
+    m = re.search(r"probe_mmaI.*?RowILi(\d+)ELi(\d+)ELi(\d+)ELi\d+ELi\d+E"
+                  r"Li(\d+)E", mangled)
+    if not m:
+        return None
+    shape, prec = tuple(int(v) for v in m.groups()[:3]), int(m[4])
+    names = {0: "tf32", 1: "fp32", 2: "bf16"}
+    return next(r for r, (_n, sh, p) in enumerate(mr.ROWS)
+                if sh == shape and p == names[prec])
+
+
 def _sass_per_pair(smi: str, n_rays: int) -> dict:
     """SASS instructions a pair of the pair ceiling's kernels (C6, A2:
-    csrc/probe_pairs.cu ``probe_pair_sweep``) and of every run_pairs form
-    of csrc/probe_designs.cu, all read alike from the built library
+    csrc/probe_pairs.cu ``probe_pair_sweep``), of every run_pairs form of
+    csrc/probe_designs.cu and of the four triangle forms
+    (csrc/probe_tripair.cu), all read alike from the built library
     (``cuobjdump -sass``, ``utils/sass.py``): the kernel's sweep loop (the
-    innermost loop that holds a square root, ``inner_loop``; Q2's, which
-    has none, the innermost loop, whose pairs are Q's: the same kernel
-    template, unroll and rays a thread), the pairs it holds (its square
-    roots), the instructions a pair there, the uniform datapath's
-    instructions and the table loads (LDC, ULDC, LDG, LDS) among them,
-    and ptxas's registers, stack and spills; beside them the time the
-    kernels line's call (``n_rays`` rays, PROBE_REPS reps) would take at
-    full issue of those instructions a pair (ungated forms).  Keyed "C6",
-    "A2" and "design place lanes"; {} without cuobjdump.  Each kernel's
+    innermost loop that holds a square root, ``inner_loop``, or for the
+    triangle forms a reciprocal, MUFU.RCP, the fast path of their IEEE
+    divide; Q2's, which has none, the innermost loop, whose pairs
+    are Q's: the same kernel template, unroll and rays a thread), the
+    pairs it holds (its square roots or reciprocals), the instructions a
+    pair there, the uniform datapath's instructions and the table loads
+    (LDC, ULDC, LDG, LDS) among them, and ptxas's registers, stack and
+    spills; beside them the time the kernels line's call (``n_rays``
+    rays, PROBE_REPS reps) would take at full issue of those
+    instructions a pair (ungated forms).  The matmul rows
+    (csrc/probe_mma.cu) give their mma instructions (HMMA) in the whole
+    kernel and in the innermost loop that holds one, with ptxas's
+    registers and spills.  Keyed "C6", "A2", "design place lanes",
+    "tripair FORM" and "matmul ROW"; {} without cuobjdump.  Each kernel's
     listing goes to ``OUT_DIR/probe_sass/``."""
+    import re
+
     from wavefront_path_tracer_tpu_torch.ops import _build
     from wavefront_path_tracer_tpu_torch.probes import _slope
     from wavefront_path_tracer_tpu_torch.utils import sass
@@ -2350,18 +2379,29 @@ def _sass_per_pair(smi: str, n_rays: int) -> dict:
         log("[probe-sass] cuobjdump not found: instructions a pair not "
             "measured")
         return {}
-    _pc, _tp, _hb, m, rp, _bi, _mr = _probe_modules()
+    _pc, tp, _hb, m, rp, _bi, mr = _probe_modules()
     lib, report, _ = _build.build()
-    ptx = {r["mangled"]: r for match in ("probe_pair_sweep", "design_")
+    ptx = {r["mangled"]: r for match in ("probe_pair_sweep", "design_",
+                                         "probe_tripair", "probe_mma")
            for r in _build.ptxas_kernels(report, match)}
     rate = _slope.issue_rate(_slope.card())
     dump = os.path.join(OUT_DIR, "probe_sass")
     os.makedirs(dump, exist_ok=True)
+    tri_forms = {("0", "0"): "T1", ("0", "1"): "T1p", ("1", "0"): "T2",
+                 ("1", "1"): "T2p"}
     reps, q2 = {}, None
     for name, n in sass.counts(lib).items():
+        marker, pairs_per_rep = "MUFU.RSQ", m.S * n_rays
         if "probe_pair_sweep" in name:
             group = "pair_ceiling"
             forms = [("A2",) if "Lb1E" in name else ("C6",)]
+        elif "probe_tripairI" in name:
+            group, marker = "tripair", "MUFU.RCP"
+            pairs_per_rep = tp.NTRI // 2 * n_rays
+            forms = [("tripair", tri_forms[tuple(re.findall(
+                r"Lb([01])E", name)[:2])])]
+        elif "probe_mmaI" in name:
+            group, forms = "matmul", [("matmul", _mma_row(name))]
         else:
             group, forms = _design_forms(name)
         if not forms:
@@ -2370,29 +2410,49 @@ def _sass_per_pair(smi: str, n_rays: int) -> dict:
         with open(os.path.join(dump, "_".join(map(str, forms[0]))
                                + ".sass"), "w") as f:
             f.write(listing)
-        body = sass.inner_loop(listing, "MUFU.RSQ")
+        rep = {"function": name, "group": group, "instructions": n,
+               **{k: ptx.get(name, {}).get(k) for k in (
+                   "registers", "stack", "spill_stores", "spill_loads")}}
+        if group == "matmul":
+            ops = sass.opcodes(listing)
+            hmma = sorted({o for o in ops if o.startswith("HMMA")})
+            loop = sass.inner_loop(listing, hmma[0]) if hmma else []
+            rep.update(mma=hmma, mma_in_kernel=sum(
+                o.startswith("HMMA") for o in ops), loop=len(loop),
+                mma_in_loop=sum(sass.opcode(t).startswith("HMMA")
+                                for t in loop))
+            reps[" ".join(map(str, forms[0]))] = rep
+            continue
+        body = sass.inner_loop(listing, marker)
         if forms[0][0] == "Q2":
             body, q2 = sass.inner_loop(listing), forms
         ops = [sass.opcode(t) for t in body]
-        rep = {"function": name, "group": group,
-               "instructions": n,
-               "body": len(ops), "pairs_in_body": ops.count("MUFU.RSQ"),
-               "uniform": sum(o.startswith("U") for o in ops),
-               "loads": {k: sum(o.split(".")[0] == k for o in ops)
-                         for k in ("LDC", "ULDC", "LDG", "LDS")},
-               **{k: ptx.get(name, {}).get(k) for k in (
-                   "registers", "stack", "spill_stores", "spill_loads")}}
+        rep.update(body=len(ops), pairs_in_body=ops.count(marker),
+                   pairs_per_rep=pairs_per_rep,
+                   uniform=sum(o.startswith("U") for o in ops),
+                   loads={k: sum(o.split(".")[0] == k for o in ops)
+                          for k in ("LDC", "ULDC", "LDG", "LDS")})
         for form in forms:
             reps[" ".join(map(str, form))] = rep
     if q2 is not None:
         reps[" ".join(map(str, q2[0]))]["pairs_in_body"] = (
             reps.get("Q const 1", {}).get("pairs_in_body", 0))
     for key, rep in reps.items():
+        if rep["group"] == "matmul":
+            log(f"[probe-sass] {key} ({mr.ROWS[int(key.split()[1])][0]}): "
+                f"{rep['instructions']} SASS instructions, "
+                f"{rep['mma_in_kernel']} mma ({', '.join(rep['mma'])}), "
+                f"{rep['mma_in_loop']} of them in the innermost loop that "
+                f"holds one ({rep['loop']} instructions); ptxas "
+                f"{rep['registers']} registers, {rep['stack']} bytes stack, "
+                f"{rep['spill_stores']} / {rep['spill_loads']} bytes "
+                f"spilled [{smi}]")
+            continue
         pairs = rep["pairs_in_body"]
         rep["per_pair"] = rep["body"] / pairs if pairs else None
         ungated = key.split()[0] not in rp.TILE_GATED or key == "W0 const 1"
-        rep["issue_bound_ms"] = (rep["per_pair"] * m.S * n_rays * PROBE_REPS
-                                 / rate * 1e3
+        rep["issue_bound_ms"] = (rep["per_pair"] * rep["pairs_per_rep"]
+                                 * PROBE_REPS / rate * 1e3
                                  if rep["per_pair"] and ungated else None)
         per = f"{rep['per_pair']:.2f}" if rep["per_pair"] else "-"
         log(f"[probe-sass] {key}: {rep['instructions']} SASS instructions, "
@@ -2405,7 +2465,10 @@ def _sass_per_pair(smi: str, n_rays: int) -> dict:
             f"bytes spilled [{smi}]")
     missing = [k for k in ("C6", "A2") if k not in reps] + [
         f"{d} {p} {n}" for d in rp.DESIGNS if d not in ("C6", "A2")
-        for p, n in rp.forms(d) if f"{d} {p} {n}" not in reps]
+        for p, n in rp.forms(d) if f"{d} {p} {n}" not in reps] + [
+        f"tripair {f}" for f in tp.FORMS if f"tripair {f}" not in reps] + [
+        f"matmul {r}" for r in range(len(mr.ROWS))
+        if f"matmul {r}" not in reps]
     if missing:
         raise AssertionError(f"no kernel found for {missing}")
     return reps
@@ -2452,8 +2515,8 @@ def _check_new_probes(device, rays1, rays, errs: dict) -> None:
     the full copies at 2 reps bit for bit (the fused forms against their
     own plain version, one rounding a multiply-add), the (256, 128) block
     alone equal to copy 0; matmul_bench's rows at 8
-    products, every cluster copy equal and within the stated bound of the
-    plain version.  ``errs`` takes each kernel's largest difference."""
+    products, every copy equal and within the stated bound of the plain
+    version.  ``errs`` takes each kernel's largest difference."""
     from wavefront_path_tracer_tpu_torch.probes import _slope
 
     _pc, _tp, _hb, _m, rp, bi, mr = _probe_modules()
@@ -2507,7 +2570,7 @@ def _check_new_probes(device, rays1, rays, errs: dict) -> None:
         bound = mr.tolerance(a, b, 8, row, p)
         ok = bool((diff <= bound).all()) and bool((k == k[:1]).all())
         log(f"[probe-vs-plain] matmul {mr.ROWS[row][0]} 8 products, "
-            f"{k.shape[0]} cluster copies: within the bound {ok}, max abs "
+            f"{k.shape[0]} copies: within the bound {ok}, max abs "
             f"err {float(diff.max())!r} (largest bound "
             f"{float(bound.max())!r})")
         if not ok:
@@ -2521,8 +2584,10 @@ ISSUE_REPS = 400           # reps of bf16_issue's timed call
 
 def _time_new_probes(device, rays, ray_bytes: int) -> dict:
     """The kernels line's calls of items 8, 9, 11 and 12 at full width,
-    beside their plain versions and bounds (torch.matmul's loop beside
-    the matmul row)."""
+    beside their plain versions and bounds (torch.matmul's loop over the
+    kernel's copies beside the matmul row, as ``library_ms``; the loop
+    over one copy and the batched loop replayed from a CUDA graph
+    beside it)."""
     _pc, _tp, _hb, m, rp, bi, mr = _probe_modules()
     n = rays.shape[1]
     timed = {}
@@ -2554,7 +2619,13 @@ def _time_new_probes(device, rays, ray_bytes: int) -> dict:
                a.nbytes + b.nbytes + copies * mm * nn * 4, bits=False,
                peak=PEAK_TF32))
     timed["matmul"]["library_ms"], _ = _time_ms(
+        lambda: mr.library_loop(a, b, PROBE_PRODUCTS, row, copies), 5)
+    timed["matmul"]["library_one_copy_ms"], _ = _time_ms(
         lambda: mr.library_loop(a, b, PROBE_PRODUCTS, row), 5)
+    replay, _ = mr.library_graph(a, b, PROBE_PRODUCTS, row, copies)
+    replay()
+    timed["matmul"]["library_graph_ms"], _ = _time_ms(replay, 5)
+    timed["matmul"]["copies"] = copies
     return timed
 
 
@@ -2593,11 +2664,13 @@ def phase_probes(device, smi: str) -> dict:
                 m.gated_reference(tab, cond, rays1, 2,
                                   m.PATTERNS[pattern][2])))
     tri_rays1 = tp.ray_planes(device)
+    tri_rays = tp.ray_planes(device, m.RAY_COPIES)
     for form, (ttab, pk) in tp.tables(device).items():
-        errs["tripair"] = max(errs["tripair"], _same_bits(
-            f"tripair {form} 1024 rays 2 reps",
-            tp.tripair_sweep(ttab, pk, tri_rays1, 2, form),
-            tp.tripair_reference(ttab, pk, tri_rays1, 2, form)))
+        for planes in (tri_rays1, tri_rays):
+            errs["tripair"] = max(errs["tripair"], _same_bits(
+                f"tripair {form} {planes.shape[1]} rays 2 reps",
+                tp.tripair_sweep(ttab, pk, planes, 2, form),
+                tp.tripair_reference(ttab, pk, planes, 2, form)))
     data = hb.make_data(256, device)
     exact = hb.exact_sums(data, 3)
     for kind in hb.KINDS:
@@ -2630,7 +2703,6 @@ def phase_probes(device, smi: str) -> dict:
         _bound(pairs * pc.FLOPS_PAIR + n * PROBE_REPS * pc.FLOPS_RAY_REP,
                tab.numel() * 4 + ray_bytes))
     ttab, pk = tp.tables(device)["T1"]
-    tri_rays = tp.ray_planes(device, m.RAY_COPIES)
     pairs = tp.NTRI // 2 * n * PROBE_REPS
     timed["tripair"] = _probe_timed(
         "tripair T1", lambda: tp.tripair_sweep(ttab, pk, tri_rays,
@@ -2656,10 +2728,12 @@ def phase_probes(device, smi: str) -> dict:
         lambda: torch.sum(view, dim=0), 5)
     timed.update(_time_new_probes(device, rays, ray_bytes))
     for key, rep in timed.items():
+        extra = "".join(f", {k} {rep[k]!r}" for k in (
+            "copies", "library_one_copy_ms", "library_graph_ms") if k in rep)
         log(f"[probe-timing] {rep['case']}: kernel {rep['kernel_ms']!r} ms, "
             f"plain {rep['plain_ms']!r} ms, bound {rep['bound_ms']!r} ms "
             f"({rep['bound_by']}), library "
-            f"{rep.get('library_ms')!r} ms [{smi}]")
+            f"{rep.get('library_ms')!r} ms{extra} [{smi}]")
     sass = _sass_per_pair(smi, n)
     spilled = [k for k, r in sass.items()
                if r["spill_stores"] or r["spill_loads"]]
@@ -2694,7 +2768,8 @@ def phase_probes(device, smi: str) -> dict:
         if r["gops"] > r["peak_gops"]:
             impossible.append(f"bf16_issue {r['form']}")
     for r in readings["matmul"]:
-        if max(r["tflops"], r["library_tflops"]) > r["peak_tflops"]:
+        if max(r["tflops"], r["library_tflops"], r["library_batched_tflops"],
+               r["library_graph_tflops"]) > r["peak_tflops"]:
             impossible.append(f"matmul {r['name']}")
     for r in readings["pair_ceiling"]:
         if r["fp32_rate"] > PEAK_FP32:
@@ -2721,25 +2796,33 @@ def _ceiling_shares(record: dict) -> list:
     """Each book and mesh kernel's time beside the time its pairs take at
     the measured pair ceiling (C6 for spheres, T1 for triangles: the mesh
     rows' pairs are counted at the triangle rate), and beside its spec
-    bound."""
+    bound; the mesh rows also beside the triangle ceiling that the bench
+    holds (``bench.PAIR_CEILING``), so that readings stay comparable
+    across a change of T1's kernel."""
+    from wavefront_path_tracer_tpu_torch.bench import PAIR_CEILING
+
     ceil = {r["variant"]: r["gpairs"] * 1e9
             for r in record["probes"]["readings"]["pair_ceiling"]}
     tri = {r["form"]: r["gpairs"] * 1e9
            for r in record["probes"]["readings"]["tripair"]}
     timed = record["full_size"]["timed"]
-    rows = [(f"{kind} book 1080p@32spp", timed[kind], ceil["C6"])
+    rows = [(f"{kind} book 1080p@32spp", timed[kind], ceil["C6"], False)
             for kind in ("culled", "persistent", "unculled")]
     for rep in record["mesh_full_size"]["timed"]:
         rows.append((f"{rep['kind']} {rep['scene']} 800x448@{rep['spp']}spp",
-                     rep, tri["T1"]))
+                     rep, tri["T1"], True))
     out = []
-    for label, rep, rate in rows:
+    for label, rep, rate, triangles in rows:
         at_ceiling = rep["pairs"] / rate * 1e3
         share = {"case": label, "kernel_ms": rep["kernel_ms"],
                  "pairs": rep["pairs"], "ceiling_ms": at_ceiling,
                  "ceiling_share": at_ceiling / rep["kernel_ms"],
                  "bound_ms": rep["bound_ms"],
                  "bound_share": rep["bound_ms"] / rep["kernel_ms"]}
+        if triangles:
+            bench_ms = rep["pairs"] / PAIR_CEILING["triangle"] * 1e3
+            share.update(bench_ceiling_ms=bench_ms,
+                         bench_ceiling_share=bench_ms / rep["kernel_ms"])
         log(f"[ceiling-share] {json.dumps(share)}")
         out.append(share)
     return out

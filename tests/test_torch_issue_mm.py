@@ -179,6 +179,55 @@ def test_matmul_rows_match_jax(monkeypatch):
         assert float(np.abs(ref).max()) > 1.0
 
 
+def _products_in_order(a, b, products, row, order):
+    """matmul_reference with each product's K summed in ``order``: two
+    halves, blocks of 8 or 16 in turn, blocks of 8 into four interleaved
+    accumulators summed at the end (a kernel's k steps j into j % 4), or
+    k from last to first."""
+    prec = tmm.ROWS[row][2]
+    bb = tmm.tf32_round(b) if prec == "tf32" else b.float()
+    kk = a.shape[1]
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for _ in range(products):
+        lhs = tmm._lhs(a, acc[0, 0] * 1e-9, prec)
+        if order == "halves":
+            h = kk // 2
+            d = lhs[:, :h] @ bb[:h] + lhs[:, h:] @ bb[h:]
+        elif order in ("blocks8", "blocks16"):
+            step = int(order[6:])
+            d = torch.zeros_like(acc)
+            for j in range(0, kk, step):
+                d = d + lhs[:, j:j + step] @ bb[j:j + step]
+        elif order == "split4":
+            parts = [torch.zeros_like(acc) for _ in range(4)]
+            for n, j in enumerate(range(0, kk, 8)):
+                parts[n % 4] = parts[n % 4] + lhs[:, j:j + 8] @ bb[j:j + 8]
+            d = ((parts[0] + parts[1]) + parts[2]) + parts[3]
+        else:
+            d = torch.zeros_like(acc)
+            for k in reversed(range(kk)):
+                d = d + torch.outer(lhs[:, k], bb[k])
+        acc = acc + d
+    return acc
+
+
+@pytest.mark.parametrize("order", ["halves", "blocks8", "blocks16",
+                                   "split4", "reversed"])
+@pytest.mark.parametrize("row", range(7))
+def test_matmul_bound_admits_other_orders(row, order):
+    """Each row at 8 products with K summed in an order a kernel may
+    take stays within tolerance of matmul_reference: the stated bound
+    (unchanged) admits split-K and a fragment order of the kernel's
+    choosing."""
+    a, b = tmm.inputs()[row]
+    ref = tmm.matmul_reference(a, b, 8, row)
+    other = _products_in_order(a, b, 8, row, order)
+    err = (other - ref).abs()
+    assert bool((err <= tmm.tolerance(a, b, 8, row, ref)).all())
+    if tmm.ROWS[row][1][1] > 8:
+        assert float(err.max()) > 0.0       # the order did change the sums
+
+
 def test_tf32_rounding():
     """tf32_round keeps 10 significand bits, to nearest, ties away."""
     x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,

@@ -180,6 +180,23 @@ def test_tripair_matches_jax(monkeypatch, form):
     np.testing.assert_allclose(port[hit], ref[hit], rtol=1e-4, atol=0)
 
 
+@pytest.mark.parametrize("form", ["T1", "T1p", "T2", "T2p"])
+def test_tripair_reference_permutes_with_the_rays(form):
+    """A ray's output depends on that ray alone: permuting the rays
+    (1,000 of them, over the 16,384-ray chunks of the plain version too)
+    permutes tripair_reference's output bit for bit, which is what lets
+    a kernel carry several rays a thread in any grouping."""
+    tab, pk = ttp.tables()[form]
+    rays = ttp.ray_planes(copies=17)[:, 1000:18408].contiguous()
+    perm = torch.from_numpy(np.random.RandomState(11).permutation(
+        rays.shape[1]))
+    out = ttp.tripair_reference(tab, pk, rays, 2, form)
+    moved = ttp.tripair_reference(tab, pk, rays[:, perm].contiguous(), 2,
+                                  form)
+    assert bool((out < 1e29).any())
+    assert torch.equal(moved.view(torch.int32), out[perm].view(torch.int32))
+
+
 def _gated_case(monkeypatch, n_clusters=4):
     idx = _near_spheres(n_clusters * 16)
     sub = np.ascontiguousarray(jm.PACKED_SM[idx])

@@ -1,6 +1,7 @@
 """The SASS reading of ``utils/sass.py`` (the innermost loop of a listing)
-and the probes phase's reading of the pair ceiling's kernels and of
-``csrc/probe_designs.cu``'s (``chip_smoke.py`` ``_design_forms``,
+and the probes phase's reading of the pair ceiling's kernels, of
+``csrc/probe_designs.cu``'s, of the triangle forms' and of the matmul
+rows' (``chip_smoke.py`` ``_design_forms``, ``_mma_row``,
 ``_sass_per_pair``) on synthetic listings in ``cuobjdump -sass``'s
 layout, on the CPU: the card's listings come only from a build there."""
 
@@ -9,7 +10,9 @@ from pathlib import Path
 
 import pytest
 
+from wavefront_path_tracer_tpu_torch.probes import matmul_r2 as mr
 from wavefront_path_tracer_tpu_torch.probes import run_pairs as rp
+from wavefront_path_tracer_tpu_torch.probes import tripair as tp
 from wavefront_path_tracer_tpu_torch.utils import sass
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -26,11 +29,12 @@ def _smoke():
 cs = _smoke()
 
 
-def _listing(name, body, pairs, labels=True, tail=("EXIT",)):
+def _listing(name, body, pairs, labels=True, tail=("EXIT",),
+             marker="MUFU.RSQ"):
     """A kernel's listing: set-up, a rep loop around a sweep loop of
-    ``body`` instructions of which ``pairs`` are square roots, the rep
-    loop's end, ``tail``, then a slow path that branches back into the
-    sweep and the closing self-branch."""
+    ``body`` instructions of which ``pairs`` are square roots (or
+    ``marker``), the rep loop's end, ``tail``, then a slow path that
+    branches back into the sweep and the closing self-branch."""
     lines, addr = [f"{name}\n"], 0
 
     def put(text, label=None):
@@ -52,7 +56,7 @@ def _listing(name, body, pairs, labels=True, tail=("EXIT",)):
     rep = put("MOV R2, RZ", label=0)
     sweep = put("ULDC UR4, c[0x3][0x0]", label=1)
     for k in range(body - 3):
-        put("MUFU.RSQ R5, R4" if k < pairs else "FADD R6, R6, R7")
+        put(f"{marker} R5, R4" if k < pairs else "FADD R6, R6, R7")
     put("UIADD3 UR5, UR5, 0x40, URZ")
     put(f"@P0 BRA {target(1, sweep)}")
     put("FADD R3, R3, R2")
@@ -151,16 +155,39 @@ def _read(monkeypatch, tmp_path, listings):
     return cs._sass_per_pair("smi", 1024)
 
 
+# The triangle forms' kernels (csrc/probe_tripair.cu, its file's
+# namespace holding the file's name as nvcc mangles it) and the matmul
+# rows' (csrc/probe_mma.cu, Row<M, K, N, MT, NT, precision, ...>).
+NS = "_ZN49_GLOBAL__N__26d535a7_16_probe_tripair_cu_81d600e1"
+TRIPAIR = {f: f"{NS}13probe_tripairILb{f.startswith('T2'):d}ELb"
+              f"{f.endswith('p'):d}EEEvPKfPKiiS2_iiPf" for f in tp.FORMS}
+PRECISIONS = {"tf32": 0, "fp32": 1, "bf16": 2}
+MMA = {row: "_ZN45_GLOBAL__N__f5d60a37_12_probe_mma_cu_a17157619probe_mma"
+            "INS_3RowILi{}ELi{}ELi{}ELi16ELi32ELi{}ELi1ELi2ELi4ELi0ELi0EEEEE"
+            "vPKNT_2InES6_iPf".format(*shape, PRECISIONS[prec])
+       for row, (_n, shape, prec) in enumerate(mr.ROWS)}
+HMMA = {"tf32": "HMMA.1688.F32.TF32", "bf16": "HMMA.16816.F32.BF16",
+        "fp32": "FFMA"}
+
+
 def _every_kernel():
     """Synthetic listings of the two ceiling kernels (C6 unrolled by 4,
-    A2 by 8) and of every probe_designs.cu instantiation (Q's loop 32
-    pairs, as at 4 rays a thread and unroll 8; Q2's none)."""
+    A2 by 8), of every probe_designs.cu instantiation (Q's loop 32
+    pairs, as at 4 rays a thread and unroll 8; Q2's none), of the four
+    triangle forms (8 reciprocals a loop, as at 4 rays a thread and
+    unroll 2) and of the seven matmul rows (16 mma in the product loop
+    of the tensor-core rows, none in the FP32 rows')."""
     q = _mangled("ray_major", rp.KERNEL_IDS["Q"], rp.PLACE_IDS["const"], 8)
     q2 = _mangled("ray_major", rp.KERNEL_IDS["Q2"], rp.PLACE_IDS["const"], 8)
     pairs = {n: 32 if n == q else 0 if n == q2 else 8
              for n in _instantiations()}
     pairs.update({C6: 4, A2: 8})
-    return {n: _listing(n, 40, p) for n, p in pairs.items()}
+    out = {n: _listing(n, 40, p) for n, p in pairs.items()}
+    out.update({n: _listing(n, 80, 8, marker="MUFU.RCP")
+                for n in TRIPAIR.values()})
+    out.update({n: _listing(n, 60, 16, marker=HMMA[mr.ROWS[row][2]])
+                for row, n in MMA.items()})
+    return out
 
 
 def test_sass_per_pair_reads_every_design_form(monkeypatch, tmp_path):
@@ -172,9 +199,9 @@ def test_sass_per_pair_reads_every_design_form(monkeypatch, tmp_path):
     listings = _every_kernel()
     out = _read(monkeypatch, tmp_path, listings)
     assert len(out) == 2 + sum(len(rp.forms(d)) for d in rp.DESIGNS
-                               if d not in ("C6", "A2"))
+                               if d not in ("C6", "A2")) + 4 + 7
     for key, rep in out.items():
-        if key in ("C6", "A2"):
+        if key in ("C6", "A2") or rep["group"] in ("tripair", "matmul"):
             continue
         design = key.split()[0]
         assert rep["body"] == 40 and rep["registers"] == 64
@@ -208,4 +235,38 @@ def test_sass_per_pair_reads_the_ceiling_kernels(monkeypatch, tmp_path):
     assert (tmp_path / "probe_sass" / "C6.sass").read_text() == listings[C6]
     del listings[A2]
     with pytest.raises(AssertionError, match=r"\['A2'\]"):
+        _read(monkeypatch, tmp_path, listings)
+
+
+def test_sass_per_pair_reads_the_triangle_forms_and_matmul_rows(
+        monkeypatch, tmp_path):
+    """The four triangle forms by the designs' yardstick over their
+    reciprocals (8 a sweep loop of 80: 10 a pair), with their issue-bound
+    times over the table's half a rep; each matmul row found by its
+    shape and precision, with its mma instructions in the kernel and in
+    the product loop and ptxas's figures; other functions of the two
+    files are not read; a build without one of them fails."""
+    listings = _every_kernel()
+    listings[f"{NS}6helperEPy"] = _listing("helper", 10, 1,
+                                           marker="MUFU.RCP")
+    out = _read(monkeypatch, tmp_path, listings)
+    for form in tp.FORMS:
+        rep = out[f"tripair {form}"]
+        assert rep["group"] == "tripair" and rep["registers"] == 64
+        assert rep["pairs_in_body"] == 8 and rep["per_pair"] == 10.0
+        assert rep["issue_bound_ms"] == pytest.approx(
+            10.0 * tp.NTRI // 2 * 1024 * cs.PROBE_REPS / 33.45e12 * 1e3)
+    for row, (_name, _shape, prec) in enumerate(mr.ROWS):
+        rep = out[f"matmul {row}"]
+        assert cs._mma_row(MMA[row]) == row
+        assert rep["registers"] == 64 and rep["spill_stores"] == 0
+        tensor = prec != "fp32"
+        assert rep["mma"] == ([HMMA[prec]] if tensor else [])
+        assert rep["mma_in_kernel"] == rep["mma_in_loop"] == 16 * tensor
+        assert rep["loop"] == 60 * tensor
+    assert not any("helper" in r["function"] for r in out.values())
+    assert (tmp_path / "probe_sass" / "tripair_T2p.sass").exists()
+    del listings[TRIPAIR["T1p"]], listings[MMA[6]]
+    with pytest.raises(AssertionError,
+                       match=r"\['tripair T1p', 'matmul 6'\]"):
         _read(monkeypatch, tmp_path, listings)

@@ -13,18 +13,22 @@ accumulator: f32 DEFAULT and HIGHEST at (128, 8) x (8, 1024),
 micro_r2's module data, in row order (:func:`inputs` draws all seven);
 the bf16 row casts the float64 draws to bf16 directly.
 
-The kernels (``csrc/probe_mma.cu``): a thread block cluster shares the
-accumulator, copies of the cluster fill the card; DEFAULT is TF32
-``mma.sync`` (inputs rounded to nearest, ties away), the bf16 row bf16
-``mma.sync`` with (a + s) rounded to bf16, HIGHEST FP32 FMA chains.  The
-plain version is torch float32 with the kernel's input rounding
-emulated; the two sum in other orders, so the kernel is held to it
-within :func:`tolerance`.  The yardstick is ``torch.matmul`` (cuBLAS) in
-the same dependent loop, TF32 on for DEFAULT and off for HIGHEST
-(:func:`library_loop`), never the port.  Printed: microseconds a product
-by slope, the card's TFLOP/s over all copies against the dense peak of
-the row's precision (495 TF32, 989 bf16, 67 FP32 TFLOP/s), and the
-library's microseconds a product.
+The kernels (``csrc/probe_mma.cu``): independent blocks share out the
+accumulator's tiles, each also recomputing acc[0, 0] (the same
+instructions, so the same bits), and copies of the whole accumulator
+fill the card; DEFAULT is TF32 ``mma.sync`` (inputs rounded to nearest,
+ties away), the bf16 row bf16 ``mma.sync`` with (a + s) rounded to bf16,
+HIGHEST FP32 FMA chains.  The plain version is torch float32 with the
+kernel's input rounding emulated; the two sum in other orders, so the
+kernel is held to it within :func:`tolerance`.  The yardstick is
+``torch.matmul`` (cuBLAS) in the same dependent loop, TF32 on for DEFAULT
+and off for HIGHEST (:func:`library_loop`), never the port: over one
+copy, over all the kernel's copies at once as a batched product, and
+that batched loop captured once in a CUDA graph (:func:`library_graph`,
+the host's launches taken out).  Printed: microseconds a product by
+slope, the card's TFLOP/s over all copies against the dense peak of the
+row's precision (495 TF32, 989 bf16, 67 FP32 TFLOP/s), and the three
+library loops' microseconds a product.
 """
 
 from __future__ import annotations
@@ -134,8 +138,8 @@ def matmul_reference(a, b, products: int, row: int) -> torch.Tensor:
 
 
 def copies(row: int) -> int:
-    """Cluster copies of row ``row``'s kernel that run on the current card
-    at once."""
+    """Copies of row ``row``'s whole accumulator that the kernel runs on
+    the current card at once."""
     key = (row, torch.cuda.current_device())
     if key not in _COPIES:
         import ctypes
@@ -145,8 +149,8 @@ def copies(row: int) -> int:
         n = ctypes.c_int(0)
         rc = load_library().wpt_probe_mma_copies(row, ctypes.byref(n))
         if rc != 0 or n.value <= 0:
-            raise RuntimeError(f"row {row}: no cluster fits (CUDA error "
-                               f"{rc}, {n.value} clusters)")
+            raise RuntimeError(f"row {row}: no copy fits (CUDA error "
+                               f"{rc}, {n.value} copies)")
         _COPIES[key] = n.value
     return _COPIES[key]
 
@@ -157,9 +161,9 @@ def matmul(a, b, products: int, row: int) -> torch.Tensor:
     float32, each copy the same accumulator.
 
     On CPU tensors this is the plain version (one copy); on CUDA tensors
-    it launches ``csrc/probe_mma.cu`` with as many cluster copies as fit
-    on the card, within :func:`tolerance` of the plain version; any
-    other device raises."""
+    it launches ``csrc/probe_mma.cu`` with as many copies as fit on the
+    card, within :func:`tolerance` of the plain version; any other
+    device raises."""
     if not 0 <= row < len(ROWS):
         raise ValueError(f"row is 0..{len(ROWS) - 1}")
     _name, (mm, kk, nn), prec = ROWS[row]
@@ -200,22 +204,43 @@ def tolerance(a, b, products: int, row: int, acc,
             ).to(torch.float32)
 
 
-def library_loop(a, b, products: int, row: int) -> torch.Tensor:
+def library_loop(a, b, products: int, row: int,
+                 n_copies: int | None = None) -> torch.Tensor:
     """``torch.matmul`` in the same dependent loop (TF32 on for the
     DEFAULT rows, off for HIGHEST; the bf16 row multiplies bf16 and
-    accumulates its products in float32): the yardstick, not the port."""
+    accumulates its products in float32): the yardstick, not the port.
+    One copy, (M, N); with ``n_copies``, that many accumulators at once,
+    each product one batched (copies, M, K) x (K, N) matmul, (copies, M,
+    N)."""
     prec = ROWS[row][2]
-    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
-                      device=a.device)
+    shape = (a.shape[0], b.shape[1])
+    if n_copies is not None:
+        shape = (n_copies, *shape)
+    acc = torch.zeros(shape, dtype=torch.float32, device=a.device)
     with _tf32(prec == "tf32"):
         for _ in range(products):
-            s = acc[0, 0] * 1e-9
+            s = acc[..., :1, :1] * 1e-9
             if prec == "bf16":
                 acc = acc + torch.matmul((a.float() + s).to(torch.bfloat16),
                                          b).float()
             else:
                 acc = acc + torch.matmul(a + s, b)
     return acc
+
+
+def library_graph(a, b, products: int, row: int, n_copies: int):
+    """The batched :func:`library_loop` captured once in a CUDA graph:
+    (replay, its output tensor), ``replay()`` running the whole loop with
+    no launch from the host but the graph's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        library_loop(a, b, 2, row, n_copies)       # cuBLAS's workspace
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = library_loop(a, b, products, row, n_copies)
+    return graph.replay, out
 
 
 def measure(row: int, reps=REPS, device="cuda") -> dict:
@@ -239,6 +264,23 @@ def measure(row: int, reps=REPS, device="cuda") -> dict:
                        *LIBRARY_REPS)
     r["library_us_per_product"] = lib["unit_s"] / 4 * 1e6
     r["library_tflops"] = flops / (lib["unit_s"] / 4) / 1e12
+    lib = _slope.slope(lambda r: library_loop(a, b, 4 * r, row, n_copies),
+                       *LIBRARY_REPS)
+    r["library_batched_us_per_product"] = lib["unit_s"] / 4 * 1e6
+    r["library_batched_tflops"] = (flops * n_copies / (lib["unit_s"] / 4)
+                                   / 1e12)
+    graphs = {}
+
+    def replay(reps):
+        if reps not in graphs:
+            graphs[reps] = library_graph(a, b, 4 * reps, row, n_copies)[0]
+        graphs[reps]()
+
+    lib = _slope.slope(replay, *LIBRARY_REPS)
+    graphs.clear()
+    r["library_graph_us_per_product"] = lib["unit_s"] / 4 * 1e6
+    r["library_graph_tflops"] = (flops * n_copies / (lib["unit_s"] / 4)
+                                 / 1e12)
     return r
 
 
@@ -265,9 +307,13 @@ def run(argv=None) -> list:
     for row in range(len(ROWS)):
         r = measure(row, (args.reps_lo, args.reps_hi), dev)
         print(f"{r['name']}: {r['us_per_product']:.3f} us/product, "
-              f"{r['tflops']:.3f} TFLOP/s over {r['copies']} cluster copies "
-              f"(dense peak {r['peak_tflops']:.0f}); torch.matmul loop "
-              f"{r['library_us_per_product']:.3f} us/product; slope window "
+              f"{r['tflops']:.3f} TFLOP/s over {r['copies']} copies (dense "
+              f"peak {r['peak_tflops']:.0f}); torch.matmul loop, one copy "
+              f"{r['library_us_per_product']:.3f} us/product, all copies "
+              f"batched {r['library_batched_us_per_product']:.3f} "
+              f"({r['library_batched_tflops']:.3f} TFLOP/s), in a CUDA "
+              f"graph {r['library_graph_us_per_product']:.3f} "
+              f"({r['library_graph_tflops']:.3f} TFLOP/s); slope window "
               f"{r['window_ms']:.1f} ms, sum {r['checksum']:.6e} [{card}]",
               flush=True)
         print(json.dumps(r), flush=True)

@@ -109,6 +109,12 @@ def inner_loop(listing: str, marker: str | None = None) -> list[str]:
     return best or []
 
 
+def opcodes(listing: str) -> list[str]:
+    """The opcodes (:func:`opcode`) of every instruction of a listing, in
+    order."""
+    return [opcode(m[2]) for m in _LINE.finditer(listing)]
+
+
 def opcode(text: str) -> str:
     """An instruction's opcode with its modifiers (``MUFU.RSQ``,
     ``LDG.E.CONSTANT``), its predicate taken off."""
