@@ -334,6 +334,7 @@ go to ``OUT_DIR``.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import signal
@@ -346,8 +347,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-# The bound's inputs: the card's published peaks, kept with the probes'
-# spec check.
+# The bound's inputs: the card's published memory and TF32 peaks, kept
+# with the probes' spec check (PEAK_FP32 is that check's alone: FP32
+# operations are bounded at the issue rate, _fp32_rate).
 from wavefront_path_tracer_tpu_torch.probes._slope import (PEAK_BYTES,
                                                            PEAK_FP32,
                                                            PEAK_TF32)
@@ -766,8 +768,9 @@ class Case:
     def bound(self, stats, probe=None) -> dict:
         """The least time the card could take for this launch's work: the
         larger of its bytes over the memory rate and its FP32 operations
-        over the FP32 rate (each input read once, each output written
-        once; the pairs and boxes that this run's rays needed).  Cluster
+        over the card's issue rate (:func:`_fp32_rate`; each input read
+        once, each output written once; the pairs and boxes that this
+        run's rays needed).  Cluster
         entries are attributed to the one hierarchy that has clusters
         (every scene of this script has at most one).  A textured launch
         adds the texture step for the checker and image events a ray of
@@ -822,7 +825,7 @@ class Case:
         if self.textured:
             checker, image = self.tex_events or (0.0, 0.0)
             ops += rays * (checker * FLOPS_CHECKER + image * FLOPS_IMAGE)
-        t_bytes, t_ops = n_bytes / PEAK_BYTES, ops / PEAK_FP32
+        t_bytes, t_ops = n_bytes / PEAK_BYTES, ops / _fp32_rate()
         return {"pairs": pairs, "ops": ops, "bytes": n_bytes,
                 "bound_ms": max(t_bytes, t_ops) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -2255,6 +2258,10 @@ DESIGN_REPS = ("--reps-lo", "2", "--reps-hi", "14")
 # micro_slope's, in the reference's 1:9 ratio (its default 2000 -> 18000
 # takes minutes at full width).
 SLOPE_REPS = ("--reps-lo", "2", "--reps-hi", "18")
+# The gated sweeps' (default 200 -> 1400), cut so that the full-width bit
+# checks of probe_pairs.cu's kernels (0.8 s) add no time to the phase:
+# W8's window stays near 66 ms, C8's near 27 ms.
+GATED_REPS = ("--reps-lo", "200", "--reps-hi", "1000")
 
 
 def _probe_modules():
@@ -2350,7 +2357,9 @@ def _mma_row(mangled: str):
 
 def _sass_per_pair(smi: str, n_rays: int) -> dict:
     """SASS instructions a pair of the pair ceiling's kernels (C6, A2:
-    csrc/probe_pairs.cu ``probe_pair_sweep``), of every run_pairs form of
+    csrc/probe_pairs.cu ``probe_pair_sweep``), of the six gated sweeps
+    (``probe_gated``: W8 and C8 under each gating, their pairs the
+    entered ones, ``micro_r2.pairs_per_rep``), of every run_pairs form of
     csrc/probe_designs.cu and of the four triangle forms
     (csrc/probe_tripair.cu), all read alike from the built library
     (``cuobjdump -sass``, ``utils/sass.py``): the kernel's sweep loop (the
@@ -2366,9 +2375,9 @@ def _sass_per_pair(smi: str, n_rays: int) -> dict:
     instructions a pair (ungated forms).  The matmul rows
     (csrc/probe_mma.cu) give their mma instructions (HMMA) in the whole
     kernel and in the innermost loop that holds one, with ptxas's
-    registers and spills.  Keyed "C6", "A2", "design place lanes",
-    "tripair FORM" and "matmul ROW"; {} without cuobjdump.  Each kernel's
-    listing goes to ``OUT_DIR/probe_sass/``."""
+    registers and spills.  Keyed "C6", "A2", "gated PATTERN GATING",
+    "design place lanes", "tripair FORM" and "matmul ROW"; {} without
+    cuobjdump.  Each kernel's listing goes to ``OUT_DIR/probe_sass/``."""
     import re
 
     from wavefront_path_tracer_tpu_torch.ops import _build
@@ -2381,8 +2390,9 @@ def _sass_per_pair(smi: str, n_rays: int) -> dict:
         return {}
     _pc, tp, _hb, m, rp, _bi, mr = _probe_modules()
     lib, report, _ = _build.build()
-    ptx = {r["mangled"]: r for match in ("probe_pair_sweep", "design_",
-                                         "probe_tripair", "probe_mma")
+    ptx = {r["mangled"]: r for match in ("probe_pair_sweep", "probe_gated",
+                                         "design_", "probe_tripair",
+                                         "probe_mma")
            for r in _build.ptxas_kernels(report, match)}
     rate = _slope.issue_rate(_slope.card())
     dump = os.path.join(OUT_DIR, "probe_sass")
@@ -2392,9 +2402,16 @@ def _sass_per_pair(smi: str, n_rays: int) -> dict:
     reps, q2 = {}, None
     for name, n in sass.counts(lib).items():
         marker, pairs_per_rep = "MUFU.RSQ", m.S * n_rays
-        if "probe_pair_sweep" in name:
+        if "probe_pair_sweepI" in name:
             group = "pair_ceiling"
-            forms = [("A2",) if "Lb1E" in name else ("C6",)]
+            const = re.search(r"probe_pair_sweepILb([01])E", name)[1]
+            forms = [("A2",) if const == "1" else ("C6",)]
+        elif "probe_gatedI" in name:
+            generic, gate = re.search(r"probe_gatedILb([01])ELi(\d+)E",
+                                      name).groups()
+            pattern = "W8" if generic == "1" else "C8"
+            group, pairs_per_rep = "gated", m.pairs_per_rep(pattern, n_rays)
+            forms = [("gated", pattern, m.GATINGS[int(gate)])]
         elif "probe_tripairI" in name:
             group, marker = "tripair", "MUFU.RCP"
             pairs_per_rep = tp.NTRI // 2 * n_rays
@@ -2464,6 +2481,8 @@ def _sass_per_pair(smi: str, n_rays: int) -> dict:
             f"bytes stack, {rep['spill_stores']} / {rep['spill_loads']} "
             f"bytes spilled [{smi}]")
     missing = [k for k in ("C6", "A2") if k not in reps] + [
+        f"gated {p} {g}" for p in m.PATTERNS for g in m.GATINGS
+        if f"gated {p} {g}" not in reps] + [
         f"{d} {p} {n}" for d in rp.DESIGNS if d not in ("C6", "A2")
         for p, n in rp.forms(d) if f"{d} {p} {n}" not in reps] + [
         f"tripair {f}" for f in tp.FORMS if f"tripair {f}" not in reps] + [
@@ -2488,8 +2507,25 @@ def _probe_timed(label, kernel, plain, bound) -> dict:
     return rep
 
 
+@functools.cache
+def _fp32_rate() -> float:
+    """FP32 operations a second that bound a kernel built -fmad=false:
+    the card's issue rate (``_slope.fp32_issue_rate``, its SM count x 128
+    x its maximum SM clock), since each such operation is one issued
+    instruction; the 67 TFLOP/s spec counts an FFMA as two.  Read from
+    the card once a process."""
+    from wavefront_path_tracer_tpu_torch.probes import _slope
+
+    return _slope.issue_rate(_slope.card())
+
+
 def _bound(ops: float, n_bytes: float, bits: bool = True,
-           peak: float = PEAK_FP32) -> dict:
+           peak: float | None = None) -> dict:
+    """The least time of ``ops`` operations and ``n_bytes`` bytes: the
+    larger of the bytes over the memory rate and the operations over
+    ``peak`` (default: FP32 at the card's issue rate, :func:`_fp32_rate`).
+    """
+    peak = _fp32_rate() if peak is None else peak
     t_ops, t_bytes = ops / peak, n_bytes / PEAK_BYTES
     return {"ops": ops, "bytes": n_bytes, "bits": bits,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -2522,7 +2558,7 @@ def _check_new_probes(device, rays1, rays, errs: dict) -> None:
     _pc, _tp, _hb, _m, rp, bi, mr = _probe_modules()
     count = torch.zeros(1, dtype=torch.int64, device=device)
     _slope.launch("wpt_probe_sqrt_mismatches", count.data_ptr())
-    log(f"[probe-vs-plain] probe_designs.cu sqrt_rn against sqrtf over all "
+    log(f"[probe-vs-plain] probe_math.cuh sqrt_rn against sqrtf over all "
         f"2^32 floats: {int(count.item())} differ")
     if int(count.item()):
         raise AssertionError("sqrt_rn is not sqrtf")
@@ -2634,7 +2670,8 @@ def phase_probes(device, smi: str) -> dict:
     probe_tripair.cu, probe_stream.cu).  Each kernel against its plain
     version on the card: the pair ceiling's C6 and A2, the gated sweeps'
     two patterns under the three gatings, and the four triangle forms bit
-    for bit at 2 reps over the reference's 1024 rays; the stream's two
+    for bit at 2 reps over the reference's 1024 rays and over the
+    full-width copies (``micro_r2.RAY_COPIES``); the stream's two
     kernels at each chunk size within the stated float32 summation bound
     of the float64 sums.  One timed call of each kernels-line variant at
     full width, beside its plain version and its bound (and torch.sum for
@@ -2649,20 +2686,29 @@ def phase_probes(device, smi: str) -> dict:
     card = _slope.card()
     tab = torch.from_numpy(m.PACKED_SM).to(device)
     rays1 = m.ray_planes(device)
+    rays = m.ray_planes(device, m.RAY_COPIES)
     errs = {k: 0.0 for k in PROBE_KERNELS}
-    for variant in pc.VARIANTS:
-        errs["pair_ceiling"] = max(errs["pair_ceiling"], _same_bits(
-            f"pair_ceiling {variant} 1024 rays 2 reps",
-            pc.pair_sweep(tab, rays1, 2, variant),
-            pc.pair_sweep_reference(tab, rays1, 2)))
-    for pattern in m.PATTERNS:
-        cond = torch.from_numpy(m.cond_table(pattern)).to(device)
-        for gating in m.GATINGS:
-            errs["gated"] = max(errs["gated"], _same_bits(
-                f"gated {pattern} {gating} 1024 rays 2 reps",
-                m.gated_sweep(tab, cond, rays1, 2, pattern, gating),
-                m.gated_reference(tab, cond, rays1, 2,
-                                  m.PATTERNS[pattern][2])))
+    # probe_pairs.cu's eight kernels over the reference's 1024 rays and
+    # over the full-width copies (a thread's rays and a warp's row come
+    # from the launch's layout, which the copies cover in full).
+    t0 = time.perf_counter()
+    for planes in (rays1, rays):
+        plain = pc.pair_sweep_reference(tab, planes, 2)
+        for variant in pc.VARIANTS:
+            errs["pair_ceiling"] = max(errs["pair_ceiling"], _same_bits(
+                f"pair_ceiling {variant} {planes.shape[1]} rays 2 reps",
+                pc.pair_sweep(tab, planes, 2, variant), plain))
+        for pattern in m.PATTERNS:
+            cond = torch.from_numpy(m.cond_table(pattern)).to(device)
+            plain = m.gated_reference(tab, cond, planes, 2,
+                                      m.PATTERNS[pattern][2])
+            for gating in m.GATINGS:
+                errs["gated"] = max(errs["gated"], _same_bits(
+                    f"gated {pattern} {gating} {planes.shape[1]} rays 2 "
+                    f"reps", m.gated_sweep(tab, cond, planes, 2, pattern,
+                                           gating), plain))
+    log(f"[probe-vs-plain] probe_pairs.cu at 1024 and {rays.shape[1]} "
+        f"rays: {time.perf_counter() - t0:.1f} s")
     tri_rays1 = tp.ray_planes(device)
     tri_rays = tp.ray_planes(device, m.RAY_COPIES)
     for form, (ttab, pk) in tp.tables(device).items():
@@ -2689,7 +2735,6 @@ def phase_probes(device, smi: str) -> dict:
             if not err <= bound:
                 raise AssertionError(f"hbm_bw {kind} {chunk_kb} KB: error "
                                      f"{err} above the bound {bound}")
-    rays = m.ray_planes(device, m.RAY_COPIES)
     _check_new_probes(device, rays1, rays, errs)
 
     # The kernels line's calls: full width, PROBE_REPS reps.
@@ -2746,7 +2791,7 @@ def phase_probes(device, smi: str) -> dict:
 
     runs = {"pair_ceiling": lambda: pc.run([]),
             "tripair": lambda: tp.run([]), "hbm_bw": lambda: hb.run([]),
-            "gated": lambda: m.run(["C8", "C9"]),
+            "gated": lambda: m.run(["C8", "C9", *GATED_REPS]),
             "run_pairs": lambda: m.run([*RUN_PAIRS_NAMES, *DESIGN_REPS]),
             "micro_slope": lambda: micro_slope.run(list(SLOPE_REPS)),
             "bf16_issue": lambda: bi.run([]), "matmul": lambda: mr.run([])}
@@ -2796,9 +2841,9 @@ def _ceiling_shares(record: dict) -> list:
     """Each book and mesh kernel's time beside the time its pairs take at
     the measured pair ceiling (C6 for spheres, T1 for triangles: the mesh
     rows' pairs are counted at the triangle rate), and beside its spec
-    bound; the mesh rows also beside the triangle ceiling that the bench
-    holds (``bench.PAIR_CEILING``), so that readings stay comparable
-    across a change of T1's kernel."""
+    bound; also beside the ceiling that the bench holds
+    (``bench.PAIR_CEILING``), so that readings stay comparable across a
+    change of C6's or T1's kernel."""
     from wavefront_path_tracer_tpu_torch.bench import PAIR_CEILING
 
     ceil = {r["variant"]: r["gpairs"] * 1e9
@@ -2819,10 +2864,10 @@ def _ceiling_shares(record: dict) -> list:
                  "ceiling_share": at_ceiling / rep["kernel_ms"],
                  "bound_ms": rep["bound_ms"],
                  "bound_share": rep["bound_ms"] / rep["kernel_ms"]}
-        if triangles:
-            bench_ms = rep["pairs"] / PAIR_CEILING["triangle"] * 1e3
-            share.update(bench_ceiling_ms=bench_ms,
-                         bench_ceiling_share=bench_ms / rep["kernel_ms"])
+        bench_ms = rep["pairs"] / PAIR_CEILING[
+            "triangle" if triangles else "sphere"] * 1e3
+        share.update(bench_ceiling_ms=bench_ms,
+                     bench_ceiling_share=bench_ms / rep["kernel_ms"])
         log(f"[ceiling-share] {json.dumps(share)}")
         out.append(share)
     return out

@@ -263,7 +263,7 @@ def test_build_flags(monkeypatch):
     with pytest.raises(ValueError, match="unknown library"):
         _build.sources("libother.so")
     assert [p.name for p in _build.headers()] == [
-        "baked.cuh", "common.cuh", "dynculled.cuh"]
+        "baked.cuh", "common.cuh", "dynculled.cuh", "probe_math.cuh"]
     for name, fn in (("persistent.cu", "wpt_persistent_launch"),
                      ("baked.cu", "wpt_baked_launch"),
                      ("baked.cu", "wpt_baked_segment_launch"),

@@ -310,7 +310,7 @@ def test_entry_point_raises_without_a_card(name, monkeypatch):
         MODULES[name].main([])
 
 
-def test_wrappers_check_their_inputs():
+def test_wrappers_check_their_inputs(monkeypatch):
     rays = tm.ray_planes()
     tab = torch.from_numpy(tm.PACKED_SM)
     with pytest.raises(ValueError, match="rays"):
@@ -337,6 +337,47 @@ def test_wrappers_check_their_inputs():
         thb.stream(torch.zeros(40, 128), 1, 0, 8)
     with pytest.raises(ValueError, match="device"):
         _slope.device("tpu")
+    # On a card, csrc/probe_pairs.cu's blocks cover whole copies of the
+    # 1024 rays: any other count is refused before a launch (the plain
+    # versions above take it).
+    cond = torch.from_numpy(tm.cond_table("C8"))
+    part = rays[:, :1000].contiguous()
+    assert tpc.pair_sweep(tab, part, 1).shape == (1000,)
+
+    def no_launch(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(_slope, "one_device",
+                        lambda *t: torch.device("cuda", 0))
+    monkeypatch.setattr(_slope, "launch", no_launch)
+    for variant in tpc.VARIANTS:
+        with pytest.raises(ValueError, match="whole copies of 1024"):
+            tpc.pair_sweep(tab, part, 1, variant)
+    for pattern, gating in [("C8", "thread"), ("W8", "worklist")]:
+        with pytest.raises(ValueError, match="whole copies of 1024"):
+            tm.gated_sweep(tab, cond, part, 1, pattern, gating)
+
+
+def test_sqrt_rn_is_defined_once_in_the_shared_header():
+    """The branchless square root that both sphere-pair probe sources
+    sweep with, and that the smoke checks against sqrtf on all 2^32
+    floats, has one definition: csrc/probe_math.cuh's, which
+    probe_pairs.cu and probe_designs.cu include; neither calls nvcc's
+    sqrtf in a sweep."""
+    csrc = Path(tpc.__file__).resolve().parents[1] / "csrc"
+    defined = [p.name for p in sorted(csrc.glob("*.cu*"))
+               if "float sqrt_rn(float" in p.read_text()]
+    assert defined == ["probe_math.cuh"]
+    for name in ("probe_pairs.cu", "probe_designs.cu"):
+        src = (csrc / name).read_text()
+        assert '#include "probe_math.cuh"' in src
+    pairs = (csrc / "probe_pairs.cu").read_text()
+    assert "sqrtf(" not in pairs
+    # probe_designs.cu calls sqrtf only to check sqrt_rn against it.
+    designs = (csrc / "probe_designs.cu").read_text()
+    assert designs.count("sqrtf(x)") == 1 and designs.count("sqrtf(") == 1
+    math = (csrc / "probe_math.cuh").read_text()
+    assert math.count("sqrt_rn(") == 3     # its definition and two calls
 
 
 def test_plain_versions_launch_nothing():

@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 
 from wavefront_path_tracer_tpu_torch.probes import matmul_r2 as mr
+from wavefront_path_tracer_tpu_torch.probes import micro_r2 as tm
 from wavefront_path_tracer_tpu_torch.probes import run_pairs as rp
 from wavefront_path_tracer_tpu_torch.probes import tripair as tp
 from wavefront_path_tracer_tpu_torch.utils import sass
@@ -131,6 +132,10 @@ def test_design_forms_cover_every_form():
 C6 = ("_ZN47_GLOBAL__N__0194f6e1_14_probe_pairs_cu_e5058c8e16"
       "probe_pair_sweepILb0EEEvPKfS2_iiPf")
 A2 = C6.replace("ILb0EE", "ILb1EE")
+# The six gated sweeps (probe_pairs.cu probe_gated<generic, gate>).
+GATED = {(p, g): "_ZN47_GLOBAL__N__0194f6e1_14_probe_pairs_cu_e5058c8e11"
+                 f"probe_gatedILb{int(p == 'W8')}ELi{k}EEEvPKfPKiS2_iiPf"
+         for p in tm.PATTERNS for k, g in enumerate(tm.GATINGS)}
 
 
 def _read(monkeypatch, tmp_path, listings):
@@ -172,7 +177,8 @@ HMMA = {"tf32": "HMMA.1688.F32.TF32", "bf16": "HMMA.16816.F32.BF16",
 
 def _every_kernel():
     """Synthetic listings of the two ceiling kernels (C6 unrolled by 4,
-    A2 by 8), of every probe_designs.cu instantiation (Q's loop 32
+    A2 by 8), of the six gated sweeps (16 pairs a loop, as at 4 rays a
+    thread and unroll 4), of every probe_designs.cu instantiation (Q's loop 32
     pairs, as at 4 rays a thread and unroll 8; Q2's none), of the four
     triangle forms (8 reciprocals a loop, as at 4 rays a thread and
     unroll 2) and of the seven matmul rows (16 mma in the product loop
@@ -182,6 +188,7 @@ def _every_kernel():
     pairs = {n: 32 if n == q else 0 if n == q2 else 8
              for n in _instantiations()}
     pairs.update({C6: 4, A2: 8})
+    pairs.update({n: 16 for n in GATED.values()})
     out = {n: _listing(n, 40, p) for n, p in pairs.items()}
     out.update({n: _listing(n, 80, 8, marker="MUFU.RCP")
                 for n in TRIPAIR.values()})
@@ -198,10 +205,11 @@ def test_sass_per_pair_reads_every_design_form(monkeypatch, tmp_path):
     fails."""
     listings = _every_kernel()
     out = _read(monkeypatch, tmp_path, listings)
-    assert len(out) == 2 + sum(len(rp.forms(d)) for d in rp.DESIGNS
-                               if d not in ("C6", "A2")) + 4 + 7
+    assert len(out) == 2 + 6 + sum(len(rp.forms(d)) for d in rp.DESIGNS
+                                   if d not in ("C6", "A2")) + 4 + 7
     for key, rep in out.items():
-        if key in ("C6", "A2") or rep["group"] in ("tripair", "matmul"):
+        if key in ("C6", "A2") or rep["group"] in ("gated", "tripair",
+                                                   "matmul"):
             continue
         design = key.split()[0]
         assert rep["body"] == 40 and rep["registers"] == 64
@@ -236,6 +244,60 @@ def test_sass_per_pair_reads_the_ceiling_kernels(monkeypatch, tmp_path):
     del listings[A2]
     with pytest.raises(AssertionError, match=r"\['A2'\]"):
         _read(monkeypatch, tmp_path, listings)
+
+
+def test_sass_per_pair_reads_the_gated_kernels(monkeypatch, tmp_path):
+    """The six gated sweeps (W8 and C8 under each gating) keyed "gated
+    PATTERN GATING" from their template arguments, by the designs'
+    yardstick (16 square roots in a sweep loop of 40), with an issue
+    bound over the entered pairs (micro_r2.pairs_per_rep), apart from C6
+    and A2 (whose names hold a bool argument of their own); a build
+    without one of them fails."""
+    listings = _every_kernel()
+    out = _read(monkeypatch, tmp_path, listings)
+    assert out["C6"]["function"] == C6 and out["A2"]["function"] == A2
+    for (pattern, gating), name in GATED.items():
+        rep = out[f"gated {pattern} {gating}"]
+        assert rep["function"] == name and rep["group"] == "gated"
+        assert rep["pairs_in_body"] == 16 and rep["per_pair"] == 2.5
+        assert rep["pairs_per_rep"] == tm.pairs_per_rep(pattern, 1024)
+        assert rep["issue_bound_ms"] == pytest.approx(
+            2.5 * tm.pairs_per_rep(pattern, 1024) * cs.PROBE_REPS
+            / 33.45e12 * 1e3)
+        assert rep["registers"] == 64 and rep["spill_stores"] == 0
+    assert out["gated W8 thread"]["pairs_per_rep"] == 12 * 16 * 1024
+    assert out["gated C8 vote"]["pairs_per_rep"] == 37 * 16 * 128
+    assert (tmp_path / "probe_sass" / "gated_C8_worklist.sass").exists()
+    del listings[GATED[("W8", "vote")]]
+    with pytest.raises(AssertionError, match=r"\['gated W8 vote'\]"):
+        _read(monkeypatch, tmp_path, listings)
+
+
+def test_fp32_bound_is_at_the_issue_rate(monkeypatch):
+    """The smoke's FP32 bounds divide operations by the issue rate (SMs
+    x 128 x the maximum SM clock; code built -fmad=false issues one
+    instruction an operation), not by the 67 TFLOP/s spec, which counts
+    an FFMA as two: bf16_issue's f32 call (128 operations an element a
+    rep, 262,144 elements, 400 reps) takes at least 0.4012 ms on 132 SMs
+    at 1980 MHz, 2.003x the spec's figure.  Bytes bounds and an explicit
+    peak (TF32) stay as they were."""
+    from wavefront_path_tracer_tpu_torch.probes import _slope
+
+    rate = _slope.fp32_issue_rate(132, 1980.0)
+    assert rate == pytest.approx(33.45e12, rel=1e-3)
+    ops = 128 * 262_144 * 400
+    assert ops == 13_421_772_800
+    monkeypatch.setattr(cs, "_fp32_rate", lambda: rate)
+    rep = cs._bound(ops, 2 * 262_144 * 4)
+    assert rep["bound_ms"] == pytest.approx(0.4012, abs=5e-5)
+    assert rep["bound_by"] == "operations"
+    spec = ops / _slope.PEAK_FP32 * 1e3
+    assert rep["bound_ms"] / spec == pytest.approx(2.003, abs=5e-4)
+    tf32 = cs._bound(ops, 0, peak=_slope.PEAK_TF32)
+    assert tf32["bound_ms"] == pytest.approx(ops / 495e12 * 1e3)
+    stream = cs._bound(1.0, 256 * 2**20, bits=False)
+    assert stream["bound_by"] == "bytes" and not stream["bits"]
+    assert stream["bound_ms"] == pytest.approx(256 * 2**20 / 3.35e12 * 1e3)
 
 
 def test_sass_per_pair_reads_the_triangle_forms_and_matmul_rows(

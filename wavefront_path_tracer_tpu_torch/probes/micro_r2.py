@@ -35,8 +35,10 @@ summed over reps.  Two patterns and forms, as the reference draws them:
 
 Three Hopper gatings run each (``csrc/probe_pairs.cu``): a per-thread
 branch (the port's shipped cull), a warp vote (``__any_sync``) and a warp
-worklist (``__ballot_sync`` and ``__ffs``).  A warp's 32 rays lie in one
-row, so the three enter the same clusters.  The probe prints ns a rep and
+worklist (``__ballot_sync`` and ``__ffs``).  A thread carries several
+rays of one row and a warp's rays lie in one row, so a thread's rays
+share one cond and the three enter the same clusters: the entered pairs
+of :func:`pairs_per_rep`.  The probe prints ns a rep and
 effective Gpairs/s (entered pairs over time), as ``run_gated`` does, by
 slope.
 """

@@ -17,6 +17,9 @@ t_min + i_min.  Two variants, one kernel each (``csrc/probe_pairs.cu``):
   reference's baked immediates (unrolled in full, ptxas hoisted every
   term out of the rep loop and spilled them).
 
+Both carry several rays a thread, each table word loaded once for them,
+and take the branchless square root of ``csrc/probe_math.cuh``.
+
 The reference's 1024 rays fill eight warps, not the card, so they are
 repeated (``micro_r2.RAY_COPIES`` copies, 132 x 2048 threads); copy 0's
 output is the reference's.  Printed: Gpairs/s by slope, the FP32
@@ -72,10 +75,11 @@ def pair_sweep(tab, rays, reps: int, variant: str = "C6"):
     ``micro_r2.PACKED_SM``) and ``rays`` ((6, N) float32): (N,) float32,
     per ray the sum over ``reps`` of t_min + i_min.
 
-    On CPU tensors this is the plain version (any sphere count); on CUDA
-    tensors it launches the ``variant`` kernel (C6 or A2) of
-    ``csrc/probe_pairs.cu``, bit-identical to the plain version; any
-    other device raises."""
+    On CPU tensors this is the plain version (any sphere and ray count);
+    on CUDA tensors it launches the ``variant`` kernel (C6 or A2) of
+    ``csrc/probe_pairs.cu``, bit-identical to the plain version, over
+    whole copies of the reference's 1024 rays (its blocks cover them);
+    any other device raises."""
     if variant not in VARIANTS:
         raise ValueError(f"variant is one of {VARIANTS}")
     _slope.check_rays(rays)
@@ -87,6 +91,8 @@ def pair_sweep(tab, rays, reps: int, variant: str = "C6"):
         return pair_sweep_reference(tab, rays, reps)
     if tab.shape[0] != m.S:
         raise ValueError(f"the kernel sweeps {m.S} spheres")
+    if rays.shape[1] % (m.ROWS * 128):
+        raise ValueError("the kernel takes whole copies of 1024 rays")
     out = torch.empty(rays.shape[1], dtype=torch.float32, device=dev)
     tab4 = (tab[:, [16, 17, 18, 14]].contiguous() if variant == "A2"
             else None)
