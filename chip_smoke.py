@@ -90,7 +90,15 @@ this script when it ends or receives SIGTERM.
    (the diverged share recorded, beside book_one_final's); and each
    textured kernel's time
    at 1080p@32spp beside its bound and beside the untextured headline
-   kernel's in the same call;
+   kernel's in the same call; then the texture step on its own
+   (``probes/texstep.py``): each render kernel's textured and untextured
+   instantiation's ptxas stack, spills and registers, SASS instructions
+   and local loads and stores in and out of the sweep's loops; book_checker
+   at 1080p@32spp through baked culled/16, baked unculled and dynamic
+   culled/16, each through its textured and its untextured instantiation
+   on one bake, in turns, least of 3, with equal counters (else the A/B
+   is void and the phase fails): the difference is the step's own time,
+   beside its bound; and the plain step over the frame's hits;
 11. segments (``seg``): the recluster segment kernels in both forms (each
    lane on its own thread; the shipped one, the warp's lanes in step)
    against their plain versions through whole segmented renders at
@@ -334,6 +342,7 @@ go to ``OUT_DIR``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -433,13 +442,13 @@ FLOPS_RAY_SHIFT = {        # per ray before the sweep
     "dynculled": 19,       # the same and d / 2
 }
 # The texture step (common.cuh apply_textures), per event counted by the
-# plain version (ops/textures.py EVENTS): a hit whose winner has a checker
-# scale: s * p 3, each sinf counted as 1 operation (not its libdevice
-# sequence, so that the bound stays a least time), the product 2; a hit on
-# an image sphere: the normal 6, atan2_approx 16, acos_approx with its
-# clamp 14, u and v 3, the texel index 3, the decode 3.
-FLOPS_CHECKER = 8
-FLOPS_IMAGE = 45
+# plain version (ops/textures.py EVENTS): probes/texstep.py's counts (each
+# sine as the FP32 instructions of its fast path).
+from wavefront_path_tracer_tpu_torch.probes import texstep  # noqa: E402
+from wavefront_path_tracer_tpu_torch.probes.texstep import (  # noqa: E402
+    FLOPS_CHECKER,
+    FLOPS_IMAGE,
+)
 
 
 def log(msg: str) -> None:
@@ -1553,8 +1562,14 @@ def phase_textures_full(device, smi: str) -> dict:
     for kind in ("culled", "dynculled"):
         case = Case(kind, 16, scene, cc, MAIN_WIDTH, MAIN_HEIGHT, 1, 1, {},
                     device)
-        rep = _check(f"{kind}16 book_checker {MAIN_WIDTH}x{MAIN_HEIGHT}@1spp"
-                     " default", case, reps=3)
+        # The culled plain run's texture steps, kept for the plain step's
+        # time over a frame's hits (_texture_step).
+        with (texstep.recording() if kind == "culled"
+              else contextlib.nullcontext([])) as recorded:
+            rep = _check(f"{kind}16 book_checker {MAIN_WIDTH}x{MAIN_HEIGHT}"
+                         "@1spp default", case, reps=3)
+        if kind == "culled":
+            calls = recorded
         log(f"[timing] textured {kind}16 book_checker {MAIN_WIDTH}x"
             f"{MAIN_HEIGHT}@1spp: kernel {rep['kernel_ms']!r} ms, plain "
             f"{rep['plain_ms']!r} ms, bound {rep['bound_ms']!r} ms "
@@ -1602,7 +1617,63 @@ def phase_textures_full(device, smi: str) -> dict:
         f"it): {timed[1]['kernel_ms'] / head - 1:+.2%}; winner hint "
         f"{timed[2]['kernel_ms']!r} ms ({timed[2]['kernel_ms'] / timed[1]['kernel_ms'] - 1:+.2%}) [{smi}]")
     out["timed"] = timed
+    out["step"] = _texture_step(device, smi, events, calls)
     return out
+
+
+TEX_AB_TURNS = 9           # turns of the texture step's A/B
+
+
+def _texture_step(device, smi: str, events, calls) -> dict:
+    """Row 5, the texture step, on its own (probes/texstep.py): ptxas's
+    and the SASS's readings of every render kernel's textured and
+    untextured instantiation (listings in OUT_DIR/tex_sass); then
+    book_checker at 1080p@32spp through baked culled/16, baked unculled
+    and dynamic culled/16, each through its textured and its untextured
+    instantiation on one bake in TEX_AB_TURNS turns (the counters must be
+    equal, else the A/B is void and the phase fails): the median of the
+    turns' paired differences is the step's own time (the difference of
+    the two leasts beside it), beside its bound (its operations for the
+    ``events`` a ray of the 1 spp plain run, at the row's rays); and the
+    plain step (ops/textures.py apply_textures) over the frame's hits:
+    one call over the hits of the culled plain run's recorded ``calls``,
+    MAIN_SPP times."""
+    from wavefront_path_tracer_tpu_torch.utils import sass
+
+    out = {"rows": {}, "sass": {}}
+    if sass.cuobjdump() is None:
+        log("[tex-sass] cuobjdump not found: the instantiations' SASS not "
+            "read")
+    else:
+        out["sass"] = texstep.sass_readings(os.path.join(OUT_DIR, "tex_sass"))
+        for key, reps in out["sass"].items():
+            for label, rep in reps.items():
+                log(texstep.sass_line(key, label, rep) + f" [{smi}]")
+    out["hits"] = sum(a[6].numel() for a in calls)
+    out["plain_ms"] = texstep.replay_ms(calls, MAIN_SPP)
+    log(f"[tex-plain] apply_textures (ops/textures.py) over the "
+        f"{out['hits']} hits of the 1080p@1spp culled plain run's "
+        f"{len(calls)} calls in one call, {MAIN_SPP} times: "
+        f"{out['plain_ms']!r} ms [{smi}]")
+    for name in texstep.ROWS:
+        row = texstep.Row(name, MAIN_WIDTH, MAIN_HEIGHT, MAIN_SPP, 50, device)
+        rep = texstep.ab(row, TEX_AB_TURNS)
+        rep.pop("outs")
+        rep.update(texstep.step_bound(rep["stats"][0], events, _fp32_rate(),
+                                      row.tex_bytes))
+        log(f"[tex-ab] book_checker {name} {MAIN_WIDTH}x{MAIN_HEIGHT}@"
+            f"{MAIN_SPP}spp, 50 bounces: the texture step's own time "
+            f"{rep['own_ms']!r} ms (median of {TEX_AB_TURNS} turns' paired "
+            f"differences; least textured {rep['textured_ms']!r}, least "
+            f"untextured {rep['untextured_ms']!r}, their difference "
+            f"{rep['own_least_ms']!r}; turns {rep['textured_turns']} / "
+            f"{rep['untextured_turns']}), bound "
+            f"{rep['bound_ms']!r} ms ({rep['bound_by']}); counters "
+            f"{rep['stats']} equal [{smi}]")
+        out["rows"][name] = rep
+        del row
+    return out
+
 
 class SegCase(Case):
     """The recluster path's inputs at one shape (models/fused.py
@@ -2544,8 +2615,10 @@ def _bits(t):
 def _check_new_probes(device, rays1, rays, errs: dict) -> None:
     """Queue 2 items 8 (C45/C7), 9, 11 and 12 against their plain versions
     on the card: the designs' branchless square root equal to sqrtf on
-    every float; every run_pairs design in each of its forms bit for bit
-    at 2 reps over the full-width rays and over the reference's 1024 rays
+    every float, and the texture step's sinf_fast (fastmath.cuh) equal to
+    sinf on every float it claims; every run_pairs design in each of its
+    forms bit for bit at 2 reps over the full-width rays and over the
+    reference's 1024 rays
     alone (the plain version's copy 0: a ray's output depends on its
     tile alone); bf16_issue's chains over
     the full copies at 2 reps bit for bit (the fused forms against their
@@ -2562,6 +2635,18 @@ def _check_new_probes(device, rays1, rays, errs: dict) -> None:
         f"2^32 floats: {int(count.item())} differ")
     if int(count.item()):
         raise AssertionError("sqrt_rn is not sqrtf")
+    count = torch.zeros(2, dtype=torch.int64, device=device)
+    _slope.launch("wpt_probe_sin_mismatches", count.data_ptr())
+    claimed, differ = (int(v) for v in count.tolist())
+    log(f"[probe-vs-plain] fastmath.cuh sinf_fast against sinf over the "
+        f"{claimed} of all 2^32 floats that it claims (|x| < "
+        f"{texstep.SIN_FAST_MAX!r}, or NaN; the texture step's checker sends "
+        f"the others to sinf): "
+        f"{differ} differ")
+    if differ or claimed != texstep.SIN_FAST_CLAIMED:
+        raise AssertionError(f"sinf_fast is not sinf ({differ} differ) or "
+                             f"claims {claimed} floats, not "
+                             f"{texstep.SIN_FAST_CLAIMED}")
     for design in rp.DESIGNS:
         if design in ("C6", "A2"):           # the pair ceiling's kernels
             continue
@@ -5423,7 +5508,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ", ".join(PHASES)
-                    + " (device and build always run; the closing JSON "
+                    + " (device and build always run, and build may be "
+                    "named; the closing JSON "
                     "lines need them all)")
     ap.add_argument("--part", default=None,
                     help="with one phase of PARTS, run only that share of "
@@ -5436,7 +5522,8 @@ def main(argv=None) -> int:
                     help="where to save the plain versions' results of the "
                     "cases checked (torch.save)")
     args = ap.parse_args(argv)
-    phases = set(args.phases.split(",")) - {""}
+    # "build" names the build, which runs with every subset.
+    phases = set(args.phases.split(",")) - {"", "build"}
     if phases - set(PHASES):
         raise SystemExit(f"unknown phases {sorted(phases - set(PHASES))}")
     if args.part is not None and (len(phases) != 1 or args.part not in
@@ -5584,7 +5671,12 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
         if kind == "textured":
             # ms and bound: the textured culled kernel at 1080p@32spp;
             # plain_ms: its plain version at the 1080p planes, 1 spp.
+            # The step's own: its time in that kernel (the median of the
+            # textured/untextured A/B's paired differences), its bound,
+            # and ops/textures.py's step over that frame's hits.
             timed = tex_full["timed"][1]
+            step = tex_full["step"]
+            own = step["rows"]["culled16"]
             kernels.append({
                 "name": spec["name"], "route": "cuda",
                 "source": spec["source"], "replaces": spec["replaces"],
@@ -5596,6 +5688,10 @@ def _smoke(phases: set, part, record_path: str, plain_out) -> int:
                 "bound_ms": timed["bound_ms"],
                 "bound_by": timed["bound_by"],
                 "library_ms": None,
+                "own_ms": own["own_ms"],
+                "own_least_ms": own["own_least_ms"],
+                "step_bound_ms": own["bound_ms"],
+                "step_plain_ms": step["plain_ms"],
             })
             continue
         if kind.startswith("segment_"):

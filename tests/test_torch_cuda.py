@@ -663,6 +663,19 @@ def test_design_sqrt_matches_sqrtf(device):
     assert int(count.item()) == 0
 
 
+def test_sin_fast_matches_sinf(device):
+    """fastmath.cuh's sinf_fast against sinf on every float that it
+    claims (|x| < kSinFastMax, or NaN: +-0 and the subnormals among
+    them; the texture step's checker sends inf and larger arguments to
+    sinf), of the 2^32 (NaN against NaN)."""
+    from wavefront_path_tracer_tpu_torch.probes import _slope, texstep
+
+    count = torch.zeros(2, dtype=torch.int64, device=device)
+    _slope.launch("wpt_probe_sin_mismatches", count.data_ptr())
+    torch.cuda.synchronize()
+    assert count.tolist() == [texstep.SIN_FAST_CLAIMED, 0]
+
+
 @pytest.mark.parametrize("form", ["f32", "f32_fma", "bf16x2", "bf16",
                                   "bf16x2_fma", "i16", "i8"])
 def test_issue_kernels_match_plain(device, form):

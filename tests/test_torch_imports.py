@@ -263,7 +263,8 @@ def test_build_flags(monkeypatch):
     with pytest.raises(ValueError, match="unknown library"):
         _build.sources("libother.so")
     assert [p.name for p in _build.headers()] == [
-        "baked.cuh", "common.cuh", "dynculled.cuh", "probe_math.cuh"]
+        "baked.cuh", "common.cuh", "dynculled.cuh", "fastmath.cuh",
+        "probe_math.cuh"]
     for name, fn in (("persistent.cu", "wpt_persistent_launch"),
                      ("baked.cu", "wpt_baked_launch"),
                      ("baked.cu", "wpt_baked_segment_launch"),
@@ -274,6 +275,7 @@ def test_build_flags(monkeypatch):
                      ("probe_tripair.cu", "wpt_probe_tripair_launch"),
                      ("probe_stream.cu", "wpt_probe_stream_launch"),
                      ("probe_designs.cu", "wpt_probe_design_launch"),
+                     ("probe_designs.cu", "wpt_probe_sin_mismatches"),
                      ("probe_issue.cu", "wpt_probe_issue_launch"),
                      ("probe_mma.cu", "wpt_probe_mma_copies"),
                      ("probe_mma.cu", "wpt_probe_mma_launch")):

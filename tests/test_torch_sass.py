@@ -332,3 +332,121 @@ def test_sass_per_pair_reads_the_triangle_forms_and_matmul_rows(
     with pytest.raises(AssertionError,
                        match=r"\['tripair T1p', 'matmul 6'\]"):
         _read(monkeypatch, tmp_path, listings)
+
+
+def _render_listing(name, labels=True):
+    """A render kernel's listing in ``cuobjdump -sass``'s layout: one STL
+    in the set-up; a loop of trips holding a sweep loop (a square root, an
+    LDL and an STL in it, and a second backward branch to its head, as a
+    ``continue`` makes), after it the per-hit code (two LDL) and a loop
+    of a slow path's reduction (an STL, no square root); EXIT; then a
+    slow path (four STL, four LDL) that branches back into the trip loop,
+    and the closing self-branch."""
+    lines, addr = [f"{name}\n"], 0
+
+    def put(text, label=None):
+        nonlocal addr
+        if label is not None and labels:
+            lines.append(f".L_x_{label}:\n")
+        lines.append(f"        /*{addr:04x}*/                   {text} ;"
+                     f"                 /* 0x000fe20000000800 */\n")
+        addr += 16
+        return addr - 16
+
+    def target(label, at):
+        return f"`(.L_x_{label})" if labels else hex(at)
+
+    put("LDC R1, c[0x0][0x28]")
+    put("STL [R1], R2")
+    trip = put("S2R R0, SR_TID.X", label=0)
+    sweep = put("LDG.E R4, desc[UR4][R2.64]", label=1)
+    put("LDL R5, [R1+0x4]")
+    put("MUFU.RSQ R5, R4")
+    put(f"@P2 BRA {target(1, sweep)}")
+    put("STL [R1+0x8], R6")
+    put("FADD R6, R6, R7")
+    put(f"@P0 BRA {target(1, sweep)}")
+    back = put("LDL R8, [R1+0xc]", label=4)
+    put("LDL.LU R9, [R1+0x10]")
+    reduce = put("LDG.E.CONSTANT R6, desc[UR6][R6.64]", label=5)
+    put("STL [R13], R8")
+    put(f"@P6 BRA {target(5, reduce)}")
+    put(f"@!P1 BRA {target(0, trip)}")
+    put("EXIT")
+    put("STL.64 [R1+0x20], R10", label=2)
+    for k in range(3):
+        put(f"STL [R1+0x{0x28 + 4 * k:x}], R11")
+    for k in range(4):
+        put(f"LDL R12, [R1+0x{0x20 + 4 * k:x}]")
+    put(f"BRA {target(4, back)}")
+    end = put("NOP", label=3)
+    put(f"BRA {target(3, end)}")
+    return "".join(lines)
+
+
+@pytest.mark.parametrize("labels", [True, False])
+def test_spill_sites_in_and_out_of_the_sweep(labels):
+    """Local loads and stores by site: in the sweep (a loop inside the
+    loop of trips that holds a square root; two backward branches to one
+    head are one loop), in the trip loop outside the sweep (the per-hit
+    code, and a slow path's reduction loop, which holds none), outside
+    the loops, and after EXIT (the slow paths, whose branch back is no
+    loop)."""
+    sites = sass.spill_sites(_render_listing("k", labels=labels))
+    assert tuple(sass.SITES) == ("outside", "loop", "sweep", "tail")
+    assert sites == {"LDL": {"outside": 0, "loop": 2, "sweep": 1, "tail": 4},
+                     "STL": {"outside": 1, "loop": 1, "sweep": 1, "tail": 4}}
+    flat = sass.spill_sites(_listing("f", 7, 4, labels=labels))
+    assert flat == {op: dict.fromkeys(sass.SITES, 0) for op in ("LDL", "STL")}
+
+
+def test_tex_pairs_match_the_kTex_argument():
+    """Each shipped render kernel's textured and untextured instantiation
+    paired by ``kernel_symbol``, which differ in kTex alone; a kernel with
+    one of the two, other kernels and other functions are left out; a
+    symbol that matches two functions raises."""
+    from wavefront_path_tracer_tpu_torch.ops import stage_probes
+
+    def name(kernel, tris, tex, bits=0):
+        sym = stage_probes.kernel_symbol(kernel, tris, tex, bits)
+        return f"_ZN3wpt5baked{sym}vNS_10LaneParamsE"
+
+    names = [name("culled", False, True), name("culled", False, False),
+             name("culled", False, True, 2),
+             name("unculled", False, True),
+             name("dynculled", True, False), name("dynculled", True, True),
+             name("segment_culled", False, False),
+             name("segment_culled", False, True),
+             "_Z16probe_pair_sweepPKfS0_iiPf"]
+    pairs = sass.tex_pairs(names)
+    assert pairs == {
+        "culled tris=0": (names[0], names[1]),
+        "dynculled tris=1": (names[5], names[4]),
+        "segment_culled tris=0": (names[7], names[6]),
+    }
+    with pytest.raises(ValueError, match="2 functions match"):
+        sass.tex_pairs(names + [names[0] + "x"])
+
+
+def test_texture_step_bound_on_fixed_counts():
+    """Row 5's bound: the step's FP32 operations for its events (checker
+    and image hits a ray) at the row's rays, over the issue rate.  A
+    checker event costs s * p (3), three sines at the FP32 instructions of
+    sinf's fast path each, and their product (2); an image event 45.  At
+    1e9 rays, 0.5 checker and 0.01 image events a ray, 33.45e12 a second:
+    1e9 x (0.5 x 38 + 0.01 x 45) = 19.45e9 operations, 0.58146 ms; the
+    smoke's bounds take the same counts."""
+    from wavefront_path_tracer_tpu_torch.probes import texstep
+
+    assert texstep.FLOPS_SINF == 11
+    assert texstep.FLOPS_CHECKER == 3 + 3 * 11 + 2 == 38
+    assert texstep.FLOPS_IMAGE == 45
+    assert (cs.FLOPS_CHECKER, cs.FLOPS_IMAGE) == (38, 45)
+    assert texstep.step_ops(1e9, (0.5, 0.01)) == pytest.approx(19.45e9)
+    rep = texstep.step_bound(1e9, (0.5, 0.01), 33.45e12, n_bytes=16_384)
+    assert rep["bound_ms"] == pytest.approx(19.45e9 / 33.45e12 * 1e3)
+    assert rep["bound_ms"] == pytest.approx(0.58146, abs=5e-6)
+    assert rep["bound_by"] == "operations"
+    rep = texstep.step_bound(0.0, (0.5, 0.01), 33.45e12, n_bytes=3.35e9)
+    assert rep["bound_by"] == "bytes"
+    assert rep["bound_ms"] == pytest.approx(1.0)

@@ -6,6 +6,7 @@ mode, or the XLA megakernel for book_checker) under the statistical
 parity rule."""
 
 import json
+import re
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +27,7 @@ from wavefront_path_tracer_tpu_torch.ops import bake
 from wavefront_path_tracer_tpu_torch.ops import baked_kernels as tbk
 from wavefront_path_tracer_tpu_torch.ops import dyn_tables as dt
 from wavefront_path_tracer_tpu_torch.ops import textures as ttex
+from wavefront_path_tracer_tpu_torch.probes import texstep
 from wavefront_path_tracer_tpu_torch.renderer import render as torch_render
 from wavefront_path_tracer_tpu_torch.scene import (
     CameraController,
@@ -484,3 +486,93 @@ def test_shared_centre_image_sphere_matches_jax(tmp_path, path, order):
     for img in (t.accumulated, j.accumulated):
         centre = img[5:11, 12:20].mean(axis=(0, 1))
         assert centre[0] > 2.0 * centre[1], centre
+
+
+@pytest.mark.parametrize("row", ["culled16", "dynculled16"])
+def test_textured_untextured_ab_traces_the_same_rays(row):
+    """The premise of the A/B that gives the texture step its own time on
+    the card (``probes/texstep.py``): the plain baked culled and dynamic
+    culled versions, on one book_checker bake (or table) with
+    ``textured`` true and false, give equal counters [rays, iterations,
+    supers, clusters] (roulette is off and albedo steers no ray) and
+    different radiance (the step runs only in the first)."""
+    r = texstep.Row(row, 16, 8, 2, 8, "cpu")
+    assert r.tables.textured and not r.plain_tables.textured
+    assert r.plain_tables.images is r.tables.images
+    rep = texstep.ab(r, 1)
+    textured, plain = rep["outs"][True], rep["outs"][False]
+    assert textured[3].tolist() == plain[3].tolist() == rep["stats"]
+    assert rep["stats"][0] > 0 and rep["stats"][3] > 0
+    assert any(not torch.equal(a, b) for a, b in zip(textured[:3], plain[:3]))
+    assert rep["textured_ms"] is None and "own_ms" not in rep
+
+
+def _device_function(src: str, name: str) -> str:
+    """The text of the device function ``name`` of a CUDA source, from its
+    name to the closing brace at the start of a line."""
+    start = src.index(f" {name}(")
+    return src[start:src.index("\n}\n", start)]
+
+
+def test_texture_step_takes_no_slow_path_branch():
+    """The texture step's redesign (csrc/common.cuh): apply_textures calls
+    no sinf.  The checker's three sines are fastmath.cuh's sinf_fast
+    behind one range test of the three arguments, and sinf (with its
+    slow path) only past it, inline (no call of a function of its own);
+    sinf_fast calls nothing."""
+    from pathlib import Path
+
+    csrc = Path(texstep.__file__).resolve().parents[1] / "csrc"
+    common = (csrc / "common.cuh").read_text()
+    assert '#include "fastmath.cuh"' in common
+    step = _device_function(common, "apply_textures")
+    assert "sinf(" not in step
+    assert "checker_select(s * px, s * py, s * pz)" in step
+    select = _device_function(common, "checker_select")
+    assert select.count("sinf_fast(") == 3
+    slow = [m.start() for m in re.finditer(r"(?<!\w)sinf\(", select)]
+    assert len(slow) == 3
+    assert select.index("kSinFastMax") < slow[0] < select.index("sinf_fast(")
+    assert not re.search(r"__noinline__\s+(static\s+)?(__device__\s+)?"
+                         r"(bool|float|void)", common)
+    fast = (csrc / "fastmath.cuh").read_text()
+    assert "constexpr float kSinFastMax = 105615.0f;" in fast
+    body = _device_function(fast, "sinf_fast")
+    assert "sinf(" not in body and "sqrtf(" not in body
+
+
+def test_sin_fast_claims_its_range_and_the_nans():
+    """The count of floats that sinf_fast claims, which the card's check
+    of it over all 2^32 floats must find (``texstep.SIN_FAST_CLAIMED``):
+    the magnitudes below fastmath.cuh's kSinFastMax under both signs, +-0
+    and the subnormals among them, and every NaN."""
+    assert texstep.SIN_FAST_MAX == 105615.0
+    top = int(np.float32(texstep.SIN_FAST_MAX).view(np.uint32))
+    below = np.arange(top - 3, top + 3, dtype=np.uint32).view(np.float32)
+    assert list(below < texstep.SIN_FAST_MAX) == [True] * 3 + [False] * 3
+    nans = np.array([0x7F800001, 0x7FFFFFFF, 0xFF800001, 0x7F800000],
+                    dtype=np.uint32).view(np.float32)
+    assert list(np.isnan(nans)) == [True, True, True, False]
+    assert texstep.SIN_FAST_CLAIMED == 2 * top + 2 * (0x7FFFFFFF - 0x7F800000)
+    assert texstep.SIN_FAST_CLAIMED == 2_426_179_326
+
+
+def test_plain_step_over_a_frame_is_its_calls_in_one():
+    """The plain step's time on the card is taken over one frame's hits
+    (``probes/texstep.py``): the calls of ``apply_textures`` recorded in
+    a plain render, merged into one call over all their hits.  That call
+    gives each hit the albedo that its own bounce's call gave it, and
+    counts the same texture events."""
+    r = texstep.Row("culled16", 16, 8, 1, 6, "cpu")
+    with texstep.recording() as calls:
+        r.reference(r.tables, r.salts, r.cam, *r.planes)
+    events = dict(ttex.EVENTS)
+    assert len(calls) > 1 and events["checker"] > 0
+    apart = [ttex.apply_textures(*c) for c in calls]
+    ttex.EVENTS.update(checker=0, image=0)
+    merged = texstep.merged(calls)
+    together = ttex.apply_textures(*merged)
+    assert ttex.EVENTS == events
+    assert merged[6].numel() == sum(c[6].numel() for c in calls)
+    for k in range(3):
+        assert torch.equal(together[k], torch.cat([a[k] for a in apart]))

@@ -29,6 +29,8 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+#include "fastmath.cuh"
+
 namespace wpt {
 
 constexpr float kTMin = 0.001f;
@@ -247,6 +249,23 @@ __device__ __forceinline__ float atan2_approx(float y, float x) {
   return (y < 0.0f) ? -at : at;
 }
 
+// The checker select: sin(a) sin(b) sin(c) < 0, with sinf's values.
+// Where the three arguments lie in the range of sinf's fast path, their
+// sines are fastmath.cuh's sinf_fast, one straight line of code with no
+// branch; else sinf, slow path and all, behind one range test of the
+// three.  Equal to the product of the three sinf calls for every input:
+// sinf_fast is sinf bit for bit on its range (the smoke checks all 2^32
+// floats), and the product is formed in the same order.  The fallback
+// stays inline: out of line (__noinline__) it cost every textured kernel
+// 24 bytes of stack for the call.
+__device__ __forceinline__ bool checker_select(float a, float b, float c) {
+  if (fabsf(a) >= kSinFastMax || fabsf(b) >= kSinFastMax
+      || fabsf(c) >= kSinFastMax) {
+    return sinf(a) * sinf(b) * sinf(c) < 0.0f;
+  }
+  return sinf_fast(a) * sinf_fast(b) * sinf_fast(c) < 0.0f;
+}
+
 // The texture step of _persistent_impl (2694-2707) for a hit at p: the
 // checker select (a scale of 0 never selects: sin(0 * p) is 0), then,
 // for a sphere winner with an image slot, the texel at the equirect UV
@@ -260,7 +279,7 @@ __device__ __forceinline__ void apply_textures(
     float& ar, float& ag, float& ab) {
   if (h.ts != 0.0f) {
     const float s = h.ts;
-    if (sinf(s * px) * sinf(s * py) * sinf(s * pz) < 0.0f) {
+    if (checker_select(s * px, s * py, s * pz)) {
       ar = h.a2r;
       ag = h.a2g;
       ab = h.a2b;

@@ -307,6 +307,9 @@ def load_library() -> ctypes.CDLL:
     fn = lib.wpt_probe_sqrt_mismatches
     fn.argtypes = [ptr, ptr]                  # count, stream
     fn.restype = ctypes.c_int
+    fn = lib.wpt_probe_sin_mismatches
+    fn.argtypes = [ptr, ptr]                  # count (2,), stream
+    fn.restype = ctypes.c_int
     fn = lib.wpt_probe_issue_launch
     fn.argtypes = [i32, ptr, i32, i32,        # form, x, n_elems, reps
                    f32, f32, ptr, ptr]        # one, half, out, stream

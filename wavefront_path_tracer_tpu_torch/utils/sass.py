@@ -80,17 +80,7 @@ def inner_loop(listing: str, marker: str | None = None) -> list[str]:
     paths and the closing self-branch) whose span holds ``marker`` (an
     opcode, e.g. ``MUFU.RSQ``) where one is given; [] where there is
     none."""
-    labels, pending, addrs = {}, [], []
-    for m in re.finditer(f"{_LABEL.pattern}|{_LINE.pattern}", listing,
-                         re.M):
-        if m[1]:
-            pending.append(m[1])
-            continue
-        addr = int(m[2], 16)
-        addrs.append((addr, m[3]))
-        for name in pending:
-            labels[name] = addr
-        pending = []
+    addrs, labels = _instructions(listing)
     exits = [k for k, (_a, t) in enumerate(addrs) if opcode(t) == "EXIT"]
     best = None
     for k, (addr, text) in enumerate(addrs[:exits[-1] if exits else 0]):
@@ -107,6 +97,100 @@ def inner_loop(listing: str, marker: str | None = None) -> list[str]:
         if best is None or len(body) < len(best):
             best = body
     return best or []
+
+
+def _instructions(listing: str) -> tuple[list[tuple[int, str]], dict]:
+    """([(address, text)] of every instruction, {label: address})."""
+    labels, pending, addrs = {}, [], []
+    for m in re.finditer(f"{_LABEL.pattern}|{_LINE.pattern}", listing,
+                         re.M):
+        if m[1]:
+            pending.append(m[1])
+            continue
+        addrs.append((int(m[2], 16), m[3]))
+        for name in pending:
+            labels[name] = addrs[-1][0]
+        pending = []
+    return addrs, labels
+
+
+# Where an instruction lies, by the loops around it (spill_sites), and
+# the opcodes that mark a sweep's loop: a sphere pair's square root, a
+# triangle's divide.
+SITES = ("outside", "loop", "sweep", "tail")
+SWEEP_MARKERS = ("MUFU.RSQ", "MUFU.RCP")
+
+
+def spill_sites(listing: str) -> dict:
+    """The local-memory loads and stores (LDL, STL: ptxas's spills and a
+    slow path's local array) of a listing by where they lie: {"LDL":
+    {site: n}, "STL": {site: n}} over :data:`SITES`.  A loop is the span
+    from a backward branch's target to its last branch there, among the
+    branches before the function's last ``EXIT``.  "sweep" is inside a
+    loop that lies inside another and holds one of
+    :data:`SWEEP_MARKERS` (a render kernel's sweep, inside its loop of
+    trips); "loop" inside a loop but no sweep (the per-ray and per-hit
+    code of a trip, with the loops of sinf's slow-path reduction);
+    "outside" before the last ``EXIT`` and in no loop; "tail" after it
+    (the slow paths that the body calls or branches to)."""
+    addrs, labels = _instructions(listing)
+    exits = [k for k, (_a, t) in enumerate(addrs) if opcode(t) == "EXIT"]
+    end = exits[-1] if exits else len(addrs)
+    spans = {}
+    for addr, text in addrs[:end]:
+        m = _BRA.match(text)
+        if not m:
+            continue
+        target = labels.get(m[1]) if m[1] else int(m[2], 16)
+        if target is not None and target < addr:
+            spans[target] = max(spans.get(target, addr), addr)
+    spans = sorted(spans.items())
+    sweeps = [(lo, hi) for lo, hi in spans
+              if any((a, b) != (lo, hi) and a <= lo and hi <= b
+                     for a, b in spans)
+              and any(lo <= a <= hi and opcode(t) in SWEEP_MARKERS
+                      for a, t in addrs[:end])]
+    out = {op: dict.fromkeys(SITES, 0) for op in ("LDL", "STL")}
+    for k, (addr, text) in enumerate(addrs):
+        op = opcode(text).split(".")[0]
+        if op not in out:
+            continue
+        if k > end:
+            site = "tail"
+        elif any(lo <= addr <= hi for lo, hi in sweeps):
+            site = "sweep"
+        elif any(lo <= addr <= hi for lo, hi in spans):
+            site = "loop"
+        else:
+            site = "outside"
+        out[op][site] += 1
+    return out
+
+
+def tex_pairs(names) -> dict:
+    """The textured and untextured instantiations of each shipped render
+    kernel among the mangled ``names``: {"KERNEL tris=T": (textured,
+    untextured)} for each kernel of ``ops/stage_probes.py``
+    ``KERNEL_PROBES`` (the persistent loop's and the segments') and each
+    kind of scene (spheres, with triangles) where both are there, by
+    ``kernel_symbol``, which differ in the kTex argument alone.  Raises
+    where a symbol matches more than one name."""
+    from wavefront_path_tracer_tpu_torch.ops import stage_probes
+
+    names = list(names)
+    out = {}
+    for kernel in stage_probes.KERNEL_PROBES:
+        for tris in (False, True):
+            found = []
+            for tex in (True, False):
+                sym = stage_probes.kernel_symbol(kernel, tris, tex, 0)
+                hits = [n for n in names if sym in n]
+                if len(hits) > 1:
+                    raise ValueError(f"{len(hits)} functions match {sym}")
+                found.append(hits[0] if hits else None)
+            if all(found):
+                out[f"{kernel} tris={int(tris)}"] = tuple(found)
+    return out
 
 
 def opcodes(listing: str) -> list[str]:
